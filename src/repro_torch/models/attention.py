@@ -1,0 +1,145 @@
+"""Attention: chunked (flash-style) full attention + single-token decode.
+
+Plain PyTorch versions of ``repro.models.attention``: the CPU path of the
+port and the oracles of its CUDA kernels (``kernels/flash_attention``,
+``kernels/decode_attention``).  Layouts follow the JAX package: q
+``[B, S, H, D]``, caches ``[B, Smax, Hkv, D]``, page pools
+``[P, page, Hkv, D]``.  Only bf16 (or float) pools are handled here; the
+int8 ``(data, scale)`` pools come with a later slice.
+
+Unlike the JAX versions, which return new arrays, the page writes here
+update the pool in place.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, S, Hkv, D] -> [B, S, Hkv*n_rep, D] (GQA head sharing)."""
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, q_chunk: int = 1024,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over chunks, positions 0..S-1.
+
+    q: [B, Sq, H, D]; k/v: [B, Skv, Hkv, D]. Returns [B, Sq, H, D] in q's
+    dtype; scores, softmax and accumulator in float32.
+    """
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    k = _repeat_kv(k, h // hkv)
+    v = _repeat_kv(v, h // hkv)
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    sm_scale = d ** -0.5
+    qf = q.float().transpose(1, 2)   # [B, H, Sq, D]
+    kf = k.float().transpose(1, 2)
+    vf = v.float().transpose(1, 2)
+    pos_q = torch.arange(sq, device=q.device)
+    pos_kv = torch.arange(skv, device=q.device)
+    outs = []
+    for q0 in range(0, sq, q_chunk):
+        q_blk = qf[:, :, q0:q0 + q_chunk]
+        cq = q_blk.shape[2]
+        m = torch.full((b, h, cq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, h, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, h, cq, d), dtype=torch.float32, device=q.device)
+        for k0 in range(0, skv, kv_chunk):
+            s = (q_blk @ kf[:, :, k0:k0 + kv_chunk].transpose(-1, -2)) \
+                * sm_scale
+            if causal:
+                mask = pos_q[q0:q0 + cq, None] >= pos_kv[None, k0:k0 + kv_chunk]
+                s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p @ vf[:, :, k0:k0 + kv_chunk]
+            m = m_new
+        outs.append(acc / torch.clamp_min(l, 1e-20)[..., None])
+    out = torch.cat(outs, dim=2).transpose(1, 2)
+    return out.to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length: torch.Tensor
+                     ) -> torch.Tensor:
+    """One-token attention against a cache.
+
+    q: [B, H, D]; k_cache/v_cache: [B, Smax, Hkv, D]; length: [] or [B]
+    (valid prefix length per slot, the new token's kv already written).
+    A slot with length 0 gives a finite row (uniform softmax over masked
+    scores); callers ignore inactive slots' outputs.
+    """
+    b, smax, hkv, d = k_cache.shape
+    h = q.shape[1]
+    k = _repeat_kv(k_cache, h // hkv)
+    v = _repeat_kv(v_cache, h // hkv)
+    s = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * (d ** -0.5)
+    pos = torch.arange(smax, device=q.device)
+    valid = pos[None, :] < torch.as_tensor(length, device=q.device).reshape(-1, 1)
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", p, v.float())
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache (block-table indirection, per-slot lengths)
+# ---------------------------------------------------------------------------
+
+
+def gather_paged_rows(pages: torch.Tensor,
+                      block_table: torch.Tensor) -> torch.Tensor:
+    """Materialize each slot's contiguous view from ONE page pool.
+
+    pages: [P, page, *row]; block_table: [B, pages_per_slot] page ids (0 =
+    the reserved null page).  Returns [B, pages_per_slot * page, *row].
+    """
+    b, pps = block_table.shape
+    page = pages.shape[1]
+    return pages[block_table.long()].reshape(b, pps * page, *pages.shape[2:])
+
+
+def write_paged_rows(pages: torch.Tensor, rows: torch.Tensor,
+                     block_table: torch.Tensor, lengths: torch.Tensor,
+                     active: torch.Tensor) -> torch.Tensor:
+    """Scatter one new token's row per slot into its current page, in place.
+
+    pages: [P, page, *row]; rows: [B, *row]; lengths: [B] write positions
+    (= valid length before this token); active: [B] bool.  Inactive slots
+    are redirected to the reserved null page 0 so their garbage never lands
+    in a page owned by a live request.  A slot at capacity (only ever
+    inactive) clamps its page index, as the JAX gather does.
+    """
+    page = pages.shape[1]
+    b = rows.shape[0]
+    lengths = lengths.long()
+    pj = torch.clamp(lengths // page, max=block_table.shape[1] - 1)
+    page_idx = block_table.long()[torch.arange(b, device=rows.device), pj]
+    page_idx = torch.where(active, page_idx, torch.zeros_like(page_idx))
+    pages[page_idx, lengths % page] = rows.to(pages.dtype)
+    return pages
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_table: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """One-token attention against a paged cache.
+
+    q: [B, H, D]; k/v_pages: [P, page, Hkv, D]; block_table: [B,
+    pages_per_slot]; lengths: [B] valid tokens per slot (new token included).
+    """
+    return decode_attention(q, gather_paged_rows(k_pages, block_table),
+                            gather_paged_rows(v_pages, block_table), lengths)

@@ -1,0 +1,145 @@
+"""Shared model layers: norms, RoPE, linear (float or W8A8), MLP.
+
+PyTorch counterparts of ``repro.models.layers``, formula for formula, so
+that the same inputs give the same numbers up to float rounding order (and
+bit for bit in the int8 product).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.int8_pagegemv.ops import int8_gemm
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * gamma.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * gamma.float() + beta.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Linear: params are {"w": [in, out] float} or the W8A8 form
+# {"w_q": int8 [out, in], "scale": f32 [out]} (+ optional {"b": [out]}).
+# ---------------------------------------------------------------------------
+
+
+def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
+    if "w_q" in params:
+        y = _w8a8_matmul(params["w_q"], params["scale"], x)
+    elif "w_p4" in params:
+        raise NotImplementedError(
+            "W4A16 weights need the w4a16 GeMV kernel, not ported yet")
+    else:
+        y = x @ params["w"].to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+def _w8a8_matmul(w_q: torch.Tensor, scale: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """y[..., out] = dequant(int8 matmul), with per-token dynamic activation
+    quantization: one scale per row of x, absmax over the feature axis
+    divided by 127.0 (a true division, as ``_w8a8_matmul`` spells it).
+    The int8 x int8 -> int32 product is the B2 kernel on CUDA."""
+    xf = x.float()
+    absmax = torch.clamp_min(xf.abs().amax(-1, keepdim=True), 1e-8)
+    x_scale = absmax / 127.0
+    x_q = torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8)
+    lead = x.shape[:-1]
+    acc = int8_gemm(x_q.reshape(-1, x.shape[-1]), w_q).reshape(
+        *lead, w_q.shape[0])
+    y = acc.float() * scale.float() * x_scale
+    return y.to(x.dtype)
+
+
+def dense_weight(params: dict) -> torch.Tensor:
+    """Materialize the float [in, out] weight of a (possibly quantized)
+    linear."""
+    if "w" in params:
+        return params["w"]
+    return (params["w_q"].float() * params["scale"][:, None].float()).T
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int, use_bias: bool,
+                dtype: torch.dtype, device: torch.device) -> dict:
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=device) * d_in ** -0.5
+    p = {"w": w.to(dtype)}
+    if use_bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# RoPE (interleaved pairs x[0::2], x[1::2], as the JAX package rotates them)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(d_rot: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_rot, 2, dtype=torch.float32,
+                                         device=device) / d_rot))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               fraction: float = 1.0) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [B, S] int. Rotate the first
+    ``fraction * D`` dims; the rotation runs in float32 (bf16 * f32
+    promotes) and casts back to x's dtype."""
+    d = x.shape[-1]
+    d_rot = int(d * fraction)
+    d_rot -= d_rot % 2
+    if d_rot == 0:
+        return x
+    freqs = rope_freqs(d_rot, theta, device=x.device)
+    angles = positions[..., None].float() * freqs  # [B, S, d_rot/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    xr, xp = x[..., :d_rot], x[..., d_rot:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    return torch.cat([yr.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# FFN
+# ---------------------------------------------------------------------------
+
+
+def ffn(params: dict, x: torch.Tensor, gated: bool) -> torch.Tensor:
+    if gated:
+        g = linear(params["gate"], x)
+        u = linear(params["up"], x)
+        h = F.silu(g.float()).to(x.dtype) * u
+    else:
+        h = F.gelu(linear(params["up"], x).float(),
+                   approximate="tanh").to(x.dtype)
+    return linear(params["down"], h)
+
+
+def init_ffn(gen: torch.Generator, cfg: ModelConfig, d_ff: int,
+             dtype: torch.dtype, device: torch.device) -> dict:
+    p = {"up": init_linear(gen, cfg.d_model, d_ff, cfg.use_bias, dtype,
+                           device),
+         "down": init_linear(gen, d_ff, cfg.d_model, cfg.use_bias, dtype,
+                             device)}
+    if cfg.gated_ffn:
+        p["gate"] = init_linear(gen, cfg.d_model, d_ff, cfg.use_bias, dtype,
+                                device)
+    return p

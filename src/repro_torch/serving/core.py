@@ -1,0 +1,558 @@
+"""EngineCore: the per-replica synchronous serving loop (continuous mode).
+
+The bottom layer of the port's serving API, as in ``repro.serving.core``::
+
+    ServingClient (serving/client.py)   user-facing handles + global ids
+        │ submit / stream / abort
+    Router        (serving/router.py)   N replicas, routing policy
+        │
+    EngineCore    (this module)         ONE replica: slots, paged KV,
+                                        scheduler calls
+
+The core owns a fixed-size slot table (the batch).  Requests enter a
+queue, claim free slots and prefill together in ONE batched pass
+(``models.model.prefill_into_slots``: right-padded to a power-of-two bucket,
+the group padded to ``max_batch`` rows by repeating its first row), then
+decode step by step (``decode_step_paged`` over every active slot, greedy
+sampling, one host sync per step); finished slots free their pages at once.
+The scheduler (``serving.scheduler``) decides admission order and
+preemption victims; when the page pool runs dry the ``exhaust_policy``
+either requeues the starved request (``"requeue"``: a mid-decode slot
+restarts later with its generated prefix folded into its prompt) or fails
+it (``"reject"``).
+
+What this slice serves is the JAX engine's continuous, synchronous path for
+the dense family with bf16 page pools and greedy sampling.  The other
+options of the JAX engine raise until their slices land: ``mode="wave"``,
+``kv_tier="flash"``, ``prefix_cache``, ``overlap``, ``kv_dtype="int8"``,
+chunked-prefill budgets (``scheduler.chunk_tokens``), stochastic sampling
+(``temperature > 0``) and slot migration (``snapshot_slot`` /
+``inject_slot``).
+
+The device state is the cache dict of ``init_paged_cache`` on ``device``;
+the block table, last tokens and active mask live host-side in numpy and
+ride into each step as small tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import model as model_lib
+from repro_torch.serving import sampler
+from repro_torch.serving.kv_cache import (OutOfPages, PageAllocator,
+                                          pages_needed, prefill_bucket)
+from repro_torch.serving.scheduler import (SamplingParams, Scheduler,
+                                           SlotView, make_scheduler)
+
+
+@dataclasses.dataclass(eq=False)
+class Request:
+    rid: int
+    prompt: list[int]
+    max_new_tokens: int = 32
+    priority: int = 0          # higher wins under priority/DRR policies
+    # trace arrival time (any monotone clock); None -> stamped at submit
+    arrival_s: Optional[float] = None
+    deadline_s: Optional[float] = None   # SLO budget in seconds (EDF)
+    session: Optional[str] = None        # router affinity key
+    sampling: Optional[SamplingParams] = None  # None -> greedy
+    temperature: float = 0.0   # legacy alias, folded into ``sampling``
+    out_tokens: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    rejected: bool = False  # failed admission under exhaust_policy="reject"
+    # eos | length | capacity | rejected | aborted
+    finish_reason: Optional[str] = None
+    n_folded: int = 0  # out_tokens already folded into prompt by restarts
+    n_chunks: int = 0      # chunked-prefill passes (always 0 in this port)
+    n_preempted: int = 0   # restarts suffered
+    n_migrated: int = 0    # cross-replica moves (always 0 in this port)
+    # lifecycle timestamps (time.monotonic), filled by the engine
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    t_first_token: float = 0.0
+    t_done: float = 0.0
+
+    def __post_init__(self):
+        if self.sampling is None:
+            self.sampling = SamplingParams(temperature=self.temperature)
+
+    @property
+    def admission_wait_s(self) -> float:
+        return self.t_admit - self.t_submit
+
+    @property
+    def ttft_s(self) -> float:
+        return self.t_first_token - self.t_submit
+
+    @property
+    def latency_s(self) -> float:
+        return self.t_done - self.t_submit
+
+
+@dataclasses.dataclass(frozen=True)
+class RequestOutput:
+    """One streamed event of a request's lifetime: a token event, or the
+    final event (``finished=True``) with the finish reason and stats."""
+
+    rid: int
+    token: Optional[int]
+    n_out: int
+    finished: bool = False
+    finish_reason: Optional[str] = None
+    # populated on the final event only
+    ttft_s: Optional[float] = None
+    latency_s: Optional[float] = None
+    sched: Optional[dict] = None   # {"chunks", "preemptions", "wait_s"}
+
+
+@dataclasses.dataclass
+class EngineStats:
+    prefills: int = 0
+    decode_steps: int = 0
+    tokens_out: int = 0
+    wall_decode_s: float = 0.0
+    wall_prefill_s: float = 0.0
+    admitted: int = 0
+    completed: int = 0
+    mode: str = ""
+    policy: str = ""
+    pool_exhausted: int = 0    # OutOfPages events absorbed (requeue/reject)
+    rejected: int = 0
+    aborted: int = 0
+    preemptions: int = 0       # requeue restarts
+    admission_wait_s: list = dataclasses.field(default_factory=list)
+    ttft_s: list = dataclasses.field(default_factory=list)
+    latency_s: list = dataclasses.field(default_factory=list)
+
+    def percentiles(self, series: str = "latency_s",
+                    qs: tuple = (50, 90, 99)) -> dict:
+        xs = getattr(self, series)
+        return {f"p{q}": float(np.percentile(xs, q)) if xs else 0.0
+                for q in qs}
+
+    def summary(self) -> str:
+        lat = self.percentiles("latency_s")
+        adm = self.percentiles("admission_wait_s")
+        s = (f"[{self.mode}] policy={self.policy or 'fcfs'} "
+             f"requests={self.completed} "
+             f"tokens={self.tokens_out} steps={self.decode_steps} "
+             f"latency p50/p90/p99="
+             f"{lat['p50']:.3f}/{lat['p90']:.3f}/{lat['p99']:.3f}s "
+             f"admission p50/p99={adm['p50']:.3f}/{adm['p99']:.3f}s")
+        if self.pool_exhausted or self.rejected:
+            s += (f" pool_exhausted={self.pool_exhausted} "
+                  f"rejected={self.rejected} preempt={self.preemptions}")
+        return s
+
+
+def _not_ported(flag: str, slice_: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{flag} is not ported to the PyTorch engine yet ({slice_})")
+
+
+class EngineCore:
+    """Single-replica engine over the port's functional model API, on one
+    device (``"cuda"`` by default; ``"cpu"`` runs the plain versions)."""
+
+    def __init__(self, cfg: ModelConfig, params, max_batch: int = 4,
+                 max_seq: int = 512, eos_id: int = 2,
+                 mode: str = "auto",
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 kv_tier: str = "none", exhaust_policy: str = "requeue",
+                 scheduler: "Scheduler | str | None" = None,
+                 overlap: bool = False, prefix_cache: bool = False,
+                 kv_dtype: str = "bf16", device: str | torch.device = "cuda"):
+        if mode == "auto":
+            mode = "continuous"
+        if mode == "wave":
+            raise _not_ported("mode='wave'", "the shared-cursor cache")
+        if mode != "continuous":
+            raise ValueError(f"unknown mode {mode!r}")
+        if not model_lib.supports_paged(cfg):
+            raise _not_ported(f"family {cfg.family!r}", "dense only")
+        if kv_tier != "none":
+            raise _not_ported(f"kv_tier={kv_tier!r}", "the tiered KV slice")
+        if prefix_cache:
+            raise _not_ported("prefix_cache=True", "the prefix-cache slice")
+        if overlap:
+            raise _not_ported("overlap=True", "the overlapped-loop slice")
+        if kv_dtype != "bf16":
+            raise _not_ported(f"kv_dtype={kv_dtype!r}", "int8 KV pools in B1")
+        if exhaust_policy not in ("requeue", "reject"):
+            raise ValueError(f"exhaust_policy {exhaust_policy!r}")
+        self.scheduler = make_scheduler(scheduler)
+        if self.scheduler.chunk_tokens is not None:
+            raise _not_ported("chunked prefill (chunk_tokens)",
+                              "the paged-chunk variant of B3")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.eos_id = eos_id
+        self.mode = mode
+        self.exhaust_policy = exhaust_policy
+        self.stats = EngineStats(mode=mode, policy=self.scheduler.name)
+        self.queue: list[Request] = []
+        self.slots: list[Optional[Request]] = [None] * max_batch
+        self._events: list[RequestOutput] = []
+        self.page_size = page_size
+        self.pages_per_slot = pages_needed(max_seq, page_size)
+        full_pool = max_batch * self.pages_per_slot + 1
+        self.num_pages = full_pool if num_pages is None else num_pages
+        self.cache = model_lib.init_paged_cache(
+            cfg, max_batch, max_seq, page_size=page_size,
+            num_pages=self.num_pages, device=self.device)
+        # host-side bookkeeping: block table, last tokens, per-slot pages
+        self.block = np.zeros((max_batch, self.pages_per_slot), np.int32)
+        self.last_np = np.zeros((max_batch,), np.int32)
+        self.allocator = PageAllocator(self.num_pages)
+        self.slot_pages: list[list[int]] = [[] for _ in range(max_batch)]
+        self.slot_len: list[int] = [0] * max_batch  # host mirror of lens
+
+    # ------------------------------------------------------------------
+    # command surface: add / abort
+    # ------------------------------------------------------------------
+    def add_request(self, req: Request) -> None:
+        if req.sampling.temperature > 0.0:
+            raise _not_ported("stochastic sampling (temperature > 0)",
+                              "the threefry sampler, ROADMAP A6")
+        if len(req.prompt) >= self.max_seq:
+            raise ValueError(f"prompt ({len(req.prompt)}) does not fit "
+                             f"max_seq ({self.max_seq})")
+        worst = min(self.max_seq, len(req.prompt) + req.max_new_tokens)
+        if pages_needed(worst, self.page_size) > self.num_pages - 1:
+            raise ValueError(
+                f"request needs up to {pages_needed(worst, self.page_size)}"
+                f" pages, pool has {self.num_pages - 1}")
+        req.t_submit = time.monotonic()
+        if req.arrival_s is None:
+            req.arrival_s = req.t_submit
+        self.queue.append(req)
+
+    def abort_request(self, rid: int) -> bool:
+        """Cancel a queued or running request: frees its slot/pages and
+        emits exactly one terminal event with ``finish_reason="aborted"``."""
+        for req in self.queue:
+            if req.rid == rid:
+                self.queue.remove(req)
+                self._abort(req)
+                return True
+        for i, req in enumerate(self.slots):
+            if req is not None and req.rid == rid:
+                self._release_slot(i)
+                self._abort(req)
+                return True
+        return False
+
+    def _abort(self, req: Request) -> None:
+        req.done = True
+        req.finish_reason = "aborted"
+        req.t_done = time.monotonic()
+        self.stats.aborted += 1
+        self._emit(req, None, finished=True)
+
+    def snapshot_slot(self, rid: int, release: bool = True):
+        raise _not_ported("snapshot_slot", "the migration slice")
+
+    def inject_slot(self, snap) -> int:
+        raise _not_ported("inject_slot", "the migration slice")
+
+    # ------------------------------------------------------------------
+    # load introspection (what the router routes on)
+    # ------------------------------------------------------------------
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue) or any(s is not None for s in self.slots)
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self.queue)
+
+    @property
+    def n_active(self) -> int:
+        return sum(1 for s in self.slots if s is not None)
+
+    @property
+    def free_pages(self) -> int:
+        return self.allocator.available
+
+    # ------------------------------------------------------------------
+    # streaming events
+    # ------------------------------------------------------------------
+    MAX_PENDING_EVENTS = 1 << 16
+
+    def _emit(self, req: Request, token: Optional[int],
+              finished: bool = False) -> None:
+        if len(self._events) >= self.MAX_PENDING_EVENTS:
+            # shed the oldest half but keep its terminal events
+            half = self.MAX_PENDING_EVENTS // 2
+            finals = [e for e in self._events[:half] if e.finished]
+            self._events = finals + self._events[half:]
+        sched = None
+        ttft = lat = None
+        if finished:
+            sched = {"chunks": req.n_chunks, "preemptions": req.n_preempted,
+                     "wait_s": (req.admission_wait_s if req.t_admit
+                                else None)}
+            ttft = req.ttft_s if req.t_first_token else None
+            lat = req.latency_s
+        self._events.append(RequestOutput(
+            rid=req.rid, token=token, n_out=len(req.out_tokens),
+            finished=finished,
+            finish_reason=req.finish_reason if finished else None,
+            ttft_s=ttft, latency_s=lat, sched=sched))
+
+    def drain_outputs(self) -> list[RequestOutput]:
+        ev, self._events = self._events, []
+        return ev
+
+    def step(self) -> list[RequestOutput]:
+        """One admit + decode round; returns the events it produced."""
+        self._advance()
+        return self.drain_outputs()
+
+    def stream(self, max_steps: int = 10_000):
+        steps = 0
+        while self.has_work and steps < max_steps:
+            if not self._advance():
+                break
+            steps += 1
+            yield from self.drain_outputs()
+        yield from self.drain_outputs()
+
+    # ------------------------------------------------------------------
+    # helpers
+    # ------------------------------------------------------------------
+    def _sample_rows(self, logits: torch.Tensor) -> np.ndarray:
+        """Greedy tokens of every row of logits [B, V] (one host sync)."""
+        return sampler.greedy(logits).cpu().numpy()
+
+    def _slot_view(self, i: int) -> SlotView:
+        r = self.slots[i]
+        return SlotView(index=i, rid=r.rid, priority=r.priority,
+                        arrival_s=r.arrival_s, seq_len=self.slot_len[i],
+                        n_out=len(r.out_tokens),
+                        remaining=r.max_new_tokens - len(r.out_tokens),
+                        prefilling=False, suspended=False,
+                        deadline_s=(r.arrival_s + r.deadline_s
+                                    if r.deadline_s is not None else None))
+
+    def _views(self) -> list[Optional[SlotView]]:
+        return [self._slot_view(i) if r is not None else None
+                for i, r in enumerate(self.slots)]
+
+    def _tensor(self, arr: np.ndarray) -> torch.Tensor:
+        # a fresh copy on the device: the host arrays keep changing
+        return torch.tensor(arr, device=self.device)
+
+    def _cache_in(self) -> dict:
+        return {**self.cache, "block": self._tensor(self.block)}
+
+    def _release_slot(self, i: int) -> None:
+        self.slots[i] = None
+        self.allocator.free([p for p in self.slot_pages[i] if p != 0])
+        self.slot_pages[i] = []
+        self.slot_len[i] = 0
+        self.block[i] = 0
+        self.cache["lens"][i] = 0
+
+    def _finish(self, i: int, req: Request, reason: str,
+                token: Optional[int] = None) -> None:
+        req.done = True
+        req.finish_reason = reason
+        req.t_done = time.monotonic()
+        self.stats.completed += 1
+        self.stats.admission_wait_s.append(req.admission_wait_s)
+        self.stats.ttft_s.append(req.ttft_s)
+        self.stats.latency_s.append(req.latency_s)
+        self._release_slot(i)
+        self._emit(req, token, finished=True)
+
+    def _reject(self, req: Request) -> None:
+        req.done = True
+        req.rejected = True
+        req.finish_reason = "rejected"
+        req.t_done = time.monotonic()
+        self.stats.rejected += 1
+        self._emit(req, None, finished=True)
+
+    def _preempt_restart(self, i: int, req: Request) -> None:
+        """Fold the generated prefix into the prompt and requeue: greedy
+        decode regenerates the same continuation."""
+        self.stats.preemptions += 1
+        req.n_preempted += 1
+        req.prompt = req.prompt + req.out_tokens[req.n_folded:]
+        req.n_folded = len(req.out_tokens)
+        self._release_slot(i)
+        self.queue.insert(0, req)
+
+    def _finish_reason_for(self, req: Request, tok: int,
+                           seq_len: int) -> Optional[str]:
+        if tok == self.eos_id:
+            return "eos"
+        if len(req.out_tokens) >= req.max_new_tokens:
+            return "length"
+        if seq_len >= self.max_seq - 1:
+            return "capacity"
+        return None
+
+    # ------------------------------------------------------------------
+    # admission: one batched prefill per step
+    # ------------------------------------------------------------------
+    def _admit_continuous(self) -> None:
+        plan = self.scheduler.admit(list(self.queue), self._views(),
+                                    self.allocator.available)
+        head = next((r for r in plan.order if r in self.queue), None)
+        for vi in plan.preempt:
+            if not 0 <= vi < self.max_batch or self.slots[vi] is None:
+                continue
+            if head is not None:
+                # restart a victim only if its pages cover the arrival
+                victim_pages = sum(1 for p in self.slot_pages[vi] if p != 0)
+                need = pages_needed(len(head.prompt), self.page_size)
+                if self.allocator.available + victim_pages < need:
+                    continue
+            self._preempt_restart(vi, self.slots[vi])
+        free = [i for i in range(self.max_batch) if self.slots[i] is None]
+        group = []
+        now = time.monotonic()
+        for req in plan.order:
+            if not free:
+                break
+            if req not in self.queue:  # defensive: stale plan entry
+                continue
+            i = free[0]
+            len0 = len(req.prompt)
+            try:
+                pids = self.allocator.alloc(pages_needed(len0, self.page_size))
+            except OutOfPages:
+                self.stats.pool_exhausted += 1
+                if self.exhaust_policy == "reject":
+                    self.queue.remove(req)
+                    self._reject(req)
+                    continue
+                break  # starved request keeps its queue spot for next step
+            free.pop(0)
+            self.queue.remove(req)
+            self.slot_pages[i] = pids
+            self.block[i, :len(pids)] = pids
+            group.append((i, req, len0))
+        if not group:
+            return
+        cap = self.pages_per_slot * self.page_size
+        bucket = min(max(prefill_bucket(len(req.prompt))
+                         for i, req, len0 in group), cap)
+        # pad the group to max_batch rows by REPEATING row 0 (duplicate
+        # scatters write identical values), so prefill sees fixed shapes
+        rows = group + [group[0]] * (self.max_batch - len(group))
+        toks = np.asarray(
+            [req.prompt + [0] * (bucket - len(req.prompt))
+             for i, req, len0 in rows], np.int32)
+        slot_ids = np.asarray([i for i, req, len0 in rows], np.int32)
+        true_lens = np.asarray([len0 for i, req, len0 in rows], np.int32)
+        t0 = time.monotonic()
+        logits, out_cache = model_lib.prefill_into_slots(
+            self.params, self.cfg, self._tensor(toks),
+            self._tensor(true_lens), self._cache_in(),
+            self._tensor(slot_ids))
+        out_cache.pop("block")  # authoritative copy stays host-side
+        self.cache = out_cache
+        self.stats.prefills += 1
+        self.stats.admitted += len(group)
+        toks_out = self._sample_rows(logits)
+        t1 = time.monotonic()
+        self.stats.wall_prefill_s += t1 - t0
+        for row, (i, req, len0) in enumerate(group):
+            tok = int(toks_out[row])
+            if req.t_admit == 0.0:  # restarts keep their first-admit times
+                req.t_admit = now
+                req.t_first_token = t1
+            req.out_tokens.append(tok)
+            self.stats.tokens_out += 1
+            self.last_np[i] = tok
+            self.slot_len[i] = len0
+            self.slots[i] = req
+            reason = self._finish_reason_for(req, tok, len0)
+            if reason is not None:
+                self._finish(i, req, reason, token=tok)
+            else:
+                self._emit(req, tok)
+
+    def _ensure_pages(self) -> None:
+        """Allocate the page each active slot's next write lands in; on a
+        dry pool, requeue or reject the slot's request."""
+        for i in range(self.max_batch):
+            req = self.slots[i]
+            if req is None:
+                continue
+            pj = self.slot_len[i] // self.page_size
+            if pj < len(self.slot_pages[i]):
+                continue
+            try:
+                pid = self.allocator.alloc(1)[0]
+            except OutOfPages:
+                self.stats.pool_exhausted += 1
+                if self.exhaust_policy == "reject":
+                    self._reject(req)
+                    self._release_slot(i)
+                else:
+                    self._preempt_restart(i, req)
+                continue
+            self.slot_pages[i].append(pid)
+            self.block[i, pj] = pid
+
+    def _step_continuous(self) -> bool:
+        self._admit_continuous()
+        if all(s is None for s in self.slots):
+            return bool(self.queue)
+        self._ensure_pages()
+        active_list = [self.slots[i] is not None
+                       for i in range(self.max_batch)]
+        if not any(active_list):
+            return True
+        active = self._tensor(np.asarray(active_list))
+        tokens = self._tensor(self.last_np)
+        t0 = time.monotonic()
+        logits, cache = model_lib.decode_step_paged(
+            self.params, self.cfg, tokens, self._cache_in(), active)
+        cache.pop("block")
+        self.cache = cache
+        self.stats.decode_steps += 1
+        tok_np = self._sample_rows(logits)  # one sync per step
+        self.stats.wall_decode_s += time.monotonic() - t0
+        for i, req in enumerate(self.slots):
+            if req is None or not active_list[i]:
+                continue
+            t = int(tok_np[i])
+            self.last_np[i] = t
+            req.out_tokens.append(t)
+            self.stats.tokens_out += 1
+            self.slot_len[i] += 1
+            reason = self._finish_reason_for(req, t, self.slot_len[i])
+            if reason is not None:
+                self._finish(i, req, reason, token=t)
+            else:
+                self._emit(req, t)
+        return True
+
+    # ------------------------------------------------------------------
+    def _advance(self) -> bool:
+        """Admit + one decode step over the active batch; True if any work."""
+        return self._step_continuous()
+
+    def run(self, max_steps: int = 10_000) -> EngineStats:
+        steps = 0
+        while self.has_work and steps < max_steps:
+            if not self._advance():
+                break
+            steps += 1
+        return self.stats
