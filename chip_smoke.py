@@ -18,7 +18,9 @@ Phases, each printing its own lines:
             short) must fail that check.  Times each (CUDA events, median),
             its plain version and one PyTorch library call, beside the
             least time the card could take (bytes at 3.35 TB/s or
-            operations at the H100's peak, whichever is larger).
+            operations at the H100's peak, whichever is larger); for the
+            GeMVs and B5 also the device time torch.profiler records,
+            without the host's launch overhead.
 4. model    llama2-7b.reduced() W8A8: the same weights on the card
             (kernels, bf16), on the CPU (plain versions, bf16) and on the
             CPU in float32; at prefill and at each of four decode steps
@@ -28,14 +30,36 @@ Phases, each printing its own lines:
             driver (launch/serve.py build_client -> ServingClient ->
             Router -> EngineCore): 8 greedy requests with 64-512-token
             prompts, 32 new tokens each.  Every kernel's launch counter is
-            zeroed before and read after; each must be > 0.
+            zeroed before and read after; B1-B3 must be > 0.
 6. profile  torch.profiler over 6 decode steps of the same engine: device
             kernel time per step against the host's wall clock, and the
             kernels that take it.
+7. hybrid   the paper's hybrid NPU+flash GeMV at llama2-7b's full width:
+            its 224 layer matrices and lm_head, each made on the card from
+            a seed, planned on Cambricon-LLM-S, quantized, ECC-encoded and
+            corrupted at BER 2e-4; one token (b=1) through every matrix
+            with hybrid_gemv (counters zeroed before, read after: B5 and
+            B2 > 0).  Gates: B5's pages equal the plain decode's, and the
+            int32 accumulators and outputs equal the plain path's on the
+            same corrupted pages.  Prints the relative errors (clean, with
+            ECC, without) by shape and B5 / B2 device time per sweep.
+            Then ecc_resilience at full width, W8A8, BER 2e-4: every int8
+            leaf corrupted (and decoded by B5), forward on 4 x 24 tokens;
+            the top-1 agreement with ECC must not be below the raw one.
+8. serve_w4a16  llama2-7b at full width through build_client(quant=
+            "w4a16") (W8A8 layers, W4A16 lm_head, as the JAX convert
+            makes them): 4 greedy requests; all complete, the first token
+            equals a direct prefill's, and B4's launch counter is > 0.
+
+The kernels phase also holds B4 (w4a16_gemv) and B5 (ecc_decode) against
+their plain versions, with two planted faults that must fail (B5 with the
+last sidecar entry's restore skipped, B4 with lo/hi nibbles swapped).
 
 The last three lines are the kernels JSON, nvidia-smi's line and
-``{"ok": true, "device": {...}}``.  Any failure raises and the script
-exits non-zero; without a CUDA device, or without the repository's
+``{"ok": true, "device": {...}}``; each kernel's ``launches`` is read
+around the run of the phase that owns it (serve for B1-B3, hybrid for
+B5, serve_w4a16 for B4).  Any failure raises and the script exits
+non-zero; without a CUDA device, or without the repository's
 ``src/repro_torch`` beside it, it exits non-zero before printing a result.
 """
 
@@ -55,7 +79,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}   # dense tensor-core peaks
+# dense tensor-core peaks, and float32 outside the tensor cores
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 # kernel -> (source in the repository, Pallas kernel it replaces)
 SOURCES = {
@@ -68,7 +93,15 @@ SOURCES = {
         "src/repro/kernels/decode_attention/decode_attention.py:61"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/flash_attention.py:59"),
+    "w4a16_gemv": ("src/repro_torch/kernels/csrc/w4a16_gemv.cu",
+                   "src/repro/kernels/w4a16_gemv/w4a16_gemv.py:43"),
+    "ecc_decode": ("src/repro_torch/kernels/csrc/ecc_decode.cu",
+                   "src/repro/kernels/ecc_decode/ecc_decode.py:53"),
 }
+# the phase whose run each kernel's launch count is read around
+COUNTED_IN = {"int8_gemv": "serve", "int8_gemm": "serve",
+              "paged_decode_attention": "serve", "flash_attention": "serve",
+              "ecc_decode": "hybrid", "w4a16_gemv": "serve_w4a16"}
 
 # tolerance of the attention kernels against their plain versions: both
 # accumulate in float32 and round once to bf16; the float32 sums run in
@@ -87,6 +120,15 @@ ATTN_TOL = f"{ATTN_ULPS} bf16 steps of |ref| + {ATTN_ATOL}"
 # compared with a float32 run of the same weights, and the card must stay
 # within MODEL_RATIO times that distance of the float32 run at every step
 MODEL_RATIO = 1.25
+# B4 against its plain version: both dequantize to the same float32 weights
+# and sum float32 products in another order, so each output may differ by
+# a few float32 roundings of the sum of |products|
+W4_REL, W4_ABS = 1e-5, 1e-6
+W4_TOL = f"{W4_REL} * (|x| @ |W|^T) + {W4_ABS}"
+HYBRID_BER = 2e-4
+# JAX package's examples/quickstart.py on the CPU, 4096x4096 on
+# Cambricon-LLM-S: relative errors clean / BER 2e-4 with ECC / without
+JAX_YARDSTICK = (0.0120, 0.0344, 0.0539)
 
 
 def log(msg: str) -> None:
@@ -116,6 +158,24 @@ def time_ms(torch, fn, n_bufs: int = 1, iters: int = 20,
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def profiled_ms(torch, fn, names, n_bufs: int = 1, iters: int = 10) -> float:
+    """Device time per call (ms) of the kernels named ``names`` under
+    torch.profiler, which, unlike ``time_ms``'s events, leaves out the
+    host's launch overhead around a short kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(i % n_bufs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i % n_bufs)
+        torch.cuda.synchronize()
+    total = _device_ms(prof, names)
+    return float("nan") if total is None else total / iters
 
 
 def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
@@ -271,6 +331,8 @@ def phase_kernels(torch, results: dict) -> None:
         line = f"[kernels] {variant} M={m} K={k} N={n}: bit-exact"
         if (m, k, n) == rep[variant]:
             ms = time_ms(torch, lambda i: int8_gemm(x, ws[i]), len(ws))
+            dev_ms = profiled_ms(torch, lambda i: int8_gemm(x, ws[i]),
+                                 (variant,), len(ws))
             plain = time_ms(torch, lambda i: int8_gemm_ref(x, ws[i]), len(ws))
             lib = None
             if m > 16:  # torch._int_mm takes M > 16 only
@@ -282,7 +344,8 @@ def phase_kernels(torch, results: dict) -> None:
             results[variant].update(ms=ms, plain_ms=plain, library_ms=lib,
                                     bound_ms=b_ms, bound_by=b_by,
                                     shape=f"M={m} K={k} N={n}")
-            line += (f" | {ms:.4f} ms, plain {plain:.4f} ms, library "
+            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
+                     f"{plain:.4f} ms, library "
                      f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
                      f"{b_ms:.4f} ms ({b_by})")
         results[variant]["max_abs_err"] = 0.0
@@ -373,6 +436,140 @@ def phase_kernels(torch, results: dict) -> None:
                        bound_by=b_by, shape=f"B={b} S={s} H={h} D={d}")
             line += (f" | {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} "
                      f"ms, bound {b_ms:.4f} ms ({b_by})")
+        log(line)
+
+    _kernels_ecc(torch, results)
+    _kernels_w4a16(torch, results)
+
+
+def _kernels_ecc(torch, results: dict) -> None:
+    """B5 against its plain version on 4,096 random int8 pages at three
+    BERs, every position; the planted fault (the last sidecar entry's
+    restore skipped) must fail."""
+    from repro_torch.core import ecc
+    from repro_torch.kernels.ecc_decode.ops import ecc_decode
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    n = 4096
+    res = results["ecc_decode"]
+    res["max_abs_err"] = 0.0
+    for ber in (0.0, 1e-4, 2e-3):
+        pages = torch.randint(0, 256, (n, ecc.PAGE_ELEMS), generator=gen,
+                              device=dev, dtype=torch.uint8)
+        code = ecc.encode_pages(pages)
+        noisy = ecc.inject_bitflips(pages, ber, gen)
+        code = ecc.inject_ecc_bitflips(code, ber, gen)
+        got = ecc_decode(noisy, code)
+        ref = ecc.decode_pages(noisy, code)
+        torch.cuda.synchronize()
+        addr, _valid = ecc.hamming_correct(code.addr, code.addr_parity)
+        srt = torch.sort(addr, dim=1).values
+        collisions = int((srt[:, 1:] == srt[:, :-1]).sum())
+        bad = int((got != ref).sum())
+        fixed = int((ref != noisy).sum())
+        if bad:
+            raise AssertionError(f"ecc_decode BER {ber:g}: {bad} bytes differ "
+                                 f"from the plain decode")
+        if ber == 0.0 and not torch.equal(got, pages):
+            raise AssertionError("ecc_decode changed clean pages")
+        line = (f"[kernels] ecc_decode {n} pages BER {ber:g}: bit-exact on "
+                f"every position ({collisions} colliding entries), "
+                f"{fixed} bytes corrected")
+        if ber == 2e-3:
+            short = ecc.PageECC(code.threshold, code.addr[:, :-1].contiguous(),
+                                code.addr_parity[:, :-1].contiguous(),
+                                code.copies[:, :-1].contiguous())
+            caught = int((ecc_decode(noisy, short) != ref).sum())
+            log(f"[kernels] planted fault, ecc_decode with the last entry's "
+                f"restore skipped: {caught} bytes differ from the plain decode")
+            if caught == 0:
+                raise AssertionError("planted fault (last restore skipped) "
+                                     "passes the ecc_decode check")
+            bufs = [noisy, noisy.flip(0).contiguous()]
+            codes = [code, ecc.PageECC(*(t.flip(0).contiguous()
+                                         for t in code))]
+            ms = time_ms(torch, lambda i: ecc_decode(bufs[i], codes[i]), 2)
+            dev_ms = profiled_ms(torch, lambda i: ecc_decode(bufs[i], codes[i]),
+                                 ("ecc_decode",), 2)
+            plain = time_ms(torch, lambda i: ecc.decode_pages(bufs[i],
+                                                              codes[i]), 2,
+                            iters=5)
+            k = code.addr.shape[1]
+            bytes_moved = n * (2 * ecc.PAGE_ELEMS + code.threshold.shape[1]
+                               + 4 * k + k + 2 * k)
+            b_ms, b_by = bound(bytes_moved, 0, "int8")
+            res.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                       bound_by=b_by, shape=f"B={n} P={ecc.PAGE_ELEMS} K={k}")
+            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
+                     f"{plain:.4f} ms, library n/a (no PyTorch call decodes "
+                     f"the sidecar), bound {b_ms:.4f} ms ({b_by})")
+        log(line)
+
+
+def _kernels_w4a16(torch, results: dict) -> None:
+    """B4 against its plain version at the llama2-7b lm_head and MLP
+    shapes, a ragged K and the tiled variant, within W4_TOL; the planted
+    fault (lo/hi nibbles swapped) must fail."""
+    from repro_torch.kernels.w4a16_gemv.ops import w4a16_gemm
+    from repro_torch.kernels.w4a16_gemv.ref import w4a16_gemm_ref
+    from repro_torch.quant.int4 import dequantize4, quantize_weight4
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    res = results["w4a16_gemv"]
+    res["max_abs_err"] = 0.0
+
+    def check(got, ref, x, q):
+        limit = W4_REL * (x.abs() @ dequantize4(q).abs().T) + W4_ABS
+        err = (got - ref).abs()
+        torch.cuda.synchronize()
+        return int((err > limit).sum()), err.max().item(), \
+            (err / limit).max().item()
+
+    for m, k, n in [(4, 4096, 32000), (4, 4096, 11008), (4, 960, 2560),
+                    (1, 4096, 4096), (20, 4096, 4096)]:
+        n_w = 2 if (m, k, n) == (4, 4096, 32000) else 1
+        qs = [quantize_weight4(torch.randn((n, k), generator=gen, device=dev)
+                               * k ** -0.5) for _ in range(n_w)]
+        x = torch.randn((m, k), generator=gen, device=dev)
+        got = w4a16_gemm(x, qs[0].w_packed, qs[0].scale)
+        ref = w4a16_gemm_ref(x, qs[0].w_packed, qs[0].scale)
+        bad, err, used = check(got, ref, x, qs[0])
+        if bad:
+            raise AssertionError(f"w4a16_gemv M={m} K={k} N={n}: {bad} "
+                                 f"outputs above {W4_TOL}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        line = (f"[kernels] w4a16_gemv M={m} K={k} N={n}: max|err| {err:.3e} "
+                f"(worst |err|/limit {used:.3f}; tol {W4_TOL})")
+        if n_w == 2:
+            q = qs[0]
+            swapped = ((q.w_packed >> 4) | (q.w_packed << 4)).contiguous()
+            bad_f, err_f, _ = check(w4a16_gemm(x, swapped, q.scale), ref,
+                                    x, q)
+            log(f"[kernels] planted fault, w4a16_gemv with lo/hi nibbles "
+                f"swapped: {bad_f} of {ref.numel()} outputs above the "
+                f"tolerance, max|err| {err_f:.3e}")
+            if bad_f == 0:
+                raise AssertionError("planted fault (nibbles swapped) passes "
+                                     "the w4a16_gemv check")
+            ms = time_ms(torch, lambda i: w4a16_gemm(x, qs[i].w_packed,
+                                                     qs[i].scale), n_w)
+            dev_ms = profiled_ms(torch, lambda i: w4a16_gemm(
+                x, qs[i].w_packed, qs[i].scale), ("w4a16_gemv",), n_w)
+            plain = time_ms(torch, lambda i: w4a16_gemm_ref(
+                x, qs[i].w_packed, qs[i].scale), n_w)
+            ng = q.scale.shape[1]
+            bytes_moved = n * k // 2 + n * ng * 4 + m * k * 4 + m * n * 4
+            b_ms, b_by = bound(bytes_moved, 2 * m * n * k, "f32")
+            res.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                       bound_by=b_by, shape=f"M={m} K={k} N={n}")
+            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
+                     f"{plain:.4f} ms, library n/a (no PyTorch call "
+                     f"multiplies packed nibbles), bound {b_ms:.4f} ms "
+                     f"({b_by})")
         log(line)
 
 
@@ -525,7 +722,8 @@ def phase_serve(torch) -> tuple[dict, object]:
         f"per step of 4 slots)")
     log(f"[serve] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB; launches {counts}")
-    missing = [k for k, n in counts.items() if n <= 0]
+    missing = [k for k, phase in COUNTED_IN.items()
+               if phase == "serve" and counts[k] <= 0]
     if missing:
         raise AssertionError(f"the serving path never launched {missing}")
     return counts, client
@@ -572,10 +770,243 @@ def phase_profile(torch, client) -> None:
             f" calls/step  {key[:90]}")
 
 
+def _device_ms(prof, names) -> float | None:
+    """Summed device time (ms) of the kernels whose names contain one of
+    ``names``, from a torch.profiler run; None if it recorded none."""
+    total = 0.0
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA") and \
+                any(n in ev.key for n in names):
+            total += getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0))
+    return total / 1e3 if total > 0 else None
+
+
+def phase_hybrid(torch) -> dict:
+    """The hybrid NPU+flash GeMV over every matrix of llama2-7b at full
+    width, then the ECC resilience study at full width.  Returns the launch
+    counts of the one-token sweep."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.hw import CAMBRICON_LLM_S
+    from repro_torch.core.hybrid_gemv import (_to_pages, corrupt_flash_region,
+                                              decoded_flash, hybrid_gemv,
+                                              plan_and_quantize)
+    from repro_torch.examples.ecc_resilience import run as resilience
+    from repro_torch.kernels.ecc_decode.ops import ecc_decode
+    from repro_torch.kernels.int8_pagegemv.ops import int8_gemm, paged_int8_gemm
+    from repro_torch.kernels.int8_pagegemv.ref import paged_int8_gemm_ref
+    from repro_torch.quant.int8 import quantize_activation
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_arch("llama2-7b")
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    layer = [(d, d)] * 4 + [(f, d), (f, d), (d, f)]   # q k v o gate up down
+    shapes = layer * cfg.n_layers + [(v, d)]          # + lm_head, [out, in]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    t0 = time.monotonic()
+    mats, rel = [], {}
+    for h, w in shapes:
+        W = torch.randn((h, w), generator=gen, device=dev) * w ** -0.5
+        x = torch.randn((w,), generator=gen, device=dev)
+        ref = W @ x
+        hw = plan_and_quantize(W, CAMBRICON_LLM_S, with_ecc=True)
+        del W
+        clean = hybrid_gemv(hw, x)
+        noisy = corrupt_flash_region(hw, HYBRID_BER, gen)
+        del hw
+        mats.append((noisy, x, ref))
+        r = rel.setdefault(f"{h}x{w}", [[], [], []])
+        r[0].append(float(torch.linalg.norm(clean - ref)
+                          / torch.linalg.norm(ref)))
+    torch.cuda.synchronize()
+    flash_pages = sum(m[0].ecc.addr.shape[0] for m in mats)
+    flash_bytes = sum(m[0].flash_wq.numel() for m in mats)
+    total_bytes = flash_bytes + sum(m[0].npu_wq.numel() for m in mats)
+    log(f"[hybrid] llama2-7b full width: {len(mats)} matrices planned on "
+        f"Cambricon-LLM-S, quantized, ECC-encoded and corrupted at BER "
+        f"{HYBRID_BER:g} in {time.monotonic() - t0:.1f} s; flash region "
+        f"{flash_bytes / 1e9:.3f} of {total_bytes / 1e9:.3f} GB "
+        f"({100 * flash_bytes / total_bytes:.1f}%), {flash_pages} pages")
+
+    # the main path: one token through every matrix, kernels counted
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    ys = [hybrid_gemv(noisy, x) for noisy, x, _ in mats]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log(f"[hybrid] one-token sweep launches {counts}")
+    for k in ("ecc_decode", "int8_gemv"):
+        if counts[k] <= 0:
+            raise AssertionError(f"the hybrid sweep never launched {k}")
+
+    # gates against the plain path on the same corrupted pages
+    page_diff = acc_diff = y_diff = 0
+    for (noisy, x, ref), y in zip(mats, ys):
+        dec_k = decoded_flash(noisy, use_kernel=True)
+        dec_p = decoded_flash(noisy, use_kernel=False)
+        page_diff += int((dec_k != dec_p).sum())
+        x_q, _ = quantize_activation(x[:, None])
+        w_k = torch.cat([dec_k, noisy.npu_wq])
+        w_p = torch.cat([dec_p, noisy.npu_wq])
+        acc_diff += int((paged_int8_gemm(w_k, x_q)
+                         != paged_int8_gemm_ref(w_p, x_q)).sum())
+        y_diff += int((y != hybrid_gemv(noisy, x, use_kernel=False)).sum())
+        raw = hybrid_gemv(noisy._replace(ecc=None), x)
+        r = rel[f"{ref.shape[0]}x{x.shape[0]}"]
+        r[1].append(float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref)))
+        r[2].append(float(torch.linalg.norm(raw - ref)
+                          / torch.linalg.norm(ref)))
+    torch.cuda.synchronize()
+    log(f"[hybrid] against the plain path on the same corrupted pages: "
+        f"{page_diff} decoded bytes, {acc_diff} int32 accumulators, "
+        f"{y_diff} outputs differ")
+    if page_diff or acc_diff or y_diff:
+        raise AssertionError("the hybrid kernel path differs from the plain "
+                             "path")
+    for shape, (c, e, r) in rel.items():
+        log(f"[hybrid] rel. error {shape:>11} ({len(c):3d} matrices): clean "
+            f"{statistics.mean(c):.4f}, BER {HYBRID_BER:g} with ECC "
+            f"{statistics.mean(e):.4f}, without ECC {statistics.mean(r):.4f}")
+    log(f"[hybrid] JAX package on the CPU (examples/quickstart.py, 4096x4096 "
+        f"on Cambricon-LLM-S): clean {JAX_YARDSTICK[0]:.4f}, with ECC "
+        f"{JAX_YARDSTICK[1]:.4f}, without ECC {JAX_YARDSTICK[2]:.4f}")
+    worse = [s for s, (_c, e, r) in rel.items()
+             if statistics.mean(e) > statistics.mean(r)]
+    if worse:
+        raise AssertionError(f"ECC made the hybrid GeMV worse at {worse}")
+
+    # device time of one full sweep: B5 over every flash page, B2 over both
+    # regions of every matrix (activations quantized beforehand)
+    pages = [_to_pages(m[0].flash_wq) for m in mats]
+    xqs = [quantize_activation(m[1])[0][None].contiguous() for m in mats]
+    for _ in range(2):   # warm up
+        for (noisy, _x, _r), pg, xq in zip(mats, pages, xqs):
+            ecc_decode(pg, noisy.ecc)
+            int8_gemm(xq, noisy.flash_wq)
+            int8_gemm(xq, noisy.npu_wq)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for (noisy, _x, _r), pg, xq in zip(mats, pages, xqs):
+            ecc_decode(pg, noisy.ecc)
+            int8_gemm(xq, noisy.flash_wq)
+            int8_gemm(xq, noisy.npu_wq)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    b5 = _device_ms(prof, ("ecc_decode",))
+    b2 = _device_ms(prof, ("int8_gemv",))
+    b5_bound = flash_pages * (2 * 16384 + 9 + 7 * 163) / HBM_BYTES_PER_S * 1e3
+    b2_bound = total_bytes / HBM_BYTES_PER_S * 1e3
+    fmt = lambda t: "not measured" if t is None else f"{t:.3f} ms"  # noqa: E731
+    log(f"[hybrid] one sweep over {len(mats)} matrices (torch.profiler device "
+        f"time): B5 ecc_decode {fmt(b5)} (bound {b5_bound:.3f} ms, "
+        f"{flash_pages} pages), B2 int8_gemv {fmt(b2)} over "
+        f"{2 * len(mats)} launches (bound {b2_bound:.3f} ms, "
+        f"{total_bytes / 1e9:.3f} GB); host wall {wall * 1e3:.1f} ms")
+    del mats, ys, pages, xqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ECC resilience at full width, W8A8
+    t0 = time.monotonic()
+    (ber, a_ecc, a_raw), = resilience(
+        "llama2-7b", reduced=False, device="cuda", seed=0, bers=(HYBRID_BER,),
+        dtype=torch.bfloat16)
+    log(f"[hybrid] ecc_resilience llama2-7b full width W8A8, 4x24 tokens, "
+        f"BER {ber:g}: top-1 agreement with ECC {a_ecc:.1%}, without ECC "
+        f"{a_raw:.1%} ({time.monotonic() - t0:.1f} s)")
+    if a_ecc < a_raw:
+        raise AssertionError("ECC's top-1 agreement is below the raw one")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_serve_w4a16(torch) -> dict:
+    """llama2-7b at full width with a W4A16 lm_head (W8A8 layers) through
+    launch/serve.py's build_client; returns the launch counts of the run."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.launch.serve import build_client
+    from repro_torch.models import model as M
+
+    t0 = time.monotonic()
+    cfg, client = build_client("llama2-7b", reduced=False, quant="w4a16",
+                               max_batch=4, max_seq=512, seed=1,
+                               device="cuda")
+    torch.cuda.synchronize()
+    core = client.router.cores[0]
+    if set(core.params["lm_head"]) != {"w_p4", "scale4"}:
+        raise AssertionError("the W4A16 model's lm_head is not W4A16")
+    log(f"[serve_w4a16] llama2-7b full width, W8A8 layers + W4A16 lm_head, "
+        f"built in {time.monotonic() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    rng = np.random.RandomState(1)
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+               for n in rng.randint(32, 257, size=4)]
+    ref_cache = M.init_paged_cache(cfg, 1, 512, device="cuda")
+    ref_cache["block"] = torch.arange(1, 33, dtype=torch.int32,
+                                      device="cuda")[None]
+    p0 = prompts[0]
+    ref_logits, _ = M.prefill_into_slots(
+        core.params, cfg, torch.tensor([p0], device="cuda"),
+        torch.tensor([len(p0)], device="cuda"), ref_cache,
+        torch.tensor([0], device="cuda"))
+    top2 = torch.topk(ref_logits[0], 2).values
+    ref_tok = int(torch.argmax(ref_logits[0]))
+    margin = float(top2[0] - top2[1])
+    del ref_cache
+    handles = [client.submit(p, max_new_tokens=16) for p in prompts]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    client.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = kernels.launch_counts()
+    for h in handles:
+        toks = h.request.out_tokens
+        if not h.finished or h.finish_reason != "length" or len(toks) != 16 \
+                or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"request {h.rid}: finished={h.finished} "
+                                 f"reason={h.finish_reason} n={len(toks)}")
+    first = handles[0].request.out_tokens[0]
+    stats = core.stats
+    log(f"[serve_w4a16] 4 requests x 16 tokens in {wall:.2f} s "
+        f"(decode {stats.wall_decode_s * 1e3 / max(stats.decode_steps, 1):.2f}"
+        f" ms per step); direct prefill's token {ref_tok} (top-2 margin "
+        f"{margin:.4f}), engine's first token {first}; launches {counts}")
+    if margin > 1e-3 and first != ref_tok:
+        raise AssertionError("engine's first token disagrees with a direct "
+                             "prefill of the same prompt")
+    missing = [k for k in ("w4a16_gemv", "int8_gemv", "int8_gemm",
+                           "paged_decode_attention", "flash_attention")
+               if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"the W4A16 serving path never launched "
+                             f"{missing}")
+    del client, core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="card,build,kernels,model,serve,profile")
+                    default="card,build,kernels,model,serve,profile,hybrid,"
+                            "serve_w4a16")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -599,16 +1030,25 @@ def main(argv=None) -> int:
         phase_kernels(torch, results)
     if "model" in phases:
         phase_model(torch)
-    counts = None   # launch counts are read only around the serve phase's run
+    # launch counts are read only around each owning phase's run
+    counts: dict[str, dict] = {}
     if "serve" in phases:
-        counts, client = phase_serve(torch)
+        counts["serve"], client = phase_serve(torch)
         if "profile" in phases:
             phase_profile(torch, client)
+        del client
+        __import__("gc").collect()
+        torch.cuda.empty_cache()
+    if "hybrid" in phases:
+        counts["hybrid"] = phase_hybrid(torch)
+    if "serve_w4a16" in phases:
+        counts["serve_w4a16"] = phase_serve_w4a16(torch)
     rows = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]
+        launches = counts.get(COUNTED_IN[name], {}).get(name)
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": None if counts is None else counts[name],
+                     "replaces": replaces, "launches": launches,
                      "max_abs_err": r.get("max_abs_err"),
                      "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),

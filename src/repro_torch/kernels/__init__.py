@@ -12,10 +12,13 @@ from __future__ import annotations
 
 def _counters() -> list[dict]:
     from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.ecc_decode import ops as ecc_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.int8_pagegemv import ops as int8_ops
+    from repro_torch.kernels.w4a16_gemv import ops as w4_ops
 
-    return [int8_ops.LAUNCHES, decode_ops.LAUNCHES, flash_ops.LAUNCHES]
+    return [int8_ops.LAUNCHES, decode_ops.LAUNCHES, flash_ops.LAUNCHES,
+            w4_ops.LAUNCHES, ecc_ops.LAUNCHES]
 
 
 def launch_counts() -> dict[str, int]:

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("common.cu", "int8_gemm.cu", "decode_attention.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "ecc_decode.cu", "w4a16_gemv.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libreprokernels.so"
@@ -42,6 +42,9 @@ SIGNATURES = {
                                      _I, _I, _I, _F, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                               ctypes.POINTER(ctypes.c_longlong), _F, _P],
+    "repro_ecc_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_w4a16_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "repro_w4a16_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

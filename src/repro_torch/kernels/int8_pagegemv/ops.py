@@ -5,6 +5,13 @@ A CPU tensor takes the plain version (``ref.int8_gemm_ref``); a CUDA tensor
 launches the kernel: the weight-streaming GeMV variant for M <= 8 (decode),
 the tiled variant otherwise (prefill).  ``LAUNCHES`` counts each variant's
 launches.
+
+``paged_int8_gemv(w_q, scale, x)`` is the counterpart of the JAX front end
+``repro.kernels.int8_pagegemv.ops.paged_int8_gemv``: x is ``[w]`` or
+``[w, b]``, quantized per column, multiplied by the kernel above and
+dequantized by ``scale[h] (x) x_scale[b]``.  The Pallas kernel's page
+tiling (``tile_h`` / ``tile_w``) only shapes the TPU grid; the sums are
+exact integers either way, so the port takes no tile arguments.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.int8_pagegemv.ref import int8_gemm_ref
+from repro_torch.quant.int8 import quantize_activation
 
 GEMV_MAX_M = 8
 LAUNCHES = {"int8_gemv": 0, "int8_gemm": 0}
@@ -51,3 +59,21 @@ def int8_gemm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     build.check(status, name)
     LAUNCHES[name] += 1
     return out
+
+
+def paged_int8_gemm(w_q: torch.Tensor, x_q: torch.Tensor) -> torch.Tensor:
+    """int32[h, b] = int8[h, w] @ int8[w, b], through ``int8_gemm``."""
+    return int8_gemm(x_q.T.contiguous(), w_q).T
+
+
+def paged_int8_gemv(w_q: torch.Tensor, scale: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """W8A8 GeMV/GeMM: w_q int8 [h, w], scale f32 [h], x float [w] or
+    [w, b] -> f32 [h] or [h, b]."""
+    squeeze = x.dim() == 1
+    if squeeze:
+        x = x[:, None]
+    x_q, x_scale = quantize_activation(x)
+    acc = paged_int8_gemm(w_q, x_q).float()
+    y = acc * scale[:, None] * x_scale[None, :]
+    return y[:, 0] if squeeze else y

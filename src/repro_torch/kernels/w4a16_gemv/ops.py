@@ -1,0 +1,80 @@
+"""Wrapper of the W4A16 product kernel (``csrc/w4a16_gemv.cu``, B4).
+
+``w4a16_gemm(x, w_p4, scale4)`` computes ``f32[M, N] = x[M, K] .
+dequant(w_p4 [N, K/2], scale4 [N, ceil(K/g)])^T`` with g = min(128, K):
+the low nibble of byte j is column 2j, the high nibble column 2j+1, each
+stored plus 8.  A CPU tensor takes the plain version
+(``ref.w4a16_gemm_ref``); a CUDA tensor launches the kernel, the
+weight-streaming GeMV variant for M <= 8 (decode) and a tiled variant
+above, or raises.  ``LAUNCHES`` counts the launches of both variants.
+
+``w4a16_gemv(q, x)`` is the counterpart of the JAX front end
+``repro.kernels.w4a16_gemv.ops.w4a16_gemv``: x ``[w]`` or ``[w, b]`` ->
+f32 ``[h]`` or ``[h, b]``.  The Pallas tiling (``tile_h`` / ``tile_w``)
+only shapes the TPU grid, so the port takes no tile arguments.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.w4a16_gemv.ref import w4a16_gemm_ref
+from repro_torch.quant.int4 import GROUP, QuantizedLinear4
+
+GEMV_MAX_M = 8
+LAUNCHES = {"w4a16_gemv": 0}
+
+
+def w4a16_gemm(x: torch.Tensor, w_p4: torch.Tensor,
+               scale4: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return w4a16_gemm_ref(x, w_p4, scale4)
+    if x.device.type != "cuda" or w_p4.device != x.device \
+            or scale4.device != x.device:
+        raise ValueError(f"w4a16_gemm: operands on {x.device}, "
+                         f"{w_p4.device}, {scale4.device}")
+    if x.dtype != torch.float32 or w_p4.dtype != torch.uint8 \
+            or scale4.dtype != torch.float32:
+        raise TypeError(f"w4a16_gemm takes f32 x, uint8 w_p4, f32 scale4; "
+                        f"got {x.dtype}, {w_p4.dtype}, {scale4.dtype}")
+    if x.dim() != 2 or w_p4.dim() != 2 or x.shape[1] != 2 * w_p4.shape[1]:
+        raise ValueError(f"w4a16_gemm shapes {tuple(x.shape)} . "
+                         f"{tuple(w_p4.shape)} (packed)^T do not contract")
+    m, k = x.shape
+    n = w_p4.shape[0]
+    g = min(GROUP, k)
+    ng = -(-k // g)
+    if tuple(scale4.shape) != (n, ng):
+        raise ValueError(f"w4a16_gemm: scale4 {tuple(scale4.shape)}, "
+                         f"expected {(n, ng)}")
+    if not (x.is_contiguous() and w_p4.is_contiguous()
+            and scale4.is_contiguous()):
+        raise ValueError("w4a16_gemm takes contiguous operands")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0 or k == 0:
+        return out.zero_()
+    lib = build.library()
+    stream = build.stream_handle(x.device)
+    if m <= GEMV_MAX_M:
+        vec = int(k % 8 == 0 and g % 8 == 0 and x.data_ptr() % 16 == 0
+                  and w_p4.data_ptr() % 4 == 0)
+        status = lib.repro_w4a16_gemv(x.data_ptr(), w_p4.data_ptr(),
+                                      scale4.data_ptr(), out.data_ptr(), m,
+                                      n, k, g, ng, vec, stream)
+    else:
+        status = lib.repro_w4a16_gemm(x.data_ptr(), w_p4.data_ptr(),
+                                      scale4.data_ptr(), out.data_ptr(), m,
+                                      n, k, g, ng, stream)
+    build.check(status, "w4a16_gemv")
+    LAUNCHES["w4a16_gemv"] += 1
+    return out
+
+
+def w4a16_gemv(q: QuantizedLinear4, x: torch.Tensor) -> torch.Tensor:
+    """W4A16 GeMV/GeMM: x [w] or [w, b] float -> f32 [h] or [h, b]."""
+    squeeze = x.dim() == 1
+    if squeeze:
+        x = x[:, None]
+    y = w4a16_gemm(x.T.float().contiguous(), q.w_packed, q.scale).T
+    return y[:, 0] if squeeze else y

@@ -2,8 +2,10 @@
 
 Counterpart of ``repro.launch.serve``: builds the model (random weights
 from a seeded ``torch.Generator`` on the device), quantizes it to W8A8 by
-default, puts ``--replicas`` engine replicas behind a router and serves
-``--requests`` random prompts, greedy.  ``--device`` defaults to ``cuda``;
+default (``--quant w4a16``: W4A16 where the JAX launcher makes it, which on
+the dense family is the ``lm_head``, the layers staying W8A8), puts
+``--replicas`` engine replicas behind a router and serves ``--requests``
+random prompts, greedy.  ``--device`` defaults to ``cuda``;
 ``--device cpu`` runs the plain PyTorch versions of the kernels.
 
   python src/repro_torch/launch/serve.py --arch smollm-360m --requests 8 \\
@@ -11,7 +13,7 @@ default, puts ``--replicas`` engine replicas behind a router and serves
 
 Flags of the JAX driver whose features are not ported yet (fleet workers,
 overlap, prefix cache, int8 KV, wave mode, chunked prefill, stochastic
-sampling, w4a16) exit with a message naming what is missing.  Replicas never
+sampling) exit with a message naming what is missing.  Replicas never
 migrate slots (migration is not ported), so there is no ``--no-migrate``.
 """
 
@@ -43,18 +45,18 @@ def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
                  policy: str = "fcfs", seed: int = 0, eos_id: int = -1,
                  device: str = "cuda") -> tuple[ModelConfig, ServingClient]:
     """The model and serving stack the driver serves: ``init_params`` on
-    the device from ``seed``, W8A8 quantization matrix by matrix (each bf16
-    matrix freed as it goes), then a ServingClient over ``replicas``
+    the device from ``seed``, W8A8 or W4A16 quantization matrix by matrix
+    (each bf16 matrix freed as it goes), then a ServingClient over ``replicas``
     engines."""
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
     params = model_lib.init_params(cfg, seed=seed, max_seq=max_seq,
                                    device=device)
-    if quant == "w8a8":
-        params = quantize_params(params, consume=True)
+    if quant in ("w8a8", "w4a16"):
+        params = quantize_params(params, consume=True, mode=quant)
     elif quant != "none":
-        raise NotImplementedError(f"--quant {quant} is not ported yet")
+        raise ValueError(f"unknown quantization {quant!r}")
     client = ServingClient(
         cfg, params, replicas=replicas, route=route, seed_base=seed,
         max_batch=max_batch, max_seq=max_seq, eos_id=eos_id,
@@ -79,8 +81,6 @@ def _unported(args) -> list[str]:
         out.append("--chunk-prefill (paged-chunk flash attention)")
     if args.temperature > 0.0:
         out.append("--temperature > 0 (threefry sampler)")
-    if args.quant == "w4a16":
-        out.append("--quant w4a16 (w4a16 GeMV kernel)")
     return out
 
 

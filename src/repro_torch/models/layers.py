@@ -1,4 +1,4 @@
-"""Shared model layers: norms, RoPE, linear (float or W8A8), MLP.
+"""Shared model layers: norms, RoPE, linear (float, W8A8 or W4A16), MLP.
 
 PyTorch counterparts of ``repro.models.layers``, formula for formula, so
 that the same inputs give the same numbers up to float rounding order (and
@@ -12,6 +12,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.int8_pagegemv.ops import int8_gemm
+from repro_torch.kernels.w4a16_gemv.ops import w4a16_gemm
+from repro_torch.quant.int8 import INV127
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -32,8 +34,10 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Linear: params are {"w": [in, out] float} or the W8A8 form
-# {"w_q": int8 [out, in], "scale": f32 [out]} (+ optional {"b": [out]}).
+# Linear: params are {"w": [in, out] float}, the W8A8 form
+# {"w_q": int8 [out, in], "scale": f32 [out]}, or the W4A16 form
+# {"w_p4": uint8 [out, in//2], "scale4": f32 [out, ng]}
+# (+ optional {"b": [out]} on any of them).
 # ---------------------------------------------------------------------------
 
 
@@ -41,8 +45,7 @@ def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
     if "w_q" in params:
         y = _w8a8_matmul(params["w_q"], params["scale"], x)
     elif "w_p4" in params:
-        raise NotImplementedError(
-            "W4A16 weights need the w4a16 GeMV kernel, not ported yet")
+        y = _w4a16_matmul(params["w_p4"], params["scale4"], x)
     else:
         y = x @ params["w"].to(x.dtype)
     if "b" in params:
@@ -53,12 +56,18 @@ def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
 def _w8a8_matmul(w_q: torch.Tensor, scale: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
     """y[..., out] = dequant(int8 matmul), with per-token dynamic activation
-    quantization: one scale per row of x, absmax over the feature axis
-    divided by 127.0 (a true division, as ``_w8a8_matmul`` spells it).
-    The int8 x int8 -> int32 product is the B2 kernel on CUDA."""
+    quantization: one scale per row of x, absmax over the feature axis.
+
+    The JAX source spells the scale ``absmax / 127.0``, but the JAX engine
+    only ever runs it under ``jit`` (its layers sit inside ``lax.scan``),
+    where XLA rewrites a division by a constant as a multiply by the
+    float32 reciprocal; the two differ in the last bit for ~4.5% of
+    inputs.  The port computes what the jitted engine computes:
+    ``absmax * float32(1/127)``.  The int8 x int8 -> int32 product is the
+    B2 kernel on CUDA."""
     xf = x.float()
     absmax = torch.clamp_min(xf.abs().amax(-1, keepdim=True), 1e-8)
-    x_scale = absmax / 127.0
+    x_scale = absmax * INV127
     x_q = torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8)
     lead = x.shape[:-1]
     acc = int8_gemm(x_q.reshape(-1, x.shape[-1]), w_q).reshape(
@@ -67,11 +76,33 @@ def _w8a8_matmul(w_q: torch.Tensor, scale: torch.Tensor,
     return y.to(x.dtype)
 
 
+def _w4a16_matmul(w_p4: torch.Tensor, scale4: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """y[..., out] = float32 x @ dequantized W4 weights, cast to x's dtype
+    (the JAX layer dequantizes and multiplies; the B4 kernel on CUDA
+    computes the same product with the nibbles unpacked in registers)."""
+    lead = x.shape[:-1]
+    y = w4a16_gemm(x.reshape(-1, x.shape[-1]).float().contiguous(), w_p4,
+                   scale4)
+    return y.reshape(*lead, w_p4.shape[0]).to(x.dtype)
+
+
+def _w4a16_weight(w_p4: torch.Tensor, scale4: torch.Tensor) -> torch.Tensor:
+    """Dequantize packed-nibble W4 weights to f32 [in, out]."""
+    from repro_torch.quant.int4 import QuantizedLinear4, dequantize4
+
+    q = QuantizedLinear4(w_packed=w_p4, scale=scale4, h=w_p4.shape[0],
+                         w=2 * w_p4.shape[1])
+    return dequantize4(q).T
+
+
 def dense_weight(params: dict) -> torch.Tensor:
     """Materialize the float [in, out] weight of a (possibly quantized)
     linear."""
     if "w" in params:
         return params["w"]
+    if "w_p4" in params:
+        return _w4a16_weight(params["w_p4"], params["scale4"])
     return (params["w_q"].float() * params["scale"][:, None].float()).T
 
 

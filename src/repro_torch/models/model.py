@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.models.model`` for the paged serving path:
 
-    init_params(cfg, seed, max_seq, device)                  -> params
+    init_params(cfg, seed, max_seq, device, dtype)           -> params
+    forward(params, cfg, tokens)                    -> logits [B, S, V]
     init_paged_cache(cfg, slots, max_seq, dtype, page_size, num_pages,
                      device)                                 -> cache
     prefill_into_slots(params, cfg, tokens, true_lens, cache, slot_ids)
@@ -27,7 +28,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
-from repro_torch.models.layers import dense_weight, ffn, init_ffn, init_linear
+from repro_torch.models.layers import (_w4a16_matmul, dense_weight, ffn,
+                                       init_ffn, init_linear)
 
 # ---------------------------------------------------------------------------
 # init
@@ -50,15 +52,15 @@ def _init_dense_layer(gen, cfg: ModelConfig, dtype, device) -> dict:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, max_seq: int = 4096,
-                device: str | torch.device = "cuda") -> dict:
-    """Random bf16 weights with the JAX package's distributions (normal *
-    0.02 embeddings, normal / sqrt(d_in) linears, unit norms), drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``.  The bits differ
-    from ``jax.random``'s; parity tests carry JAX weights over with
-    ``repro_torch.bridge`` instead."""
+                device: str | torch.device = "cuda",
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Random weights (bf16 by default) with the JAX package's
+    distributions (normal * 0.02 embeddings, normal / sqrt(d_in) linears,
+    unit norms), drawn from a ``torch.Generator`` seeded with ``seed`` on
+    ``device``.  The bits differ from ``jax.random``'s; parity tests carry
+    JAX weights over with ``repro_torch.bridge`` instead."""
     _check_family(cfg)
     dev = resolve_device(device)
-    dtype = torch.bfloat16
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     p: dict = {}
@@ -78,11 +80,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, max_seq: int = 4096,
 
 
 def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """float32 logits; a W8A8 head is dequantized to float32 first, as the
-    JAX package does, and multiplied outside any kernel."""
+    """float32 logits.  A W4A16 head goes through the B4 kernel on CUDA
+    (the product of float32 x with the dequantized weights, which the JAX
+    package materializes first); a float or W8A8 head is dequantized to
+    float32, as the JAX package does, and multiplied outside any kernel."""
     if cfg.tie_embeddings:
         return x.float() @ params["embed"].float().T
-    return x.float() @ dense_weight(params["lm_head"]).float()
+    head = params["lm_head"]
+    if "w_p4" in head:
+        return _w4a16_matmul(head["w_p4"], head["scale4"], x.float())
+    return x.float() @ dense_weight(head).float()
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +110,21 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.rope_mode == "learned":
         x = x + params["pos_embed"][:x.shape[1]][None]
     return x
+
+
+def forward(params: dict, cfg: ModelConfig,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced full-sequence logits f32 [B, S, V] (the dense branch
+    of the JAX ``forward``): every position attends causally to its
+    prefix through the B3 kernel on CUDA."""
+    _check_family(cfg)
+    x = _embed(params, cfg, tokens)
+    b, s = x.shape[0], x.shape[1]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for lp in params["layers"]:
+        x, _ = _dense_layer_full(lp, x, cfg, positions)
+    x = blocks.norm(cfg, params["final_norm"], x)
+    return lm_head(params, cfg, x)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,9 @@ file imports no JAX, so it runs on a machine with a card and PyTorch only:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances: the int8 product is integer arithmetic, bit-exact; the
+Tolerances: the int8 product and the ECC decode are integer arithmetic,
+bit-exact; the W4A16 product sums float32 products in another order than
+its plain version: |got - ref| <= 1e-5 (|x| @ |W|^T) + 1e-6; the
 attention kernels and their plain versions both accumulate in float32 and
 round once to bf16, so they round to the same or adjacent bf16 values: each
 output must lie within two bf16 steps of the reference value, plus 1e-5 for
@@ -23,6 +25,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.int8_pagegemv.ops import int8_gemm
 from repro_torch.kernels.int8_pagegemv.ref import int8_gemm_ref
+from repro_torch.kernels.w4a16_gemv.ops import w4a16_gemm
+from repro_torch.kernels.w4a16_gemv.ref import w4a16_gemm_ref
 
 BF16_STEPS = 2
 F32_NOISE = 1e-5
@@ -105,7 +109,8 @@ def test_flash_attention_on_card(cuda_device, b, s, h, hkv, d):
 @pytest.mark.gpu
 def test_engine_on_card_launches_every_kernel(cuda_device):
     """The reduced llama2-7b W8A8 engine on the card: requests complete,
-    tokens are in range, and the path went through all three kernels."""
+    tokens are in range, and the path went through B1, B2 (both variants)
+    and B3."""
     from repro_torch.launch.serve import build_client
 
     cfg, client = build_client("llama2-7b", reduced=True, max_seq=128,
@@ -119,5 +124,70 @@ def test_engine_on_card_launches_every_kernel(cuda_device):
         toks = h.request.out_tokens
         assert h.finish_reason == "length" and len(toks) == 6
         assert all(0 <= t < cfg.vocab_size for t in toks)
-    assert all(n > 0 for n in kernels.launch_counts().values()), \
-        kernels.launch_counts()
+    counts = kernels.launch_counts()
+    serving = ("int8_gemv", "int8_gemm", "paged_decode_attention",
+               "flash_attention")   # B4 and B5 are off the W8A8 path
+    assert all(counts[k] > 0 for k in serving), counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ber", [0.0, 1e-4, 2e-3])
+def test_ecc_decode_bit_exact_on_card(cuda_device, ber):
+    """B5 against its plain version on 512 random int8 pages corrupted
+    (pages and sidecars) at ``ber``: equal on every position, collisions
+    included (both apply the entries in order, the last one winning)."""
+    from repro_torch.core import ecc
+    from repro_torch.kernels.ecc_decode.ops import ecc_decode
+
+    gen = torch.Generator(device=cuda_device).manual_seed(int(ber * 1e5))
+    pages = torch.randint(0, 256, (512, ecc.PAGE_ELEMS), generator=gen,
+                          device=cuda_device, dtype=torch.uint8)
+    code = ecc.encode_pages(pages)
+    noisy = ecc.inject_bitflips(pages, ber, gen)
+    code = ecc.inject_ecc_bitflips(code, ber, gen)
+    got = ecc_decode(noisy, code)
+    ref = ecc.decode_pages(noisy, code)
+    assert torch.equal(got, ref), int((got != ref).sum())
+    if ber == 0.0:
+        assert torch.equal(got, pages)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [
+    (4, 4096, 32000),   # llama2-7b lm_head at decode, vector path
+    (4, 960, 2048),     # smollm width: 7.5 groups
+    (3, 100, 70),       # ragged K (g = 100): byte-wise path
+    (20, 4096, 300),    # M > 8: tiled variant
+])
+def test_w4a16_gemm_on_card(cuda_device, m, k, n):
+    from repro_torch.quant.int4 import dequantize4, quantize_weight4
+
+    gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    w = torch.randn((n, k), generator=gen, device=cuda_device) * 0.05
+    q = quantize_weight4(w)
+    x = torch.randn((m, k), generator=gen, device=cuda_device)
+    got = w4a16_gemm(x, q.w_packed, q.scale)
+    ref = w4a16_gemm_ref(x, q.w_packed, q.scale)
+    bound = 1e-5 * (x.abs() @ dequantize4(q).abs().T) + 1e-6
+    err = (got - ref).abs()
+    assert bool((err <= bound).all()), float((err / bound).max())
+
+
+@pytest.mark.gpu
+def test_w4a16_engine_launches_its_kernel(cuda_device):
+    """The reduced llama2-7b engine with ``quant="w4a16"`` (W8A8 layers, a
+    W4A16 lm_head) serves on the card through the B4 kernel."""
+    from repro_torch.launch.serve import build_client
+
+    cfg, client = build_client("llama2-7b", reduced=True, quant="w4a16",
+                               max_seq=128, device="cuda")
+    assert "w_p4" in client.router.cores[0].params["lm_head"]
+    handles = [client.submit([5 + i, 11, 42] * (i + 1), max_new_tokens=5)
+               for i in range(4)]
+    kernels.reset_launch_counts()
+    client.run()
+    torch.cuda.synchronize()
+    for h in handles:
+        assert h.finish_reason == "length" and len(h.request.out_tokens) == 5
+    counts = kernels.launch_counts()
+    assert counts["w4a16_gemv"] > 0 and counts["int8_gemv"] > 0, counts

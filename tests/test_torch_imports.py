@@ -23,8 +23,11 @@ def _port_modules() -> list[str]:
 
 def test_port_imports_neither_jax_nor_repro():
     mods = _port_modules()
-    assert "repro_torch.serving.core" in mods
-    assert "repro_torch.launch.serve" in mods
+    for m in ("serving.core", "launch.serve", "core.ecc", "core.hybrid_gemv",
+              "core.hw", "core.tiling", "quant.int4", "quant.int8",
+              "kernels.ecc_decode.ops", "kernels.w4a16_gemv.ops",
+              "examples.quickstart", "examples.ecc_resilience"):
+        assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -55,7 +58,8 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
 
 
 @pytest.mark.parametrize("entry", ["init_params", "EngineCore",
-                                   "ServingClient", "serve"])
+                                   "ServingClient", "serve", "quickstart",
+                                   "ecc_resilience"])
 def test_entry_points_raise_without_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the no-card path is not taken")
@@ -73,9 +77,15 @@ def test_entry_points_raise_without_a_card(entry):
         elif entry == "ServingClient":
             from repro_torch.serving.client import ServingClient
             ServingClient(cfg, params)
-        else:
+        elif entry == "serve":
             from repro_torch.launch.serve import main
             main(["--requests", "1"])
+        elif entry == "quickstart":
+            from repro_torch.examples.quickstart import main
+            main(["--reduced", "1"])
+        else:
+            from repro_torch.examples.ecc_resilience import main
+            main([])
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -54,13 +54,38 @@ def test_int8_gemm_bit_exact_vs_pallas(m, k, n):
     np.testing.assert_array_equal(got, ref)
 
 
+def _scale_splitting_absmax(dtype, n):
+    """``n`` absmax values a (representable in ``dtype``) whose eager scale
+    ``a / 127.0`` and jitted scale ``a * float32(1/127)`` differ, and
+    differ enough that a/2 (a rounding tie, 63.5) takes another code."""
+    rng = np.random.RandomState(5)
+    cand = (rng.rand(20000) * 6.0 + 0.5).astype(np.float32)
+    if dtype == "bfloat16":
+        cand = np.asarray(jnp.asarray(cand).astype(jnp.bfloat16)
+                          .astype(jnp.float32))
+    eager = cand / np.float32(127.0)
+    jitted = cand * np.float32(1.0 / 127.0)
+    half = cand / np.float32(2.0)
+    split = cand[np.round(half / eager) != np.round(half / jitted)]
+    return split[:n]
+
+
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
 def test_w8a8_matmul_matches_jax(dtype):
-    """The port's ``_w8a8_matmul``: activation codes and the int32
-    accumulator bit-exact against the JAX formula, output equal."""
+    """The port's ``_w8a8_matmul`` against the JAX one as the JAX engine
+    runs it, under ``jax.jit``: activation codes, the int32 accumulator and
+    the output bit-exact.  The first rows' absmax values a are chosen so
+    that the eager ``absmax / 127.0`` and the jitted reciprocal multiply
+    give different scales, and each such row also holds a/2, whose code
+    then differs between the two; the test checks that they do."""
     rng = np.random.RandomState(0)
     xf = (rng.randn(3, 5, 96) * 2.0).astype(np.float32)
     wf = (rng.randn(96, 80) * 0.1).astype(np.float32)
+    split = _scale_splitting_absmax(dtype, 5)
+    assert len(split) == 5
+    xf[0] = np.clip(xf[0], -0.4, 0.4)
+    xf[0, np.arange(5), np.arange(5) * 7] = split * np.array([1, -1, 1, -1, 1])
+    xf[0, np.arange(5), np.arange(5) * 7 + 3] = split / 2
     jx = jnp.asarray(xf).astype(jnp.bfloat16 if dtype == "bfloat16"
                                 else jnp.float32)
     from repro.quant.convert import _quantize_w as jquant
@@ -71,20 +96,31 @@ def test_w8a8_matmul_matches_jax(dtype):
     np.testing.assert_array_equal(tq["w_q"].numpy(), np.asarray(jq["w_q"]))
     np.testing.assert_array_equal(tq["scale"].numpy(), np.asarray(jq["scale"]))
     tx = _to_torch(np.asarray(jx))
-    # the JAX formula spelled out eagerly: per-token absmax / 127.0
-    jxf = jx.astype(jnp.float32)
-    jscale = jnp.maximum(jnp.max(jnp.abs(jxf), -1, keepdims=True), 1e-8) / 127.0
-    jxq = jnp.clip(jnp.round(jxf / jscale), -127, 127).astype(jnp.int8)
-    jacc = jax.lax.dot_general(jxq, jq["w_q"], (((2,), (1,)), ((), ())),
-                               preferred_element_type=jnp.int32)
+
+    def codes(x):   # the JAX formula of _w8a8_matmul, to be run jitted
+        xf32 = x.astype(jnp.float32)
+        absmax = jnp.maximum(jnp.max(jnp.abs(xf32), -1, keepdims=True), 1e-8)
+        scale = absmax / 127.0
+        xq = jnp.clip(jnp.round(xf32 / scale), -127, 127).astype(jnp.int8)
+        return xq, scale
+
+    jxq, jscale = jax.jit(codes)(jx)
+    eager_xq, eager_scale = codes(jx)
+    assert (np.asarray(eager_scale)[0, :5] != np.asarray(jscale)[0, :5]).all()
+    assert (np.asarray(eager_xq)[0, :5] != np.asarray(jxq)[0, :5]).any(-1).all()
+    jacc = jax.jit(lambda xq, wq: jax.lax.dot_general(
+        xq, wq, (((2,), (1,)), ((), ())),
+        preferred_element_type=jnp.int32))(jxq, jq["w_q"])
     txf = tx.float()
-    tscale = torch.clamp_min(txf.abs().amax(-1, keepdim=True), 1e-8) / 127.0
+    tscale = torch.clamp_min(txf.abs().amax(-1, keepdim=True), 1e-8) \
+        * tlayers.INV127
+    np.testing.assert_array_equal(tscale.numpy(), np.asarray(jscale))
     txq = torch.clamp(torch.round(txf / tscale), -127, 127).to(torch.int8)
     np.testing.assert_array_equal(txq.numpy(), np.asarray(jxq))
     tacc = int8_gemm(txq.reshape(-1, 96), tq["w_q"]).reshape(3, 5, 80)
     np.testing.assert_array_equal(tacc.numpy(), np.asarray(jacc))
     got = tlayers._w8a8_matmul(tq["w_q"], tq["scale"], tx)
-    ref = jlayers._w8a8_matmul(jq["w_q"], jq["scale"], jx)
+    ref = jax.jit(jlayers._w8a8_matmul)(jq["w_q"], jq["scale"], jx)
     np.testing.assert_array_equal(_np(got), np.asarray(ref, np.float32))
 
 

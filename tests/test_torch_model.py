@@ -7,11 +7,12 @@ the prefill logits and every decode step's logits.
 
 Tolerance: float32 weights, float32 page pools, logits of unit scale.
 Float params: atol 1e-4 (float32 sums run in another order; measured
-differences are ~2e-6).  W8A8 params: atol 5e-3.  The JAX model
-runs its layers under ``lax.scan``, where XLA rewrites the activation
-scale ``absmax / 127.0`` as a multiply by the float32 reciprocal; the
-port divides, as ``_w8a8_matmul`` is written, so a code at a rounding tie
-can differ by one (1/127 of a row's absmax) and move a logit by ~1e-3.
+differences are ~2e-6).  W8A8 params: atol 5e-3.  The activation scale is
+the same on both sides (the port multiplies by the float32 reciprocal, as
+XLA compiles the JAX layers under ``lax.scan``), but the attention and
+norm sums upstream of each linear run in another order, so an activation
+at a rounding tie can take the neighbouring int8 code (1/127 of a row's
+absmax) and move a logit by ~1e-3.
 """
 
 import jax
@@ -120,3 +121,15 @@ def test_prefill_and_decode_logits_match_jax(case):
                        ).astype(np.int32)
     np.testing.assert_allclose(tcache["k"].numpy(), np.asarray(jcache["k"]),
                                rtol=0, atol=ATOL[quant])
+
+
+def test_forward_logits_match_jax(case):
+    """Teacher-forced full-sequence logits (``forward``)."""
+    arch, quant, jcfg, jparams, tparams = case
+    toks = np.random.RandomState(13).randint(0, jcfg.vocab_size, (2, 10)
+                                             ).astype(np.int32)
+    jl = jax.jit(lambda p, t: JM.forward(p, jcfg, t))(jparams, toks)
+    tl = TM.forward(tparams, get_arch(arch).reduced(), torch.from_numpy(toks))
+    assert tl.shape == (2, 10, jcfg.vocab_size)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=ATOL[quant])

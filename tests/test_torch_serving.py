@@ -1,6 +1,7 @@
 """The port's serving stack against the JAX serving stack.
 
-Both engines get the same weights (JAX float32 init, optionally W8A8,
+Both engines get the same weights (JAX float32 init, optionally W8A8 or
+W4A16, which on the dense family is a W4A16 lm_head over W8A8 layers,
 carried over by ``repro_torch.bridge``) and the same trace of mixed-length
 greedy requests, some admitted while others decode.  Every step's
 RequestOutput events (rid, token, progress, finish reason) must be equal,
@@ -34,13 +35,13 @@ MARGIN = 1e-2
 ENG = dict(max_batch=3, max_seq=48, eos_id=-1, page_size=8)
 
 
-@pytest.fixture(scope="module", params=["float", "w8a8"])
+@pytest.fixture(scope="module", params=["float", "w8a8", "w4a16"])
 def models(request):
     jcfg = ASSIGNED_ARCHS["smollm-360m"].reduced()
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0),
                              dtype=jax.numpy.float32, max_seq=64)
-    if request.param == "w8a8":
-        jparams = jquantize(jparams, mode="w8a8")
+    if request.param != "float":
+        jparams = jquantize(jparams, mode=request.param)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
     return jcfg, jparams, get_arch("smollm-360m").reduced(), tparams
 
