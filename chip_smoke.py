@@ -11,21 +11,27 @@ Phases, each printing its own lines:
             for sm_90a, one process per source; prints ptxas's register /
             shared-memory / spill summary per kernel.
 3. kernels  each kernel against its plain PyTorch version on the card, at
-            the llama2-7b shapes of the serving path and the smollm-360m
-            GQA shapes: the int8 product bit-exact, the attention kernels
-            within two bf16 steps of the reference; two planted faults
-            (decode attention given a long lane one token or one page
-            short) must fail that check.  Times each (CUDA events, median),
-            its plain version and one PyTorch library call, beside the
-            least time the card could take (bytes at 3.35 TB/s or
-            operations at the H100's peak, whichever is larger); for the
-            GeMVs and B5 also the device time torch.profiler records,
-            without the host's launch overhead.
-4. model    llama2-7b.reduced() W8A8: the same weights on the card
-            (kernels, bf16), on the CPU (plain versions, bf16) and on the
-            CPU in float32; at prefill and at each of four decode steps
-            the card's logits stay within 1.25x the CPU bf16 run's own
-            distance from float32.
+            the llama2-7b shapes of the serving path, the smollm-360m GQA
+            shapes and zamba2-7b's shared block (head dim 112): the int8
+            product bit-exact, the attention kernels within two bf16 steps
+            of the reference; two planted faults (decode attention given a
+            long lane one token or one page short) must fail that check,
+            at D 128 and D 112.  B6 (ssd_intra_chunk) at the zamba2-7b and
+            mamba2-130m prefill shapes, Q 8 and G 2, against its plain
+            version in float64 within rtol = atol = 1e-4; two planted mask
+            faults (j <= i+1 admitted, the diagonal dropped) must fail.
+            Times each (CUDA events, median), its plain version and one
+            PyTorch library call where one exists, beside the least time
+            the card could take (bytes at 3.35 TB/s or operations at the
+            H100's peak, whichever is larger), and the device time
+            torch.profiler records, without the host's launch overhead.
+4. model    llama2-7b.reduced() and zamba2-7b.reduced(), W8A8: the same
+            weights on the card (kernels, bf16), on the CPU (plain
+            versions, bf16) and on the CPU in float32; at prefill and at
+            each of four decode steps the card's logits stay within 1.25x
+            the CPU bf16 run's own distance from float32.  Then
+            mamba2-130m at full width, W8A8: forward on 2 x 256 tokens
+            under the same gate.
 5. serve    llama2-7b at full width, W8A8, through the port's serving
             driver (launch/serve.py build_client -> ServingClient ->
             Router -> EngineCore): 8 greedy requests with 64-512-token
@@ -50,6 +56,13 @@ Phases, each printing its own lines:
             "w4a16") (W8A8 layers, W4A16 lm_head, as the JAX convert
             makes them): 4 greedy requests; all complete, the first token
             equals a direct prefill's, and B4's launch counter is > 0.
+9. serve_hybrid  zamba2-7b at full width (81 Mamba-2 layers, the shared
+            attention block after every 6), W8A8, through build_client:
+            4 slots, max_seq 1024, page 16, 8 greedy requests with
+            64-512-token prompts, 32 new tokens each.  All complete, the
+            first token equals a direct prefill's, and B6, B1, B2 and B3
+            launched; then torch.profiler over 6 decode steps, as the
+            profile phase does for llama2-7b.
 
 The kernels phase also holds B4 (w4a16_gemv) and B5 (ecc_decode) against
 their plain versions, with two planted faults that must fail (B5 with the
@@ -58,9 +71,10 @@ last sidecar entry's restore skipped, B4 with lo/hi nibbles swapped).
 The last three lines are the kernels JSON, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``; each kernel's ``launches`` is read
 around the run of the phase that owns it (serve for B1-B3, hybrid for
-B5, serve_w4a16 for B4).  Any failure raises and the script exits
-non-zero; without a CUDA device, or without the repository's
-``src/repro_torch`` beside it, it exits non-zero before printing a result.
+B5, serve_w4a16 for B4, serve_hybrid for B6).  Any failure raises and
+the script exits non-zero; without a CUDA device, or without the
+repository's ``src/repro_torch`` beside it, it exits non-zero before
+printing a result.
 """
 
 from __future__ import annotations
@@ -97,11 +111,14 @@ SOURCES = {
                    "src/repro/kernels/w4a16_gemv/w4a16_gemv.py:43"),
     "ecc_decode": ("src/repro_torch/kernels/csrc/ecc_decode.cu",
                    "src/repro/kernels/ecc_decode/ecc_decode.py:53"),
+    "ssd_intra_chunk": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                        "src/repro/kernels/ssd_scan/ssd_scan.py:43"),
 }
 # the phase whose run each kernel's launch count is read around
 COUNTED_IN = {"int8_gemv": "serve", "int8_gemm": "serve",
               "paged_decode_attention": "serve", "flash_attention": "serve",
-              "ecc_decode": "hybrid", "w4a16_gemv": "serve_w4a16"}
+              "ecc_decode": "hybrid", "w4a16_gemv": "serve_w4a16",
+              "ssd_intra_chunk": "serve_hybrid"}
 
 # tolerance of the attention kernels against their plain versions: both
 # accumulate in float32 and round once to bf16; the float32 sums run in
@@ -125,6 +142,12 @@ MODEL_RATIO = 1.25
 # a few float32 roundings of the sum of |products|
 W4_REL, W4_ABS = 1e-5, 1e-6
 W4_TOL = f"{W4_REL} * (|x| @ |W|^T) + {W4_ABS}"
+# B6 against its plain version computed in float64 on the same inputs:
+# the JAX package's own B6 tolerance (tests/test_kernels.py).  float64,
+# because at the model's decays a chunk's cumulative sum reaches |cs| ~ 2e3,
+# where two float32 summation orders differ by ~1e-4 and so move
+# L = exp(cs_i - cs_j) by as much as the tolerance; the kernel sums in double
+SSD_TOL = 1e-4
 HYBRID_BER = 2e-4
 # JAX package's examples/quickstart.py on the CPU, 4096x4096 on
 # Cambricon-LLM-S: relative errors clean / BER 2e-4 with ECC / without
@@ -341,7 +364,8 @@ def phase_kernels(torch, results: dict) -> None:
                               len(ws))
             b_ms, b_by = bound(m * k + n * k + 4 * m * n, 2 * m * n * k,
                                "int8")
-            results[variant].update(ms=ms, plain_ms=plain, library_ms=lib,
+            results[variant].update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                                    library_ms=lib,
                                     bound_ms=b_ms, bound_by=b_by,
                                     shape=f"M={m} K={k} N={n}")
             line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
@@ -353,8 +377,10 @@ def phase_kernels(torch, results: dict) -> None:
 
     # ---- B1: paged decode attention ---------------------------------------
     page = 16
+    timed = ("llama2-7b", "zamba2-7b")   # the JSON row holds llama2-7b's
     for tag, b, h, hkv, d, max_seq, lens in [
             ("llama2-7b", 4, 32, 32, 128, 1024, [1024, 545, 17, 0]),
+            ("zamba2-7b", 4, 32, 32, 112, 1024, [1024, 545, 17, 0]),
             ("smollm-360m", 4, 15, 5, 64, 1024, [700, 64, 1, 0])]:
         pps = max_seq // page
         n_pages = b * pps + 1
@@ -380,10 +406,13 @@ def phase_kernels(torch, results: dict) -> None:
                 f"Hkv={hkv} D={d} lens={lens}: max|err| {err:.3e} "
                 f"(worst |err|/limit {used:.3f}; tol {ATTN_TOL}), length-0 lane "
                 f"finite")
-        if tag == "llama2-7b":
+        if tag in timed:
             _planted_faults(torch, q, kp, vp, block, lengths, ref, page)
             ms = time_ms(torch, lambda i: paged_decode_attention(
                 q, pools[i][0], pools[i][1], block, lengths), n_bufs)
+            dev_ms = profiled_ms(torch, lambda i: paged_decode_attention(
+                q, pools[i][0], pools[i][1], block, lengths),
+                ("paged_decode_attention",), n_bufs)
             plain = time_ms(torch, lambda i: paged_decode_attention_ref(
                 q, pools[i][0], pools[i][1], block, lengths), n_bufs)
             # library yardstick: SDPA over the already-gathered cache with
@@ -401,15 +430,18 @@ def phase_kernels(torch, results: dict) -> None:
             bytes_moved = (2 * b * h * d * 2 + n_tok * hkv * d * 2 * 2
                            + block.numel() * 4 + b * 4)
             b_ms, b_by = bound(bytes_moved, 4 * n_tok * h * d, "bf16")
-            res.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                       bound_by=b_by, shape=f"B={b} H={h} D={d} lens={lens}")
-            line += (f" | {ms:.4f} ms, plain {plain:.4f} ms, SDPA on the "
-                     f"gathered cache {lib:.4f} ms, bound {b_ms:.4f} ms "
-                     f"({b_by})")
+            if tag == "llama2-7b":
+                res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                           library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                           shape=f"B={b} H={h} D={d} lens={lens}")
+            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
+                     f"{plain:.4f} ms, SDPA on the gathered cache {lib:.4f} "
+                     f"ms, bound {b_ms:.4f} ms ({b_by})")
         log(line)
 
     # ---- B3: causal prefill flash attention ---------------------------------
     for tag, b, s, h, hkv, d in [("llama2-7b", 4, 512, 32, 32, 128),
+                                 ("zamba2-7b", 4, 512, 32, 32, 112),
                                  ("smollm-360m", 4, 512, 15, 5, 64),
                                  ("ragged", 2, 200, 8, 2, 128),
                                  ("reduced", 4, 32, 4, 4, 16)]:
@@ -423,8 +455,10 @@ def phase_kernels(torch, results: dict) -> None:
         line = (f"[kernels] flash_attention {tag} B={b} S={s} H={h} Hkv={hkv} "
                 f"D={d}: max|err| {err:.3e} (worst |err|/limit {used:.3f}; tol "
                 f"{ATTN_TOL})")
-        if tag == "llama2-7b":
+        if tag in timed:
             ms = time_ms(torch, lambda i: flash_attention(q, k, v))
+            dev_ms = profiled_ms(torch, lambda i: flash_attention(q, k, v),
+                                 ("flash_attention",))
             plain = time_ms(torch, lambda i: flash_attention_ref(q, k, v))
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
@@ -432,14 +466,18 @@ def phase_kernels(torch, results: dict) -> None:
             bytes_moved = (2 * b * s * h * d + 2 * b * s * hkv * d) * 2
             ops = 4 * b * h * d * s * (s + 1) / 2
             b_ms, b_by = bound(bytes_moved, ops, "bf16")
-            res.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                       bound_by=b_by, shape=f"B={b} S={s} H={h} D={d}")
-            line += (f" | {ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} "
-                     f"ms, bound {b_ms:.4f} ms ({b_by})")
+            if tag == "llama2-7b":
+                res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                           library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                           shape=f"B={b} S={s} H={h} D={d}")
+            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
+                     f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {b_ms:.4f} "
+                     f"ms ({b_by})")
         log(line)
 
     _kernels_ecc(torch, results)
     _kernels_w4a16(torch, results)
+    _kernels_ssd(torch, results)
 
 
 def _kernels_ecc(torch, results: dict) -> None:
@@ -500,7 +538,8 @@ def _kernels_ecc(torch, results: dict) -> None:
             bytes_moved = n * (2 * ecc.PAGE_ELEMS + code.threshold.shape[1]
                                + 4 * k + k + 2 * k)
             b_ms, b_by = bound(bytes_moved, 0, "int8")
-            res.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+            res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                       library_ms=None, bound_ms=b_ms,
                        bound_by=b_by, shape=f"B={n} P={ecc.PAGE_ELEMS} K={k}")
             line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
                      f"{plain:.4f} ms, library n/a (no PyTorch call decodes "
@@ -564,7 +603,8 @@ def _kernels_w4a16(torch, results: dict) -> None:
             ng = q.scale.shape[1]
             bytes_moved = n * k // 2 + n * ng * 4 + m * k * 4 + m * n * 4
             b_ms, b_by = bound(bytes_moved, 2 * m * n * k, "f32")
-            res.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+            res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                       library_ms=None, bound_ms=b_ms,
                        bound_by=b_by, shape=f"M={m} K={k} N={n}")
             line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
                      f"{plain:.4f} ms, library n/a (no PyTorch call "
@@ -573,26 +613,175 @@ def _kernels_w4a16(torch, results: dict) -> None:
         log(line)
 
 
-def phase_model(torch) -> None:
-    from repro_torch.configs.registry import get_arch
-    from repro_torch.models import model as M
-    from repro_torch.quant.convert import quantize_params
+def _ssd_inputs(torch, gen, b, s, h, g, p, n):
+    """Model-like B6 inputs on the card: x and B / C in bf16, a = -A_h dt
+    with A_h = 1..16 over the heads (the model's a_log) and dt =
+    softplus(normal), as the model's log decays are made."""
+    dev = torch.device("cuda")
+    x = torch.randn((b, s, h, p), generator=gen, device=dev).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=dev))
+    a = -torch.linspace(1.0, 16.0, h, device=dev) * dt
+    bm, cm = (torch.randn((b, s, g, n), generator=gen, device=dev).mul(0.5)
+              .to(torch.bfloat16) for _ in range(2))
+    return x, a, bm, cm
 
-    cfg = get_arch("llama2-7b").reduced()
-    params_cpu = quantize_params(M.init_params(cfg, seed=1, device="cpu"))
 
+def _ssd_mask_faults(torch, x, a, bm, cm, chunk, got) -> dict:
+    """What a kernel with a wrong causal mask computes: the kernel's own
+    output plus the j = i+1 term (mask j <= i+1), or minus the diagonal
+    term (mask j < i), in float64."""
+    b, s, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    nc, rep = s // chunk, h // g
+    xr = x.double().reshape(b, nc, chunk, h, p)
+    cs = a.double().reshape(b, nc, chunk, h).cumsum(2)
+    bh, ch = (m.double().repeat_interleave(rep, dim=2).reshape(
+        b, nc, chunk, h, n) for m in (bm, cm))
+    diag = (ch * bh).sum(-1)[..., None] * xr
+    sup = torch.zeros_like(xr)
+    sup[:, :, :-1] = ((ch[:, :, :-1] * bh[:, :, 1:]).sum(-1)
+                      * torch.exp(cs[:, :, :-1] - cs[:, :, 1:]))[..., None] \
+        * xr[:, :, 1:]
+    base = got.double()
+    return {"j <= i+1 admitted": base + sup.reshape(b, s, h, p),
+            "diagonal dropped": base - diag.reshape(b, s, h, p)}
+
+
+def _kernels_ssd(torch, results: dict) -> None:
+    """B6 against its plain version (float64) at the zamba2-7b and
+    mamba2-130m prefill shapes (bucket 512, Q 128), the smallest bucket
+    (Q 8) and two B/C groups, within SSD_TOL; two planted mask faults must
+    fail.  Timed at the zamba2-7b shape."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_model_ref
+
+    gen = torch.Generator(device=torch.device("cuda"))
+    gen.manual_seed(6)
+    res = results["ssd_intra_chunk"]
+    res["max_abs_err"] = 0.0
+    tol = f"rtol = atol = {SSD_TOL} against the float64 plain version"
+    for tag, b, s, h, g, p, n, chunk in [
+            ("zamba2-7b", 4, 512, 112, 1, 64, 64, 128),
+            ("mamba2-130m", 4, 512, 24, 1, 64, 128, 128),
+            ("Q 8", 4, 8, 8, 1, 16, 16, 8),
+            ("G 2", 2, 256, 16, 2, 32, 64, 64)]:
+        n_bufs = 2 if tag == "zamba2-7b" else 1
+        ins = [_ssd_inputs(torch, gen, b, s, h, g, p, n)
+               for _ in range(n_bufs)]
+        x, a, bm, cm = ins[0]
+        got = ssd_intra_chunk(x, a, bm, cm, chunk)
+        ref = ssd_intra_chunk_model_ref(x, a, bm, cm, chunk, torch.float64)
+        ref32 = ssd_intra_chunk_model_ref(x, a, bm, cm, chunk)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"ssd_intra_chunk[{tag}]: non-finite output")
+        limit = SSD_TOL + SSD_TOL * ref.abs()
+        err = (got.double() - ref).abs()
+        if not bool((err <= limit).all()):
+            raise AssertionError(
+                f"ssd_intra_chunk[{tag}]: {int((err > limit).sum())} outputs "
+                f"beyond {tol}, max |err| {err.max().item():.3e}")
+        err32 = (ref32.double() - ref).abs()
+        res["max_abs_err"] = max(res["max_abs_err"], err.max().item())
+        line = (f"[kernels] ssd_intra_chunk {tag} B={b} S={s} H={h} G={g} "
+                f"P={p} N={n} Q={chunk}: max|err| {err.max().item():.3e} "
+                f"(worst |err|/limit {(err / limit).max().item():.3f}; tol "
+                f"{tol}); the float32 plain version's own max|err| "
+                f"{err32.max().item():.3e} (|err|/limit "
+                f"{(err32 / limit).max().item():.3f}), kernel vs it "
+                f"{(got - ref32).abs().max().item():.3e}")
+        if tag == "zamba2-7b":
+            for fault, bad in _ssd_mask_faults(torch, x, a, bm, cm, chunk,
+                                               got).items():
+                e = (bad - ref).abs()
+                caught = int((~(e <= limit)).sum())
+                log(f"[kernels] planted fault, ssd_intra_chunk with the mask "
+                    f"{fault}: {caught} of {e.numel()} outputs beyond the "
+                    f"tolerance")
+                if caught == 0:
+                    raise AssertionError(f"planted fault ({fault}) passes the "
+                                         f"ssd_intra_chunk check")
+            ms = time_ms(torch, lambda i: ssd_intra_chunk(*ins[i], chunk),
+                         n_bufs)
+            dev_ms = profiled_ms(torch, lambda i: ssd_intra_chunk(
+                *ins[i], chunk), ("ssd_intra_chunk",), n_bufs)
+            plain = time_ms(torch, lambda i: ssd_intra_chunk_model_ref(
+                *ins[i], chunk), n_bufs, iters=10)
+            # each input read once, y written once; Q(Q+1)/2 (N + P)
+            # multiply-adds per (batch, head, chunk): the causal half
+            bytes_moved = (b * s * h * p * 2 + b * s * h * 4
+                           + 2 * b * s * g * n * 2 + b * s * h * p * 4)
+            ops = 2 * b * h * (s // chunk) * chunk * (chunk + 1) // 2 * (n + p)
+            b_ms, b_by = bound(bytes_moved, ops, "f32")
+            res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       shape=f"B={b} S={s} H={h} G={g} P={p} N={n} Q={chunk}")
+            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
+                     f"{plain:.4f} ms, library n/a (no PyTorch call computes "
+                     f"the decay-masked product), bound {b_ms:.4f} ms "
+                     f"({b_by}: {ops / 1e9:.2f} GFLOP, "
+                     f"{bytes_moved / 1e6:.1f} MB)")
+        log(line)
+
+
+def _to_runs(torch, params_cpu) -> dict:
+    """The same W8A8 weights three ways: card bf16 (kernels), CPU bf16
+    (plain versions), CPU float32 (plain versions, the yardstick)."""
     def to(tree, dev, f32=False):
         if isinstance(tree, dict):
             return {k: to(v, dev, f32) for k, v in tree.items()}
         if isinstance(tree, list):
             return [to(v, dev, f32) for v in tree]
+        if tree is None:
+            return None
         if f32 and tree.dtype == torch.bfloat16:
             tree = tree.float()
         return tree.to(dev)
 
-    runs = {"cpu": (params_cpu, "cpu", torch.bfloat16),
+    return {"cpu": (params_cpu, "cpu", torch.bfloat16),
             "cuda": (to(params_cpu, "cuda"), "cuda", torch.bfloat16),
             "f32": (to(params_cpu, "cpu", f32=True), "cpu", torch.float32)}
+
+
+def _ratio_gate(torch, tag: str, logits: dict) -> None:
+    """At every step the card's logits must lie within MODEL_RATIO x the
+    CPU bf16 run's own distance from the float32 run."""
+    worst_ratio, worst_card_cpu = 0.0, 0.0
+    for i in range(len(logits["cpu"])):
+        card, cpu, ref = (logits[k][i] for k in ("cuda", "cpu", "f32"))
+        step = "prefill" if i == 0 else f"decode {i}"
+        if not bool(torch.isfinite(card).all()):
+            raise AssertionError(f"model {tag} {step}: non-finite card logits")
+        card_cpu = (card - cpu).abs().max().item()
+        card_f32 = (card - ref).abs().max().item()
+        cpu_f32 = (cpu - ref).abs().max().item()
+        ratio = card_f32 / max(cpu_f32, 1e-30)
+        worst_ratio = max(worst_ratio, ratio)
+        worst_card_cpu = max(worst_card_cpu, card_cpu)
+        log(f"[model] {tag} {step}: max|dlogit| card-CPU {card_cpu:.3e}, "
+            f"card-f32 {card_f32:.3e}, CPU-f32 {cpu_f32:.3e}, ratio "
+            f"{ratio:.3f} (|logit| max {ref.abs().max().item():.2f})")
+        if ratio > MODEL_RATIO:
+            raise AssertionError(
+                f"model {tag} {step}: card bf16 logits are {card_f32:.3e} "
+                f"from float32, more than {MODEL_RATIO} x the CPU bf16 run's "
+                f"{cpu_f32:.3e}")
+    log(f"[model] {tag} W8A8: at every step the card is within "
+        f"{MODEL_RATIO} x the CPU's own bf16 distance from the float32 run "
+        f"(worst ratio {worst_ratio:.3f}); card vs CPU {worst_card_cpu:.3e}")
+
+
+def _model_paged(torch, arch: str) -> None:
+    """prefill_into_slots and four decode steps of ``arch``.reduced(), W8A8,
+    card against CPU against float32."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.quant.convert import quantize_params
+
+    cfg = get_arch(arch).reduced()
+    runs = _to_runs(torch, quantize_params(M.init_params(cfg, seed=1,
+                                                         device="cpu")))
     prompts = [[int(t) for t in torch.randint(
         0, cfg.vocab_size, (n,), generator=torch.Generator().manual_seed(n))]
         for n in (37, 64, 5)]
@@ -623,32 +812,50 @@ def phase_model(torch) -> None:
                 params, cfg, tok.to(dev), caches[name], active.to(dev))
             logits[name].append(lg[:3].float().cpu())
     torch.cuda.synchronize()
-    worst_ratio, worst_card_cpu = 0.0, 0.0
-    for i in range(len(logits["cpu"])):
-        card, cpu, ref = (logits[k][i] for k in ("cuda", "cpu", "f32"))
-        step = "prefill" if i == 0 else f"decode {i}"
-        if not bool(torch.isfinite(card).all()):
-            raise AssertionError(f"model {step}: non-finite card logits")
-        card_cpu = (card - cpu).abs().max().item()
-        card_f32 = (card - ref).abs().max().item()
-        cpu_f32 = (cpu - ref).abs().max().item()
-        ratio = card_f32 / max(cpu_f32, 1e-30)
-        worst_ratio = max(worst_ratio, ratio)
-        worst_card_cpu = max(worst_card_cpu, card_cpu)
-        log(f"[model] {step}: max|dlogit| card-CPU {card_cpu:.3e}, card-f32 "
-            f"{card_f32:.3e}, CPU-f32 {cpu_f32:.3e}, ratio {ratio:.3f} "
-            f"(|logit| max {ref.abs().max().item():.2f})")
-        if ratio > MODEL_RATIO:
-            raise AssertionError(
-                f"model {step}: card bf16 logits are {card_f32:.3e} from "
-                f"float32, more than {MODEL_RATIO} x the CPU bf16 run's "
-                f"{cpu_f32:.3e}")
-    log(f"[model] llama2-7b.reduced() W8A8: at every step the card is within "
-        f"{MODEL_RATIO} x the CPU's own bf16 distance from the float32 run "
-        f"(worst ratio {worst_ratio:.3f}); card vs CPU {worst_card_cpu:.3e}")
+    _ratio_gate(torch, f"{arch}.reduced()", logits)
 
 
-def phase_serve(torch) -> tuple[dict, object]:
+def _model_forward(torch, arch: str, batch: int, seq: int) -> None:
+    """``forward`` of ``arch`` at full width, W8A8, on ``batch`` x ``seq``
+    tokens: card against CPU against float32."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.quant.convert import quantize_params
+
+    cfg = get_arch(arch)
+    runs = _to_runs(torch, quantize_params(M.init_params(cfg, seed=2,
+                                                         device="cpu")))
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq),
+                         generator=torch.Generator().manual_seed(3))
+    t0 = time.monotonic()
+    logits = {name: [M.forward(params, cfg, toks.to(dev)).float().cpu()]
+              for name, (params, dev, _dtype) in runs.items()}
+    torch.cuda.synchronize()
+    log(f"[model] {arch} full width W8A8 forward on {batch} x {seq} tokens, "
+        f"three runs in {time.monotonic() - t0:.1f} s")
+    _ratio_gate(torch, f"{arch} forward", logits)
+    # the same forward unquantized in float32 on both devices: what is left
+    # is float32 summation order (and B6's double-precision decays)
+    p32 = M.init_params(cfg, seed=2, device="cpu", dtype=torch.float32)
+    cpu = M.forward(p32, cfg, toks)
+    card = M.forward(_to_runs(torch, p32)["cuda"][0], cfg,
+                     toks.to("cuda")).cpu()
+    log(f"[model] {arch} full width float32 forward: max|dlogit| card-CPU "
+        f"{(card - cpu).abs().max().item():.3e} (|logit| max "
+        f"{cpu.abs().max().item():.2f})")
+
+
+def phase_model(torch) -> None:
+    _model_paged(torch, "llama2-7b")
+    _model_paged(torch, "zamba2-7b")
+    _model_forward(torch, "mamba2-130m", 2, 256)
+
+
+def _serve_full(torch, arch: str, tag: str, smi: str) -> tuple[dict, object]:
+    """``arch`` at full width, W8A8, through launch/serve.py's build_client:
+    4 slots, max_seq 1024, page 16, 8 greedy requests with 64-512-token
+    prompts and 32 new tokens each.  Every launch counter is zeroed before
+    the run and read after; returns the counts and the client."""
     import numpy as np
 
     from repro_torch import kernels
@@ -657,13 +864,15 @@ def phase_serve(torch) -> tuple[dict, object]:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    cfg, client = build_client("llama2-7b", reduced=False, quant="w8a8",
+    cfg, client = build_client(arch, reduced=False, quant="w8a8",
                                max_batch=4, max_seq=1024, seed=0,
                                device="cuda")
     torch.cuda.synchronize()
-    log(f"[serve] llama2-7b full width W8A8 built in "
-        f"{time.monotonic() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    resident = torch.cuda.memory_allocated() / 2**30
+    log(f"[{tag}] {arch} full width W8A8 built in "
+        f"{time.monotonic() - t0:.1f} s, {resident:.2f} GiB allocated "
+        f"(weights and cache), build peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     core = client.router.cores[0]
     rng = np.random.RandomState(0)
     prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
@@ -689,6 +898,7 @@ def phase_serve(torch) -> tuple[dict, object]:
 
     handles = [client.submit(p, max_new_tokens=32) for p in prompts]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.monotonic()
     client.run()
@@ -704,34 +914,56 @@ def phase_serve(torch) -> tuple[dict, object]:
         if not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(f"request {h.rid}: token out of range")
     first = handles[0].request.out_tokens[0]
-    log(f"[serve] direct prefill of request 0: token {ref_tok} (top-2 margin "
-        f"{margin:.4f}); engine's first token {first}")
+    log(f"[{tag}] direct prefill of request 0: token {ref_tok} (top-2 "
+        f"margin {margin:.4f}); engine's first token {first}")
     if margin > 1e-3 and first != ref_tok:
         raise AssertionError("engine's first token disagrees with a direct "
                              "prefill of the same prompt")
     decode_tokens = stats.tokens_out - len(handles)
-    log(f"[serve] 8 requests x 32 tokens: tokens_out={stats.tokens_out} "
+    log(f"[{tag}] 8 requests x 32 tokens: tokens_out={stats.tokens_out} "
         f"prefills={stats.prefills} decode_steps={stats.decode_steps} "
         f"wall {wall:.2f} s")
-    log(f"[serve] prefill {stats.wall_prefill_s * 1e3:.1f} ms total "
+    log(f"[{tag}] prefill {stats.wall_prefill_s * 1e3:.1f} ms total "
         f"({stats.wall_prefill_s * 1e3 / max(stats.prefills, 1):.1f} ms per "
         f"group of 4 prompts); decode {decode_tokens} tokens in "
         f"{stats.wall_decode_s:.3f} s = "
         f"{decode_tokens / stats.wall_decode_s:.2f} tok/s "
         f"({stats.wall_decode_s * 1e3 / max(stats.decode_steps, 1):.2f} ms "
-        f"per step of 4 slots)")
-    log(f"[serve] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-        f"GiB; launches {counts}")
+        f"per step of 4 slots) on {smi}")
+    log(f"[{tag}] peak memory during the run "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, resident "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on {smi}; "
+        f"launches {counts}")
     missing = [k for k, phase in COUNTED_IN.items()
-               if phase == "serve" and counts[k] <= 0]
+               if phase == tag and counts[k] <= 0]
+    missing += [k for k in ("int8_gemv", "int8_gemm",
+                            "paged_decode_attention", "flash_attention")
+                if counts[k] <= 0 and k not in missing]
     if missing:
         raise AssertionError(f"the serving path never launched {missing}")
     return counts, client
 
 
-def phase_profile(torch, client) -> None:
+def phase_serve(torch, smi: str) -> tuple[dict, object]:
+    return _serve_full(torch, "llama2-7b", "serve", smi)
+
+
+def phase_serve_hybrid(torch, smi: str) -> dict:
+    """zamba2-7b at full width through the serving stack, then where its
+    decode step's time goes."""
+    import gc
+
+    counts, client = _serve_full(torch, "zamba2-7b", "serve_hybrid", smi)
+    phase_profile(torch, client, smi, "serve_hybrid")
+    del client
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_profile(torch, client, smi: str, tag: str = "profile") -> None:
     """Where a decode step's time goes: torch.profiler over 6 decode steps
-    of 4 slots on the serve phase's engine (after its run), device kernel
+    of 4 slots on a serve phase's engine (after its run), device kernel
     time against the host's wall clock."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -759,15 +991,15 @@ def phase_profile(torch, client) -> None:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     launches = sum(r[2] for r in rows) / steps
-    log(f"[profile] {steps} decode steps of 4 slots: wall {wall * 1e3 / steps:.2f}"
-        f" ms/step (profiled), {launches:.0f} kernel launches/step, device "
-        f"kernels {busy * 1e3 / steps:.2f} ms/step, device busy "
-        f"{100 * busy / wall:.1f}% of wall")
+    log(f"[{tag}] profile of {steps} decode steps of 4 slots: wall "
+        f"{wall * 1e3 / steps:.2f} ms/step (profiled), {launches:.0f} kernel "
+        f"launches/step, device kernels {busy * 1e3 / steps:.2f} ms/step, "
+        f"device busy {100 * busy / wall:.1f}% of wall on {smi}")
     if busy <= 0:
-        log("[profile] the profiler recorded no device time: not measured")
+        log(f"[{tag}] the profiler recorded no device time: not measured")
     for dev_us, key, count in rows[:8]:
-        log(f"[profile]   {dev_us / 1e3 / steps:8.3f} ms/step  {count // steps:5d}"
-            f" calls/step  {key[:90]}")
+        log(f"[{tag}]   {dev_us / 1e3 / steps:8.3f} ms/step  "
+            f"{count // steps:5d} calls/step  {key[:90]}")
 
 
 def _device_ms(prof, names) -> float | None:
@@ -1006,7 +1238,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="card,build,kernels,model,serve,profile,hybrid,"
-                            "serve_w4a16")
+                            "serve_w4a16,serve_hybrid")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1033,9 +1265,9 @@ def main(argv=None) -> int:
     # launch counts are read only around each owning phase's run
     counts: dict[str, dict] = {}
     if "serve" in phases:
-        counts["serve"], client = phase_serve(torch)
+        counts["serve"], client = phase_serve(torch, smi_line)
         if "profile" in phases:
-            phase_profile(torch, client)
+            phase_profile(torch, client, smi_line)
         del client
         __import__("gc").collect()
         torch.cuda.empty_cache()
@@ -1043,6 +1275,8 @@ def main(argv=None) -> int:
         counts["hybrid"] = phase_hybrid(torch)
     if "serve_w4a16" in phases:
         counts["serve_w4a16"] = phase_serve_w4a16(torch)
+    if "serve_hybrid" in phases:
+        counts["serve_hybrid"] = phase_serve_hybrid(torch, smi_line)
     rows = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]
@@ -1050,7 +1284,8 @@ def main(argv=None) -> int:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches,
                      "max_abs_err": r.get("max_abs_err"),
-                     "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
+                     "ms": r.get("ms"), "device_ms": r.get("device_ms"),
+                     "plain_ms": r.get("plain_ms"),
                      "bound_ms": r.get("bound_ms"),
                      "bound_by": r.get("bound_by"),
                      "library_ms": r.get("library_ms"),

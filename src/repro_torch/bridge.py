@@ -3,7 +3,10 @@
 ``params_from_numpy(tree)`` takes the JAX package's param pytree with its
 leaves as numpy arrays (``np.asarray`` of each ``jax.Array``) and returns
 the port's param dict: the same keys, tensors instead of arrays, and the
-stacked ``layers`` axis split into a list of per-layer dicts.  bf16 leaves
+stacked layer axes split into lists: ``layers`` ``[L, ...]`` into a list of
+per-layer dicts, the hybrid family's ``groups`` ``[G, every, ...]`` into a
+list of G lists and ``tail`` ``[T, ...]`` into a list (``tail=None`` stays
+None).  bf16 leaves
 cross through their 16-bit pattern (the uint16 view the fleet wire codec
 uses); int8 / uint8 / float32 leaves (W8A8 ``w_q``/``scale``, W4A16
 ``w_p4``/``scale4``) are copied as they are, so nothing is re-initialised
@@ -46,6 +49,8 @@ def _index(tree, i: int):
 
 
 def _to(tree, device: torch.device):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -55,12 +60,20 @@ def _to(tree, device: torch.device):
 
 def params_from_numpy(tree: dict, device: str | torch.device = "cpu") -> dict:
     """JAX param pytree (numpy leaves, layers stacked) -> port params."""
+    from repro_torch.models.model import STACKED
+
     out = _convert(tree)
-    if "layers" in out:
-        stacked = out["layers"]
-        n = next(iter(_leaves(stacked))).shape[0]
-        out["layers"] = [_index(stacked, i) for i in range(n)]
+    for key, depth in STACKED.items():
+        if out.get(key) is not None:
+            out[key] = _unstack(out[key], depth)
     return _to(out, torch.device(device))
+
+
+
+def _unstack(tree, depth: int) -> list:
+    n = next(iter(_leaves(tree))).shape[0]
+    items = [_index(tree, i) for i in range(n)]
+    return items if depth == 1 else [_unstack(t, depth - 1) for t in items]
 
 
 def _leaves(tree):

@@ -73,6 +73,15 @@ class ModelConfig:
         if self.d_head == 0 and self.n_heads:
             object.__setattr__(self, "d_head", self.d_model // self.n_heads)
 
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_headdim else 0
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test configuration of the same family (runs on 1 CPU)."""
         scale = {

@@ -15,10 +15,11 @@ def _counters() -> list[dict]:
     from repro_torch.kernels.ecc_decode import ops as ecc_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.int8_pagegemv import ops as int8_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.w4a16_gemv import ops as w4_ops
 
     return [int8_ops.LAUNCHES, decode_ops.LAUNCHES, flash_ops.LAUNCHES,
-            w4_ops.LAUNCHES, ecc_ops.LAUNCHES]
+            w4_ops.LAUNCHES, ecc_ops.LAUNCHES, ssd_ops.LAUNCHES]
 
 
 def launch_counts() -> dict[str, int]:

@@ -21,7 +21,8 @@
 //  * one CTA (128 threads) per (slot, kv head), walking the slot's valid
 //    tokens in tiles of 64 in order; the tile's page ids come from the
 //    block table, read in-kernel;
-//  * scores: 16-byte loads of each K row, D/8 lanes per token, the grouped
+//  * scores: 16-byte loads of each K row, D/8 lanes per token (rounded up
+//    to a power of two: 16 lanes, two idle, at D = 112), the grouped
 //    heads of the kv head (GQA fold) share every K load; lane shuffles sum
 //    the dot products;
 //  * f32 online softmax per grouped head (max, exp, running sum, rescale),
@@ -64,7 +65,11 @@ paged_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                               const int* __restrict__ lengths,
                               __nv_bfloat16* __restrict__ out, int H, int Hkv,
                               int page, int pps, float scale) {
-  constexpr int kLanesPerTok = D / 8;           // 16-byte chunks per row
+  constexpr int kChunks = D / 8;                // 16-byte chunks per row
+  // lanes per token: kChunks rounded up to a power of two, so a token's
+  // lanes never straddle two tokens and the shuffle sum stays within them;
+  // lanes past kChunks (D = 112: lanes 14 and 15 of each 16) load nothing
+  constexpr int kLanesPerTok = kChunks <= 2 ? 2 : kChunks <= 4 ? 4 : kChunks <= 8 ? 8 : 16;
   constexpr int kTokPerWarp = 32 / kLanesPerTok;
   constexpr int kAcc = (MAXR * D + kThreads - 1) / kThreads;
   static_assert(kTile % (kWarps * kTokPerWarp) == 0, "tile must split evenly");
@@ -81,12 +86,13 @@ paged_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int lane = tid % 32;
   const int chunk = lane % kLanesPerTok;  // this lane's 8 dims of a row
   const int tsub = lane / kLanesPerTok;   // this lane's token within a pass
+  const bool has_chunk = chunk < kChunks;
   const int L = lengths[b];
 
   float qf[MAXR][8];
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) {
-    if (r < n_rep) {
+    if (r < n_rep && has_chunk) {
       load8(q + (static_cast<size_t>(b) * H + g * n_rep + r) * D + chunk * 8, qf[r]);
     } else {
 #pragma unroll
@@ -117,7 +123,7 @@ paged_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
       float dot[MAXR];
 #pragma unroll
       for (int r = 0; r < MAXR; ++r) dot[r] = 0.f;
-      if (row >= 0) {
+      if (row >= 0 && has_chunk) {
         float kf[8];
         load8(k_pages + static_cast<size_t>(row) * row_stride + static_cast<size_t>(g) * D +
                   chunk * 8,
@@ -242,6 +248,7 @@ extern "C" int repro_paged_decode_attention(const void* q, const void* k_pages,
     case 16: return launch_for_dim<16>(qp, kp, vp, bt, ln, op, B, H, Hkv, page, pps, scale, s);
     case 32: return launch_for_dim<32>(qp, kp, vp, bt, ln, op, B, H, Hkv, page, pps, scale, s);
     case 64: return launch_for_dim<64>(qp, kp, vp, bt, ln, op, B, H, Hkv, page, pps, scale, s);
+    case 112: return launch_for_dim<112>(qp, kp, vp, bt, ln, op, B, H, Hkv, page, pps, scale, s);
     case 128: return launch_for_dim<128>(qp, kp, vp, bt, ln, op, B, H, Hkv, page, pps, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

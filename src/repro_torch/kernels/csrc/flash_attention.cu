@@ -31,7 +31,8 @@
 //  * f32 online softmax in registers: the 16 threads of a half warp share
 //    four query rows and reduce row max and row sum with shuffles;
 //  * probabilities go through shared memory for the P.V product, each
-//    thread accumulating 4 rows x D/16 dims;
+//    thread accumulating 4 rows x D/16 dims (7 at zamba2-7b's D = 112,
+//    read as scalars; 108 KB of shared memory at that D);
 //  * out = acc / max(l, 1e-20), cast to bf16.  Rows past S (a bucket that is
 //    not a multiple of 64) are computed on zeros and not stored; keys past S
 //    lie after every valid query, so the causal mask already hides them.
@@ -253,6 +254,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
     case 16: return launch_for_dim<16>(qp, kp, vp, op, B, S, H, Hkv, strides, scale, s);
     case 32: return launch_for_dim<32>(qp, kp, vp, op, B, S, H, Hkv, strides, scale, s);
     case 64: return launch_for_dim<64>(qp, kp, vp, op, B, S, H, Hkv, strides, scale, s);
+    case 112: return launch_for_dim<112>(qp, kp, vp, op, B, S, H, Hkv, strides, scale, s);
     case 128: return launch_for_dim<128>(qp, kp, vp, op, B, S, H, Hkv, strides, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -15,7 +15,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)  # 112: zamba2-7b's shared block
 MAX_GROUP = 8  # grouped query heads per kv head
 LAUNCHES = {"paged_decode_attention": 0}
 

@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)  # 112: zamba2-7b's shared block
 LAUNCHES = {"flash_attention": 0}
 
 

@@ -10,6 +10,11 @@ random prompts, greedy.  ``--device`` defaults to ``cuda``;
 
   python src/repro_torch/launch/serve.py --arch smollm-360m --requests 8 \\
       --max-new 16 --replicas 2 --route least_loaded
+  python src/repro_torch/launch/serve.py --arch zamba2-7b --reduced 0
+
+``--arch`` takes every configuration of ``configs/registry.py`` the engine
+serves: the dense family and the hybrid zamba2-7b (Mamba-2 layers and a
+shared attention block; mamba2-130m has ``forward`` only).
 
 Flags of the JAX driver whose features are not ported yet (fleet workers,
 overlap, prefix cache, int8 KV, wave mode, chunked prefill, stochastic

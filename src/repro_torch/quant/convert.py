@@ -8,10 +8,14 @@ in their float dtype.  (The JAX version also exempts MoE routers; the port
 has no router yet.)
 
 W4A16 follows the reference's outcome, defect included: JAX stacks the
-layer linears ``[L, in, out]`` and ``_quantize_w4`` falls back to W8A8 for
-any stacked (or odd-width) weight, so on the dense family only ``lm_head``
-comes out W4A16.  The port's layers are an unstacked list, so it applies
-the same fallback to everything under ``"layers"``.
+layer linears (``layers`` ``[L, in, out]``; the hybrid family's ``groups``
+``[G, every, in, out]`` and ``tail`` ``[T, in, out]``) and ``_quantize_w4``
+falls back to W8A8 for any stacked (or odd-width) weight, so only the
+unstacked linears come out W4A16: ``lm_head`` and, on the hybrid family,
+the ``shared`` block's.  The port keeps those stacks as lists, so it
+applies the same fallback to everything under ``models.model.STACKED``.
+The Mamba block's conv taps, ``dt_bias``, ``a_log``, ``d_skip`` and
+``norm`` are not linear dicts and stay float, as in JAX.
 
 Quantization runs on the tensors' own device, one weight matrix at a time;
 with ``consume=True`` each float matrix is dropped from the input as soon
@@ -22,6 +26,8 @@ plus one matrix.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.model import STACKED
 
 
 def _quantize_w(w: torch.Tensor) -> dict:
@@ -67,7 +73,7 @@ def quantize_params(params, consume: bool = False, mode: str = "w8a8",
                 del params["w"]
             return out
         return {k: quantize_params(v, consume, mode,
-                                   _stacked or k == "layers")
+                                   _stacked or k in STACKED)
                 for k, v in params.items()}
     if isinstance(params, list):
         return [quantize_params(v, consume, mode, _stacked) for v in params]

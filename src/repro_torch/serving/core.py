@@ -21,8 +21,13 @@ either requeues the starved request (``"requeue"``: a mid-decode slot
 restarts later with its generated prefix folded into its prompt) or fails
 it (``"reject"``).
 
-What this slice serves is the JAX engine's continuous, synchronous path for
-the dense family with bf16 page pools and greedy sampling.  The other
+What the port serves is the JAX engine's continuous, synchronous path for
+the dense and hybrid families with bf16 page pools and greedy sampling.  A
+hybrid slot's Mamba conv window and SSM state live in the cache's
+slot-indexed state pools: a prefill overwrites the slot's rows and decode
+masks inactive lanes, and preemption here is requeue-and-re-prefill, so
+no state checkpoint is taken (the JAX engine takes one only on its tiered
+and migration paths).  The other
 options of the JAX engine raise until their slices land: ``mode="wave"``,
 ``kv_tier="flash"``, ``prefix_cache``, ``overlap``, ``kv_dtype="int8"``,
 chunked-prefill budgets (``scheduler.chunk_tokens``), stochastic sampling
@@ -177,7 +182,8 @@ class EngineCore:
         if mode != "continuous":
             raise ValueError(f"unknown mode {mode!r}")
         if not model_lib.supports_paged(cfg):
-            raise _not_ported(f"family {cfg.family!r}", "dense only")
+            raise _not_ported(f"serving family {cfg.family!r}",
+                              "dense and hybrid only; ssm needs wave mode")
         if kv_tier != "none":
             raise _not_ported(f"kv_tier={kv_tier!r}", "the tiered KV slice")
         if prefix_cache:

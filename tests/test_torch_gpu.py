@@ -12,7 +12,13 @@ its plain version: |got - ref| <= 1e-5 (|x| @ |W|^T) + 1e-6; the
 attention kernels and their plain versions both accumulate in float32 and
 round once to bf16, so they round to the same or adjacent bf16 values: each
 output must lie within two bf16 steps of the reference value, plus 1e-5 for
-float32 summation noise on outputs near 0.
+float32 summation noise on outputs near 0.  The SSD intra-chunk kernel (B6)
+against its plain version computed in float64 on the same inputs: rtol =
+atol = 1e-4, the JAX package's own B6 tolerance (tests/test_kernels.py).
+The float64 yardstick: at the model's decays a chunk's cumulative sum
+reaches |cs| ~ 2e3, where two float32 summation orders differ by ~1e-4
+and so move L = exp(cs_i - cs_j) by as much as the tolerance; the kernel
+sums in double, so it is held to the exact function.
 """
 
 import pytest
@@ -191,3 +197,104 @@ def test_w4a16_engine_launches_its_kernel(cuda_device):
         assert h.finish_reason == "length" and len(h.request.out_tokens) == 5
     counts = kernels.launch_counts()
     assert counts["w4a16_gemv"] > 0 and counts["int8_gemv"] > 0, counts
+
+
+def _ssd_inputs(dev, b, s, h, g, p, n, dtype, seed):
+    """Model-like inputs: x and B / C of unit scale in the working dtype,
+    a = -A_h dt with A_h = 1..16 over the heads (the model's a_log) and
+    dt = softplus(normal)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=dev))
+    a = -torch.linspace(1.0, 16.0, h, device=dev) * dt
+    bm, cm = (torch.randn((b, s, g, n), generator=gen, device=dev)
+              .mul(0.5).to(dtype) for _ in range(2))
+    return x, a, bm, cm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,g,p,n,chunk,dtype", [
+    (2, 256, 16, 1, 64, 64, 128, torch.bfloat16),   # zamba2-7b widths
+    (1, 256, 24, 1, 64, 128, 128, torch.bfloat16),  # mamba2-130m
+    (2, 8, 8, 1, 16, 16, 8, torch.bfloat16),        # reduced, Q = 8
+    (2, 96, 8, 2, 32, 32, 32, torch.float32),       # G > 1, float32 inputs
+])
+def test_ssd_intra_chunk_on_card(cuda_device, b, s, h, g, p, n, chunk,
+                                 dtype):
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_model_ref
+
+    x, a, bm, cm = _ssd_inputs(cuda_device, b, s, h, g, p, n, dtype,
+                               seed=s + h)
+    got = ssd_intra_chunk(x, a, bm, cm, chunk)
+    ref = ssd_intra_chunk_model_ref(x, a, bm, cm, chunk, torch.float64)
+    assert got.dtype == torch.float32 and got.shape == (b, s, h, p)
+    torch.testing.assert_close(got.double(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_intra_chunk_reads_strided_views(cuda_device):
+    """B and C as the model passes them: views into the conv output."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_model_ref
+
+    x, a, _, _ = _ssd_inputs(cuda_device, 2, 64, 8, 1, 16, 16,
+                             torch.bfloat16, seed=3)
+    xbc = torch.randn((2, 64, 128 + 32), device=cuda_device).to(
+        torch.bfloat16)
+    bm = xbc[..., 128:144].reshape(2, 64, 1, 16)
+    cm = xbc[..., 144:].reshape(2, 64, 1, 16)
+    got = ssd_intra_chunk(x, a, bm, cm, 32)
+    ref = ssd_intra_chunk_model_ref(x, a, bm, cm, 32, torch.float64)
+    torch.testing.assert_close(got.double(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_attention_kernels_at_head_dim_112(cuda_device):
+    """zamba2-7b's shared block: 32 heads of 112 (B1 at decode, B3 at
+    prefill)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(112)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device
+                           ).to(torch.bfloat16)
+
+    q, k, v = randn(2, 200, 32, 112), randn(2, 200, 32, 112), \
+        randn(2, 200, 32, 112)
+    assert_bf16_close(flash_attention(q, k, v), flash_attention_ref(q, k, v))
+    page, pps, b = 16, 32, 4
+    kp, vp = randn(b * pps + 1, page, 32, 112), randn(b * pps + 1, page, 32,
+                                                      112)
+    block = (torch.randperm(b * pps, generator=gen, device=cuda_device) + 1
+             ).reshape(b, pps).to(torch.int32)
+    lengths = torch.tensor([512, 300, 17, 0], dtype=torch.int32,
+                           device=cuda_device)
+    qd = randn(b, 32, 112)
+    got = paged_decode_attention(qd, kp, vp, block, lengths)
+    ref = paged_decode_attention_ref(qd, kp, vp, block, lengths)
+    live = lengths > 0
+    assert_bf16_close(got[live], ref[live])
+
+
+@pytest.mark.gpu
+def test_hybrid_engine_on_card_launches_its_kernels(cuda_device):
+    """The reduced zamba2-7b W8A8 engine on the card: requests complete,
+    tokens are in range, and the path went through B6, B1, B2 and B3."""
+    from repro_torch.launch.serve import build_client
+
+    cfg, client = build_client("zamba2-7b", reduced=True, max_seq=128,
+                               device="cuda")
+    handles = [client.submit([3 + i, 17, 99, 5] * (i + 1), max_new_tokens=6)
+               for i in range(6)]
+    kernels.reset_launch_counts()
+    client.run()
+    torch.cuda.synchronize()
+    for h in handles:
+        toks = h.request.out_tokens
+        assert h.finish_reason == "length" and len(toks) == 6
+        assert all(0 <= t < cfg.vocab_size for t in toks)
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in (
+        "ssd_intra_chunk", "int8_gemv", "int8_gemm", "paged_decode_attention",
+        "flash_attention")), counts

@@ -26,7 +26,9 @@ def test_port_imports_neither_jax_nor_repro():
     for m in ("serving.core", "launch.serve", "core.ecc", "core.hybrid_gemv",
               "core.hw", "core.tiling", "quant.int4", "quant.int8",
               "kernels.ecc_decode.ops", "kernels.w4a16_gemv.ops",
-              "examples.quickstart", "examples.ecc_resilience"):
+              "examples.quickstart", "examples.ecc_resilience",
+              "models.ssm", "kernels.ssd_scan.ops", "kernels.ssd_scan.ref",
+              "configs.zamba2_7b", "configs.mamba2_130m"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
