@@ -12,19 +12,28 @@ Phases, each printing its own lines:
             shared-memory / spill summary per kernel.
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the llama2-7b shapes of the serving path, the smollm-360m GQA
-            shapes and zamba2-7b's shared block (head dim 112): the int8
-            product bit-exact, the attention kernels within two bf16 steps
-            of the reference; two planted faults (decode attention given a
-            long lane one token or one page short) must fail that check,
-            at D 128 and D 112.  B6 (ssd_intra_chunk) at the zamba2-7b and
-            mamba2-130m prefill shapes, Q 8 and G 2, against its plain
-            version in float64 within rtol = atol = 1e-4; two planted mask
-            faults (j <= i+1 admitted, the diagonal dropped) must fail.
+            shapes and zamba2-7b's (in_proj K 3584 -> N 14576, out_proj K
+            7168 -> N 3584, the shared block's head dim 112): the int8
+            product bit-exact in all three variants (M = 9 and 130 too),
+            the attention kernels within two bf16 steps of the reference;
+            planted faults must fail those checks: decode attention given
+            a long lane one token or one page short (D 128 and D 112), B3
+            with its causal mask admitting key i+1 or its last K/V block
+            dropped, B2 with its last K stage skipped.  B6 (ssd_intra_chunk)
+            at the zamba2-7b and mamba2-130m prefill shapes, Q 8 and G 2,
+            against its plain version in float64 within rtol = atol =
+            1e-4; two planted mask faults (j <= i+1 admitted, the diagonal
+            dropped) must fail.
             Times each (CUDA events, median), its plain version and one
             PyTorch library call where one exists, beside the least time
             the card could take (bytes at 3.35 TB/s or operations at the
             H100's peak, whichever is larger), and the device time
-            torch.profiler records, without the host's launch overhead.
+            torch.profiler records, without the host's launch overhead (for
+            the library call: every device kernel in its profiled window).
+            B2's __dp4a tiled GEMM, which the wrapper now takes only for a
+            K that is not a multiple of 16, is also timed at the tensor-core
+            variant's shape through its C entry point, for a comparison in
+            one call.
 4. model    llama2-7b.reduced() and zamba2-7b.reduced(), W8A8: the same
             weights on the card (kernels, bf16), on the CPU (plain
             versions, bf16) and on the CPU in float32; at prefill and at
@@ -37,9 +46,11 @@ Phases, each printing its own lines:
             Router -> EngineCore): 8 greedy requests with 64-512-token
             prompts, 32 new tokens each.  Every kernel's launch counter is
             zeroed before and read after; B1-B3 must be > 0.
-6. profile  torch.profiler over 6 decode steps of the same engine: device
-            kernel time per step against the host's wall clock, and the
-            kernels that take it.
+6. profile  torch.profiler over one admitted group of 4 prompts (bucket
+            512) of the same engine: device ms per group of B2's GEMM, B3,
+            B6 and the rest, and launches per group; then over 6 decode
+            steps: device kernel time per step against the host's wall
+            clock, and the kernels that take it.
 7. hybrid   the paper's hybrid NPU+flash GeMV at llama2-7b's full width:
             its 224 layer matrices and lm_head, each made on the card from
             a seed, planned on Cambricon-LLM-S, quantized, ECC-encoded and
@@ -50,8 +61,9 @@ Phases, each printing its own lines:
             same corrupted pages.  Prints the relative errors (clean, with
             ECC, without) by shape and B5 / B2 device time per sweep.
             Then ecc_resilience at full width, W8A8, BER 2e-4: every int8
-            leaf corrupted (and decoded by B5), forward on 4 x 24 tokens;
-            the top-1 agreement with ECC must not be below the raw one.
+            leaf corrupted (and decoded by B5), forward on 4 x 24 tokens
+            (B2's tensor-core GEMM, counted: B5 and it > 0); the top-1
+            agreement with ECC must not be below the raw one.
 8. serve_w4a16  llama2-7b at full width through build_client(quant=
             "w4a16") (W8A8 layers, W4A16 lm_head, as the JAX convert
             makes them): 4 greedy requests; all complete, the first token
@@ -61,8 +73,8 @@ Phases, each printing its own lines:
             4 slots, max_seq 1024, page 16, 8 greedy requests with
             64-512-token prompts, 32 new tokens each.  All complete, the
             first token equals a direct prefill's, and B6, B1, B2 and B3
-            launched; then torch.profiler over 6 decode steps, as the
-            profile phase does for llama2-7b.
+            launched; then torch.profiler over one prefill group and 6
+            decode steps, as the profile phase does for llama2-7b.
 
 The kernels phase also holds B4 (w4a16_gemv) and B5 (ecc_decode) against
 their plain versions, with two planted faults that must fail (B5 with the
@@ -71,8 +83,10 @@ last sidecar entry's restore skipped, B4 with lo/hi nibbles swapped).
 The last three lines are the kernels JSON, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``; each kernel's ``launches`` is read
 around the run of the phase that owns it (serve for B1-B3, hybrid for
-B5, serve_w4a16 for B4, serve_hybrid for B6).  Any failure raises and
-the script exits non-zero; without a CUDA device, or without the
+B5, serve_w4a16 for B4, serve_hybrid for B6).  B2's __dp4a tiled GEMM
+(``int8_gemm``) is on no model's path (every model K is a multiple of
+16), so its serve count is 0 and no phase requires it.  Any failure
+raises and the script exits non-zero; without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero before
 printing a result.
 """
@@ -102,6 +116,8 @@ SOURCES = {
                   "src/repro/kernels/int8_pagegemv/int8_pagegemv.py:40"),
     "int8_gemm": ("src/repro_torch/kernels/csrc/int8_gemm.cu",
                   "src/repro/kernels/int8_pagegemv/int8_pagegemv.py:40"),
+    "int8_gemm_tc": ("src/repro_torch/kernels/csrc/int8_gemm.cu",
+                     "src/repro/kernels/int8_pagegemv/int8_pagegemv.py:40"),
     "paged_decode_attention": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:61"),
@@ -116,9 +132,16 @@ SOURCES = {
 }
 # the phase whose run each kernel's launch count is read around
 COUNTED_IN = {"int8_gemv": "serve", "int8_gemm": "serve",
+              "int8_gemm_tc": "serve",
               "paged_decode_attention": "serve", "flash_attention": "serve",
               "ecc_decode": "hybrid", "w4a16_gemv": "serve_w4a16",
               "ssd_intra_chunk": "serve_hybrid"}
+# kept for shapes no model has (K not a multiple of 16): not required to
+# launch on a serving path
+OFF_PATH = ("int8_gemm",)
+# the kernels every W8A8 serving phase must go through
+SERVING_KERNELS = ("int8_gemv", "int8_gemm_tc", "paged_decode_attention",
+                   "flash_attention")
 
 # tolerance of the attention kernels against their plain versions: both
 # accumulate in float32 and round once to bf16; the float32 sums run in
@@ -183,10 +206,12 @@ def time_ms(torch, fn, n_bufs: int = 1, iters: int = 20,
     return statistics.median(times)
 
 
-def profiled_ms(torch, fn, names, n_bufs: int = 1, iters: int = 10) -> float:
-    """Device time per call (ms) of the kernels named ``names`` under
-    torch.profiler, which, unlike ``time_ms``'s events, leaves out the
-    host's launch overhead around a short kernel."""
+def profiled_ms(torch, fn, names=None, n_bufs: int = 1,
+                iters: int = 10) -> float:
+    """Device time per call (ms) of the kernels named ``names`` (None:
+    every device kernel in the window) under torch.profiler, which, unlike
+    ``time_ms``'s events, leaves out the host's launch overhead around a
+    short kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(3):
@@ -306,6 +331,92 @@ def _planted_faults(torch, q, kp, vp, block, lengths, ref, page) -> None:
                                  f"decode attention check")
 
 
+def _b2_last_stage_fault(torch, x, w, got, ref) -> None:
+    """What a B2 kernel that skipped its last 128-byte K stage computes: the
+    kernel's own output less that stage's exact products; the bit-exact
+    check must reject it."""
+    from repro_torch.kernels.int8_pagegemv.ref import int8_gemm_ref
+
+    k = x.shape[1]
+    k_last = (k - 1) // 128 * 128
+    bad = got - int8_gemm_ref(x[:, k_last:].contiguous(),
+                              w[:, k_last:].contiguous())
+    caught = int((bad != ref).sum())
+    log(f"[kernels] planted fault, int8_gemm_tc with its last K stage "
+        f"(bytes {k_last}..{k - 1}) skipped: {caught} of {ref.numel()} "
+        f"entries differ from the exact product")
+    if caught == 0:
+        raise AssertionError("planted fault (last K stage skipped) passes the "
+                             "int8_gemm_tc check")
+
+
+def _b2_dp4a_direct(torch, results: dict, x, w, ref) -> None:
+    """B2's __dp4a tiled GEMM (the port's first prefill GEMM, now taken
+    only for K not a multiple of 16) through its C entry point at the
+    tensor-core variant's shape, which the wrapper would send to
+    int8_gemm_tc: bit-exact, then timed beside it in this call (the plain
+    version, library call and bound are the tensor-core row's: the same
+    inputs)."""
+    from repro_torch.kernels import build
+
+    m, k = x.shape
+    n = w.shape[0]
+    lib = build.library()
+    stream = build.stream_handle(x.device)
+    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
+
+    def dp4a(_i):
+        build.check(lib.repro_int8_gemm(x.data_ptr(), w.data_ptr(),
+                                        out.data_ptr(), m, n, k, 1, stream),
+                    "int8_gemm")
+
+    dp4a(0)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"int8_gemm (direct) M={m} K={k} N={n}: "
+                             f"{int((out != ref).sum())} entries differ")
+    ms = time_ms(torch, dp4a)
+    dev_ms = profiled_ms(torch, dp4a, ("int8_gemm_kernel",))
+    res = results["int8_gemm"]
+    res.update({key: results["int8_gemm_tc"][key] for key in (
+        "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+        "bound_by")})
+    res.update(ms=ms, device_ms=dev_ms,
+               shape=f"M={m} K={k} N={n} (C entry called directly; the "
+                     f"wrapper sends this shape to int8_gemm_tc)")
+    log(f"[kernels] int8_gemm (__dp4a tiled, C entry called directly) M={m} "
+        f"K={k} N={n}: bit-exact | {ms:.4f} ms (device time {dev_ms:.4f} "
+        f"ms)")
+
+
+def _flash_faults(torch, q, k, v, ref) -> None:
+    """What a B3 kernel with a planted fault computes, in float32 on the
+    card and rounded to bf16 as the kernel's output is: its causal mask
+    admitting key i+1, or its last K/V block (the diagonal block of 64 keys
+    from key 0) dropped, a query with no key left giving 0 as the kernel's
+    empty sum does.  The attention check must reject both."""
+    b, s, h, d = q.shape
+    rep = h // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf, vf = (t.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+              for t in (k, v))
+    sc = (qf @ kf.transpose(-1, -2)) * d ** -0.5
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    for fault, mask in (("causal mask admitting key i+1", j <= i + 1),
+                        ("last K/V block dropped", j < i // 64 * 64)):
+        p = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
+        bad = (torch.nan_to_num(p, nan=0.0) @ vf).transpose(1, 2).to(q.dtype)
+        err, limit = _attn_errors(torch, bad, ref)
+        caught = int((err > limit).sum())
+        log(f"[kernels] planted fault, flash_attention with its {fault} "
+            f"(B={b} S={s} H={h} D={d}): {caught} of {err.numel()} outputs "
+            f"above {ATTN_TOL}, max|err| {err.max().item():.3e}")
+        if caught == 0:
+            raise AssertionError(f"planted fault ({fault}) passes the "
+                                 f"flash_attention check")
+
+
 def phase_kernels(torch, results: dict) -> None:
     import torch.nn.functional as F
 
@@ -313,7 +424,7 @@ def phase_kernels(torch, results: dict) -> None:
     from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.int8_pagegemv.ops import int8_gemm
+    from repro_torch.kernels.int8_pagegemv.ops import gemm_variant, int8_gemm
     from repro_torch.kernels.int8_pagegemv.ref import int8_gemm_ref
     from repro_torch.models.attention import gather_paged_rows
 
@@ -333,17 +444,25 @@ def phase_kernels(torch, results: dict) -> None:
 
     # ---- B2: int8 product, bit-exact --------------------------------------
     # llama2-7b: q/k/v/o 4096x4096, gate/up 4096->11008, down 11008->4096;
-    # M = 4 slots at decode, 4 x 512 at prefill; smollm K=960 / 2560;
-    # ragged shapes take the masked byte-wise path
+    # zamba2-7b: in_proj 3584->14576 (N not a multiple of the 128-wide
+    # tile), out_proj 7168->3584; M = 4 slots at decode, 4 x 512 at
+    # prefill, 9 and 130 (ragged M tiles); smollm K=960 / 2560.  A K that is
+    # not a multiple of 16 takes the __dp4a tiled variant above M = 8 and
+    # the GeMV's byte-wise path below
     shapes = [(4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096),
               (2048, 4096, 4096), (2048, 4096, 11008), (2048, 11008, 4096),
-              (4, 960, 2560), (2048, 2560, 960), (1, 960, 320),
-              (5, 1000, 300), (37, 1000, 130), (3, 64, 128)]
-    rep = {"int8_gemv": (4, 4096, 11008), "int8_gemm": (2048, 4096, 11008)}
+              (2048, 3584, 14576), (2048, 7168, 3584), (9, 4096, 11008),
+              (130, 3584, 14576), (4, 960, 2560), (2048, 2560, 960),
+              (1, 960, 320), (5, 1000, 300), (37, 1000, 130), (3, 64, 128)]
+    timed_b2 = {(4, 4096, 11008): "llama2-7b",
+                (2048, 4096, 11008): "llama2-7b",
+                (2048, 3584, 14576): "zamba2-7b in_proj"}
+    json_b2 = {"int8_gemv": (4, 4096, 11008),
+               "int8_gemm_tc": (2048, 4096, 11008)}
     for m, k, n in shapes:
-        variant = "int8_gemv" if m <= 8 else "int8_gemm"
         x = rand_i8(m, k)
         ws = [rand_i8(n, k) for _ in range(1 if m > 8 else 4)]
+        variant = gemm_variant(m, k, x.data_ptr(), ws[0].data_ptr())
         got = int8_gemm(x, ws[0])
         ref = int8_gemm_ref(x, ws[0])
         torch.cuda.synchronize()
@@ -351,29 +470,37 @@ def phase_kernels(torch, results: dict) -> None:
             bad = (got != ref).sum().item()
             raise AssertionError(f"{variant} M={m} K={k} N={n}: {bad} "
                                  f"entries differ from the exact product")
+        results[variant]["max_abs_err"] = 0.0
         line = f"[kernels] {variant} M={m} K={k} N={n}: bit-exact"
-        if (m, k, n) == rep[variant]:
+        if (m, k, n) in timed_b2:
             ms = time_ms(torch, lambda i: int8_gemm(x, ws[i]), len(ws))
             dev_ms = profiled_ms(torch, lambda i: int8_gemm(x, ws[i]),
                                  (variant,), len(ws))
             plain = time_ms(torch, lambda i: int8_gemm_ref(x, ws[i]), len(ws))
-            lib = None
+            lib = lib_dev = None
             if m > 16:  # torch._int_mm takes M > 16 only
                 wt = [w.t() for w in ws]
                 lib = time_ms(torch, lambda i: torch._int_mm(x, wt[i]),
                               len(ws))
+                lib_dev = profiled_ms(
+                    torch, lambda i: torch._int_mm(x, wt[i]), None, len(ws))
             b_ms, b_by = bound(m * k + n * k + 4 * m * n, 2 * m * n * k,
                                "int8")
-            results[variant].update(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                                    library_ms=lib,
-                                    bound_ms=b_ms, bound_by=b_by,
-                                    shape=f"M={m} K={k} N={n}")
-            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
-                     f"{plain:.4f} ms, library "
-                     f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+            if (m, k, n) == json_b2.get(variant):
+                results[variant].update(
+                    ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                    library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
+                    shape=f"M={m} K={k} N={n}")
+            lib_s = ("n/a" if lib is None
+                     else f"{lib:.4f} ms (device {lib_dev:.4f} ms)")
+            line += (f" | {timed_b2[(m, k, n)]}: {ms:.4f} ms (device time "
+                     f"{dev_ms:.4f} ms, {2 * m * n * k / dev_ms / 1e9:.0f} "
+                     f"TOP/s), plain {plain:.4f} ms, library {lib_s}, bound "
                      f"{b_ms:.4f} ms ({b_by})")
-        results[variant]["max_abs_err"] = 0.0
         log(line)
+        if (m, k, n) == (2048, 4096, 11008):
+            _b2_last_stage_fault(torch, x, ws[0], got, ref)
+            _b2_dp4a_direct(torch, results, x, ws[0], ref)
 
     # ---- B1: paged decode attention ---------------------------------------
     page = 16
@@ -426,17 +553,22 @@ def phase_kernels(torch, results: dict) -> None:
             q4 = q[:, :, None, :]
             lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
                 q4, kd[i], vd[i], attn_mask=mask), n_bufs)
+            lib_dev = profiled_ms(
+                torch, lambda i: F.scaled_dot_product_attention(
+                    q4, kd[i], vd[i], attn_mask=mask), None, n_bufs)
             n_tok = sum(lens)
             bytes_moved = (2 * b * h * d * 2 + n_tok * hkv * d * 2 * 2
                            + block.numel() * 4 + b * 4)
             b_ms, b_by = bound(bytes_moved, 4 * n_tok * h * d, "bf16")
             if tag == "llama2-7b":
                 res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                           library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=lib, library_device_ms=lib_dev,
+                           bound_ms=b_ms, bound_by=b_by,
                            shape=f"B={b} H={h} D={d} lens={lens}")
             line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
                      f"{plain:.4f} ms, SDPA on the gathered cache {lib:.4f} "
-                     f"ms, bound {b_ms:.4f} ms ({b_by})")
+                     f"ms (device {lib_dev:.4f} ms), bound {b_ms:.4f} ms "
+                     f"({b_by})")
         log(line)
 
     # ---- B3: causal prefill flash attention ---------------------------------
@@ -463,17 +595,23 @@ def phase_kernels(torch, results: dict) -> None:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True))
+            lib_dev = profiled_ms(
+                torch, lambda i: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True))
             bytes_moved = (2 * b * s * h * d + 2 * b * s * hkv * d) * 2
             ops = 4 * b * h * d * s * (s + 1) / 2
             b_ms, b_by = bound(bytes_moved, ops, "bf16")
             if tag == "llama2-7b":
                 res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                           library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=lib, library_device_ms=lib_dev,
+                           bound_ms=b_ms, bound_by=b_by,
                            shape=f"B={b} S={s} H={h} D={d}")
             line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
-                     f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {b_ms:.4f} "
-                     f"ms ({b_by})")
+                     f"{plain:.4f} ms, SDPA {lib:.4f} ms (device {lib_dev:.4f} "
+                     f"ms), bound {b_ms:.4f} ms ({b_by})")
         log(line)
+        if tag in timed:
+            _flash_faults(torch, q, k, v, ref)
 
     _kernels_ecc(torch, results)
     _kernels_w4a16(torch, results)
@@ -935,9 +1073,8 @@ def _serve_full(torch, arch: str, tag: str, smi: str) -> tuple[dict, object]:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on {smi}; "
         f"launches {counts}")
     missing = [k for k, phase in COUNTED_IN.items()
-               if phase == tag and counts[k] <= 0]
-    missing += [k for k in ("int8_gemv", "int8_gemm",
-                            "paged_decode_attention", "flash_attention")
+               if phase == tag and counts[k] <= 0 and k not in OFF_PATH]
+    missing += [k for k in SERVING_KERNELS
                 if counts[k] <= 0 and k not in missing]
     if missing:
         raise AssertionError(f"the serving path never launched {missing}")
@@ -961,12 +1098,75 @@ def phase_serve_hybrid(torch, smi: str) -> dict:
     return counts
 
 
-def phase_profile(torch, client, smi: str, tag: str = "profile") -> None:
-    """Where a decode step's time goes: torch.profiler over 6 decode steps
-    of 4 slots on a serve phase's engine (after its run), device kernel
-    time against the host's wall clock."""
+# kernels whose device time the prefill profile reports on their own
+PREFILL_PARTS = (("B2 GEMM", ("int8_gemm_tc",)), ("B3", ("flash_attention",)),
+                 ("B6", ("ssd_intra_chunk",)), ("B2 GeMV", ("int8_gemv",)))
+
+
+def _kernel_rows(prof) -> list[tuple[float, str, int]]:
+    """(device us, name, calls) of each device kernel in a profiler run,
+    largest first; a CPU op's "self device time" would repeat them."""
+    rows = []
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            dev_us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0))
+            rows.append((dev_us, ev.key, ev.count))
+    return sorted(rows, reverse=True)
+
+
+def _prefill_profile(torch, client, smi: str, tag: str) -> None:
+    """Where an admitted group's prefill time goes: 4 prompts of 400-512
+    tokens (bucket 512) into the idle engine, torch.profiler over their
+    admission (prefill_into_slots and the first tokens), device time by
+    kernel."""
+    import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
+    core = client.router.cores[0]
+    rng = np.random.RandomState(2)
+    for n in rng.randint(400, 513, size=4):
+        client.submit([int(t) for t in rng.randint(0, 32000, n)],
+                      max_new_tokens=2)
+    torch.cuda.synchronize()
+    prefills = core.stats.prefills
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        core._admit_continuous()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    if core.stats.prefills != prefills + 1:
+        raise AssertionError("the profiled admission ran no single prefill")
+    client.run()
+    rows = _kernel_rows(prof)
+    total = sum(r[0] for r in rows) / 1e3
+    parts, named = [], set()
+    for label, names in PREFILL_PARTS:
+        sel = [r for r in rows if any(n in r[1] for n in names)]
+        named.update(r[1] for r in sel)
+        parts.append(f"{label} {sum(r[0] for r in sel) / 1e3:.2f} ms "
+                     f"({sum(r[2] for r in sel)} launches)")
+    rest = [r for r in rows if r[1] not in named]
+    log(f"[{tag}] prefill profile, one group of 4 prompts (bucket 512): wall "
+        f"{wall * 1e3:.1f} ms (profiled), {sum(r[2] for r in rows)} kernel "
+        f"launches, device kernels {total:.2f} ms: {', '.join(parts)}, rest "
+        f"{sum(r[0] for r in rest) / 1e3:.2f} ms ({sum(r[2] for r in rest)} "
+        f"launches) on {smi}")
+    if total <= 0:
+        log(f"[{tag}] the profiler recorded no device time: not measured")
+    for dev_us, key, count in rest[:6]:
+        log(f"[{tag}]   rest: {dev_us / 1e3:8.3f} ms  {count:5d} calls  "
+            f"{key[:90]}")
+
+
+def phase_profile(torch, client, smi: str, tag: str = "profile") -> None:
+    """Where the time of a serve phase's engine (after its run) goes: one
+    prefill group (``_prefill_profile``), then torch.profiler over 6 decode
+    steps of 4 slots, device kernel time against the host's wall clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _prefill_profile(torch, client, smi, tag)
     rng = __import__("numpy").random.RandomState(1)
     for _ in range(4):
         client.submit([int(t) for t in rng.randint(0, 32000, 256)],
@@ -982,13 +1182,7 @@ def phase_profile(torch, client, smi: str, tag: str = "profile") -> None:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     client.run()
-    rows = []  # device kernels only: a CPU op's "self device time" repeats them
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            dev_us = getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0))
-            rows.append((dev_us, ev.key, ev.count))
-    rows.sort(reverse=True)
+    rows = _kernel_rows(prof)
     busy = sum(r[0] for r in rows) / 1e6
     launches = sum(r[2] for r in rows) / steps
     log(f"[{tag}] profile of {steps} decode steps of 4 slots: wall "
@@ -1002,15 +1196,12 @@ def phase_profile(torch, client, smi: str, tag: str = "profile") -> None:
             f"{count // steps:5d} calls/step  {key[:90]}")
 
 
-def _device_ms(prof, names) -> float | None:
+def _device_ms(prof, names=None) -> float | None:
     """Summed device time (ms) of the kernels whose names contain one of
-    ``names``, from a torch.profiler run; None if it recorded none."""
-    total = 0.0
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA") and \
-                any(n in ev.key for n in names):
-            total += getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0))
+    ``names`` (None: every device kernel), from a torch.profiler run; None
+    if it recorded none."""
+    total = sum(us for us, key, _n in _kernel_rows(prof)
+                if names is None or any(n in key for n in names))
     return total / 1e3 if total > 0 else None
 
 
@@ -1147,16 +1338,23 @@ def phase_hybrid(torch) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ECC resilience at full width, W8A8
+    # ECC resilience at full width, W8A8: its forward over 4 x 24 tokens
+    # runs every linear through B2's tensor-core GEMM
     t0 = time.monotonic()
+    kernels.reset_launch_counts()
     (ber, a_ecc, a_raw), = resilience(
         "llama2-7b", reduced=False, device="cuda", seed=0, bers=(HYBRID_BER,),
         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    res_counts = kernels.launch_counts()
     log(f"[hybrid] ecc_resilience llama2-7b full width W8A8, 4x24 tokens, "
         f"BER {ber:g}: top-1 agreement with ECC {a_ecc:.1%}, without ECC "
-        f"{a_raw:.1%} ({time.monotonic() - t0:.1f} s)")
+        f"{a_raw:.1%} ({time.monotonic() - t0:.1f} s); launches {res_counts}")
     if a_ecc < a_raw:
         raise AssertionError("ECC's top-1 agreement is below the raw one")
+    for k in ("ecc_decode", "int8_gemm_tc"):
+        if res_counts[k] <= 0:
+            raise AssertionError(f"the resilience study never launched {k}")
     gc.collect()
     torch.cuda.empty_cache()
     return counts
@@ -1222,8 +1420,7 @@ def phase_serve_w4a16(torch) -> dict:
     if margin > 1e-3 and first != ref_tok:
         raise AssertionError("engine's first token disagrees with a direct "
                              "prefill of the same prompt")
-    missing = [k for k in ("w4a16_gemv", "int8_gemv", "int8_gemm",
-                           "paged_decode_attention", "flash_attention")
+    missing = [k for k in ("w4a16_gemv",) + SERVING_KERNELS
                if counts[k] <= 0]
     if missing:
         raise AssertionError(f"the W4A16 serving path never launched "
@@ -1289,6 +1486,7 @@ def main(argv=None) -> int:
                      "bound_ms": r.get("bound_ms"),
                      "bound_by": r.get("bound_by"),
                      "library_ms": r.get("library_ms"),
+                     "library_device_ms": r.get("library_device_ms"),
                      "shape": r.get("shape")})
     log(json.dumps({"kernels": rows}))
     log(smi_line)

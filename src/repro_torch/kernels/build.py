@@ -10,7 +10,8 @@ seconds.  Building happens at the first kernel launch (or an explicit
 without ``nvcc`` or a card.
 
 Every C entry point takes the CUDA stream as its last argument and returns
-``cudaGetLastError()``; :func:`check` raises on a non-zero status.
+``cudaGetLastError()`` (or, where a TMA tensor map cannot be encoded, a
+status ``common.cu`` names); :func:`check` raises on a non-zero status.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("common.cu", "int8_gemm.cu", "decode_attention.cu",
            "flash_attention.cu", "ecc_decode.cu", "w4a16_gemv.cu",
            "ssd_scan.cu")
+HEADERS = ("hopper.cuh",)  # included by the tensor-core sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libreprokernels.so"
@@ -39,6 +41,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "repro_int8_gemv": [_P, _P, _P, _I, _I, _I, _I, _P],
     "repro_int8_gemm": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_int8_gemm_tc": [_P, _P, _P, _I, _I, _I, _P],
     "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, _I, _F, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -79,7 +82,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -6,28 +6,48 @@
 // (int8 x int8 -> int32 on the MXU over 256x2048 weight-page tiles).  Both
 // operands here are K-contiguous: W8A8 weights are stored [out, in]
 // (quant/convert.py), and activations are [tokens, in], so the contraction
-// needs no transpose.
+// needs no transpose; K-major is also the only layout int8 wgmma takes.
 //
 // What bounds it on the H100: at decode (M = live slots <= 8) every weight
 // byte is read once and used M times, so the product is bound by device
 // memory bytes (N*K at 3.35 TB/s).  At prefill (M = slots x bucket, in the
-// thousands) it is bound by integer operations (2*M*N*K).
+// thousands) it is bound by integer operations (2*M*N*K at 1,979 TOP/s),
+// a rate only the tensor cores' wgmma reaches (mma.sync and __dp4a do not).
 //
-// Design (the simple, exact version; wgmma and TMA are later work):
+// Design, three variants (the wrapper picks one from the shape and the
+// operands' alignment alone, int8_pagegemv/ops.py::gemm_variant):
 //  * int8_gemv_kernel (M <= 8): one warp per output column n; lanes stream
 //    the weight row in 16-byte chunks (coalesced, read once) and __dp4a it
 //    against the matching chunk of each activation row, which stays in L1 /
 //    L2.  A warp shuffle sums the lanes.  Many independent warps keep the
 //    memory system busy.
-//  * int8_gemm_kernel (M > 8): 64x64 output tiles, 256 threads each owning
-//    4x4 outputs; 64-byte K slices of both operands are staged in shared
-//    memory as 32-bit words, read back as int4 vectors, and multiplied with
-//    __dp4a (2 shared loads per 16 dp4a).
-//  * Ragged N and M are masked; K is any length: the 16-byte vector path
-//    needs K % 16 == 0 and aligned rows, else a byte-wise masked path packs
-//    the words itself.
-// Integer sums are exact in any order, so both paths are bit-exact against
-// the plain version.  |sum| <= 127*127*K stays below 2^31 for K < 133,000.
+//  * int8_gemm_tc_kernel (M > 8, K % 16 == 0, 16-byte aligned bases: every
+//    model shape): a CTA computes a 128x256 output tile.  One producer
+//    warp (one thread of it) issues TMA loads of 128-byte K slices of x
+//    (128 rows) and w (256 rows) into a 4-stage ring in shared memory
+//    (128-byte swizzle, mbarrier completion, 192 KB); two consumer
+//    warpgroups each run wgmma m64n256k32 s32.s8.s8 on their 64 rows,
+//    keeping one group of four in flight while the next stage arrives,
+//    and release a stage to the producer as soon as its products are
+//    done.  The 256-wide tile reads each x slice from shared memory once
+//    for 256 outputs, half the x traffic of a 128-wide tile per product.
+//    TMA writes zeros outside the tensors, which covers ragged M, N and K;
+//    the epilogue stores the int32 accumulators as they are, masked at the
+//    M and N edges.  CTAs walk M fastest, so the CTAs in flight share a
+//    few weight tiles and the weights are read from device memory about
+//    once.
+//  * int8_gemm_kernel (M > 8, any other K or alignment): 64x64 output
+//    tiles, 256 threads each owning 4x4 outputs; 64-byte K slices of both
+//    operands are staged in shared memory as 32-bit words, read back as
+//    int4 vectors, and multiplied with __dp4a.
+//  * Ragged N and M are masked; K is any length in the __dp4a variants:
+//    the 16-byte vector path needs K % 16 == 0 and aligned rows, else a
+//    byte-wise masked path packs the words itself.
+// Integer sums are exact in any order, so every variant is bit-exact
+// against the plain version.  |sum| <= 127*127*K stays below 2^31 for
+// K < 133,000.
+
+#include "hopper.cuh"
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -180,6 +200,102 @@ int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
+constexpr int kTcBM = 128;    // rows of x per CTA: two consumer warpgroups of 64
+constexpr int kTcBN = 256;    // rows of w (output columns) per CTA
+constexpr int kTcBK = 128;    // bytes of K per stage: one 128-byte swizzle row
+constexpr int kTcStages = 4;
+constexpr int kTcTileA = kTcBM * kTcBK;  // 16 KB
+constexpr int kTcTileB = kTcBN * kTcBK;  // 32 KB
+constexpr int kTcThreads = 2 * 128 + 32;  // warpgroups 0, 1 consume; warp 8 produces
+constexpr int kTcSmem = kTcStages * (kTcTileA + kTcTileB) + 2 * kTcStages * 8 + 1024;
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+int8_gemm_tc_kernel(const __grid_constant__ CUtensorMap tmx,
+                    const __grid_constant__ CUtensorMap tmw, int32_t* __restrict__ out, int M,
+                    int N, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1,024 bytes: tiles start on that grid
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sa = smem;                            // [stage][128 rows][128 bytes]
+  uint8_t* sb = smem + kTcStages * kTcTileA;     // [stage][256 rows][128 bytes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sb + kTcStages * kTcTileB);
+  uint64_t* empty = full + kTcStages;
+  const int m0 = blockIdx.x * kTcBM;
+  const int n0 = blockIdx.y * kTcBN;
+  const int nk = (K + kTcBK - 1) / kTcBK;
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    if (threadIdx.x == 2 * 128) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kTcStages;
+        hopper::mbar_wait(&empty[s], ((kt / kTcStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(&full[s], kTcTileA + kTcTileB);
+        hopper::tma_load_2d(sa + s * kTcTileA, &tmx, &full[s], kt * kTcBK, m0);
+        hopper::tma_load_2d(sb + s * kTcTileB, &tmw, &full[s], kt * kTcBK, n0);
+      }
+    }
+    return;
+  }
+
+  int32_t acc[kTcBN / 2];
+#pragma unroll
+  for (int i = 0; i < kTcBN / 2; ++i) acc[i] = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kTcStages;
+    hopper::mbar_wait(&full[s], (kt / kTcStages) & 1);
+    const uint32_t a0 = hopper::smem_u32(sa + s * kTcTileA + wg * 64 * kTcBK);
+    const uint32_t b0 = hopper::smem_u32(sb + s * kTcTileB);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 32; ++kk) {
+      hopper::wgmma_m64n256k32_s8_ss(acc, hopper::desc_sw128(a0 + kk * 32, 16, 1024),
+                                     hopper::desc_sw128(b0 + kk * 32, 16, 1024), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::fence_regs(acc);
+    if (kt > 0) {  // the previous stage's products are done: hand it back
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(acc);
+      if (lane == 0) hopper::mbar_arrive(&empty[(kt - 1) % kTcStages]);
+    }
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  const int warp = (threadIdx.x % 128) / 32;
+  const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
+  const bool pairs = (N % 2) == 0;
+#pragma unroll
+  for (int j = 0; j < kTcBN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + 8 * half;
+      if (row >= M || col >= N) continue;
+      int32_t* p = out + static_cast<size_t>(row) * N + col;
+      const int v0 = acc[4 * j + 2 * half];
+      const int v1 = acc[4 * j + 2 * half + 1];
+      if (pairs) {
+        *reinterpret_cast<int2*>(p) = make_int2(v0, v1);
+      } else {
+        p[0] = v0;
+        if (col + 1 < N) p[1] = v1;
+      }
+    }
+  }
+}
+
 template <int MT>
 void launch_gemv(const int8_t* x, const int8_t* w, int32_t* out, int M, int N,
                  int K, bool vec, cudaStream_t stream) {
@@ -227,5 +343,33 @@ extern "C" int repro_int8_gemm(const void* x, const void* w, void* out, int M,
   } else {
     int8_gemm_kernel<false><<<grid, 256, 0, s>>>(xp, wp, op, M, N, K);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the tensor-core variant: K % 16 == 0 and 16-byte aligned x and w (the TMA
+// tensor maps' row stride and base); returns hopper::kTensorMapError + the
+// CUresult if a tensor map cannot be encoded
+extern "C" int repro_int8_gemm_tc(const void* x, const void* w, void* out, int M, int N, int K,
+                                  void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap tmx, tmw;
+  const cuuint64_t kstride[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint64_t dx[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+  const cuuint64_t dw[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(N)};
+  const cuuint32_t bx[2] = {kTcBK, kTcBM};
+  const cuuint32_t bw[2] = {kTcBK, kTcBN};
+  int st = hopper::encode_tensor_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, x, dx, kstride, bx);
+  if (st != 0) return st;
+  st = hopper::encode_tensor_map(&tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, dw, kstride, bw);
+  if (st != 0) return st;
+  const cudaError_t err = cudaFuncSetAttribute(
+      int8_gemm_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((M + kTcBM - 1) / kTcBM, (N + kTcBN - 1) / kTcBN);
+  int8_gemm_tc_kernel<<<grid, kTcThreads, kTcSmem, static_cast<cudaStream_t>(stream)>>>(
+      tmx, tmw, static_cast<int32_t*>(out), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,9 @@
 ``flash_attention(q, k, v)`` with q ``[B, S, H, D]`` and k/v
 ``[B, S, Hkv, D]`` in the model's layout.  A CPU tensor takes the plain
 version (``models.attention.chunked_attention(causal=True)``); a CUDA tensor
-launches the kernel, which reads all three through their strides.
+launches the kernel (wgmma fed by TMA), which reads all three through their
+strides, within TMA's rules: the last axis contiguous, the other strides
+multiples of 8 elements, 16-byte aligned bases.
 """
 
 from __future__ import annotations

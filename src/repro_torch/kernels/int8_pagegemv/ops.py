@@ -2,8 +2,12 @@
 
 ``int8_gemm(x_q, w_q)`` computes ``int32[M, N] = x_q[M, K] . w_q[N, K]^T``.
 A CPU tensor takes the plain version (``ref.int8_gemm_ref``); a CUDA tensor
-launches the kernel: the weight-streaming GeMV variant for M <= 8 (decode),
-the tiled variant otherwise (prefill).  ``LAUNCHES`` counts each variant's
+launches the kernel variant :func:`gemm_variant` picks from the shape and
+the operands' alignment alone: the weight-streaming GeMV for M <= 8
+(decode), the tensor-core GEMM (wgmma fed by TMA) for M > 8 where K is a
+multiple of 16 and both bases are 16-byte aligned (prefill, every model
+shape), the ``__dp4a`` tiled GEMM for any other M > 8.  A launch that fails
+raises; no other variant is tried.  ``LAUNCHES`` counts each variant's
 launches.
 
 ``paged_int8_gemv(w_q, scale, x)`` is the counterpart of the JAX front end
@@ -23,7 +27,20 @@ from repro_torch.kernels.int8_pagegemv.ref import int8_gemm_ref
 from repro_torch.quant.int8 import quantize_activation
 
 GEMV_MAX_M = 8
-LAUNCHES = {"int8_gemv": 0, "int8_gemm": 0}
+LAUNCHES = {"int8_gemv": 0, "int8_gemm": 0, "int8_gemm_tc": 0}
+
+
+def gemm_variant(m: int, k: int, x_ptr: int, w_ptr: int) -> str:
+    """The kernel variant for an [m, k] . [n, k]^T product whose operands
+    start at device addresses ``x_ptr`` and ``w_ptr``: ``int8_gemv`` for
+    m <= 8, else ``int8_gemm_tc`` where the TMA tensor maps can describe
+    both operands (row stride k a multiple of 16 bytes, 16-byte aligned
+    bases), else ``int8_gemm``."""
+    if m <= GEMV_MAX_M:
+        return "int8_gemv"
+    if k % 16 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0:
+        return "int8_gemm_tc"
+    return "int8_gemm"
 
 
 def int8_gemm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
@@ -44,18 +61,20 @@ def int8_gemm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.int32, device=x_q.device)
     if m == 0 or n == 0:
         return out
-    vec = int(k % 16 == 0 and x_q.data_ptr() % 16 == 0
-              and w_q.data_ptr() % 16 == 0)
+    xp, wp = x_q.data_ptr(), w_q.data_ptr()
+    vec = int(k % 16 == 0 and xp % 16 == 0 and wp % 16 == 0)
     lib = build.library()
     stream = build.stream_handle(x_q.device)
-    if m <= GEMV_MAX_M:
-        name = "int8_gemv"
-        status = lib.repro_int8_gemv(x_q.data_ptr(), w_q.data_ptr(),
-                                     out.data_ptr(), m, n, k, vec, stream)
+    name = gemm_variant(m, k, xp, wp)
+    if name == "int8_gemv":
+        status = lib.repro_int8_gemv(xp, wp, out.data_ptr(), m, n, k, vec,
+                                     stream)
+    elif name == "int8_gemm_tc":
+        status = lib.repro_int8_gemm_tc(xp, wp, out.data_ptr(), m, n, k,
+                                        stream)
     else:
-        name = "int8_gemm"
-        status = lib.repro_int8_gemm(x_q.data_ptr(), w_q.data_ptr(),
-                                     out.data_ptr(), m, n, k, vec, stream)
+        status = lib.repro_int8_gemm(xp, wp, out.data_ptr(), m, n, k, vec,
+                                     stream)
     build.check(status, name)
     LAUNCHES[name] += 1
     return out

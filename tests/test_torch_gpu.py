@@ -59,16 +59,26 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [
-    (4, 4096, 4096),    # llama2-7b decode, vector path
-    (300, 960, 2560),   # smollm prefill, tiled path
-    (5, 1000, 300),     # ragged K and N, byte-wise path
-    (37, 1000, 130),
+    (4, 4096, 4096),      # llama2-7b decode, GeMV vector path
+    (300, 960, 2560),     # smollm prefill, tensor-core variant
+    (5, 1000, 300),       # ragged K and N, GeMV byte-wise path
+    (37, 1000, 130),      # K % 16 != 0: the __dp4a tiled variant
+    (2048, 3584, 14576),  # zamba2-7b in_proj: N not a multiple of 128
+    (2048, 7168, 3584),   # zamba2-7b out_proj
+    (9, 4096, 11008),     # ragged M tiles
+    (130, 3584, 14576),
 ])
 def test_int8_gemm_bit_exact_on_card(cuda_device, m, k, n):
+    from repro_torch.kernels.int8_pagegemv import ops
+
     gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
     x, w = (torch.randint(-127, 128, shape, generator=gen, device=cuda_device,
                           dtype=torch.int8) for shape in ((m, k), (n, k)))
+    variant = ops.gemm_variant(m, k, x.data_ptr(), w.data_ptr())
+    before = dict(ops.LAUNCHES)
     assert torch.equal(int8_gemm(x, w), int8_gemm_ref(x, w))
+    assert {name: ops.LAUNCHES[name] - before[name] for name in before} == {
+        name: int(name == variant) for name in before}
 
 
 @pytest.mark.gpu
@@ -103,6 +113,8 @@ def test_paged_decode_attention_on_card(cuda_device, b, h, hkv, d, lens):
     (4, 512, 32, 32, 128),   # llama2-7b prefill bucket
     (2, 200, 15, 5, 64),     # smollm heads, S not a multiple of 64
     (4, 32, 4, 2, 16),       # reduced
+    (4, 512, 32, 32, 112),   # zamba2-7b's shared block
+    (2, 200, 8, 2, 128),     # ragged S at D 128, GQA
 ])
 def test_flash_attention_on_card(cuda_device, b, s, h, hkv, d):
     gen = torch.Generator(device=cuda_device).manual_seed(s)
@@ -115,8 +127,8 @@ def test_flash_attention_on_card(cuda_device, b, s, h, hkv, d):
 @pytest.mark.gpu
 def test_engine_on_card_launches_every_kernel(cuda_device):
     """The reduced llama2-7b W8A8 engine on the card: requests complete,
-    tokens are in range, and the path went through B1, B2 (both variants)
-    and B3."""
+    tokens are in range, and the path went through B1, B2 (the GeMV at
+    decode, the tensor-core GEMM at prefill) and B3."""
     from repro_torch.launch.serve import build_client
 
     cfg, client = build_client("llama2-7b", reduced=True, max_seq=128,
@@ -131,7 +143,7 @@ def test_engine_on_card_launches_every_kernel(cuda_device):
         assert h.finish_reason == "length" and len(toks) == 6
         assert all(0 <= t < cfg.vocab_size for t in toks)
     counts = kernels.launch_counts()
-    serving = ("int8_gemv", "int8_gemm", "paged_decode_attention",
+    serving = ("int8_gemv", "int8_gemm_tc", "paged_decode_attention",
                "flash_attention")   # B4 and B5 are off the W8A8 path
     assert all(counts[k] > 0 for k in serving), counts
 
@@ -296,5 +308,5 @@ def test_hybrid_engine_on_card_launches_its_kernels(cuda_device):
         assert all(0 <= t < cfg.vocab_size for t in toks)
     counts = kernels.launch_counts()
     assert all(counts[k] > 0 for k in (
-        "ssd_intra_chunk", "int8_gemv", "int8_gemm", "paged_decode_attention",
-        "flash_attention")), counts
+        "ssd_intra_chunk", "int8_gemv", "int8_gemm_tc",
+        "paged_decode_attention", "flash_attention")), counts
