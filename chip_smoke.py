@@ -30,10 +30,12 @@ Phases, each printing its own lines:
             H100's peak, whichever is larger), and the device time
             torch.profiler records, without the host's launch overhead (for
             the library call: every device kernel in its profiled window).
-            B2's __dp4a tiled GEMM, which the wrapper now takes only for a
-            K that is not a multiple of 16, is also timed at the tensor-core
-            variant's shape through its C entry point, for a comparison in
-            one call.
+            B2's __dp4a tiled GEMM, which the wrapper takes only for a K
+            that is not a multiple of 16 or a misaligned base, is held
+            bit-exact at both and timed through the wrapper at M2048
+            K4104 N11008.  The host time of one launch is measured for
+            B2's tensor-core GEMM, B3 and the GeMV (no tensor map), each
+            through its wrapper, and the GEMMs through their C entries.
 4. model    llama2-7b.reduced() and zamba2-7b.reduced(), W8A8: the same
             weights on the card (kernels, bf16), on the CPU (plain
             versions, bf16) and on the CPU in float32; at prefill and at
@@ -85,7 +87,8 @@ The last three lines are the kernels JSON, nvidia-smi's line and
 around the run of the phase that owns it (serve for B1-B3, hybrid for
 B5, serve_w4a16 for B4, serve_hybrid for B6).  B2's __dp4a tiled GEMM
 (``int8_gemm``) is on no model's path (every model K is a multiple of
-16), so its serve count is 0 and no phase requires it.  Any failure
+16 and every base aligned), so its serve count is 0 and no phase
+requires it.  Any failure
 raises and the script exits non-zero; without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero before
 printing a result.
@@ -350,43 +353,55 @@ def _b2_last_stage_fault(torch, x, w, got, ref) -> None:
                              "int8_gemm_tc check")
 
 
-def _b2_dp4a_direct(torch, results: dict, x, w, ref) -> None:
-    """B2's __dp4a tiled GEMM (the port's first prefill GEMM, now taken
-    only for K not a multiple of 16) through its C entry point at the
-    tensor-core variant's shape, which the wrapper would send to
-    int8_gemm_tc: bit-exact, then timed beside it in this call (the plain
-    version, library call and bound are the tensor-core row's: the same
-    inputs)."""
+def _host_launch_us(torch, rand_i8, calls: int = 500) -> None:
+    """Host time of one launch (perf_counter over ``calls`` launches at
+    shapes the card finishes faster than the host issues them, read before
+    the final synchronize): B2's tensor-core GEMM and B3, which encode two
+    and three TMA tensor maps and set the kernel's shared-memory attribute
+    on every launch, against the GeMV, which does neither.  Through the
+    wrappers (what a caller pays) and, for the GEMMs, through the C entry
+    points (their difference is the maps and the attribute)."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.int8_pagegemv.ops import int8_gemm
 
-    m, k = x.shape
-    n = w.shape[0]
     lib = build.library()
-    stream = build.stream_handle(x.device)
-    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    stream = build.stream_handle(torch.device("cuda"))
+    w = rand_i8(256, 64)
+    x_tc, x_gemv = rand_i8(16, 64), rand_i8(4, 64)
+    out = torch.empty((16, 256), dtype=torch.int32, device="cuda")
+    q, k, v = (torch.zeros((1, 64, 1, 64), dtype=torch.bfloat16,
+                           device="cuda") for _ in range(3))
 
-    def dp4a(_i):
-        build.check(lib.repro_int8_gemm(x.data_ptr(), w.data_ptr(),
-                                        out.data_ptr(), m, n, k, 1, stream),
-                    "int8_gemm")
+    def c_tc():
+        build.check(lib.repro_int8_gemm_tc(
+            x_tc.data_ptr(), w.data_ptr(), out.data_ptr(), 16, 256, 64,
+            stream), "int8_gemm_tc")
 
-    dp4a(0)
-    torch.cuda.synchronize()
-    if not torch.equal(out, ref):
-        raise AssertionError(f"int8_gemm (direct) M={m} K={k} N={n}: "
-                             f"{int((out != ref).sum())} entries differ")
-    ms = time_ms(torch, dp4a)
-    dev_ms = profiled_ms(torch, dp4a, ("int8_gemm_kernel",))
-    res = results["int8_gemm"]
-    res.update({key: results["int8_gemm_tc"][key] for key in (
-        "plain_ms", "library_ms", "library_device_ms", "bound_ms",
-        "bound_by")})
-    res.update(ms=ms, device_ms=dev_ms,
-               shape=f"M={m} K={k} N={n} (C entry called directly; the "
-                     f"wrapper sends this shape to int8_gemm_tc)")
-    log(f"[kernels] int8_gemm (__dp4a tiled, C entry called directly) M={m} "
-        f"K={k} N={n}: bit-exact | {ms:.4f} ms (device time {dev_ms:.4f} "
-        f"ms)")
+    def c_gemv():
+        build.check(lib.repro_int8_gemv(
+            x_gemv.data_ptr(), w.data_ptr(), out.data_ptr(), 4, 256, 64, 1,
+            stream), "int8_gemv")
+
+    runs = {"int8_gemm_tc wrapper": lambda: int8_gemm(x_tc, w),
+            "int8_gemm_tc C entry": c_tc,
+            "flash_attention wrapper": lambda: flash_attention(q, k, v),
+            "int8_gemv wrapper": lambda: int8_gemm(x_gemv, w),
+            "int8_gemv C entry": c_gemv}
+    parts = []
+    for tag, fn in runs.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / calls * 1e6
+        parts.append(f"{tag} {host:.2f} us ({wall:.2f} with the sync)")
+    log("[kernels] host time per launch, perf_counter over "
+        f"{calls} launches: " + "; ".join(parts))
 
 
 def _flash_faults(torch, q, k, v, ref) -> None:
@@ -453,12 +468,15 @@ def phase_kernels(torch, results: dict) -> None:
               (2048, 4096, 4096), (2048, 4096, 11008), (2048, 11008, 4096),
               (2048, 3584, 14576), (2048, 7168, 3584), (9, 4096, 11008),
               (130, 3584, 14576), (4, 960, 2560), (2048, 2560, 960),
-              (1, 960, 320), (5, 1000, 300), (37, 1000, 130), (3, 64, 128)]
+              (1, 960, 320), (5, 1000, 300), (37, 1000, 130), (3, 64, 128),
+              (2048, 4104, 11008)]
     timed_b2 = {(4, 4096, 11008): "llama2-7b",
                 (2048, 4096, 11008): "llama2-7b",
-                (2048, 3584, 14576): "zamba2-7b in_proj"}
+                (2048, 3584, 14576): "zamba2-7b in_proj",
+                (2048, 4104, 11008): "off every model path, K % 16 == 8"}
     json_b2 = {"int8_gemv": (4, 4096, 11008),
-               "int8_gemm_tc": (2048, 4096, 11008)}
+               "int8_gemm_tc": (2048, 4096, 11008),
+               "int8_gemm": (2048, 4104, 11008)}
     for m, k, n in shapes:
         x = rand_i8(m, k)
         ws = [rand_i8(n, k) for _ in range(1 if m > 8 else 4)]
@@ -500,7 +518,17 @@ def phase_kernels(torch, results: dict) -> None:
         log(line)
         if (m, k, n) == (2048, 4096, 11008):
             _b2_last_stage_fault(torch, x, ws[0], got, ref)
-            _b2_dp4a_direct(torch, results, x, ws[0], ref)
+    # a base off the 16-byte grid sends a model shape to the __dp4a tile
+    buf = rand_i8(130 * 4096 + 1)
+    x, w = buf[1:].view(130, 4096), rand_i8(4096, 4096)
+    variant = gemm_variant(130, 4096, x.data_ptr(), w.data_ptr())
+    if variant != "int8_gemm" or not torch.equal(int8_gemm(x, w),
+                                                 int8_gemm_ref(x, w)):
+        raise AssertionError(f"{variant} M=130 K=4096 N=4096, x base "
+                             f"misaligned: not the exact product")
+    log(f"[kernels] {variant} M=130 K=4096 N=4096, x base 1 byte off the "
+        f"16-byte grid: bit-exact")
+    _host_launch_us(torch, rand_i8)
 
     # ---- B1: paged decode attention ---------------------------------------
     page = 16

@@ -40,7 +40,7 @@ _F = ctypes.c_float
 # C signatures of the entry points (pointers and the stream as void*)
 SIGNATURES = {
     "repro_int8_gemv": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_int8_gemm": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_int8_gemm": [_P, _P, _P, _I, _I, _I, _P],
     "repro_int8_gemm_tc": [_P, _P, _P, _I, _I, _I, _P],
     "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, _I, _F, _P],

@@ -36,13 +36,14 @@
 //    M and N edges.  CTAs walk M fastest, so the CTAs in flight share a
 //    few weight tiles and the weights are read from device memory about
 //    once.
-//  * int8_gemm_kernel (M > 8, any other K or alignment): 64x64 output
-//    tiles, 256 threads each owning 4x4 outputs; 64-byte K slices of both
-//    operands are staged in shared memory as 32-bit words, read back as
-//    int4 vectors, and multiplied with __dp4a.
-//  * Ragged N and M are masked; K is any length in the __dp4a variants:
-//    the 16-byte vector path needs K % 16 == 0 and aligned rows, else a
-//    byte-wise masked path packs the words itself.
+//  * int8_gemm_kernel (M > 8, K not a multiple of 16 or a misaligned
+//    base: on no model's path): 64x64 output tiles, 256 threads each
+//    owning 4x4 outputs; 64-byte K slices of both operands are packed
+//    byte by byte (zero past K) into 32-bit words in shared memory, read
+//    back as int4 vectors, and multiplied with __dp4a.
+//  * Ragged N and M are masked; K is any length in the __dp4a variants.
+//    The GeMV reads 16-byte vectors where K % 16 == 0 and the rows are
+//    aligned, else it packs the words byte by byte.
 // Integer sums are exact in any order, so every variant is bit-exact
 // against the plain version.  |sum| <= 127*127*K stays below 2^31 for
 // K < 133,000.
@@ -130,12 +131,11 @@ constexpr int kBN = 64;
 constexpr int kBKW = 16;  // 16 words = 64 bytes of K per stage
 
 __device__ __forceinline__ int4 load_chunk(const int8_t* base, int row, int rows,
-                                           int k, int K, bool vec) {
+                                           int k, int K) {
   // the 16-byte chunk [k, k+16) of row `row`, zero outside the matrix
   int4 v = make_int4(0, 0, 0, 0);
   if (row >= rows || k >= K) return v;
   const int8_t* p = base + static_cast<size_t>(row) * K;
-  if (vec) return *reinterpret_cast<const int4*>(p + k);
   v.x = pack4(p, k, K);
   v.y = pack4(p, k + 4, K);
   v.z = pack4(p, k + 8, K);
@@ -143,7 +143,6 @@ __device__ __forceinline__ int4 load_chunk(const int8_t* base, int row, int rows
   return v;
 }
 
-template <bool VEC>
 __global__ void __launch_bounds__(256)
 int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                  int32_t* __restrict__ out, int M, int N, int K) {
@@ -164,8 +163,8 @@ int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0;
 
   for (int k0 = 0; k0 < K; k0 += 4 * kBKW) {
-    const int4 av = load_chunk(x, m0 + lrow, M, k0 + lch * 16, K, VEC);
-    const int4 bv = load_chunk(w, n0 + lrow, N, k0 + lch * 16, K, VEC);
+    const int4 av = load_chunk(x, m0 + lrow, M, k0 + lch * 16, K);
+    const int4 bv = load_chunk(w, n0 + lrow, N, k0 + lch * 16, K);
     As[lch * 4 + 0][lrow] = av.x;
     As[lch * 4 + 1][lrow] = av.y;
     As[lch * 4 + 2][lrow] = av.z;
@@ -331,18 +330,12 @@ extern "C" int repro_int8_gemv(const void* x, const void* w, void* out, int M,
 }
 
 extern "C" int repro_int8_gemm(const void* x, const void* w, void* out, int M,
-                               int N, int K, int vec, void* stream) {
+                               int N, int K, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  const auto* xp = static_cast<const int8_t*>(x);
-  const auto* wp = static_cast<const int8_t*>(w);
-  auto* op = static_cast<int32_t*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    int8_gemm_kernel<true><<<grid, 256, 0, s>>>(xp, wp, op, M, N, K);
-  } else {
-    int8_gemm_kernel<false><<<grid, 256, 0, s>>>(xp, wp, op, M, N, K);
-  }
+  int8_gemm_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+      static_cast<int32_t*>(out), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,6 +30,12 @@ GEMV_MAX_M = 8
 LAUNCHES = {"int8_gemv": 0, "int8_gemm": 0, "int8_gemm_tc": 0}
 
 
+def _aligned16(k: int, x_ptr: int, w_ptr: int) -> bool:
+    """Every row of both operands starts on a 16-byte boundary: the TMA
+    tensor maps' rule, and the GeMV's for its 16-byte vector loads."""
+    return k % 16 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0
+
+
 def gemm_variant(m: int, k: int, x_ptr: int, w_ptr: int) -> str:
     """The kernel variant for an [m, k] . [n, k]^T product whose operands
     start at device addresses ``x_ptr`` and ``w_ptr``: ``int8_gemv`` for
@@ -38,9 +44,7 @@ def gemm_variant(m: int, k: int, x_ptr: int, w_ptr: int) -> str:
     bases), else ``int8_gemm``."""
     if m <= GEMV_MAX_M:
         return "int8_gemv"
-    if k % 16 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0:
-        return "int8_gemm_tc"
-    return "int8_gemm"
+    return "int8_gemm_tc" if _aligned16(k, x_ptr, w_ptr) else "int8_gemm"
 
 
 def int8_gemm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
@@ -62,19 +66,17 @@ def int8_gemm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     if m == 0 or n == 0:
         return out
     xp, wp = x_q.data_ptr(), w_q.data_ptr()
-    vec = int(k % 16 == 0 and xp % 16 == 0 and wp % 16 == 0)
     lib = build.library()
     stream = build.stream_handle(x_q.device)
     name = gemm_variant(m, k, xp, wp)
     if name == "int8_gemv":
-        status = lib.repro_int8_gemv(xp, wp, out.data_ptr(), m, n, k, vec,
-                                     stream)
+        status = lib.repro_int8_gemv(xp, wp, out.data_ptr(), m, n, k,
+                                     int(_aligned16(k, xp, wp)), stream)
     elif name == "int8_gemm_tc":
         status = lib.repro_int8_gemm_tc(xp, wp, out.data_ptr(), m, n, k,
                                         stream)
     else:
-        status = lib.repro_int8_gemm(xp, wp, out.data_ptr(), m, n, k, vec,
-                                     stream)
+        status = lib.repro_int8_gemm(xp, wp, out.data_ptr(), m, n, k, stream)
     build.check(status, name)
     LAUNCHES[name] += 1
     return out

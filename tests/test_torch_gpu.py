@@ -82,6 +82,20 @@ def test_int8_gemm_bit_exact_on_card(cuda_device, m, k, n):
 
 
 @pytest.mark.gpu
+def test_int8_gemm_misaligned_base_takes_the_dp4a_tile(cuda_device):
+    from repro_torch.kernels.int8_pagegemv import ops
+
+    gen = torch.Generator(device=cuda_device).manual_seed(130)
+    buf, w = (torch.randint(-127, 128, shape, generator=gen,
+                            device=cuda_device, dtype=torch.int8)
+              for shape in ((130 * 4096 + 1,), (4096, 4096)))
+    x = buf[1:].view(130, 4096)
+    before = ops.LAUNCHES["int8_gemm"]
+    assert torch.equal(int8_gemm(x, w), int8_gemm_ref(x, w))
+    assert ops.LAUNCHES["int8_gemm"] == before + 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("b,h,hkv,d,lens", [
     (4, 32, 32, 128, [1024, 545, 17, 0]),   # llama2-7b
     (4, 15, 5, 64, [700, 64, 1, 0]),        # smollm-360m GQA
