@@ -14,12 +14,18 @@ Phases, each printing its own lines:
             the llama2-7b shapes of the serving path, the smollm-360m GQA
             shapes and zamba2-7b's (in_proj K 3584 -> N 14576, out_proj K
             7168 -> N 3584, the shared block's head dim 112): the int8
-            product bit-exact in all three variants (M = 9 and 130 too),
-            the attention kernels within two bf16 steps of the reference;
+            product bit-exact in all four variants (the tensor-core GeMV at
+            every decode shape and M = 1..8, M = 9 and 130 too), the
+            attention kernels within two bf16 steps of the reference;
             planted faults must fail those checks: decode attention given
-            a long lane one token or one page short (D 128 and D 112), B3
-            with its causal mask admitting key i+1 or its last K/V block
-            dropped, B2 with its last K stage skipped.  B6 (ssd_intra_chunk)
+            a long lane one token or one page short, or every lane's last
+            split of 128 keys dropped (D 128 and D 112), B3 with its causal
+            mask admitting key i+1 or its last K/V block dropped, B2's GEMM
+            with its last 128-byte K stage and the GeMV with its last
+            64-byte K slab skipped.  Decode attention is also checked at
+            the split edges (lengths 1, 127, 128, 129, 1024) and for a
+            slot's bits alone, in its batch and under a wider block table.
+            B6 (ssd_intra_chunk)
             at the zamba2-7b and mamba2-130m prefill shapes, Q 8 and G 2,
             against its plain version in float64 within rtol = atol =
             1e-4; two planted mask faults (j <= i+1 admitted, the diagonal
@@ -30,12 +36,15 @@ Phases, each printing its own lines:
             H100's peak, whichever is larger), and the device time
             torch.profiler records, without the host's launch overhead (for
             the library call: every device kernel in its profiled window).
-            B2's __dp4a tiled GEMM, which the wrapper takes only for a K
-            that is not a multiple of 16 or a misaligned base, is held
-            bit-exact at both and timed through the wrapper at M2048
-            K4104 N11008.  The host time of one launch is measured for
-            B2's tensor-core GEMM, B3 and the GeMV (no tensor map), each
-            through its wrapper, and the GEMMs through their C entries.
+            The GeMV at five decode shapes (llama2-7b's three, zamba2-7b's
+            in_proj and out_proj), its yardstick torch._int_mm on x
+            zero-padded to 24 rows; decode attention also at the serve
+            trace's own lengths.  B2's __dp4a kernels, which the wrapper
+            takes only for a K that is not a multiple of 16 or a misaligned
+            base, are held bit-exact at both and timed through the wrapper
+            at K 4104.  The host time of one launch is measured for B2's
+            tensor-core GEMM, B3, the GeMV and B1, each through its
+            wrapper, and the B2 variants through their C entries.
 4. model    llama2-7b.reduced() and zamba2-7b.reduced(), W8A8: the same
             weights on the card (kernels, bf16), on the CPU (plain
             versions, bf16) and on the CPU in float32; at prefill and at
@@ -52,7 +61,8 @@ Phases, each printing its own lines:
             512) of the same engine: device ms per group of B2's GEMM, B3,
             B6 and the rest, and launches per group; then over 6 decode
             steps: device kernel time per step against the host's wall
-            clock, and the kernels that take it.
+            clock, per step by kernel (B1, the GeMV, the rest, with their
+            launches), and the kernels that take it.
 7. hybrid   the paper's hybrid NPU+flash GeMV at llama2-7b's full width:
             its 224 layer matrices and lm_head, each made on the card from
             a seed, planned on Cambricon-LLM-S, quantized, ECC-encoded and
@@ -85,10 +95,10 @@ last sidecar entry's restore skipped, B4 with lo/hi nibbles swapped).
 The last three lines are the kernels JSON, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``; each kernel's ``launches`` is read
 around the run of the phase that owns it (serve for B1-B3, hybrid for
-B5, serve_w4a16 for B4, serve_hybrid for B6).  B2's __dp4a tiled GEMM
-(``int8_gemm``) is on no model's path (every model K is a multiple of
-16 and every base aligned), so its serve count is 0 and no phase
-requires it.  Any failure
+B5, serve_w4a16 for B4, serve_hybrid for B6).  B2's __dp4a GeMV and
+tiled GEMM (``int8_gemv_dp4a``, ``int8_gemm``) are on no model's path
+(every model K is a multiple of 16 and every base aligned): a serving
+phase that launches either fails.  Any failure
 raises and the script exits non-zero; without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, it exits non-zero before
 printing a result.
@@ -117,6 +127,8 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 SOURCES = {
     "int8_gemv": ("src/repro_torch/kernels/csrc/int8_gemm.cu",
                   "src/repro/kernels/int8_pagegemv/int8_pagegemv.py:40"),
+    "int8_gemv_dp4a": ("src/repro_torch/kernels/csrc/int8_gemm.cu",
+                       "src/repro/kernels/int8_pagegemv/int8_pagegemv.py:40"),
     "int8_gemm": ("src/repro_torch/kernels/csrc/int8_gemm.cu",
                   "src/repro/kernels/int8_pagegemv/int8_pagegemv.py:40"),
     "int8_gemm_tc": ("src/repro_torch/kernels/csrc/int8_gemm.cu",
@@ -134,14 +146,21 @@ SOURCES = {
                         "src/repro/kernels/ssd_scan/ssd_scan.py:43"),
 }
 # the phase whose run each kernel's launch count is read around
-COUNTED_IN = {"int8_gemv": "serve", "int8_gemm": "serve",
-              "int8_gemm_tc": "serve",
+COUNTED_IN = {"int8_gemv": "serve", "int8_gemv_dp4a": "serve",
+              "int8_gemm": "serve", "int8_gemm_tc": "serve",
               "paged_decode_attention": "serve", "flash_attention": "serve",
               "ecc_decode": "hybrid", "w4a16_gemv": "serve_w4a16",
               "ssd_intra_chunk": "serve_hybrid"}
-# kept for shapes no model has (K not a multiple of 16): not required to
-# launch on a serving path
-OFF_PATH = ("int8_gemm",)
+# kept for shapes no model has (K not a multiple of 16, a misaligned base):
+# not required to launch on a serving path
+OFF_PATH = ("int8_gemm", "int8_gemv_dp4a")
+# the device kernels (by name, as torch.profiler reports them) behind each
+# wrapper; B1's wrapper launches a split and a combine kernel
+KERNEL_NAMES = {"int8_gemv": "int8_gemv_mma_kernel",
+                "int8_gemv_dp4a": "int8_gemv_dp4a_kernel",
+                "int8_gemm": "int8_gemm_kernel",
+                "int8_gemm_tc": "int8_gemm_tc_kernel",
+                "paged_decode_attention": "paged_decode_attention_"}
 # the kernels every W8A8 serving phase must go through
 SERVING_KERNELS = ("int8_gemv", "int8_gemm_tc", "paged_decode_attention",
                    "flash_attention")
@@ -310,22 +329,29 @@ def _check_close(torch, name, got, ref):
 
 
 def _planted_faults(torch, q, kp, vp, block, lengths, ref, page) -> None:
-    """The decode attention kernel run with lane 0 one token short and one
-    page short computes what a kernel that skipped that token or page would;
-    the comparison with the reference must reject both."""
+    """The decode attention kernel run with lane 0 one token short, one
+    page short, and every lane cut back to the start of its last split
+    computes what a kernel that skipped that token or page, or whose combine
+    dropped each slot's last split, would; the comparison with the
+    reference must reject all three."""
     from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+    from repro_torch.kernels.decode_attention.ref import SPLIT
 
     live = lengths > 0
-    for fault, short in (("one token short", 1), ("one page short", page)):
-        bad_len = lengths.clone()
-        bad_len[0] -= short
+    lane0 = torch.zeros_like(lengths)
+    lane0[0] = 1
+    for fault, bad_len in (
+            ("lane 0 one token short", lengths - lane0),
+            ("lane 0 one page short", lengths - page * lane0),
+            ("every lane's last split dropped",
+             torch.clamp_min(lengths - 1, 0) // SPLIT * SPLIT)):
         bad = paged_decode_attention(q, kp, vp, block, bad_len)
         torch.cuda.synchronize()
         err, limit = _attn_errors(torch, bad[live], ref[live])
         caught = int((err > limit).sum())
         r = ref[live].float().abs()
         loose = int((err > 1e-2 + 1e-2 * r).sum())
-        log(f"[kernels] planted fault, lane 0 (len {int(lengths[0])}) "
+        log(f"[kernels] planted fault, lens {lengths.tolist()}, "
             f"{fault}: max|err| {err.max().item():.3e}; {caught} of "
             f"{err.numel()} outputs above {ATTN_TOL}; {loose} above "
             f"1e-2 + 1e-2*|ref|")
@@ -334,23 +360,44 @@ def _planted_faults(torch, q, kp, vp, block, lengths, ref, page) -> None:
                                  f"decode attention check")
 
 
-def _b2_last_stage_fault(torch, x, w, got, ref) -> None:
-    """What a B2 kernel that skipped its last 128-byte K stage computes: the
-    kernel's own output less that stage's exact products; the bit-exact
-    check must reject it."""
+def _b1_batch_invariance(torch, q, kp, vp, block, lengths, got) -> None:
+    """Lane 0 of the batch, alone and under a block table twice as wide:
+    the same output bits (split boundaries at absolute key positions, sums
+    in a fixed order)."""
+    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+
+    q0, len0 = q[:1].contiguous(), lengths[:1].clone()
+    alone = paged_decode_attention(q0, kp, vp, block[:1].contiguous(), len0)
+    wide = torch.cat([block[:1], block[1:2]], dim=1).contiguous()
+    wider = paged_decode_attention(q0, kp, vp, wide, len0)
+    torch.cuda.synchronize()
+    same = torch.equal(alone[0], got[0]) and torch.equal(wider[0], got[0])
+    log(f"[kernels] paged_decode_attention lane 0 (len {int(len0[0])}) alone, "
+        f"in the batch of {q.shape[0]} and under a block table of "
+        f"{wide.shape[1]} pages: {'bit-identical' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("paged_decode_attention: a slot's bits depend on "
+                             "the batch or the block table's width")
+
+
+def _b2_last_stage_fault(torch, variant, stage, x, w, got, ref) -> None:
+    """What a B2 kernel that skipped its last K stage (``stage`` bytes: a
+    128-byte TMA stage of the tensor-core GEMM, a 64-byte slab of the GeMV)
+    computes: the kernel's own output less that stage's exact products; the
+    bit-exact check must reject it."""
     from repro_torch.kernels.int8_pagegemv.ref import int8_gemm_ref
 
     k = x.shape[1]
-    k_last = (k - 1) // 128 * 128
+    k_last = (k - 1) // stage * stage
     bad = got - int8_gemm_ref(x[:, k_last:].contiguous(),
                               w[:, k_last:].contiguous())
     caught = int((bad != ref).sum())
-    log(f"[kernels] planted fault, int8_gemm_tc with its last K stage "
+    log(f"[kernels] planted fault, {variant} with its last K stage "
         f"(bytes {k_last}..{k - 1}) skipped: {caught} of {ref.numel()} "
         f"entries differ from the exact product")
     if caught == 0:
-        raise AssertionError("planted fault (last K stage skipped) passes the "
-                             "int8_gemm_tc check")
+        raise AssertionError(f"planted fault (last K stage skipped) passes the "
+                             f"{variant} check")
 
 
 def _host_launch_us(torch, rand_i8, calls: int = 500) -> None:
@@ -362,6 +409,7 @@ def _host_launch_us(torch, rand_i8, calls: int = 500) -> None:
     wrappers (what a caller pays) and, for the GEMMs, through the C entry
     points (their difference is the maps and the attribute)."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.int8_pagegemv.ops import int8_gemm
 
@@ -380,14 +428,21 @@ def _host_launch_us(torch, rand_i8, calls: int = 500) -> None:
 
     def c_gemv():
         build.check(lib.repro_int8_gemv(
-            x_gemv.data_ptr(), w.data_ptr(), out.data_ptr(), 4, 256, 64, 1,
+            x_gemv.data_ptr(), w.data_ptr(), out.data_ptr(), 4, 256, 64,
             stream), "int8_gemv")
+
+    qd = torch.zeros((4, 32, 128), dtype=torch.bfloat16, device="cuda")
+    pool = torch.zeros((65, 16, 32, 128), dtype=torch.bfloat16, device="cuda")
+    block = torch.arange(1, 65, dtype=torch.int32, device="cuda").reshape(4, 16)
+    lens = torch.full((4,), 200, dtype=torch.int32, device="cuda")
 
     runs = {"int8_gemm_tc wrapper": lambda: int8_gemm(x_tc, w),
             "int8_gemm_tc C entry": c_tc,
             "flash_attention wrapper": lambda: flash_attention(q, k, v),
             "int8_gemv wrapper": lambda: int8_gemm(x_gemv, w),
-            "int8_gemv C entry": c_gemv}
+            "int8_gemv C entry": c_gemv,
+            "paged_decode_attention wrapper": lambda: paged_decode_attention(
+                qd, pool, pool, block, lens)}
     parts = []
     for tag, fn in runs.items():
         for _ in range(20):
@@ -460,26 +515,37 @@ def phase_kernels(torch, results: dict) -> None:
     # ---- B2: int8 product, bit-exact --------------------------------------
     # llama2-7b: q/k/v/o 4096x4096, gate/up 4096->11008, down 11008->4096;
     # zamba2-7b: in_proj 3584->14576 (N not a multiple of the 128-wide
-    # tile), out_proj 7168->3584; M = 4 slots at decode, 4 x 512 at
-    # prefill, 9 and 130 (ragged M tiles); smollm K=960 / 2560.  A K that is
-    # not a multiple of 16 takes the __dp4a tiled variant above M = 8 and
-    # the GeMV's byte-wise path below
+    # tile), out_proj 7168->3584, the shared block's down 14336->3584; M =
+    # 4 slots at decode (the tensor-core GeMV), 4 x 512 at prefill, 9 and
+    # 130 (ragged M tiles); smollm K=960 / 2560.  A K that is not a multiple
+    # of 16 takes the __dp4a tiled variant above M = 8 and the __dp4a GeMV
+    # below
     shapes = [(4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096),
+              (4, 3584, 14576), (4, 7168, 3584), (4, 14336, 3584),
               (2048, 4096, 4096), (2048, 4096, 11008), (2048, 11008, 4096),
               (2048, 3584, 14576), (2048, 7168, 3584), (9, 4096, 11008),
               (130, 3584, 14576), (4, 960, 2560), (2048, 2560, 960),
               (1, 960, 320), (5, 1000, 300), (37, 1000, 130), (3, 64, 128),
-              (2048, 4104, 11008)]
-    timed_b2 = {(4, 4096, 11008): "llama2-7b",
+              (2048, 4104, 11008), (4, 4104, 11008)]
+    timed_b2 = {(4, 4096, 4096): "llama2-7b q/k/v/o",
+                (4, 4096, 11008): "llama2-7b gate/up",
+                (4, 11008, 4096): "llama2-7b down",
+                (4, 3584, 14576): "zamba2-7b in_proj",
+                (4, 7168, 3584): "zamba2-7b out_proj",
                 (2048, 4096, 11008): "llama2-7b",
                 (2048, 3584, 14576): "zamba2-7b in_proj",
-                (2048, 4104, 11008): "off every model path, K % 16 == 8"}
+                (2048, 4104, 11008): "off every model path, K % 16 == 8",
+                (4, 4104, 11008): "off every model path, K % 16 == 8"}
     json_b2 = {"int8_gemv": (4, 4096, 11008),
+               "int8_gemv_dp4a": (4, 4104, 11008),
                "int8_gemm_tc": (2048, 4096, 11008),
                "int8_gemm": (2048, 4104, 11008)}
     for m, k, n in shapes:
         x = rand_i8(m, k)
-        ws = [rand_i8(n, k) for _ in range(1 if m > 8 else 4)]
+        # enough weight copies that a timed GeMV streams them from device
+        # memory, not from the 50 MB L2
+        n_w = 1 if m > 8 else max(4, -(-120_000_000 // (n * k)))
+        ws = [rand_i8(n, k) for _ in range(n_w)]
         variant = gemm_variant(m, k, x.data_ptr(), ws[0].data_ptr())
         got = int8_gemm(x, ws[0])
         ref = int8_gemm_ref(x, ws[0])
@@ -493,15 +559,19 @@ def phase_kernels(torch, results: dict) -> None:
         if (m, k, n) in timed_b2:
             ms = time_ms(torch, lambda i: int8_gemm(x, ws[i]), len(ws))
             dev_ms = profiled_ms(torch, lambda i: int8_gemm(x, ws[i]),
-                                 (variant,), len(ws))
+                                 (KERNEL_NAMES[variant],), len(ws))
             plain = time_ms(torch, lambda i: int8_gemm_ref(x, ws[i]), len(ws))
             lib = lib_dev = None
-            if m > 16:  # torch._int_mm takes M > 16 only
+            if k % 8 == 0 and n % 8 == 0:
+                # torch._int_mm takes M > 16 only: a GeMV's x goes in
+                # zero-padded to 24 rows, padded outside the timed calls
+                xl = x if m > 16 else torch.cat(
+                    [x, x.new_zeros((24 - m, k))])
                 wt = [w.t() for w in ws]
-                lib = time_ms(torch, lambda i: torch._int_mm(x, wt[i]),
+                lib = time_ms(torch, lambda i: torch._int_mm(xl, wt[i]),
                               len(ws))
                 lib_dev = profiled_ms(
-                    torch, lambda i: torch._int_mm(x, wt[i]), None, len(ws))
+                    torch, lambda i: torch._int_mm(xl, wt[i]), None, len(ws))
             b_ms, b_by = bound(m * k + n * k + 4 * m * n, 2 * m * n * k,
                                "int8")
             if (m, k, n) == json_b2.get(variant):
@@ -509,37 +579,63 @@ def phase_kernels(torch, results: dict) -> None:
                     ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
                     library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
                     shape=f"M={m} K={k} N={n}")
+            pad = " (x padded to 24 rows)" if m <= 16 else ""
             lib_s = ("n/a" if lib is None
-                     else f"{lib:.4f} ms (device {lib_dev:.4f} ms)")
+                     else f"{lib:.4f} ms (device {lib_dev:.4f} ms){pad}")
             line += (f" | {timed_b2[(m, k, n)]}: {ms:.4f} ms (device time "
                      f"{dev_ms:.4f} ms, {2 * m * n * k / dev_ms / 1e9:.0f} "
-                     f"TOP/s), plain {plain:.4f} ms, library {lib_s}, bound "
-                     f"{b_ms:.4f} ms ({b_by})")
+                     f"TOP/s, {(n * k + m * k) / dev_ms / 1e6:.0f} GB/s, "
+                     f"{100 * b_ms / dev_ms:.1f}% of the bound), plain "
+                     f"{plain:.4f} ms, library {lib_s}, bound {b_ms:.4f} ms "
+                     f"({b_by})")
         log(line)
         if (m, k, n) == (2048, 4096, 11008):
-            _b2_last_stage_fault(torch, x, ws[0], got, ref)
-    # a base off the 16-byte grid sends a model shape to the __dp4a tile
-    buf = rand_i8(130 * 4096 + 1)
-    x, w = buf[1:].view(130, 4096), rand_i8(4096, 4096)
-    variant = gemm_variant(130, 4096, x.data_ptr(), w.data_ptr())
-    if variant != "int8_gemm" or not torch.equal(int8_gemm(x, w),
-                                                 int8_gemm_ref(x, w)):
-        raise AssertionError(f"{variant} M=130 K=4096 N=4096, x base "
-                             f"misaligned: not the exact product")
-    log(f"[kernels] {variant} M=130 K=4096 N=4096, x base 1 byte off the "
-        f"16-byte grid: bit-exact")
+            _b2_last_stage_fault(torch, variant, 128, x, ws[0], got, ref)
+        if (m, k, n) == (4, 4096, 11008):
+            _b2_last_stage_fault(torch, variant, 64, x, ws[0], got, ref)
+    # the GeMV at every decode batch size
+    w = rand_i8(11008, 4096)
+    for m in range(1, 9):
+        x = rand_i8(m, 4096)
+        if not torch.equal(int8_gemm(x, w), int8_gemm_ref(x, w)):
+            raise AssertionError(f"int8_gemv M={m} K=4096 N=11008: not the "
+                                 f"exact product")
+    log("[kernels] int8_gemv M=1..8 K=4096 N=11008: bit-exact")
+    # a base off the 16-byte grid sends a model shape to the __dp4a kernels
+    for m in (130, 4):
+        buf = rand_i8(m * 4096 + 1)
+        x, w = buf[1:].view(m, 4096), rand_i8(4096, 4096)
+        variant = gemm_variant(m, 4096, x.data_ptr(), w.data_ptr())
+        if variant != ("int8_gemm" if m > 8 else "int8_gemv_dp4a") \
+                or not torch.equal(int8_gemm(x, w), int8_gemm_ref(x, w)):
+            raise AssertionError(f"{variant} M={m} K=4096 N=4096, x base "
+                                 f"misaligned: not the exact product")
+        log(f"[kernels] {variant} M={m} K=4096 N=4096, x base 1 byte off the "
+            f"16-byte grid: bit-exact")
     _host_launch_us(torch, rand_i8)
 
     # ---- B1: paged decode attention ---------------------------------------
+    # lens: the PR 11-14 timed batch (its llama2-7b row is the JSON row);
+    # the split edges (SPLIT = 128 keys); the serve trace's own lengths,
+    # its first and second admitted groups 16 tokens into their decode
     page = 16
-    timed = ("llama2-7b", "zamba2-7b")   # the JSON row holds llama2-7b's
+    timed = ("llama2-7b", "zamba2-7b", "serve group 1", "serve group 2",
+             "serve group 2, D 112")
+    faulted = ("llama2-7b", "zamba2-7b")
     for tag, b, h, hkv, d, max_seq, lens in [
             ("llama2-7b", 4, 32, 32, 128, 1024, [1024, 545, 17, 0]),
             ("zamba2-7b", 4, 32, 32, 112, 1024, [1024, 545, 17, 0]),
-            ("smollm-360m", 4, 15, 5, 64, 1024, [700, 64, 1, 0])]:
+            ("smollm-360m", 4, 15, 5, 64, 1024, [700, 64, 1, 0]),
+            ("split edges", 6, 32, 32, 128, 1024, [0, 1, 127, 128, 129, 1024]),
+            ("split edges, D 112", 6, 32, 32, 112, 1024,
+             [0, 1, 127, 128, 129, 1024]),
+            ("serve group 1", 4, 32, 32, 128, 1024, [252, 127, 197, 272]),
+            ("serve group 2", 4, 32, 32, 128, 1024, [403, 331, 275, 439]),
+            ("serve group 2, D 112", 4, 32, 32, 112, 1024,
+             [403, 331, 275, 439])]:
         pps = max_seq // page
         n_pages = b * pps + 1
-        n_bufs = 3
+        n_bufs = 3 if tag in timed else 1
         pools = [(randn(n_pages, page, hkv, d), randn(n_pages, page, hkv, d))
                  for _ in range(n_bufs)]
         perm = torch.randperm(n_pages - 1, generator=gen, device=dev)[:b * pps]
@@ -553,21 +649,24 @@ def phase_kernels(torch, results: dict) -> None:
         live = lengths > 0
         err, used = _check_close(torch, f"paged_decode_attention[{tag}]",
                                   got[live], ref[live])
-        if not bool(torch.isfinite(got.float()).all()):
-            raise AssertionError("length-0 lane is not finite")
+        if not bool(torch.isfinite(got.float()).all()) \
+                or bool(got[~live].float().any()):
+            raise AssertionError("a length-0 lane is not 0")
         res = results["paged_decode_attention"]
         res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
         line = (f"[kernels] paged_decode_attention {tag} B={b} H={h} "
                 f"Hkv={hkv} D={d} lens={lens}: max|err| {err:.3e} "
-                f"(worst |err|/limit {used:.3f}; tol {ATTN_TOL}), length-0 lane "
-                f"finite")
-        if tag in timed:
+                f"(worst |err|/limit {used:.3f}; tol {ATTN_TOL}), length-0 "
+                f"lane 0")
+        if tag in faulted:
             _planted_faults(torch, q, kp, vp, block, lengths, ref, page)
+            _b1_batch_invariance(torch, q, kp, vp, block, lengths, got)
+        if tag in timed:
             ms = time_ms(torch, lambda i: paged_decode_attention(
                 q, pools[i][0], pools[i][1], block, lengths), n_bufs)
             dev_ms = profiled_ms(torch, lambda i: paged_decode_attention(
                 q, pools[i][0], pools[i][1], block, lengths),
-                ("paged_decode_attention",), n_bufs)
+                (KERNEL_NAMES["paged_decode_attention"],), n_bufs)
             plain = time_ms(torch, lambda i: paged_decode_attention_ref(
                 q, pools[i][0], pools[i][1], block, lengths), n_bufs)
             # library yardstick: SDPA over the already-gathered cache with
@@ -585,15 +684,18 @@ def phase_kernels(torch, results: dict) -> None:
                 torch, lambda i: F.scaled_dot_product_attention(
                     q4, kd[i], vd[i], attn_mask=mask), None, n_bufs)
             n_tok = sum(lens)
-            bytes_moved = (2 * b * h * d * 2 + n_tok * hkv * d * 2 * 2
-                           + block.numel() * 4 + b * 4)
+            kv_bytes = n_tok * hkv * d * 2 * 2
+            bytes_moved = (2 * b * h * d * 2 + kv_bytes + block.numel() * 4
+                           + b * 4)
             b_ms, b_by = bound(bytes_moved, 4 * n_tok * h * d, "bf16")
             if tag == "llama2-7b":
                 res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
                            library_ms=lib, library_device_ms=lib_dev,
                            bound_ms=b_ms, bound_by=b_by,
                            shape=f"B={b} H={h} D={d} lens={lens}")
-            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
+            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms, K/V "
+                     f"{kv_bytes / dev_ms / 1e6:.0f} GB/s, "
+                     f"{dev_ms * 1e6 / kv_bytes:.4f} ns per K/V byte), plain "
                      f"{plain:.4f} ms, SDPA on the gathered cache {lib:.4f} "
                      f"ms (device {lib_dev:.4f} ms), bound {b_ms:.4f} ms "
                      f"({b_by})")
@@ -1106,7 +1208,15 @@ def _serve_full(torch, arch: str, tag: str, smi: str) -> tuple[dict, object]:
                 if counts[k] <= 0 and k not in missing]
     if missing:
         raise AssertionError(f"the serving path never launched {missing}")
+    _no_off_path(counts, tag)
     return counts, client
+
+
+def _no_off_path(counts: dict, tag: str) -> None:
+    stray = {k: counts[k] for k in OFF_PATH if counts[k] > 0}
+    if stray:
+        raise AssertionError(f"{tag}: the model path launched the off-path "
+                             f"kernels {stray}")
 
 
 def phase_serve(torch, smi: str) -> tuple[dict, object]:
@@ -1126,9 +1236,27 @@ def phase_serve_hybrid(torch, smi: str) -> dict:
     return counts
 
 
-# kernels whose device time the prefill profile reports on their own
+# kernels whose device time the prefill and decode profiles report on their
+# own
 PREFILL_PARTS = (("B2 GEMM", ("int8_gemm_tc",)), ("B3", ("flash_attention",)),
                  ("B6", ("ssd_intra_chunk",)), ("B2 GeMV", ("int8_gemv",)))
+DECODE_PARTS = (("B1", ("paged_decode_attention",)),
+                ("B2 GeMV", ("int8_gemv",)))
+
+
+def _by_part(rows, parts, per: float = 1.0) -> str:
+    """'label ms (launches), ..., rest ms (launches)' of profiler rows,
+    divided by ``per``."""
+    out, named = [], set()
+    for label, names in parts:
+        sel = [r for r in rows if any(n in r[1] for n in names)]
+        named.update(r[1] for r in sel)
+        out.append(f"{label} {sum(r[0] for r in sel) / 1e3 / per:.3f} ms "
+                   f"({sum(r[2] for r in sel) / per:.0f} launches)")
+    rest = [r for r in rows if r[1] not in named]
+    out.append(f"rest {sum(r[0] for r in rest) / 1e3 / per:.3f} ms "
+               f"({sum(r[2] for r in rest) / per:.0f} launches)")
+    return ", ".join(out)
 
 
 def _kernel_rows(prof) -> list[tuple[float, str, int]]:
@@ -1169,18 +1297,13 @@ def _prefill_profile(torch, client, smi: str, tag: str) -> None:
     client.run()
     rows = _kernel_rows(prof)
     total = sum(r[0] for r in rows) / 1e3
-    parts, named = [], set()
-    for label, names in PREFILL_PARTS:
-        sel = [r for r in rows if any(n in r[1] for n in names)]
-        named.update(r[1] for r in sel)
-        parts.append(f"{label} {sum(r[0] for r in sel) / 1e3:.2f} ms "
-                     f"({sum(r[2] for r in sel)} launches)")
+    named = {r[1] for r in rows
+             if any(n in r[1] for _l, names in PREFILL_PARTS for n in names)}
     rest = [r for r in rows if r[1] not in named]
     log(f"[{tag}] prefill profile, one group of 4 prompts (bucket 512): wall "
         f"{wall * 1e3:.1f} ms (profiled), {sum(r[2] for r in rows)} kernel "
-        f"launches, device kernels {total:.2f} ms: {', '.join(parts)}, rest "
-        f"{sum(r[0] for r in rest) / 1e3:.2f} ms ({sum(r[2] for r in rest)} "
-        f"launches) on {smi}")
+        f"launches, device kernels {total:.2f} ms: "
+        f"{_by_part(rows, PREFILL_PARTS)} on {smi}")
     if total <= 0:
         log(f"[{tag}] the profiler recorded no device time: not measured")
     for dev_us, key, count in rest[:6]:
@@ -1217,6 +1340,8 @@ def phase_profile(torch, client, smi: str, tag: str = "profile") -> None:
         f"{wall * 1e3 / steps:.2f} ms/step (profiled), {launches:.0f} kernel "
         f"launches/step, device kernels {busy * 1e3 / steps:.2f} ms/step, "
         f"device busy {100 * busy / wall:.1f}% of wall on {smi}")
+    log(f"[{tag}] decode step by kernel (mean of {steps} steps): "
+        f"{_by_part(rows, DECODE_PARTS, steps)} on {smi}")
     if busy <= 0:
         log(f"[{tag}] the profiler recorded no device time: not measured")
     for dev_us, key, count in rows[:8]:
@@ -1296,6 +1421,7 @@ def phase_hybrid(torch) -> dict:
     for k in ("ecc_decode", "int8_gemv"):
         if counts[k] <= 0:
             raise AssertionError(f"the hybrid sweep never launched {k}")
+    _no_off_path(counts, "hybrid")
 
     # gates against the plain path on the same corrupted pages
     page_diff = acc_diff = y_diff = 0
@@ -1453,6 +1579,7 @@ def phase_serve_w4a16(torch) -> dict:
     if missing:
         raise AssertionError(f"the W4A16 serving path never launched "
                              f"{missing}")
+    _no_off_path(counts, "serve_w4a16")
     del client, core
     gc.collect()
     torch.cuda.empty_cache()

@@ -39,11 +39,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (pointers and the stream as void*)
 SIGNATURES = {
-    "repro_int8_gemv": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_int8_gemv": [_P, _P, _P, _I, _I, _I, _P],
+    "repro_int8_gemv_dp4a": [_P, _P, _P, _I, _I, _I, _P],
     "repro_int8_gemm": [_P, _P, _P, _I, _I, _I, _P],
     "repro_int8_gemm_tc": [_P, _P, _P, _I, _I, _I, _P],
-    "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     _I, _I, _I, _F, _P],
+    "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _I, _I, _F, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                               ctypes.POINTER(ctypes.c_longlong), _F, _P],
     "repro_ecc_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

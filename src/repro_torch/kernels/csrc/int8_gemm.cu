@@ -14,13 +14,27 @@
 // thousands) it is bound by integer operations (2*M*N*K at 1,979 TOP/s),
 // a rate only the tensor cores' wgmma reaches (mma.sync and __dp4a do not).
 //
-// Design, three variants (the wrapper picks one from the shape and the
+// Design, four variants (the wrapper picks one from the shape and the
 // operands' alignment alone, int8_pagegemv/ops.py::gemm_variant):
-//  * int8_gemv_kernel (M <= 8): one warp per output column n; lanes stream
-//    the weight row in 16-byte chunks (coalesced, read once) and __dp4a it
-//    against the matching chunk of each activation row, which stays in L1 /
-//    L2.  A warp shuffle sums the lanes.  Many independent warps keep the
-//    memory system busy.
+//  * int8_gemv_mma_kernel (M <= 8, K % 16 == 0, 16-byte aligned bases:
+//    every model's decode shape): a CTA of 8 warps owns 16 output columns
+//    (weight rows); its warps take the 64-byte K slabs in turn (slab s to
+//    warp s % 8), so at each step the CTA reads 512 contiguous bytes of each
+//    of its 16 rows.  Each lane loads 16 bytes of two weight rows and 16
+//    bytes of one activation row straight into registers (4 slabs in flight
+//    per warp, the weights past L1) and feeds them to the tensor cores as
+//    mma.sync m16n8k32 s32.s8.s8 with the weights as A ("swap AB": the
+//    16-row tile is the product's M) and the activation rows, zero-padded
+//    to 8, as B.  The k order inside a slab is permuted alike in A and B so
+//    that each lane's operands are 16 contiguous bytes: two mmas a slab.
+//    Each activation chunk is loaded once per slab and serves 16 output
+//    columns.  The 8 warps' int32 fragments are summed through shared
+//    memory in warp order.  Many CTAs of 16 columns (688 at N 11008) keep
+//    every SM streaming to the end, with no tail of a long-lived CTA.
+//  * int8_gemv_dp4a_kernel (M <= 8, K not a multiple of 16 or a misaligned
+//    base: on no model's path): one warp per output column; lanes pack
+//    4-byte words of the weight row and of each activation row (zero past
+//    K) and __dp4a them; a warp shuffle sums the lanes.
 //  * int8_gemm_tc_kernel (M > 8, K % 16 == 0, 16-byte aligned bases: every
 //    model shape): a CTA computes a 128x256 output tile.  One producer
 //    warp (one thread of it) issues TMA loads of 128-byte K slices of x
@@ -41,9 +55,8 @@
 //    owning 4x4 outputs; 64-byte K slices of both operands are packed
 //    byte by byte (zero past K) into 32-bit words in shared memory, read
 //    back as int4 vectors, and multiplied with __dp4a.
-//  * Ragged N and M are masked; K is any length in the __dp4a variants.
-//    The GeMV reads 16-byte vectors where K % 16 == 0 and the rows are
-//    aligned, else it packs the words byte by byte.
+//  * Ragged N and M are masked everywhere; K is any length in the __dp4a
+//    variants.
 // Integer sums are exact in any order, so every variant is bit-exact
 // against the plain version.  |sum| <= 127*127*K stays below 2^31 for
 // K < 133,000.
@@ -68,10 +81,10 @@ __device__ __forceinline__ int pack4(const int8_t* p, int k, int K) {
   return v;
 }
 
-template <int MT, bool VEC>
+template <int MT>
 __global__ void __launch_bounds__(kGemvWarps * 32)
-int8_gemv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                 int32_t* __restrict__ out, int M, int N, int K) {
+int8_gemv_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                      int32_t* __restrict__ out, int M, int N, int K) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int n = blockIdx.x * kGemvWarps + warp;
@@ -80,34 +93,12 @@ int8_gemv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   int acc[MT];
 #pragma unroll
   for (int m = 0; m < MT; ++m) acc[m] = 0;
-  if (VEC) {
-    const int chunks = K / 16;
-    const int4* w4 = reinterpret_cast<const int4*>(wr);
-#pragma unroll 4
-    for (int c = lane; c < chunks; c += 32) {
-      const int4 wv = __ldg(w4 + c);
+  for (int k = lane * 4; k < K; k += 128) {
+    const int wv = pack4(wr, k, K);
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m < M) {
-          const int4 xv = __ldg(reinterpret_cast<const int4*>(
-              x + static_cast<size_t>(m) * K) + c);
-          int a = acc[m];
-          a = __dp4a(wv.x, xv.x, a);
-          a = __dp4a(wv.y, xv.y, a);
-          a = __dp4a(wv.z, xv.z, a);
-          a = __dp4a(wv.w, xv.w, a);
-          acc[m] = a;
-        }
-      }
-    }
-  } else {
-    for (int k = lane * 4; k < K; k += 128) {
-      const int wv = pack4(wr, k, K);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m < M) {
-          acc[m] = __dp4a(wv, pack4(x + static_cast<size_t>(m) * K, k, K), acc[m]);
-        }
+    for (int m = 0; m < MT; ++m) {
+      if (m < M) {
+        acc[m] = __dp4a(wv, pack4(x + static_cast<size_t>(m) * K, k, K), acc[m]);
       }
     }
   }
@@ -122,6 +113,85 @@ int8_gemv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       if (m < M) out[static_cast<size_t>(m) * N + n] = acc[m];
+    }
+  }
+}
+
+constexpr int kMmaRows = 16;   // output columns (weight rows) per CTA: the mma's M
+constexpr int kMmaUnroll = 4;  // 64-byte slabs in flight per warp
+
+// 16 bytes of a weight row, kept out of L1 (each byte is used once)
+__device__ __forceinline__ int4 ldg_stream(const int4* p) {
+  int4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// c[16 x 8] += a[16 x 32] . b[32 x 8], int8 in, int32 out (mma.sync
+// fragments: a0/a2 row g, a1/a3 row g + 8, k 4q..4q+3 and 16+4q..16+4q+3;
+// b0/b1 column g, the same k; c0/c1 row g, c2/c3 row g + 8, columns 2q and
+// 2q + 1; g = lane / 4, q = lane % 4)
+__device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2, int a3, int b0,
+                                       int b1) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(kGemvWarps * 32)
+int8_gemv_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                     int32_t* __restrict__ out, int M, int N, int K) {
+  __shared__ int red[kGemvWarps][32][4];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // weight rows g and g + 8 of the tile; activation row g
+  const int q = lane % 4;  // 16-byte chunk q of each 64-byte slab
+  const int n0 = blockIdx.x * kMmaRows;
+  const int chunks = K / 16;
+  const int slabs = (chunks + 3) / 4;
+  const bool row0 = n0 + g < N, row1 = n0 + g + 8 < N, xrow = g < M;
+  const int4* w0 = reinterpret_cast<const int4*>(w + static_cast<size_t>(row0 ? n0 + g : 0) * K);
+  const int4* w1 = reinterpret_cast<const int4*>(w + static_cast<size_t>(row1 ? n0 + g + 8 : 0) * K);
+  const int4* xr = reinterpret_cast<const int4*>(x + static_cast<size_t>(xrow ? g : 0) * K);
+  const int4 zero = make_int4(0, 0, 0, 0);
+  int acc[4] = {0, 0, 0, 0};
+  for (int s0 = warp; s0 < slabs; s0 += kGemvWarps * kMmaUnroll) {
+    int4 wa[kMmaUnroll], wb[kMmaUnroll], xv[kMmaUnroll];
+#pragma unroll
+    for (int u = 0; u < kMmaUnroll; ++u) {
+      const int c = 4 * (s0 + u * kGemvWarps) + q;
+      const bool in = c < chunks;
+      wa[u] = (in && row0) ? ldg_stream(w0 + c) : zero;
+      wb[u] = (in && row1) ? ldg_stream(w1 + c) : zero;
+      xv[u] = (in && xrow) ? __ldg(xr + c) : zero;
+    }
+#pragma unroll
+    for (int u = 0; u < kMmaUnroll; ++u) {
+      // physical bytes 0..7 of each lane's chunk as the mma's k 4q.. and
+      // 16+4q.., bytes 8..15 as the next mma's: the same in A and in B
+      mma_s8(acc, wa[u].x, wb[u].x, wa[u].y, wb[u].y, xv[u].x, xv[u].y);
+      mma_s8(acc, wa[u].z, wb[u].z, wa[u].w, wb[u].w, xv[u].z, xv[u].w);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) red[warp][lane][i] = acc[i];
+  __syncthreads();
+  if (warp == 0) {
+    int sum[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int v = 0; v < kGemvWarps; ++v) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[i] += red[v][lane][i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = 2 * q + (i & 1);
+      const int n = n0 + g + 8 * (i >> 1);
+      if (m < M && n < N) out[static_cast<size_t>(m) * N + n] = sum[i];
     }
   }
 }
@@ -296,35 +366,44 @@ int8_gemm_tc_kernel(const __grid_constant__ CUtensorMap tmx,
 }
 
 template <int MT>
-void launch_gemv(const int8_t* x, const int8_t* w, int32_t* out, int M, int N,
-                 int K, bool vec, cudaStream_t stream) {
+void launch_gemv_dp4a(const int8_t* x, const int8_t* w, int32_t* out, int M, int N, int K,
+                      cudaStream_t stream) {
   const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
-  const dim3 block(kGemvWarps * 32);
-  if (vec) {
-    int8_gemv_kernel<MT, true><<<grid, block, 0, stream>>>(x, w, out, M, N, K);
-  } else {
-    int8_gemv_kernel<MT, false><<<grid, block, 0, stream>>>(x, w, out, M, N, K);
-  }
+  int8_gemv_dp4a_kernel<MT><<<grid, kGemvWarps * 32, 0, stream>>>(x, w, out, M, N, K);
 }
 
 }  // namespace
 
-// vec: 1 when K % 16 == 0 and both base pointers are 16-byte aligned
-extern "C" int repro_int8_gemv(const void* x, const void* w, void* out, int M,
-                               int N, int K, int vec, void* stream) {
+// the tensor-core GeMV: M <= 8, K % 16 == 0 and 16-byte aligned x and w
+extern "C" int repro_int8_gemv(const void* x, const void* w, void* out, int M, int N, int K,
+                               void* stream) {
+  if (M <= 0 || M > 8 || N <= 0 || K <= 0 || K % 16 != 0 ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((N + kMmaRows - 1) / kMmaRows);
+  int8_gemv_mma_kernel<<<grid, kGemvWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), static_cast<int32_t*>(out),
+      M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the __dp4a GeMV: M <= 8, any K, any alignment
+extern "C" int repro_int8_gemv_dp4a(const void* x, const void* w, void* out, int M, int N,
+                                    int K, void* stream) {
   const auto* xp = static_cast<const int8_t*>(x);
   const auto* wp = static_cast<const int8_t*>(w);
   auto* op = static_cast<int32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || M > 8 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 1) {
-    launch_gemv<1>(xp, wp, op, M, N, K, vec != 0, s);
+    launch_gemv_dp4a<1>(xp, wp, op, M, N, K, s);
   } else if (M == 2) {
-    launch_gemv<2>(xp, wp, op, M, N, K, vec != 0, s);
+    launch_gemv_dp4a<2>(xp, wp, op, M, N, K, s);
   } else if (M <= 4) {
-    launch_gemv<4>(xp, wp, op, M, N, K, vec != 0, s);
+    launch_gemv_dp4a<4>(xp, wp, op, M, N, K, s);
   } else {
-    launch_gemv<8>(xp, wp, op, M, N, K, vec != 0, s);
+    launch_gemv_dp4a<8>(xp, wp, op, M, N, K, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

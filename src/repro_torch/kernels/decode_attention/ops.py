@@ -5,7 +5,10 @@
 query token per (slot, head) against one layer's page pools through the
 block table.  A CPU tensor takes the plain version
 (``models.attention.paged_decode_attention``); a CUDA tensor launches the
-kernel, which reads the block table itself.
+kernel, which reads the block table itself: split-KV over splits of
+``ref.SPLIT`` keys at absolute positions, the splits' float32 partials in
+a workspace allocated here, merged in split-index order by a second kernel
+that the same C entry launches.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    SPLIT, paged_decode_attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 112, 128)  # 112: zamba2-7b's shared block
 MAX_GROUP = 8  # grouped query heads per kv head
@@ -52,10 +56,14 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    pps = block_table.shape[1]
+    n_split = -(-pps * page // SPLIT)
+    ws = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32,
+                     device=q.device)
     status = build.library().repro_paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, hkv, d, page, block_table.shape[1], float(d ** -0.5),
+        block_table.data_ptr(), lengths.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), b, h, hkv, d, page, pps, n_split, float(d ** -0.5),
         build.stream_handle(q.device))
     build.check(status, "paged_decode_attention")
     LAUNCHES["paged_decode_attention"] += 1

@@ -3,12 +3,12 @@
 ``int8_gemm(x_q, w_q)`` computes ``int32[M, N] = x_q[M, K] . w_q[N, K]^T``.
 A CPU tensor takes the plain version (``ref.int8_gemm_ref``); a CUDA tensor
 launches the kernel variant :func:`gemm_variant` picks from the shape and
-the operands' alignment alone: the weight-streaming GeMV for M <= 8
-(decode), the tensor-core GEMM (wgmma fed by TMA) for M > 8 where K is a
-multiple of 16 and both bases are 16-byte aligned (prefill, every model
-shape), the ``__dp4a`` tiled GEMM for any other M > 8.  A launch that fails
-raises; no other variant is tried.  ``LAUNCHES`` counts each variant's
-launches.
+the operands' alignment alone.  Where K is a multiple of 16 and both bases
+are 16-byte aligned (every model shape): the tensor-core GeMV (mma.sync,
+weights streamed into registers) for M <= 8 (decode), the tensor-core GEMM
+(wgmma fed by TMA) for M > 8 (prefill).  Otherwise the ``__dp4a`` GeMV for
+M <= 8 and the ``__dp4a`` tiled GEMM above.  A launch that fails raises; no
+other variant is tried.  ``LAUNCHES`` counts each variant's launches.
 
 ``paged_int8_gemv(w_q, scale, x)`` is the counterpart of the JAX front end
 ``repro.kernels.int8_pagegemv.ops.paged_int8_gemv``: x is ``[w]`` or
@@ -27,24 +27,21 @@ from repro_torch.kernels.int8_pagegemv.ref import int8_gemm_ref
 from repro_torch.quant.int8 import quantize_activation
 
 GEMV_MAX_M = 8
-LAUNCHES = {"int8_gemv": 0, "int8_gemm": 0, "int8_gemm_tc": 0}
-
-
-def _aligned16(k: int, x_ptr: int, w_ptr: int) -> bool:
-    """Every row of both operands starts on a 16-byte boundary: the TMA
-    tensor maps' rule, and the GeMV's for its 16-byte vector loads."""
-    return k % 16 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0
+LAUNCHES = {"int8_gemv": 0, "int8_gemv_dp4a": 0, "int8_gemm": 0,
+            "int8_gemm_tc": 0}
 
 
 def gemm_variant(m: int, k: int, x_ptr: int, w_ptr: int) -> str:
     """The kernel variant for an [m, k] . [n, k]^T product whose operands
-    start at device addresses ``x_ptr`` and ``w_ptr``: ``int8_gemv`` for
-    m <= 8, else ``int8_gemm_tc`` where the TMA tensor maps can describe
-    both operands (row stride k a multiple of 16 bytes, 16-byte aligned
-    bases), else ``int8_gemm``."""
+    start at device addresses ``x_ptr`` and ``w_ptr``.  Where every row of
+    both operands starts on a 16-byte boundary (k a multiple of 16, aligned
+    bases: the GeMV's 16-byte loads and the TMA tensor maps need it),
+    ``int8_gemv`` for m <= 8 and ``int8_gemm_tc`` above; otherwise
+    ``int8_gemv_dp4a`` and ``int8_gemm``."""
+    aligned = k % 16 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0
     if m <= GEMV_MAX_M:
-        return "int8_gemv"
-    return "int8_gemm_tc" if _aligned16(k, x_ptr, w_ptr) else "int8_gemm"
+        return "int8_gemv" if aligned else "int8_gemv_dp4a"
+    return "int8_gemm_tc" if aligned else "int8_gemm"
 
 
 def int8_gemm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
@@ -69,14 +66,8 @@ def int8_gemm(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     lib = build.library()
     stream = build.stream_handle(x_q.device)
     name = gemm_variant(m, k, xp, wp)
-    if name == "int8_gemv":
-        status = lib.repro_int8_gemv(xp, wp, out.data_ptr(), m, n, k,
-                                     int(_aligned16(k, xp, wp)), stream)
-    elif name == "int8_gemm_tc":
-        status = lib.repro_int8_gemm_tc(xp, wp, out.data_ptr(), m, n, k,
-                                        stream)
-    else:
-        status = lib.repro_int8_gemm(xp, wp, out.data_ptr(), m, n, k, stream)
+    status = getattr(lib, "repro_" + name)(xp, wp, out.data_ptr(), m, n, k,
+                                           stream)
     build.check(status, name)
     LAUNCHES[name] += 1
     return out

@@ -26,7 +26,8 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels.decode_attention.ops import paged_decode_attention
-from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    SPLIT, paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.int8_pagegemv.ops import int8_gemm
@@ -59,9 +60,9 @@ def cuda_device():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [
-    (4, 4096, 4096),      # llama2-7b decode, GeMV vector path
+    (4, 4096, 4096),      # llama2-7b decode, tensor-core GeMV
     (300, 960, 2560),     # smollm prefill, tensor-core variant
-    (5, 1000, 300),       # ragged K and N, GeMV byte-wise path
+    (5, 1000, 300),       # K % 16 != 0, ragged N: the __dp4a GeMV
     (37, 1000, 130),      # K % 16 != 0: the __dp4a tiled variant
     (2048, 3584, 14576),  # zamba2-7b in_proj: N not a multiple of 128
     (2048, 7168, 3584),   # zamba2-7b out_proj
@@ -93,6 +94,109 @@ def test_int8_gemm_misaligned_base_takes_the_dp4a_tile(cuda_device):
     before = ops.LAUNCHES["int8_gemm"]
     assert torch.equal(int8_gemm(x, w), int8_gemm_ref(x, w))
     assert ops.LAUNCHES["int8_gemm"] == before + 1
+
+
+# (K, N) of every W8A8 linear at decode: llama2-7b, zamba2-7b (shared
+# block, Mamba in_proj / out_proj), smollm-360m; then ragged N and K
+GEMV_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096),
+               (3584, 3584), (3584, 14336), (14336, 3584), (3584, 14576),
+               (7168, 3584),
+               (960, 960), (960, 320), (960, 2560), (2560, 960),
+               (960, 300), (1000, 300), (4104, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", GEMV_SHAPES)
+def test_int8_gemv_bit_exact_at_every_decode_batch(cuda_device, k, n):
+    """M = 1..8 at each shape: the tensor-core GeMV where K % 16 == 0, the
+    __dp4a GeMV at K % 16 == 8; bit-exact, and only the chosen variant's
+    counter moves."""
+    from repro_torch.kernels.int8_pagegemv import ops
+
+    gen = torch.Generator(device=cuda_device).manual_seed(k + n)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=cuda_device,
+                      dtype=torch.int8)
+    for m in range(1, ops.GEMV_MAX_M + 1):
+        x = torch.randint(-127, 128, (m, k), generator=gen,
+                          device=cuda_device, dtype=torch.int8)
+        variant = ops.gemm_variant(m, k, x.data_ptr(), w.data_ptr())
+        assert variant == ("int8_gemv" if k % 16 == 0 else "int8_gemv_dp4a")
+        before = dict(ops.LAUNCHES)
+        got = int8_gemm(x, w)
+        assert torch.equal(got, int8_gemm_ref(x, w)), (m, k, n)
+        assert {name: ops.LAUNCHES[name] - before[name] for name in before} \
+            == {name: int(name == variant) for name in before}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("operand", ["x", "w"])
+def test_int8_gemv_misaligned_base_takes_the_dp4a_gemv(cuda_device, operand):
+    from repro_torch.kernels.int8_pagegemv import ops
+
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x, w = (torch.randint(-127, 128, (size + 1,), generator=gen,
+                          device=cuda_device, dtype=torch.int8)
+            for size in (4 * 4096, 4096 * 4096))
+    x = x[1:].view(4, 4096) if operand == "x" else x[:-1].view(4, 4096)
+    w = w[1:].view(4096, 4096) if operand == "w" else w[:-1].view(4096, 4096)
+    before = ops.LAUNCHES["int8_gemv_dp4a"]
+    assert torch.equal(int8_gemm(x, w), int8_gemm_ref(x, w))
+    assert ops.LAUNCHES["int8_gemv_dp4a"] == before + 1
+
+
+def _paged_inputs(dev, seed, b, h, hkv, d, pps, page=16):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev
+                           ).to(torch.bfloat16)
+
+    n_pages = b * pps + 1
+    q, kp, vp = randn(b, h, d), randn(n_pages, page, hkv, d), \
+        randn(n_pages, page, hkv, d)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
+    block = (perm[:b * pps] + 1).reshape(b, pps).to(torch.int32)
+    return q, kp, vp, block
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,hkv,d", [(32, 32, 128), (32, 32, 112),
+                                     (15, 5, 64), (8, 1, 16)])
+def test_paged_decode_attention_at_split_edges_on_card(cuda_device, h, hkv,
+                                                       d):
+    """Lengths 0, 1, SPLIT - 1, SPLIT, SPLIT + 1 and the full capacity of
+    the block table (4 splits): within two bf16 steps of the plain version;
+    a length-0 slot comes out 0."""
+    lens = [0, 1, SPLIT - 1, SPLIT, SPLIT + 1, 4 * SPLIT]
+    pps = 4 * SPLIT // 16
+    q, kp, vp, block = _paged_inputs(cuda_device, d + h, len(lens), h, hkv,
+                                     d, pps)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    got = paged_decode_attention(q, kp, vp, block, lengths)
+    ref = paged_decode_attention_ref(q, kp, vp, block, lengths)
+    assert_bf16_close(got[1:], ref[1:])
+    assert bool(torch.isfinite(got.float()).all())
+    assert not bool(got[0].float().any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [1, SPLIT, 545, 1024])
+def test_paged_decode_attention_slot_bits_do_not_depend_on_the_batch(
+        cuda_device, length):
+    """Slot 0 alone, inside a batch of 4 with other lengths, and under a
+    block table twice as wide: the same output bits."""
+    h, hkv, d, pps = 32, 32, 128, 64
+    q, kp, vp, block = _paged_inputs(cuda_device, length, 4, h, hkv, d, pps)
+    lens = torch.tensor([length, 17, 1024, 0], dtype=torch.int32,
+                        device=cuda_device)
+    batched = paged_decode_attention(q, kp, vp, block, lens)
+    alone = paged_decode_attention(q[:1].contiguous(), kp, vp,
+                                   block[:1].contiguous(), lens[:1].clone())
+    wide = torch.cat([block[:1], block[1:2]], dim=1).contiguous()
+    wider = paged_decode_attention(q[:1].contiguous(), kp, vp, wide,
+                                   lens[:1].clone())
+    assert torch.equal(batched[0], alone[0])
+    assert torch.equal(wider[0], alone[0])
 
 
 @pytest.mark.gpu

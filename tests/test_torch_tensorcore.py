@@ -118,7 +118,7 @@ def test_b2_every_prefill_shape_takes_the_tensor_cores(arch):
 
 @pytest.mark.parametrize("m,k,x_ptr,w_ptr,variant", [
     (1, 4096, 0, 0, "int8_gemv"),
-    (GEMV_MAX_M, 1000, 3, 5, "int8_gemv"),        # any K, any alignment
+    (GEMV_MAX_M, 1000, 3, 5, "int8_gemv_dp4a"),   # K % 16 != 0, misaligned
     (GEMV_MAX_M + 1, 4096, 0, 0, "int8_gemm_tc"),  # M = 9
     (130, 3584, 512, 1024, "int8_gemm_tc"),
     (2048, 960, 0, 16, "int8_gemm_tc"),            # smollm: K = 60 x 16
