@@ -39,9 +39,10 @@
 //    from shared memory; the grouped heads of the kv head (GQA) share it;
 //    lane shuffles sum the dot products.  Scaled by 1/sqrt(D); keys past the
 //    length at -1e30.  Then per grouped head the split's max m, p = exp(s - m)
-//    and l = sum p; each thread owns (head, dim) outputs and sums p * V over
-//    the split's keys from shared memory.  The partial (acc[D], m, l) goes
-//    to the workspace in float32.
+//    and l = sum p.  p @ V from shared memory with the same lane layout: a
+//    thread sums its 8 dims over every 8th key (D = 128), and the partial
+//    sums are merged in a fixed order.  The partial (acc[D], m, l) goes to
+//    the workspace in float32.
 //  * Combine kernel, one CTA per (head, slot): M = max of the splits' m;
 //    out = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M), both sums taken
 //    in split-index order, rounded once to bf16.  A length-0 slot has no
@@ -105,8 +106,8 @@ paged_decode_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
   // never straddle two keys and the shuffle sum stays within them
   constexpr int kLanesPerTok = kChunks <= 2 ? 2 : kChunks <= 4 ? 4 : kChunks <= 8 ? 8 : 16;
   constexpr int kTokPerWarp = 32 / kLanesPerTok;
-  constexpr int kAcc = (MAXR * D + kThreads - 1) / kThreads;
   static_assert(kSplit % (kWarps * kTokPerWarp) == 0, "split must divide evenly");
+  static_assert(kWarps * MAXR * D * 4 <= kSplit * D * 2, "the warps' V sums fit in the K rows");
 
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kSplit][D]
@@ -211,24 +212,59 @@ paged_decode_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_wait<0>();  // V
   __syncthreads();
-  // acc = p @ v over the split's valid keys
-  float* acc_out = ws + (static_cast<size_t>(b) * H + g * n_rep) * n_split * (D + 2);
+  // acc = p @ v: each thread sums the 8 dims of its lane's chunk over the
+  // keys of its key group (keys kgi, kgi + 8, ... at D = 128), 16-byte rows
+  // from shared memory; the key groups are then summed in a fixed order,
+  // lane shuffles within a warp and the four warps through shared memory
+  // (the K rows, done with, hold the warps' sums)
+  constexpr int kGroups = kWarps * kTokPerWarp;
+  float acc[MAXR][8];
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int idx = tid + i * kThreads;
-    if (idx < n_rep * D) {
-      const int r = idx / D;
-      const int d = idx % D;
-      // four interleaved partial sums, merged in a fixed order
-      float a[4] = {0.f, 0.f, 0.f, 0.f};
-      int j = 0;
-      for (; j + 4 <= n_tok; j += 4) {
+  for (int r = 0; r < MAXR; ++r) {
 #pragma unroll
-        for (int u = 0; u < 4; ++u) a[u] += s_p[r][j + u] * __bfloat162float(sv[(j + u) * D + d]);
+    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
+  }
+  if (has_chunk) {
+    for (int j = warp * kTokPerWarp + tsub; j < n_tok; j += kGroups) {
+      float vf[8];
+      load8(sv + j * D + chunk * 8, vf);
+#pragma unroll
+      for (int r = 0; r < MAXR; ++r) {
+        if (r < n_rep) {
+          const float p = s_p[r][j];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[r][e] += p * vf[e];
+        }
       }
-      for (; j < n_tok; ++j) a[0] += s_p[r][j] * __bfloat162float(sv[j * D + d]);
-      acc_out[(static_cast<size_t>(r) * n_split + split) * (D + 2) + d] = (a[0] + a[1]) + (a[2] + a[3]);
     }
+  }
+#pragma unroll
+  for (int off = kLanesPerTok; off < 32; off *= 2) {
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], off);
+    }
+  }
+  float* red = reinterpret_cast<float*>(sk);  // [kWarps][MAXR][D]
+  if (tsub == 0 && has_chunk) {
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r) {
+      if (r < n_rep) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) red[(warp * MAXR + r) * D + chunk * 8 + e] = acc[r][e];
+      }
+    }
+  }
+  __syncthreads();
+  float* acc_out = ws + (static_cast<size_t>(b) * H + g * n_rep) * n_split * (D + 2);
+  for (int idx = tid; idx < n_rep * D; idx += kThreads) {
+    const int r = idx / D;
+    const int d = idx % D;
+    float a = red[r * D + d];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) a += red[(w * MAXR + r) * D + d];
+    acc_out[(static_cast<size_t>(r) * n_split + split) * (D + 2) + d] = a;
   }
   if (tid < n_rep) {
     float* ml = acc_out + (static_cast<size_t>(tid) * n_split + split) * (D + 2) + D;

@@ -17,10 +17,10 @@
 // Design, four variants (the wrapper picks one from the shape and the
 // operands' alignment alone, int8_pagegemv/ops.py::gemm_variant):
 //  * int8_gemv_mma_kernel (M <= 8, K % 16 == 0, 16-byte aligned bases:
-//    every model's decode shape): a CTA of 8 warps owns 16 output columns
+//    every model's decode shape): a CTA of 16 warps owns 16 output columns
 //    (weight rows); its warps take the 64-byte K slabs in turn (slab s to
-//    warp s % 8), so at each step the CTA reads 512 contiguous bytes of each
-//    of its 16 rows.  Each lane loads 16 bytes of two weight rows and 16
+//    warp s % 16), so at each step the CTA reads 1 KB of each of its 16
+//    rows.  Each lane loads 16 bytes of two weight rows and 16
 //    bytes of one activation row straight into registers (4 slabs in flight
 //    per warp, the weights past L1) and feeds them to the tensor cores as
 //    mma.sync m16n8k32 s32.s8.s8 with the weights as A ("swap AB": the
@@ -28,9 +28,11 @@
 //    to 8, as B.  The k order inside a slab is permuted alike in A and B so
 //    that each lane's operands are 16 contiguous bytes: two mmas a slab.
 //    Each activation chunk is loaded once per slab and serves 16 output
-//    columns.  The 8 warps' int32 fragments are summed through shared
+//    columns.  The 16 warps' int32 fragments are summed through shared
 //    memory in warp order.  Many CTAs of 16 columns (688 at N 11008) keep
-//    every SM streaming to the end, with no tail of a long-lived CTA.
+//    every SM streaming to the end, with no tail of a long-lived CTA; 16
+//    warps a CTA (rather than 8) keep more bytes in flight where N is
+//    small (256 CTAs at N 4096).
 //  * int8_gemv_dp4a_kernel (M <= 8, K not a multiple of 16 or a misaligned
 //    base: on no model's path): one warp per output column; lanes pack
 //    4-byte words of the weight row and of each activation row (zero past
@@ -117,6 +119,7 @@ int8_gemv_dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w
   }
 }
 
+constexpr int kMmaWarps = 16;  // warps per CTA, taking the K slabs in turn
 constexpr int kMmaRows = 16;   // output columns (weight rows) per CTA: the mma's M
 constexpr int kMmaUnroll = 4;  // 64-byte slabs in flight per warp
 
@@ -142,10 +145,10 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2, int 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__global__ void __launch_bounds__(kGemvWarps * 32)
+__global__ void __launch_bounds__(kMmaWarps * 32)
 int8_gemv_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                      int32_t* __restrict__ out, int M, int N, int K) {
-  __shared__ int red[kGemvWarps][32][4];
+  __shared__ int red[kMmaWarps][32][4];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;  // weight rows g and g + 8 of the tile; activation row g
@@ -159,11 +162,11 @@ int8_gemv_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   const int4* xr = reinterpret_cast<const int4*>(x + static_cast<size_t>(xrow ? g : 0) * K);
   const int4 zero = make_int4(0, 0, 0, 0);
   int acc[4] = {0, 0, 0, 0};
-  for (int s0 = warp; s0 < slabs; s0 += kGemvWarps * kMmaUnroll) {
+  for (int s0 = warp; s0 < slabs; s0 += kMmaWarps * kMmaUnroll) {
     int4 wa[kMmaUnroll], wb[kMmaUnroll], xv[kMmaUnroll];
 #pragma unroll
     for (int u = 0; u < kMmaUnroll; ++u) {
-      const int c = 4 * (s0 + u * kGemvWarps) + q;
+      const int c = 4 * (s0 + u * kMmaWarps) + q;
       const bool in = c < chunks;
       wa[u] = (in && row0) ? ldg_stream(w0 + c) : zero;
       wb[u] = (in && row1) ? ldg_stream(w1 + c) : zero;
@@ -183,7 +186,7 @@ int8_gemv_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   if (warp == 0) {
     int sum[4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int v = 0; v < kGemvWarps; ++v) {
+    for (int v = 0; v < kMmaWarps; ++v) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) sum[i] += red[v][lane][i];
     }
@@ -382,7 +385,7 @@ extern "C" int repro_int8_gemv(const void* x, const void* w, void* out, int M, i
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((N + kMmaRows - 1) / kMmaRows);
-  int8_gemv_mma_kernel<<<grid, kGemvWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  int8_gemv_mma_kernel<<<grid, kMmaWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), static_cast<int32_t*>(out),
       M, N, K);
   return static_cast<int>(cudaGetLastError());

@@ -3,22 +3,26 @@ dim 112 than at 128: its K pass and V pass timed apart on the card.
 
     python3 src/repro_torch/kernels/diag_b1_passes.py
 
-Builds ``csrc/diag/decode_attention_pr14.cu`` (that kernel, MHA, with each
-pass switchable) with nvcc into ``build/diag/``, and times it at the
-batch PERF.md's kernel table uses (B 4, 32 heads, lengths 1024 / 545 / 17
-/ 0, pages of 16) for D 128, D 112, and D 112 with its rows placed 256
-bytes apart as D 128's are (pools of [P, page, Hkv, 128], the first 112
-elements used): both passes, the K pass alone, the V pass alone.  Then the
-split-KV kernel of the library at the same three layouts where it can
-(D 128 and 112).  Device time per call from torch.profiler (the median of
-CUDA-event times beside it), with nvidia-smi's name and power limit.
-Needs a card and nvcc; prints ``[diag_b1]`` lines.
+Builds ``csrc/diag/decode_attention_pr14.cu`` (that kernel's source, MHA,
+with each pass switchable) with nvcc into ``build/diag/``, counts the
+loads and float multiply-adds of each instantiation in its SASS
+(``cuobjdump -sass``), and times it at the batch PERF.md's kernel table
+uses (B 4, 32 heads, lengths 1024 / 545 / 17 / 0, pages of 16) for D 128,
+D 112, and D 112 with its rows placed 256 bytes apart as D 128's are
+(pools of [P, page, Hkv, 128], the first 112 elements used): both passes,
+the K pass alone, the V pass alone.  Then the split-KV kernel of the
+library at D 128 and 112, each of its two kernels apart.  Device time per
+call from torch.profiler (the median of CUDA-event times beside it), with
+nvidia-smi's name and power limit.  Needs a card and nvcc; prints
+``[diag_b1]`` lines.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -45,6 +49,7 @@ def _build() -> ctypes.CDLL:
     for line in res.stdout.splitlines():
         if "registers" in line or "spill" in line:
             print(f"[diag_b1] ptxas: {line.strip()}", flush=True)
+    _sass_counts(lib)
     dll = ctypes.CDLL(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
     dll.diag_decode_attention_pr14.argtypes = [p] * 6 + [i] * 7 + [
@@ -53,8 +58,33 @@ def _build() -> ctypes.CDLL:
     return dll
 
 
-def _times(torch, fn, n_bufs: int) -> tuple[float, float]:
-    """(device ms per call under torch.profiler, median event ms)."""
+def _sass_counts(lib: str) -> None:
+    """Per kernel instantiation: SASS instructions, 16-byte global loads
+    (K rows), 2-byte global loads (V elements) and FFMAs."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("[diag_b1] cuobjdump not found: SASS not counted", flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", lib], stdout=subprocess.PIPE,
+                          text=True).stdout
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, _, code = func.partition("\n")
+        m = re.search(r"Li(\d+)ELi1ELi(\d)ELi(\d+)E", name)
+        if not m:
+            continue
+        ins = re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]*);", code)
+        ops = [i.split()[0] if not i.startswith("@") else i.split()[1]
+               for i in ins if i.strip()]
+        n = lambda pre: sum(o.startswith(pre) for o in ops)  # noqa: E731
+        print(f"[diag_b1] SASS D={m.group(1)} passes={m.group(2)} "
+              f"DS={m.group(3)}: {len(ops)} instructions, "
+              f"{n('LDG.E.128')} LDG.128, {n('LDG.E.U16')} LDG.U16, "
+              f"{n('FFMA')} FFMA", flush=True)
+
+
+def _times(torch, fn, n_bufs: int, by_kernel: bool = False):
+    """(device ms per call under torch.profiler, median event ms), and with
+    ``by_kernel`` the device ms per call of each kernel by name."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(3):
@@ -74,10 +104,11 @@ def _times(torch, fn, n_bufs: int) -> tuple[float, float]:
         for i in range(10):
             fn(i % n_bufs)
         torch.cuda.synchronize()
-    dev_us = sum(getattr(e, "self_device_time_total", 0.0)
-                 for e in prof.key_averages()
-                 if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    return dev_us / 1e3 / 10, statistics.median(ev)
+    parts = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3 / 10
+             for e in prof.key_averages()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")}
+    out = (sum(parts.values()), statistics.median(ev))
+    return out + (parts,) if by_kernel else out
 
 
 def main() -> int:
@@ -137,11 +168,14 @@ def main() -> int:
         if dstride == d:
             new = [(t[0][..., :d].contiguous(), t[1][..., :d].contiguous())
                    for t in pools]
-            dev_ms, ev_ms = _times(torch, lambda i: paged_decode_attention(
-                q, new[i][0], new[i][1], block, lengths), n_bufs)
+            dev_ms, ev_ms, parts = _times(
+                torch, lambda i: paged_decode_attention(
+                    q, new[i][0], new[i][1], block, lengths), n_bufs, True)
+            each = ", ".join(f"{re.sub(r'[(<].*', '', k).split('::')[-1]} "
+                             f"{v:.4f} ms" for k, v in parts.items())
             print(f"[diag_b1] split-KV, {layout}: device {dev_ms:.4f} ms "
-                  f"({d * kv_bytes / dev_ms / 1e6:.1f} GB/s of K/V), events "
-                  f"{ev_ms:.4f} ms on {smi}", flush=True)
+                  f"({d * kv_bytes / dev_ms / 1e6:.1f} GB/s of K/V; {each}), "
+                  f"events {ev_ms:.4f} ms on {smi}", flush=True)
     return 0
 
 
