@@ -19,11 +19,11 @@ Phases, each printing its own lines:
             attention kernels within two bf16 steps of the reference;
             planted faults must fail those checks: decode attention given
             a long lane one token or one page short, or every lane's last
-            split of 128 keys dropped (D 128 and D 112), B3 with its causal
+            split of 64 keys dropped (D 128 and D 112), B3 with its causal
             mask admitting key i+1 or its last K/V block dropped, B2's GEMM
             with its last 128-byte K stage and the GeMV with its last
             64-byte K slab skipped.  Decode attention is also checked at
-            the split edges (lengths 1, 127, 128, 129, 1024) and for a
+            the split edges (lengths 1, 63, 64, 65, 1024) and for a
             slot's bits alone, in its batch and under a wider block table.
             B6 (ssd_intra_chunk)
             at the zamba2-7b and mamba2-130m prefill shapes, Q 8 and G 2,
@@ -405,9 +405,11 @@ def _host_launch_us(torch, rand_i8, calls: int = 500) -> None:
     shapes the card finishes faster than the host issues them, read before
     the final synchronize): B2's tensor-core GEMM and B3, which encode two
     and three TMA tensor maps and set the kernel's shared-memory attribute
-    on every launch, against the GeMV, which does neither.  Through the
-    wrappers (what a caller pays) and, for the GEMMs, through the C entry
-    points (their difference is the maps and the attribute)."""
+    on every launch, against the GeMV, which does neither, and B1, whose
+    wrapper allocates a workspace and whose C entry launches two kernels.
+    Through the wrappers (what a caller pays) and, for the B2 variants,
+    through the C entry points (their difference is the maps and the
+    attribute)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention.ops import paged_decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -491,7 +493,8 @@ def phase_kernels(torch, results: dict) -> None:
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.ops import paged_decode_attention
-    from repro_torch.kernels.decode_attention.ref import paged_decode_attention_ref
+    from repro_torch.kernels.decode_attention.ref import (
+        SPLIT, paged_decode_attention_ref)
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.int8_pagegemv.ops import gemm_variant, int8_gemm
@@ -544,7 +547,8 @@ def phase_kernels(torch, results: dict) -> None:
         x = rand_i8(m, k)
         # enough weight copies that a timed GeMV streams them from device
         # memory, not from the 50 MB L2
-        n_w = 1 if m > 8 else max(4, -(-120_000_000 // (n * k)))
+        n_w = (max(4, -(-120_000_000 // (n * k)))
+               if m <= 8 and (m, k, n) in timed_b2 else 1)
         ws = [rand_i8(n, k) for _ in range(n_w)]
         variant = gemm_variant(m, k, x.data_ptr(), ws[0].data_ptr())
         got = int8_gemm(x, ws[0])
@@ -616,19 +620,19 @@ def phase_kernels(torch, results: dict) -> None:
 
     # ---- B1: paged decode attention ---------------------------------------
     # lens: the PR 11-14 timed batch (its llama2-7b row is the JSON row);
-    # the split edges (SPLIT = 128 keys); the serve trace's own lengths,
+    # the split edges (SPLIT = 64 keys); the serve trace's own lengths,
     # its first and second admitted groups 16 tokens into their decode
     page = 16
     timed = ("llama2-7b", "zamba2-7b", "serve group 1", "serve group 2",
              "serve group 2, D 112")
     faulted = ("llama2-7b", "zamba2-7b")
+    edges = [0, 1, SPLIT - 1, SPLIT, SPLIT + 1, 1024]
     for tag, b, h, hkv, d, max_seq, lens in [
             ("llama2-7b", 4, 32, 32, 128, 1024, [1024, 545, 17, 0]),
             ("zamba2-7b", 4, 32, 32, 112, 1024, [1024, 545, 17, 0]),
             ("smollm-360m", 4, 15, 5, 64, 1024, [700, 64, 1, 0]),
-            ("split edges", 6, 32, 32, 128, 1024, [0, 1, 127, 128, 129, 1024]),
-            ("split edges, D 112", 6, 32, 32, 112, 1024,
-             [0, 1, 127, 128, 129, 1024]),
+            ("split edges", 6, 32, 32, 128, 1024, edges),
+            ("split edges, D 112", 6, 32, 32, 112, 1024, edges),
             ("serve group 1", 4, 32, 32, 128, 1024, [252, 127, 197, 272]),
             ("serve group 2", 4, 32, 32, 128, 1024, [403, 331, 275, 439]),
             ("serve group 2, D 112", 4, 32, 32, 112, 1024,

@@ -23,14 +23,15 @@
 // Design: split-KV with a fixed-order combine, two kernels launched from one
 // C entry.
 //  * Split kernel, one CTA (128 threads) per (split, kv head, slot).  A
-//    split is kSplit = 128 keys; split s holds keys [128 s, 128 s + 128) of
+//    split is kSplit = 64 keys; split s holds keys [64 s, 64 s + 64) of
 //    its slot, so a slot's splits and their arithmetic depend on its own
 //    length alone (never on B, pps, the page size or the SM count).  CTAs
 //    past a slot's last split return at once.
 //  * The CTA issues every 16-byte chunk of its split's valid K rows, then of
 //    its V rows, as cp.async copies into shared memory (two commit groups),
-//    so all of the split's bytes (64 KB at D = 128) are in flight at once
-//    and V arrives while K is reduced.  Rows past the length are not loaded:
+//    so all of the split's bytes (32 KB at D = 128) are in flight at once
+//    and V arrives while K is reduced.  32 KB a CTA lets 7 CTAs share an
+//    SM, so nearly all of a batch's splits are in flight together.  Rows past the length are not loaded:
 //    their scores are set to -1e30 and the V sum stops at the length.  The
 //    chunks are numbered row-major over D/8 chunks a row, so D = 112 (14
 //    chunks) uses every thread as D = 128 does.  Page ids come from the
@@ -40,7 +41,7 @@
 //    lane shuffles sum the dot products.  Scaled by 1/sqrt(D); keys past the
 //    length at -1e30.  Then per grouped head the split's max m, p = exp(s - m)
 //    and l = sum p.  p @ V from shared memory with the same lane layout: a
-//    thread sums its 8 dims over every 8th key (D = 128), and the partial
+//    thread sums its 8 dims over every 8th key (D >= 72), and the partial
 //    sums are merged in a fixed order.  The partial (acc[D], m, l) goes to
 //    the workspace in float32.
 //  * Combine kernel, one CTA per (head, slot): M = max of the splits' m;
@@ -60,8 +61,7 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSplit = 128;  // keys per split; the wrapper's ref.SPLIT
-static_assert(kSplit == kThreads, "one key per thread when staging page ids");
+constexpr int kSplit = 64;  // keys per split; the wrapper's ref.SPLIT
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
@@ -126,9 +126,9 @@ paged_decode_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
   const int n_rep = H / Hkv;
   const int tid = threadIdx.x;
 
-  {
-    const int t = t0 + tid;
-    if (tid < n_tok) s_row[tid] = block_table[static_cast<size_t>(b) * pps + t / page] * page + t % page;
+  for (int i = tid; i < n_tok; i += kThreads) {
+    const int t = t0 + i;
+    s_row[i] = block_table[static_cast<size_t>(b) * pps + t / page] * page + t % page;
   }
   __syncthreads();
   const size_t row_stride = static_cast<size_t>(Hkv) * D;  // elements per pool row

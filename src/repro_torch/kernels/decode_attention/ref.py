@@ -18,7 +18,7 @@ from repro_torch.models.attention import (  # noqa: F401
     paged_decode_attention as paged_decode_attention_ref,
 )
 
-SPLIT = 128  # keys per split: the kernel's kSplit
+SPLIT = 64  # keys per split: the kernel's kSplit
 
 
 def paged_decode_attention_splitkv(q: torch.Tensor, k_pages: torch.Tensor,

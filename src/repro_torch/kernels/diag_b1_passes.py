@@ -171,8 +171,9 @@ def main() -> int:
             dev_ms, ev_ms, parts = _times(
                 torch, lambda i: paged_decode_attention(
                     q, new[i][0], new[i][1], block, lengths), n_bufs, True)
-            each = ", ".join(f"{re.sub(r'[(<].*', '', k).split('::')[-1]} "
-                             f"{v:.4f} ms" for k, v in parts.items())
+            each = ", ".join(
+                f"{re.sub(r'[(<].*', '', k.split('::')[-1])} {v:.4f} ms"
+                for k, v in parts.items())
             print(f"[diag_b1] split-KV, {layout}: device {dev_ms:.4f} ms "
                   f"({d * kv_bytes / dev_ms / 1e6:.1f} GB/s of K/V; {each}), "
                   f"events {ev_ms:.4f} ms on {smi}", flush=True)
