@@ -152,7 +152,7 @@ COUNTED_IN = {"int8_gemv": "serve", "int8_gemv_dp4a": "serve",
               "ecc_decode": "hybrid", "w4a16_gemv": "serve_w4a16",
               "ssd_intra_chunk": "serve_hybrid"}
 # kept for shapes no model has (K not a multiple of 16, a misaligned base):
-# not required to launch on a serving path
+# a serving path must not launch them
 OFF_PATH = ("int8_gemm", "int8_gemv_dp4a")
 # the device kernels (by name, as torch.profiler reports them) behind each
 # wrapper; B1's wrapper launches a split and a combine kernel
