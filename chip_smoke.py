@@ -26,10 +26,13 @@ Phases, each printing its own lines:
             the split edges (lengths 1, 63, 64, 65, 1024) and for a
             slot's bits alone, in its batch and under a wider block table.
             B6 (ssd_intra_chunk)
-            at the zamba2-7b and mamba2-130m prefill shapes, Q 8 and G 2,
+            at the zamba2-7b and mamba2-130m prefill shapes, Q 8, G 2, Q 64
+            with 22 heads (a ragged last head block) and Q 40 with N 24,
             against its plain version in float64 within rtol = atol =
             1e-4; two planted mask faults (j <= i+1 admitted, the diagonal
-            dropped) must fail.
+            dropped) and, at G 2, every head given group 0's C B^T must
+            fail.  Its bound counts the function's least work (C B^T once
+            per batch, group and chunk) on the bf16 tensor cores.
             Times each (CUDA events, median), its plain version and one
             PyTorch library call where one exists, beside the least time
             the card could take (bytes at 3.35 TB/s or operations at the
@@ -90,7 +93,8 @@ Phases, each printing its own lines:
 
 The kernels phase also holds B4 (w4a16_gemv) and B5 (ecc_decode) against
 their plain versions, with two planted faults that must fail (B5 with the
-last sidecar entry's restore skipped, B4 with lo/hi nibbles swapped).
+last sidecar entry's restore skipped, B4 with lo/hi nibbles swapped); B5
+also on one page and on pages with planted colliding entries.
 
 The last three lines are the kernels JSON, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``; each kernel's ``launches`` is read
@@ -752,10 +756,47 @@ def phase_kernels(torch, results: dict) -> None:
     _kernels_ssd(torch, results)
 
 
+def _planted_collisions(torch, ecc, pages):
+    """Sidecars of 4 clean ``pages`` with colliding entries; the n-th entry
+    placed on a page's address gets value copies 0x11 (n + 1).  Returns
+    (sidecars, each page's address, the byte the last entry leaves there).
+    Page 0: entry 0 valid, then entry K-1 invalid, on a value below the
+    threshold (it stays); page 1: entry 0 invalid, then K-1 valid (0x22);
+    page 2: entries 0, K/2 and K-1 valid on one address (0x33); page 3:
+    entry 0 valid, then K-1 invalid, on an outlier above the threshold
+    (clamped to 0).  Inverting an entry's 5 parity bits puts its syndrome
+    at 31: invalid."""
+    code = ecc.encode_pages(pages)
+    addr, parity, copies = (code.addr.clone(), code.addr_parity.clone(),
+                            code.copies.clone())
+    k = addr.shape[1]
+    mag = pages.view(torch.int8).to(torch.int32).abs()
+    thr = code.threshold[:, 0].to(torch.int32)
+    low = int(torch.nonzero(mag[0] <= thr[0])[0, 0])
+    plan = [(low, {0: True, k - 1: False}),
+            (int(addr[1, 0]), {0: False, k - 1: True}),
+            (int(addr[2, 0]), {0: True, k // 2: True, k - 1: True}),
+            (int(addr[3, 0]), {0: True, k - 1: False})]
+    if int(mag[3, plan[3][0]]) <= int(thr[3]):
+        raise AssertionError("planted collisions: page 3's outlier is not "
+                             "above the threshold")
+    for page, (target, entries) in enumerate(plan):
+        for n, (e, valid) in enumerate(entries.items()):
+            addr[page, e] = target
+            parity[page, e] = int(ecc.hamming_encode(addr[page, e:e + 1])[0]) \
+                ^ (0 if valid else 0x1F)
+            copies[page, e] = 0x11 * (n + 1)
+    want = [int(pages[0, low]), 0x22, 0x33, 0]
+    return (ecc.PageECC(code.threshold, addr.contiguous(),
+                        parity.contiguous(), copies.contiguous()),
+            [t for t, _ in plan], want)
+
+
 def _kernels_ecc(torch, results: dict) -> None:
     """B5 against its plain version on 4,096 random int8 pages at three
-    BERs, every position; the planted fault (the last sidecar entry's
-    restore skipped) must fail."""
+    BERs, on one page, and on pages with planted colliding entries, every
+    position; the planted fault (the last sidecar entry's restore skipped)
+    must fail."""
     from repro_torch.core import ecc
     from repro_torch.kernels.ecc_decode.ops import ecc_decode
 
@@ -813,10 +854,33 @@ def _kernels_ecc(torch, results: dict) -> None:
             res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
                        library_ms=None, bound_ms=b_ms,
                        bound_by=b_by, shape=f"B={n} P={ecc.PAGE_ELEMS} K={k}")
-            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
+            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms, "
+                     f"{100 * b_ms / dev_ms:.1f}% of the bound), plain "
                      f"{plain:.4f} ms, library n/a (no PyTorch call decodes "
                      f"the sidecar), bound {b_ms:.4f} ms ({b_by})")
         log(line)
+    one = torch.randint(0, 256, (1, ecc.PAGE_ELEMS), generator=gen,
+                        device=dev, dtype=torch.uint8)
+    code = ecc.inject_ecc_bitflips(ecc.encode_pages(one), 2e-3, gen)
+    one = ecc.inject_bitflips(one, 2e-3, gen)
+    if not torch.equal(ecc_decode(one, code), ecc.decode_pages(one, code)):
+        raise AssertionError("ecc_decode on one page differs from the plain "
+                             "decode")
+    log("[kernels] ecc_decode 1 page BER 0.002: bit-exact on every position")
+    pages = torch.randint(0, 256, (4, ecc.PAGE_ELEMS), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    code, at, want = _planted_collisions(torch, ecc, pages)
+    got = ecc_decode(pages, code)
+    ref = ecc.decode_pages(pages, code)
+    seen = [int(ref[p, a]) for p, a in enumerate(at)]
+    if not torch.equal(got, ref) or seen != want:
+        raise AssertionError(f"ecc_decode on planted collisions: "
+                             f"{int((got != ref).sum())} bytes differ from "
+                             f"the plain decode; bytes at the collisions "
+                             f"{seen}, the rule gives {want}")
+    log(f"[kernels] ecc_decode planted collisions (valid then invalid, "
+        f"invalid then valid, three on one address, an outlier left to an "
+        f"invalid last entry): bit-exact, bytes at the collisions {seen}")
 
 
 def _kernels_w4a16(torch, results: dict) -> None:
@@ -923,22 +987,35 @@ def _ssd_mask_faults(torch, x, a, bm, cm, chunk, got) -> dict:
 def _kernels_ssd(torch, results: dict) -> None:
     """B6 against its plain version (float64) at the zamba2-7b and
     mamba2-130m prefill shapes (bucket 512, Q 128), the smallest bucket
-    (Q 8) and two B/C groups, within SSD_TOL; two planted mask faults must
-    fail.  Timed at the zamba2-7b shape."""
-    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+    (Q 8), two B/C groups, Q 64 with 22 heads (a ragged last head block)
+    and Q 40 with N 24 (zero-filled tiles), within SSD_TOL; two planted mask
+    faults and, at G 2, every head reading group 0's C B^T must fail.
+    Timed at the zamba2-7b and mamba2-130m shapes."""
+    from repro_torch.kernels.ssd_scan.ops import head_block, ssd_intra_chunk
     from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_model_ref
 
     gen = torch.Generator(device=torch.device("cuda"))
     gen.manual_seed(6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     res = results["ssd_intra_chunk"]
     res["max_abs_err"] = 0.0
     tol = f"rtol = atol = {SSD_TOL} against the float64 plain version"
+    timed = ("zamba2-7b", "mamba2-130m")
+
+    def gate(got, ref):
+        """Outputs beyond the tolerance, and the worst |err| / limit."""
+        e = (got.double() - ref).abs()
+        limit = SSD_TOL + SSD_TOL * ref.abs()
+        return int((~(e <= limit)).sum()), e, (e / limit).max().item()
+
     for tag, b, s, h, g, p, n, chunk in [
             ("zamba2-7b", 4, 512, 112, 1, 64, 64, 128),
             ("mamba2-130m", 4, 512, 24, 1, 64, 128, 128),
             ("Q 8", 4, 8, 8, 1, 16, 16, 8),
-            ("G 2", 2, 256, 16, 2, 32, 64, 64)]:
-        n_bufs = 2 if tag == "zamba2-7b" else 1
+            ("G 2", 2, 256, 16, 2, 32, 64, 64),
+            ("Q 64, 22 heads", 4, 1024, 22, 1, 64, 64, 64),
+            ("Q 40, N 24", 1, 80, 8, 1, 32, 24, 40)]:
+        n_bufs = 2 if tag in timed else 1
         ins = [_ssd_inputs(torch, gen, b, s, h, g, p, n)
                for _ in range(n_bufs)]
         x, a, bm, cm = ins[0]
@@ -948,52 +1025,70 @@ def _kernels_ssd(torch, results: dict) -> None:
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"ssd_intra_chunk[{tag}]: non-finite output")
-        limit = SSD_TOL + SSD_TOL * ref.abs()
-        err = (got.double() - ref).abs()
-        if not bool((err <= limit).all()):
+        bad, err, used = gate(got, ref)
+        if bad:
             raise AssertionError(
-                f"ssd_intra_chunk[{tag}]: {int((err > limit).sum())} outputs "
-                f"beyond {tol}, max |err| {err.max().item():.3e}")
-        err32 = (ref32.double() - ref).abs()
+                f"ssd_intra_chunk[{tag}]: {bad} outputs beyond {tol}, max "
+                f"|err| {err.max().item():.3e}")
+        _, err32, used32 = gate(ref32, ref)
         res["max_abs_err"] = max(res["max_abs_err"], err.max().item())
+        hpc = head_block(b, s // chunk, h, g, sms)
         line = (f"[kernels] ssd_intra_chunk {tag} B={b} S={s} H={h} G={g} "
-                f"P={p} N={n} Q={chunk}: max|err| {err.max().item():.3e} "
-                f"(worst |err|/limit {(err / limit).max().item():.3f}; tol "
+                f"P={p} N={n} Q={chunk} ({hpc} heads a CTA): max|err| "
+                f"{err.max().item():.3e} (worst |err|/limit {used:.3f}; tol "
                 f"{tol}); the float32 plain version's own max|err| "
-                f"{err32.max().item():.3e} (|err|/limit "
-                f"{(err32 / limit).max().item():.3f}), kernel vs it "
-                f"{(got - ref32).abs().max().item():.3e}")
+                f"{err32.max().item():.3e} (|err|/limit {used32:.3f}), "
+                f"kernel vs it {(got - ref32).abs().max().item():.3e}")
         if tag == "zamba2-7b":
-            for fault, bad in _ssd_mask_faults(torch, x, a, bm, cm, chunk,
-                                               got).items():
-                e = (bad - ref).abs()
-                caught = int((~(e <= limit)).sum())
+            for fault, wrong in _ssd_mask_faults(torch, x, a, bm, cm, chunk,
+                                                 got).items():
+                caught = gate(wrong, ref)[0]
                 log(f"[kernels] planted fault, ssd_intra_chunk with the mask "
-                    f"{fault}: {caught} of {e.numel()} outputs beyond the "
+                    f"{fault}: {caught} of {ref.numel()} outputs beyond the "
                     f"tolerance")
                 if caught == 0:
                     raise AssertionError(f"planted fault ({fault}) passes the "
                                          f"ssd_intra_chunk check")
+        if tag == "G 2":
+            # what a kernel that gives every CTA group 0's C B^T computes
+            g0 = [m[:, :, :1].expand(-1, -1, g, -1).contiguous()
+                  for m in (bm, cm)]
+            caught = gate(ssd_intra_chunk(x, a, *g0, chunk), ref)[0]
+            log(f"[kernels] planted fault, ssd_intra_chunk with every head "
+                f"reading group 0's C B^T: {caught} of {ref.numel()} outputs "
+                f"beyond the tolerance")
+            if caught == 0:
+                raise AssertionError("planted fault (group 0's C B^T) passes "
+                                     "the ssd_intra_chunk check")
+        if tag in timed:
             ms = time_ms(torch, lambda i: ssd_intra_chunk(*ins[i], chunk),
                          n_bufs)
             dev_ms = profiled_ms(torch, lambda i: ssd_intra_chunk(
                 *ins[i], chunk), ("ssd_intra_chunk",), n_bufs)
             plain = time_ms(torch, lambda i: ssd_intra_chunk_model_ref(
                 *ins[i], chunk), n_bufs, iters=10)
-            # each input read once, y written once; Q(Q+1)/2 (N + P)
-            # multiply-adds per (batch, head, chunk): the causal half
+            # the function's least work: each input read once, y written
+            # once; C B^T once per (batch, group, chunk) and S x per head,
+            # over the causal half (Q(Q+1)/2 pairs), on the bf16 tensor
+            # cores (x, B and C are bf16; S in bf16 terms)
             bytes_moved = (b * s * h * p * 2 + b * s * h * 4
                            + 2 * b * s * g * n * 2 + b * s * h * p * 4)
-            ops = 2 * b * h * (s // chunk) * chunk * (chunk + 1) // 2 * (n + p)
-            b_ms, b_by = bound(bytes_moved, ops, "f32")
-            res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                       shape=f"B={b} S={s} H={h} G={g} P={p} N={n} Q={chunk}")
-            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
+            ops = (2 * b * (s // chunk) * chunk * (chunk + 1) // 2
+                   * (g * n + h * p))
+            b_ms, b_by = bound(bytes_moved, ops, "bf16")
+            if tag == "zamba2-7b":
+                res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                           library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                           shape=f"B={b} S={s} H={h} G={g} P={p} N={n} "
+                                 f"Q={chunk}")
+            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms, "
+                     f"{100 * b_ms / dev_ms:.1f}% of the bound), plain "
                      f"{plain:.4f} ms, library n/a (no PyTorch call computes "
                      f"the decay-masked product), bound {b_ms:.4f} ms "
-                     f"({b_by}: {ops / 1e9:.2f} GFLOP, "
-                     f"{bytes_moved / 1e6:.1f} MB)")
+                     f"({b_by}: {bytes_moved / 1e6:.1f} MB at 3.35 TB/s; "
+                     f"{ops / 1e9:.2f} GFLOP at the bf16 tensor-core peak "
+                     f"{ops / PEAK_OPS['bf16'] * 1e3:.4f} ms, at the float32 "
+                     f"CUDA-core peak {ops / PEAK_OPS['f32'] * 1e3:.4f} ms)")
         log(line)
 
 

@@ -20,30 +20,50 @@
 // model path it stands in for is the y_diag einsum of
 // models/ssm.py::ssd_chunked.
 //
-// What bounds it on the H100: per (batch, head, chunk) it does Q(Q+1)/2
-// (N + P) multiply-adds on Q P inputs of x, Q of a (B and C are shared by
-// the group's heads) and Q P float32 outputs, about Q/3 operations per byte
-// at N = P = 64 and bf16 x (43 at Q = 128, above the card's float32 ridge
-// of 20).  The products stay in float32 (the reference keeps S = (C B^T) o L
-// in float32, which a bf16 or TF32 tensor-core product would round), so the
-// limit is the float32 rate of the CUDA cores, above the byte bound.  What
-// the design does about it: blocks above the diagonal are never visited,
-// and each B and x row block is staged once for the 64 rows that use it.
+// What bounds it on the H100.  The least work is C B^T once per (batch,
+// group, chunk) and S_h x_h per head: 2 Q(Q+1)/2 (G N + H P) operations per
+// (batch, chunk), against Q H P bf16 inputs and Q H P float32 outputs.  At
+// zamba2-7b (H 112, G 1, P = N = 64, Q 128) that is 1.9 GFLOP against 90 MB,
+// about 21 operations per byte: below the bf16 tensor cores' ridge (~295),
+// so the bound is device memory bytes, ~60% of them the float32 output.
+// PR 13's kernel computed C B^T again for every head (half of its FLOPs) and
+// both products on the float32 CUDA cores, 6x its byte bound.
 //
-// Design (one CTA of 256 threads per 64-row block of a chunk, head, batch):
-//  * warp 0 computes the chunk's cumulative sum of a in double precision
-//    (a lane-local sum of 4, then a warp scan): a float32 cumsum over a
-//    chunk reaches |cs| ~ 2e3 at the model's decays, where its own rounding
-//    (~1e-4 absolute) would move L by ~1e-4 relative; differences of double
-//    sums give L to float32 precision;
-//  * C of the CTA's 64 rows is staged in shared memory as f32, transposed;
-//  * for each 64-key block at or below the diagonal, B and x rows are
-//    staged; each thread computes a 4x4 block of C B^T with float4 shared
-//    reads, multiplies by L (0 above the diagonal and past the chunk);
-//  * S goes through shared memory (transposed) for the S x product, each
-//    thread accumulating 4 rows x P/16 dims in registers;
-//  * rows and keys past the chunk (Q < 64) are staged as zeros and not
-//    stored.
+// Design of the bf16 kernel (ssd_intra_chunk_tc_kernel): one CTA of 8 warps
+// per (batch, chunk, block of `hpc` heads of one group); the wrapper picks
+// hpc so that the grid is about one wave of the card's SMs.
+//  * C B^T once per CTA, on the tensor cores: mma.sync m16n8k16 bf16 with
+//    float32 accumulation (the bf16 products are exact in float32, so only
+//    the order of the float32 sums differs from the CUDA cores), for the 16 x
+//    16 tile blocks at or below the diagonal only.  Each block is kept in
+//    shared memory in the accumulator's own fragment order (8 floats a lane),
+//    which is also the A-operand order of the S x product: a lane reads its
+//    S fragment back with two 16-byte loads.
+//  * cs in double for every head of the CTA (a lane-local sum of 4, then a
+//    warp scan): a float32 cumsum over a chunk reaches |cs| ~ 2e3 at the
+//    model's decays, where its own rounding (~1e-4 absolute) would move L by
+//    ~1e-4 relative; differences of double sums give L to float32 precision.
+//  * Two heads at a time, four warps each; a warp owns a pair of 16-row
+//    tiles (r, n-1-r), so every warp visits the same number of key tiles, and
+//    key tiles above the diagonal are never visited.  Per key tile it forms S
+//    = (C B^T) o L in float32 registers, splits it into three bf16 terms
+//    (x is bf16, exact; S is float32, and the sum of the terms' products
+//    with x keeps S to ~2^-27 of itself, where two terms keep ~2^-18), and
+//    issues three bf16 mma.sync per 8 columns of y, with x's fragments loaded
+//    by ldmatrix.trans.
+//  * x rows of the next pair of heads are copied into shared memory with
+//    16-byte cp.async while the current pair computes (two stages); C and B
+//    are staged the same way, 64 state dims at a time.  Rows and keys past the
+//    chunk (Q not a multiple of 16) are zero-filled and not stored.
+//  * y leaves the accumulators as float2 stores: each 32-byte sector of a
+//    row is written whole by four lanes.
+// The wrapper checks the 16-byte alignment of x, Bm and Cm (base and
+// strides) that the cp.async copies need.
+//
+// float32 inputs (on no model path at full width) take PR 13's CUDA-core
+// kernel, ssd_intra_chunk_f32_kernel: one CTA of 256 threads per (64-row
+// block, head, batch), C B^T per head, S through shared memory, products in
+// float32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,30 +71,369 @@
 
 namespace {
 
-constexpr int kBR = 64;   // rows (queries) per CTA
-constexpr int kBC = 64;   // keys per block
-constexpr int kThreads = 256;
 constexpr int kMaxQ = 128;
+constexpr int kMaxDevices = 16;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+// one cumulative sum of 128 log decays in double, by one warp: a lane-local
+// sum of 4, then a warp scan; positions past Q add 0
+__device__ __forceinline__ void chunk_cumsum(const float* a, long long ass, int Q, double* cs) {
+  const int lane = threadIdx.x % 32;
+  double v[4];
+  double run = 0.0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int t = lane * 4 + e;
+    run += (t < Q) ? static_cast<double>(a[static_cast<long long>(t) * ass]) : 0.0;
+    v[e] = run;
+  }
+  double incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off *= 2) {
+    const double n = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += n;
+  }
+  double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) cs[lane * 4 + e] = excl + v[e];
+}
 
-inline size_t smem_bytes(int N, int P) {
+// ------------------------------------------------------------ bf16 kernel
+
+constexpr int kTcThreads = 256;
+constexpr int kTile = 16;                                    // rows / keys of an mma tile
+constexpr int kMaxTiles = kMaxQ / kTile;                     // 8
+constexpr int kMaxBlocks = kMaxTiles * (kMaxTiles + 1) / 2;  // 36 blocks at or below the diagonal
+constexpr int kBlocksPerWarp = (kMaxBlocks + 7) / 8;         // 5
+constexpr int kNChunk = 64;                                  // state dims staged per pass
+constexpr int kNPitch = kNChunk + 8;                         // bf16 row pitch of staged C / B
+constexpr int kMaxHeads = 16;                                // heads per CTA
+// bf16 terms of S: two leave ~2^-18 |S| (within the 1e-4 gate, but at ~0.4 of
+// it on 65K rehearsed outputs, with a tail that grows with the output count),
+// three ~2^-27 |S|
+constexpr int kTerms = 3;
+
+// 16 bytes global -> shared, asynchronous; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8; r[m] holds matrix m's (row l / 4, columns 2 (l % 4) + {0, 1}), or
+// with .trans its (rows 2 (l % 4) + {0, 1}, column l / 4)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 out (mma.sync fragments,
+// g = lane / 4, q = lane % 4: a0 row g, a1 row g + 8, k 2q + {0, 1}; a2 / a3
+// the same rows, k 8 + 2q + {0, 1}; b0 k 2q + {0, 1}, b1 k 8 + 2q + {0, 1},
+// column g; c0 / c1 row g, c2 / c3 row g + 8, columns 2q + {0, 1})
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_k, float hi_k) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo_k, hi_k);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int P>
+struct TcSmem {
+  static constexpr int kXPitch = P + 8;                                   // bf16 row pitch of x
+  static constexpr size_t kG = sizeof(float) * kMaxBlocks * 32 * 8;      // C B^T fragments
+  static constexpr size_t kCs = sizeof(double) * kMaxHeads * kMaxQ;     // cs of every head
+  static constexpr size_t kXStage = 2 * 2 * kMaxQ * kXPitch;            // two heads' x, bytes
+  static constexpr size_t kStaged = 2 * 2 * kMaxQ * kNPitch;            // C and B, bytes
+  // stage 1 of x shares its bytes with the staged C and B (used first)
+  static constexpr size_t kStage1 = kXStage > kStaged ? kXStage : kStaged;
+  static constexpr size_t kBytes = kG + kCs + kXStage + kStage1;
+};
+
+// the (row tile, key tile) of lower-triangle block index bi = rt(rt+1)/2 + kt
+__device__ __forceinline__ void block_tiles(int bi, int& rt, int& kt) {
+  rt = 0;
+  while ((rt + 1) * (rt + 2) / 2 <= bi) ++rt;
+  kt = bi - rt * (rt + 1) / 2;
+}
+
+template <int P>
+__global__ void __launch_bounds__(kTcThreads)
+ssd_intra_chunk_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
+                          const __nv_bfloat16* __restrict__ bm,
+                          const __nv_bfloat16* __restrict__ cm, float* __restrict__ y, int S,
+                          int H, int G, int N, int Q, int hpc, long long xsb, long long xss,
+                          long long xsh, long long asb, long long ass, long long ash,
+                          long long bsb, long long bss, long long bsg, long long csb,
+                          long long css, long long csg) {
+  using L = TcSmem<P>;
+  constexpr int kXPitch = L::kXPitch;
+  constexpr int kNt = P / 8;  // 8-column tiles of y
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Gs = reinterpret_cast<float*>(smem_raw);                     // [block][lane][8]
+  double* cs = reinterpret_cast<double*>(smem_raw + L::kG);            // [head][kMaxQ]
+  __nv_bfloat16* xs0 = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kG + L::kCs);
+  unsigned char* stage1 = smem_raw + L::kG + L::kCs + L::kXStage;
+  __nv_bfloat16* Cst = reinterpret_cast<__nv_bfloat16*>(stage1);      // [kMaxQ][kNPitch]
+  __nv_bfloat16* Bst = Cst + kMaxQ * kNPitch;                          // [kMaxQ][kNPitch]
+
+  const int hg = H / G;                 // heads per group
+  const int n_hb = (hg + hpc - 1) / hpc;
+  const int chunk = blockIdx.x / (G * n_hb);
+  const int grp = (blockIdx.x / n_hb) % G;
+  const int hb = blockIdx.x % n_hb;
+  const int b = blockIdx.y;
+  const int h0 = grp * hg + hb * hpc;   // first head of the CTA
+  const int nh = min(hpc, hg - hb * hpc);
+  const int c0 = chunk * Q;
+  const int n_rt = (Q + kTile - 1) / kTile;
+  const int qp = n_rt * kTile;          // rows staged: Q rounded up to the tile
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int lg = lane / 4;
+  const int lq = lane % 4;
+
+  // stage rows [0, qp) of C and B, dims [n0, n0 + kNChunk), zeros past Q / N
+  auto stage_cb = [&](int n0) {
+    constexpr int kPer = kNChunk / 8;
+    for (int idx = tid; idx < 2 * qp * kPer; idx += kTcThreads) {
+      const int mat = idx / (qp * kPer);
+      const int r = (idx / kPer) % qp;
+      const int k = n0 + 8 * (idx % kPer);
+      const bool ok = r < Q && k < N;
+      const __nv_bfloat16* src =
+          mat == 0 ? cm + b * csb + static_cast<long long>(c0 + (ok ? r : 0)) * css + grp * csg
+                   : bm + b * bsb + static_cast<long long>(c0 + (ok ? r : 0)) * bss + grp * bsg;
+      __nv_bfloat16* dst = (mat == 0 ? Cst : Bst) + r * kNPitch + (k - n0);
+      cp_async16(dst, src + (ok ? k : 0), ok ? 16 : 0);
+    }
+  };
+  // stage x rows [0, qp) of heads 2 pair, 2 pair + 1 of the CTA into `dst`
+  auto stage_x = [&](int pair, __nv_bfloat16* dst) {
+    constexpr int kPer = P / 8;
+    const int e0 = 2 * pair;
+    const int nslot = min(2, nh - e0);
+    for (int idx = tid; idx < nslot * qp * kPer; idx += kTcThreads) {
+      const int slot = idx / (qp * kPer);
+      const int r = (idx / kPer) % qp;
+      const int d = 8 * (idx % kPer);
+      const bool ok = r < Q;
+      const __nv_bfloat16* src = x + b * xsb + static_cast<long long>(c0 + (ok ? r : 0)) * xss +
+                                 static_cast<long long>(h0 + e0 + slot) * xsh + d;
+      cp_async16(dst + (slot * kMaxQ + r) * kXPitch + d, src, ok ? 16 : 0);
+    }
+  };
+
+  // prologue: C / B chunk 0, then x of heads 0-1; cs of every head meanwhile
+  stage_cb(0);
+  cp_async_commit();
+  stage_x(0, xs0);
+  cp_async_commit();
+  for (int e = warp; e < nh; e += kTcThreads / 32) {
+    chunk_cumsum(a + b * asb + static_cast<long long>(c0) * ass + (h0 + e) * ash, ass, Q,
+                 cs + e * kMaxQ);
+  }
+
+  // ---- C B^T, once: warp w owns blocks w, w + 8, ...
+  const int n_blocks = n_rt * (n_rt + 1) / 2;
+  float gacc[kBlocksPerWarp][2][4];  // [block][keys 0..7, 8..15][fragment]
+#pragma unroll
+  for (int u = 0; u < kBlocksPerWarp; ++u)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) gacc[u][e / 4][e % 4] = 0.f;
+  const int mi = lane / 8;  // ldmatrix: the matrix this lane addresses
+  const int mr = lane % 8;  //           and its row
+  for (int n0 = 0; n0 < N; n0 += kNChunk) {
+    if (n0 == 0) {
+      cp_async_wait<1>();  // C / B chunk 0 (x of heads 0-1 may still be in flight)
+    } else {
+      __syncthreads();  // the previous chunk's reads are done
+      stage_cb(n0);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int ksteps = (min(kNChunk, N - n0) + kTile - 1) / kTile;
+#pragma unroll
+    for (int u = 0; u < kBlocksPerWarp; ++u) {
+      const int bi = warp + 8 * u;
+      if (bi >= n_blocks) break;
+      int rt, kt;
+      block_tiles(bi, rt, kt);
+      for (int ks = 0; ks < ksteps; ++ks) {
+        uint32_t af[4], bf[4];
+        ldmatrix_x4(af, Cst + (rt * kTile + mr + 8 * (mi & 1)) * kNPitch + ks * kTile +
+                            8 * (mi >> 1));
+        ldmatrix_x4(bf, Bst + (kt * kTile + mr + 8 * (mi >> 1)) * kNPitch + ks * kTile +
+                            8 * (mi & 1));
+        mma_bf16(gacc[u][0], af, bf[0], bf[1]);  // keys 0..7 of the key tile
+        mma_bf16(gacc[u][1], af, bf[2], bf[3]);  // keys 8..15
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kBlocksPerWarp; ++u) {
+    const int bi = warp + 8 * u;
+    if (bi >= n_blocks) break;
+    float4* dst = reinterpret_cast<float4*>(Gs + (bi * 32 + lane) * 8);
+    dst[0] = make_float4(gacc[u][0][0], gacc[u][0][1], gacc[u][0][2], gacc[u][0][3]);
+    dst[1] = make_float4(gacc[u][1][0], gacc[u][1][1], gacc[u][1][2], gacc[u][1][3]);
+  }
+  __syncthreads();  // C B^T and cs ready; the staged C / B are no longer read
+
+  __nv_bfloat16* xs1 = reinterpret_cast<__nv_bfloat16*>(stage1);
+  const int n_pairs = (nh + 1) / 2;
+  if (n_pairs > 1) {
+    stage_x(1, xs1);
+    cp_async_commit();
+  }
+
+  // ---- S x, two heads at a time: warps 0-3 the even head, 4-7 the odd one
+  const int slot = warp / 4;
+  const int wl = warp % 4;
+  const int n_tp = (n_rt + 1) / 2;  // pairs of row tiles (r, n_rt - 1 - r)
+  for (int pair = 0; pair < n_pairs; ++pair) {
+    if (pair + 1 < n_pairs) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int e = 2 * pair + slot;
+    if (e < nh) {
+      const __nv_bfloat16* xh = (pair % 2 == 0 ? xs0 : xs1) + slot * kMaxQ * kXPitch;
+      const double* cse = cs + e * kMaxQ;
+      const int h = h0 + e;
+      for (int tp = wl; tp < n_tp; tp += 4) {
+        for (int side = 0; side < 2; ++side) {
+          const int rt = side == 0 ? tp : n_rt - 1 - tp;
+          if (side == 1 && rt == tp) break;
+          float acc[kNt][4];
+#pragma unroll
+          for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+          const int i0 = rt * kTile + lg;  // this lane's rows i0 and i0 + 8
+          const double ci0 = cse[i0];
+          const double ci1 = cse[i0 + 8];
+          for (int kt = 0; kt <= rt; ++kt) {
+            const float4* gf = reinterpret_cast<const float4*>(
+                Gs + ((rt * (rt + 1) / 2 + kt) * 32 + lane) * 8);
+            const float4 g0 = gf[0];
+            const float4 g1 = gf[1];
+            const int j0 = kt * kTile + 2 * lq;  // keys j0, j0 + 1, j0 + 8, j0 + 9
+            const double2 cj01 = *reinterpret_cast<const double2*>(cse + j0);
+            const double2 cj89 = *reinterpret_cast<const double2*>(cse + j0 + 8);
+            // fragment element -> (row, key): the accumulator order of C B^T
+            float s[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+            const double ci[8] = {ci0, ci0, ci1, ci1, ci0, ci0, ci1, ci1};
+            const double cj[8] = {cj01.x, cj01.y, cj01.x, cj01.y,
+                                  cj89.x, cj89.y, cj89.x, cj89.y};
+            const int ri[8] = {0, 0, 8, 8, 0, 0, 8, 8};
+            const int kj[8] = {0, 1, 0, 1, 8, 9, 8, 9};
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              const bool keep = kt < rt || 2 * lq + kj[k] <= lg + ri[k];
+              s[k] = keep ? s[k] * expf(static_cast<float>(ci[k] - cj[k])) : 0.f;
+            }
+            // S as kTerms bf16 values, each the rounding of what the
+            // earlier ones leave (exact float32 differences)
+            uint32_t af[kTerms][4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              float r0 = s[2 * r];
+              float r1 = s[2 * r + 1];
+#pragma unroll
+              for (int t = 0; t < kTerms; ++t) {
+                const float t0 = __bfloat162float(__float2bfloat16_rn(r0));
+                const float t1 = __bfloat162float(__float2bfloat16_rn(r1));
+                af[t][r] = pack_bf16(t0, t1);
+                r0 -= t0;
+                r1 -= t1;
+              }
+            }
+#pragma unroll
+            for (int np = 0; np < P / 16; ++np) {
+              uint32_t xf[4];
+              ldmatrix_x4_trans(xf, xh + (kt * kTile + mr + 8 * (mi & 1)) * kXPitch + np * 16 +
+                                        8 * (mi >> 1));
+#pragma unroll
+              for (int t = 0; t < kTerms; ++t) {
+                mma_bf16(acc[2 * np], af[t], xf[0], xf[1]);
+                mma_bf16(acc[2 * np + 1], af[t], xf[2], xf[3]);
+              }
+            }
+          }
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int t = i0 + 8 * half;
+            if (t >= Q) continue;
+            float* yrow = y + ((static_cast<size_t>(b) * S + c0 + t) * H + h) * P + 2 * lq;
+#pragma unroll
+            for (int nt = 0; nt < kNt; ++nt) {
+              *reinterpret_cast<float2*>(yrow + nt * 8) =
+                  make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // this stage's x is no longer read
+    if (pair + 2 < n_pairs) {
+      stage_x(pair + 2, pair % 2 == 0 ? xs0 : xs1);
+      cp_async_commit();
+    }
+  }
+}
+
+// ----------------------------------------------------- float32 kernel (PR 13)
+
+constexpr int kBR = 64;  // rows (queries) per CTA
+constexpr int kBC = 64;  // keys per block
+constexpr int kThreads = 256;
+
+inline size_t f32_smem_bytes(int N, int P) {
   return sizeof(double) * kMaxQ +
          sizeof(float) * (2 * static_cast<size_t>(N) * (kBR + 4) +
                           static_cast<size_t>(kBC) * (P + 4) +
                           static_cast<size_t>(kBC) * (kBR + 4));
 }
 
-template <typename T, int P>
+template <int P>
 __global__ void __launch_bounds__(kThreads)
-ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ a,
-                       const T* __restrict__ bm, const T* __restrict__ cm,
-                       float* __restrict__ y, int S, int H, int G, int N, int Q,
-                       long long xsb, long long xss, long long xsh,
-                       long long asb, long long ass, long long ash,
-                       long long bsb, long long bss, long long bsg,
-                       long long csb, long long css, long long csg) {
+ssd_intra_chunk_f32_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                           const float* __restrict__ bm, const float* __restrict__ cm,
+                           float* __restrict__ y, int S, int H, int G, int N, int Q,
+                           long long xsb, long long xss, long long xsh, long long asb,
+                           long long ass, long long ash, long long bsb, long long bss,
+                           long long bsg, long long csb, long long css, long long csg) {
   constexpr int kPpt = P / 16;  // output dims per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* cs = reinterpret_cast<double*>(smem_raw);          // [kMaxQ]
@@ -95,41 +454,14 @@ ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ a,
   const int tx = tid % 16;      // key columns tx*4.. of S; dims tx*kPpt.. of y
   const int ty = tid / 16;      // rows ty*4 .. ty*4+3
 
-  // cumulative sum of a over the chunk, in double
-  if (tid < 32) {
-    const int lane = tid;
-    double v[4];
-    double run = 0.0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int t = lane * 4 + e;
-      const double at =
-          (t < Q) ? static_cast<double>(a[b * asb + static_cast<long long>(c0 + t) * ass + h * ash])
-                  : 0.0;
-      run += at;
-      v[e] = run;
-    }
-    double incl = run;
-#pragma unroll
-    for (int off = 1; off < 32; off *= 2) {
-      const double n = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += n;
-    }
-    double excl = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (lane == 0) excl = 0.0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int t = lane * 4 + e;
-      if (t < kMaxQ) cs[t] = excl + v[e];
-    }
-  }
+  if (tid < 32) chunk_cumsum(a + b * asb + static_cast<long long>(c0) * ass + h * ash, ass, Q, cs);
   // C rows of this CTA, transposed; zero past the chunk
   for (int idx = tid; idx < kBR * N; idx += kThreads) {
     const int row = idx / N;
     const int k = idx % N;
     const int t = r0 + row;
     float cv = 0.f;
-    if (t < Q) cv = to_f(cm[b * csb + static_cast<long long>(c0 + t) * css + g * csg + k]);
+    if (t < Q) cv = cm[b * csb + static_cast<long long>(c0 + t) * css + g * csg + k];
     Cs[k * (kBR + 4) + row] = cv;
   }
 
@@ -147,7 +479,7 @@ ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ a,
       const int k = idx % N;
       const int t = k0 + row;
       float bv = 0.f;
-      if (t < Q) bv = to_f(bm[b * bsb + static_cast<long long>(c0 + t) * bss + g * bsg + k]);
+      if (t < Q) bv = bm[b * bsb + static_cast<long long>(c0 + t) * bss + g * bsg + k];
       Bs[k * (kBC + 4) + row] = bv;
     }
     for (int idx = tid; idx < kBC * P; idx += kThreads) {
@@ -155,7 +487,7 @@ ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ a,
       const int d = idx % P;
       const int t = k0 + row;
       float xv = 0.f;
-      if (t < Q) xv = to_f(x[b * xsb + static_cast<long long>(c0 + t) * xss + h * xsh + d]);
+      if (t < Q) xv = x[b * xsb + static_cast<long long>(c0 + t) * xss + h * xsh + d];
       Xs[row * (P + 4) + d] = xv;
     }
     __syncthreads();
@@ -225,54 +557,87 @@ ssd_intra_chunk_kernel(const T* __restrict__ x, const float* __restrict__ a,
   }
 }
 
-template <typename T, int P>
-int launch_typed(const void* x, const float* a, const void* bm, const void* cm, float* y, int B,
-                 int S, int H, int G, int N, int Q, const long long* st, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(N, P);
-  cudaError_t err = cudaFuncSetAttribute(ssd_intra_chunk_kernel<T, P>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+// ------------------------------------------------------------------ host
+
+// raise the kernel's dynamic shared-memory limit to `bytes`, once per device
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, int (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev] >= static_cast<int>(bytes)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = static_cast<int>(bytes);
+  return err;
+}
+
+template <int P>
+int launch_tc(const void* x, const float* a, const void* bm, const void* cm, float* y, int B,
+              int S, int H, int G, int N, int Q, int hpc, const long long* st,
+              cudaStream_t stream) {
+  static int done[kMaxDevices] = {};
+  const size_t bytes = TcSmem<P>::kBytes;
+  const cudaError_t err = allow_smem(ssd_intra_chunk_tc_kernel<P>, bytes, done);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_rb = (Q + kBR - 1) / kBR;
-  const dim3 grid((S / Q) * n_rb, H, B);
-  ssd_intra_chunk_kernel<T, P><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(x), a, static_cast<const T*>(bm), static_cast<const T*>(cm), y, S,
-      H, G, N, Q, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11]);
+  const int n_hb = (H / G + hpc - 1) / hpc;
+  const dim3 grid((S / Q) * G * n_hb, B);
+  ssd_intra_chunk_tc_kernel<P><<<grid, kTcThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), a, static_cast<const __nv_bfloat16*>(bm),
+      static_cast<const __nv_bfloat16*>(cm), y, S, H, G, N, Q, hpc, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_for_type(const void* x, const float* a, const void* bm, const void* cm, float* y,
-                    int B, int S, int H, int G, int N, int P, int Q, const long long* st,
-                    cudaStream_t s) {
-  switch (P) {
-    case 16: return launch_typed<T, 16>(x, a, bm, cm, y, B, S, H, G, N, Q, st, s);
-    case 32: return launch_typed<T, 32>(x, a, bm, cm, y, B, S, H, G, N, Q, st, s);
-    case 64: return launch_typed<T, 64>(x, a, bm, cm, y, B, S, H, G, N, Q, st, s);
-    case 128: return launch_typed<T, 128>(x, a, bm, cm, y, B, S, H, G, N, Q, st, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int P>
+int launch_f32(const void* x, const float* a, const void* bm, const void* cm, float* y, int B,
+               int S, int H, int G, int N, int Q, const long long* st, cudaStream_t stream) {
+  static int done[kMaxDevices] = {};
+  const size_t bytes = f32_smem_bytes(N, P);
+  const cudaError_t err = allow_smem(ssd_intra_chunk_f32_kernel<P>, bytes, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_rb = (Q + kBR - 1) / kBR;
+  const dim3 grid((S / Q) * n_rb, H, B);
+  ssd_intra_chunk_f32_kernel<P><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(x), a, static_cast<const float*>(bm),
+      static_cast<const float*>(cm), y, S, H, G, N, Q, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], st[9], st[10], st[11]);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // strides (in elements): x (batch, seq, head), a (batch, seq, head),
 // Bm (batch, seq, group), Cm (batch, seq, group); the last axis of x, Bm and
-// Cm is contiguous.  is_bf16: 1 for bf16 x / Bm / Cm, 0 for float32.
-// S must be a multiple of Q, Q <= 128, H a multiple of G, N <= 256.
+// Cm is contiguous.  is_bf16: 1 for bf16 x / Bm / Cm (the tensor-core kernel,
+// `hpc` heads per CTA; N a multiple of 8, x / Bm / Cm bases and strides
+// 16-byte aligned), 0 for float32 (hpc unused).  S must be a multiple of Q,
+// Q <= 128, H a multiple of G, N <= 256, P one of 16, 32, 64, 128.
 extern "C" int repro_ssd_intra_chunk(const void* x, const void* a, const void* bm, const void* cm,
                                      void* y, int B, int S, int H, int G, int N, int P, int Q,
-                                     int is_bf16, const long long* strides, void* stream) {
+                                     int hpc, int is_bf16, const long long* strides,
+                                     void* stream) {
   if (B <= 0 || S <= 0 || Q <= 0 || Q > kMaxQ || S % Q != 0 || G <= 0 || H % G != 0 ||
-      N <= 0 || N > 256) {
+      N <= 0 || N > 256 || (is_bf16 && (N % 8 != 0 || hpc <= 0 || hpc > kMaxHeads))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* ap = static_cast<const float*>(a);
   auto* yp = static_cast<float*>(y);
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return launch_for_type<__nv_bfloat16>(x, ap, bm, cm, yp, B, S, H, G, N, P, Q, strides, s);
+    switch (P) {
+      case 16: return launch_tc<16>(x, ap, bm, cm, yp, B, S, H, G, N, Q, hpc, strides, s);
+      case 32: return launch_tc<32>(x, ap, bm, cm, yp, B, S, H, G, N, Q, hpc, strides, s);
+      case 64: return launch_tc<64>(x, ap, bm, cm, yp, B, S, H, G, N, Q, hpc, strides, s);
+      case 128: return launch_tc<128>(x, ap, bm, cm, yp, B, S, H, G, N, Q, hpc, strides, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  return launch_for_type<float>(x, ap, bm, cm, yp, B, S, H, G, N, P, Q, strides, s);
+  switch (P) {
+    case 16: return launch_f32<16>(x, ap, bm, cm, yp, B, S, H, G, N, Q, strides, s);
+    case 32: return launch_f32<32>(x, ap, bm, cm, yp, B, S, H, G, N, Q, strides, s);
+    case 64: return launch_f32<64>(x, ap, bm, cm, yp, B, S, H, G, N, Q, strides, s);
+    case 128: return launch_f32<128>(x, ap, bm, cm, yp, B, S, H, G, N, Q, strides, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

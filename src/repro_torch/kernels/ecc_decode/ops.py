@@ -20,8 +20,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ecc_decode.ref import ecc_decode_ref
 
 LAUNCHES = {"ecc_decode": 0}
-MAX_ENTRIES = 256       # the kernel's warp keeps 8 entries per lane
-MAX_PAGE = 48 * 1024    # the page is staged in static-size shared memory
+MAX_ENTRIES = 256       # one thread of the kernel's CTA per entry
+MAX_PAGE = 48 * 1024    # the page is held in registers, <= 12 x 16 B a thread
 
 
 def ecc_decode(pages: torch.Tensor, ecc: PageECC) -> torch.Tensor:

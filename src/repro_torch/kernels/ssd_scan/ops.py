@@ -5,12 +5,17 @@ of ``models/ssm.py::ssd_chunked`` in the model's layout: x ``[B, S, H, P]``,
 a ``[B, S, H]`` float32, B / C ``[B, S, G, N]``, y_diag ``[B, S, H, P]``
 float32.  A CPU tensor takes the plain version
 (``ref.ssd_intra_chunk_model_ref``); a CUDA tensor launches the kernel, which
-reads all four inputs through their strides.
+reads all four inputs through their strides.  bf16 inputs go to the
+tensor-core kernel, which copies x, B and C with 16-byte ``cp.async``: their
+bases and strides must be 16-byte aligned (the model's views into the conv
+output are), and a view that is not raises.  float32 inputs go to the
+CUDA-core kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -20,7 +25,29 @@ from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_model_ref
 HEAD_DIMS = (16, 32, 64, 128)   # P
 MAX_CHUNK = 128                 # Q
 MAX_STATE = 256                 # N
+MAX_HEAD_BLOCK = 16             # heads per CTA of the tensor-core kernel
 LAUNCHES = {"ssd_intra_chunk": 0}
+
+
+def head_block(b: int, n_chunks: int, h: int, g: int, n_sm: int) -> int:
+    """Heads per CTA of the tensor-core kernel: the fewest, in pairs (a CTA
+    works on two heads at a time), that keep the grid of (batch, chunk, head
+    block) CTAs within one wave of ``n_sm`` SMs, at most MAX_HEAD_BLOCK and
+    at most the heads of one group."""
+    want = -(-b * n_chunks * h // n_sm)
+    return max(1, min(MAX_HEAD_BLOCK, 2 * -(-want // 2), h // g))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    """Base and every stride but the last a multiple of 16 bytes."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        st * size % 16 == 0 for st in t.stride()[:-1])
 
 
 def ssd_intra_chunk(x: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
@@ -50,20 +77,29 @@ def ssd_intra_chunk(x: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
         raise ValueError(f"shapes x {tuple(x.shape)}, a {tuple(a.shape)}, B "
                          f"{tuple(b_mat.shape)}, C {tuple(c_mat.shape)} do "
                          f"not match")
+    bf16 = x.dtype == torch.bfloat16
     if p not in HEAD_DIMS or h % g or n > MAX_STATE or not 0 < chunk <= \
-            MAX_CHUNK or s % chunk:
+            MAX_CHUNK or s % chunk or (bf16 and n % 8):
         raise ValueError(f"unsupported shape S={s} H={h} G={g} N={n} P={p} "
                          f"chunk={chunk}")
     y = torch.empty((b, s, h, p), dtype=torch.float32, device=x.device)
     if b == 0 or s == 0:
         return y
+    hpc = 0
+    if bf16:
+        for name, t in (("x", x), ("b_mat", b_mat), ("c_mat", c_mat)):
+            if not _aligned16(t):
+                raise ValueError(
+                    f"{name}: the bf16 kernel copies 16-byte rows; base "
+                    f"{t.data_ptr() % 16} bytes off the 16-byte grid or "
+                    f"strides {t.stride()} not multiples of 8 elements")
+        hpc = head_block(b, s // chunk, h, g, _sm_count(x.device.index or 0))
     strides = (ctypes.c_longlong * 12)(*x.stride()[:3], *a.stride(),
                                        *b_mat.stride()[:3],
                                        *c_mat.stride()[:3])
     status = build.library().repro_ssd_intra_chunk(
         x.data_ptr(), a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-        y.data_ptr(), b, s, h, g, n, p, chunk,
-        int(x.dtype == torch.bfloat16), strides,
+        y.data_ptr(), b, s, h, g, n, p, chunk, hpc, int(bf16), strides,
         build.stream_handle(x.device))
     build.check(status, "ssd_intra_chunk")
     LAUNCHES["ssd_intra_chunk"] += 1

@@ -8,6 +8,11 @@ model's layout, x ``[B, S, H, P]``, a ``[B, S, H]``, B / C ``[B, S, G, N]``,
 through the transposes of the JAX front end (``ops.py``).  Both compute in
 ``dtype`` (float32 by default, as the reference does; float64 gives a
 yardstick that is free of float32 rounding).
+
+``ssd_intra_chunk_split_ref`` rehearses the roundings of the bf16
+tensor-core kernel: C B^T of bf16 inputs with float32 sums, cs in double,
+S = (C B^T) o L in float32 split into bf16 terms (three, as the kernel),
+S x summed in float32.
 """
 
 from __future__ import annotations
@@ -65,3 +70,35 @@ def ssd_intra_chunk_model_ref(x: torch.Tensor, a: torch.Tensor,
     y = ssd_intra_chunk_ref(ar, br, cr, xr, dtype)
     return y.reshape(b, h, nc, chunk, p).permute(0, 2, 3, 1, 4) \
         .reshape(b, s, h, p)
+
+
+def ssd_intra_chunk_split_ref(x: torch.Tensor, a: torch.Tensor,
+                              b_mat: torch.Tensor, c_mat: torch.Tensor,
+                              chunk: int, terms: int = 3) -> torch.Tensor:
+    """The model-layout function with the bf16 kernel's roundings: the
+    products of the (bf16) inputs are exact in float32 and summed in
+    float32; cs is summed in double and L = exp(float32(cs_i - cs_j));
+    S = (C B^T) o L is rounded to float32 and written as ``terms`` bf16
+    values (each the bf16 rounding of what the earlier ones leave); each
+    term's product with x is summed in float32.  Returns y_diag float32."""
+    b, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    nc, rep = s // chunk, h // g
+    xr = x.float().reshape(b, nc, chunk, h, p)
+    cs = a.double().reshape(b, nc, chunk, h).cumsum(2)
+    bm = b_mat.float().reshape(b, nc, chunk, g, n)
+    cm = c_mat.float().reshape(b, nc, chunk, g, n)
+    cbt = torch.einsum("bcign,bcjgn->bcgij", cm, bm)          # float32
+    cbt = torch.repeat_interleave(cbt, rep, dim=2)             # [b,c,h,i,j]
+    diff = (cs[:, :, :, None, :] - cs[:, :, None, :, :]).permute(0, 1, 4, 2, 3)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
+    ell = torch.exp(diff.float())
+    sm = torch.where(mask.to(x.device), cbt * ell, torch.zeros_like(cbt))
+    y = torch.zeros((b, nc, chunk, h, p), dtype=torch.float32,
+                    device=x.device)
+    rest = sm
+    for _ in range(terms):
+        term = rest.to(torch.bfloat16).float()
+        rest = rest - term
+        y = y + torch.einsum("bchij,bcjhp->bcihp", term, xr)
+    return y.reshape(b, s, h, p)

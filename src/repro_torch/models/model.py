@@ -53,6 +53,11 @@ PAGED_FAMILIES = ("dense", "hybrid")          # the paged serving path
 # param subtrees the JAX package stacks on leading layer axes, which the
 # port keeps as (nested) lists -> the number of those axes
 STACKED = {"layers": 1, "groups": 2, "tail": 1}
+# rows per float32 lm_head product: a library GEMM may pick its algorithm,
+# and so its summation order, by the row count, so every product has this
+# many rows (the last block zero-padded) and a row's logits do not depend
+# on the batch around it
+LM_HEAD_ROWS = 8
 
 
 def _check_family(cfg: ModelConfig, families: tuple[str, ...]) -> None:
@@ -117,11 +122,26 @@ def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     package materializes first); a float or W8A8 head is dequantized to
     float32, as the JAX package does, and multiplied outside any kernel."""
     if cfg.tie_embeddings:
-        return x.float() @ params["embed"].float().T
+        return _fixed_row_matmul(x.float(), params["embed"].float().T)
     head = params["lm_head"]
     if "w_p4" in head:
         return _w4a16_matmul(head["w_p4"], head["scale4"], x.float())
-    return x.float() @ dense_weight(head).float()
+    return _fixed_row_matmul(x.float(), dense_weight(head).float())
+
+
+def _fixed_row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, V] as products of LM_HEAD_ROWS rows each."""
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, x.shape[-1])
+    m = xf.shape[0]
+    pad = (-m) % LM_HEAD_ROWS
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros((pad, xf.shape[1]))])
+    if xf.shape[0] == 0:
+        return (xf @ w).reshape(*lead, w.shape[1])
+    out = torch.cat([xf[i:i + LM_HEAD_ROWS] @ w
+                     for i in range(0, xf.shape[0], LM_HEAD_ROWS)])
+    return out[:m].reshape(*lead, w.shape[1])
 
 
 # ---------------------------------------------------------------------------

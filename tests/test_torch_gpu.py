@@ -267,6 +267,41 @@ def test_engine_on_card_launches_every_kernel(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tied", [False, True])
+def test_lm_head_row_bits_do_not_depend_on_the_batch(cuda_device, tied):
+    """llama2-7b's float32 lm_head (the W8A8 head, and a tied embedding)
+    gives each row the same bits at M = 1, 2, 3, 4 and 8 rows as alone."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.layers import init_linear
+    from repro_torch.models.model import lm_head
+    from repro_torch.quant.convert import quantize_params
+
+    cfg = get_arch("llama2-7b")
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    if tied:
+        cfg = dataclasses.replace(cfg, tie_embeddings=True)
+        params = {"embed": (torch.randn((cfg.vocab_size, cfg.d_model),
+                                        generator=gen, device=cuda_device)
+                            * 0.02).to(torch.bfloat16)}
+    else:
+        params = quantize_params({"lm_head": init_linear(
+            gen, cfg.d_model, cfg.vocab_size, False, torch.bfloat16,
+            cuda_device)})
+        assert "w_q" in params["lm_head"]
+    x = torch.randn((8, cfg.d_model), generator=gen, device=cuda_device
+                    ).to(torch.bfloat16)
+    alone = torch.cat([lm_head(params, cfg, x[r:r + 1]) for r in range(8)])
+    for m in (1, 2, 3, 4, 8):
+        got = lm_head(params, cfg, x[:m])
+        diff = (got != alone[:m]).any(dim=1)
+        assert not bool(diff.any()), (
+            f"M={m}: rows {diff.nonzero().flatten().tolist()} differ from "
+            f"the same rows alone")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("ber", [0.0, 1e-4, 2e-3])
 def test_ecc_decode_bit_exact_on_card(cuda_device, ber):
     """B5 against its plain version on 512 random int8 pages corrupted
@@ -286,6 +321,76 @@ def test_ecc_decode_bit_exact_on_card(cuda_device, ber):
     assert torch.equal(got, ref), int((got != ref).sum())
     if ber == 0.0:
         assert torch.equal(got, pages)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 4096])
+def test_ecc_decode_batch_sizes_on_card(cuda_device, b):
+    """B5 on one page (one CTA) and on 4,096 pages (the timed batch, many
+    CTAs an SM) at BER 2e-3: bit-exact against the plain version."""
+    from repro_torch.core import ecc
+    from repro_torch.kernels.ecc_decode.ops import ecc_decode
+
+    gen = torch.Generator(device=cuda_device).manual_seed(b)
+    pages = torch.randint(0, 256, (b, ecc.PAGE_ELEMS), generator=gen,
+                          device=cuda_device, dtype=torch.uint8)
+    code = ecc.inject_ecc_bitflips(ecc.encode_pages(pages), 2e-3, gen)
+    noisy = ecc.inject_bitflips(pages, 2e-3, gen)
+    got = ecc_decode(noisy, code)
+    assert torch.equal(got, ecc.decode_pages(noisy, code))
+
+
+def planted_collisions(ecc, pages):
+    """Sidecars of 4 clean ``pages`` with colliding entries; the n-th entry
+    placed on a page's address gets value copies 0x11 (n + 1), so each
+    restore is told apart.  Returns (sidecars, the address of each page,
+    the byte the last entry leaves there).  Page 0: entry 0 valid, then
+    entry K-1 invalid, on a value below the threshold (the in-page value
+    stays); page 1: entry 0 invalid, then K-1 valid (0x22); page 2:
+    entries 0, K/2 and K-1 valid on one address (0x33); page 3: entry 0
+    valid, then K-1 invalid, on an outlier above the threshold (clamped to
+    0).  An entry is made invalid by inverting its 5 parity bits, which
+    puts its syndrome at 31."""
+    code = ecc.encode_pages(pages)
+    addr, parity, copies = (code.addr.clone(), code.addr_parity.clone(),
+                            code.copies.clone())
+    k = addr.shape[1]
+    mag = pages.view(torch.int8).to(torch.int32).abs()
+    thr = code.threshold[:, 0].to(torch.int32)
+    low = int(torch.nonzero(mag[0] <= thr[0])[0, 0])
+    plan = [(low, {0: True, k - 1: False}),
+            (int(addr[1, 0]), {0: False, k - 1: True}),
+            (int(addr[2, 0]), {0: True, k // 2: True, k - 1: True}),
+            (int(addr[3, 0]), {0: True, k - 1: False})]
+    assert int(mag[3, plan[3][0]]) > int(thr[3])
+    for page, (target, entries) in enumerate(plan):
+        for n, (e, valid) in enumerate(entries.items()):
+            addr[page, e] = target
+            parity[page, e] = int(ecc.hamming_encode(addr[page, e:e + 1])[0]) \
+                ^ (0 if valid else 0x1F)
+            copies[page, e] = 0x11 * (n + 1)
+    want = [int(pages[0, low]), 0x22, 0x33, 0]
+    return (ecc.PageECC(code.threshold, addr.contiguous(),
+                        parity.contiguous(), copies.contiguous()),
+            [t for t, _ in plan], want)
+
+
+@pytest.mark.gpu
+def test_ecc_decode_planted_collisions_on_card(cuda_device):
+    """B5 where entries collide, valid then invalid, invalid then valid,
+    and three on one address: bit-exact against the plain version, and the
+    byte at each collision is the one "the last entry wins" gives."""
+    from repro_torch.core import ecc
+    from repro_torch.kernels.ecc_decode.ops import ecc_decode
+
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    pages = torch.randint(0, 256, (4, ecc.PAGE_ELEMS), generator=gen,
+                          device=cuda_device, dtype=torch.uint8)
+    code, at, want = planted_collisions(ecc, pages)
+    ref = ecc.decode_pages(pages, code)
+    got = ecc_decode(pages, code)
+    assert torch.equal(got, ref), int((got != ref).sum())
+    assert [int(ref[p, a]) for p, a in enumerate(at)] == want
 
 
 @pytest.mark.gpu
@@ -349,6 +454,9 @@ def _ssd_inputs(dev, b, s, h, g, p, n, dtype, seed):
     (1, 256, 24, 1, 64, 128, 128, torch.bfloat16),  # mamba2-130m
     (2, 8, 8, 1, 16, 16, 8, torch.bfloat16),        # reduced, Q = 8
     (2, 96, 8, 2, 32, 32, 32, torch.float32),       # G > 1, float32 inputs
+    (2, 256, 16, 2, 64, 64, 128, torch.bfloat16),   # G 2: each group's C B^T
+    (4, 1024, 22, 1, 64, 64, 64, torch.bfloat16),   # Q 64; 22 heads, blocks of 12
+    (1, 80, 8, 1, 32, 24, 40, torch.bfloat16),      # Q, N not multiples of 16
 ])
 def test_ssd_intra_chunk_on_card(cuda_device, b, s, h, g, p, n, chunk,
                                  dtype):
@@ -361,6 +469,32 @@ def test_ssd_intra_chunk_on_card(cuda_device, b, s, h, g, p, n, chunk,
     ref = ssd_intra_chunk_model_ref(x, a, bm, cm, chunk, torch.float64)
     assert got.dtype == torch.float32 and got.shape == (b, s, h, p)
     torch.testing.assert_close(got.double(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_intra_chunk_head_blocks_are_ragged_where_tested(cuda_device):
+    """The 22-head case above splits its heads into blocks with a shorter
+    last one on this card, and zamba2-7b's 112 heads fill about one wave."""
+    from repro_torch.kernels.ssd_scan.ops import head_block
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert 22 % head_block(4, 16, 22, 1, sms) != 0
+    hpc = head_block(4, 4, 112, 1, sms)
+    assert 4 * 4 * -(-112 // hpc) <= sms
+
+
+@pytest.mark.gpu
+def test_ssd_intra_chunk_refuses_misaligned_views(cuda_device):
+    """The bf16 kernel copies 16-byte rows: a view whose rows start off the
+    16-byte grid raises; it is not sent elsewhere."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
+
+    x, a, bm, _ = _ssd_inputs(cuda_device, 1, 32, 8, 1, 16, 16,
+                              torch.bfloat16, seed=5)
+    xbc = torch.randn((1, 32, 33), device=cuda_device).to(torch.bfloat16)
+    cm = xbc[..., 1:17].reshape(1, 32, 1, 16)
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd_intra_chunk(x, a, bm, cm, 32)
 
 
 @pytest.mark.gpu

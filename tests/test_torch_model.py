@@ -13,6 +13,10 @@ XLA compiles the JAX layers under ``lax.scan``), but the attention and
 norm sums upstream of each linear run in another order, so an activation
 at a rounding tie can take the neighbouring int8 code (1/127 of a row's
 absmax) and move a logit by ~1e-3.
+
+Also: the float32 ``lm_head`` gives a row the same bits whatever rows are
+batched with it (the port's own invariant; the CPU's GEMM, like cuBLAS,
+picks its blocking by the row count).
 """
 
 import jax
@@ -133,3 +137,30 @@ def test_forward_logits_match_jax(case):
     assert tl.shape == (2, 10, jcfg.vocab_size)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
                                atol=ATOL[quant])
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_lm_head_row_bits_do_not_depend_on_the_batch(tied):
+    """llama2-7b.reduced()'s W8A8 head (or a tied embedding): each row's
+    logits at M = 1, 2, 3, 4, 8 and 11 rows equal the row's alone, bit for
+    bit."""
+    import dataclasses
+
+    from repro_torch.models.layers import init_linear
+    from repro_torch.quant.convert import quantize_params
+
+    cfg = get_arch("llama2-7b").reduced()
+    gen = torch.Generator().manual_seed(11)
+    if tied:
+        cfg = dataclasses.replace(cfg, tie_embeddings=True)
+        params = {"embed": torch.randn((cfg.vocab_size, cfg.d_model),
+                                       generator=gen) * 0.02}
+    else:
+        params = quantize_params({"lm_head": init_linear(
+            gen, cfg.d_model, cfg.vocab_size, False, torch.float32,
+            torch.device("cpu"))})
+    x = torch.randn((11, cfg.d_model), generator=gen)
+    alone = torch.cat([TM.lm_head(params, cfg, x[r:r + 1])
+                       for r in range(11)])
+    for m in (1, 2, 3, 4, 8, 11):
+        assert torch.equal(TM.lm_head(params, cfg, x[:m]), alone[:m]), m
