@@ -38,7 +38,8 @@ Phases, each printing its own lines:
             the card could take (bytes at 3.35 TB/s or operations at the
             H100's peak, whichever is larger), and the device time
             torch.profiler records, without the host's launch overhead (for
-            the library call: every device kernel in its profiled window).
+            the library call: every device kernel in its profiled window);
+            beside B5 and B6, a PyTorch copy that moves the same bytes.
             The GeMV at five decode shapes (llama2-7b's three, zamba2-7b's
             in_proj and out_proj), its yardstick torch._int_mm on x
             zero-padded to 24 rows; decode attention also at the serve
@@ -851,13 +852,18 @@ def _kernels_ecc(torch, results: dict) -> None:
             bytes_moved = n * (2 * ecc.PAGE_ELEMS + code.threshold.shape[1]
                                + 4 * k + k + 2 * k)
             b_ms, b_by = bound(bytes_moved, 0, "int8")
+            # what the card takes to read and write the same pages
+            outs = [torch.empty_like(t) for t in bufs]
+            copy_ms = profiled_ms(torch, lambda i: outs[i].copy_(bufs[i]),
+                                  None, 2)
             res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
                        library_ms=None, bound_ms=b_ms,
                        bound_by=b_by, shape=f"B={n} P={ecc.PAGE_ELEMS} K={k}")
             line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms, "
                      f"{100 * b_ms / dev_ms:.1f}% of the bound), plain "
                      f"{plain:.4f} ms, library n/a (no PyTorch call decodes "
-                     f"the sidecar), bound {b_ms:.4f} ms ({b_by})")
+                     f"the sidecar), bound {b_ms:.4f} ms ({b_by}); the "
+                     f"pages copied by PyTorch, device {copy_ms:.4f} ms")
         log(line)
     one = torch.randint(0, 256, (1, ecc.PAGE_ELEMS), generator=gen,
                         device=dev, dtype=torch.uint8)
@@ -991,7 +997,8 @@ def _kernels_ssd(torch, results: dict) -> None:
     and Q 40 with N 24 (zero-filled tiles), within SSD_TOL; two planted mask
     faults and, at G 2, every head reading group 0's C B^T must fail.
     Timed at the zamba2-7b and mamba2-130m shapes."""
-    from repro_torch.kernels.ssd_scan.ops import head_block, ssd_intra_chunk
+    from repro_torch.kernels.ssd_scan.ops import (ctas_per_sm, head_block,
+                                                  ssd_intra_chunk)
     from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_model_ref
 
     gen = torch.Generator(device=torch.device("cuda"))
@@ -1032,7 +1039,7 @@ def _kernels_ssd(torch, results: dict) -> None:
                 f"|err| {err.max().item():.3e}")
         _, err32, used32 = gate(ref32, ref)
         res["max_abs_err"] = max(res["max_abs_err"], err.max().item())
-        hpc = head_block(b, s // chunk, h, g, sms)
+        hpc = head_block(b, s // chunk, h, g, sms * ctas_per_sm(p))
         line = (f"[kernels] ssd_intra_chunk {tag} B={b} S={s} H={h} G={g} "
                 f"P={p} N={n} Q={chunk} ({hpc} heads a CTA): max|err| "
                 f"{err.max().item():.3e} (worst |err|/limit {used:.3f}; tol "
@@ -1076,6 +1083,12 @@ def _kernels_ssd(torch, results: dict) -> None:
             ops = (2 * b * (s // chunk) * chunk * (chunk + 1) // 2
                    * (g * n + h * p))
             b_ms, b_by = bound(bytes_moved, ops, "bf16")
+            # what the card takes to move the bulk of the same bytes: x read
+            # as bf16 and written as float32 by one PyTorch copy
+            ys = [torch.empty(t[0].shape, dtype=torch.float32,
+                              device=t[0].device) for t in ins]
+            copy_ms = profiled_ms(torch, lambda i: ys[i].copy_(ins[i][0]),
+                                  None, n_bufs)
             if tag == "zamba2-7b":
                 res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
                            library_ms=None, bound_ms=b_ms, bound_by=b_by,
@@ -1088,7 +1101,9 @@ def _kernels_ssd(torch, results: dict) -> None:
                      f"({b_by}: {bytes_moved / 1e6:.1f} MB at 3.35 TB/s; "
                      f"{ops / 1e9:.2f} GFLOP at the bf16 tensor-core peak "
                      f"{ops / PEAK_OPS['bf16'] * 1e3:.4f} ms, at the float32 "
-                     f"CUDA-core peak {ops / PEAK_OPS['f32'] * 1e3:.4f} ms)")
+                     f"CUDA-core peak {ops / PEAK_OPS['f32'] * 1e3:.4f} ms); "
+                     f"x copied to float32 by PyTorch, device {copy_ms:.4f} "
+                     f"ms")
         log(line)
 
 

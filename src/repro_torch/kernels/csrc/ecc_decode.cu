@@ -39,8 +39,9 @@
 //    in-page value, which the clamp already gives, so only valid last
 //    entries patch.  Each links itself into a list of the thread whose
 //    registers hold its byte (atomicExch on that thread's list head).
-//  * Each thread clamps its 64 bytes with thr, patches the bytes its list
-//    names, and stores: the page reaches device memory in one pass.
+//  * Each thread clamps its 64 bytes with thr, four bytes per few integer
+//    operations, patches the bytes its list names, and stores: the page
+//    reaches device memory in one pass.
 // Shared memory is ~3.3 KB a CTA, so 6 CTAs (6 pages, 96 KB of loads) fit
 // on an SM at once; their loads overlap the entries' work of the others.
 
@@ -54,18 +55,17 @@ constexpr int kThreads = 256;
 // codeword position (1-based, of the 19) of each of the 14 address bits
 __constant__ int kDataPos[14] = {3, 5, 6, 7, 9, 10, 11, 12, 13, 14, 15, 17, 18, 19};
 
-__device__ __forceinline__ uint32_t clamp_byte(uint32_t byte, int thr) {
-  const int v = static_cast<int>(static_cast<int8_t>(static_cast<uint8_t>(byte)));
-  const int mag = v < 0 ? -v : v;
-  return mag > thr ? 0u : byte;
-}
-
+// the four int8 values of a word with |v| > thr set to 0, all four at once:
+// |v| per byte is (v ^ s) + (s & 1) with s = 0xFF in negative bytes (0..128,
+// no carry between bytes), and |v| + 127 - thr reaches bit 7 exactly when
+// |v| > thr (at most 255: no carry either); no |v| exceeds thr >= 128
 __device__ __forceinline__ int clamp_word(int word, int thr) {
-  const uint32_t w = static_cast<uint32_t>(word);
-  uint32_t out = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) out |= clamp_byte((w >> (8 * b)) & 0xFFu, thr) << (8 * b);
-  return static_cast<int>(out);
+  if (thr >= 128) return word;
+  const uint32_t x = static_cast<uint32_t>(word);
+  const uint32_t neg = (x >> 7) & 0x01010101u;
+  const uint32_t mag = (x ^ (neg * 0xFFu)) + neg;
+  const uint32_t over = (mag + (127u - static_cast<uint32_t>(thr)) * 0x01010101u) & 0x80808080u;
+  return static_cast<int>(x & ~((over >> 7) * 0xFFu));
 }
 
 // byte `byte` (0..15) of a 16-byte vector set to `val`
@@ -131,21 +131,17 @@ ecc_decode_kernel(const uint8_t* __restrict__ pages, const uint8_t* __restrict__
   }
   addr_s[tid] = fixed;
   head_s[tid] = -1;
-  if (tid < 32) {  // per-bit majority of the T threshold copies
-    int count[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-    for (int j0 = 0; j0 < T; j0 += 32) {
-      const uint32_t c = j0 + tid < T ? __ldg(thr_copies + b * T + j0 + tid) : 0u;
-#pragma unroll
-      for (int bit = 0; bit < 8; ++bit) count[bit] += __popc(__ballot_sync(0xffffffffu, (c >> bit) & 1u));
-    }
-    if (tid == 0) {
-      int thr = 0;
-#pragma unroll
-      for (int bit = 0; bit < 8; ++bit) {
-        if (count[bit] > T / 2) thr |= 1 << bit;
+  if (tid < 32) {  // per-bit majority of the T threshold copies, by ballots
+    int thr = 0;
+    for (int bit = 0; bit < 8; ++bit) {
+      int count = 0;
+      for (int j0 = 0; j0 < T; j0 += 32) {
+        const uint32_t c = j0 + tid < T ? __ldg(thr_copies + b * T + j0 + tid) : 0u;
+        count += __popc(__ballot_sync(0xffffffffu, (c >> bit) & 1u));
       }
-      thr_s = thr;
+      if (count > T / 2) thr |= 1 << bit;
     }
+    if (tid == 0) thr_s = thr;
   }
   __syncthreads();
 

@@ -30,8 +30,10 @@
 // both products on the float32 CUDA cores, 6x its byte bound.
 //
 // Design of the bf16 kernel (ssd_intra_chunk_tc_kernel): one CTA of 8 warps
-// per (batch, chunk, block of `hpc` heads of one group); the wrapper picks
-// hpc so that the grid is about one wave of the card's SMs.
+// per (batch, chunk, block of `hpc` <= 8 heads of one group); two CTAs share
+// an SM where P <= 64 (110.6 KB of shared memory and <= 128 registers each),
+// so one CTA's loads, exp2 and mma.sync overlap the other's; the wrapper
+// picks hpc so that the grid is about one such wave.
 //  * C B^T once per CTA, on the tensor cores: mma.sync m16n8k16 bf16 with
 //    float32 accumulation (the bf16 products are exact in float32, so only
 //    the order of the float32 sums differs from the CUDA cores), for the 16 x
@@ -42,19 +44,24 @@
 //  * cs in double for every head of the CTA (a lane-local sum of 4, then a
 //    warp scan): a float32 cumsum over a chunk reaches |cs| ~ 2e3 at the
 //    model's decays, where its own rounding (~1e-4 absolute) would move L by
-//    ~1e-4 relative; differences of double sums give L to float32 precision.
+//    ~1e-4 relative.  cs log2(e) is kept as a float pair hi + lo, and L =
+//    exp2f((hi_i - hi_j) + (lo_i - lo_j)): float adds only, with the double
+//    sum's precision (hi_i - hi_j is exact where L is above float32's
+//    range).
 //  * Two heads at a time, four warps each; a warp owns a pair of 16-row
 //    tiles (r, n-1-r), so every warp visits the same number of key tiles, and
 //    key tiles above the diagonal are never visited.  Per key tile it forms S
-//    = (C B^T) o L in float32 registers, splits it into three bf16 terms
-//    (x is bf16, exact; S is float32, and the sum of the terms' products
-//    with x keeps S to ~2^-27 of itself, where two terms keep ~2^-18), and
-//    issues three bf16 mma.sync per 8 columns of y, with x's fragments loaded
-//    by ldmatrix.trans.
+//    = (C B^T) o L in float32 registers and splits it into three bf16
+//    terms of 8 significant bits each, which hold it exactly (x is bf16), so
+//    the product keeps the reference's float32 S; it issues three bf16
+//    mma.sync per 8 columns of y, with x's fragments loaded by
+//    ldmatrix.trans.
 //  * x rows of the next pair of heads are copied into shared memory with
 //    16-byte cp.async while the current pair computes (two stages); C and B
 //    are staged the same way, 64 state dims at a time.  Rows and keys past the
-//    chunk (Q not a multiple of 16) are zero-filled and not stored.
+//    chunk (Q not a multiple of 16) are zero-filled and not stored.  Rows of
+//    64 or more elements are XOR-swizzled by 16-byte chunk, not padded, so
+//    that two CTAs fit.
 //  * y leaves the accumulators as float2 stores: each 32-byte sector of a
 //    row is written whole by four lanes.
 // The wrapper checks the 16-byte alignment of x, Bm and Cm (base and
@@ -75,8 +82,10 @@ constexpr int kMaxQ = 128;
 constexpr int kMaxDevices = 16;
 
 // one cumulative sum of 128 log decays in double, by one warp: a lane-local
-// sum of 4, then a warp scan; positions past Q add 0
-__device__ __forceinline__ void chunk_cumsum(const float* a, long long ass, int Q, double* cs) {
+// sum of 4, then a warp scan; positions past Q add 0.  out(t, cs_t) stores
+// position t.
+template <typename Out>
+__device__ __forceinline__ void chunk_cumsum(const float* a, long long ass, int Q, Out out) {
   const int lane = threadIdx.x % 32;
   double v[4];
   double run = 0.0;
@@ -95,7 +104,7 @@ __device__ __forceinline__ void chunk_cumsum(const float* a, long long ass, int 
   double excl = __shfl_up_sync(0xffffffffu, incl, 1);
   if (lane == 0) excl = 0.0;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) cs[lane * 4 + e] = excl + v[e];
+  for (int e = 0; e < 4; ++e) out(lane * 4 + e, excl + v[e]);
 }
 
 // ------------------------------------------------------------ bf16 kernel
@@ -106,12 +115,12 @@ constexpr int kMaxTiles = kMaxQ / kTile;                     // 8
 constexpr int kMaxBlocks = kMaxTiles * (kMaxTiles + 1) / 2;  // 36 blocks at or below the diagonal
 constexpr int kBlocksPerWarp = (kMaxBlocks + 7) / 8;         // 5
 constexpr int kNChunk = 64;                                  // state dims staged per pass
-constexpr int kNPitch = kNChunk + 8;                         // bf16 row pitch of staged C / B
-constexpr int kMaxHeads = 16;                                // heads per CTA
-// bf16 terms of S: two leave ~2^-18 |S| (within the 1e-4 gate, but at ~0.4 of
-// it on 65K rehearsed outputs, with a tail that grows with the output count),
-// three ~2^-27 |S|
+constexpr int kMaxHeads = 8;                                 // heads per CTA
+// bf16 terms of S, each 8 significant bits of it: three hold a float32
+// exactly; two leave ~2^-16 |S|, which reaches the 1e-4 gate on the CPU
+// rehearsal's outputs at mamba2-130m's widths
 constexpr int kTerms = 3;
+constexpr double kLog2e = 1.4426950408889634;
 
 // 16 bytes global -> shared, asynchronous; src_bytes 0 writes zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -159,18 +168,30 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo_k, float hi_k) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo_k, hi_k);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// A bf16 tile of rows of W elements in shared memory: rows of 64 or more
+// are XOR-swizzled by 16-byte chunk (chunk c of row r stored at c ^ (r % 8)),
+// narrower rows padded by 8 elements; either way the 8 rows one ldmatrix
+// matrix reads, at one logical chunk, fall in 8 distinct bank groups.
+template <int W>
+constexpr int tile_pitch() {
+  return W >= 64 ? W : W + 8;
+}
+template <int W>
+__device__ __forceinline__ int tile_off(int r, int c) {  // element offset of (row, chunk)
+  if constexpr (W >= 64) {
+    return r * W + ((c ^ (r & 7)) << 3);
+  } else {
+    return r * (W + 8) + (c << 3);
+  }
 }
 
 template <int P>
 struct TcSmem {
-  static constexpr int kXPitch = P + 8;                                   // bf16 row pitch of x
+  static constexpr int kXPitch = tile_pitch<P>();                          // bf16 row pitch of x
   static constexpr size_t kG = sizeof(float) * kMaxBlocks * 32 * 8;      // C B^T fragments
-  static constexpr size_t kCs = sizeof(double) * kMaxHeads * kMaxQ;     // cs of every head
+  static constexpr size_t kCs = sizeof(float2) * kMaxHeads * kMaxQ;     // cs of every head
   static constexpr size_t kXStage = 2 * 2 * kMaxQ * kXPitch;            // two heads' x, bytes
-  static constexpr size_t kStaged = 2 * 2 * kMaxQ * kNPitch;            // C and B, bytes
+  static constexpr size_t kStaged = 2 * 2 * kMaxQ * kNChunk;            // C and B, bytes
   // stage 1 of x shares its bytes with the staged C and B (used first)
   static constexpr size_t kStage1 = kXStage > kStaged ? kXStage : kStaged;
   static constexpr size_t kBytes = kG + kCs + kXStage + kStage1;
@@ -183,8 +204,9 @@ __device__ __forceinline__ void block_tiles(int bi, int& rt, int& kt) {
   kt = bi - rt * (rt + 1) / 2;
 }
 
+// two CTAs an SM where P <= 64 (110.6 KB of shared memory, <= 128 registers)
 template <int P>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(kTcThreads, P <= 64 ? 2 : 1)
 ssd_intra_chunk_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
                           const __nv_bfloat16* __restrict__ bm,
                           const __nv_bfloat16* __restrict__ cm, float* __restrict__ y, int S,
@@ -197,11 +219,11 @@ ssd_intra_chunk_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
   constexpr int kNt = P / 8;  // 8-column tiles of y
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Gs = reinterpret_cast<float*>(smem_raw);                     // [block][lane][8]
-  double* cs = reinterpret_cast<double*>(smem_raw + L::kG);            // [head][kMaxQ]
+  float2* cs = reinterpret_cast<float2*>(smem_raw + L::kG);            // [head][kMaxQ]
   __nv_bfloat16* xs0 = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kG + L::kCs);
   unsigned char* stage1 = smem_raw + L::kG + L::kCs + L::kXStage;
-  __nv_bfloat16* Cst = reinterpret_cast<__nv_bfloat16*>(stage1);      // [kMaxQ][kNPitch]
-  __nv_bfloat16* Bst = Cst + kMaxQ * kNPitch;                          // [kMaxQ][kNPitch]
+  __nv_bfloat16* Cst = reinterpret_cast<__nv_bfloat16*>(stage1);      // [kMaxQ][kNChunk]
+  __nv_bfloat16* Bst = Cst + kMaxQ * kNChunk;                          // [kMaxQ][kNChunk]
 
   const int hg = H / G;                 // heads per group
   const int n_hb = (hg + hpc - 1) / hpc;
@@ -231,7 +253,7 @@ ssd_intra_chunk_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
       const __nv_bfloat16* src =
           mat == 0 ? cm + b * csb + static_cast<long long>(c0 + (ok ? r : 0)) * css + grp * csg
                    : bm + b * bsb + static_cast<long long>(c0 + (ok ? r : 0)) * bss + grp * bsg;
-      __nv_bfloat16* dst = (mat == 0 ? Cst : Bst) + r * kNPitch + (k - n0);
+      __nv_bfloat16* dst = (mat == 0 ? Cst : Bst) + tile_off<kNChunk>(r, (k - n0) / 8);
       cp_async16(dst, src + (ok ? k : 0), ok ? 16 : 0);
     }
   };
@@ -247,7 +269,7 @@ ssd_intra_chunk_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
       const bool ok = r < Q;
       const __nv_bfloat16* src = x + b * xsb + static_cast<long long>(c0 + (ok ? r : 0)) * xss +
                                  static_cast<long long>(h0 + e0 + slot) * xsh + d;
-      cp_async16(dst + (slot * kMaxQ + r) * kXPitch + d, src, ok ? 16 : 0);
+      cp_async16(dst + slot * kMaxQ * kXPitch + tile_off<P>(r, d / 8), src, ok ? 16 : 0);
     }
   };
 
@@ -256,9 +278,17 @@ ssd_intra_chunk_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
   cp_async_commit();
   stage_x(0, xs0);
   cp_async_commit();
+  // cs log2(e) as a float pair hi + lo: hi_i - hi_j is exact wherever
+  // exp(cs_i - cs_j) is not below float32's range, so the exponent costs
+  // three float adds and keeps the double sum's precision
   for (int e = warp; e < nh; e += kTcThreads / 32) {
+    float2* cse = cs + e * kMaxQ;
     chunk_cumsum(a + b * asb + static_cast<long long>(c0) * ass + (h0 + e) * ash, ass, Q,
-                 cs + e * kMaxQ);
+                 [cse](int t, double v) {
+                   const double w = v * kLog2e;
+                   const float hi = static_cast<float>(w);
+                   cse[t] = make_float2(hi, static_cast<float>(w - hi));
+                 });
   }
 
   // ---- C B^T, once: warp w owns blocks w, w + 8, ...
@@ -289,10 +319,10 @@ ssd_intra_chunk_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
       block_tiles(bi, rt, kt);
       for (int ks = 0; ks < ksteps; ++ks) {
         uint32_t af[4], bf[4];
-        ldmatrix_x4(af, Cst + (rt * kTile + mr + 8 * (mi & 1)) * kNPitch + ks * kTile +
-                            8 * (mi >> 1));
-        ldmatrix_x4(bf, Bst + (kt * kTile + mr + 8 * (mi >> 1)) * kNPitch + ks * kTile +
-                            8 * (mi & 1));
+        ldmatrix_x4(af, Cst + tile_off<kNChunk>(rt * kTile + mr + 8 * (mi & 1),
+                                                2 * ks + (mi >> 1)));
+        ldmatrix_x4(bf, Bst + tile_off<kNChunk>(kt * kTile + mr + 8 * (mi >> 1),
+                                                2 * ks + (mi & 1)));
         mma_bf16(gacc[u][0], af, bf[0], bf[1]);  // keys 0..7 of the key tile
         mma_bf16(gacc[u][1], af, bf[2], bf[3]);  // keys 8..15
       }
@@ -329,7 +359,7 @@ ssd_intra_chunk_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
     const int e = 2 * pair + slot;
     if (e < nh) {
       const __nv_bfloat16* xh = (pair % 2 == 0 ? xs0 : xs1) + slot * kMaxQ * kXPitch;
-      const double* cse = cs + e * kMaxQ;
+      const float2* cse = cs + e * kMaxQ;
       const int h = h0 + e;
       for (int tp = wl; tp < n_tp; tp += 4) {
         for (int side = 0; side < 2; ++side) {
@@ -341,30 +371,35 @@ ssd_intra_chunk_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
 #pragma unroll
             for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
           const int i0 = rt * kTile + lg;  // this lane's rows i0 and i0 + 8
-          const double ci0 = cse[i0];
-          const double ci1 = cse[i0 + 8];
+          const float2 ci0 = cse[i0];
+          const float2 ci1 = cse[i0 + 8];
           for (int kt = 0; kt <= rt; ++kt) {
             const float4* gf = reinterpret_cast<const float4*>(
                 Gs + ((rt * (rt + 1) / 2 + kt) * 32 + lane) * 8);
             const float4 g0 = gf[0];
             const float4 g1 = gf[1];
             const int j0 = kt * kTile + 2 * lq;  // keys j0, j0 + 1, j0 + 8, j0 + 9
-            const double2 cj01 = *reinterpret_cast<const double2*>(cse + j0);
-            const double2 cj89 = *reinterpret_cast<const double2*>(cse + j0 + 8);
+            const float4 cj01 = *reinterpret_cast<const float4*>(cse + j0);
+            const float4 cj89 = *reinterpret_cast<const float4*>(cse + j0 + 8);
             // fragment element -> (row, key): the accumulator order of C B^T
             float s[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-            const double ci[8] = {ci0, ci0, ci1, ci1, ci0, ci0, ci1, ci1};
-            const double cj[8] = {cj01.x, cj01.y, cj01.x, cj01.y,
-                                  cj89.x, cj89.y, cj89.x, cj89.y};
+            const float2 ci[8] = {ci0, ci0, ci1, ci1, ci0, ci0, ci1, ci1};
+            const float2 cj[8] = {
+                make_float2(cj01.x, cj01.y), make_float2(cj01.z, cj01.w),
+                make_float2(cj01.x, cj01.y), make_float2(cj01.z, cj01.w),
+                make_float2(cj89.x, cj89.y), make_float2(cj89.z, cj89.w),
+                make_float2(cj89.x, cj89.y), make_float2(cj89.z, cj89.w)};
             const int ri[8] = {0, 0, 8, 8, 0, 0, 8, 8};
             const int kj[8] = {0, 1, 0, 1, 8, 9, 8, 9};
 #pragma unroll
             for (int k = 0; k < 8; ++k) {
               const bool keep = kt < rt || 2 * lq + kj[k] <= lg + ri[k];
-              s[k] = keep ? s[k] * expf(static_cast<float>(ci[k] - cj[k])) : 0.f;
+              const float d = (ci[k].x - cj[k].x) + (ci[k].y - cj[k].y);
+              s[k] = keep ? s[k] * exp2f(d) : 0.f;
             }
-            // S as kTerms bf16 values, each the rounding of what the
-            // earlier ones leave (exact float32 differences)
+            // S as kTerms bf16 values: each the top 8 significant bits
+            // of what the earlier ones leave (the high half of its float32
+            // bits; the remainder is exact)
             uint32_t af[kTerms][4];
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
@@ -372,22 +407,27 @@ ssd_intra_chunk_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
               float r1 = s[2 * r + 1];
 #pragma unroll
               for (int t = 0; t < kTerms; ++t) {
-                const float t0 = __bfloat162float(__float2bfloat16_rn(r0));
-                const float t1 = __bfloat162float(__float2bfloat16_rn(r1));
-                af[t][r] = pack_bf16(t0, t1);
-                r0 -= t0;
-                r1 -= t1;
+                const uint32_t b0 = __float_as_uint(r0);
+                const uint32_t b1 = __float_as_uint(r1);
+                af[t][r] = __byte_perm(b0, b1, 0x7632);  // k 2q: low half
+                r0 -= __uint_as_float(b0 & 0xFFFF0000u);
+                r1 -= __uint_as_float(b1 & 0xFFFF0000u);
               }
             }
+            uint32_t xf[P / 16][4];
 #pragma unroll
             for (int np = 0; np < P / 16; ++np) {
-              uint32_t xf[4];
-              ldmatrix_x4_trans(xf, xh + (kt * kTile + mr + 8 * (mi & 1)) * kXPitch + np * 16 +
-                                        8 * (mi >> 1));
+              ldmatrix_x4_trans(xf[np], xh + tile_off<P>(kt * kTile + mr + 8 * (mi & 1),
+                                                         2 * np + (mi >> 1)));
+            }
+            // term-major, so consecutive mma.sync write independent
+            // accumulators
 #pragma unroll
-              for (int t = 0; t < kTerms; ++t) {
-                mma_bf16(acc[2 * np], af[t], xf[0], xf[1]);
-                mma_bf16(acc[2 * np + 1], af[t], xf[2], xf[3]);
+            for (int t = 0; t < kTerms; ++t) {
+#pragma unroll
+              for (int np = 0; np < P / 16; ++np) {
+                mma_bf16(acc[2 * np], af[t], xf[np][0], xf[np][1]);
+                mma_bf16(acc[2 * np + 1], af[t], xf[np][2], xf[np][3]);
               }
             }
           }
@@ -454,7 +494,10 @@ ssd_intra_chunk_f32_kernel(const float* __restrict__ x, const float* __restrict_
   const int tx = tid % 16;      // key columns tx*4.. of S; dims tx*kPpt.. of y
   const int ty = tid / 16;      // rows ty*4 .. ty*4+3
 
-  if (tid < 32) chunk_cumsum(a + b * asb + static_cast<long long>(c0) * ass + h * ash, ass, Q, cs);
+  if (tid < 32) {
+    chunk_cumsum(a + b * asb + static_cast<long long>(c0) * ass + h * ash, ass, Q,
+                 [cs](int t, double v) { cs[t] = v; });
+  }
   // C rows of this CTA, transposed; zero past the chunk
   for (int idx = tid; idx < kBR * N; idx += kThreads) {
     const int row = idx / N;

@@ -25,17 +25,21 @@ from repro_torch.kernels.ssd_scan.ref import ssd_intra_chunk_model_ref
 HEAD_DIMS = (16, 32, 64, 128)   # P
 MAX_CHUNK = 128                 # Q
 MAX_STATE = 256                 # N
-MAX_HEAD_BLOCK = 16             # heads per CTA of the tensor-core kernel
+MAX_HEAD_BLOCK = 8              # heads per CTA of the tensor-core kernel
 LAUNCHES = {"ssd_intra_chunk": 0}
 
 
-def head_block(b: int, n_chunks: int, h: int, g: int, n_sm: int) -> int:
-    """Heads per CTA of the tensor-core kernel: the fewest, in pairs (a CTA
-    works on two heads at a time), that keep the grid of (batch, chunk, head
-    block) CTAs within one wave of ``n_sm`` SMs, at most MAX_HEAD_BLOCK and
-    at most the heads of one group."""
-    want = -(-b * n_chunks * h // n_sm)
-    return max(1, min(MAX_HEAD_BLOCK, 2 * -(-want // 2), h // g))
+def ctas_per_sm(p: int) -> int:
+    """CTAs of the tensor-core kernel an SM holds at once (its launch
+    bounds and shared memory: two where P <= 64)."""
+    return 2 if p <= 64 else 1
+
+
+def head_block(b: int, n_chunks: int, h: int, g: int, slots: int) -> int:
+    """Heads per CTA of the tensor-core kernel: the fewest that keep the
+    grid of (batch, chunk, head block) CTAs within one wave of ``slots``
+    CTAs, at most MAX_HEAD_BLOCK and at most the heads of one group."""
+    return max(1, min(MAX_HEAD_BLOCK, -(-b * n_chunks * h // slots), h // g))
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,7 +97,8 @@ def ssd_intra_chunk(x: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
                     f"{name}: the bf16 kernel copies 16-byte rows; base "
                     f"{t.data_ptr() % 16} bytes off the 16-byte grid or "
                     f"strides {t.stride()} not multiples of 8 elements")
-        hpc = head_block(b, s // chunk, h, g, _sm_count(x.device.index or 0))
+        hpc = head_block(b, s // chunk, h, g,
+                         _sm_count(x.device.index or 0) * ctas_per_sm(p))
     strides = (ctypes.c_longlong * 12)(*x.stride()[:3], *a.stride(),
                                        *b_mat.stride()[:3],
                                        *c_mat.stride()[:3])

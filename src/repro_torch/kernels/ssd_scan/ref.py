@@ -11,11 +11,13 @@ yardstick that is free of float32 rounding).
 
 ``ssd_intra_chunk_split_ref`` rehearses the roundings of the bf16
 tensor-core kernel: C B^T of bf16 inputs with float32 sums, cs in double,
-S = (C B^T) o L in float32 split into bf16 terms (three, as the kernel),
-S x summed in float32.
+S = (C B^T) o L in float32 split into bf16 terms (three, as the kernel:
+exactly), S x summed in float32.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -77,28 +79,35 @@ def ssd_intra_chunk_split_ref(x: torch.Tensor, a: torch.Tensor,
                               chunk: int, terms: int = 3) -> torch.Tensor:
     """The model-layout function with the bf16 kernel's roundings: the
     products of the (bf16) inputs are exact in float32 and summed in
-    float32; cs is summed in double and L = exp(float32(cs_i - cs_j));
+    float32; cs is summed in double, cs log2(e) kept as float32 hi + lo,
+    and L = exp2((hi_i - hi_j) + (lo_i - lo_j)) in float32;
     S = (C B^T) o L is rounded to float32 and written as ``terms`` bf16
-    values (each the bf16 rounding of what the earlier ones leave); each
-    term's product with x is summed in float32.  Returns y_diag float32."""
+    values, each the top 8 significant bits of what the earlier ones leave
+    (three hold S exactly); each term's product with x is summed in
+    float32.  Returns y_diag float32."""
     b, s, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     nc, rep = s // chunk, h // g
     xr = x.float().reshape(b, nc, chunk, h, p)
-    cs = a.double().reshape(b, nc, chunk, h).cumsum(2)
+    cs2 = a.double().reshape(b, nc, chunk, h).cumsum(2) * math.log2(math.e)
+    hi = cs2.float()
+    lo = (cs2 - hi.double()).float()
     bm = b_mat.float().reshape(b, nc, chunk, g, n)
     cm = c_mat.float().reshape(b, nc, chunk, g, n)
     cbt = torch.einsum("bcign,bcjgn->bcgij", cm, bm)          # float32
     cbt = torch.repeat_interleave(cbt, rep, dim=2)             # [b,c,h,i,j]
-    diff = (cs[:, :, :, None, :] - cs[:, :, None, :, :]).permute(0, 1, 4, 2, 3)
+    def pairwise(v):   # v_i - v_j as [b, c, h, i, j]
+        return (v[:, :, :, None, :] - v[:, :, None, :, :]).permute(
+            0, 1, 4, 2, 3)
+
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool))
-    ell = torch.exp(diff.float())
+    ell = torch.exp2(pairwise(hi) + pairwise(lo))
     sm = torch.where(mask.to(x.device), cbt * ell, torch.zeros_like(cbt))
     y = torch.zeros((b, nc, chunk, h, p), dtype=torch.float32,
                     device=x.device)
     rest = sm
     for _ in range(terms):
-        term = rest.to(torch.bfloat16).float()
+        term = (rest.view(torch.int32) & -65536).view(torch.float32)
         rest = rest - term
         y = y + torch.einsum("bchij,bcjhp->bcihp", term, xr)
     return y.reshape(b, s, h, p)

@@ -455,7 +455,7 @@ def _ssd_inputs(dev, b, s, h, g, p, n, dtype, seed):
     (2, 8, 8, 1, 16, 16, 8, torch.bfloat16),        # reduced, Q = 8
     (2, 96, 8, 2, 32, 32, 32, torch.float32),       # G > 1, float32 inputs
     (2, 256, 16, 2, 64, 64, 128, torch.bfloat16),   # G 2: each group's C B^T
-    (4, 1024, 22, 1, 64, 64, 64, torch.bfloat16),   # Q 64; 22 heads, blocks of 12
+    (4, 1024, 22, 1, 64, 64, 64, torch.bfloat16),   # Q 64; 22 heads, blocks of 6
     (1, 80, 8, 1, 32, 24, 40, torch.bfloat16),      # Q, N not multiples of 16
 ])
 def test_ssd_intra_chunk_on_card(cuda_device, b, s, h, g, p, n, chunk,
@@ -474,13 +474,15 @@ def test_ssd_intra_chunk_on_card(cuda_device, b, s, h, g, p, n, chunk,
 @pytest.mark.gpu
 def test_ssd_intra_chunk_head_blocks_are_ragged_where_tested(cuda_device):
     """The 22-head case above splits its heads into blocks with a shorter
-    last one on this card, and zamba2-7b's 112 heads fill about one wave."""
-    from repro_torch.kernels.ssd_scan.ops import head_block
+    last one on this card, and zamba2-7b's 112 heads fill about one wave of
+    two CTAs an SM."""
+    from repro_torch.kernels.ssd_scan.ops import ctas_per_sm, head_block
 
-    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert 22 % head_block(4, 16, 22, 1, sms) != 0
-    hpc = head_block(4, 4, 112, 1, sms)
-    assert 4 * 4 * -(-112 // hpc) <= sms
+    slots = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count * ctas_per_sm(64)
+    assert 22 % head_block(4, 16, 22, 1, slots) != 0
+    hpc = head_block(4, 4, 112, 1, slots)
+    assert 4 * 4 * -(-112 // hpc) <= slots
 
 
 @pytest.mark.gpu
