@@ -98,7 +98,7 @@ def ssd_intra_chunk(x: torch.Tensor, a: torch.Tensor, b_mat: torch.Tensor,
                     f"{t.data_ptr() % 16} bytes off the 16-byte grid or "
                     f"strides {t.stride()} not multiples of 8 elements")
         hpc = head_block(b, s // chunk, h, g,
-                         _sm_count(x.device.index or 0) * ctas_per_sm(p))
+                         _sm_count(x.get_device()) * ctas_per_sm(p))
     strides = (ctypes.c_longlong * 12)(*x.stride()[:3], *a.stride(),
                                        *b_mat.stride()[:3],
                                        *c_mat.stride()[:3])

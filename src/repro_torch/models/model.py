@@ -131,17 +131,14 @@ def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _fixed_row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ w [K, V] as products of LM_HEAD_ROWS rows each."""
-    lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1])
     m = xf.shape[0]
-    pad = (-m) % LM_HEAD_ROWS
-    if pad:
-        xf = torch.cat([xf, xf.new_zeros((pad, xf.shape[1]))])
-    if xf.shape[0] == 0:
-        return (xf @ w).reshape(*lead, w.shape[1])
+    if m == 0:
+        return x @ w
+    xf = torch.cat([xf, xf.new_zeros(((-m) % LM_HEAD_ROWS, xf.shape[1]))])
     out = torch.cat([xf[i:i + LM_HEAD_ROWS] @ w
-                     for i in range(0, xf.shape[0], LM_HEAD_ROWS)])
-    return out[:m].reshape(*lead, w.shape[1])
+                     for i in range(0, len(xf), LM_HEAD_ROWS)])
+    return out[:m].reshape(*x.shape[:-1], w.shape[1])
 
 
 # ---------------------------------------------------------------------------
