@@ -21,10 +21,10 @@
 //
 // What bounds it on the H100: each page is read once and written once
 // (2 x 16 KB) beside ~1.2 KB of sidecar, and the work per byte is a few
-// integer operations, so it is bound by device memory bytes.  PR 12's kernel
-// reached 47% of that bound: it staged the page in shared memory and left
-// the entries to warp 0 alone, twice, while the other seven warps waited
-// with no load in flight.
+// integer operations, so it is bound by device memory bytes.  Staging the
+// page in shared memory and leaving the entries to one warp would keep the
+// other warps waiting with no load in flight; so the page stays in
+// registers, and every warp works on the entries.
 //
 // Design: one CTA of 256 threads per page, the page in registers.
 //  * Every thread first issues its 16-byte loads of the page (64 bytes a

@@ -26,8 +26,8 @@
 // zamba2-7b (H 112, G 1, P = N = 64, Q 128) that is 1.9 GFLOP against 90 MB,
 // about 21 operations per byte: below the bf16 tensor cores' ridge (~295),
 // so the bound is device memory bytes, ~60% of them the float32 output.
-// PR 13's kernel computed C B^T again for every head (half of its FLOPs) and
-// both products on the float32 CUDA cores, 6x its byte bound.
+// C B^T computed again for every head would be half of the FLOPs, and the
+// float32 CUDA cores would put both products above the byte bound.
 //
 // Design of the bf16 kernel (ssd_intra_chunk_tc_kernel): one CTA of 8 warps
 // per (batch, chunk, block of `hpc` <= 8 heads of one group); two CTAs share
@@ -67,7 +67,7 @@
 // The wrapper checks the 16-byte alignment of x, Bm and Cm (base and
 // strides) that the cp.async copies need.
 //
-// float32 inputs (on no model path at full width) take PR 13's CUDA-core
+// float32 inputs (on no model path at full width) take a CUDA-core
 // kernel, ssd_intra_chunk_f32_kernel: one CTA of 256 threads per (64-row
 // block, head, batch), C B^T per head, S through shared memory, products in
 // float32.
@@ -453,7 +453,7 @@ ssd_intra_chunk_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
   }
 }
 
-// ----------------------------------------------------- float32 kernel (PR 13)
+// ---------------------------------------------------------- float32 kernel
 
 constexpr int kBR = 64;  // rows (queries) per CTA
 constexpr int kBC = 64;  // keys per block
