@@ -145,6 +145,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention/flash_attention.py:59"),
     "w4a16_gemv": ("src/repro_torch/kernels/csrc/w4a16_gemv.cu",
                    "src/repro/kernels/w4a16_gemv/w4a16_gemv.py:43"),
+    "w4a16_gemm": ("src/repro_torch/kernels/csrc/w4a16_gemv.cu",
+                   "src/repro/kernels/w4a16_gemv/w4a16_gemv.py:43"),
     "ecc_decode": ("src/repro_torch/kernels/csrc/ecc_decode.cu",
                    "src/repro/kernels/ecc_decode/ecc_decode.py:53"),
     "ssd_intra_chunk": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -154,7 +156,8 @@ SOURCES = {
 COUNTED_IN = {"int8_gemv": "serve", "int8_gemv_dp4a": "serve",
               "int8_gemm": "serve", "int8_gemm_tc": "serve",
               "paged_decode_attention": "serve", "flash_attention": "serve",
-              "ecc_decode": "hybrid", "w4a16_gemv": "serve_w4a16",
+              "ecc_decode": "hybrid", "w4a16_gemv": "serve_hybrid_w4a16",
+              "w4a16_gemm": "serve_hybrid_w4a16",
               "ssd_intra_chunk": "serve_hybrid"}
 # kept for shapes no model has (K not a multiple of 16, a misaligned base):
 # a serving path must not launch them
@@ -165,7 +168,9 @@ KERNEL_NAMES = {"int8_gemv": "int8_gemv_mma_kernel",
                 "int8_gemv_dp4a": "int8_gemv_dp4a_kernel",
                 "int8_gemm": "int8_gemm_kernel",
                 "int8_gemm_tc": "int8_gemm_tc_kernel",
-                "paged_decode_attention": "paged_decode_attention_"}
+                "paged_decode_attention": "paged_decode_attention_",
+                "w4a16_gemv": "w4a16_gemv_mma_kernel",
+                "w4a16_gemm": "w4a16_gemm_mma_kernel"}
 # the kernels every W8A8 serving phase must go through
 SERVING_KERNELS = ("int8_gemv", "int8_gemm_tc", "paged_decode_attention",
                    "flash_attention")
@@ -889,70 +894,241 @@ def _kernels_ecc(torch, results: dict) -> None:
         f"invalid last entry): bit-exact, bytes at the collisions {seen}")
 
 
-def _kernels_w4a16(torch, results: dict) -> None:
-    """B4 against its plain version at the llama2-7b lm_head and MLP
-    shapes, a ragged K and the tiled variant, within W4_TOL; the planted
-    fault (lo/hi nibbles swapped) must fail."""
+# B4's shapes (M, K, N): zamba2-7b's shared block (q/k/v/o 3584 -> 3584,
+# gate/up 3584 -> 14336, down 14336 -> 3584) and lm_head (3584 -> 32000) at
+# decode (M = 4 slots, the GeMV) and at prefill (M = 2048, the tiled GEMM);
+# llama2-7b's lm_head and MLP, smollm's width (7.5 groups), M = 1, 9, 20 and
+# 130 (ragged M tiles), a ragged K (g = 100, byte-wise loads) and N; each in
+# bf16 and in float32 x.  Timed (bf16 x; float32 too at llama2-7b's lm_head)
+# where a tag is given; the JSON rows are llama2-7b's lm_head at decode and
+# zamba2-7b's gate/up at prefill
+W4_SHAPES = {(4, 3584, 3584): "zamba2-7b q/k/v/o",
+             (4, 3584, 14336): "zamba2-7b gate/up",
+             (4, 14336, 3584): "zamba2-7b down",
+             (4, 3584, 32000): "zamba2-7b lm_head",
+             (4, 4096, 32000): "llama2-7b lm_head",
+             (2048, 3584, 3584): "zamba2-7b q/k/v/o",
+             (2048, 3584, 14336): "zamba2-7b gate/up",
+             (2048, 14336, 3584): "zamba2-7b down",
+             (4, 4096, 11008): None, (4, 960, 2560): None,
+             (1, 4096, 4096): None, (9, 4096, 4096): None,
+             (20, 4096, 4096): None, (130, 3584, 14336): None,
+             (3, 100, 70): None, (37, 1000, 130): None}
+W4_JSON = {"w4a16_gemv": (4, 4096, 32000), "w4a16_gemm": (2048, 3584, 14336)}
+# (K, N) of the batch-invariance check: zamba2-7b's gate/up, llama2-7b's head
+W4_INVARIANCE = ((3584, 14336), (4096, 32000))
+# the library yardstick's nibble orders: torch._convert_weight_to_int4pack
+# takes [N, K/2] bytes; tried with the even column in the high nibble (as
+# torchao packs it) and then in the low one (the port's), and the first whose
+# product agrees with the plain version is timed
+INT4PACK_ORDERS = ("even column in the high nibble",
+                   "even column in the low nibble")
+
+
+def _w4_operands(torch, gen, n, k, copies):
+    """``copies`` W4A16 weights [N, K]: the first quantized from a random
+    normal matrix, the rest random bytes under the same scales (timing
+    copies, so that a weight-streaming product does not find them in the
+    50 MB L2)."""
+    from repro_torch.quant.int4 import quantize_weight4
+
+    dev = torch.device("cuda")
+    q = quantize_weight4(torch.randn((n, k), generator=gen, device=dev)
+                         * k ** -0.5)
+    out = [(q.w_packed.contiguous(), q.scale)]
+    for _ in range(copies - 1):
+        out.append((torch.randint(0, 256, (n, k // 2), generator=gen,
+                                  device=dev, dtype=torch.uint8), q.scale))
+    return out
+
+
+def _int4pack_library(torch, x, wps, ref, limit):
+    """torch._weight_int4pack_mm on bf16 x and the same nibbles (its own
+    packing, qScaleAndZeros with zero 0, the scales rounded to bf16):
+    (callable over the weight copies, the nibble order that agreed, its
+    worst |err| / limit), or (None, the reason, None)."""
+    k = x.shape[1]
+    g = min(128, k)
+    xb = x.to(torch.bfloat16)
+    reasons = []
+    for order in INT4PACK_ORDERS:
+        try:
+            packed, sz = [], []
+            for wp, sc in wps:
+                src = (((wp & 0xF) << 4) | (wp >> 4) if order == INT4PACK_ORDERS[0]
+                       else wp).contiguous()
+                packed.append(torch._convert_weight_to_int4pack(src, 8))
+                sz.append(torch.stack([sc.T, torch.zeros_like(sc.T)], -1)
+                          .to(torch.bfloat16).contiguous())
+            y = torch._weight_int4pack_mm(xb, packed[0], g, sz[0]).float()
+            torch.cuda.synchronize()
+        except (RuntimeError, AttributeError, TypeError) as e:
+            reasons.append(f"{order}: {type(e).__name__}: "
+                           f"{str(e).splitlines()[0][:160]}")
+            continue
+        used = ((y - ref).abs() / limit).max().item()
+        # bf16 x, scales and output: within two bf16 steps of |x| @ |W|^T
+        if used * W4_REL < 2.0 ** -7:
+            return (lambda i: torch._weight_int4pack_mm(xb, packed[i], g,
+                                                         sz[i])), order, used
+        reasons.append(f"{order}: worst |err| / W4_TOL {used:.3g}")
+    return None, "; ".join(reasons), None
+
+
+def _w4_faults(torch, variant, x, wp, sc, ref, check) -> None:
+    """What a B4 kernel with a planted fault computes, each through the
+    kernel itself on altered inputs: lo/hi nibbles swapped (the swapped
+    bytes), every group's partial scaled by the next group's scale (the
+    scales rolled by one group), and, for the tiled variant, its last K tile
+    of 64 columns skipped (x zero there).  The W4_TOL check must reject
+    each."""
+    from repro_torch.kernels.w4a16_gemv.ops import w4a16_gemm
+
+    k = x.shape[1]
+    faults = {"lo/hi nibbles swapped": (x, ((wp >> 4) | (wp << 4))
+                                        .contiguous(), sc),
+              "each group's partial scaled by the next group's scale":
+                  (x, wp, torch.roll(sc, -1, 1).contiguous())}
+    if variant == "w4a16_gemm":
+        cut = x.clone()
+        cut[:, (k - 1) // 64 * 64:] = 0
+        faults[f"its last K tile (columns {(k - 1) // 64 * 64}..{k - 1}) "
+               f"skipped"] = (cut, wp, sc)
+    for fault, (xf, wf, sf) in faults.items():
+        bad, err, _ = check(w4a16_gemm(xf, wf, sf), ref, x, wp, sc)
+        log(f"[kernels] planted fault, {variant} M={x.shape[0]} K={k} "
+            f"N={wp.shape[0]} with {fault}: {bad} of {ref.numel()} outputs "
+            f"above the tolerance, max|err| {err:.3e}")
+        if bad == 0:
+            raise AssertionError(f"planted fault ({fault}) passes the "
+                                 f"{variant} check")
+
+
+def _w4_invariance(torch, gen, check) -> None:
+    """A row's bits at M = 1..8 (the GeMV) against the same rows of M = 8,
+    in bf16 and float32 x, at zamba2-7b's gate/up and llama2-7b's lm_head;
+    then the GeMV's M = 8 rows against the tiled variant's at M = 9 (stated,
+    not gated)."""
     from repro_torch.kernels.w4a16_gemv.ops import w4a16_gemm
     from repro_torch.kernels.w4a16_gemv.ref import w4a16_gemm_ref
-    from repro_torch.quant.int4 import dequantize4, quantize_weight4
+
+    for k, n in W4_INVARIANCE:
+        (wp, sc), = _w4_operands(torch, gen, n, k, 1)
+        for dt in (torch.bfloat16, torch.float32):
+            x9 = torch.randn((9, k), generator=gen, device="cuda").to(dt)
+            full = w4a16_gemm(x9[:8].contiguous(), wp, sc)
+            same = all(torch.equal(w4a16_gemm(x9[:m].contiguous(), wp, sc),
+                                   full[:m]) for m in range(1, 8))
+            tiled = w4a16_gemm(x9, wp, sc)[:8]
+            torch.cuda.synchronize()
+            ref = w4a16_gemm_ref(x9[:8], wp, sc)
+            if check(tiled, ref, x9[:8], wp, sc)[0]:
+                raise AssertionError("w4a16_gemm at M = 9 outside W4_TOL")
+            diff = tiled != full
+            name = str(dt).split(".")[-1]
+            log(f"[kernels] w4a16_gemv K={k} N={n} {name} x: rows at M = "
+                f"1..7 against the same rows at M = 8: "
+                f"{'bit-identical' if same else 'DIFFERENT'}; the tiled "
+                f"variant at M = 9 gives other bits in {int(diff.sum())} of "
+                f"{diff.numel()} outputs (max |diff| "
+                f"{(tiled - full).abs().max().item():.3e}), both within "
+                f"{W4_TOL}")
+            if not same:
+                raise AssertionError("w4a16_gemv: a row's bits depend on M")
+
+
+def _kernels_w4a16(torch, results: dict) -> None:
+    """B4 against its plain version at W4_SHAPES in bf16 and float32 x,
+    within W4_TOL; planted faults (swapped nibbles, the next group's scale,
+    the tiled variant's last K tile skipped) must fail; a row's bits must
+    not depend on M within 1..8.  Timed beside its bound on the bf16 tensor
+    cores and torch._weight_int4pack_mm."""
+    from repro_torch.kernels.w4a16_gemv.ops import variant, w4a16_gemm
+    from repro_torch.kernels.w4a16_gemv.ref import w4a16_gemm_ref
+    from repro_torch.quant.int4 import QuantizedLinear4, dequantize4
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
-    res = results["w4a16_gemv"]
-    res["max_abs_err"] = 0.0
+    for name in W4_JSON:
+        results[name]["max_abs_err"] = 0.0
 
-    def check(got, ref, x, q):
-        limit = W4_REL * (x.abs() @ dequantize4(q).abs().T) + W4_ABS
+    def check(got, ref, x, wp, sc):
+        w = dequantize4(QuantizedLinear4(wp, sc, wp.shape[0], x.shape[1]))
+        limit = W4_REL * (x.float().abs() @ w.abs().T) + W4_ABS
         err = (got - ref).abs()
         torch.cuda.synchronize()
         return int((err > limit).sum()), err.max().item(), \
             (err / limit).max().item()
 
-    for m, k, n in [(4, 4096, 32000), (4, 4096, 11008), (4, 960, 2560),
-                    (1, 4096, 4096), (20, 4096, 4096)]:
-        n_w = 2 if (m, k, n) == (4, 4096, 32000) else 1
-        qs = [quantize_weight4(torch.randn((n, k), generator=gen, device=dev)
-                               * k ** -0.5) for _ in range(n_w)]
-        x = torch.randn((m, k), generator=gen, device=dev)
-        got = w4a16_gemm(x, qs[0].w_packed, qs[0].scale)
-        ref = w4a16_gemm_ref(x, qs[0].w_packed, qs[0].scale)
-        bad, err, used = check(got, ref, x, qs[0])
-        if bad:
-            raise AssertionError(f"w4a16_gemv M={m} K={k} N={n}: {bad} "
-                                 f"outputs above {W4_TOL}")
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        line = (f"[kernels] w4a16_gemv M={m} K={k} N={n}: max|err| {err:.3e} "
-                f"(worst |err|/limit {used:.3f}; tol {W4_TOL})")
-        if n_w == 2:
-            q = qs[0]
-            swapped = ((q.w_packed >> 4) | (q.w_packed << 4)).contiguous()
-            bad_f, err_f, _ = check(w4a16_gemm(x, swapped, q.scale), ref,
-                                    x, q)
-            log(f"[kernels] planted fault, w4a16_gemv with lo/hi nibbles "
-                f"swapped: {bad_f} of {ref.numel()} outputs above the "
-                f"tolerance, max|err| {err_f:.3e}")
-            if bad_f == 0:
-                raise AssertionError("planted fault (nibbles swapped) passes "
-                                     "the w4a16_gemv check")
-            ms = time_ms(torch, lambda i: w4a16_gemm(x, qs[i].w_packed,
-                                                     qs[i].scale), n_w)
-            dev_ms = profiled_ms(torch, lambda i: w4a16_gemm(
-                x, qs[i].w_packed, qs[i].scale), ("w4a16_gemv",), n_w)
-            plain = time_ms(torch, lambda i: w4a16_gemm_ref(
-                x, qs[i].w_packed, qs[i].scale), n_w)
-            ng = q.scale.shape[1]
-            bytes_moved = n * k // 2 + n * ng * 4 + m * k * 4 + m * n * 4
-            b_ms, b_by = bound(bytes_moved, 2 * m * n * k, "f32")
-            res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                       library_ms=None, bound_ms=b_ms,
-                       bound_by=b_by, shape=f"M={m} K={k} N={n}")
-            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
-                     f"{plain:.4f} ms, library n/a (no PyTorch call "
-                     f"multiplies packed nibbles), bound {b_ms:.4f} ms "
-                     f"({b_by})")
-        log(line)
+    for (m, k, n), tag in W4_SHAPES.items():
+        var = variant(m)
+        copies = max(4, -(-120_000_000 // (n * k // 2))) \
+            if tag and m <= 8 else 1
+        wps = _w4_operands(torch, gen, n, k, copies)
+        wp, sc = wps[0]
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+            got = w4a16_gemm(x, wp, sc)
+            ref = w4a16_gemm_ref(x, wp, sc)
+            bad, err, used = check(got, ref, x, wp, sc)
+            dname = str(dt).split(".")[-1]
+            if bad:
+                raise AssertionError(f"{var} M={m} K={k} N={n} {dname} x: "
+                                     f"{bad} outputs above {W4_TOL}")
+            results[var]["max_abs_err"] = max(results[var]["max_abs_err"],
+                                              err)
+            line = (f"[kernels] {var} M={m} K={k} N={n} {dname} x: max|err| "
+                    f"{err:.3e} (worst |err|/limit {used:.3f}; tol {W4_TOL})")
+            if dt == torch.bfloat16 and (m, k, n) in W4_JSON.values():
+                _w4_faults(torch, var, x, wp, sc, ref, check)
+            timed = tag is not None and (
+                dt == torch.bfloat16 or (m, k, n) == W4_JSON["w4a16_gemv"])
+            if timed:
+                kname = KERNEL_NAMES[var]
+                ms = time_ms(torch, lambda i: w4a16_gemm(x, *wps[i]), copies)
+                dev_ms = profiled_ms(torch, lambda i: w4a16_gemm(x, *wps[i]),
+                                     (kname,), copies)
+                plain = time_ms(torch, lambda i: w4a16_gemm_ref(x, *wps[i]),
+                                copies, iters=10)
+                w = dequantize4(QuantizedLinear4(wp, sc, n, k))
+                limit = W4_REL * (x.float().abs() @ w.abs().T) + W4_ABS
+                del w
+                lib_fn, order, lib_used = _int4pack_library(
+                    torch, x, wps, ref, limit)
+                lib = lib_dev = None
+                if lib_fn is not None:
+                    lib = time_ms(torch, lib_fn, copies)
+                    lib_dev = profiled_ms(torch, lib_fn, None, copies)
+                    lib_s = (f"{lib:.4f} ms (device {lib_dev:.4f} ms; "
+                             f"torch._weight_int4pack_mm on bf16 x, {order}, "
+                             f"bf16 scales and output: worst |err|/W4_TOL "
+                             f"{lib_used:.3g})")
+                else:
+                    lib_s = f"none (torch._weight_int4pack_mm: {order})"
+                xb = 2 if dt == torch.bfloat16 else 4
+                terms = 1 if dt == torch.bfloat16 else 3
+                ng = sc.shape[1]
+                bytes_moved = n * k // 2 + n * ng * 4 + m * k * xb + m * n * 4
+                ops = 2 * m * n * k * terms
+                b_ms, b_by = bound(bytes_moved, ops, "bf16")
+                if dt == torch.bfloat16 and (m, k, n) == W4_JSON[var]:
+                    results[var].update(
+                        ms=ms, device_ms=dev_ms, plain_ms=plain,
+                        library_ms=lib, library_device_ms=lib_dev,
+                        bound_ms=b_ms, bound_by=b_by,
+                        shape=f"M={m} K={k} N={n} bf16 x")
+                line += (f" | {tag}: {ms:.4f} ms (device time {dev_ms:.4f} "
+                         f"ms, {100 * b_ms / dev_ms:.1f}% of the bound, "
+                         f"{ops / dev_ms / 1e9:.0f} TFLOP/s, "
+                         f"{bytes_moved / dev_ms / 1e6:.0f} GB/s), plain "
+                         f"{plain:.4f} ms, library {lib_s}, bound "
+                         f"{b_ms:.4f} ms ({b_by}: {bytes_moved / 1e6:.1f} MB "
+                         f"at 3.35 TB/s; {ops / 1e9:.1f} GFLOP at the bf16 "
+                         f"tensor-core peak)")
+            log(line)
+        del wps
+    _w4_invariance(torch, gen, check)
 
 
 def _ssd_inputs(torch, gen, b, s, h, g, p, n):
@@ -1233,11 +1409,15 @@ def phase_model(torch) -> None:
     _model_forward(torch, "mamba2-130m", 2, 256)
 
 
-def _serve_full(torch, arch: str, tag: str, smi: str) -> tuple[dict, object]:
-    """``arch`` at full width, W8A8, through launch/serve.py's build_client:
-    4 slots, max_seq 1024, page 16, 8 greedy requests with 64-512-token
-    prompts and 32 new tokens each.  Every launch counter is zeroed before
-    the run and read after; returns the counts and the client."""
+def _serve_full(torch, arch: str, tag: str, smi: str, quant: str = "w8a8",
+                n_req: int = 8, max_new: int = 32,
+                required: tuple = ()) -> tuple[dict, object]:
+    """``arch`` at full width, ``quant``, through launch/serve.py's
+    build_client: 4 slots, max_seq 1024, page 16, ``n_req`` greedy requests
+    with 64-512-token prompts and ``max_new`` new tokens each.  Every launch
+    counter is zeroed before the run and read after; the kernels the phase
+    owns (COUNTED_IN), SERVING_KERNELS and ``required`` must have launched.
+    Returns the counts and the client."""
     import numpy as np
 
     from repro_torch import kernels
@@ -1246,19 +1426,19 @@ def _serve_full(torch, arch: str, tag: str, smi: str) -> tuple[dict, object]:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    cfg, client = build_client(arch, reduced=False, quant="w8a8",
+    cfg, client = build_client(arch, reduced=False, quant=quant,
                                max_batch=4, max_seq=1024, seed=0,
                                device="cuda")
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated() / 2**30
-    log(f"[{tag}] {arch} full width W8A8 built in "
+    log(f"[{tag}] {arch} full width {quant.upper()} built in "
         f"{time.monotonic() - t0:.1f} s, {resident:.2f} GiB allocated "
         f"(weights and cache), build peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     core = client.router.cores[0]
     rng = np.random.RandomState(0)
     prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
-               for n in rng.randint(64, 513, size=8)]
+               for n in rng.randint(64, 513, size=n_req)]
 
     # a direct prefill of the first prompt, outside the engine, as the
     # reference for the engine's first token of that request
@@ -1278,7 +1458,7 @@ def _serve_full(torch, arch: str, tag: str, smi: str) -> tuple[dict, object]:
     margin = float(top2[0] - top2[1])
     del ref_cache
 
-    handles = [client.submit(p, max_new_tokens=32) for p in prompts]
+    handles = [client.submit(p, max_new_tokens=max_new) for p in prompts]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1290,7 +1470,8 @@ def _serve_full(torch, arch: str, tag: str, smi: str) -> tuple[dict, object]:
     stats = core.stats
     for h in handles:
         toks = h.request.out_tokens
-        if not h.finished or h.finish_reason != "length" or len(toks) != 32:
+        if not h.finished or h.finish_reason != "length" \
+                or len(toks) != max_new:
             raise AssertionError(f"request {h.rid}: finished={h.finished} "
                                  f"reason={h.finish_reason} n={len(toks)}")
         if not all(0 <= t < cfg.vocab_size for t in toks):
@@ -1302,7 +1483,8 @@ def _serve_full(torch, arch: str, tag: str, smi: str) -> tuple[dict, object]:
         raise AssertionError("engine's first token disagrees with a direct "
                              "prefill of the same prompt")
     decode_tokens = stats.tokens_out - len(handles)
-    log(f"[{tag}] 8 requests x 32 tokens: tokens_out={stats.tokens_out} "
+    log(f"[{tag}] {n_req} requests x {max_new} tokens: "
+        f"tokens_out={stats.tokens_out} "
         f"prefills={stats.prefills} decode_steps={stats.decode_steps} "
         f"wall {wall:.2f} s")
     log(f"[{tag}] prefill {stats.wall_prefill_s * 1e3:.1f} ms total "
@@ -1318,7 +1500,7 @@ def _serve_full(torch, arch: str, tag: str, smi: str) -> tuple[dict, object]:
         f"launches {counts}")
     missing = [k for k, phase in COUNTED_IN.items()
                if phase == tag and counts[k] <= 0 and k not in OFF_PATH]
-    missing += [k for k in SERVING_KERNELS
+    missing += [k for k in SERVING_KERNELS + tuple(required)
                 if counts[k] <= 0 and k not in missing]
     if missing:
         raise AssertionError(f"the serving path never launched {missing}")
@@ -1350,12 +1532,36 @@ def phase_serve_hybrid(torch, smi: str) -> dict:
     return counts
 
 
+def phase_serve_hybrid_w4a16(torch, smi: str) -> dict:
+    """zamba2-7b at full width with --quant w4a16 (the shared block's seven
+    linears and the lm_head W4A16, the Mamba layers W8A8, as the JAX convert
+    makes them): 4 requests of 16 tokens, then where a prefill group's and
+    a decode step's time goes, B4 by variant."""
+    import gc
+
+    counts, client = _serve_full(torch, "zamba2-7b", "serve_hybrid_w4a16",
+                                 smi, quant="w4a16", n_req=4, max_new=16,
+                                 required=("ssd_intra_chunk",))
+    core = client.router.cores[0]
+    if set(core.params["shared"]["ffn"]["up"]) != {"w_p4", "scale4"} \
+            or set(core.params["lm_head"]) != {"w_p4", "scale4"}:
+        raise AssertionError("zamba2-7b W4A16: the shared block or the "
+                             "lm_head is not W4A16")
+    phase_profile(torch, client, smi, "serve_hybrid_w4a16")
+    del client, core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 # kernels whose device time the prefill and decode profiles report on their
-# own
+# own (a part with no launch in the window is left out)
 PREFILL_PARTS = (("B2 GEMM", ("int8_gemm_tc",)), ("B3", ("flash_attention",)),
-                 ("B6", ("ssd_intra_chunk",)), ("B2 GeMV", ("int8_gemv",)))
+                 ("B6", ("ssd_intra_chunk",)), ("B2 GeMV", ("int8_gemv",)),
+                 ("B4 GEMM", ("w4a16_gemm_mma",)),
+                 ("B4 GeMV", ("w4a16_gemv_mma",)))
 DECODE_PARTS = (("B1", ("paged_decode_attention",)),
-                ("B2 GeMV", ("int8_gemv",)))
+                ("B2 GeMV", ("int8_gemv",)), ("B4 GeMV", ("w4a16_gemv_mma",)))
 
 
 def _by_part(rows, parts, per: float = 1.0) -> str:
@@ -1364,6 +1570,8 @@ def _by_part(rows, parts, per: float = 1.0) -> str:
     out, named = [], set()
     for label, names in parts:
         sel = [r for r in rows if any(n in r[1] for n in names)]
+        if not sel:
+            continue
         named.update(r[1] for r in sel)
         out.append(f"{label} {sum(r[0] for r in sel) / 1e3 / per:.3f} ms "
                    f"({sum(r[2] for r in sel) / per:.0f} launches)")
@@ -1704,7 +1912,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="card,build,kernels,model,serve,profile,hybrid,"
-                            "serve_w4a16,serve_hybrid")
+                            "serve_w4a16,serve_hybrid,serve_hybrid_w4a16")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1743,6 +1951,9 @@ def main(argv=None) -> int:
         counts["serve_w4a16"] = phase_serve_w4a16(torch)
     if "serve_hybrid" in phases:
         counts["serve_hybrid"] = phase_serve_hybrid(torch, smi_line)
+    if "serve_hybrid_w4a16" in phases:
+        counts["serve_hybrid_w4a16"] = phase_serve_hybrid_w4a16(torch,
+                                                                smi_line)
     rows = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]

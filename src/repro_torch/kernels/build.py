@@ -48,8 +48,8 @@ SIGNATURES = {
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                               ctypes.POINTER(ctypes.c_longlong), _F, _P],
     "repro_ecc_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_w4a16_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "repro_w4a16_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_w4a16_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "repro_w4a16_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "repro_ssd_intra_chunk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, ctypes.POINTER(ctypes.c_longlong),
                               _P],

@@ -1,7 +1,8 @@
-// W4A16 product for the port's W4A16 linears (the llama lm_head):
-//   out f32 [M, N] = x f32 [M, K] . dequant(wp uint8 [N, K/2], scale f32 [N, NG])^T
-// where byte j of row n packs columns 2j (low nibble) and 2j+1 (high
-// nibble), each stored plus 8, and column k dequantizes as
+// W4A16 product for the port's W4A16 linears (zamba2-7b's shared attention
+// block and the lm_head under --quant w4a16):
+//   out f32 [M, N] = x [M, K] . dequant(wp uint8 [N, K/2], scale f32 [N, NG])^T
+// x bf16 or float32; byte j of row n packs columns 2j (low nibble) and 2j+1
+// (high nibble), each stored plus 8, and column k dequantizes as
 // (nibble - 8) * scale[n, k / G], G = min(128, K), NG = ceil(K / G).
 //
 // Replaces the Pallas TPU kernel
@@ -10,250 +11,546 @@
 // product on the MXU).  Both operands here are K-contiguous: W4A16 weights
 // are stored [out, in/2] (quant/convert.py), activations [tokens, in].
 //
-// What bounds it on the H100: at decode (M = live slots <= 8) each packed
-// weight byte is read once and used 2*M times, so the product is bound by
-// device memory bytes (N*K/2 + the scales at 3.35 TB/s).  Above that it
-// would be bound by f32 operations; that case is off the serving path.
+// What bounds it on the H100.  At decode (M = live slots <= 8) each packed
+// byte is read once and used 2 M times: device memory bytes (N K / 2 plus
+// the scales at 3.35 TB/s).  At prefill (M = 2048 tokens a group) the
+// 2 M N K operations on the bf16 tensor cores (989 TFLOP/s; 0.21 ms at
+// zamba2-7b's 3584 x 14336).  The CUDA cores reach neither: unpacking,
+// converting and scaling a nibble, then M FMAs on it, is ~16 float32
+// lane-ops a packed byte at M 4, more than the card's ~33 T lane-ops/s can
+// issue at 3.35 TB/s, and a zamba2-7b prefill group's 10.9 TFLOP of W4A16
+// products would take 163 ms at the float32 peak.  So both variants run
+// their products on mma.sync m16n8k16 bf16 with float32 accumulation:
+//  * nibbles -> bf16 in registers, exactly, ~1.6 ops a nibble
+//    (dequant8): byte j of a packed word and byte j of the word >> 4 go to
+//    the low bytes of the two bf16 halves (prmt), are masked to 4 bits and
+//    ORed with 0x4300 (lop3: bf16 128 + n exactly), and one bf16x2
+//    subtraction of 136 leaves n - 8.  A product of a bf16 value and a
+//    4-bit integer is exact in float32.
+//  * the scale never rounds into the weight: each group's partial (the
+//    products of its <= 128 columns, summed by the mma in float32) is
+//    folded into a float32 total as fmaf(partial, scale[n, g], total), in
+//    group order.
+//  * x in its own dtype: bf16 x is one bf16 term; float32 x is split into
+//    three bf16 terms (each the top 8 significant bits of what the earlier
+//    ones leave, which hold a float32 exactly: split3), and a group's
+//    partial sums the products of all three (3x the mma).
 //
-// Design (simple and right first; tensor cores are later work):
-//  * w4a16_gemv_kernel (M <= 8): each warp owns 4 neighbouring output
-//    columns and streams their packed rows once, 4 bytes (8 columns of K)
-//    per lane per step, coalesced; the nibbles are unpacked and multiplied
-//    by their group's scale in registers, and each activation value loaded
-//    (from L1/L2) serves all 4 columns.  A warp shuffle sums the lanes.
-//    The 4-byte path needs K % 8 == 0, G % 8 == 0 and aligned operands;
-//    otherwise a byte-wise path walks one packed byte per lane per step.
-//  * w4a16_gemm_kernel (M > 8): 64x64 output tiles, 256 threads each owning
-//    4x4 outputs, 32-wide K slices of x and of the dequantized weights
-//    staged in shared memory as f32.  Every load is masked, so any shape
-//    is right.
-// The f32 sums run in another order than XLA's dot, so results agree with
-// the plain version to float32 rounding, not bit for bit.
+// Design.
+//  * w4a16_gemv_mma_kernel (M <= 8): a weight-streaming GeMV with the
+//    weights as the mma's A ("swap AB": 16 weight rows are the product's M)
+//    and the x rows, zero past M, as its B.  A CTA of 16 warps owns 16
+//    weight rows; its warps take the groups of 128 columns in turn (group
+//    i to warp i % 16: split K inside the CTA, so a short N such as 3584,
+//    224 CTAs, still keeps every SM streaming), two groups in flight per
+//    warp (one for float32 x).  Per group, lane (g, q) loads the 16 packed
+//    bytes of columns [32q, 32q + 32) of rows g and g + 8 (ld.global.nc,
+//    not kept in L1) and the 32 x values of token g at the same columns
+//    (from L1 / L2: x is small and read by every CTA), and issues 8 mma:
+//    word t of its bytes is the A operand of steps 2t and 2t + 1, and the
+//    mma's k slots 2q, 2q + 1, 8 + 2q, 9 + 2q hold 4 consecutive columns of
+//    the lane's own 32, in A and in B alike.  So both operands are
+//    contiguous 16-byte loads and x needs no permutation; x's registers are
+//    loaded once per group and serve both weight rows.  The 16 warps' totals
+//    are summed through shared memory in warp order.
+//  * w4a16_gemm_mma_kernel (M > 8): 128x128 output tiles, 8 warps of 64x32;
+//    K tiles of 64 columns (half a group).  Each thread loads its share of
+//    the next tile's x rows and packed weights into registers while the
+//    warps multiply the current one; the weights are dequantized to bf16
+//    on their way into shared memory (once per CTA, not once per warp), x
+//    goes in as it is (or as its three terms), both in rows of 64 bf16 with
+//    16-byte chunks XOR-swizzled by row so that ldmatrix reads without
+//    bank conflicts.  Two stages, one __syncthreads a tile.  After a
+//    group's last tile each warp folds its partials into its totals with
+//    the group's scales.  CTAs walk N fastest, so the CTAs in flight share
+//    x's rows and the weights stay in L2.  mma.sync rather than wgmma: the
+//    weights must pass through registers to be dequantized anyway, and
+//    mma.sync lets both variants share one nibble conversion, one fragment
+//    layout and one accumulation rule (bf16 products in float32, the
+//    scale folded per group).
+//  * Ragged M, N and K are masked everywhere (zeros past K in x and in the
+//    weights).  A 16-byte vector path needs K % 32 == 0 and aligned bases
+//    (every model shape); otherwise the same kernels load byte by byte.
+//
+// Batch invariance: a row's bits do not depend on M within 1..8 (each mma
+// column is its own dot product, and the work split depends on N and K
+// only).  The GeMV and the tiled variant give different bits for the same
+// row: their mma's sum other columns together and the GeMV splits K across
+// warps; both are held to the plain version's float32 tolerance.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kCols = 4;  // output columns per warp
+constexpr int kMaxDevices = 16;
 
-__device__ __forceinline__ float lo_val(uint32_t byte, float s) {
-  return static_cast<float>(static_cast<int>(byte & 0xFu) - 8) * s;
+// four packed bytes -> four bf16x2 words, word j = (lo(byte j) - 8,
+// hi(byte j) - 8): columns 2j and 2j + 1 of the word's 8, exactly
+__device__ __forceinline__ void dequant8(uint32_t w, uint32_t (&out)[4]) {
+  const uint32_t sh = w >> 4;
+  const __nv_bfloat162 k136 = __floats2bfloat162_rn(136.f, 136.f);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // byte j of w to bytes 0 and 1, byte j of w >> 4 to bytes 2 and 3
+    const uint32_t t = __byte_perm(w, sh, j * 0x0011 + (4 + j) * 0x1100);
+    const uint32_t v = (t & 0x000F000Fu) | 0x43004300u;  // bf16 128 + n, twice
+    const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v), k136);
+    out[j] = *reinterpret_cast<const uint32_t*>(&d);
+  }
 }
 
-__device__ __forceinline__ float hi_val(uint32_t byte, float s) {
-  return static_cast<float>(static_cast<int>((byte >> 4) & 0xFu) - 8) * s;
+// two floats (columns c, c + 1) -> three bf16x2 words whose sum is exact:
+// each term is the high half of what the earlier terms leave
+__device__ __forceinline__ void split3(float f0, float f1, uint32_t (&t)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const uint32_t b0 = __float_as_uint(f0);
+    const uint32_t b1 = __float_as_uint(f1);
+    t[i] = __byte_perm(b0, b1, 0x7632);
+    f0 -= __uint_as_float(b0 & 0xFFFF0000u);
+    f1 -= __uint_as_float(b1 & 0xFFFF0000u);
+  }
 }
 
-template <int MT, bool VEC>
-__global__ void __launch_bounds__(kWarps * 32)
-w4a16_gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
-                  const float* __restrict__ scale, float* __restrict__ out, int M,
-                  int N, int K, int G, int NG) {
+// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 out (mma.sync fragments,
+// g = lane / 4, q = lane % 4: a0 row g, a1 row g + 8, k 2q + {0, 1}; a2 / a3
+// the same rows, k 8 + 2q + {0, 1}; b0 k 2q + {0, 1}, b1 k 8 + 2q + {0, 1},
+// column g; c0 / c1 row g, c2 / c3 row g + 8, columns 2q + {0, 1})
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 16 bytes of a weight row, kept out of L1 (each byte is used once)
+__device__ __forceinline__ uint4 ldg_stream(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// the 16 packed bytes of columns [k0, k0 + 32) of a weight row; zero bytes
+// past K or where !ok (VEC: the chunk is whole and 16-byte aligned)
+template <bool VEC>
+__device__ __forceinline__ uint4 load_w16(const uint8_t* row, int k0, int K, bool ok) {
+  if constexpr (VEC) return ok ? ldg_stream(row + k0 / 2) : make_uint4(0, 0, 0, 0);
+  uint32_t v[4] = {0, 0, 0, 0};
+  if (ok) {
+#pragma unroll
+    for (int b = 0; b < 16; ++b) {
+      if (k0 + 2 * b < K) v[b / 4] |= static_cast<uint32_t>(__ldg(row + k0 / 2 + b)) << (8 * (b % 4));
+    }
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// x values of columns [k0, k0 + 8 * NCH) of one row, zero past K or where
+// !ok: bf16 as bf16x2 words (4 a chunk of 8), float32 as float bits (8 a
+// chunk)
+template <bool F32X, bool VEC, int NCH>
+__device__ __forceinline__ void load_x(const void* row, int k0, int K, bool ok,
+                                       uint32_t (&xw)[NCH * (F32X ? 8 : 4)]) {
+  constexpr int kW = NCH * (F32X ? 8 : 4);
+  if constexpr (VEC) {
+    const uint4* p = reinterpret_cast<const uint4*>(
+        static_cast<const char*>(row) + static_cast<size_t>(k0) * (F32X ? 4 : 2));
+#pragma unroll
+    for (int i = 0; i < kW / 4; ++i) {
+      const uint4 v = ok ? __ldg(p + i) : make_uint4(0, 0, 0, 0);
+      xw[4 * i] = v.x;
+      xw[4 * i + 1] = v.y;
+      xw[4 * i + 2] = v.z;
+      xw[4 * i + 3] = v.w;
+    }
+  } else if constexpr (F32X) {
+    const float* r = static_cast<const float*>(row);
+#pragma unroll
+    for (int i = 0; i < kW; ++i) {
+      xw[i] = (ok && k0 + i < K) ? __float_as_uint(__ldg(r + k0 + i)) : 0u;
+    }
+  } else {
+    const unsigned short* r = static_cast<const unsigned short*>(row);
+#pragma unroll
+    for (int i = 0; i < kW; ++i) {
+      const uint32_t lo = (ok && k0 + 2 * i < K) ? __ldg(r + k0 + 2 * i) : 0u;
+      const uint32_t hi = (ok && k0 + 2 * i + 1 < K) ? __ldg(r + k0 + 2 * i + 1) : 0u;
+      xw[i] = lo | (hi << 16);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ GeMV
+
+constexpr int kGvWarps = 16;  // warps per CTA, taking the groups in turn
+constexpr int kGvRows = 16;   // weight rows (output columns) per CTA: the mma's M
+
+// one mma step of the GeMV: B is x at the lane's columns c .. c + 3
+template <bool F32X, int NW>
+__device__ __forceinline__ void gemv_step(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, const uint32_t (&xw)[NW], int col) {
+  if constexpr (F32X) {
+    uint32_t lo[3], hi[3];
+    split3(__uint_as_float(xw[col]), __uint_as_float(xw[col + 1]), lo);
+    split3(__uint_as_float(xw[col + 2]), __uint_as_float(xw[col + 3]), hi);
+#pragma unroll
+    for (int t = 0; t < 3; ++t) mma_bf16(c, a0, a1, a2, a3, lo[t], hi[t]);
+  } else {
+    mma_bf16(c, a0, a1, a2, a3, xw[col / 2], xw[col / 2 + 1]);
+  }
+}
+
+template <bool F32X, bool VEC>
+__global__ void __launch_bounds__(kGvWarps * 32)
+w4a16_gemv_mma_kernel(const void* __restrict__ x, const uint8_t* __restrict__ wp,
+                      const float* __restrict__ scale, float* __restrict__ out, int M, int N,
+                      int K, int G, int NG) {
+  constexpr int kU = F32X ? 1 : 2;        // groups in flight per warp
+  constexpr int kXW = F32X ? 32 : 16;     // 32-bit words of x a lane holds per group
+  __shared__ float red[kGvWarps][32][4];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int n0 = (blockIdx.x * kWarps + warp) * kCols;
-  if (n0 >= N) return;  // whole warp leaves together
-  const int KB = K / 2;
-  const uint8_t* rows[kCols];
-  const float* srow[kCols];
+  const int g = lane / 4;  // weight rows g and g + 8 of the tile; token g
+  const int q = lane % 4;  // columns [32q, 32q + 32) of each group
+  const int n0 = blockIdx.x * kGvRows;
+  const bool row0 = n0 + g < N, row1 = n0 + g + 8 < N, xrow = g < M;
+  const size_t KB = K / 2;
+  const uint8_t* w0 = wp + static_cast<size_t>(row0 ? n0 + g : 0) * KB;
+  const uint8_t* w1 = wp + static_cast<size_t>(row1 ? n0 + g + 8 : 0) * KB;
+  const float* s0 = scale + static_cast<size_t>(row0 ? n0 + g : 0) * NG;
+  const float* s1 = scale + static_cast<size_t>(row1 ? n0 + g + 8 : 0) * NG;
+  const void* xr = static_cast<const char*>(x) +
+                   static_cast<size_t>(xrow ? g : 0) * K * (F32X ? 4 : 2);
+  float total[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int gi0 = warp; gi0 < NG; gi0 += kGvWarps * kU) {
+    uint4 wa[kU], wb[kU];
+    uint32_t xw[kU][kXW];
+    float sa[kU], sb[kU];
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int n = min(n0 + c, N - 1);  // columns past N repeat the last one
-    rows[c] = wp + static_cast<size_t>(n) * KB;
-    srow[c] = scale + static_cast<size_t>(n) * NG;
-  }
-  float acc[MT][kCols];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[m][c] = 0.f;
-
-  if (VEC) {
-#pragma unroll 2
-    for (int k0 = lane * 8; k0 < K; k0 += 256) {
-      const int g = k0 / G;
-      float w[kCols][8];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const uint32_t word = __ldg(reinterpret_cast<const uint32_t*>(rows[c] + k0 / 2));
-        const float s = __ldg(srow[c] + g);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t byte = (word >> (8 * j)) & 0xFFu;
-          w[c][2 * j] = lo_val(byte, s);
-          w[c][2 * j + 1] = hi_val(byte, s);
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m < M) {
-          const float4* xr = reinterpret_cast<const float4*>(x + static_cast<size_t>(m) * K + k0);
-          const float4 a = __ldg(xr);
-          const float4 b = __ldg(xr + 1);
-          const float xv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int c = 0; c < kCols; ++c)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[m][c] = fmaf(xv[j], w[c][j], acc[m][c]);
-        }
-      }
+    for (int u = 0; u < kU; ++u) {
+      const int gi = gi0 + u * kGvWarps;
+      const int k0 = gi * G + 32 * q;  // G = min(128, K): the lane's chunk ends by the group's end
+      const bool in = gi < NG && k0 < K;
+      wa[u] = load_w16<VEC>(w0, k0, K, in && row0);
+      wb[u] = load_w16<VEC>(w1, k0, K, in && row1);
+      load_x<F32X, VEC, 4>(xr, k0, K, in && xrow, xw[u]);
+      sa[u] = (gi < NG && row0) ? __ldg(s0 + gi) : 0.f;
+      sb[u] = (gi < NG && row1) ? __ldg(s1 + gi) : 0.f;
     }
-  } else {
-    for (int jb = lane; jb < KB; jb += 32) {
-      const int k = 2 * jb;  // G is even, so k and k + 1 share a group
-      const int g = k / G;
-      float wl[kCols], wh[kCols];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const uint32_t byte = __ldg(rows[c] + jb);
-        const float s = __ldg(srow[c] + g);
-        wl[c] = lo_val(byte, s);
-        wh[c] = hi_val(byte, s);
+    for (int u = 0; u < kU; ++u) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      const uint32_t ww0[4] = {wa[u].x, wa[u].y, wa[u].z, wa[u].w};
+      const uint32_t ww1[4] = {wb[u].x, wb[u].y, wb[u].z, wb[u].w};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        uint32_t r0[4], r1[4];  // rows g and g + 8, columns 8t .. 8t + 7
+        dequant8(ww0[t], r0);
+        dequant8(ww1[t], r1);
+        gemv_step<F32X>(c, r0[0], r1[0], r0[1], r1[1], xw[u], 8 * t);
+        gemv_step<F32X>(c, r0[2], r1[2], r0[3], r1[3], xw[u], 8 * t + 4);
       }
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m < M) {
-          const float x0 = __ldg(x + static_cast<size_t>(m) * K + k);
-          const float x1 = __ldg(x + static_cast<size_t>(m) * K + k + 1);
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) acc[m][c] = fmaf(x1, wh[c], fmaf(x0, wl[c], acc[m][c]));
-        }
-      }
+      total[0] = fmaf(c[0], sa[u], total[0]);
+      total[1] = fmaf(c[1], sa[u], total[1]);
+      total[2] = fmaf(c[2], sb[u], total[2]);
+      total[3] = fmaf(c[3], sb[u], total[3]);
     }
   }
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+  for (int i = 0; i < 4; ++i) red[warp][lane][i] = total[i];
+  __syncthreads();
+  if (warp == 0) {
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int c = 0; c < kCols; ++c)
+    for (int v = 0; v < kGvWarps; ++v) {
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2) acc[m][c] += __shfl_xor_sync(0xffffffffu, acc[m][c], off);
-  if (lane == 0) {
+      for (int i = 0; i < 4; ++i) sum[i] += red[v][lane][i];
+    }
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        if (m < M && n0 + c < N) out[static_cast<size_t>(m) * N + n0 + c] = acc[m][c];
-      }
+    for (int i = 0; i < 4; ++i) {
+      const int m = 2 * q + (i & 1);
+      const int n = n0 + g + 8 * (i >> 1);
+      if (m < M && n < N) out[static_cast<size_t>(m) * N + n] = sum[i];
     }
   }
 }
 
-constexpr int kTM = 64;
-constexpr int kTN = 64;
-constexpr int kTK = 32;
+// ------------------------------------------------------------------ GEMM
 
-__global__ void __launch_bounds__(256)
-w4a16_gemm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
-                  const float* __restrict__ scale, float* __restrict__ out, int M, int N,
-                  int K, int G, int NG) {
-  __shared__ float Xs[kTK][kTM + 4];
-  __shared__ float Ws[kTK][kTN + 4];
+constexpr int kBM = 128;  // output rows (tokens) a CTA
+constexpr int kBN = 128;  // output columns (weight rows) a CTA
+constexpr int kBK = 64;   // columns of K a stage: half a group
+constexpr int kGmThreads = 256;
+constexpr int kTileElems = kBM * kBK;  // one bf16 tile of x (or of W: kBN == kBM)
+
+// element offset of (row r, 16-byte chunk c) in a [rows][kBK] bf16 tile:
+// chunk c of row r is stored at chunk c ^ (r % 8), so the 8 rows one
+// ldmatrix matrix reads at one chunk fall in 8 distinct bank groups
+__device__ __forceinline__ int swz(int r, int c) { return r * kBK + ((c ^ (r & 7)) << 3); }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_shared16(void* p, uint32_t a, uint32_t b, uint32_t c,
+                                            uint32_t d) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(s), "r"(a), "r"(b), "r"(c),
+               "r"(d)
+               : "memory");
+}
+
+template <bool F32X>
+constexpr int gemm_smem_bytes() {
+  return 2 * ((F32X ? 3 : 1) + 1) * kTileElems * 2;  // two stages of x terms + W
+}
+
+template <bool F32X, bool VEC>
+__global__ void __launch_bounds__(kGmThreads, 1)
+w4a16_gemm_mma_kernel(const void* __restrict__ x, const uint8_t* __restrict__ wp,
+                      const float* __restrict__ scale, float* __restrict__ out, int M, int N,
+                      int K, int G, int NG) {
+  constexpr int kTerms = F32X ? 3 : 1;
+  constexpr int kStage = (kTerms + 1) * kTileElems;  // bf16 elements: x terms, then W
+  constexpr int kXW = F32X ? 8 : 4;                  // words of one 8-column x chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // output columns tx*4 .. tx*4+3
-  const int ty = tid / 16;  // output rows    ty*4 .. ty*4+3
-  const int m0 = blockIdx.y * kTM;
-  const int n0 = blockIdx.x * kTN;
-  const int KB = K / 2;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wm = warp / 4;  // rows [64 wm, 64 wm + 64) of the tile
+  const int wn = warp % 4;  // columns [32 wn, 32 wn + 32)
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kBM;
+  const size_t KB = K / 2;
+  const int T = (K + kBK - 1) / kBK;
 
-  for (int k0 = 0; k0 < K; k0 += kTK) {
-    for (int e = tid; e < kTM * kTK; e += 256) {
-      const int r = e / kTK, kk = e % kTK;
-      const int gm = m0 + r, gk = k0 + kk;
-      Xs[kk][r] = (gm < M && gk < K) ? __ldg(x + static_cast<size_t>(gm) * K + gk) : 0.f;
+  // this thread's share of a tile: 8-column x chunks at rows xr0 + 32 i,
+  // column chunk xc; 32 packed columns of weight row wr, half wh
+  const int xr0 = tid / 8, xc = tid % 8;
+  const int wr = tid / 2, wh = tid % 2;
+  uint32_t xs[4][kXW];
+  uint4 ws;
+  bool w_ok = false;
+  auto load_tile = [&](int t) {
+    const int k0 = t * kBK;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = m0 + xr0 + 32 * i;
+      const int kc = k0 + 8 * xc;
+      const bool ok = row < M && kc < K;
+      const void* xrow = static_cast<const char*>(x) +
+                         static_cast<size_t>(ok ? row : 0) * K * (F32X ? 4 : 2);
+      load_x<F32X, VEC, 1>(xrow, kc, K, ok, xs[i]);
     }
-    for (int e = tid; e < kTN * (kTK / 2); e += 256) {
-      const int c = e / (kTK / 2), jb = e % (kTK / 2);
-      const int gn = n0 + c, gk = k0 + 2 * jb;  // K is even: gk < K covers gk + 1
-      float lo = 0.f, hi = 0.f;
-      if (gn < N && gk < K) {
-        const uint32_t byte = __ldg(wp + static_cast<size_t>(gn) * KB + gk / 2);
-        const float s = __ldg(scale + static_cast<size_t>(gn) * NG + gk / G);
-        lo = lo_val(byte, s);
-        hi = hi_val(byte, s);
+    const int kw = k0 + 32 * wh;
+    w_ok = n0 + wr < N && kw < K;
+    ws = load_w16<VEC>(wp + static_cast<size_t>(w_ok ? n0 + wr : 0) * KB, kw, K, w_ok);
+  };
+  auto store_tile = [&](int buf) {
+    __nv_bfloat16* st = smem + buf * kStage;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = xr0 + 32 * i;
+      if constexpr (F32X) {
+        uint32_t tm[4][3];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          split3(__uint_as_float(xs[i][2 * p]), __uint_as_float(xs[i][2 * p + 1]), tm[p]);
+        }
+#pragma unroll
+        for (int tt = 0; tt < kTerms; ++tt) {
+          st_shared16(st + tt * kTileElems + swz(r, xc), tm[0][tt], tm[1][tt], tm[2][tt],
+                      tm[3][tt]);
+        }
+      } else {
+        st_shared16(st + swz(r, xc), xs[i][0], xs[i][1], xs[i][2], xs[i][3]);
       }
-      Ws[2 * jb][c] = lo;
-      Ws[2 * jb + 1][c] = hi;
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTK; ++kk) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Xs[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Ws[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) continue;
+    const uint32_t wv[4] = {ws.x, ws.y, ws.z, ws.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn < N) out[static_cast<size_t>(gm) * N + gn] = acc[i][j];
+      uint32_t d[4] = {0u, 0u, 0u, 0u};
+      if (w_ok) dequant8(wv[j], d);
+      st_shared16(st + kTerms * kTileElems + swz(wr, 4 * wh + j), d[0], d[1], d[2], d[3]);
     }
+  };
+
+  float part[4][4][4], total[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[mt][nt][e] = total[mt][nt][e] = 0.f;
+
+  const int mi = lane / 8, li = lane % 8;  // ldmatrix: matrix and row this lane addresses
+  load_tile(0);
+  store_tile(0);
+  __syncthreads();
+  for (int t = 0; t < T; ++t) {
+    if (t + 1 < T) load_tile(t + 1);
+    // a group's last tile folds its partials with the group's scales
+    const bool fold = t + 1 == T || ((t + 1) * kBK) % G == 0;
+    float sc[4][2];
+    if (fold) {
+      const int grp = t * kBK / G;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + 32 * wn + 8 * nt + 2 * q + e;
+          sc[nt][e] = n < N ? __ldg(scale + static_cast<size_t>(n) * NG + grp) : 0.f;
+        }
+    }
+    const __nv_bfloat16* xt = smem + (t & 1) * kStage;
+    const __nv_bfloat16* wt = xt + kTerms * kTileElems;
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      uint32_t bf[2][4];  // n8 tiles 2p, 2p + 1: (b0, b1) each
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        ldmatrix_x4(bf[p], wt + swz(32 * wn + 16 * p + 8 * (mi >> 1) + li, 2 * ks + (mi & 1)));
+      }
+#pragma unroll
+      for (int tt = 0; tt < kTerms; ++tt) {
+        uint32_t af[4][4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          ldmatrix_x4(af[mt], xt + tt * kTileElems +
+                                  swz(64 * wm + 16 * mt + 8 * (mi & 1) + li, 2 * ks + (mi >> 1)));
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_bf16(part[mt][nt], af[mt][0], af[mt][1], af[mt][2], af[mt][3],
+                     bf[nt / 2][2 * (nt % 2)], bf[nt / 2][2 * (nt % 2) + 1]);
+      }
+    }
+    if (fold) {
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            total[mt][nt][e] = fmaf(part[mt][nt][e], sc[nt][e & 1], total[mt][nt][e]);
+            part[mt][nt][e] = 0.f;
+          }
+    }
+    if (t + 1 < T) store_tile((t + 1) & 1);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 64 * wm + 16 * mt + g + 8 * h;
+        const int n = n0 + 32 * wn + 8 * nt + 2 * q;
+        if (m >= M) continue;
+        float* o = out + static_cast<size_t>(m) * N + n;
+        if (n + 1 < N && N % 2 == 0) {
+          *reinterpret_cast<float2*>(o) = make_float2(total[mt][nt][2 * h], total[mt][nt][2 * h + 1]);
+        } else {
+          if (n < N) o[0] = total[mt][nt][2 * h];
+          if (n + 1 < N) o[1] = total[mt][nt][2 * h + 1];
+        }
+      }
+}
+
+// ------------------------------------------------------------------ host
+
+template <bool F32X>
+void launch_gemv(const void* x, const uint8_t* wp, const float* s, float* out, int M, int N,
+                 int K, int G, int NG, bool vec, cudaStream_t stream) {
+  const dim3 grid((N + kGvRows - 1) / kGvRows);
+  if (vec) {
+    w4a16_gemv_mma_kernel<F32X, true><<<grid, kGvWarps * 32, 0, stream>>>(x, wp, s, out, M, N, K,
+                                                                          G, NG);
+  } else {
+    w4a16_gemv_mma_kernel<F32X, false><<<grid, kGvWarps * 32, 0, stream>>>(x, wp, s, out, M, N,
+                                                                           K, G, NG);
   }
 }
 
-template <int MT>
-void launch_gemv(const float* x, const uint8_t* wp, const float* s, float* out, int M, int N,
-                 int K, int G, int NG, bool vec, cudaStream_t stream) {
-  const int cols_per_block = kWarps * kCols;
-  const dim3 grid((N + cols_per_block - 1) / cols_per_block);
-  if (vec) {
-    w4a16_gemv_kernel<MT, true><<<grid, kWarps * 32, 0, stream>>>(x, wp, s, out, M, N, K, G, NG);
-  } else {
-    w4a16_gemv_kernel<MT, false><<<grid, kWarps * 32, 0, stream>>>(x, wp, s, out, M, N, K, G, NG);
-  }
+// raise a kernel's dynamic shared-memory limit to `bytes`, once per device
+template <typename Kern>
+cudaError_t allow_smem(Kern kernel, int bytes, int (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = bytes;
+  return err;
+}
+
+template <bool F32X, bool VEC>
+int launch_gemm(const void* x, const uint8_t* wp, const float* s, float* out, int M, int N, int K,
+                int G, int NG, cudaStream_t stream) {
+  static int done[kMaxDevices] = {};
+  constexpr int bytes = gemm_smem_bytes<F32X>();
+  const cudaError_t err = allow_smem(w4a16_gemm_mma_kernel<F32X, VEC>, bytes, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  w4a16_gemm_mma_kernel<F32X, VEC><<<grid, kGmThreads, bytes, stream>>>(x, wp, s, out, M, N, K, G,
+                                                                        NG);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int M, int N, int K, int G, int NG) {
+  return M <= 0 || N <= 0 || K <= 0 || K % 2 || G != (K < 128 ? K : 128) ||
+         NG != (K + G - 1) / G;
 }
 
 }  // namespace
 
-// vec: 1 when K % 8 == 0, G % 8 == 0, x is 16-byte and wp 4-byte aligned
+// x_f32: 1 for float32 x, 0 for bf16; vec: 1 when K % 32 == 0 and the x
+// and wp bases are 16-byte aligned (the 16-byte vector loads); G must be
+// min(128, K) and NG = ceil(K / G)
 extern "C" int repro_w4a16_gemv(const void* x, const void* wp, const void* scale, void* out,
-                                int M, int N, int K, int G, int NG, int vec, void* stream) {
-  if (M <= 0 || M > 8 || N <= 0 || K <= 0 || K % 2 || G <= 0 || G % 2 || NG <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto* xp = static_cast<const float*>(x);
+                                int M, int N, int K, int G, int NG, int x_f32, int vec,
+                                void* stream) {
+  if (M > 8 || bad_shape(M, N, K, G, NG)) return static_cast<int>(cudaErrorInvalidValue);
   const auto* w = static_cast<const uint8_t*>(wp);
   const auto* s = static_cast<const float*>(scale);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  const bool v = vec != 0;
-  if (M == 1) {
-    launch_gemv<1>(xp, w, s, o, M, N, K, G, NG, v, st);
-  } else if (M == 2) {
-    launch_gemv<2>(xp, w, s, o, M, N, K, G, NG, v, st);
-  } else if (M <= 4) {
-    launch_gemv<4>(xp, w, s, o, M, N, K, G, NG, v, st);
+  if (x_f32) {
+    launch_gemv<true>(x, w, s, o, M, N, K, G, NG, vec != 0, st);
   } else {
-    launch_gemv<8>(xp, w, s, o, M, N, K, G, NG, v, st);
+    launch_gemv<false>(x, w, s, o, M, N, K, G, NG, vec != 0, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int repro_w4a16_gemm(const void* x, const void* wp, const void* scale, void* out,
-                                int M, int N, int K, int G, int NG, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 2 || G <= 0 || G % 2 || NG <= 0) {
+                                int M, int N, int K, int G, int NG, int x_f32, int vec,
+                                void* stream) {
+  if (bad_shape(M, N, K, G, NG) || (M + kBM - 1) / kBM > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((N + kTN - 1) / kTN, (M + kTM - 1) / kTM);
-  w4a16_gemm_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const uint8_t*>(wp),
-      static_cast<const float*>(scale), static_cast<float*>(out), M, N, K, G, NG);
-  return static_cast<int>(cudaGetLastError());
+  const auto* w = static_cast<const uint8_t*>(wp);
+  const auto* s = static_cast<const float*>(scale);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (x_f32) {
+    return vec ? launch_gemm<true, true>(x, w, s, o, M, N, K, G, NG, st)
+               : launch_gemm<true, false>(x, w, s, o, M, N, K, G, NG, st);
+  }
+  return vec ? launch_gemm<false, true>(x, w, s, o, M, N, K, G, NG, st)
+             : launch_gemm<false, false>(x, w, s, o, M, N, K, G, NG, st);
 }

@@ -1,12 +1,14 @@
-"""Wrapper of the W4A16 product kernel (``csrc/w4a16_gemv.cu``, B4).
+"""Wrapper of the W4A16 product kernels (``csrc/w4a16_gemv.cu``, B4).
 
 ``w4a16_gemm(x, w_p4, scale4)`` computes ``f32[M, N] = x[M, K] .
 dequant(w_p4 [N, K/2], scale4 [N, ceil(K/g)])^T`` with g = min(128, K):
 the low nibble of byte j is column 2j, the high nibble column 2j+1, each
-stored plus 8.  A CPU tensor takes the plain version
-(``ref.w4a16_gemm_ref``); a CUDA tensor launches the kernel, the
-weight-streaming GeMV variant for M <= 8 (decode) and a tiled variant
-above, or raises.  ``LAUNCHES`` counts the launches of both variants.
+stored plus 8.  x is bf16 or float32 and is read as it is (bf16 -> float32
+is exact, so the function does not depend on which).  A CPU tensor takes
+the plain version (``ref.w4a16_gemm_ref``); a CUDA tensor launches a
+kernel or raises: the tensor-core GeMV (``w4a16_gemv``) for M <= 8
+(decode), the tensor-core tiled GEMM (``w4a16_gemm``) above.
+``LAUNCHES`` counts the launches of each.
 
 ``w4a16_gemv(q, x)`` is the counterpart of the JAX front end
 ``repro.kernels.w4a16_gemv.ops.w4a16_gemv``: x ``[w]`` or ``[w, b]`` ->
@@ -23,7 +25,13 @@ from repro_torch.kernels.w4a16_gemv.ref import w4a16_gemm_ref
 from repro_torch.quant.int4 import GROUP, QuantizedLinear4
 
 GEMV_MAX_M = 8
-LAUNCHES = {"w4a16_gemv": 0}
+X_DTYPES = (torch.bfloat16, torch.float32)
+LAUNCHES = {"w4a16_gemv": 0, "w4a16_gemm": 0}
+
+
+def variant(m: int) -> str:
+    """The kernel a CUDA product of ``m`` rows launches."""
+    return "w4a16_gemv" if m <= GEMV_MAX_M else "w4a16_gemm"
 
 
 def w4a16_gemm(x: torch.Tensor, w_p4: torch.Tensor,
@@ -34,10 +42,11 @@ def w4a16_gemm(x: torch.Tensor, w_p4: torch.Tensor,
             or scale4.device != x.device:
         raise ValueError(f"w4a16_gemm: operands on {x.device}, "
                          f"{w_p4.device}, {scale4.device}")
-    if x.dtype != torch.float32 or w_p4.dtype != torch.uint8 \
+    if x.dtype not in X_DTYPES or w_p4.dtype != torch.uint8 \
             or scale4.dtype != torch.float32:
-        raise TypeError(f"w4a16_gemm takes f32 x, uint8 w_p4, f32 scale4; "
-                        f"got {x.dtype}, {w_p4.dtype}, {scale4.dtype}")
+        raise TypeError(f"w4a16_gemm takes bf16 or f32 x, uint8 w_p4, f32 "
+                        f"scale4; got {x.dtype}, {w_p4.dtype}, "
+                        f"{scale4.dtype}")
     if x.dim() != 2 or w_p4.dim() != 2 or x.shape[1] != 2 * w_p4.shape[1]:
         raise ValueError(f"w4a16_gemm shapes {tuple(x.shape)} . "
                          f"{tuple(w_p4.shape)} (packed)^T do not contract")
@@ -54,20 +63,16 @@ def w4a16_gemm(x: torch.Tensor, w_p4: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0 or k == 0:
         return out.zero_()
-    lib = build.library()
-    stream = build.stream_handle(x.device)
-    if m <= GEMV_MAX_M:
-        vec = int(k % 8 == 0 and g % 8 == 0 and x.data_ptr() % 16 == 0
-                  and w_p4.data_ptr() % 4 == 0)
-        status = lib.repro_w4a16_gemv(x.data_ptr(), w_p4.data_ptr(),
-                                      scale4.data_ptr(), out.data_ptr(), m,
-                                      n, k, g, ng, vec, stream)
-    else:
-        status = lib.repro_w4a16_gemm(x.data_ptr(), w_p4.data_ptr(),
-                                      scale4.data_ptr(), out.data_ptr(), m,
-                                      n, k, g, ng, stream)
-    build.check(status, "w4a16_gemv")
-    LAUNCHES["w4a16_gemv"] += 1
+    name = variant(m)
+    vec = int(k % 32 == 0 and x.data_ptr() % 16 == 0
+              and w_p4.data_ptr() % 16 == 0)
+    entry = getattr(build.library(), f"repro_{name}")
+    status = entry(x.data_ptr(), w_p4.data_ptr(), scale4.data_ptr(),
+                   out.data_ptr(), m, n, k, g, ng,
+                   int(x.dtype == torch.float32), vec,
+                   build.stream_handle(x.device))
+    build.check(status, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -76,5 +81,6 @@ def w4a16_gemv(q: QuantizedLinear4, x: torch.Tensor) -> torch.Tensor:
     squeeze = x.dim() == 1
     if squeeze:
         x = x[:, None]
-    y = w4a16_gemm(x.T.float().contiguous(), q.w_packed, q.scale).T
+    xt = x.T if x.dtype in X_DTYPES else x.T.float()
+    y = w4a16_gemm(xt.contiguous(), q.w_packed, q.scale).T
     return y[:, 0] if squeeze else y

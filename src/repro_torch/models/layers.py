@@ -77,14 +77,15 @@ def _w8a8_matmul(w_q: torch.Tensor, scale: torch.Tensor,
 
 
 def _w4a16_matmul(w_p4: torch.Tensor, scale4: torch.Tensor,
-                  x: torch.Tensor) -> torch.Tensor:
-    """y[..., out] = float32 x @ dequantized W4 weights, cast to x's dtype
-    (the JAX layer dequantizes and multiplies; the B4 kernel on CUDA
-    computes the same product with the nibbles unpacked in registers)."""
+                  x: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """y[..., out] = float32 x @ dequantized W4 weights, cast to
+    ``out_dtype`` (default x's).  The JAX layer dequantizes and multiplies;
+    the B4 kernel on CUDA computes the same product with the nibbles
+    unpacked in registers, from x in its own dtype (bf16 -> float32 is
+    exact, so no float32 copy of x is made)."""
     lead = x.shape[:-1]
-    y = w4a16_gemm(x.reshape(-1, x.shape[-1]).float().contiguous(), w_p4,
-                   scale4)
-    return y.reshape(*lead, w_p4.shape[0]).to(x.dtype)
+    y = w4a16_gemm(x.reshape(-1, x.shape[-1]).contiguous(), w_p4, scale4)
+    return y.reshape(*lead, w_p4.shape[0]).to(out_dtype or x.dtype)
 
 
 def _w4a16_weight(w_p4: torch.Tensor, scale4: torch.Tensor) -> torch.Tensor:

@@ -118,14 +118,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, max_seq: int = 4096,
 
 def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """float32 logits.  A W4A16 head goes through the B4 kernel on CUDA
-    (the product of float32 x with the dequantized weights, which the JAX
-    package materializes first); a float or W8A8 head is dequantized to
-    float32, as the JAX package does, and multiplied outside any kernel."""
+    (the product of x, read in its own dtype, with the dequantized weights,
+    which the JAX package materializes first); a float or W8A8 head is
+    dequantized to float32, as the JAX package does, and multiplied outside
+    any kernel."""
     if cfg.tie_embeddings:
         return _fixed_row_matmul(x.float(), params["embed"].float().T)
     head = params["lm_head"]
     if "w_p4" in head:
-        return _w4a16_matmul(head["w_p4"], head["scale4"], x.float())
+        return _w4a16_matmul(head["w_p4"], head["scale4"], x, torch.float32)
     return _fixed_row_matmul(x.float(), dense_weight(head).float())
 
 

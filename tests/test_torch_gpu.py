@@ -267,10 +267,11 @@ def test_engine_on_card_launches_every_kernel(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("tied", [False, True])
-def test_lm_head_row_bits_do_not_depend_on_the_batch(cuda_device, tied):
-    """llama2-7b's float32 lm_head (the W8A8 head, and a tied embedding)
-    gives each row the same bits at M = 1, 2, 3, 4 and 8 rows as alone."""
+@pytest.mark.parametrize("head", ["w8a8", "tied", "w4a16"])
+def test_lm_head_row_bits_do_not_depend_on_the_batch(cuda_device, head):
+    """llama2-7b's lm_head (the float32 product of the W8A8 head and of a
+    tied embedding, and B4's GeMV for a W4A16 head) gives each row the same
+    bits at M = 1, 2, 3, 4 and 8 rows as alone."""
     import dataclasses
 
     from repro_torch.configs.registry import get_arch
@@ -280,7 +281,7 @@ def test_lm_head_row_bits_do_not_depend_on_the_batch(cuda_device, tied):
 
     cfg = get_arch("llama2-7b")
     gen = torch.Generator(device=cuda_device).manual_seed(11)
-    if tied:
+    if head == "tied":
         cfg = dataclasses.replace(cfg, tie_embeddings=True)
         params = {"embed": (torch.randn((cfg.vocab_size, cfg.d_model),
                                         generator=gen, device=cuda_device)
@@ -288,8 +289,8 @@ def test_lm_head_row_bits_do_not_depend_on_the_batch(cuda_device, tied):
     else:
         params = quantize_params({"lm_head": init_linear(
             gen, cfg.d_model, cfg.vocab_size, False, torch.bfloat16,
-            cuda_device)})
-        assert "w_q" in params["lm_head"]
+            cuda_device)}, mode=head)
+        assert {"w8a8": "w_q", "w4a16": "w_p4"}[head] in params["lm_head"]
     x = torch.randn((8, cfg.d_model), generator=gen, device=cuda_device
                     ).to(torch.bfloat16)
     alone = torch.cat([lm_head(params, cfg, x[r:r + 1]) for r in range(8)])
@@ -394,22 +395,28 @@ def test_ecc_decode_planted_collisions_on_card(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [
     (4, 4096, 32000),   # llama2-7b lm_head at decode, vector path
     (4, 960, 2048),     # smollm width: 7.5 groups
     (3, 100, 70),       # ragged K (g = 100): byte-wise path
     (20, 4096, 300),    # M > 8: tiled variant
+    (130, 3584, 14336),  # zamba2-7b gate/up, ragged M tiles: tiled variant
 ])
-def test_w4a16_gemm_on_card(cuda_device, m, k, n):
+def test_w4a16_gemm_on_card(cuda_device, m, k, n, dtype):
+    from repro_torch.kernels.w4a16_gemv import ops
     from repro_torch.quant.int4 import dequantize4, quantize_weight4
 
     gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
     w = torch.randn((n, k), generator=gen, device=cuda_device) * 0.05
     q = quantize_weight4(w)
-    x = torch.randn((m, k), generator=gen, device=cuda_device)
+    x = torch.randn((m, k), generator=gen, device=cuda_device).to(dtype)
+    before = dict(ops.LAUNCHES)
     got = w4a16_gemm(x, q.w_packed, q.scale)
+    assert {name: ops.LAUNCHES[name] - before[name] for name in before} == {
+        name: int(name == ops.variant(m)) for name in before}
     ref = w4a16_gemm_ref(x, q.w_packed, q.scale)
-    bound = 1e-5 * (x.abs() @ dequantize4(q).abs().T) + 1e-6
+    bound = 1e-5 * (x.float().abs() @ dequantize4(q).abs().T) + 1e-6
     err = (got - ref).abs()
     assert bool((err <= bound).all()), float((err / bound).max())
 
@@ -432,6 +439,34 @@ def test_w4a16_engine_launches_its_kernel(cuda_device):
         assert h.finish_reason == "length" and len(h.request.out_tokens) == 5
     counts = kernels.launch_counts()
     assert counts["w4a16_gemv"] > 0 and counts["int8_gemv"] > 0, counts
+
+
+@pytest.mark.gpu
+def test_hybrid_w4a16_engine_launches_both_b4_variants(cuda_device):
+    """The reduced zamba2-7b engine with ``quant="w4a16"`` (the shared
+    block's linears and the lm_head W4A16, the Mamba layers W8A8): requests
+    complete, and the path went through B4's tiled GEMM (prefill) and its
+    GeMV (decode), B6, and B2's GeMV and GEMM."""
+    from repro_torch.launch.serve import build_client
+
+    cfg, client = build_client("zamba2-7b", reduced=True, quant="w4a16",
+                               max_seq=128, device="cuda")
+    params = client.router.cores[0].params
+    assert "w_p4" in params["shared"]["attn"]["q"]
+    assert "w_p4" in params["lm_head"]
+    handles = [client.submit([3 + i, 17, 99, 5] * (i + 2), max_new_tokens=5)
+               for i in range(4)]
+    kernels.reset_launch_counts()
+    client.run()
+    torch.cuda.synchronize()
+    for h in handles:
+        toks = h.request.out_tokens
+        assert h.finish_reason == "length" and len(toks) == 5
+        assert all(0 <= t < cfg.vocab_size for t in toks)
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in (
+        "w4a16_gemv", "w4a16_gemm", "ssd_intra_chunk", "int8_gemv",
+        "int8_gemm_tc")), counts
 
 
 def _ssd_inputs(dev, b, s, h, g, p, n, dtype, seed):
