@@ -83,7 +83,7 @@ Phases, each printing its own lines:
 8. serve_w4a16  llama2-7b at full width through build_client(quant=
             "w4a16") (W8A8 layers, W4A16 lm_head, as the JAX convert
             makes them): 4 greedy requests; all complete, the first token
-            equals a direct prefill's, and B4's launch counter is > 0.
+            equals a direct prefill's, and B4's GeMV launched.
 9. serve_hybrid  zamba2-7b at full width (81 Mamba-2 layers, the shared
             attention block after every 6), W8A8, through build_client:
             4 slots, max_seq 1024, page 16, 8 greedy requests with
@@ -91,16 +91,31 @@ Phases, each printing its own lines:
             first token equals a direct prefill's, and B6, B1, B2 and B3
             launched; then torch.profiler over one prefill group and 6
             decode steps, as the profile phase does for llama2-7b.
+10. serve_hybrid_w4a16  zamba2-7b at full width through build_client(
+            quant="w4a16") (the shared block's seven linears and the
+            lm_head W4A16, the Mamba layers W8A8, as the JAX convert makes
+            them): 4 slots, page 16, 4 greedy requests of 64-512 tokens, 16
+            new tokens each.  All complete, the first token equals a direct
+            prefill's, both B4 variants (the GeMV at decode, the tiled GEMM
+            at prefill) and B6 launched, no off-path kernel; then the
+            prefill and decode profiles, B4's device ms by variant.
 
-The kernels phase also holds B4 (w4a16_gemv) and B5 (ecc_decode) against
-their plain versions, with two planted faults that must fail (B5 with the
-last sidecar entry's restore skipped, B4 with lo/hi nibbles swapped); B5
-also on one page and on pages with planted colliding entries.
+The kernels phase also holds B5 (ecc_decode) against its plain version,
+with a planted fault that must fail (the last sidecar entry's restore
+skipped), on one page and on pages with planted colliding entries; and B4
+(w4a16_gemv for M <= 8, w4a16_gemm above) within W4_TOL at W4_SHAPES in
+bf16 and float32 x (zamba2-7b's shared block and lm_head at M 4 and 2048,
+llama2-7b's lm_head and MLP, ragged M, N and K), with three planted faults
+that must fail (lo/hi nibbles swapped, each group's partial scaled by the
+next group's scale, the tiled variant's last K tile skipped), a row's bits
+the same at M = 1..8, and timed beside its bound on the bf16 tensor cores
+(3x the operations for float32 x) and torch._weight_int4pack_mm, a
+yardstick that rounds the scales and the output to bf16.
 
 The last three lines are the kernels JSON, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``; each kernel's ``launches`` is read
 around the run of the phase that owns it (serve for B1-B3, hybrid for
-B5, serve_w4a16 for B4, serve_hybrid for B6).  B2's __dp4a GeMV and
+B5, serve_hybrid_w4a16 for B4's two variants, serve_hybrid for B6).  B2's __dp4a GeMV and
 tiled GEMM (``int8_gemv_dp4a``, ``int8_gemm``) are on no model's path
 (every model K is a multiple of 16 and every base aligned): a serving
 phase that launches either fails.  Any failure
@@ -170,7 +185,7 @@ KERNEL_NAMES = {"int8_gemv": "int8_gemv_mma_kernel",
                 "int8_gemm_tc": "int8_gemm_tc_kernel",
                 "paged_decode_attention": "paged_decode_attention_",
                 "w4a16_gemv": "w4a16_gemv_mma_kernel",
-                "w4a16_gemm": "w4a16_gemm_mma_kernel"}
+                "w4a16_gemm": "w4a16_gemm_"}
 # the kernels every W8A8 serving phase must go through
 SERVING_KERNELS = ("int8_gemv", "int8_gemm_tc", "paged_decode_attention",
                    "flash_attention")
@@ -239,23 +254,30 @@ def time_ms(torch, fn, n_bufs: int = 1, iters: int = 20,
 
 
 def profiled_ms(torch, fn, names=None, n_bufs: int = 1,
-                iters: int = 10) -> float:
+                iters: int = 10, tries: int = 3) -> float:
     """Device time per call (ms) of the kernels named ``names`` (None:
     every device kernel in the window) under torch.profiler, which, unlike
     ``time_ms``'s events, leaves out the host's launch overhead around a
-    short kernel."""
+    short kernel.  A window whose kernel records are not a whole number per
+    call (the profiler dropped some: the sum would read low) is taken
+    again, up to ``tries`` windows; then the time is not measured (nan)."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(3):
         fn(i % n_bufs)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i % n_bufs)
-        torch.cuda.synchronize()
-    total = _device_ms(prof, names)
-    return float("nan") if total is None else total / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i % n_bufs)
+            torch.cuda.synchronize()
+        rows = [r for r in _kernel_rows(prof)
+                if names is None or any(n in r[1] for n in names)]
+        launches = sum(r[2] for r in rows)
+        if launches and launches % iters == 0:
+            return sum(r[0] for r in rows) / 1e3 / iters
+    return float("nan")
 
 
 def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
@@ -1558,10 +1580,10 @@ def phase_serve_hybrid_w4a16(torch, smi: str) -> dict:
 # own (a part with no launch in the window is left out)
 PREFILL_PARTS = (("B2 GEMM", ("int8_gemm_tc",)), ("B3", ("flash_attention",)),
                  ("B6", ("ssd_intra_chunk",)), ("B2 GeMV", ("int8_gemv",)),
-                 ("B4 GEMM", ("w4a16_gemm_mma",)),
-                 ("B4 GeMV", ("w4a16_gemv_mma",)))
+                 ("B4 GEMM", ("w4a16_gemm_",)),
+                 ("B4 GeMV", ("w4a16_gemv_",)))
 DECODE_PARTS = (("B1", ("paged_decode_attention",)),
-                ("B2 GeMV", ("int8_gemv",)), ("B4 GeMV", ("w4a16_gemv_mma",)))
+                ("B2 GeMV", ("int8_gemv",)), ("B4 GeMV", ("w4a16_gemv_",)))
 
 
 def _by_part(rows, parts, per: float = 1.0) -> str:

@@ -19,8 +19,9 @@
 // converting and scaling a nibble, then M FMAs on it, is ~16 float32
 // lane-ops a packed byte at M 4, more than the card's ~33 T lane-ops/s can
 // issue at 3.35 TB/s, and a zamba2-7b prefill group's 10.9 TFLOP of W4A16
-// products would take 163 ms at the float32 peak.  So both variants run
-// their products on mma.sync m16n8k16 bf16 with float32 accumulation:
+// products would take 163 ms at the float32 peak.  So every kernel here
+// runs its products on the bf16 tensor cores (mma.sync m16n8k16 or wgmma
+// m64n128k16) with float32 accumulation:
 //  * nibbles -> bf16 in registers, exactly, ~1.6 ops a nibble
 //    (dequant8): byte j of a packed word and byte j of the word >> 4 go to
 //    the low bytes of the two bf16 halves (prmt), are masked to 4 bits and
@@ -42,45 +43,55 @@
 //    and the x rows, zero past M, as its B.  A CTA of 16 warps owns 16
 //    weight rows; its warps take the groups of 128 columns in turn (group
 //    i to warp i % 16: split K inside the CTA, so a short N such as 3584,
-//    224 CTAs, still keeps every SM streaming), two groups in flight per
-//    warp (one for float32 x).  Per group, lane (g, q) loads the 16 packed
-//    bytes of columns [32q, 32q + 32) of rows g and g + 8 (ld.global.nc,
-//    not kept in L1) and the 32 x values of token g at the same columns
-//    (from L1 / L2: x is small and read by every CTA), and issues 8 mma:
-//    word t of its bytes is the A operand of steps 2t and 2t + 1, and the
-//    mma's k slots 2q, 2q + 1, 8 + 2q, 9 + 2q hold 4 consecutive columns of
-//    the lane's own 32, in A and in B alike.  So both operands are
-//    contiguous 16-byte loads and x needs no permutation; x's registers are
-//    loaded once per group and serve both weight rows.  The 16 warps' totals
+//    224 CTAs, still keeps every SM streaming).  Per group, lane (g, q)
+//    loads the 16 packed bytes of columns [32q, 32q + 32) of rows g and
+//    g + 8 (ld.global.nc, not kept in L1) and the 32 x values of token g at
+//    the same columns (from L1 / L2: x is small and read by every CTA), and
+//    issues 8 mma: word t of its bytes is the A operand of steps 2t and
+//    2t + 1, and the mma's k slots 2q, 2q + 1, 8 + 2q, 9 + 2q hold 4
+//    consecutive columns of the lane's own 32, in A and in B alike.  So both
+//    operands are contiguous 16-byte loads and x needs no permutation; x's
+//    registers serve both weight rows.  One group in flight a warp keeps
+//    the registers near 60, so two CTAs of 16 warps share an SM.  The 16 warps' totals
 //    are summed through shared memory in warp order.
-//  * w4a16_gemm_mma_kernel (M > 8): 128x128 output tiles, 8 warps of 64x32;
-//    K tiles of 64 columns (half a group).  Each thread loads its share of
-//    the next tile's x rows and packed weights into registers while the
-//    warps multiply the current one; the weights are dequantized to bf16
-//    on their way into shared memory (once per CTA, not once per warp), x
-//    goes in as it is (or as its three terms), both in rows of 64 bf16 with
-//    16-byte chunks XOR-swizzled by row so that ldmatrix reads without
-//    bank conflicts.  Two stages, one __syncthreads a tile.  After a
-//    group's last tile each warp folds its partials into its totals with
-//    the group's scales.  CTAs walk N fastest, so the CTAs in flight share
-//    x's rows and the weights stay in L2.  mma.sync rather than wgmma: the
-//    weights must pass through registers to be dequantized anyway, and
-//    mma.sync lets both variants share one nibble conversion, one fragment
-//    layout and one accumulation rule (bf16 products in float32, the
-//    scale folded per group).
+//  * w4a16_gemm_wgmma_kernel (M > 8, bf16 x, 16-byte loads: every model
+//    shape): 128x128 output tiles, K tiles of 64 columns (half a group),
+//    warp-specialized as B2's int8_gemm_tc_kernel.  A producer warpgroup
+//    copies each K tile into a ring of five slots with cp.async (x's rows,
+//    128-byte swizzled; the packed weights; a group's scales with its first
+//    tile) and, two tiles later, dequantizes the weights into a bf16 tile of
+//    the same slot (once per CTA) and signals it full on an mbarrier.  Two
+//    consumer warpgroups multiply 64 rows each by wgmma m64n128k16 from
+//    shared memory, hand the slot back when its wgmma are done, and fold a
+//    group's products into their totals after the group's last tile.
+//    wgmma rather than mma.sync: on the card the mma.sync tile below is
+//    slower at every prefill shape.  What holds this one below its bound
+//    is, by the count, the L2 -> SM traffic of a 128x128 tile (x's rows are
+//    read again by every column tile: ~100 operations a byte).
+//  * w4a16_gemm_mma_kernel (M > 8, float32 x, or a K or base off the
+//    16-byte grid: on no model's path): the same K tiles and ring, copied
+//    and dequantized by every thread (float32 x split into three bf16 term
+//    tiles), 8 warps of 64x32 on mma.sync, one __syncthreads a tile.
+//    Its tiles are rows of 64 bf16 with 16-byte chunks XOR-swizzled by row
+//    (swz), the layout wgmma's 128-byte swizzle reads, so ldmatrix reads them
+//    without bank conflicts.
 //  * Ragged M, N and K are masked everywhere (zeros past K in x and in the
 //    weights).  A 16-byte vector path needs K % 32 == 0 and aligned bases
-//    (every model shape); otherwise the same kernels load byte by byte.
+//    (every model shape); otherwise the GeMV and the mma.sync GEMM load byte
+//    by byte.
 //
 // Batch invariance: a row's bits do not depend on M within 1..8 (each mma
 // column is its own dot product, and the work split depends on N and K
-// only).  The GeMV and the tiled variant give different bits for the same
-// row: their mma's sum other columns together and the GeMV splits K across
-// warps; both are held to the plain version's float32 tolerance.
+// only).  The GeMV and the tiled variants give different bits for the same
+// row: their mma sum other columns together and the GeMV splits K across
+// warps; all are held to the plain version's float32 tolerance.
+
+#include "hopper.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
 
 namespace {
 
@@ -151,39 +162,88 @@ __device__ __forceinline__ uint4 load_w16(const uint8_t* row, int k0, int K, boo
   return make_uint4(v[0], v[1], v[2], v[3]);
 }
 
-// x values of columns [k0, k0 + 8 * NCH) of one row, zero past K or where
-// !ok: bf16 as bf16x2 words (4 a chunk of 8), float32 as float bits (8 a
-// chunk)
-template <bool F32X, bool VEC, int NCH>
-__device__ __forceinline__ void load_x(const void* row, int k0, int K, bool ok,
-                                       uint32_t (&xw)[NCH * (F32X ? 8 : 4)]) {
-  constexpr int kW = NCH * (F32X ? 8 : 4);
-  if constexpr (VEC) {
-    const uint4* p = reinterpret_cast<const uint4*>(
-        static_cast<const char*>(row) + static_cast<size_t>(k0) * (F32X ? 4 : 2));
-#pragma unroll
-    for (int i = 0; i < kW / 4; ++i) {
-      const uint4 v = ok ? __ldg(p + i) : make_uint4(0, 0, 0, 0);
-      xw[4 * i] = v.x;
-      xw[4 * i + 1] = v.y;
-      xw[4 * i + 2] = v.z;
-      xw[4 * i + 3] = v.w;
-    }
-  } else if constexpr (F32X) {
+// the 16 bytes of x at column kc of one row (4 float32 or 8 bf16 values),
+// loaded element by element, zero past K or where !ok
+template <bool F32X>
+__device__ __forceinline__ uint4 load_chunk_x(const void* row, int kc, int K, bool ok) {
+  uint32_t v[4];
+  if constexpr (F32X) {
     const float* r = static_cast<const float*>(row);
 #pragma unroll
-    for (int i = 0; i < kW; ++i) {
-      xw[i] = (ok && k0 + i < K) ? __float_as_uint(__ldg(r + k0 + i)) : 0u;
-    }
+    for (int e = 0; e < 4; ++e) v[e] = (ok && kc + e < K) ? __float_as_uint(__ldg(r + kc + e)) : 0u;
   } else {
     const unsigned short* r = static_cast<const unsigned short*>(row);
 #pragma unroll
-    for (int i = 0; i < kW; ++i) {
-      const uint32_t lo = (ok && k0 + 2 * i < K) ? __ldg(r + k0 + 2 * i) : 0u;
-      const uint32_t hi = (ok && k0 + 2 * i + 1 < K) ? __ldg(r + k0 + 2 * i + 1) : 0u;
-      xw[i] = lo | (hi << 16);
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t lo = (ok && kc + 2 * e < K) ? __ldg(r + kc + 2 * e) : 0u;
+      const uint32_t hi = (ok && kc + 2 * e + 1 < K) ? __ldg(r + kc + 2 * e + 1) : 0u;
+      v[e] = lo | (hi << 16);
     }
   }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// the x values of columns [k0, k0 + 32) of one row (a GeMV lane's share of
+// a group), zero past K or where !ok: bf16 as bf16x2 words, float32 as
+// float bits (VEC: 16-byte loads, the chunk whole and aligned)
+template <bool F32X, bool VEC>
+__device__ __forceinline__ void load_x32(const void* row, int k0, int K, bool ok,
+                                         uint32_t (&xw)[F32X ? 32 : 16]) {
+  constexpr int kCols = F32X ? 4 : 8;  // columns of a 16-byte chunk
+#pragma unroll
+  for (int i = 0; i < 32 / kCols; ++i) {
+    uint4 v;
+    if constexpr (VEC) {
+      const uint4* p = reinterpret_cast<const uint4*>(
+          static_cast<const char*>(row) + static_cast<size_t>(k0 + kCols * i) * (F32X ? 4 : 2));
+      v = ok ? __ldg(p) : make_uint4(0, 0, 0, 0);
+    } else {
+      v = load_chunk_x<F32X>(row, k0 + kCols * i, K, ok);
+    }
+    xw[4 * i] = v.x;
+    xw[4 * i + 1] = v.y;
+    xw[4 * i + 2] = v.z;
+    xw[4 * i + 3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void st_shared16(void* p, uint4 v) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(s), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared16(const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(s)
+               : "memory");
+  return v;
+}
+
+// 16 bytes global -> shared, asynchronous; zeros where !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+// 4 bytes global -> shared, asynchronous; zeros where !ok
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ------------------------------------------------------------------ GeMV
@@ -211,8 +271,7 @@ __global__ void __launch_bounds__(kGvWarps * 32)
 w4a16_gemv_mma_kernel(const void* __restrict__ x, const uint8_t* __restrict__ wp,
                       const float* __restrict__ scale, float* __restrict__ out, int M, int N,
                       int K, int G, int NG) {
-  constexpr int kU = F32X ? 1 : 2;        // groups in flight per warp
-  constexpr int kXW = F32X ? 32 : 16;     // 32-bit words of x a lane holds per group
+  constexpr int kXW = F32X ? 32 : 16;  // 32-bit words of x a lane holds per group
   __shared__ float red[kGvWarps][32][4];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -228,39 +287,30 @@ w4a16_gemv_mma_kernel(const void* __restrict__ x, const uint8_t* __restrict__ wp
   const void* xr = static_cast<const char*>(x) +
                    static_cast<size_t>(xrow ? g : 0) * K * (F32X ? 4 : 2);
   float total[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int gi0 = warp; gi0 < NG; gi0 += kGvWarps * kU) {
-    uint4 wa[kU], wb[kU];
-    uint32_t xw[kU][kXW];
-    float sa[kU], sb[kU];
+  for (int gi = warp; gi < NG; gi += kGvWarps) {
+    const int k0 = gi * G + 32 * q;  // G = min(128, K): the lane's chunk ends by the group's end
+    const bool in = k0 < K;
+    const uint4 wa = load_w16<VEC>(w0, k0, K, in && row0);
+    const uint4 wb = load_w16<VEC>(w1, k0, K, in && row1);
+    uint32_t xw[kXW];
+    load_x32<F32X, VEC>(xr, k0, K, in && xrow, xw);
+    const float sa = row0 ? __ldg(s0 + gi) : 0.f;
+    const float sb = row1 ? __ldg(s1 + gi) : 0.f;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    const uint32_t ww0[4] = {wa.x, wa.y, wa.z, wa.w};
+    const uint32_t ww1[4] = {wb.x, wb.y, wb.z, wb.w};
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int gi = gi0 + u * kGvWarps;
-      const int k0 = gi * G + 32 * q;  // G = min(128, K): the lane's chunk ends by the group's end
-      const bool in = gi < NG && k0 < K;
-      wa[u] = load_w16<VEC>(w0, k0, K, in && row0);
-      wb[u] = load_w16<VEC>(w1, k0, K, in && row1);
-      load_x<F32X, VEC, 4>(xr, k0, K, in && xrow, xw[u]);
-      sa[u] = (gi < NG && row0) ? __ldg(s0 + gi) : 0.f;
-      sb[u] = (gi < NG && row1) ? __ldg(s1 + gi) : 0.f;
+    for (int t = 0; t < 4; ++t) {
+      uint32_t r0[4], r1[4];  // rows g and g + 8, columns 8t .. 8t + 7
+      dequant8(ww0[t], r0);
+      dequant8(ww1[t], r1);
+      gemv_step<F32X>(c, r0[0], r1[0], r0[1], r1[1], xw, 8 * t);
+      gemv_step<F32X>(c, r0[2], r1[2], r0[3], r1[3], xw, 8 * t + 4);
     }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-      const uint32_t ww0[4] = {wa[u].x, wa[u].y, wa[u].z, wa[u].w};
-      const uint32_t ww1[4] = {wb[u].x, wb[u].y, wb[u].z, wb[u].w};
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        uint32_t r0[4], r1[4];  // rows g and g + 8, columns 8t .. 8t + 7
-        dequant8(ww0[t], r0);
-        dequant8(ww1[t], r1);
-        gemv_step<F32X>(c, r0[0], r1[0], r0[1], r1[1], xw[u], 8 * t);
-        gemv_step<F32X>(c, r0[2], r1[2], r0[3], r1[3], xw[u], 8 * t + 4);
-      }
-      total[0] = fmaf(c[0], sa[u], total[0]);
-      total[1] = fmaf(c[1], sa[u], total[1]);
-      total[2] = fmaf(c[2], sb[u], total[2]);
-      total[3] = fmaf(c[3], sb[u], total[3]);
-    }
+    total[0] = fmaf(c[0], sa, total[0]);
+    total[1] = fmaf(c[1], sa, total[1]);
+    total[2] = fmaf(c[2], sb, total[2]);
+    total[3] = fmaf(c[3], sb, total[3]);
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) red[warp][lane][i] = total[i];
@@ -281,7 +331,7 @@ w4a16_gemv_mma_kernel(const void* __restrict__ x, const uint8_t* __restrict__ wp
   }
 }
 
-// ------------------------------------------------------------------ GEMM
+// ------------------------------------------------------- mma.sync GEMM
 
 constexpr int kBM = 128;  // output rows (tokens) a CTA
 constexpr int kBN = 128;  // output columns (weight rows) a CTA
@@ -302,29 +352,30 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "memory");
 }
 
-__device__ __forceinline__ void st_shared16(void* p, uint32_t a, uint32_t b, uint32_t c,
-                                            uint32_t d) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(s), "r"(a), "r"(b), "r"(c),
-               "r"(d)
-               : "memory");
-}
-
+// shared memory of the GEMM: a ring of kStages raw K tiles (x as it comes,
+// [128][64] bf16 swizzled or float32 row-major, and the packed weights,
+// [128][32] bytes), then two bf16 weight tiles (dequantized) and, for
+// float32 x, two sets of three bf16 term tiles
 template <bool F32X>
-constexpr int gemm_smem_bytes() {
-  return 2 * ((F32X ? 3 : 1) + 1) * kTileElems * 2;  // two stages of x terms + W
-}
+struct GemmSmem {
+  static constexpr int kStages = F32X ? 2 : 4;
+  static constexpr int kX = kBM * kBK * (F32X ? 4 : 2);
+  static constexpr int kW = kBN * kBK / 2;
+  static constexpr int kSlot = kX + kW;
+  static constexpr int kWbf = kStages * kSlot;           // offset of the bf16 W tiles
+  static constexpr int kXbf = kWbf + 2 * kTileElems * 2;  // offset of the x term tiles
+  static constexpr int kBytes = kXbf + (F32X ? 2 * 3 * kTileElems * 2 : 0);
+};
 
 template <bool F32X, bool VEC>
 __global__ void __launch_bounds__(kGmThreads, 1)
 w4a16_gemm_mma_kernel(const void* __restrict__ x, const uint8_t* __restrict__ wp,
                       const float* __restrict__ scale, float* __restrict__ out, int M, int N,
                       int K, int G, int NG) {
+  using L = GemmSmem<F32X>;
+  constexpr int S = L::kStages;
   constexpr int kTerms = F32X ? 3 : 1;
-  constexpr int kStage = (kTerms + 1) * kTileElems;  // bf16 elements: x terms, then W
-  constexpr int kXW = F32X ? 8 : 4;                  // words of one 8-column x chunk
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, q = lane % 4;
@@ -334,55 +385,79 @@ w4a16_gemm_mma_kernel(const void* __restrict__ x, const uint8_t* __restrict__ wp
   const int m0 = blockIdx.y * kBM;
   const size_t KB = K / 2;
   const int T = (K + kBK - 1) / kBK;
+  const int wr = tid / 2, wh = tid % 2;  // weight row and 32-column half this thread copies
 
-  // this thread's share of a tile: 8-column x chunks at rows xr0 + 32 i,
-  // column chunk xc; 32 packed columns of weight row wr, half wh
-  const int xr0 = tid / 8, xc = tid % 8;
-  const int wr = tid / 2, wh = tid % 2;
-  uint32_t xs[4][kXW];
-  uint4 ws;
-  bool w_ok = false;
-  auto load_tile = [&](int t) {
-    const int k0 = t * kBK;
+  // the copies of K tile t into ring slot t % S (16-byte cp.async, zeros
+  // outside the matrices; byte-wise loads and plain stores without VEC);
+  // always one commit group, empty past the last tile
+  auto issue = [&](int t) {
+    if (t < T) {
+      unsigned char* slot = smem_raw + (t % S) * L::kSlot;
+      const int k0 = t * kBK;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + xr0 + 32 * i;
-      const int kc = k0 + 8 * xc;
-      const bool ok = row < M && kc < K;
-      const void* xrow = static_cast<const char*>(x) +
-                         static_cast<size_t>(ok ? row : 0) * K * (F32X ? 4 : 2);
-      load_x<F32X, VEC, 1>(xrow, kc, K, ok, xs[i]);
-    }
-    const int kw = k0 + 32 * wh;
-    w_ok = n0 + wr < N && kw < K;
-    ws = load_w16<VEC>(wp + static_cast<size_t>(w_ok ? n0 + wr : 0) * KB, kw, K, w_ok);
-  };
-  auto store_tile = [&](int buf) {
-    __nv_bfloat16* st = smem + buf * kStage;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = xr0 + 32 * i;
-      if constexpr (F32X) {
-        uint32_t tm[4][3];
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          split3(__uint_as_float(xs[i][2 * p]), __uint_as_float(xs[i][2 * p + 1]), tm[p]);
+      for (int i = 0; i < (F32X ? 8 : 4); ++i) {
+        // bf16: 8-column chunk xc of row r, stored swizzled; float32: 4-column
+        // chunk of row r, stored row-major
+        const int r = F32X ? tid / 16 + 16 * i : tid / 8 + 32 * i;
+        const int c = F32X ? tid % 16 : tid % 8;
+        const int kc = k0 + (F32X ? 4 : 8) * c;
+        const bool ok = m0 + r < M && kc < K;
+        const char* xrow = static_cast<const char*>(x) +
+                           static_cast<size_t>(ok ? m0 + r : 0) * K * (F32X ? 4 : 2);
+        unsigned char* dst = slot + (F32X ? (r * kBK + 4 * c) * 4 : swz(r, c) * 2);
+        if constexpr (VEC) {
+          cp_async16(dst, xrow + (ok ? kc : 0) * (F32X ? 4 : 2), ok);
+        } else {
+          st_shared16(dst, load_chunk_x<F32X>(xrow, kc, K, ok));
         }
-#pragma unroll
-        for (int tt = 0; tt < kTerms; ++tt) {
-          st_shared16(st + tt * kTileElems + swz(r, xc), tm[0][tt], tm[1][tt], tm[2][tt],
-                      tm[3][tt]);
-        }
+      }
+      const int kw = k0 + 32 * wh;
+      const bool ok = n0 + wr < N && kw < K;
+      const uint8_t* wrow = wp + static_cast<size_t>(ok ? n0 + wr : 0) * KB;
+      unsigned char* dst = slot + L::kX + wr * 32 + wh * 16;
+      if constexpr (VEC) {
+        cp_async16(dst, wrow + (ok ? kw / 2 : 0), ok);
       } else {
-        st_shared16(st + swz(r, xc), xs[i][0], xs[i][1], xs[i][2], xs[i][3]);
+        st_shared16(dst, load_w16<false>(wrow, kw, K, ok));
       }
     }
-    const uint32_t wv[4] = {ws.x, ws.y, ws.z, ws.w};
+    cp_async_commit();
+  };
+  // K tile t's packed weights (and float32 x) from its ring slot to bf16
+  // tiles: the weight bytes a thread converts are those it copied itself;
+  // float32 x is read after a barrier (other threads copied it)
+  auto convert = [&](int t) {
+    const unsigned char* slot = smem_raw + (t % S) * L::kSlot;
+    __nv_bfloat16* wbf = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kWbf) + (t & 1) * kTileElems;
+    const uint4 nib = ld_shared16(slot + L::kX + wr * 32 + wh * 16);
+    const uint32_t wv[4] = {nib.x, nib.y, nib.z, nib.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      uint32_t d[4] = {0u, 0u, 0u, 0u};
-      if (w_ok) dequant8(wv[j], d);
-      st_shared16(st + kTerms * kTileElems + swz(wr, 4 * wh + j), d[0], d[1], d[2], d[3]);
+      uint32_t d[4];
+      dequant8(wv[j], d);
+      st_shared16(wbf + swz(wr, 4 * wh + j), make_uint4(d[0], d[1], d[2], d[3]));
+    }
+    if constexpr (F32X) {
+      __nv_bfloat16* xbf =
+          reinterpret_cast<__nv_bfloat16*>(smem_raw + L::kXbf) + (t & 1) * 3 * kTileElems;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // 8 columns of row r (chunk xc of the bf16 tiles) as three terms
+        const int r = tid / 8 + 32 * i, xc = tid % 8;
+        const float* src = reinterpret_cast<const float*>(slot) + r * kBK + 8 * xc;
+        const uint4 a = ld_shared16(src), b = ld_shared16(src + 4);
+        const float f[8] = {__uint_as_float(a.x), __uint_as_float(a.y), __uint_as_float(a.z),
+                            __uint_as_float(a.w), __uint_as_float(b.x), __uint_as_float(b.y),
+                            __uint_as_float(b.z), __uint_as_float(b.w)};
+        uint32_t tm[4][3];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) split3(f[2 * p], f[2 * p + 1], tm[p]);
+#pragma unroll
+        for (int tt = 0; tt < 3; ++tt) {
+          st_shared16(xbf + tt * kTileElems + swz(r, xc),
+                      make_uint4(tm[0][tt], tm[1][tt], tm[2][tt], tm[3][tt]));
+        }
+      }
     }
   };
 
@@ -395,11 +470,16 @@ w4a16_gemm_mma_kernel(const void* __restrict__ x, const uint8_t* __restrict__ wp
       for (int e = 0; e < 4; ++e) part[mt][nt][e] = total[mt][nt][e] = 0.f;
 
   const int mi = lane / 8, li = lane % 8;  // ldmatrix: matrix and row this lane addresses
-  load_tile(0);
-  store_tile(0);
-  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t) issue(t);
+  cp_async_wait<S - 2>();
+  if constexpr (F32X) __syncthreads();  // x chunks copied by other threads
+  convert(0);
   for (int t = 0; t < T; ++t) {
-    if (t + 1 < T) load_tile(t + 1);
+    // tile t's bf16 tiles are written; every warp is done with tile t - 1,
+    // so its ring slot and bf16 buffers may be written again
+    __syncthreads();
+    issue(t + S - 1);
     // a group's last tile folds its partials with the group's scales
     const bool fold = t + 1 == T || ((t + 1) * kBK) % G == 0;
     float sc[4][2];
@@ -413,8 +493,10 @@ w4a16_gemm_mma_kernel(const void* __restrict__ x, const uint8_t* __restrict__ wp
           sc[nt][e] = n < N ? __ldg(scale + static_cast<size_t>(n) * NG + grp) : 0.f;
         }
     }
-    const __nv_bfloat16* xt = smem + (t & 1) * kStage;
-    const __nv_bfloat16* wt = xt + kTerms * kTileElems;
+    const __nv_bfloat16* xt =
+        F32X ? reinterpret_cast<const __nv_bfloat16*>(smem_raw + L::kXbf) + (t & 1) * 3 * kTileElems
+             : reinterpret_cast<const __nv_bfloat16*>(smem_raw + (t % S) * L::kSlot);
+    const __nv_bfloat16* wt = reinterpret_cast<const __nv_bfloat16*>(smem_raw + L::kWbf) + (t & 1) * kTileElems;
 #pragma unroll
     for (int ks = 0; ks < kBK / 16; ++ks) {
       uint32_t bf[2][4];  // n8 tiles 2p, 2p + 1: (b0, b1) each
@@ -449,8 +531,11 @@ w4a16_gemm_mma_kernel(const void* __restrict__ x, const uint8_t* __restrict__ wp
             part[mt][nt][e] = 0.f;
           }
     }
-    if (t + 1 < T) store_tile((t + 1) & 1);
-    __syncthreads();
+    if (t + 1 < T) {
+      cp_async_wait<S - 2>();  // this thread's copies of tile t + 1 have landed
+      if constexpr (F32X) __syncthreads();
+      convert(t + 1);
+    }
   }
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
@@ -471,20 +556,173 @@ w4a16_gemm_mma_kernel(const void* __restrict__ x, const uint8_t* __restrict__ wp
       }
 }
 
-// ------------------------------------------------------------------ host
+// ------------------------------------------------------------ wgmma GEMM
 
-template <bool F32X>
-void launch_gemv(const void* x, const uint8_t* wp, const float* s, float* out, int M, int N,
-                 int K, int G, int NG, bool vec, cudaStream_t stream) {
-  const dim3 grid((N + kGvRows - 1) / kGvRows);
-  if (vec) {
-    w4a16_gemv_mma_kernel<F32X, true><<<grid, kGvWarps * 32, 0, stream>>>(x, wp, s, out, M, N, K,
-                                                                          G, NG);
-  } else {
-    w4a16_gemv_mma_kernel<F32X, false><<<grid, kGvWarps * 32, 0, stream>>>(x, wp, s, out, M, N,
-                                                                           K, G, NG);
+// bf16 x with 16-byte loads (every model shape).  Warp-specialized, as B2's
+// int8_gemm_tc_kernel: warpgroup 2 produces, warpgroups 0 and 1 consume.
+// The producer copies K tile t (x's 128 rows, the packed weights of the
+// tile's 128 output columns and, on a group's first tile, the group's
+// scales) into ring slot t % kWsStages with cp.async, and two tiles later,
+// when those bytes have landed, dequantizes the weights to a bf16 tile in
+// the same slot and signals it full.  Each consumer warpgroup multiplies
+// its 64 rows by wgmma m64n128k16, both operands read from shared memory in
+// the 128-byte swizzled layout swz() writes, hands the slot back once the
+// wgmma that read it are done, and after a group's last tile waits for its
+// products and folds them into the totals with the group's scales (the
+// group's first wgmma starts from zero).  Nothing reads an accumulator
+// while a wgmma is in flight, so the wgmma of a group stay pipelined.
+constexpr int kWsStages = 5;
+constexpr int kWsLag = 2;  // tiles between a tile's copies and its dequantization
+constexpr int kWsThreads = 3 * 128;
+constexpr int kWsX = kTileElems * 2;         // x tile, bf16
+constexpr int kWsW = kBN * kBK * 2;          // weight tile, bf16
+constexpr int kWsNib = kBN * kBK / 2;        // packed weights
+constexpr int kWsSlot = kWsX + kWsW + kWsNib;
+constexpr int kWsScales = kWsStages * kWsSlot;           // scales of 4 groups
+constexpr int kWsBars = kWsScales + 4 * kBN * 4;         // full[], empty[]
+constexpr int kWsBytes = kWsBars + 2 * kWsStages * 8 + 1024;  // + room to align to 1,024
+
+__global__ void __launch_bounds__(kWsThreads, 1)
+w4a16_gemm_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ wp,
+                        const float* __restrict__ scale, float* __restrict__ out, int M, int N,
+                        int K, int G, int NG) {
+  constexpr int S = kWsStages;
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1,024 bytes: tiles start on that grid
+  uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  float* sbuf = reinterpret_cast<float*>(smem + kWsScales);  // [group % 4][kBN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kWsBars);
+  uint64_t* empty = full + S;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kBM;
+  const int T = (K + kBK - 1) / kBK;
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      hopper::mbar_init(&full[i], 128);  // every producer thread
+      hopper::mbar_init(&empty[i], 8);   // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    const int p = tid - 256;
+    const size_t KB = K / 2;
+    for (int t = 0; t < T + kWsLag; ++t) {
+      if (t < T) {  // copy tile t
+        const int s = t % S;
+        uint8_t* slot = smem + s * kWsSlot;
+        hopper::mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+        const int k0 = t * kBK;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = p / 8 + 16 * i, c = p % 8;
+          const int kc = k0 + 8 * c;
+          const bool ok = m0 + r < M && kc < K;
+          cp_async16(slot + swz(r, c) * 2,
+                     x + static_cast<size_t>(ok ? m0 + r : 0) * K + (ok ? kc : 0), ok);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kw = k0 + 32 * h;
+          const bool ok = n0 + p < N && kw < K;
+          cp_async16(slot + kWsX + kWsW + p * 32 + h * 16,
+                     wp + static_cast<size_t>(ok ? n0 + p : 0) * KB + (ok ? kw / 2 : 0), ok);
+        }
+        if (k0 % G == 0) {
+          const int grp = k0 / G, n = n0 + p;
+          cp_async4(sbuf + (grp % 4) * kBN + p,
+                    scale + static_cast<size_t>(n < N ? n : 0) * NG + grp, n < N);
+        }
+      }
+      cp_async_commit();
+      if (t >= kWsLag) {  // tile u's bytes have landed: dequantize, then full
+        const int u = t - kWsLag, s = u % S;
+        uint8_t* slot = smem + s * kWsSlot;
+        cp_async_wait<kWsLag>();
+        __nv_bfloat16* wbf = reinterpret_cast<__nv_bfloat16*>(slot + kWsX);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint4 nib = ld_shared16(slot + kWsX + kWsW + p * 32 + h * 16);
+          const uint32_t wv[4] = {nib.x, nib.y, nib.z, nib.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            uint32_t d[4];
+            dequant8(wv[j], d);
+            st_shared16(wbf + swz(p, 4 * h + j), make_uint4(d[0], d[1], d[2], d[3]));
+          }
+        }
+        hopper::fence_proxy_async();  // this thread's copies and stores, for wgmma
+        hopper::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumers
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  float acc[64], total[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = total[i] = 0.f;
+  for (int t = 0; t < T; ++t) {
+    const int s = t % S;
+    hopper::mbar_wait(&full[s], (t / S) & 1);
+    const uint32_t xa = hopper::smem_u32(smem + s * kWsSlot) + wg * 64 * 128;
+    const uint32_t wa = hopper::smem_u32(smem + s * kWsSlot + kWsX);
+    const bool first = (t * kBK) % G == 0;
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      hopper::wgmma_m64n128k16_bf16_ss(acc, hopper::desc_sw128(xa + kk * 32, 16, 1024),
+                                       hopper::desc_sw128(wa + kk * 32, 16, 1024),
+                                       kk == 0 && first ? 0 : 1);
+    }
+    hopper::wgmma_commit();
+    hopper::fence_regs(acc);
+    if (t > 0) {  // tile t - 1's products are done: hand its slot back
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(acc);
+      if (lane == 0) hopper::mbar_arrive(&empty[(t - 1) % S]);
+    }
+    if (t + 1 == T || ((t + 1) * kBK) % G == 0) {  // the group ends: fold it
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      const float* sc = sbuf + ((t * kBK / G) % 4) * kBN;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 s2 = *reinterpret_cast<const float2*>(sc + 8 * j + 2 * q);
+        total[4 * j] = fmaf(acc[4 * j], s2.x, total[4 * j]);
+        total[4 * j + 1] = fmaf(acc[4 * j + 1], s2.y, total[4 * j + 1]);
+        total[4 * j + 2] = fmaf(acc[4 * j + 2], s2.x, total[4 * j + 2]);
+        total[4 * j + 3] = fmaf(acc[4 * j + 3], s2.y, total[4 * j + 3]);
+      }
+    }
+  }
+
+  const int r0 = m0 + wg * 64 + (warp % 4) * 16 + g;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = n0 + 8 * j + 2 * q;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = r0 + 8 * h;
+      if (m >= M) continue;
+      float* o = out + static_cast<size_t>(m) * N + n;
+      if (n + 1 < N && N % 2 == 0) {
+        *reinterpret_cast<float2*>(o) = make_float2(total[4 * j + 2 * h], total[4 * j + 2 * h + 1]);
+      } else {
+        if (n < N) o[0] = total[4 * j + 2 * h];
+        if (n + 1 < N) o[1] = total[4 * j + 2 * h + 1];
+      }
+    }
   }
 }
+
+// ------------------------------------------------------------------ host
 
 // raise a kernel's dynamic shared-memory limit to `bytes`, once per device
 template <typename Kern>
@@ -499,10 +737,19 @@ cudaError_t allow_smem(Kern kernel, int bytes, int (&done)[kMaxDevices]) {
 }
 
 template <bool F32X, bool VEC>
+int launch_gemv(const void* x, const uint8_t* wp, const float* s, float* out, int M, int N, int K,
+                int G, int NG, cudaStream_t stream) {
+  const dim3 grid((N + kGvRows - 1) / kGvRows);
+  w4a16_gemv_mma_kernel<F32X, VEC><<<grid, kGvWarps * 32, 0, stream>>>(x, wp, s, out, M, N, K, G,
+                                                                       NG);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool F32X, bool VEC>
 int launch_gemm(const void* x, const uint8_t* wp, const float* s, float* out, int M, int N, int K,
                 int G, int NG, cudaStream_t stream) {
   static int done[kMaxDevices] = {};
-  constexpr int bytes = gemm_smem_bytes<F32X>();
+  constexpr int bytes = GemmSmem<F32X>::kBytes;
   const cudaError_t err = allow_smem(w4a16_gemm_mma_kernel<F32X, VEC>, bytes, done);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
@@ -530,11 +777,11 @@ extern "C" int repro_w4a16_gemv(const void* x, const void* wp, const void* scale
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   if (x_f32) {
-    launch_gemv<true>(x, w, s, o, M, N, K, G, NG, vec != 0, st);
-  } else {
-    launch_gemv<false>(x, w, s, o, M, N, K, G, NG, vec != 0, st);
+    return vec ? launch_gemv<true, true>(x, w, s, o, M, N, K, G, NG, st)
+               : launch_gemv<true, false>(x, w, s, o, M, N, K, G, NG, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return vec ? launch_gemv<false, true>(x, w, s, o, M, N, K, G, NG, st)
+             : launch_gemv<false, false>(x, w, s, o, M, N, K, G, NG, st);
 }
 
 extern "C" int repro_w4a16_gemm(const void* x, const void* wp, const void* scale, void* out,
@@ -551,6 +798,14 @@ extern "C" int repro_w4a16_gemm(const void* x, const void* wp, const void* scale
     return vec ? launch_gemm<true, true>(x, w, s, o, M, N, K, G, NG, st)
                : launch_gemm<true, false>(x, w, s, o, M, N, K, G, NG, st);
   }
-  return vec ? launch_gemm<false, true>(x, w, s, o, M, N, K, G, NG, st)
-             : launch_gemm<false, false>(x, w, s, o, M, N, K, G, NG, st);
+  if (vec) {
+    static int done[kMaxDevices] = {};
+    const cudaError_t err = allow_smem(w4a16_gemm_wgmma_kernel, kWsBytes, done);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+    w4a16_gemm_wgmma_kernel<<<grid, kWsThreads, kWsBytes, st>>>(
+        static_cast<const __nv_bfloat16*>(x), w, s, o, M, N, K, G, NG);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return launch_gemm<false, false>(x, w, s, o, M, N, K, G, NG, st);
 }

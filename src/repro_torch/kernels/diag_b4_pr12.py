@@ -58,21 +58,29 @@ def _build() -> ctypes.CDLL:
     return dll
 
 
-def _device_ms(torch, fn, n_bufs: int, iters: int = 10) -> float:
+def _device_ms(torch, fn, n_bufs: int, iters: int = 10,
+               tries: int = 3) -> float:
+    """Device time per call (ms) under torch.profiler; a window whose
+    kernel records are not a whole number per call (some were dropped) is
+    taken again, up to ``tries`` windows, then nan."""
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(3):
         fn(i % n_bufs)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i % n_bufs)
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0.0)
-                for e in prof.key_averages()
-                if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    return total / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i % n_bufs)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        launches = sum(e.count for e in events)
+        if launches and launches % iters == 0:
+            return sum(getattr(e, "self_device_time_total", 0.0)
+                       for e in events) / 1e3 / iters
+    return float("nan")
 
 
 def main() -> int:
@@ -146,7 +154,7 @@ def main() -> int:
             f"{ops / min(t) / 1e9:.1f} TFLOP/s)"
             for name, t in times.items())
         print(f"[diag_b4] M={m} K={k} N={n} ({tag}): device per call, best of "
-              f"two turns: {parts}; old/new(bf16) "
+              f"two turns: {parts}; old / new (bf16) "
               f"{min(times['old f32 x']) / min(times['new bf16 x']):.1f}x on "
               f"{smi}", flush=True)
     return 0

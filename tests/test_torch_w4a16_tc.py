@@ -11,14 +11,17 @@ which only a card runs.
   of an mma used here), and is folded into a float32 total with
   fmaf(partial, scale, total); the GeMV's groups are split across 16 warps
   whose totals are summed in warp order; the GEMM's partial spans two K
-  tiles of 64 columns.  Held against the JAX package's Pallas kernel in
+  tiles of 64 columns, 16 columns an mma step (mma.sync m16n8k16 and wgmma
+  m64n128k16 alike).  Held against the JAX package's Pallas kernel in
   interpret mode under chip_smoke.py's W4_TOL, 1e-5 (|x| @ |W|^T) + 1e-6,
   at K 3584 and 14336 with narrow N, for bf16 and float32 x.
 * The fragment layouts, lane by lane from the PTX tables of ``mma.sync
   m16n8k16`` and ``ldmatrix``: the GeMV's (packed bytes and x chunks
-  straight from device memory into registers) and the GEMM's (swizzled
-  shared-memory tiles read by ldmatrix), each against the exact product of
-  small integers, with one planted layout mutation each that must fail.
+  straight from device memory into registers) and the mma.sync GEMM's
+  (shared-memory tiles, 16-byte chunks XOR-swizzled by row, the layout the
+  wgmma GEMM's descriptors also read, through ldmatrix), each against the
+  exact product of small integers, with one planted layout mutation each
+  that must fail.
 """
 
 import jax.numpy as jnp
