@@ -939,14 +939,9 @@ W4_SHAPES = {(4, 3584, 3584): "zamba2-7b q/k/v/o",
 W4_JSON = {"w4a16_gemv": (4, 4096, 32000), "w4a16_gemm": (2048, 3584, 14336)}
 # (K, N) of the batch-invariance check: zamba2-7b's gate/up, llama2-7b's head
 W4_INVARIANCE = ((3584, 14336), (4096, 32000))
-# the library yardstick's nibble orders: torch._convert_weight_to_int4pack
-# takes [N, K/2] bytes; tried with the even column in the high nibble (as
-# torchao packs it) and then in the low one (the port's), and the first whose
-# product agrees with the plain version is timed
-INT4PACK_ORDERS = ("even column in the high nibble",
-                   "even column in the low nibble")
-
-
+# the library yardstick's packing: torch._convert_weight_to_int4pack takes
+# [N, K/2] bytes with the even column in the high nibble (the port packs it
+# in the low one), and qScaleAndZeros [K/g, N, 2] in bf16, zero 0 here
 def _w4_operands(torch, gen, n, k, copies):
     """``copies`` W4A16 weights [N, K]: the first quantized from a random
     normal matrix, the rest random bytes under the same scales (timing
@@ -967,34 +962,25 @@ def _w4_operands(torch, gen, n, k, copies):
 def _int4pack_library(torch, x, wps, ref, limit):
     """torch._weight_int4pack_mm on bf16 x and the same nibbles (its own
     packing, qScaleAndZeros with zero 0, the scales rounded to bf16):
-    (callable over the weight copies, the nibble order that agreed, its
-    worst |err| / limit), or (None, the reason, None)."""
+    (callable over the weight copies, its worst |err| / W4_TOL on copy 0),
+    or (None, the reason) where the card's torch refuses it or its product
+    is not the plain version's within two bf16 steps of |x| @ |W|^T."""
     k = x.shape[1]
     g = min(128, k)
     xb = x.to(torch.bfloat16)
-    reasons = []
-    for order in INT4PACK_ORDERS:
-        try:
-            packed, sz = [], []
-            for wp, sc in wps:
-                src = (((wp & 0xF) << 4) | (wp >> 4) if order == INT4PACK_ORDERS[0]
-                       else wp).contiguous()
-                packed.append(torch._convert_weight_to_int4pack(src, 8))
-                sz.append(torch.stack([sc.T, torch.zeros_like(sc.T)], -1)
-                          .to(torch.bfloat16).contiguous())
-            y = torch._weight_int4pack_mm(xb, packed[0], g, sz[0]).float()
-            torch.cuda.synchronize()
-        except (RuntimeError, AttributeError, TypeError) as e:
-            reasons.append(f"{order}: {type(e).__name__}: "
-                           f"{str(e).splitlines()[0][:160]}")
-            continue
-        used = ((y - ref).abs() / limit).max().item()
-        # bf16 x, scales and output: within two bf16 steps of |x| @ |W|^T
-        if used * W4_REL < 2.0 ** -7:
-            return (lambda i: torch._weight_int4pack_mm(xb, packed[i], g,
-                                                         sz[i])), order, used
-        reasons.append(f"{order}: worst |err| / W4_TOL {used:.3g}")
-    return None, "; ".join(reasons), None
+    try:
+        packed = [torch._convert_weight_to_int4pack(
+            (((wp & 0xF) << 4) | (wp >> 4)).contiguous(), 8) for wp, _ in wps]
+        sz = [torch.stack([sc.T, torch.zeros_like(sc.T)], -1)
+              .to(torch.bfloat16).contiguous() for _, sc in wps]
+        y = torch._weight_int4pack_mm(xb, packed[0], g, sz[0]).float()
+        torch.cuda.synchronize()
+    except (RuntimeError, AttributeError, TypeError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    used = ((y - ref).abs() / limit).max().item()
+    if used * W4_REL >= 2.0 ** -7:
+        return None, f"its product is off: worst |err| / W4_TOL {used:.3g}"
+    return (lambda i: torch._weight_int4pack_mm(xb, packed[i], g, sz[i])), used
 
 
 def _w4_faults(torch, variant, x, wp, sc, ref, check) -> None:
@@ -1116,18 +1102,18 @@ def _kernels_w4a16(torch, results: dict) -> None:
                 w = dequantize4(QuantizedLinear4(wp, sc, n, k))
                 limit = W4_REL * (x.float().abs() @ w.abs().T) + W4_ABS
                 del w
-                lib_fn, order, lib_used = _int4pack_library(
-                    torch, x, wps, ref, limit)
+                lib_fn, lib_used = _int4pack_library(torch, x, wps, ref,
+                                                     limit)
                 lib = lib_dev = None
                 if lib_fn is not None:
                     lib = time_ms(torch, lib_fn, copies)
                     lib_dev = profiled_ms(torch, lib_fn, None, copies)
                     lib_s = (f"{lib:.4f} ms (device {lib_dev:.4f} ms; "
-                             f"torch._weight_int4pack_mm on bf16 x, {order}, "
-                             f"bf16 scales and output: worst |err|/W4_TOL "
+                             f"torch._weight_int4pack_mm on bf16 x, bf16 "
+                             f"scales and output: worst |err|/W4_TOL "
                              f"{lib_used:.3g})")
                 else:
-                    lib_s = f"none (torch._weight_int4pack_mm: {order})"
+                    lib_s = f"none (torch._weight_int4pack_mm: {lib_used})"
                 xb = 2 if dt == torch.bfloat16 else 4
                 terms = 1 if dt == torch.bfloat16 else 3
                 ng = sc.shape[1]

@@ -352,13 +352,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "memory");
 }
 
-// shared memory of the GEMM: a ring of kStages raw K tiles (x as it comes,
+// shared memory of the GEMM: a ring of two raw K tiles (x as it comes,
 // [128][64] bf16 swizzled or float32 row-major, and the packed weights,
 // [128][32] bytes), then two bf16 weight tiles (dequantized) and, for
 // float32 x, two sets of three bf16 term tiles
 template <bool F32X>
 struct GemmSmem {
-  static constexpr int kStages = F32X ? 2 : 4;
+  static constexpr int kStages = 2;
   static constexpr int kX = kBM * kBK * (F32X ? 4 : 2);
   static constexpr int kW = kBN * kBK / 2;
   static constexpr int kSlot = kX + kW;
