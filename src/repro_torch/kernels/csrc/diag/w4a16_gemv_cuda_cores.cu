@@ -4,8 +4,8 @@
 // w4a16_gemm_kernel, 64x64 output tiles of 4x4 outputs a thread over
 // 32-wide K slices staged in shared memory as float32.  The source is
 // unchanged but for the names of its two C entry points, so that
-// kernels/diag_b4_pr12.py can time it beside the library's kernels in one
-// run.  Not part of the kernel library; built by that script alone.
+// kernels/diag_b4_cuda_cores.py can time it beside the library's kernels
+// in one run.  Not part of the kernel library; built by that script alone.
 //
 //   out f32 [M, N] = x f32 [M, K] . dequant(wp uint8 [N, K/2], scale f32 [N, NG])^T
 // with column k dequantized as (nibble - 8) * scale[n, k / G].
@@ -203,7 +203,7 @@ void launch_gemv(const float* x, const uint8_t* wp, const float* s, float* out, 
 }  // namespace
 
 // vec: 1 when K % 8 == 0, G % 8 == 0, x is 16-byte and wp 4-byte aligned
-extern "C" int diag_w4a16_gemv_pr12(const void* x, const void* wp, const void* scale, void* out,
+extern "C" int diag_w4a16_gemv_cuda_cores(const void* x, const void* wp, const void* scale, void* out,
                                 int M, int N, int K, int G, int NG, int vec, void* stream) {
   if (M <= 0 || M > 8 || N <= 0 || K <= 0 || K % 2 || G <= 0 || G % 2 || NG <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -226,7 +226,7 @@ extern "C" int diag_w4a16_gemv_pr12(const void* x, const void* wp, const void* s
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int diag_w4a16_gemm_pr12(const void* x, const void* wp, const void* scale, void* out,
+extern "C" int diag_w4a16_gemm_cuda_cores(const void* x, const void* wp, const void* scale, void* out,
                                 int M, int N, int K, int G, int NG, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 2 || G <= 0 || G % 2 || NG <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,10 +1,10 @@
 """B4 before and after its tensor-core redesign, timed in one run on the card.
 
-    python3 src/repro_torch/kernels/diag_b4_pr12.py
+    python3 src/repro_torch/kernels/diag_b4_cuda_cores.py
 
-Builds ``csrc/diag/w4a16_gemv_pr12.cu`` (the W4A16 kernels as they were,
-float32 x, products on the CUDA cores) with nvcc into ``build/diag/`` and
-times it beside the library's kernels at the shapes the W4A16 paths run:
+Builds ``csrc/diag/w4a16_gemv_cuda_cores.cu`` (the W4A16 kernels as they
+were, float32 x, products on the CUDA cores) with nvcc into ``build/diag/``
+and times it beside the library's kernels at the shapes the W4A16 paths run:
 the GeMV at M 4 (llama2-7b's lm_head, zamba2-7b's shared block q/k/v/o,
 gate/up and down, and its lm_head) and the tiled variant at M 2048
 (zamba2-7b's prefill group: gate/up, down, q/k/v/o).  In turns, old, new,
@@ -25,7 +25,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 SRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "diag",
-                   "w4a16_gemv_pr12.cu")
+                   "w4a16_gemv_cuda_cores.cu")
 SHAPES = [(4, 4096, 32000, "llama2-7b lm_head"),
           (4, 3584, 3584, "zamba2-7b q/k/v/o"),
           (4, 3584, 14336, "zamba2-7b gate/up"),
@@ -51,10 +51,10 @@ def _build() -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed:\n{res.stdout}")
     dll = ctypes.CDLL(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
-    dll.diag_w4a16_gemv_pr12.argtypes = [p] * 4 + [i] * 6 + [p]
-    dll.diag_w4a16_gemm_pr12.argtypes = [p] * 4 + [i] * 5 + [p]
-    dll.diag_w4a16_gemv_pr12.restype = i
-    dll.diag_w4a16_gemm_pr12.restype = i
+    dll.diag_w4a16_gemv_cuda_cores.argtypes = [p] * 4 + [i] * 6 + [p]
+    dll.diag_w4a16_gemm_cuda_cores.argtypes = [p] * 4 + [i] * 5 + [p]
+    dll.diag_w4a16_gemv_cuda_cores.restype = i
+    dll.diag_w4a16_gemm_cuda_cores.restype = i
     return dll
 
 
@@ -87,7 +87,7 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("diag_b4_pr12: needs a CUDA card", file=sys.stderr)
+        print("diag_b4_cuda_cores: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import build
@@ -118,11 +118,11 @@ def main() -> int:
 
         def old(i):
             if m <= 8:
-                st = dll.diag_w4a16_gemv_pr12(
+                st = dll.diag_w4a16_gemv_cuda_cores(
                     x.data_ptr(), wps[i].data_ptr(), q.scale.data_ptr(),
                     out.data_ptr(), m, n, k, g, ng, int(k % 8 == 0), stream)
             else:
-                st = dll.diag_w4a16_gemm_pr12(
+                st = dll.diag_w4a16_gemm_cuda_cores(
                     x.data_ptr(), wps[i].data_ptr(), q.scale.data_ptr(),
                     out.data_ptr(), m, n, k, g, ng, stream)
             if st != 0:
