@@ -99,6 +99,24 @@ Phases, each printing its own lines:
             prefill's, both B4 variants (the GeMV at decode, the tiled GEMM
             at prefill) and B6 launched, no off-path kernel; then the
             prefill and decode profiles, B4's device ms by variant.
+11. serve_overlap  the one-dispatch decode: llama2-7b W8A8 at full width,
+            4 slots, through build_client (synchronous loop) and a
+            ServingClient with overlap=True on the same weights.  8 greedy
+            requests of 64-512 tokens, 32 new each, give identical streams
+            run eagerly (graphs.disabled()), synchronous over replayed CUDA
+            graphs, and overlapped; 8 with every second one stochastic
+            (temperature 0.8, top-k 20, top-p 0.9, fixed seeds) the same
+            synchronous and overlapped.  Every decode step of a graph run
+            is one replay; 2 dispatches a step synchronous, 1 overlapped;
+            B1 and the GeMV counted through replays.  Prints the decode
+            wall ms a step three ways (a synchronized clock around the
+            decode loop of 4 slots), host launch calls a step and the
+            device's busy share (torch.profiler device time over that wall
+            time).  Then zamba2-7b W8A8: 4 greedy requests of 16 tokens,
+            synchronous and overlapped identical.
+
+Every serving phase's engine replays one CUDA graph a decode step
+(``serving/graphs.py``); the launch counters count each replay's kernels.
 
 The kernels phase also holds B5 (ecc_decode) against its plain version,
 with a planted fault that must fail (the last sidecar entry's restore
@@ -1666,10 +1684,12 @@ def phase_profile(torch, client, smi: str, tag: str = "profile") -> None:
     rows = _kernel_rows(prof)
     busy = sum(r[0] for r in rows) / 1e6
     launches = sum(r[2] for r in rows) / steps
+    host = sum(_host_launches(prof).values()) / steps
     log(f"[{tag}] profile of {steps} decode steps of 4 slots: wall "
-        f"{wall * 1e3 / steps:.2f} ms/step (profiled), {launches:.0f} kernel "
-        f"launches/step, device kernels {busy * 1e3 / steps:.2f} ms/step, "
-        f"device busy {100 * busy / wall:.1f}% of wall on {smi}")
+        f"{wall * 1e3 / steps:.2f} ms/step (profiled), {launches:.0f} device "
+        f"kernels/step from {host:.1f} host launch calls/step, device "
+        f"kernels {busy * 1e3 / steps:.2f} ms/step, device busy "
+        f"{100 * busy / wall:.1f}% of wall on {smi}")
     log(f"[{tag}] decode step by kernel (mean of {steps} steps): "
         f"{_by_part(rows, DECODE_PARTS, steps)} on {smi}")
     if busy <= 0:
@@ -1916,11 +1936,257 @@ def phase_serve_w4a16(torch) -> dict:
     return counts
 
 
+# host-side CUDA calls that start work on the card, as torch.profiler names
+# them: kernel launches (PyTorch's and the C entries'), graph replays and
+# copies / fills
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def _host_launches(prof) -> dict[str, int]:
+    """Calls of each HOST_LAUNCH_CALLS name the host made in a profiler
+    run."""
+    out: dict[str, int] = {}
+    for ev in prof.key_averages():
+        if ev.key in HOST_LAUNCH_CALLS:
+            out[ev.key] = out.get(ev.key, 0) + ev.count
+    return out
+
+
+def _overlap_streams(torch, client, prompts, max_new, sampling=None,
+                     eager=False) -> tuple[list, dict]:
+    """Serve ``prompts`` through ``client`` (``sampling(i)`` the params of
+    request i, None greedy); every launch counter zeroed before the run and
+    read after.  Returns ((tokens, finish reason) per request, a record of
+    the run: launch counts, decode steps, dispatches, graph replays)."""
+    from repro_torch import kernels
+    from repro_torch.serving import graphs
+
+    core = client.router.cores[0]
+    steps0, disp0 = core.stats.decode_steps, core.stats.decode_dispatches
+    replays0 = core.graph.replays
+    handles = [client.submit(p, max_new_tokens=max_new,
+                             sampling=sampling(i) if sampling else None)
+               for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    if eager:
+        with graphs.disabled():
+            client.run()
+    else:
+        client.run()
+    torch.cuda.synchronize()
+    run = {"counts": kernels.launch_counts(),
+           "steps": core.stats.decode_steps - steps0,
+           "dispatches": core.stats.decode_dispatches - disp0,
+           "replays": core.graph.replays - replays0}
+    for h in handles:
+        toks = h.request.out_tokens
+        if not h.finished or h.finish_reason != "length" \
+                or len(toks) != max_new:
+            raise AssertionError(f"request {h.rid}: finished={h.finished} "
+                                 f"reason={h.finish_reason} n={len(toks)}")
+    return [(h.request.out_tokens, h.finish_reason) for h in handles], run
+
+
+def _check_graph_run(core, run: dict, tag: str, mode: str) -> None:
+    """Every decode step of a graph run was one replay, the dispatches a
+    step are 1 (overlap) or 2 (sync), and B1 and the decode GeMV(s) were
+    counted through the replays (the capture's launches times replays)."""
+    want = 1 if core.overlap else 2
+    if run["steps"] <= 0 or run["dispatches"] != want * run["steps"]:
+        raise AssertionError(f"[{tag}] {mode}: {run['dispatches']} "
+                             f"dispatches over {run['steps']} decode steps, "
+                             f"expected {want} a step")
+    if run["replays"] != run["steps"]:
+        raise AssertionError(f"[{tag}] {mode}: {run['replays']} graph "
+                             f"replays for {run['steps']} decode steps")
+    for k in ("paged_decode_attention", "int8_gemv"):
+        per_replay = min(d.get(k, 0) for d in core.graph._deltas.values())
+        if per_replay <= 0 or \
+                run["counts"][k] < run["replays"] * per_replay:
+            raise AssertionError(f"[{tag}] {mode}: {k} launched "
+                                 f"{run['counts'][k]} times over "
+                                 f"{run['replays']} replays of graphs that "
+                                 f"launch it {per_replay} times")
+
+
+def _decode_wall(torch, client, prompts, max_new,
+                 eager=False) -> tuple[float, int]:
+    """Wall ms a decode step of 4 slots, from a synchronized clock around
+    the whole decode loop: the 4 prompts admitted (one prefill group and
+    the first step) before the clock starts, the loop run to its end (the
+    overlapped loop's last drain included)."""
+    import contextlib
+
+    from repro_torch.serving import graphs
+
+    core = client.router.cores[0]
+    for p in prompts:
+        client.submit(p, max_new_tokens=max_new)
+    with graphs.disabled() if eager else contextlib.nullcontext():
+        client.pump()
+        torch.cuda.synchronize()
+        steps0 = core.stats.decode_steps
+        t0 = time.perf_counter()
+        while client.has_work:
+            client.pump()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = core.stats.decode_steps - steps0
+    return wall * 1e3 / steps, steps
+
+
+def _decode_profile(torch, client, prompts, eager=False,
+                    steps: int = 6) -> tuple[float | None, float]:
+    """(device kernel ms, host launch calls) a decode step, from
+    torch.profiler over ``steps`` steps of 4 slots."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import graphs
+
+    for p in prompts:
+        client.submit(p, max_new_tokens=steps + 4)
+    with graphs.disabled() if eager else contextlib.nullcontext():
+        client.pump()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                client.pump()
+            torch.cuda.synchronize()
+        client.run()
+    dev = _device_ms(prof)
+    return (dev / steps if dev is not None else None,
+            sum(_host_launches(prof).values()) / steps)
+
+
+def phase_serve_overlap(torch, smi: str) -> None:
+    """The one-dispatch decode at full width: llama2-7b W8A8, 4 slots,
+    max_seq 1024, page 16, through build_client (synchronous loop) and a
+    ServingClient with overlap=True on the same weights.  Gates: 8 greedy
+    requests give the same streams synchronous and eager
+    (graphs.disabled()), synchronous over replayed graphs, and overlapped;
+    8 requests with every second one stochastic (temperature 0.8, top-k 20,
+    top-p 0.9, seeds 100 + i) the same synchronous and overlapped; each
+    decode step of a graph run is one replay, 2 dispatches a step
+    synchronous and 1 overlapped; B1 and the GeMV counted through replays.
+    Then the decode wall ms a step three ways, host launch calls and the
+    device's busy share.  zamba2-7b W8A8: 4 greedy requests of 16 tokens,
+    synchronous and overlapped the same."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.launch.serve import build_client
+    from repro_torch.serving.client import ServingClient
+    from repro_torch.serving.scheduler import SamplingParams
+
+    tag = "serve_overlap"
+    kw = dict(max_batch=4, max_seq=1024, page_size=16, eos_id=-1)
+    cfg, sync = build_client("llama2-7b", reduced=False, seed=0,
+                             device="cuda", **kw)
+    core = sync.router.cores[0]
+    olap = ServingClient(cfg, core.params, overlap=True, device="cuda", **kw)
+    ocore = olap.router.cores[0]
+    rng = np.random.RandomState(3)
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+               for n in rng.randint(64, 513, size=8)]
+    eager, r_eager = _overlap_streams(torch, sync, prompts, 32, eager=True)
+    if r_eager["replays"] != 0:
+        raise AssertionError("graphs.disabled() replayed a graph")
+    graph, r_graph = _overlap_streams(torch, sync, prompts, 32)
+    over, r_over = _overlap_streams(torch, olap, prompts, 32)
+    _check_graph_run(core, r_graph, tag, "sync graph")
+    _check_graph_run(ocore, r_over, tag, "overlap")
+    for name, got in (("sync graph", graph), ("overlap", over)):
+        if got != eager:
+            bad = [i for i, (a, b) in enumerate(zip(eager, got)) if a != b]
+            raise AssertionError(f"[{tag}] greedy: {name} differs from "
+                                 f"sync eager in requests {bad}")
+    log(f"[{tag}] llama2-7b W8A8 greedy, 8 requests x 32 tokens: sync eager, "
+        f"sync graph and overlap identical; decode steps {r_eager['steps']} "
+        f"/ {r_graph['steps']} / {r_over['steps']}, dispatches a step "
+        f"{r_graph['dispatches'] / r_graph['steps']:.0f} (sync) and "
+        f"{r_over['dispatches'] / r_over['steps']:.0f} (overlap), graph "
+        f"replays {r_graph['replays']} / {r_over['replays']}; launches "
+        f"through replays: B1 {r_graph['counts']['paged_decode_attention']}"
+        f" / {r_over['counts']['paged_decode_attention']}, GeMV "
+        f"{r_graph['counts']['int8_gemv']} / {r_over['counts']['int8_gemv']}"
+        f" (eager: {r_eager['counts']['paged_decode_attention']}, "
+        f"{r_eager['counts']['int8_gemv']})")
+
+    def stochastic(i):
+        return (SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
+                               seed=100 + i) if i % 2 else None)
+
+    s_sync, r_s = _overlap_streams(torch, sync, prompts, 32, stochastic)
+    s_over, r_o = _overlap_streams(torch, olap, prompts, 32, stochastic)
+    _check_graph_run(core, r_s, tag, "stochastic sync")
+    _check_graph_run(ocore, r_o, tag, "stochastic overlap")
+    if s_sync != s_over:
+        bad = [i for i, (a, b) in enumerate(zip(s_sync, s_over)) if a != b]
+        raise AssertionError(f"[{tag}] stochastic: overlap differs from "
+                             f"sync in requests {bad}")
+    drawn = sum(a != b for a, b in zip(s_sync[1::2], graph[1::2]))
+    log(f"[{tag}] llama2-7b stochastic (every second request temperature "
+        f"0.8, top-k 20, top-p 0.9): sync and overlap identical; "
+        f"{drawn} of 4 sampled streams differ from their greedy ones; "
+        f"overlap graphs captured {sorted(ocore.graph._graphs)}")
+    if drawn == 0:
+        raise AssertionError("no stochastic stream left its greedy one")
+
+    tprompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+                for n in rng.randint(200, 301, size=4)]
+    walls = {"sync eager": _decode_wall(torch, sync, tprompts, 64, True),
+             "sync graph": _decode_wall(torch, sync, tprompts, 64),
+             "overlap": _decode_wall(torch, olap, tprompts, 64)}
+    prof = {"sync eager": _decode_profile(torch, sync, tprompts, True),
+            "sync graph": _decode_profile(torch, sync, tprompts),
+            "overlap": _decode_profile(torch, olap, tprompts)}
+    for mode, (wall, steps) in walls.items():
+        dev, launches = prof[mode]
+        busy = (f"{100 * dev / wall:.1f}%" if dev is not None
+                else "not measured")
+        dev_s = f"{dev:.2f}" if dev is not None else "not measured"
+        log(f"[{tag}] llama2-7b decode, 4 slots at 200-364 tokens, {mode}: "
+            f"wall {wall:.2f} ms/step (synchronized clock around the decode "
+            f"loop, {steps} steps), host launch calls {launches:.1f}/step, device "
+            f"kernels {dev_s} ms/step (profiled, 6 steps), device busy "
+            f"{busy} on {smi}")
+    del sync, olap, core, ocore
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, sync = build_client("zamba2-7b", reduced=False, seed=0,
+                             device="cuda", **kw)
+    core = sync.router.cores[0]
+    olap = ServingClient(cfg, core.params, overlap=True, device="cuda", **kw)
+    zp = prompts[:4]
+    z_sync, rz_s = _overlap_streams(torch, sync, zp, 16)
+    z_over, rz_o = _overlap_streams(torch, olap, zp, 16)
+    _check_graph_run(core, rz_s, tag, "zamba2-7b sync")
+    _check_graph_run(olap.router.cores[0], rz_o, tag, "zamba2-7b overlap")
+    if z_sync != z_over:
+        raise AssertionError(f"[{tag}] zamba2-7b: overlap differs from sync")
+    log(f"[{tag}] zamba2-7b W8A8 greedy, 4 requests x 16 tokens: sync graph "
+        f"and overlap identical; decode steps {rz_s['steps']} / "
+        f"{rz_o['steps']}, replays {rz_s['replays']} / {rz_o['replays']}; "
+        f"overlap launches {rz_o['counts']}")
+    del sync, olap, core
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="card,build,kernels,model,serve,profile,hybrid,"
-                            "serve_w4a16,serve_hybrid,serve_hybrid_w4a16")
+                            "serve_w4a16,serve_hybrid,serve_hybrid_w4a16,"
+                            "serve_overlap")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1962,6 +2228,8 @@ def main(argv=None) -> int:
     if "serve_hybrid_w4a16" in phases:
         counts["serve_hybrid_w4a16"] = phase_serve_hybrid_w4a16(torch,
                                                                 smi_line)
+    if "serve_overlap" in phases:
+        phase_serve_overlap(torch, smi_line)
     rows = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]

@@ -4,7 +4,10 @@ sources under ``csrc/`` and the build in ``build.py``.
 
 Each wrapper counts its launches in its module's ``LAUNCHES`` dict;
 :func:`launch_counts` gathers them and :func:`reset_launch_counts` zeroes
-them, so a run can show which kernels its main path went through.
+them, so a run can show which kernels its main path went through.  A
+replayed CUDA graph (``serving/graphs.py``) runs no wrapper code: it adds
+the launches its capture recorded with :func:`add_launch_counts` on every
+replay.
 """
 
 from __future__ import annotations
@@ -33,3 +36,10 @@ def reset_launch_counts() -> None:
     for c in _counters():
         for name in c:
             c[name] = 0
+
+
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` (kernel name -> launches) to the counters."""
+    for c in _counters():
+        for name in c:
+            c[name] += delta.get(name, 0)

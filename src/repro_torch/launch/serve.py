@@ -5,20 +5,26 @@ from a seeded ``torch.Generator`` on the device), quantizes it to W8A8 by
 default (``--quant w4a16``: W4A16 where the JAX launcher makes it, which on
 the dense family is the ``lm_head``, the layers staying W8A8), puts
 ``--replicas`` engine replicas behind a router and serves ``--requests``
-random prompts, greedy.  ``--device`` defaults to ``cuda``;
-``--device cpu`` runs the plain PyTorch versions of the kernels.
+random prompts, greedy, or sampled under ``--temperature`` / ``--top-k`` /
+``--top-p`` (each request's seed is ``--seed`` + its id).  ``--overlap``
+runs the overlapped decode loop (one fused decode + sample step a round,
+its tokens read back one step late).  ``--device`` defaults to ``cuda``,
+where each decode step is one replayed CUDA graph; ``--device cpu`` runs
+the plain PyTorch versions of the kernels.
 
   python src/repro_torch/launch/serve.py --arch smollm-360m --requests 8 \\
       --max-new 16 --replicas 2 --route least_loaded
   python src/repro_torch/launch/serve.py --arch zamba2-7b --reduced 0
+  python src/repro_torch/launch/serve.py --overlap --temperature 0.8 \\
+      --top-k 20 --top-p 0.9 --device cpu
 
 ``--arch`` takes every configuration of ``configs/registry.py`` the engine
 serves: the dense family and the hybrid zamba2-7b (Mamba-2 layers and a
 shared attention block; mamba2-130m has ``forward`` only).
 
 Flags of the JAX driver whose features are not ported yet (fleet workers,
-overlap, prefix cache, int8 KV, wave mode, chunked prefill, stochastic
-sampling) exit with a message naming what is missing.  Replicas never
+prefix cache, int8 KV, wave mode, chunked prefill) exit with a message
+naming what is missing.  Replicas never
 migrate slots (migration is not ported), so there is no ``--no-migrate``.
 """
 
@@ -41,18 +47,20 @@ from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.quant.convert import quantize_params  # noqa: E402
 from repro_torch.serving.client import ServingClient  # noqa: E402
 from repro_torch.serving.router import ROUTE_POLICIES  # noqa: E402
-from repro_torch.serving.scheduler import POLICIES, make_scheduler  # noqa: E402
+from repro_torch.serving.scheduler import (POLICIES, SamplingParams,  # noqa: E402
+                                           make_scheduler)
 
 
 def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
                  max_batch: int = 4, max_seq: int = 128, page_size: int = 16,
                  replicas: int = 1, route: str = "round_robin",
                  policy: str = "fcfs", seed: int = 0, eos_id: int = -1,
-                 device: str = "cuda") -> tuple[ModelConfig, ServingClient]:
+                 overlap: bool = False, device: str = "cuda"
+                 ) -> tuple[ModelConfig, ServingClient]:
     """The model and serving stack the driver serves: ``init_params`` on
     the device from ``seed``, W8A8 or W4A16 quantization matrix by matrix
     (each bf16 matrix freed as it goes), then a ServingClient over ``replicas``
-    engines."""
+    engines (``overlap``: the overlapped decode loop)."""
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -66,7 +74,7 @@ def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
         cfg, params, replicas=replicas, route=route, seed_base=seed,
         max_batch=max_batch, max_seq=max_seq, eos_id=eos_id,
         page_size=page_size, scheduler=make_scheduler(policy),
-        device=device)
+        overlap=overlap, device=device)
     return cfg, client
 
 
@@ -74,8 +82,6 @@ def _unported(args) -> list[str]:
     out = []
     if args.workers:
         out.append("--workers (fleet serving)")
-    if args.overlap:
-        out.append("--overlap (overlapped decode loop)")
     if args.prefix_cache:
         out.append("--prefix-cache")
     if args.kv_dtype != "bf16":
@@ -84,8 +90,6 @@ def _unported(args) -> list[str]:
         out.append("--mode wave")
     if args.chunk_prefill:
         out.append("--chunk-prefill (paged-chunk flash attention)")
-    if args.temperature > 0.0:
-        out.append("--temperature > 0 (threefry sampler)")
     return out
 
 
@@ -110,7 +114,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--policy", default="fcfs", choices=sorted(POLICIES))
     ap.add_argument("--deadline", type=float, default=0.0)
     ap.add_argument("--chunk-prefill", type=int, default=0)
-    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="per-request sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0,
                     help="weight seed and sampling seed base")
     ap.add_argument("--stream", action="store_true",
@@ -131,14 +138,18 @@ def main(argv: list[str] | None = None) -> None:
         args.arch, reduced=bool(args.reduced), quant=args.quant,
         max_batch=args.max_batch, max_seq=args.max_seq,
         page_size=args.page_size, replicas=args.replicas, route=args.route,
-        policy=args.policy, seed=args.seed, device=args.device)
+        policy=args.policy, seed=args.seed, overlap=args.overlap,
+        device=args.device)
     rng = np.random.RandomState(42)
     for i in range(args.requests):
         plen = int(rng.randint(2, 9))
         prompt = [int(t) for t in rng.randint(0, cfg.vocab_size, plen)]
         client.submit(prompt, max_new_tokens=args.max_new, priority=i % 3,
                       deadline_s=args.deadline if args.deadline > 0 else None,
-                      session=f"user-{i % 4}")
+                      session=f"user-{i % 4}",
+                      sampling=SamplingParams(temperature=args.temperature,
+                                              top_k=args.top_k,
+                                              top_p=args.top_p))
     t0 = time.monotonic()
     for out in client.stream():
         if out.finished:

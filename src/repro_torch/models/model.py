@@ -11,6 +11,8 @@ Counterpart of ``repro.models.model`` for the paged serving path:
                                              -> (last_logits [M, V], cache)
     decode_step_paged(params, cfg, token, cache, active)
                                              -> (logits [B, V], cache)
+    decode_and_sample_paged(params, cfg, tok_host, tok_dev, use_dev, cache,
+                            active, sample_fn)  -> (tokens [B], cache)
     checkpoint_slot_state(cache, slot) / restore_slot_state(cache, slot, ck)
 
 Params are plain dicts of tensors with the JAX package's key names; where
@@ -436,3 +438,25 @@ def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
     cache = {**cache, "lens": lens + active.to(torch.int32)}
     x = blocks.norm(cfg, params["final_norm"], x)
     return lm_head(params, cfg, x), cache
+
+
+def decode_and_sample_paged(params: dict, cfg: ModelConfig,
+                            tok_host: torch.Tensor, tok_dev: torch.Tensor,
+                            use_dev: torch.Tensor, cache: dict,
+                            active: torch.Tensor, sample_fn
+                            ) -> tuple[torch.Tensor, dict]:
+    """Fused decode + sample: the overlapped serving loop's one step.
+
+    The input token is merged on the device, ``where(use_dev, tok_dev,
+    tok_host)``: a slot whose previous token was sampled by the previous
+    fused step (``tok_dev``, not yet read by the host) chains into this
+    step with no host round trip, while a freshly prefilled slot feeds its
+    host-known first token through ``tok_host``.  ``sample_fn(logits) ->
+    tokens`` keeps this module free of the sampler; the engine closes it
+    over the per-request sampling rows.  Returns (tokens [B], cache);
+    tokens of inactive rows are garbage, as ``decode_step_paged``'s logits
+    are.
+    """
+    token = torch.where(use_dev.to(torch.bool), tok_dev, tok_host)
+    logits, cache = decode_step_paged(params, cfg, token, cache, active)
+    return sample_fn(logits), cache

@@ -1,4 +1,4 @@
-"""EngineCore: the per-replica synchronous serving loop (continuous mode).
+"""EngineCore: the per-replica serving loop (continuous mode).
 
 The bottom layer of the port's serving API, as in ``repro.serving.core``::
 
@@ -13,30 +13,49 @@ The core owns a fixed-size slot table (the batch).  Requests enter a
 queue, claim free slots and prefill together in ONE batched pass
 (``models.model.prefill_into_slots``: right-padded to a power-of-two bucket,
 the group padded to ``max_batch`` rows by repeating its first row), then
-decode step by step (``decode_step_paged`` over every active slot, greedy
-sampling, one host sync per step); finished slots free their pages at once.
+decode step by step (``decode_step_paged`` over every active slot, then
+per-request sampling); finished slots free their pages at once.
 The scheduler (``serving.scheduler``) decides admission order and
 preemption victims; when the page pool runs dry the ``exhaust_policy``
 either requeues the starved request (``"requeue"``: a mid-decode slot
 restarts later with its generated prefix folded into its prompt) or fails
 it (``"reject"``).
 
-What the port serves is the JAX engine's continuous, synchronous path for
-the dense and hybrid families with bf16 page pools and greedy sampling.  A
-hybrid slot's Mamba conv window and SSM state live in the cache's
+What the port serves is the JAX engine's continuous path for the dense and
+hybrid families with bf16 page pools, synchronous or overlapped, with the
+per-request sampler (greedy, or temperature / top-k / top-p under jax's
+threefry keys, ``serving/sampler.py``).  A hybrid slot's Mamba conv window and SSM state live in the cache's
 slot-indexed state pools: a prefill overwrites the slot's rows and decode
 masks inactive lanes, and preemption here is requeue-and-re-prefill, so
 no state checkpoint is taken (the JAX engine takes one only on its tiered
 and migration paths).  The other
 options of the JAX engine raise until their slices land: ``mode="wave"``,
-``kv_tier="flash"``, ``prefix_cache``, ``overlap``, ``kv_dtype="int8"``,
-chunked-prefill budgets (``scheduler.chunk_tokens``), stochastic sampling
-(``temperature > 0``) and slot migration (``snapshot_slot`` /
-``inject_slot``).
+``kv_tier="flash"``, ``prefix_cache``, ``kv_dtype="int8"``, chunked-prefill
+budgets (``scheduler.chunk_tokens``) and slot migration (``snapshot_slot``
+/ ``inject_slot``).
 
-The device state is the cache dict of ``init_paged_cache`` on ``device``;
-the block table, last tokens and active mask live host-side in numpy and
-ride into each step as small tensors.
+The device state is the cache dict of ``init_paged_cache`` on ``device``,
+whose tensors keep their storage for the engine's life (prefill's new
+lengths are copied into ``cache["lens"]``); the block table, last tokens
+and active mask live host-side in numpy.  A decode step is one
+``serving.graphs.DecodeGraph`` step: the inputs staged into static
+buffers, then on CUDA one replayed CUDA graph (the counterpart of the JAX
+engine's one jitted dispatch).  The synchronous loop replays the decode
+step and samples its logits in a second dispatch (2 dispatches a step,
+``EngineStats.decode_dispatches``).
+
+Overlapped decode (``overlap=True``), as in the JAX engine: one fused
+decode + sample step a round, whose sampled tokens stay on the device and
+chain into the next step (``where(use_dev, tok_dev, tok_host)``), read
+back one step late: step N+1 is dispatched before step N's tokens are
+read, so the readback overlaps the compute (1 dispatch a step).  Step N's
+copy to the host is queued right after its replay, before step N+1's, so
+the drain waits for step N only.  Finishes are found at the lagged drain:
+length and capacity are predicted on the host one step ahead and masked
+out of the next step; a slot that sampled eos runs one speculative step
+whose writes stay behind its ``lens`` and whose token a slot-epoch check
+discards.  Token streams are bit-identical to the synchronous loop's,
+greedy and seed-pinned stochastic (tests/test_torch_overlap.py).
 """
 
 from __future__ import annotations
@@ -51,7 +70,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_lib
-from repro_torch.serving import sampler
+from repro_torch.serving import graphs, sampler
 from repro_torch.serving.kv_cache import (OutOfPages, PageAllocator,
                                           pages_needed, prefill_bucket)
 from repro_torch.serving.scheduler import (SamplingParams, Scheduler,
@@ -122,7 +141,13 @@ class RequestOutput:
 class EngineStats:
     prefills: int = 0
     decode_steps: int = 0
+    # dispatches attributable to decoding: a replayed decode step and a
+    # separate sample in the synchronous loop (2 a step), the fused step
+    # in the overlapped one (1); on CUDA a dispatch is one graph replay
+    decode_dispatches: int = 0
     tokens_out: int = 0
+    # synchronous loop: decode + sample; overlapped loop: dispatch time
+    # only (the compute is deliberately not awaited)
     wall_decode_s: float = 0.0
     wall_prefill_s: float = 0.0
     admitted: int = 0
@@ -188,8 +213,6 @@ class EngineCore:
             raise _not_ported(f"kv_tier={kv_tier!r}", "the tiered KV slice")
         if prefix_cache:
             raise _not_ported("prefix_cache=True", "the prefix-cache slice")
-        if overlap:
-            raise _not_ported("overlap=True", "the overlapped-loop slice")
         if kv_dtype != "bf16":
             raise _not_ported(f"kv_dtype={kv_dtype!r}", "int8 KV pools in B1")
         if exhaust_policy not in ("requeue", "reject"):
@@ -205,6 +228,13 @@ class EngineCore:
         self.max_seq = max_seq
         self.eos_id = eos_id
         self.mode = mode
+        self.overlap = overlap
+        # overlapped-loop state: at most one dispatched but undrained fused
+        # step; per-slot in-flight token counts (0 or 1) and release epochs
+        # that invalidate pending rows whose slot was reassigned since
+        self._pending: Optional[dict] = None
+        self._inflight: list[int] = [0] * max_batch
+        self._slot_epoch: list[int] = [0] * max_batch
         self.exhaust_policy = exhaust_policy
         self.stats = EngineStats(mode=mode, policy=self.scheduler.name)
         self.queue: list[Request] = []
@@ -223,14 +253,13 @@ class EngineCore:
         self.allocator = PageAllocator(self.num_pages)
         self.slot_pages: list[list[int]] = [[] for _ in range(max_batch)]
         self.slot_len: list[int] = [0] * max_batch  # host mirror of lens
+        self.graph = graphs.DecodeGraph(cfg, params, max_batch,
+                                        self.pages_per_slot, self.device)
 
     # ------------------------------------------------------------------
     # command surface: add / abort
     # ------------------------------------------------------------------
     def add_request(self, req: Request) -> None:
-        if req.sampling.temperature > 0.0:
-            raise _not_ported("stochastic sampling (temperature > 0)",
-                              "the threefry sampler, ROADMAP A6")
         if len(req.prompt) >= self.max_seq:
             raise ValueError(f"prompt ({len(req.prompt)}) does not fit "
                              f"max_seq ({self.max_seq})")
@@ -338,9 +367,40 @@ class EngineCore:
     # ------------------------------------------------------------------
     # helpers
     # ------------------------------------------------------------------
-    def _sample_rows(self, logits: torch.Tensor) -> np.ndarray:
-        """Greedy tokens of every row of logits [B, V] (one host sync)."""
-        return sampler.greedy(logits).cpu().numpy()
+    def _sample_rows(self, logits: torch.Tensor,
+                     items: list[tuple[int, Request]]) -> np.ndarray:
+        """One token per (row, request) pair of logits [B, V] (one host
+        sync).  Rows not named in ``items`` are garbage.  An all-greedy
+        batch takes the argmax; any stochastic row sends the whole batch
+        through ``sampler.sample_batch`` (greedy rows still argmax in it).
+        """
+        if all(req.sampling.temperature <= 0.0 for _, req in items):
+            return sampler.greedy(logits).cpu().numpy()
+        rows = self._rows_of(logits.shape[0], [
+            (row, req, len(req.out_tokens)) for row, req in items])
+        seeds, counts, temps, top_k, top_p = (
+            torch.from_numpy(a).to(logits.device) for a in rows)
+        return sampler.sample_batch(logits, seeds, counts, temps, top_k,
+                                    top_p).cpu().numpy()
+
+    @staticmethod
+    def _rows_of(b: int, items: list[tuple[int, Request, int]]
+                 ) -> tuple[np.ndarray, ...]:
+        """Sampling rows (seeds, counts, temperature, top_k, top_p) for
+        (row, request, sampler cursor) triples; the other rows greedy."""
+        seeds = np.zeros((b,), np.int32)
+        counts = np.zeros((b,), np.int32)
+        temps = np.zeros((b,), np.float32)
+        top_k = np.zeros((b,), np.int32)
+        top_p = np.ones((b,), np.float32)
+        for row, req, count in items:
+            sp = req.sampling
+            seeds[row] = sp.seed if sp.seed is not None else req.rid
+            counts[row] = count
+            temps[row] = sp.temperature
+            top_k[row] = sp.top_k
+            top_p[row] = sp.top_p
+        return seeds, counts, temps, top_k, top_p
 
     def _slot_view(self, i: int) -> SlotView:
         r = self.slots[i]
@@ -364,6 +424,10 @@ class EngineCore:
         return {**self.cache, "block": self._tensor(self.block)}
 
     def _release_slot(self, i: int) -> None:
+        # a pending fused-step row of this slot is stale now: the epoch
+        # bump makes the lagged drain skip it
+        self._slot_epoch[i] += 1
+        self._inflight[i] = 0
         self.slots[i] = None
         self.allocator.free([p for p in self.slot_pages[i] if p != 0])
         self.slot_pages[i] = []
@@ -393,7 +457,8 @@ class EngineCore:
 
     def _preempt_restart(self, i: int, req: Request) -> None:
         """Fold the generated prefix into the prompt and requeue: greedy
-        decode regenerates the same continuation."""
+        decode, and a seed-pinned draw keyed by (seed, output index),
+        regenerate the same continuation."""
         self.stats.preemptions += 1
         req.n_preempted += 1
         req.prompt = req.prompt + req.out_tokens[req.n_folded:]
@@ -470,11 +535,13 @@ class EngineCore:
             self.params, self.cfg, self._tensor(toks),
             self._tensor(true_lens), self._cache_in(),
             self._tensor(slot_ids))
-        out_cache.pop("block")  # authoritative copy stays host-side
-        self.cache = out_cache
+        # the pools were written in place; the lengths keep their storage,
+        # which a captured decode step reads and writes
+        self.cache["lens"].copy_(out_cache["lens"])
         self.stats.prefills += 1
         self.stats.admitted += len(group)
-        toks_out = self._sample_rows(logits)
+        toks_out = self._sample_rows(
+            logits, [(row, req) for row, (i, req, len0) in enumerate(group)])
         t1 = time.monotonic()
         self.stats.wall_prefill_s += t1 - t0
         for row, (i, req, len0) in enumerate(group):
@@ -500,7 +567,9 @@ class EngineCore:
             req = self.slots[i]
             if req is None:
                 continue
-            pj = self.slot_len[i] // self.page_size
+            # the next write position counts the in-flight token the host
+            # has not drained yet (slot_len is the drained length)
+            pj = (self.slot_len[i] + self._inflight[i]) // self.page_size
             if pj < len(self.slot_pages[i]):
                 continue
             try:
@@ -516,24 +585,118 @@ class EngineCore:
             self.slot_pages[i].append(pid)
             self.block[i, pj] = pid
 
+    # ------------------------------------------------------------------
+    # overlapped decode: dispatch step N+1 before reading step N's tokens
+    # ------------------------------------------------------------------
+    def _sampling_rows(self, items: list[tuple[int, Request]]
+                       ) -> tuple[bool, Optional[tuple[np.ndarray, ...]]]:
+        """(greedy_only, sampling rows) of a fused step.  The sampler
+        cursor (``counts``) indexes the token about to be sampled, which
+        trails ``len(out_tokens)`` by the slot's undrained token."""
+        if all(req.sampling.temperature <= 0.0 for _, req in items):
+            return True, None
+        return False, self._rows_of(self.max_batch, [
+            (i, req, len(req.out_tokens) + self._inflight[i])
+            for i, req in items])
+
+    def _drain_pending(self) -> None:
+        """Read back and account the in-flight fused step (no-op without).
+
+        The lagged finish point: eos shows here one engine call after the
+        token was computed, and the speculative step a finished slot ran
+        in between is discarded by the slot-epoch check."""
+        pend, self._pending = self._pending, None
+        if pend is not None:
+            self._drain_rows(pend)
+
+    def _drain_rows(self, pend: dict) -> None:
+        tok_np = self.graph.tokens(pend["tok"])  # waits for THIS step only
+        for i, req, seq_after, epoch in pend["rows"]:
+            if (req.done or self.slots[i] is not req
+                    or self._slot_epoch[i] != epoch):
+                continue  # slot released or reassigned since dispatch
+            self._inflight[i] -= 1
+            t = int(tok_np[i])
+            self.last_np[i] = t
+            req.out_tokens.append(t)
+            self.stats.tokens_out += 1
+            self.slot_len[i] = seq_after
+            reason = self._finish_reason_for(req, t, seq_after)
+            if reason is not None:
+                self._finish(i, req, reason, token=t)
+            else:
+                self._emit(req, t)
+
+    def _overlap_round_continuous(self, active_list: list[bool]) -> None:
+        """One overlapped round: dispatch the next fused step, queue its
+        tokens' copy to the host, THEN drain the previous step, whose
+        readback overlaps the step just queued."""
+        items = [(i, self.slots[i]) for i in range(self.max_batch)
+                 if active_list[i]]
+        greedy_only, rows = self._sampling_rows(items)
+        use_dev = np.asarray([n > 0 for n in self._inflight])
+        old, self._pending = self._pending, None
+        t0 = time.monotonic()
+        self.graph.stage(self.last_np, np.asarray(active_list), self.block,
+                         use_dev=use_dev, rows=rows)
+        self.graph.run("fused_greedy" if greedy_only else "fused",
+                       self.cache)
+        tok = self.graph.readback()
+        # dispatch time only: the compute is deliberately not awaited
+        self.stats.wall_decode_s += time.monotonic() - t0
+        self.stats.decode_steps += 1
+        self.stats.decode_dispatches += 1
+        pend_rows = []
+        for i, req in items:
+            seq_after = self.slot_len[i] + self._inflight[i] + 1
+            pend_rows.append((i, req, seq_after, self._slot_epoch[i]))
+            self._inflight[i] += 1
+        self._pending = {"tok": tok, "rows": pend_rows}
+        if old is not None:
+            self._drain_rows(old)
+
+    def _mask_predicted_finishes(self, active_list: list[bool]) -> None:
+        """Leave out slots whose undrained token already finishes them.
+
+        Length and capacity are predictable on the host one step ahead,
+        so those slots run no wasted step; eos shows only at the drain, so
+        a slot that sampled it runs one speculative step whose writes land
+        beyond its ``lens`` (or are re-prefilled by the next occupant) and
+        whose token the epoch check discards."""
+        for i in range(self.max_batch):
+            if not active_list[i] or not self._inflight[i]:
+                continue
+            req = self.slots[i]
+            if (len(req.out_tokens) + self._inflight[i]
+                    >= req.max_new_tokens
+                    or self.slot_len[i] + self._inflight[i]
+                    >= self.max_seq - 1):
+                active_list[i] = False
+
     def _step_continuous(self) -> bool:
         self._admit_continuous()
         if all(s is None for s in self.slots):
+            self._drain_pending()  # discard a stale speculative step
             return bool(self.queue)
         self._ensure_pages()
         active_list = [self.slots[i] is not None
                        for i in range(self.max_batch)]
+        if self.overlap:
+            self._mask_predicted_finishes(active_list)
         if not any(active_list):
+            self._drain_pending()  # lagged finishes still need to land
             return True
-        active = self._tensor(np.asarray(active_list))
-        tokens = self._tensor(self.last_np)
+        if self.overlap:
+            self._overlap_round_continuous(active_list)
+            return True
         t0 = time.monotonic()
-        logits, cache = model_lib.decode_step_paged(
-            self.params, self.cfg, tokens, self._cache_in(), active)
-        cache.pop("block")
-        self.cache = cache
+        self.graph.stage(self.last_np, np.asarray(active_list), self.block)
+        logits = self.graph.run("sync", self.cache)
         self.stats.decode_steps += 1
-        tok_np = self._sample_rows(logits)  # one sync per step
+        self.stats.decode_dispatches += 2  # the decode step + the sample
+        tok_np = self._sample_rows(  # one sync per step
+            logits, [(i, r) for i, r in enumerate(self.slots)
+                     if r is not None and active_list[i]])
         self.stats.wall_decode_s += time.monotonic() - t0
         for i, req in enumerate(self.slots):
             if req is None or not active_list[i]:

@@ -599,3 +599,128 @@ def test_hybrid_engine_on_card_launches_its_kernels(cuda_device):
     assert all(counts[k] > 0 for k in (
         "ssd_intra_chunk", "int8_gemv", "int8_gemm_tc",
         "paged_decode_attention", "flash_attention")), counts
+
+
+# ------------------------------------------------ decode as a CUDA graph
+def _graph_engines(arch, quant, overlap=(False, False)):
+    """Two engines on one reduced model's weights (card, 4 slots)."""
+    from repro_torch.launch.serve import build_client
+    from repro_torch.serving.core import EngineCore
+
+    cfg, client = build_client(arch, reduced=True, quant=quant, max_seq=128,
+                               device="cuda")
+    params = client.router.cores[0].params
+    return cfg, [EngineCore(cfg, params, max_batch=4, max_seq=128,
+                            eos_id=-1, overlap=o, device="cuda")
+                 for o in overlap]
+
+
+def _serve(engine, stochastic=False, n=6, max_new=6):
+    from repro_torch.serving.core import Request
+    from repro_torch.serving.scheduler import SamplingParams
+
+    reqs = [Request(rid=i, prompt=[3 + i, 17, 99, 5] * (i + 1),
+                    max_new_tokens=max_new,
+                    sampling=SamplingParams(temperature=0.8, top_k=20,
+                                            top_p=0.9, seed=7 + i)
+                    if stochastic and i % 2 else None)
+            for i in range(n)]
+    for r in reqs:
+        engine.add_request(r)
+    engine.run()
+    torch.cuda.synchronize()
+    return [(r.out_tokens, r.finish_reason) for r in reqs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama2-7b", "zamba2-7b"])
+@pytest.mark.parametrize("quant", ["w8a8", "w4a16"])
+def test_decode_graph_matches_eager_bit_for_bit(cuda_device, arch, quant):
+    """The replayed decode step runs the eager step's kernels in its order:
+    the same logits, bit for bit, at each of three steps, and the same
+    token streams over a whole trace."""
+    import numpy as np
+
+    from repro_torch.serving import graphs
+    from repro_torch.serving.core import Request
+
+    cfg, (a, b) = _graph_engines(arch, quant)
+    for e in (a, b):
+        for i in range(3):
+            e.add_request(Request(rid=i, prompt=[5 + i, 11, 42, 9] * (i + 2),
+                                  max_new_tokens=8))
+        e._admit_continuous()
+    active = np.array([True, True, True, False])
+    for _ in range(3):
+        logits = []
+        for e, eager in ((a, True), (b, False)):
+            e.graph.stage(e.last_np, active, e.block)
+            if eager:
+                with graphs.disabled():
+                    logits.append(e.graph.run("sync", e.cache).clone())
+            else:
+                logits.append(e.graph.run("sync", e.cache).clone())
+            e.last_np[:] = logits[-1].argmax(-1).cpu().numpy()
+        assert torch.equal(logits[0][:3], logits[1][:3])
+        assert torch.equal(a.cache["lens"], b.cache["lens"])
+    assert a.graph.replays == 0 and b.graph.replays == 3
+    _, (c, d) = _graph_engines(arch, quant)
+    with graphs.disabled():
+        eager = _serve(c)
+    assert _serve(d) == eager
+    assert c.graph.replays == 0 and d.graph.replays == d.stats.decode_steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama2-7b", "zamba2-7b"])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_overlap_matches_sync_on_card(cuda_device, arch, stochastic):
+    _, (sync, olap) = _graph_engines(arch, "w8a8", overlap=(False, True))
+    assert _serve(olap, stochastic) == _serve(sync, stochastic)
+    assert sync.stats.decode_dispatches == 2 * sync.stats.decode_steps
+    assert olap.stats.decode_dispatches == olap.stats.decode_steps
+    assert olap.graph.replays == olap.stats.decode_steps
+    kinds = {"fused", "fused_greedy"} if stochastic else {"fused_greedy"}
+    assert set(olap.graph._graphs) == kinds
+
+
+@pytest.mark.gpu
+def test_moved_cache_tensor_raises_before_replay(cuda_device):
+    """A cache tensor rebound after capture (here the K pool) makes the
+    next step raise instead of replaying over memory the cache no longer
+    owns; nothing is recaptured."""
+    _, (e, _unused) = _graph_engines("llama2-7b", "w8a8")
+    _serve(e, max_new=3)
+    replays = e.graph.replays
+    e.cache["k"] = e.cache["k"].clone()
+    from repro_torch.serving.core import Request
+
+    e.add_request(Request(rid=99, prompt=[4, 5, 6, 7], max_new_tokens=4))
+    with pytest.raises(RuntimeError, match="moved since capture"):
+        e.run()
+    assert e.graph.replays == replays and set(e.graph._graphs) == {"sync"}
+
+
+@pytest.mark.gpu
+def test_launch_counters_count_replays(cuda_device):
+    """After capture, n replays add n times the captured launches of each
+    kernel, and nothing else."""
+    _, (e, _unused) = _graph_engines("llama2-7b", "w8a8")
+    _serve(e, n=4, max_new=3)    # captures the sync step
+    delta = e.graph._deltas["sync"]
+    assert delta["int8_gemv"] > 0 and delta["paged_decode_attention"] > 0
+    from repro_torch.serving.core import Request
+
+    for i in range(4):
+        e.add_request(Request(rid=10 + i, prompt=[4 + i, 5, 6, 7],
+                              max_new_tokens=5))
+    e._admit_continuous()
+    kernels.reset_launch_counts()
+    steps, replays = e.stats.decode_steps, e.graph.replays
+    for _ in range(3):
+        e.step()
+    torch.cuda.synchronize()
+    n = e.graph.replays - replays
+    assert n == e.stats.decode_steps - steps == 3
+    counts = kernels.launch_counts()
+    assert counts == {k: n * delta.get(k, 0) for k in counts}, counts

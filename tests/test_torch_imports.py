@@ -28,7 +28,8 @@ def test_port_imports_neither_jax_nor_repro():
               "kernels.ecc_decode.ops", "kernels.w4a16_gemv.ops",
               "examples.quickstart", "examples.ecc_resilience",
               "models.ssm", "kernels.ssd_scan.ops", "kernels.ssd_scan.ref",
-              "configs.zamba2_7b", "configs.mamba2_130m"):
+              "configs.zamba2_7b", "configs.mamba2_130m", "serving.graphs",
+              "serving.threefry", "serving.sampler"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -115,15 +116,14 @@ def test_unported_options_raise():
     cfg = get_arch("smollm-360m").reduced()
     params = M.init_params(cfg, device="cpu")
     for kw in (dict(mode="wave"), dict(kv_tier="flash"),
-               dict(prefix_cache=True), dict(overlap=True),
-               dict(kv_dtype="int8"),
+               dict(prefix_cache=True), dict(kv_dtype="int8"),
                dict(scheduler=make_scheduler("fcfs", chunk_tokens=8))):
         with pytest.raises(NotImplementedError):
             EngineCore(cfg, params, device="cpu", **kw)
-    eng = EngineCore(cfg, params, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.add_request(Request(rid=0, prompt=[1, 2],
-                                sampling=SamplingParams(temperature=0.7)))
+    # the overlapped loop and stochastic sampling are ported
+    eng = EngineCore(cfg, params, device="cpu", overlap=True)
+    eng.add_request(Request(rid=0, prompt=[1, 2],
+                            sampling=SamplingParams(temperature=0.7)))
     with pytest.raises(NotImplementedError):
         eng.snapshot_slot(0)
     with pytest.raises(NotImplementedError):
