@@ -111,9 +111,12 @@ Phases, each printing its own lines:
             B1 and the GeMV counted through replays.  Prints the decode
             wall ms a step three ways (a synchronized clock around the
             decode loop of 4 slots), host launch calls a step and the
-            device's busy share (torch.profiler device time over that wall
-            time).  Then zamba2-7b W8A8: 4 greedy requests of 16 tokens,
-            synchronous and overlapped identical.
+            device's busy share: torch.profiler's device kernel ms a step
+            (6 steps) over that wall ms, and over the profiled window's own
+            wall, which the profiler stretches; and the overlapped wall
+            with every row sampled.  Then zamba2-7b W8A8: 4 greedy
+            requests of 16 tokens, synchronous and overlapped identical,
+            and its decode wall ms a step synchronous and overlapped.
 
 Every serving phase's engine replays one CUDA graph a decode step
 (``serving/graphs.py``); the launch counters count each replay's kernels.
@@ -1524,6 +1527,10 @@ def _serve_full(torch, arch: str, tag: str, smi: str, quant: str = "w8a8",
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, resident "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on {smi}; "
         f"launches {counts}")
+    log(f"[{tag}] decode: {core.graph.replays} CUDA graph replays; the "
+        f"first step's warm-up and capture took "
+        f"{sum(core.graph.capture_s.values()) * 1e3:.0f} ms of the decode "
+        f"wall above on {smi}")
     missing = [k for k, phase in COUNTED_IN.items()
                if phase == tag and counts[k] <= 0 and k not in OFF_PATH]
     missing += [k for k in SERVING_KERNELS + tuple(required)
@@ -2012,19 +2019,21 @@ def _check_graph_run(core, run: dict, tag: str, mode: str) -> None:
                                  f"launch it {per_replay} times")
 
 
-def _decode_wall(torch, client, prompts, max_new,
-                 eager=False) -> tuple[float, int]:
-    """Wall ms a decode step of 4 slots, from a synchronized clock around
-    the whole decode loop: the 4 prompts admitted (one prefill group and
-    the first step) before the clock starts, the loop run to its end (the
-    overlapped loop's last drain included)."""
+def _decode_wall(torch, client, prompts, max_new, eager=False,
+                 sampling=None) -> tuple[float, int]:
+    """(wall ms a decode step of 4 slots, steps timed), from a
+    synchronized clock around the whole decode loop: the 4 prompts
+    admitted (one prefill group and the first step) before the clock
+    starts, the loop run to its end (the overlapped loop's last drain
+    included).  ``sampling``: every request's SamplingParams (None:
+    greedy)."""
     import contextlib
 
     from repro_torch.serving import graphs
 
     core = client.router.cores[0]
     for p in prompts:
-        client.submit(p, max_new_tokens=max_new)
+        client.submit(p, max_new_tokens=max_new, sampling=sampling)
     with graphs.disabled() if eager else contextlib.nullcontext():
         client.pump()
         torch.cuda.synchronize()
@@ -2038,10 +2047,13 @@ def _decode_wall(torch, client, prompts, max_new,
     return wall * 1e3 / steps, steps
 
 
-def _decode_profile(torch, client, prompts, eager=False,
-                    steps: int = 6) -> tuple[float | None, float]:
-    """(device kernel ms, host launch calls) a decode step, from
-    torch.profiler over ``steps`` steps of 4 slots."""
+def _decode_profile(torch, client, prompts, eager=False, steps: int = 6
+                    ) -> tuple[float | None, float, float | None]:
+    """(device kernel ms, host launch calls, device busy share) a decode
+    step, from torch.profiler over ``steps`` steps of 4 slots, the window
+    opened and closed by a synchronize (for the overlapped loop: the steps
+    dispatched inside it); the busy share is the device kernel time over
+    the window's wall time."""
     import contextlib
 
     from torch.profiler import ProfilerActivity, profile
@@ -2055,13 +2067,16 @@ def _decode_profile(torch, client, prompts, eager=False,
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             for _ in range(steps):
                 client.pump()
             torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         client.run()
     dev = _device_ms(prof)
     return (dev / steps if dev is not None else None,
-            sum(_host_launches(prof).values()) / steps)
+            sum(_host_launches(prof).values()) / steps,
+            dev / (wall * 1e3) if dev is not None else None)
 
 
 def phase_serve_overlap(torch, smi: str) -> None:
@@ -2144,19 +2159,29 @@ def phase_serve_overlap(torch, smi: str) -> None:
     walls = {"sync eager": _decode_wall(torch, sync, tprompts, 64, True),
              "sync graph": _decode_wall(torch, sync, tprompts, 64),
              "overlap": _decode_wall(torch, olap, tprompts, 64)}
+    sampled = SamplingParams(temperature=0.8, top_k=20, top_p=0.9, seed=5)
+    wall_s, steps_s = _decode_wall(torch, olap, tprompts, 64,
+                                   sampling=sampled)
     prof = {"sync eager": _decode_profile(torch, sync, tprompts, True),
             "sync graph": _decode_profile(torch, sync, tprompts),
             "overlap": _decode_profile(torch, olap, tprompts)}
     for mode, (wall, steps) in walls.items():
-        dev, launches = prof[mode]
-        busy = (f"{100 * dev / wall:.1f}%" if dev is not None
-                else "not measured")
-        dev_s = f"{dev:.2f}" if dev is not None else "not measured"
+        dev, launches, busy_prof = prof[mode]
+        if dev is None:
+            dev_s = busy = busy_prof = "not measured"
+        else:
+            dev_s = f"{dev:.2f}"
+            busy = f"{100 * dev / wall:.1f}%"
+            busy_prof = f"{100 * busy_prof:.1f}%"
         log(f"[{tag}] llama2-7b decode, 4 slots at 200-364 tokens, {mode}: "
             f"wall {wall:.2f} ms/step (synchronized clock around the decode "
-            f"loop, {steps} steps), host launch calls {launches:.1f}/step, device "
-            f"kernels {dev_s} ms/step (profiled, 6 steps), device busy "
-            f"{busy} on {smi}")
+            f"loop, {steps} steps), host launch calls {launches:.1f}/step, "
+            f"device kernels {dev_s} ms/step (torch.profiler over 6 steps), "
+            f"device busy {busy} of the wall (device kernel ms over wall ms; "
+            f"{busy_prof} within the profiled window) on {smi}")
+    log(f"[{tag}] llama2-7b decode, overlap, every row sampled (temperature "
+        f"0.8, top-k 20, top-p 0.9): wall {wall_s:.2f} ms/step ({steps_s} "
+        f"steps; greedy {walls['overlap'][0]:.2f}) on {smi}")
     del sync, olap, core, ocore
     gc.collect()
     torch.cuda.empty_cache()
@@ -2176,6 +2201,12 @@ def phase_serve_overlap(torch, smi: str) -> None:
         f"and overlap identical; decode steps {rz_s['steps']} / "
         f"{rz_o['steps']}, replays {rz_s['replays']} / {rz_o['replays']}; "
         f"overlap launches {rz_o['counts']}")
+    zw = {mode: _decode_wall(torch, c, tprompts, 32)
+          for mode, c in (("sync graph", sync), ("overlap", olap))}
+    log(f"[{tag}] zamba2-7b decode, 4 slots at 200-332 tokens: wall "
+        + ", ".join(f"{mode} {w:.2f} ms/step ({n} steps)"
+                    for mode, (w, n) in zw.items())
+        + f" (synchronized clock around the decode loop) on {smi}")
     del sync, olap, core
     gc.collect()
     torch.cuda.empty_cache()

@@ -72,7 +72,8 @@ class ServingClient:
     """User-facing serving surface over N engine replicas: wrap a router
     (``router=``) or let the client build one from ``(cfg, params)`` with
     ``replicas`` / ``route`` and any EngineCore keyword (``max_batch``,
-    ``max_seq``, ``scheduler``, ``device``, ...)."""
+    ``max_seq``, ``scheduler``, ``overlap``, ``device``, ...); a request's
+    ``SamplingParams`` may be stochastic."""
 
     def __init__(self, cfg=None, params=None, *, router: Router = None,
                  replicas: int = 1, route: str = "round_robin",

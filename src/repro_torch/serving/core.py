@@ -420,9 +420,6 @@ class EngineCore:
         # a fresh copy on the device: the host arrays keep changing
         return torch.tensor(arr, device=self.device)
 
-    def _cache_in(self) -> dict:
-        return {**self.cache, "block": self._tensor(self.block)}
-
     def _release_slot(self, i: int) -> None:
         # a pending fused-step row of this slot is stale now: the epoch
         # bump makes the lagged drain skip it
@@ -533,7 +530,8 @@ class EngineCore:
         t0 = time.monotonic()
         logits, out_cache = model_lib.prefill_into_slots(
             self.params, self.cfg, self._tensor(toks),
-            self._tensor(true_lens), self._cache_in(),
+            self._tensor(true_lens),
+            {**self.cache, "block": self._tensor(self.block)},
             self._tensor(slot_ids))
         # the pools were written in place; the lengths keep their storage,
         # which a captured decode step reads and writes

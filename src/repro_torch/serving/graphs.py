@@ -35,6 +35,7 @@ eagerly on the same buffers.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Optional
 
 import numpy as np
@@ -102,6 +103,7 @@ class DecodeGraph:
         self._pointers: dict[str, list[int]] = {}
         self._pool = None
         self.replays = 0
+        self.capture_s: dict[str, float] = {}  # warm-up + capture, wall
         if self._cuda:
             self._staging = [torch.zeros((n,), dtype=torch.int32,
                                          pin_memory=True) for _ in range(2)]
@@ -229,6 +231,7 @@ class DecodeGraph:
         modules, then capture it into the engine's memory pool.  The
         wrappers count their launches while capturing; those are taken
         back and added again on every replay."""
+        t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
         saved_tok = self.tok_dev.clone()
         self.active.zero_()
@@ -253,3 +256,4 @@ class DecodeGraph:
         self._outputs[kind] = out
         self._deltas[kind] = delta
         self._pointers[kind] = [t.data_ptr() for t in _cache_tensors(cache)]
+        self.capture_s[kind] = time.perf_counter() - t0

@@ -20,6 +20,7 @@ and masked back to 32 bits after each add and rotate.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK = 0xFFFFFFFF
@@ -86,9 +87,11 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     [1, 2), minus 1, scaled to [minval, maxval) and clamped below."""
     b = bits(key, shape)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, f * (hi - lo) + lo)
+    # float32 bounds as Python scalars (a tensor made from a host value
+    # would be a host-to-device copy, which a CUDA graph cannot capture)
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))
+    return torch.clamp_min(f * span + lo, lo)
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:

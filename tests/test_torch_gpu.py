@@ -654,6 +654,7 @@ def test_decode_graph_matches_eager_bit_for_bit(cuda_device, arch, quant):
     for _ in range(3):
         logits = []
         for e, eager in ((a, True), (b, False)):
+            e._ensure_pages()   # a slot crossing a page boundary gets one
             e.graph.stage(e.last_np, active, e.block)
             if eager:
                 with graphs.disabled():
@@ -680,8 +681,7 @@ def test_overlap_matches_sync_on_card(cuda_device, arch, stochastic):
     assert sync.stats.decode_dispatches == 2 * sync.stats.decode_steps
     assert olap.stats.decode_dispatches == olap.stats.decode_steps
     assert olap.graph.replays == olap.stats.decode_steps
-    kinds = {"fused", "fused_greedy"} if stochastic else {"fused_greedy"}
-    assert set(olap.graph._graphs) == kinds
+    assert ("fused" in olap.graph._graphs) == stochastic
 
 
 @pytest.mark.gpu
