@@ -43,8 +43,11 @@ SIGNATURES = {
     "repro_int8_gemv_dp4a": [_P, _P, _P, _I, _I, _I, _P],
     "repro_int8_gemm": [_P, _P, _P, _I, _I, _I, _P],
     "repro_int8_gemm_tc": [_P, _P, _P, _I, _I, _I, _P],
-    "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _I, _I, _I, _I, _I, _F, _P],
+    "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                     _P],
+    "repro_paged_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                               ctypes.POINTER(ctypes.c_longlong), _F, _P],
     "repro_ecc_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -1,67 +1,87 @@
-// Paged GQA decode attention: one query token per (slot, head) against the
-// slot's pages of one layer's K/V page pool.
+// Paged GQA attention over one layer's K/V page pool: one query token per
+// (slot, head) at decode (B1), and the queries of one slot's prefill chunk
+// (the paged chunk kernel), both from one set of per-split device functions.
 //
-//   q     bf16 [B, H, D]            this step's queries (rope applied)
-//   k, v  bf16 [P, page, Hkv, D]    the layer's page pools
-//   block int32 [B, pps]            page ids of each slot (0 = null page)
-//   lens  int32 [B]                 valid tokens per slot (new token included)
-//   ws    f32  [B, H, n_split, D+2] the splits' partials (scratch)
-//   out   bf16 [B, H, D]
+//   q      bf16 [B, H, D]            decode: this step's queries (rope applied)
+//          bf16 [C, H, D]            chunk: the chunk's queries
+//   k, v   bf16 or int8 [P, page, Hkv, D]   the layer's page pools
+//   ks, vs f32 [P, page, Hkv]        int8 pools only: one scale per row and head
+//   block  int32 [B, pps]            decode: page ids of each slot (0 = null page)
+//          int32 [pps]               chunk: the slot's block-table row
+//   lens   int32 [B]                 decode: valid tokens per slot (new token included)
+//   ws     f32  [rows, H, n_split, D+2]  the splits' partials (scratch)
+//   out    bf16 [B or C, H, D]
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/decode_attention/decode_attention.py::gqa_decode_attention
 // and its paged front-end ops.py::paged_decode_attention_op, which first
-// gathers every slot's pages into a contiguous [B, Smax, Hkv, D] copy.  This
-// kernel reads the block table itself, so no copy of the cache is made.
+// gathers every slot's pages into a contiguous [B, Smax, Hkv, D] copy; the
+// chunk kernel computes src/repro/models/attention.py::paged_chunk_attention,
+// which the JAX package runs in jnp (it has no Pallas kernel).  These kernels
+// read the block table themselves, so no copy of the cache is made.
 //
-// What bounds it on the H100: each valid K/V row is read once and used for
-// 2*D operations per grouped head, far below the card's 295 operations per
-// byte, so it is bound by device memory bytes (the slots' valid K/V rows).
-// The tensor cores do not help: the served models are MHA (one query row
-// per K/V row).  What matters is having the bytes in flight on every SM.
+// What bounds them on the H100: each valid K/V row is read once per CTA and
+// used for 2*D operations per grouped head and query, far below the card's
+// 295 operations per byte at decode, so B1 is bound by device memory bytes
+// (the slots' valid K/V rows).  The chunk kernel reads each split's rows once
+// per tile of kChunkTile queries and does the math on CUDA cores in float32,
+// as B1 does: its bound is the bytes at small chunks and the operations
+// (at the bf16 tensor-core peak, which it does not use) at long ones.  int8
+// pools halve the bytes: codes and one float32 scale per row and head.
 //
 // Design: split-KV with a fixed-order combine, two kernels launched from one
-// C entry.
-//  * Split kernel, one CTA (128 threads) per (split, kv head, slot).  A
-//    split is kSplit = 64 keys; split s holds keys [64 s, 64 s + 64) of
-//    its slot, so a slot's splits and their arithmetic depend on its own
-//    length alone (never on B, pps, the page size or the SM count).  CTAs
-//    past a slot's last split return at once.
+// C entry each.
+//  * Split kernel, one CTA (128 threads) per (split, kv head, slot) at
+//    decode, per (split, kv head, tile of kChunkTile chunk queries) for a
+//    chunk.  A split is kSplit = 64 keys; split s holds keys [64 s, 64 s +
+//    64) of its slot, so a query's splits and their arithmetic depend on its
+//    own length alone (never on B, C, pps, the page size or the SM count).
+//    CTAs past the last split of their slot (decode) or of their tile's last
+//    query (chunk) return at once.
 //  * The CTA issues every 16-byte chunk of its split's valid K rows, then of
 //    its V rows, as cp.async copies into shared memory (two commit groups),
-//    so all of the split's bytes (32 KB at D = 128) are in flight at once
-//    and V arrives while K is reduced.  32 KB a CTA lets 7 CTAs share an
-//    SM, so nearly all of a batch's splits are in flight together.  Rows past the length are not loaded:
-//    their scores are set to -1e30 and the V sum stops at the length.  The
-//    chunks are numbered row-major over D/8 chunks a row, so D = 112 (14
-//    chunks) uses every thread as D = 128 does.  Page ids come from the
-//    block table, read in-kernel, one per key.
-//  * Scores: D/8 lanes per key (rounded up to a power of two) read the K row
-//    from shared memory; the grouped heads of the kv head (GQA) share it;
-//    lane shuffles sum the dot products.  Scaled by 1/sqrt(D); keys past the
-//    length at -1e30.  Then per grouped head the split's max m, p = exp(s - m)
-//    and l = sum p.  p @ V from shared memory with the same lane layout: a
-//    thread sums its 8 dims over every 8th key (D >= 72), and the partial
-//    sums are merged in a fixed order.  The partial (acc[D], m, l) goes to
-//    the workspace in float32.
-//  * Combine kernel, one CTA per (head, slot): M = max of the splits' m;
-//    out = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M), both sums taken
-//    in split-index order, rounded once to bf16.  A length-0 slot has no
-//    split and comes out 0, finite (the Pallas kernel gives the uniform mean
-//    there; callers ignore inactive lanes either way).
-//  Every sum is taken in an order fixed by the key's position, so a slot's
-//  output bits are the same in any batch and under any block-table width.
+//    so all of the split's bytes (32 KB at D = 128 in bf16) are in flight at
+//    once and V arrives while K is reduced.  Rows past the length are not
+//    loaded: their scores are set to -1e30 and the V sum stops at the
+//    length.  Page ids come from the block table, read in-kernel, one per
+//    key; an int8 pool's scales come beside the rows.
+//  * Per query (decode: the one; chunk: each query of the tile in turn, the
+//    split's rows loaded once for all of them), the same device functions:
+//    scores by D/8 lanes per key (rounded up to a power of two) over 8 dims
+//    each, the grouped heads of the kv head (GQA) sharing the K row, lane
+//    shuffles summing the dot products; an int8 element dequantized in
+//    registers as float(q) * scale, one float32 product.  Scaled by
+//    1/sqrt(D); keys past the query's length at -1e30.  Then per grouped
+//    head the split's max m, p = exp(s - m) and l = sum p; p @ V with the
+//    same lane layout, a thread summing its 8 dims over every 8th key
+//    (D >= 72), the partial sums merged in a fixed order.  The partial
+//    (acc[D], m, l) goes to the workspace in float32.  A chunk query i
+//    attends with length start + i + 1, so its partials are the bits B1
+//    computes for a slot of that length: the chunk kernel's output is B1's,
+//    bit for bit, whatever the chunk's size or start.
+//  * Combine kernel, one CTA per (head, slot or chunk query): M = max of the
+//    splits' m; out = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M), both
+//    sums taken in split-index order, rounded once to bf16.  A length-0 slot
+//    has no split and comes out 0, finite (the Pallas kernel gives the
+//    uniform mean there; callers ignore inactive lanes either way); so do
+//    the chunk's padding rows (i >= n_valid), which callers discard.
+//  Every sum is taken in an order fixed by the key's position, so a query's
+//  output bits are the same in any batch, under any block-table width and in
+//  any chunk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSplit = 64;  // keys per split; the wrapper's ref.SPLIT
+constexpr int kSplit = 64;      // keys per split; the wrapper's ref.SPLIT
+constexpr int kChunkTile = 16;  // chunk queries per CTA
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
@@ -72,6 +92,18 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }
+}
+
+// 8 elements of a K or V row as float32: bf16 as they are, int8 codes times
+// the row's scale (JAX's dequantize_rows: one float32 product)
+__device__ __forceinline__ void load_row8(const __nv_bfloat16* p, float, float* f) {
+  load8(p, f);
+}
+__device__ __forceinline__ void load_row8(const int8_t* p, float scale, float* f) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = static_cast<float>(c[i]) * scale;
 }
 
 // 16 bytes global -> shared, asynchronous (cached in L2 only)
@@ -87,89 +119,119 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+struct Params {
+  const __nv_bfloat16* q;
+  const void* k;     // KT [P, page, Hkv, D]
+  const void* v;
+  const float* ks;   // int8 pools: [P, page, Hkv] scales; else null
+  const float* vs;
+  const int* block;  // decode [B, pps]; chunk [pps]
+  const int* lens;   // decode only
+  float* ws;
+  __nv_bfloat16* out;
+  int start;         // chunk: cache position of query 0
+  int n_valid;       // chunk: queries computed (the rest come out 0)
+  int H, Hkv, page, pps, n_split;
+  float scale;
+};
+
+// lane layout of the per-query arithmetic: D/8 lanes per key (8 dims each),
+// rounded up to a power of two so a key's lanes never straddle two keys and
+// the shuffle sum stays within them
 template <int D>
-constexpr int smem_bytes() {
-  return 2 * kSplit * D * 2;  // the split's K and V rows, bf16
+struct Lanes {
+  static constexpr int kChunks = D / 8;
+  static constexpr int kPerTok = kChunks <= 2 ? 2 : kChunks <= 4 ? 4 : kChunks <= 8 ? 8 : 16;
+  static constexpr int kTokPerWarp = 32 / kPerTok;
+  static constexpr int kGroups = kWarps * kTokPerWarp;  // key groups of the p @ V sums
+  static_assert(kSplit % kGroups == 0, "split must divide evenly");
+};
+
+template <typename KT>
+constexpr bool is_int8() {
+  return std::is_same<KT, int8_t>::value;
 }
 
-template <int D, int MAXR>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
-                                    const __nv_bfloat16* __restrict__ k_pages,
-                                    const __nv_bfloat16* __restrict__ v_pages,
-                                    const int* __restrict__ block_table,
-                                    const int* __restrict__ lengths,
-                                    float* __restrict__ ws, int H, int Hkv, int page,
-                                    int pps, int n_split, float scale) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  // lanes per key: kChunks rounded up to a power of two, so a key's lanes
-  // never straddle two keys and the shuffle sum stays within them
-  constexpr int kLanesPerTok = kChunks <= 2 ? 2 : kChunks <= 4 ? 4 : kChunks <= 8 ? 8 : 16;
-  constexpr int kTokPerWarp = 32 / kLanesPerTok;
-  static_assert(kSplit % (kWarps * kTokPerWarp) == 0, "split must divide evenly");
-  static_assert(kWarps * MAXR * D * 4 <= kSplit * D * 2, "the warps' V sums fit in the K rows");
+// dynamic shared memory: the split's K and V rows, an int8 pool's row
+// scales, and the warps' p @ V sums; B1 over bf16 pools keeps those sums in
+// the K rows once the scores are done (its layout before int8 and chunks)
+template <int D, int MAXR, typename KT, bool kChunk>
+constexpr bool red_in_k_rows() {
+  return !kChunk && !is_int8<KT>();
+}
+template <int D, int MAXR, typename KT, bool kChunk>
+constexpr int smem_bytes() {
+  return 2 * kSplit * D * static_cast<int>(sizeof(KT)) + (is_int8<KT>() ? 2 * kSplit * 4 : 0) +
+         (red_in_k_rows<D, MAXR, KT, kChunk>() ? 0 : kWarps * MAXR * D * 4);
+}
 
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kSplit][D]
-  __nv_bfloat16* sv = sk + kSplit * D;                                // [kSplit][D]
-  __shared__ float s_p[MAXR][kSplit];  // scores, then probabilities
-  __shared__ int s_row[kSplit];        // pool row (pid * page + offset) per key
-  __shared__ float s_m[MAXR], s_l[MAXR];
-
-  const int split = blockIdx.x;
-  const int g = blockIdx.y;  // kv head
-  const int b = blockIdx.z;  // slot
-  const int L = min(lengths[b], pps * page);  // the plain version masks no key past its rows
-  const int t0 = split * kSplit;
-  if (t0 >= L) return;  // past the slot's last split: the whole CTA leaves
-  const int n_tok = min(kSplit, L - t0);
-  const int n_rep = H / Hkv;
+// issue the split's n_tok K rows, then its V rows, as 16-byte cp.async
+// copies (two commit groups); an int8 pool's row scales by plain loads
+template <int D, typename KT>
+__device__ __forceinline__ void issue_split_loads(const Params& p, int g, const int* s_row,
+                                                  int n_tok, KT* sk, KT* sv, float* sks,
+                                                  float* svs) {
+  constexpr int kCopies = D * static_cast<int>(sizeof(KT)) / 16;  // per row
+  const size_t row_stride = static_cast<size_t>(p.Hkv) * D;        // elements per pool row
+  const KT* kg = static_cast<const KT*>(p.k) + static_cast<size_t>(g) * D;
+  const KT* vg = static_cast<const KT*>(p.v) + static_cast<size_t>(g) * D;
   const int tid = threadIdx.x;
-
-  for (int i = tid; i < n_tok; i += kThreads) {
-    const int t = t0 + i;
-    s_row[i] = block_table[static_cast<size_t>(b) * pps + t / page] * page + t % page;
-  }
-  __syncthreads();
-  const size_t row_stride = static_cast<size_t>(Hkv) * D;  // elements per pool row
-  const __nv_bfloat16* kg = k_pages + static_cast<size_t>(g) * D;
-  const __nv_bfloat16* vg = v_pages + static_cast<size_t>(g) * D;
-  for (int i = tid; i < n_tok * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    cp_async16(sk + r * D + c * 8, kg + s_row[r] * row_stride + c * 8);
+  for (int i = tid; i < n_tok * kCopies; i += kThreads) {
+    const int r = i / kCopies, c = i % kCopies;
+    cp_async16(reinterpret_cast<uint8_t*>(sk + r * D) + c * 16,
+               reinterpret_cast<const uint8_t*>(kg + s_row[r] * row_stride) + c * 16);
   }
   cp_async_commit();
-  for (int i = tid; i < n_tok * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    cp_async16(sv + r * D + c * 8, vg + s_row[r] * row_stride + c * 8);
+  for (int i = tid; i < n_tok * kCopies; i += kThreads) {
+    const int r = i / kCopies, c = i % kCopies;
+    cp_async16(reinterpret_cast<uint8_t*>(sv + r * D) + c * 16,
+               reinterpret_cast<const uint8_t*>(vg + s_row[r] * row_stride) + c * 16);
   }
   cp_async_commit();
+  if constexpr (is_int8<KT>()) {
+    for (int i = tid; i < n_tok; i += kThreads) {
+      sks[i] = p.ks[static_cast<size_t>(s_row[i]) * p.Hkv + g];
+      svs[i] = p.vs[static_cast<size_t>(s_row[i]) * p.Hkv + g];
+    }
+  }
+}
 
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int chunk = lane % kLanesPerTok;  // this lane's 8 dims of a row
-  const int tsub = lane / kLanesPerTok;   // this lane's key within a pass
-  const bool has_chunk = chunk < kChunks;
-  float qf[MAXR][8];
+// this lane's 8 dims of each grouped head's query (zeros past the heads)
+template <int D, int MAXR>
+__device__ __forceinline__ void load_queries(const __nv_bfloat16* qh, int n_rep,
+                                             float (&qf)[MAXR][8]) {
+  using LN = Lanes<D>;
+  const int chunk = (threadIdx.x % 32) % LN::kPerTok;
+  const bool has_chunk = chunk < LN::kChunks;
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) {
     if (r < n_rep && has_chunk) {
-      load8(q + (static_cast<size_t>(b) * H + g * n_rep + r) * D + chunk * 8, qf[r]);
+      load8(qh + r * D + chunk * 8, qf[r]);
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) qf[r][e] = 0.f;
     }
   }
+}
 
-  cp_async_wait<1>();  // this thread's K chunks have landed
-  __syncthreads();     // and everyone's
-  for (int tt = warp * kTokPerWarp + tsub; tt < kSplit; tt += kWarps * kTokPerWarp) {
+// s_p[r][t] = q_r . k_t * scale for the split's keys t < n_tok, -1e30 past them
+template <int D, int MAXR, typename KT>
+__device__ __forceinline__ void split_scores(const float (&qf)[MAXR][8], const KT* sk,
+                                             const float* sks, float (*s_p)[kSplit], int n_tok,
+                                             int n_rep, float scale) {
+  using LN = Lanes<D>;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int chunk = lane % LN::kPerTok;  // this lane's 8 dims of a row
+  const int tsub = lane / LN::kPerTok;   // this lane's key within a pass
+  const bool has_chunk = chunk < LN::kChunks;
+  for (int tt = warp * LN::kTokPerWarp + tsub; tt < kSplit; tt += LN::kGroups) {
     float dot[MAXR];
 #pragma unroll
     for (int r = 0; r < MAXR; ++r) dot[r] = 0.f;
     if (has_chunk && tt < n_tok) {
       float kf[8];
-      load8(sk + tt * D + chunk * 8, kf);
+      load_row8(sk + tt * D + chunk * 8, is_int8<KT>() ? sks[tt] : 0.f, kf);
 #pragma unroll
       for (int r = 0; r < MAXR; ++r) {
 #pragma unroll
@@ -179,7 +241,7 @@ paged_decode_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < MAXR; ++r) {
 #pragma unroll
-      for (int off = kLanesPerTok / 2; off > 0; off /= 2) {
+      for (int off = LN::kPerTok / 2; off > 0; off /= 2) {
         dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], off);
       }
     }
@@ -190,8 +252,14 @@ paged_decode_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
-  __syncthreads();
-  // the split's softmax numerators, one warp per grouped head
+}
+
+// the split's softmax numerators in place, one warp per grouped head
+template <int MAXR>
+__device__ __forceinline__ void split_softmax(float (*s_p)[kSplit], float* s_m, float* s_l,
+                                              int n_rep) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   for (int r = warp; r < n_rep; r += kWarps) {
     float mx = kNegInf;
     for (int j = lane; j < kSplit; j += 32) mx = fmaxf(mx, s_p[r][j]);
@@ -199,9 +267,9 @@ paged_decode_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
     for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     float sum = 0.f;
     for (int j = lane; j < kSplit; j += 32) {
-      const float p = expf(s_p[r][j] - mx);
-      s_p[r][j] = p;
-      sum += p;
+      const float e = expf(s_p[r][j] - mx);
+      s_p[r][j] = e;
+      sum += e;
     }
 #pragma unroll
     for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -210,14 +278,23 @@ paged_decode_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
       s_l[r] = sum;
     }
   }
-  cp_async_wait<0>();  // V
-  __syncthreads();
-  // acc = p @ v: each thread sums the 8 dims of its lane's chunk over the
-  // keys of its key group (keys kgi, kgi + 8, ... at D = 128), 16-byte rows
-  // from shared memory; the key groups are then summed in a fixed order,
-  // lane shuffles within a warp and the four warps through shared memory
-  // (the K rows, done with, hold the warps' sums)
-  constexpr int kGroups = kWarps * kTokPerWarp;
+}
+
+// acc = p @ v: each thread sums the 8 dims of its lane's chunk over the keys
+// of its key group (keys kgi, kgi + 8, ... at D = 128), 16-byte rows from
+// shared memory; the key groups are then summed in a fixed order, lane
+// shuffles within a warp here and the four warps by split_store, through
+// red [kWarps][MAXR][D]
+template <int D, int MAXR, typename KT>
+__device__ __forceinline__ void split_pv(const KT* sv, const float* svs,
+                                         const float (*s_p)[kSplit], int n_tok, int n_rep,
+                                         float* red) {
+  using LN = Lanes<D>;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int chunk = lane % LN::kPerTok;
+  const int tsub = lane / LN::kPerTok;
+  const bool has_chunk = chunk < LN::kChunks;
   float acc[MAXR][8];
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) {
@@ -225,28 +302,27 @@ paged_decode_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
   }
   if (has_chunk) {
-    for (int j = warp * kTokPerWarp + tsub; j < n_tok; j += kGroups) {
+    for (int j = warp * LN::kTokPerWarp + tsub; j < n_tok; j += LN::kGroups) {
       float vf[8];
-      load8(sv + j * D + chunk * 8, vf);
+      load_row8(sv + j * D + chunk * 8, is_int8<KT>() ? svs[j] : 0.f, vf);
 #pragma unroll
       for (int r = 0; r < MAXR; ++r) {
         if (r < n_rep) {
-          const float p = s_p[r][j];
+          const float pr = s_p[r][j];
 #pragma unroll
-          for (int e = 0; e < 8; ++e) acc[r][e] += p * vf[e];
+          for (int e = 0; e < 8; ++e) acc[r][e] += pr * vf[e];
         }
       }
     }
   }
 #pragma unroll
-  for (int off = kLanesPerTok; off < 32; off *= 2) {
+  for (int off = LN::kPerTok; off < 32; off *= 2) {
 #pragma unroll
     for (int r = 0; r < MAXR; ++r) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], off);
     }
   }
-  float* red = reinterpret_cast<float*>(sk);  // [kWarps][MAXR][D]
   if (tsub == 0 && has_chunk) {
 #pragma unroll
     for (int r = 0; r < MAXR; ++r) {
@@ -256,8 +332,14 @@ paged_decode_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
-  __syncthreads();
-  float* acc_out = ws + (static_cast<size_t>(b) * H + g * n_rep) * n_split * (D + 2);
+}
+
+// the warps' sums in warp order, then (acc[D], m, l) of each grouped head to
+// the workspace at acc_out [n_rep][n_split][D + 2]
+template <int D, int MAXR>
+__device__ __forceinline__ void split_store(const float* red, const float* s_m, const float* s_l,
+                                            float* acc_out, int n_split, int split, int n_rep) {
+  const int tid = threadIdx.x;
   for (int idx = tid; idx < n_rep * D; idx += kThreads) {
     const int r = idx / D;
     const int d = idx % D;
@@ -273,15 +355,122 @@ paged_decode_attention_split_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// the dynamic shared memory of a split CTA, carved
+template <int D, int MAXR, typename KT, bool kChunk>
+struct SplitSmem {
+  KT* sk;
+  KT* sv;
+  float* sks;
+  float* svs;
+  float* red;
+  __device__ __forceinline__ explicit SplitSmem(uint8_t* raw) {
+    sk = reinterpret_cast<KT*>(raw);  // [kSplit][D]
+    sv = sk + kSplit * D;             // [kSplit][D]
+    sks = reinterpret_cast<float*>(sv + kSplit * D);  // int8: [kSplit] each
+    svs = sks + kSplit;
+    red = red_in_k_rows<D, MAXR, KT, kChunk>() ? reinterpret_cast<float*>(sk)
+                                               : (is_int8<KT>() ? svs + kSplit : sks);
+  }
+};
+
+template <int D, int MAXR, typename KT>
+__global__ void __launch_bounds__(kThreads) paged_decode_attention_split_kernel(const Params p) {
+  static_assert(!red_in_k_rows<D, MAXR, KT, false>() ||
+                    kWarps * MAXR * D * 4 <= kSplit * D * static_cast<int>(sizeof(KT)),
+                "the warps' V sums fit in the K rows");
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const SplitSmem<D, MAXR, KT, false> sm(smem_raw);
+  __shared__ float s_p[MAXR][kSplit];  // scores, then probabilities
+  __shared__ int s_row[kSplit];        // pool row (pid * page + offset) per key
+  __shared__ float s_m[MAXR], s_l[MAXR];
+
+  const int split = blockIdx.x;
+  const int g = blockIdx.y;  // kv head
+  const int b = blockIdx.z;  // slot
+  const int L = min(p.lens[b], p.pps * p.page);  // the plain version masks no key past its rows
+  const int t0 = split * kSplit;
+  if (t0 >= L) return;  // past the slot's last split: the whole CTA leaves
+  const int n_tok = min(kSplit, L - t0);
+  const int n_rep = p.H / p.Hkv;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < n_tok; i += kThreads) {
+    const int t = t0 + i;
+    s_row[i] = p.block[static_cast<size_t>(b) * p.pps + t / p.page] * p.page + t % p.page;
+  }
+  __syncthreads();
+  issue_split_loads<D, KT>(p, g, s_row, n_tok, sm.sk, sm.sv, sm.sks, sm.svs);
+  float qf[MAXR][8];
+  load_queries<D, MAXR>(p.q + (static_cast<size_t>(b) * p.H + g * n_rep) * D, n_rep, qf);
+
+  cp_async_wait<1>();  // this thread's K chunks have landed
+  __syncthreads();     // and everyone's
+  split_scores<D, MAXR, KT>(qf, sm.sk, sm.sks, s_p, n_tok, n_rep, p.scale);
+  __syncthreads();
+  split_softmax<MAXR>(s_p, s_m, s_l, n_rep);
+  cp_async_wait<0>();  // V
+  __syncthreads();
+  split_pv<D, MAXR, KT>(sm.sv, sm.svs, s_p, n_tok, n_rep, sm.red);
+  __syncthreads();
+  split_store<D, MAXR>(sm.red, s_m, s_l,
+                       p.ws + (static_cast<size_t>(b) * p.H + g * n_rep) * p.n_split * (D + 2),
+                       p.n_split, split, n_rep);
+}
+
+// the chunk's queries i in [tile * kChunkTile, min(+kChunkTile, n_valid)),
+// query i at cache position start + i with length start + i + 1: per query
+// exactly B1's split arithmetic over the split's rows, loaded once
+template <int D, int MAXR, typename KT>
+__global__ void __launch_bounds__(kThreads) paged_chunk_attention_split_kernel(const Params p) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const SplitSmem<D, MAXR, KT, true> sm(smem_raw);
+  __shared__ float s_p[MAXR][kSplit];
+  __shared__ int s_row[kSplit];
+  __shared__ float s_m[MAXR], s_l[MAXR];
+
+  const int split = blockIdx.x;
+  const int g = blockIdx.y;                  // kv head
+  const int i0 = blockIdx.z * kChunkTile;    // the tile's first query
+  const int i1 = min(i0 + kChunkTile, p.n_valid);
+  const int cap = p.pps * p.page;
+  const int t0 = split * kSplit;
+  const int L_last = min(p.start + i1, cap);  // the tile's last query's length
+  if (t0 >= L_last) return;
+  const int n_load = min(kSplit, L_last - t0);
+  const int n_rep = p.H / p.Hkv;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < n_load; i += kThreads) {
+    const int t = t0 + i;
+    s_row[i] = p.block[t / p.page] * p.page + t % p.page;
+  }
+  __syncthreads();
+  issue_split_loads<D, KT>(p, g, s_row, n_load, sm.sk, sm.sv, sm.sks, sm.svs);
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int i = i0; i < i1; ++i) {
+    const int L = min(p.start + i + 1, cap);
+    if (t0 >= L) continue;  // the same for every thread of the CTA
+    const int n_tok = min(kSplit, L - t0);
+    float qf[MAXR][8];
+    load_queries<D, MAXR>(p.q + (static_cast<size_t>(i) * p.H + g * n_rep) * D, n_rep, qf);
+    split_scores<D, MAXR, KT>(qf, sm.sk, sm.sks, s_p, n_tok, n_rep, p.scale);
+    __syncthreads();
+    split_softmax<MAXR>(s_p, s_m, s_l, n_rep);
+    __syncthreads();
+    split_pv<D, MAXR, KT>(sm.sv, sm.svs, s_p, n_tok, n_rep, sm.red);
+    __syncthreads();
+    split_store<D, MAXR>(sm.red, s_m, s_l,
+                         p.ws + (static_cast<size_t>(i) * p.H + g * n_rep) * p.n_split * (D + 2),
+                         p.n_split, split, n_rep);
+    __syncthreads();  // s_p, s_m, s_l and red are the next query's
+  }
+}
+
+// one (row, head)'s output from its first ns splits' partials at part
+// [n_split][D + 2], merged in split-index order
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_attention_combine_kernel(const float* __restrict__ ws,
-                                      const int* __restrict__ lengths,
-                                      __nv_bfloat16* __restrict__ out, int H, int n_split) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int ns = min((lengths[b] + kSplit - 1) / kSplit, n_split);
-  const float* part = ws + (static_cast<size_t>(b) * H + h) * n_split * (D + 2);
+__device__ __forceinline__ void combine_row(const float* part, int ns, __nv_bfloat16* out) {
   float m = kNegInf;
   for (int s = 0; s < ns; ++s) m = fmaxf(m, part[s * (D + 2) + D]);
   float l = 0.f;
@@ -293,77 +482,158 @@ paged_decode_attention_combine_kernel(const float* __restrict__ ws,
     for (int s = 0; s < ns; ++s) {
       a += part[s * (D + 2) + d] * expf(part[s * (D + 2) + D] - m);
     }
-    out[(static_cast<size_t>(b) * H + h) * D + d] = __float2bfloat16(a / fmaxf(l, 1e-20f));
+    out[d] = __float2bfloat16(a / fmaxf(l, 1e-20f));
   }
 }
 
-template <int D, int MAXR>
-cudaError_t launch_split(const dim3& grid, const __nv_bfloat16* q, const __nv_bfloat16* k,
-                         const __nv_bfloat16* v, const int* block, const int* lens, float* ws,
-                         int H, int Hkv, int page, int pps, int n_split, float scale,
-                         cudaStream_t s) {
-  // above 48 KB of dynamic shared memory needs the kernel's opt-in
-  const cudaError_t err = cudaFuncSetAttribute(paged_decode_attention_split_kernel<D, MAXR>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               smem_bytes<D>());
-  if (err != cudaSuccess) return err;
-  paged_decode_attention_split_kernel<D, MAXR><<<grid, kThreads, smem_bytes<D>(), s>>>(
-      q, k, v, block, lens, ws, H, Hkv, page, pps, n_split, scale);
-  return cudaGetLastError();
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_attention_combine_kernel(const Params p) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int ns = min((p.lens[b] + kSplit - 1) / kSplit, p.n_split);
+  const size_t row = static_cast<size_t>(b) * p.H + h;
+  combine_row<D>(p.ws + row * p.n_split * (D + 2), ns, p.out + row * D);
 }
 
 template <int D>
-int launch_for_dim(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                   const int* block, const int* lens, float* ws, __nv_bfloat16* out, int B,
-                   int H, int Hkv, int page, int pps, int n_split, float scale,
-                   cudaStream_t s) {
-  const dim3 grid(n_split, Hkv, B);
-  const int n_rep = H / Hkv;
+__global__ void __launch_bounds__(kThreads)
+paged_chunk_attention_combine_kernel(const Params p) {
+  const int h = blockIdx.x;
+  const int i = blockIdx.y;  // chunk query
+  const size_t row = static_cast<size_t>(i) * p.H + h;
+  if (i >= p.n_valid) {  // a padding row: 0, discarded by the caller
+    for (int d = threadIdx.x; d < D; d += kThreads) p.out[row * D + d] = __float2bfloat16(0.f);
+    return;
+  }
+  const int L = min(p.start + i + 1, p.pps * p.page);
+  const int ns = min((L + kSplit - 1) / kSplit, p.n_split);
+  combine_row<D>(p.ws + row * p.n_split * (D + 2), ns, p.out + row * D);
+}
+
+template <int D, int MAXR, typename KT, bool kChunk>
+cudaError_t launch_split(const Params& p, int rows, cudaStream_t s) {
+  constexpr int smem = smem_bytes<D, MAXR, KT, kChunk>();
+  void (*kernel)(const Params);
+  if constexpr (kChunk) {
+    kernel = paged_chunk_attention_split_kernel<D, MAXR, KT>;
+  } else {
+    kernel = paged_decode_attention_split_kernel<D, MAXR, KT>;
+  }
+  // above 48 KB of dynamic shared memory needs the kernel's opt-in
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.n_split, p.Hkv, kChunk ? (p.n_valid + kChunkTile - 1) / kChunkTile : rows);
+  kernel<<<grid, kThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D, typename KT, bool kChunk>
+int launch_for_dim(const Params& p, int rows, cudaStream_t s) {
+  const int n_rep = p.H / p.Hkv;
   cudaError_t err;
   if (n_rep <= 1) {
-    err = launch_split<D, 1>(grid, q, k, v, block, lens, ws, H, Hkv, page, pps, n_split, scale, s);
+    err = launch_split<D, 1, KT, kChunk>(p, rows, s);
   } else if (n_rep <= 2) {
-    err = launch_split<D, 2>(grid, q, k, v, block, lens, ws, H, Hkv, page, pps, n_split, scale, s);
+    err = launch_split<D, 2, KT, kChunk>(p, rows, s);
   } else if (n_rep <= 4) {
-    err = launch_split<D, 4>(grid, q, k, v, block, lens, ws, H, Hkv, page, pps, n_split, scale, s);
+    err = launch_split<D, 4, KT, kChunk>(p, rows, s);
   } else if (n_rep <= 8) {
-    err = launch_split<D, 8>(grid, q, k, v, block, lens, ws, H, Hkv, page, pps, n_split, scale, s);
+    err = launch_split<D, 8, KT, kChunk>(p, rows, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  paged_decode_attention_combine_kernel<D><<<dim3(H, B), kThreads, 0, s>>>(ws, lens, out, H,
-                                                                           n_split);
+  if constexpr (kChunk) {
+    paged_chunk_attention_combine_kernel<D><<<dim3(p.H, rows), kThreads, 0, s>>>(p);
+  } else {
+    paged_decode_attention_combine_kernel<D><<<dim3(p.H, rows), kThreads, 0, s>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename KT, bool kChunk>
+int launch(const Params& p, int D, int rows, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch_for_dim<16, KT, kChunk>(p, rows, s);
+    case 32: return launch_for_dim<32, KT, kChunk>(p, rows, s);
+    case 64: return launch_for_dim<64, KT, kChunk>(p, rows, s);
+    case 112: return launch_for_dim<112, KT, kChunk>(p, rows, s);
+    case 128: return launch_for_dim<128, KT, kChunk>(p, rows, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+Params make_params(const void* q, const void* k, const void* v, const void* ks, const void* vs,
+                   const void* block, void* ws, void* out, int H, int Hkv, int page, int pps,
+                   int n_split, float scale) {
+  Params p{};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = k;
+  p.v = v;
+  p.ks = static_cast<const float*>(ks);
+  p.vs = static_cast<const float*>(vs);
+  p.block = static_cast<const int*>(block);
+  p.ws = static_cast<float*>(ws);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.H = H;
+  p.Hkv = Hkv;
+  p.page = page;
+  p.pps = pps;
+  p.n_split = n_split;
+  p.scale = scale;
+  return p;
 }
 
 }  // namespace
 
-// n_split must be ceil(pps * page / kSplit) and ws hold B * H * n_split *
-// (D + 2) floats
+// Decode (B1).  kv_int8: k/v pools int8 with float32 scale pools ks/vs
+// (else bf16, ks/vs unused).  n_split must be ceil(pps * page / kSplit) and
+// ws hold B * H * n_split * (D + 2) floats
 extern "C" int repro_paged_decode_attention(const void* q, const void* k_pages,
-                                            const void* v_pages, const void* block_table,
+                                            const void* v_pages, const void* k_scale,
+                                            const void* v_scale, const void* block_table,
                                             const void* lengths, void* ws, void* out, int B,
                                             int H, int Hkv, int D, int page, int pps,
-                                            int n_split, float scale, void* stream) {
+                                            int n_split, int kv_int8, float scale,
+                                            void* stream) {
   if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || page <= 0 || pps <= 0 ||
-      n_split != (pps * page + kSplit - 1) / kSplit) {
+      n_split != (pps * page + kSplit - 1) / kSplit ||
+      (kv_int8 && (k_scale == nullptr || v_scale == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k_pages);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v_pages);
-  const auto* bt = static_cast<const int*>(block_table);
-  const auto* ln = static_cast<const int*>(lengths);
-  auto* wp = static_cast<float*>(ws);
-  auto* op = static_cast<__nv_bfloat16*>(out);
+  Params p = make_params(q, k_pages, v_pages, k_scale, v_scale, block_table, ws, out, H, Hkv,
+                         page, pps, n_split, scale);
+  p.lens = static_cast<const int*>(lengths);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_for_dim<16>(qp, kp, vp, bt, ln, wp, op, B, H, Hkv, page, pps, n_split, scale, s);
-    case 32: return launch_for_dim<32>(qp, kp, vp, bt, ln, wp, op, B, H, Hkv, page, pps, n_split, scale, s);
-    case 64: return launch_for_dim<64>(qp, kp, vp, bt, ln, wp, op, B, H, Hkv, page, pps, n_split, scale, s);
-    case 112: return launch_for_dim<112>(qp, kp, vp, bt, ln, wp, op, B, H, Hkv, page, pps, n_split, scale, s);
-    case 128: return launch_for_dim<128>(qp, kp, vp, bt, ln, wp, op, B, H, Hkv, page, pps, n_split, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  return kv_int8 ? launch<int8_t, false>(p, D, B, s) : launch<__nv_bfloat16, false>(p, D, B, s);
+}
+
+// One slot's prefill chunk: C query rows at cache positions start ..
+// start + C - 1, of which the first n_valid are computed (the others come
+// out 0).  block_row is the slot's [pps] page ids; n_split must be
+// ceil(min(start + n_valid, pps * page) / kSplit) and ws hold n_valid * H *
+// n_split * (D + 2) floats
+extern "C" int repro_paged_chunk_attention(const void* q, const void* k_pages,
+                                           const void* v_pages, const void* k_scale,
+                                           const void* v_scale, const void* block_row,
+                                           void* ws, void* out, int C, int n_valid, int start,
+                                           int H, int Hkv, int D, int page, int pps,
+                                           int n_split, int kv_int8, float scale,
+                                           void* stream) {
+  const int cap = pps * page;
+  const int last = start + n_valid < cap ? start + n_valid : cap;
+  if (C <= 0 || n_valid <= 0 || n_valid > C || start < 0 || Hkv <= 0 || H % Hkv != 0 ||
+      page <= 0 || pps <= 0 ||
+      n_split != (last + kSplit - 1) / kSplit ||
+      (kv_int8 && (k_scale == nullptr || v_scale == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  Params p = make_params(q, k_pages, v_pages, k_scale, v_scale, block_row, ws, out, H, Hkv,
+                         page, pps, n_split, scale);
+  p.start = start;
+  p.n_valid = n_valid;
+  auto s = static_cast<cudaStream_t>(stream);
+  return kv_int8 ? launch<int8_t, true>(p, D, C, s) : launch<__nv_bfloat16, true>(p, D, C, s);
 }

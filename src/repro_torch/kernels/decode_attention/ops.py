@@ -1,14 +1,20 @@
-"""Wrapper of the paged GQA decode attention kernel
-(``csrc/decode_attention.cu``).
+"""Wrappers of the paged GQA attention kernels (``csrc/decode_attention.cu``).
 
-``paged_decode_attention(q, k_pages, v_pages, block_table, lengths)``: one
-query token per (slot, head) against one layer's page pools through the
-block table.  A CPU tensor takes the plain version
-(``models.attention.paged_decode_attention``); a CUDA tensor launches the
-kernel, which reads the block table itself: split-KV over splits of
-``ref.SPLIT`` keys at absolute positions, the splits' float32 partials in
-a workspace allocated here, merged in split-index order by a second kernel
-that the same C entry launches.
+``paged_decode_attention(q, k_pages, v_pages, block_table, lengths)`` (B1):
+one query token per (slot, head) against one layer's page pools through
+the block table.  ``paged_chunk_attention(q, k_pages, v_pages, block_row,
+start, n_valid)``: the queries of one slot's prefill chunk, query i at
+cache position ``start + i``, each attending the keys up to its own
+position.  A pool is a bf16 tensor ``[P, page, Hkv, D]`` or an int8
+``(data, scale)`` pair (``models.attention``).
+
+A CPU tensor takes the plain version (``models.attention``); a CUDA tensor
+launches the kernels, which read the block table themselves: split-KV over
+splits of ``ref.SPLIT`` keys at absolute positions, the splits' float32
+partials in a workspace allocated here, merged in split-index order by a
+second kernel that the same C entry launches.  The chunk kernel runs B1's
+per-query arithmetic (the same device functions) with length ``start + i
++ 1`` for query i, so its rows are B1's bits for those lengths.
 """
 
 from __future__ import annotations
@@ -17,40 +23,72 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ref import (
-    SPLIT, paged_decode_attention_ref)
+    SPLIT, paged_chunk_attention_ref, paged_decode_attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 112, 128)  # 112: zamba2-7b's shared block
 MAX_GROUP = 8  # grouped query heads per kv head
-LAUNCHES = {"paged_decode_attention": 0}
+LAUNCHES = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0,
+            "paged_chunk_attention": 0, "paged_chunk_attention_int8": 0}
 
 
-def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                           v_pages: torch.Tensor, block_table: torch.Tensor,
+def _check_pools(q: torch.Tensor, k_pages, v_pages, name: str):
+    """(k, v, k_scale, v_scale, int8) of bf16 or int8 ``(data, scale)``
+    pools on q's device, or raise."""
+    int8 = isinstance(k_pages, tuple)
+    if int8 != isinstance(v_pages, tuple):
+        raise TypeError(f"{name}: K and V pools of different kinds")
+    k, ks = k_pages if int8 else (k_pages, None)
+    v, vs = v_pages if int8 else (v_pages, None)
+    want = torch.int8 if int8 else torch.bfloat16
+    tensors = [("q", q, torch.bfloat16), ("k_pages", k, want),
+               ("v_pages", v, want)]
+    if int8:
+        tensors += [("k_scale", ks, torch.float32),
+                    ("v_scale", vs, torch.float32)]
+    for tname, t, dtype in tensors:
+        if t.dtype != dtype or t.device != q.device:
+            raise TypeError(f"{name}: {tname} must be {dtype} on {q.device}, "
+                            f"got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous")
+    if v.shape != k.shape or k.shape[-1] != q.shape[-1] or k.dim() != 4:
+        raise ValueError(f"{name}: pool shapes {tuple(k.shape)} / "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if int8 and (ks.shape != k.shape[:-1] or vs.shape != k.shape[:-1]):
+        raise ValueError(f"{name}: scale pools {tuple(ks.shape)} / "
+                         f"{tuple(vs.shape)} do not match {tuple(k.shape)}")
+    h, d, hkv = q.shape[-2], q.shape[-1], k.shape[2]
+    if d not in HEAD_DIMS or h % hkv or h // hkv > MAX_GROUP:
+        raise ValueError(f"{name}: unsupported head layout H={h} Hkv={hkv} "
+                         f"D={d}")
+    return k, v, ks, vs, int8
+
+
+def _check_int32(q: torch.Tensor, name: str, **tensors) -> None:
+    for tname, t in tensors.items():
+        if t.dtype != torch.int32 or t.device != q.device \
+                or not t.is_contiguous():
+            raise TypeError(f"{name}: {tname} must be contiguous int32 on "
+                            f"{q.device}")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
+                           block_table: torch.Tensor,
                            lengths: torch.Tensor) -> torch.Tensor:
-    """q: [B, H, D]; k/v_pages: [P, page, Hkv, D]; block_table: [B, pps]
-    int32; lengths: [B] int32 valid tokens per slot -> [B, H, D]."""
+    """q: [B, H, D]; k/v_pages: bf16 [P, page, Hkv, D] or int8 (data,
+    scale) pools; block_table: [B, pps] int32; lengths: [B] int32 valid
+    tokens per slot -> [B, H, D]."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_table,
                                           lengths)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: tensor on {q.device}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.dtype != torch.bfloat16 or t.device != q.device:
-            raise TypeError(f"{name} must be bf16 on {q.device}, got "
-                            f"{t.dtype} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name, t in (("block_table", block_table), ("lengths", lengths)):
-        if t.dtype != torch.int32 or t.device != q.device \
-                or not t.is_contiguous():
-            raise TypeError(f"{name} must be contiguous int32 on {q.device}")
+    k, v, ks, vs, int8 = _check_pools(q, k_pages, v_pages,
+                                      "paged_decode_attention")
+    _check_int32(q, "paged_decode_attention", block_table=block_table,
+                 lengths=lengths)
     b, h, d = q.shape
-    _, page, hkv, dk = k_pages.shape
-    if v_pages.shape != k_pages.shape or dk != d:
-        raise ValueError(f"pool shapes {tuple(k_pages.shape)} / "
-                         f"{tuple(v_pages.shape)} do not match q {tuple(q.shape)}")
-    if d not in HEAD_DIMS or h % hkv or h // hkv > MAX_GROUP:
-        raise ValueError(f"unsupported head layout H={h} Hkv={hkv} D={d}")
+    _, page, hkv, _ = k.shape
     if block_table.shape[0] != b or lengths.shape != (b,):
         raise ValueError("block_table / lengths do not match the batch")
     out = torch.empty_like(q)
@@ -61,10 +99,55 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     ws = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32,
                      device=q.device)
     status = build.library().repro_paged_decode_attention(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        ks.data_ptr() if int8 else None, vs.data_ptr() if int8 else None,
         block_table.data_ptr(), lengths.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), b, h, hkv, d, page, pps, n_split, float(d ** -0.5),
+        out.data_ptr(), b, h, hkv, d, page, pps, n_split, int(int8),
+        float(d ** -0.5), build.stream_handle(q.device))
+    name = "paged_decode_attention_int8" if int8 else "paged_decode_attention"
+    build.check(status, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def paged_chunk_attention(q: torch.Tensor, k_pages, v_pages,
+                          block_row: torch.Tensor, start: int,
+                          n_valid: int) -> torch.Tensor:
+    """q: [C, H, D] a slot's chunk queries at cache positions start ..
+    start + C - 1, of which the first ``n_valid`` are the chunk's (the rest
+    bucket padding); k/v_pages: bf16 or int8 (data, scale) pools;
+    block_row: [pps] int32 the slot's page ids -> [C, H, D].  Rows past
+    ``n_valid`` are discarded by the caller: the plain version computes them
+    as the JAX formula does, the kernel writes 0."""
+    c = q.shape[0]
+    if q.device.type == "cpu":
+        pos = start + torch.arange(c, device=q.device)
+        return paged_chunk_attention_ref(q[None], k_pages, v_pages,
+                                         block_row[None], pos[None])[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_chunk_attention: tensor on {q.device}")
+    k, v, ks, vs, int8 = _check_pools(q, k_pages, v_pages,
+                                      "paged_chunk_attention")
+    _check_int32(q, "paged_chunk_attention", block_row=block_row)
+    _, h, d = q.shape
+    _, page, hkv, _ = k.shape
+    pps = block_row.shape[0]
+    if block_row.dim() != 1 or not 0 < n_valid <= c or start < 0:
+        raise ValueError(f"paged_chunk_attention: block_row "
+                         f"{tuple(block_row.shape)}, n_valid {n_valid} of "
+                         f"{c} rows, start {start}")
+    # the workspace spans the chunk's last split, not the slot's capacity
+    n_split = -(-min(start + n_valid, pps * page) // SPLIT)
+    ws = torch.empty(n_valid * h * n_split * (d + 2), dtype=torch.float32,
+                     device=q.device)
+    out = torch.empty_like(q)
+    status = build.library().repro_paged_chunk_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        ks.data_ptr() if int8 else None, vs.data_ptr() if int8 else None,
+        block_row.data_ptr(), ws.data_ptr(), out.data_ptr(), c, n_valid,
+        start, h, hkv, d, page, pps, n_split, int(int8), float(d ** -0.5),
         build.stream_handle(q.device))
-    build.check(status, "paged_decode_attention")
-    LAUNCHES["paged_decode_attention"] += 1
+    name = "paged_chunk_attention_int8" if int8 else "paged_chunk_attention"
+    build.check(status, name)
+    LAUNCHES[name] += 1
     return out

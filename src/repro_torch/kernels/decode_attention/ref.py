@@ -6,7 +6,9 @@ splits of ``SPLIT`` keys at absolute positions from key 0, a float32
 softmax partial (max, sum, unnormalised output) per split, and the partials
 merged in split-index order.  Each slot is computed on its own, so its bits
 depend on its own length, query and pages only.  The oracle stays the
-one-shot softmax of ``paged_decode_attention_ref``.
+one-shot softmax of ``paged_decode_attention_ref``; the chunk kernel's is
+``paged_chunk_attention_ref``, the JAX float32 formula.  Both take bf16
+pools or int8 ``(data, scale)`` pools.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch.models.attention import (  # noqa: F401
     decode_attention as decode_attention_ref,
+    paged_chunk_attention as paged_chunk_attention_ref,
     paged_decode_attention as paged_decode_attention_ref,
 )
 

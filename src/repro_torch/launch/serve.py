@@ -8,7 +8,11 @@ the dense family is the ``lm_head``, the layers staying W8A8), puts
 random prompts, greedy, or sampled under ``--temperature`` / ``--top-k`` /
 ``--top-p`` (each request's seed is ``--seed`` + its id).  ``--overlap``
 runs the overlapped decode loop (one fused decode + sample step a round,
-its tokens read back one step late).  ``--device`` defaults to ``cuda``,
+its tokens read back one step late).  ``--chunk-prefill N`` prefills a
+prompt longer than N tokens in chunks of N, one a step between decode
+steps (dense family; a hybrid engine prefills in one shot);
+``--kv-dtype int8`` keeps the KV pages in int8 with a float32 scale per
+row and head.  ``--device`` defaults to ``cuda``,
 where each decode step is one replayed CUDA graph; ``--device cpu`` runs
 the plain PyTorch versions of the kernels.
 
@@ -17,14 +21,15 @@ the plain PyTorch versions of the kernels.
   python src/repro_torch/launch/serve.py --arch zamba2-7b --reduced 0
   python src/repro_torch/launch/serve.py --overlap --temperature 0.8 \\
       --top-k 20 --top-p 0.9 --device cpu
+  python src/repro_torch/launch/serve.py --chunk-prefill 4 --kv-dtype int8 \\
+      --device cpu
 
 ``--arch`` takes every configuration of ``configs/registry.py`` the engine
 serves: the dense family and the hybrid zamba2-7b (Mamba-2 layers and a
 shared attention block; mamba2-130m has ``forward`` only).
 
 Flags of the JAX driver whose features are not ported yet (fleet workers,
-prefix cache, int8 KV, wave mode, chunked prefill) exit with a message
-naming what is missing.  Replicas never
+prefix cache, wave mode) exit with a message naming what is missing.  Replicas never
 migrate slots (migration is not ported), so there is no ``--no-migrate``.
 """
 
@@ -55,12 +60,14 @@ def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
                  max_batch: int = 4, max_seq: int = 128, page_size: int = 16,
                  replicas: int = 1, route: str = "round_robin",
                  policy: str = "fcfs", seed: int = 0, eos_id: int = -1,
-                 overlap: bool = False, device: str = "cuda"
+                 overlap: bool = False, chunk_prefill: int = 0,
+                 kv_dtype: str = "bf16", device: str = "cuda"
                  ) -> tuple[ModelConfig, ServingClient]:
     """The model and serving stack the driver serves: ``init_params`` on
     the device from ``seed``, W8A8 or W4A16 quantization matrix by matrix
     (each bf16 matrix freed as it goes), then a ServingClient over ``replicas``
-    engines (``overlap``: the overlapped decode loop)."""
+    engines (``overlap``: the overlapped decode loop; ``chunk_prefill``: the
+    chunk budget, 0 for none; ``kv_dtype``: "bf16" or "int8" page pools)."""
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -73,8 +80,9 @@ def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
     client = ServingClient(
         cfg, params, replicas=replicas, route=route, seed_base=seed,
         max_batch=max_batch, max_seq=max_seq, eos_id=eos_id,
-        page_size=page_size, scheduler=make_scheduler(policy),
-        overlap=overlap, device=device)
+        page_size=page_size,
+        scheduler=make_scheduler(policy, chunk_tokens=chunk_prefill or None),
+        overlap=overlap, kv_dtype=kv_dtype, device=device)
     return cfg, client
 
 
@@ -84,12 +92,8 @@ def _unported(args) -> list[str]:
         out.append("--workers (fleet serving)")
     if args.prefix_cache:
         out.append("--prefix-cache")
-    if args.kv_dtype != "bf16":
-        out.append("--kv-dtype int8 (int8 KV pools)")
     if args.mode == "wave":
         out.append("--mode wave")
-    if args.chunk_prefill:
-        out.append("--chunk-prefill (paged-chunk flash attention)")
     return out
 
 
@@ -139,6 +143,7 @@ def main(argv: list[str] | None = None) -> None:
         max_batch=args.max_batch, max_seq=args.max_seq,
         page_size=args.page_size, replicas=args.replicas, route=args.route,
         policy=args.policy, seed=args.seed, overlap=args.overlap,
+        chunk_prefill=args.chunk_prefill, kv_dtype=args.kv_dtype,
         device=args.device)
     rng = np.random.RandomState(42)
     for i in range(args.requests):

@@ -3,7 +3,9 @@
 Counterpart of ``repro.models.blocks``.  Where the JAX model runs the jnp
 twins of its Pallas kernels, this module calls the kernel wrappers: on a
 CUDA tensor they launch the Hopper kernels (B3 flash attention for prefill,
-B1 paged decode attention), on a CPU tensor their plain versions.
+B1 paged decode attention, the paged chunk attention built from B1 for a
+prefill chunk), on a CPU tensor their plain versions.  The page pools are
+bf16 tensors or int8 ``(data, scale)`` pairs (``models.attention``).
 """
 
 from __future__ import annotations
@@ -11,17 +13,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+from repro_torch.kernels.decode_attention.ops import (paged_chunk_attention,
+                                                      paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.attention import write_paged_rows
+from repro_torch.models.attention import (pool_page_size, scatter_chunk_rows,
+                                          write_paged_rows)
 from repro_torch.models.layers import (apply_rope, init_linear, layer_norm,
                                        linear, rms_norm)
 
 
-def norm(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def norm(cfg: ModelConfig, params: dict, x: torch.Tensor,
+         fixed_order: bool = False) -> torch.Tensor:
+    """``fixed_order``: each row's sums in one order whatever the row count
+    (``layers.row_sum``), as a prefill chunk needs."""
     if cfg.norm == "ln":
-        return layer_norm(x, params["g"], params["b"], cfg.norm_eps)
-    return rms_norm(x, params["g"], cfg.norm_eps)
+        return layer_norm(x, params["g"], params["b"], cfg.norm_eps,
+                          fixed_order)
+    return rms_norm(x, params["g"], cfg.norm_eps, fixed_order)
 
 
 def init_norm(cfg: ModelConfig, dtype: torch.dtype,
@@ -77,7 +85,8 @@ def attn_decode_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,
     x: [B, D]; k/v_pages: [P, page, Hkv, Dh] (one layer's pools, written IN
     PLACE); block_table: [B, pages_per_slot] int32; lengths: [B] int32
     per-slot valid lengths (the new token's write position); active: [B]
-    bool.  Returns out [B, D].  The attend is the B1 paged decode kernel.
+    bool.  Returns out [B, D].  The attend is the B1 paged decode kernel;
+    int8 ``(data, scale)`` pools quantize the new rows at their write.
     """
     b = x.shape[0]
     q = linear(params["q"], x).reshape(b, 1, cfg.n_heads, cfg.d_head)
@@ -90,3 +99,47 @@ def attn_decode_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,
                                  block_table,
                                  (lengths + active.to(torch.int32)).contiguous())
     return linear(params["o"], out.reshape(b, -1))
+
+
+def attn_prefill_chunk_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                             k_pages, v_pages, block_row: torch.Tensor,
+                             start: int, chunk_len: int) -> torch.Tensor:
+    """Chunked-prefill attention for ONE slot against the paged pool.
+
+    x: [1, C, D] chunk hidden states (C a bucket; rows from ``chunk_len`` on
+    are padding); k/v_pages: one layer's pools (written IN PLACE);
+    block_row: [pages_per_slot] int32, the slot's block-table row; the
+    chunk's rows sit at cache positions ``start + i``.
+
+    The chunk's K/V is scattered into the slot's pages FIRST (padding rows
+    are redirected to the null page 0), then every query attends the block
+    row up to its own position (the paged chunk kernel on CUDA), so each
+    position's math is the same however the prompt was chunked.  Returns
+    out [1, C, D].
+    """
+    b, c, _ = x.shape
+    q = linear(params["q"], x).reshape(b, c, cfg.n_heads, cfg.d_head)
+    k = linear(params["k"], x).reshape(b, c, cfg.n_kv_heads, cfg.d_head)
+    v = linear(params["v"], x).reshape(b, c, cfg.n_kv_heads, cfg.d_head)
+    gpos = start + torch.arange(c, device=x.device)
+    q, k = _rope_qk(cfg, q, k, gpos[None])
+    page = pool_page_size(k_pages)
+    pps = block_row.shape[0]
+    valid = torch.arange(c, device=x.device) < chunk_len
+    pid = block_row.long()[torch.clamp(gpos // page, 0, pps - 1)]
+    pid = torch.where(valid, pid, torch.zeros_like(pid))
+    off = gpos % page
+    scatter_chunk_rows(k_pages, k[0], pid, off)
+    scatter_chunk_rows(v_pages, v[0], pid, off)
+    out = paged_chunk_attention(q[0].contiguous(), k_pages, v_pages,
+                                block_row, start, chunk_len)
+    return linear(params["o"], out.reshape(b, c, -1))
+
+
+def paged_pool_keys(cache: dict) -> tuple[str, ...]:
+    """The cache keys whose pages move with a page: the K and V pools and,
+    under ``kv_dtype="int8"``, their float32 scale pools, in this order."""
+    keys = ("k", "v")
+    if "k_scale" in cache:
+        keys += ("k_scale", "v_scale")
+    return keys

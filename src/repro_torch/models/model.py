@@ -6,9 +6,11 @@ Counterpart of ``repro.models.model`` for the paged serving path:
     init_params(cfg, seed, max_seq, device, dtype)           -> params
     forward(params, cfg, tokens)                    -> logits [B, S, V]
     init_paged_cache(cfg, slots, max_seq, dtype, page_size, num_pages,
-                     device)                                 -> cache
+                     device, kv_dtype)                       -> cache
     prefill_into_slots(params, cfg, tokens, true_lens, cache, slot_ids)
                                              -> (last_logits [M, V], cache)
+    prefill_chunk_into_slot(params, cfg, tokens, start, chunk_len, cache,
+                            slot)                  -> (logits [V], cache)
     decode_step_paged(params, cfg, token, cache, active)
                                              -> (logits [B, V], cache)
     decode_and_sample_paged(params, cfg, tok_host, tok_dev, use_dev, cache,
@@ -25,7 +27,9 @@ every group applies.  The paged cache holds the page pools ``k``/``v``
 lengths ``lens``, for the hybrid family the Mamba state pools ``mamba``
 (``conv`` ``[G, every, slots, K-1, C]``, ``state`` ``[G, every, slots, H, P,
 N]``) and ``tail`` (``[T, slots, ...]`` or None), and, passed in by the
-caller, the block table ``block``.
+caller, the block table ``block``.  Under ``kv_dtype="int8"`` the K/V pools
+are int8 with float32 scale pools ``k_scale`` / ``v_scale`` (the pool
+shapes less their last axis); rows quantize at their write.
 
 Where the JAX functions return a new cache, these write the page and state
 pools IN PLACE and return a shallow copy of the cache dict with a new
@@ -42,6 +46,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.attention import quantize_rows
 from repro_torch.models.layers import (_w4a16_matmul, dense_weight, ffn,
                                        init_ffn, init_linear)
 
@@ -224,12 +229,15 @@ def _hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
 def init_paged_cache(cfg: ModelConfig, num_slots: int, max_seq: int,
                      dtype: torch.dtype = torch.bfloat16, page_size: int = 16,
                      num_pages: int | None = None,
-                     device: str | torch.device = "cuda") -> dict:
+                     device: str | torch.device = "cuda",
+                     kv_dtype: str = "bf16") -> dict:
     """Block-table KV cache: a shared page pool + per-slot state.
 
       k/v   [L, P, page, Hkv, Dh]   page pools (page 0 is the null page);
                                     hybrid: L = n_groups, one shared-attn
-                                    application per group
+                                    application per group; int8 under
+                                    kv_dtype="int8", beside
+      k_scale/v_scale [L, P, page, Hkv] float32, one scale per row and head
       mamba {conv [G, every, slots, K-1, C] (dtype),
              state [G, every, slots, H, P, N] float32}   hybrid only
       tail  the same with a leading [T, slots] axis, or None
@@ -240,6 +248,8 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, max_seq: int,
     ``pages_per_slot * page``.  By default P fits every slot at max_seq.
     """
     _check_family(cfg, PAGED_FAMILIES)
+    if kv_dtype not in ("bf16", "int8"):
+        raise ValueError(f"unknown kv_dtype: {kv_dtype!r}")
     dev = resolve_device(device)
     pages_per_slot = -(-max_seq // page_size)
     if num_pages is None:
@@ -255,10 +265,48 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, max_seq: int,
                                        device=dev) for k, v in one.items()}
                        if tail else None)
     shape = (n_kv, num_pages, page_size, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev),
-            **out,
+    pools = {}
+    for key in ("k", "v"):
+        if kv_dtype == "int8":
+            pools[key] = torch.zeros(shape, dtype=torch.int8, device=dev)
+            pools[key + "_scale"] = torch.zeros(shape[:-1],
+                                                dtype=torch.float32,
+                                                device=dev)
+        else:
+            pools[key] = torch.zeros(shape, dtype=dtype, device=dev)
+    return {**pools, **out,
             "lens": torch.zeros((num_slots,), dtype=torch.int32, device=dev)}
+
+
+def paged_pool_dtype(cache: dict) -> torch.dtype:
+    """dtype of the page pools (the bytes that move with a page): int8
+    under kv_dtype="int8"."""
+    return cache["k"].dtype
+
+
+def paged_kv_dtype(cache: dict) -> str:
+    """The cache's kv_dtype string ("bf16" or "int8")."""
+    return "int8" if paged_pool_dtype(cache) == torch.int8 else "bf16"
+
+
+def kv_page_bytes(cfg: ModelConfig, page_size: int,
+                  dtype: torch.dtype = torch.bfloat16) -> int:
+    """Bytes of one KV page across its layer-stacked pools: 1-byte codes
+    plus their float32 row scales for int8 pools, else the element size
+    (``serving.kv_cache.kv_page_elems``)."""
+    from repro_torch.serving.kv_cache import (kv_page_elems,
+                                              kv_page_scale_elems)
+    if dtype == torch.int8:
+        return (kv_page_elems(cfg, page_size)
+                + 4 * kv_page_scale_elems(cfg, page_size))
+    return kv_page_elems(cfg, page_size) * dtype.itemsize
+
+
+def _pool(cache: dict, key: str, li: int):
+    """Layer ``li``'s view of one page pool: the tensor, or the (int8 data,
+    float32 scales) pair under kv_dtype="int8"."""
+    sk = key + "_scale"
+    return (cache[key][li], cache[sk][li]) if sk in cache else cache[key][li]
 
 
 def checkpoint_slot_state(cache: dict, slot: int):
@@ -334,16 +382,22 @@ def prefill_into_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     n_pages = -(-s // page)
     pids = cache["block"][slots][:, :n_pages].long()      # [U, n_pages]
 
+    def to_pages(arr: torch.Tensor, pool: torch.Tensor) -> None:
+        # [U, S, *row] -> the slots' pages [U, n_pages, page, *row]
+        if n_pages * page != s:
+            pad = [0, 0] * (arr.dim() - 2) + [0, n_pages * page - s]
+            arr = torch.nn.functional.pad(arr, pad)
+        pool[pids] = arr.reshape(rows.shape[0], n_pages, page,
+                                 *arr.shape[2:]).to(pool.dtype)
+
     def write_kv(li: int, k: torch.Tensor, v: torch.Tensor) -> None:
-        # [M, S, Hkv, Dh] -> the slots' pages [U, n_pages, page, Hkv, Dh]
+        # [M, S, Hkv, Dh]; int8 pools quantize per row HERE, at the write
         for name, arr in (("k", k), ("v", v)):
             arr = arr[rows]
-            pad = n_pages * page - s
-            if pad:
-                arr = torch.nn.functional.pad(arr, (0, 0, 0, 0, 0, pad))
-            pool = cache[name]
-            pool[li][pids] = arr.reshape(
-                rows.shape[0], n_pages, page, *arr.shape[2:]).to(pool.dtype)
+            if name + "_scale" in cache:
+                arr, scale = quantize_rows(arr)
+                to_pages(scale, cache[name + "_scale"][li])
+            to_pages(arr, cache[name][li])
 
     if cfg.family == "dense":
         for li, lp in enumerate(params["layers"]):
@@ -375,8 +429,59 @@ def prefill_into_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return lm_head(params, cfg, x_last), {**cache, "lens": lens}
 
 
+def supports_chunked_prefill(cfg: ModelConfig) -> bool:
+    """Chunked prefill needs a paged cache and a 1-D token / position
+    stream: the dense family (JAX: dense and moe; moe is not ported)."""
+    return supports_paged(cfg) and cfg.family in ("dense", "moe")
+
+
+def prefill_chunk_into_slot(params: dict, cfg: ModelConfig,
+                            tokens: torch.Tensor, start: int, chunk_len: int,
+                            cache: dict, slot: int
+                            ) -> tuple[torch.Tensor, dict]:
+    """Chunked-prefill continuation: ``chunk_len`` prompt tokens of one
+    slot, from cache position ``start``.
+
+    tokens: [C] int, the chunk right-padded to a bucket (the engine's
+    power-of-two buckets with the page size as floor).  Each chunk
+    position's K/V is scattered into the slot's pages first, then the
+    chunk's queries attend the block row up to their own positions (the
+    buffer decode reads), and every row-wise sum (the norms' means) is taken
+    in a fixed order (``layers.row_sum``): a position's bits do not depend
+    on how the prompt was split, so the cache, the returned logits and
+    every later decode logit are the same for ANY chunk schedule, the
+    single chunk included.  The pools and ``cache["lens"][slot]`` (= start
+    + chunk_len) are written in place.
+
+    Returns (logits [V] at chunk position ``chunk_len - 1``, cache).
+    """
+    if not supports_chunked_prefill(cfg):
+        raise ValueError(
+            f"chunked prefill unsupported for family {cfg.family!r}")
+    c = tokens.shape[0]
+    x = params["embed"][tokens.long()][None]                # [1, C, D]
+    if cfg.rope_mode == "learned":
+        tbl = params["pos_embed"]
+        gpos = start + torch.arange(c, device=x.device)
+        x = x + tbl[torch.clamp(gpos, 0, tbl.shape[0] - 1)][None]
+    block_row = cache["block"][slot]
+    for li, lp in enumerate(params["layers"]):
+        hn = blocks.norm(cfg, lp["attn_norm"], x, fixed_order=True)
+        attn_out = blocks.attn_prefill_chunk_paged(
+            lp["attn"], hn, cfg, _pool(cache, "k", li), _pool(cache, "v", li),
+            block_row, start, chunk_len)
+        x = x + attn_out
+        x = x + ffn(lp["ffn"], blocks.norm(cfg, lp["ffn_norm"], x,
+                                           fixed_order=True), cfg.gated_ffn)
+    cache["lens"][slot] = start + chunk_len
+    x_last = x[:, min(max(chunk_len - 1, 0), c - 1)]
+    x_last = blocks.norm(cfg, params["final_norm"], x_last)
+    return lm_head(params, cfg, x_last)[0], cache
+
+
 def _dense_layer_decode(lp, x, cfg: ModelConfig, k_pages, v_pages, block,
                         lens, active):
+    # k/v_pages: one layer's pools (``_pool``)
     hn = blocks.norm(cfg, lp["attn_norm"], x)
     x = x + blocks.attn_decode_paged(lp["attn"], hn, cfg, k_pages, v_pages,
                                      block, lens, active)
@@ -407,8 +512,9 @@ def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
     block = cache["block"]
     if cfg.family == "dense":
         for li, lp in enumerate(params["layers"]):
-            x = _dense_layer_decode(lp, x, cfg, cache["k"][li],
-                                    cache["v"][li], block, lens, active)
+            x = _dense_layer_decode(lp, x, cfg, _pool(cache, "k", li),
+                                    _pool(cache, "v", li), block, lens,
+                                    active)
     else:  # hybrid
         # the JAX step returns each conv window in the promoted dtype of the
         # pool and this step's activations, so a float32 model over a bf16
@@ -431,8 +537,10 @@ def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
             for li, lp in enumerate(gp):
                 x = mamba(lp, x, {k: v[gi, li]
                                   for k, v in cache["mamba"].items()})
-            x = _dense_layer_decode(params["shared"], x, cfg, cache["k"][gi],
-                                    cache["v"][gi], block, lens, active)
+            x = _dense_layer_decode(params["shared"], x, cfg,
+                                    _pool(cache, "k", gi),
+                                    _pool(cache, "v", gi), block, lens,
+                                    active)
         for ti, lp in enumerate(params.get("tail") or ()):
             x = mamba(lp, x, {k: v[ti] for k, v in cache["tail"].items()})
     cache = {**cache, "lens": lens + active.to(torch.int32)}

@@ -14,7 +14,14 @@ queue, claim free slots and prefill together in ONE batched pass
 (``models.model.prefill_into_slots``: right-padded to a power-of-two bucket,
 the group padded to ``max_batch`` rows by repeating its first row), then
 decode step by step (``decode_step_paged`` over every active slot, then
-per-request sampling); finished slots free their pages at once.
+per-request sampling); finished slots free their pages at once.  With a
+chunk budget (``scheduler.chunk_tokens``) a prompt longer than the budget
+claims its slot and all its pages at admission and prefills one
+budget-sized chunk per engine step (``models.model.prefill_chunk_into_slot``,
+eagerly, between decode steps), its slot an inactive lane of the decode
+step until its last chunk samples its first token: decoding slots keep
+emitting a token every step instead of stalling behind one long prefill.
+The chunks give the bits of a one-chunk prefill, whatever the budget.
 The scheduler (``serving.scheduler``) decides admission order and
 preemption victims; when the page pool runs dry the ``exhaust_policy``
 either requeues the starved request (``"requeue"``: a mid-decode slot
@@ -22,17 +29,19 @@ restarts later with its generated prefix folded into its prompt) or fails
 it (``"reject"``).
 
 What the port serves is the JAX engine's continuous path for the dense and
-hybrid families with bf16 page pools, synchronous or overlapped, with the
-per-request sampler (greedy, or temperature / top-k / top-p under jax's
-threefry keys, ``serving/sampler.py``).  A hybrid slot's Mamba conv window and SSM state live in the cache's
-slot-indexed state pools: a prefill overwrites the slot's rows and decode
-masks inactive lanes, and preemption here is requeue-and-re-prefill, so
-no state checkpoint is taken (the JAX engine takes one only on its tiered
-and migration paths).  The other
-options of the JAX engine raise until their slices land: ``mode="wave"``,
-``kv_tier="flash"``, ``prefix_cache``, ``kv_dtype="int8"``, chunked-prefill
-budgets (``scheduler.chunk_tokens``) and slot migration (``snapshot_slot``
-/ ``inject_slot``).
+hybrid families with bf16 or int8 page pools (``kv_dtype="int8"``: rows
+quantized at their write, one float32 scale per row and head), chunked
+prefill for the dense family (a hybrid engine given a budget prefills in
+one shot, as the JAX engine's ``_chunk_ok`` makes it), synchronous or
+overlapped, with the per-request sampler (greedy, or temperature / top-k /
+top-p under jax's threefry keys, ``serving/sampler.py``).  A hybrid slot's
+Mamba conv window and SSM state live in the cache's slot-indexed state
+pools: a prefill overwrites the slot's rows and decode masks inactive
+lanes, and preemption here is requeue-and-re-prefill, so no state
+checkpoint is taken (the JAX engine takes one only on its tiered and
+migration paths).  The other options of the JAX engine raise until their
+slices land: ``mode="wave"``, ``kv_tier="flash"``, ``prefix_cache`` and
+slot migration (``snapshot_slot`` / ``inject_slot``).
 
 The device state is the cache dict of ``init_paged_cache`` on ``device``,
 whose tensors keep their storage for the engine's life (prefill's new
@@ -95,7 +104,7 @@ class Request:
     # eos | length | capacity | rejected | aborted
     finish_reason: Optional[str] = None
     n_folded: int = 0  # out_tokens already folded into prompt by restarts
-    n_chunks: int = 0      # chunked-prefill passes (always 0 in this port)
+    n_chunks: int = 0      # chunked-prefill passes run for this request
     n_preempted: int = 0   # restarts suffered
     n_migrated: int = 0    # cross-replica moves (always 0 in this port)
     # lifecycle timestamps (time.monotonic), filled by the engine
@@ -140,6 +149,7 @@ class RequestOutput:
 @dataclasses.dataclass
 class EngineStats:
     prefills: int = 0
+    prefill_chunks: int = 0    # chunked-prefill passes (chunk granularity)
     decode_steps: int = 0
     # dispatches attributable to decoding: a replayed decode step and a
     # separate sample in the synchronous loop (2 a step), the fused step
@@ -177,6 +187,8 @@ class EngineStats:
              f"latency p50/p90/p99="
              f"{lat['p50']:.3f}/{lat['p90']:.3f}/{lat['p99']:.3f}s "
              f"admission p50/p99={adm['p50']:.3f}/{adm['p99']:.3f}s")
+        if self.prefill_chunks:
+            s += f" prefill_chunks={self.prefill_chunks}"
         if self.pool_exhausted or self.rejected:
             s += (f" pool_exhausted={self.pool_exhausted} "
                   f"rejected={self.rejected} preempt={self.preemptions}")
@@ -213,14 +225,14 @@ class EngineCore:
             raise _not_ported(f"kv_tier={kv_tier!r}", "the tiered KV slice")
         if prefix_cache:
             raise _not_ported("prefix_cache=True", "the prefix-cache slice")
-        if kv_dtype != "bf16":
-            raise _not_ported(f"kv_dtype={kv_dtype!r}", "int8 KV pools in B1")
+        if kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype {kv_dtype!r} not in ('bf16', 'int8')")
         if exhaust_policy not in ("requeue", "reject"):
             raise ValueError(f"exhaust_policy {exhaust_policy!r}")
         self.scheduler = make_scheduler(scheduler)
-        if self.scheduler.chunk_tokens is not None:
-            raise _not_ported("chunked prefill (chunk_tokens)",
-                              "the paged-chunk variant of B3")
+        # chunk budgets apply where the model can prefill a chunk; other
+        # families prefill every prompt in one shot
+        self._chunk_ok = model_lib.supports_chunked_prefill(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -244,15 +256,22 @@ class EngineCore:
         self.pages_per_slot = pages_needed(max_seq, page_size)
         full_pool = max_batch * self.pages_per_slot + 1
         self.num_pages = full_pool if num_pages is None else num_pages
+        self.kv_dtype = kv_dtype
         self.cache = model_lib.init_paged_cache(
             cfg, max_batch, max_seq, page_size=page_size,
-            num_pages=self.num_pages, device=self.device)
+            num_pages=self.num_pages, device=self.device, kv_dtype=kv_dtype)
+        self.kv_page_bytes = model_lib.kv_page_bytes(
+            cfg, page_size, model_lib.paged_pool_dtype(self.cache))
         # host-side bookkeeping: block table, last tokens, per-slot pages
         self.block = np.zeros((max_batch, self.pages_per_slot), np.int32)
         self.last_np = np.zeros((max_batch,), np.int32)
         self.allocator = PageAllocator(self.num_pages)
         self.slot_pages: list[list[int]] = [[] for _ in range(max_batch)]
         self.slot_len: list[int] = [0] * max_batch  # host mirror of lens
+        # chunked-prefill state: a prefilling slot holds a request whose
+        # prompt is prefilled up to prefill_pos
+        self.prefilling: list[bool] = [False] * max_batch
+        self.prefill_pos: list[int] = [0] * max_batch
         self.graph = graphs.DecodeGraph(cfg, params, max_batch,
                                         self.pages_per_slot, self.device)
 
@@ -404,11 +423,14 @@ class EngineCore:
 
     def _slot_view(self, i: int) -> SlotView:
         r = self.slots[i]
+        # a mid-prefill slot already holds its whole prompt's pages, so
+        # victim choices keyed on seq_len see that footprint
+        seq = len(r.prompt) if self.prefilling[i] else self.slot_len[i]
         return SlotView(index=i, rid=r.rid, priority=r.priority,
-                        arrival_s=r.arrival_s, seq_len=self.slot_len[i],
+                        arrival_s=r.arrival_s, seq_len=seq,
                         n_out=len(r.out_tokens),
                         remaining=r.max_new_tokens - len(r.out_tokens),
-                        prefilling=False, suspended=False,
+                        prefilling=self.prefilling[i], suspended=False,
                         deadline_s=(r.arrival_s + r.deadline_s
                                     if r.deadline_s is not None else None))
 
@@ -429,6 +451,8 @@ class EngineCore:
         self.allocator.free([p for p in self.slot_pages[i] if p != 0])
         self.slot_pages[i] = []
         self.slot_len[i] = 0
+        self.prefilling[i] = False
+        self.prefill_pos[i] = 0
         self.block[i] = 0
         self.cache["lens"][i] = 0
 
@@ -474,9 +498,13 @@ class EngineCore:
         return None
 
     # ------------------------------------------------------------------
-    # admission: one batched prefill per step
+    # admission: one batched prefill per step, or a chunked admission
     # ------------------------------------------------------------------
     def _admit_continuous(self) -> None:
+        """Claim free slots for the plan's head requests.  Prompts within
+        the policy's chunk budget prefill together in one batched pass;
+        longer ones claim their slot and pages now and prefill chunk by
+        chunk over the following steps (``_prefill_chunks``)."""
         plan = self.scheduler.admit(list(self.queue), self._views(),
                                     self.allocator.available)
         head = next((r for r in plan.order if r in self.queue), None)
@@ -513,7 +541,23 @@ class EngineCore:
             self.queue.remove(req)
             self.slot_pages[i] = pids
             self.block[i, :len(pids)] = pids
-            group.append((i, req, len0))
+            budget = self.scheduler.prefill_budget(SlotView(
+                index=i, rid=req.rid, priority=req.priority,
+                arrival_s=req.arrival_s, seq_len=0, n_out=0,
+                remaining=req.max_new_tokens, prefilling=True,
+                suspended=False,
+                deadline_s=(req.arrival_s + req.deadline_s
+                            if req.deadline_s is not None else None)))
+            if self._chunk_ok and budget < len0:
+                self.slots[i] = req
+                self.prefilling[i] = True
+                self.prefill_pos[i] = 0
+                self.slot_len[i] = 0
+                if req.t_admit == 0.0:
+                    req.t_admit = now
+                self.stats.admitted += 1
+            else:
+                group.append((i, req, len0))
         if not group:
             return
         cap = self.pages_per_slot * self.page_size
@@ -558,12 +602,58 @@ class EngineCore:
             else:
                 self._emit(req, tok)
 
+    def _prefill_chunks(self) -> int:
+        """Run one prefill chunk (the policy's per-step token budget) for
+        every mid-prefill slot.  A slot whose prompt completes samples its
+        first token and joins decode from the next lane mask on.  Returns
+        the chunks run."""
+        ran = 0
+        for i in range(self.max_batch):
+            req = self.slots[i]
+            if req is None or not self.prefilling[i]:
+                continue
+            len0 = len(req.prompt)
+            pos = self.prefill_pos[i]
+            budget = max(1, int(self.scheduler.prefill_budget(
+                self._slot_view(i))))
+            clen = min(budget, len0 - pos)
+            cap = self.pages_per_slot * self.page_size
+            # a power-of-two bucket from the page size up: a chunk's
+            # compute scales with the budget, not the slot's capacity
+            cb = min(prefill_bucket(clen, floor=self.page_size), cap)
+            toks = np.zeros((cb,), np.int32)
+            toks[:clen] = req.prompt[pos:pos + clen]
+            logits, _ = model_lib.prefill_chunk_into_slot(
+                self.params, self.cfg, self._tensor(toks), pos, clen,
+                {**self.cache, "block": self._tensor(self.block)}, i)
+            req.n_chunks += 1
+            self.stats.prefill_chunks += 1
+            ran += 1
+            pos += clen
+            self.prefill_pos[i] = pos
+            self.slot_len[i] = pos
+            if pos < len0:
+                continue
+            self.prefilling[i] = False
+            tok = int(self._sample_rows(logits[None], [(0, req)])[0])
+            if req.t_first_token == 0.0:
+                req.t_first_token = time.monotonic()
+            req.out_tokens.append(tok)
+            self.stats.tokens_out += 1
+            self.last_np[i] = tok
+            reason = self._finish_reason_for(req, tok, pos)
+            if reason is not None:
+                self._finish(i, req, reason, token=tok)
+            else:
+                self._emit(req, tok)
+        return ran
+
     def _ensure_pages(self) -> None:
-        """Allocate the page each active slot's next write lands in; on a
+        """Allocate the page each decoding slot's next write lands in; on a
         dry pool, requeue or reject the slot's request."""
         for i in range(self.max_batch):
             req = self.slots[i]
-            if req is None:
+            if req is None or self.prefilling[i]:
                 continue
             # the next write position counts the in-flight token the host
             # has not drained yet (slot_len is the drained length)
@@ -673,11 +763,14 @@ class EngineCore:
 
     def _step_continuous(self) -> bool:
         self._admit_continuous()
+        # the chunks run before the lane mask is built: a slot whose last
+        # chunk ran decodes in this step (as in the JAX engine)
+        self._prefill_chunks()
         if all(s is None for s in self.slots):
             self._drain_pending()  # discard a stale speculative step
             return bool(self.queue)
         self._ensure_pages()
-        active_list = [self.slots[i] is not None
+        active_list = [self.slots[i] is not None and not self.prefilling[i]
                        for i in range(self.max_batch)]
         if self.overlap:
             self._mask_predicted_finishes(active_list)

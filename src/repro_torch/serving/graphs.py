@@ -24,8 +24,9 @@ never races the card.  ``readback`` queues the tokens' copy into one of
 two pinned buffers right after a fused step and records an event; the
 overlapped loop waits on that event only, never on a younger step.
 
-A graph keeps the addresses it was captured with: the page pools, the
-lengths ``lens`` (which every step rewrites in place) and the Mamba state
+A graph keeps the addresses it was captured with: the page pools (and an
+int8 cache's scale pools), the lengths ``lens`` (which every step, and a
+prefill chunk between steps, rewrites in place) and the Mamba state
 pools.  Before each replay they are checked against the cache the engine
 passes, and a moved tensor raises; nothing is recaptured or run eagerly in
 its place.  On the CPU, and inside :func:`disabled`, the same step runs
@@ -43,6 +44,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import blocks
 from repro_torch.models import model as model_lib
 from repro_torch.serving import sampler
 
@@ -69,7 +71,8 @@ def enabled() -> bool:
 
 def _cache_tensors(cache: dict) -> list[torch.Tensor]:
     """The tensors of a paged cache a step reads and writes in place."""
-    out = [cache["k"], cache["v"], cache["lens"]]
+    out = [cache[key] for key in blocks.paged_pool_keys(cache)]
+    out.append(cache["lens"])
     for pools in (cache.get("mamba"), cache.get("tail")):
         if pools is not None:
             out += [pools[name] for name in sorted(pools)]

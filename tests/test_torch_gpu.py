@@ -724,3 +724,167 @@ def test_launch_counters_count_replays(cuda_device):
     assert n == e.stats.decode_steps - steps == 3
     counts = kernels.launch_counts()
     assert counts == {k: n * delta.get(k, 0) for k in counts}, counts
+
+
+# ------------------------------------- chunked prefill and int8 KV pools
+def _int8_pools(kp, vp):
+    """bf16 pools quantized per row and head as the port's int8 cache holds
+    them: (data, scale) pairs."""
+    from repro_torch.models.attention import quantize_rows
+
+    return quantize_rows(kp), quantize_rows(vp)
+
+
+def _chunk_inputs(dev, seed, c, h, hkv, d, pps, page=16):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = pps + 3
+    q, kp, vp = (torch.randn(shape, generator=gen, device=dev
+                             ).to(torch.bfloat16)
+                 for shape in ((c, h, d), (n_pages, page, hkv, d),
+                               (n_pages, page, hkv, d)))
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
+    return q, kp, vp, (perm[:pps] + 1).to(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("h,hkv,d", [(32, 32, 128), (32, 32, 112),
+                                     (15, 5, 64), (4, 2, 16)])
+@pytest.mark.parametrize("c,start", [(1, 0), (7, 5), (16, 300), (128, 0),
+                                     (128, 300)])
+def test_paged_chunk_attention_is_b1_bit_for_bit(cuda_device, c, start, h,
+                                                 hkv, d, kv):
+    """Each valid query i of a chunk equals B1's output for a slot of
+    length start + i + 1 over the same block row, bit for bit, and the
+    chunk is within two bf16 steps of its plain version; padding rows (a
+    chunk of 7 valid rows in a bucket of 16) come out 0."""
+    from repro_torch.kernels.decode_attention.ops import paged_chunk_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_chunk_attention_ref)
+
+    pps = 32   # 512 keys
+    rows = max(c, 16) if c == 7 else c
+    q, kp, vp, row = _chunk_inputs(cuda_device, c + start + d, rows, h, hkv,
+                                   d, pps)
+    if kv == "int8":
+        kp, vp = _int8_pools(kp, vp)
+    got = paged_chunk_attention(q, kp, vp, row, start, c)
+    lens = torch.arange(start + 1, start + c + 1, dtype=torch.int32,
+                        device=cuda_device)
+    b1 = paged_decode_attention(q[:c].contiguous(), kp, vp,
+                                row[None].expand(c, pps).contiguous(), lens)
+    assert torch.equal(got[:c], b1)
+    pos = start + torch.arange(rows, device=cuda_device)
+    ref = paged_chunk_attention_ref(q[None], kp, vp, row[None], pos[None])[0]
+    assert_bf16_close(got[:c], ref[:c])
+    assert not bool(got[c:].float().any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,hkv,d", [(32, 32, 128), (32, 32, 112),
+                                     (15, 5, 64)])
+def test_int8_paged_decode_attention_on_card(cuda_device, h, hkv, d):
+    """B1 over int8 (data, scale) pools: within two bf16 steps of the plain
+    version (which dequantizes as the kernel does), length-0 lanes 0, and a
+    slot's bits the same alone and in its batch."""
+    lens = [0, 1, SPLIT, SPLIT + 1, 545, 1024]
+    q, kp, vp, block = _paged_inputs(cuda_device, d + 7, len(lens), h, hkv,
+                                     d, 64)
+    kq, vq = _int8_pools(kp, vp)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = kernels.launch_counts()["paged_decode_attention_int8"]
+    got = paged_decode_attention(q, kq, vq, block, lengths)
+    assert kernels.launch_counts()["paged_decode_attention_int8"] == before + 1
+    ref = paged_decode_attention_ref(q, kq, vq, block, lengths)
+    assert_bf16_close(got[1:], ref[1:])
+    assert not bool(got[0].float().any())
+    alone = paged_decode_attention(q[4:5].contiguous(), kq, vq,
+                                   block[4:5].contiguous(), lengths[4:5].clone())
+    assert torch.equal(alone[0], got[4])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_chunked_prefill_bit_identical_to_one_shot_on_card(cuda_device, kv):
+    """llama2-7b at full width, 2 layers, W8A8: a 150-token prompt chunked
+    with budgets {1, 7, 16, 128} leaves the slot's valid K/V rows, the
+    first token's logits and 3 decode logits equal, bit for bit, to the
+    one-chunk run."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import blocks
+    from repro_torch.models import model as M
+    from repro_torch.quant.convert import quantize_params
+    from repro_torch.serving.kv_cache import chunk_spans, prefill_bucket
+
+    cfg = dataclasses.replace(get_arch("llama2-7b"), n_layers=2)
+    params = quantize_params(M.init_params(cfg, seed=3, max_seq=256,
+                                           device="cuda"), consume=True)
+    prompt = torch.randint(0, cfg.vocab_size, (150,),
+                           generator=torch.Generator().manual_seed(4)).tolist()
+
+    def run(budget):
+        cache = M.init_paged_cache(cfg, 2, 256, page_size=16, device="cuda",
+                                   kv_dtype=kv)
+        cache["block"] = torch.zeros((2, 16), dtype=torch.int32,
+                                     device="cuda")
+        cache["block"][0] = torch.arange(17, 1, -1, device="cuda")
+        for start, n in chunk_spans(len(prompt), budget):
+            toks = torch.zeros(min(prefill_bucket(n, floor=16), 256),
+                               dtype=torch.int32)
+            toks[:n] = torch.tensor(prompt[start:start + n])
+            lg, cache = M.prefill_chunk_into_slot(
+                params, cfg, toks.to("cuda"), start, n, cache, 0)
+        pages = cache["block"][0].long()
+        rows = {key: cache[key][:, pages].flatten(1, 2)[:, :len(prompt)]
+                .clone() for key in blocks.paged_pool_keys(cache)}
+        out = [lg.clone()]
+        tok = torch.zeros(2, dtype=torch.int32, device="cuda")
+        active = torch.tensor([True, False], device="cuda")
+        for _ in range(3):
+            tok[0] = torch.argmax(out[-1])
+            step, cache = M.decode_step_paged(params, cfg, tok, cache,
+                                              active)
+            out.append(step[0].clone())
+        torch.cuda.synchronize()
+        return out, rows
+
+    kernels.reset_launch_counts()
+    one, one_rows = run(len(prompt))
+    name = "paged_chunk_attention" + ("_int8" if kv == "int8" else "")
+    assert kernels.launch_counts()[name] == cfg.n_layers
+    for budget in (1, 7, 16, 128):
+        got, rows = run(budget)
+        for key in one_rows:
+            assert torch.equal(rows[key], one_rows[key]), (budget, key)
+        for step, (a, b) in enumerate(zip(one, got)):
+            assert torch.equal(a, b), (budget, step)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_chunked_engine_on_card(cuda_device, kv):
+    """The reduced llama2-7b W8A8 engine with a chunk budget of 5:
+    synchronous and overlapped streams equal, the chunk kernel (and under
+    int8 pools B1's int8 variant) launched, the decode graph replayed."""
+    from repro_torch.launch.serve import build_client
+    from repro_torch.serving.core import EngineCore
+    from repro_torch.serving.scheduler import FCFSScheduler
+
+    cfg, client = build_client("llama2-7b", reduced=True, max_seq=128,
+                               device="cuda")
+    params = client.router.cores[0].params
+    engines = [EngineCore(cfg, params, max_batch=4, max_seq=128, eos_id=-1,
+                          overlap=o, kv_dtype=kv, device="cuda",
+                          scheduler=FCFSScheduler(chunk_tokens=5))
+               for o in (False, True)]
+    kernels.reset_launch_counts()
+    sync = _serve(engines[0], stochastic=True)
+    assert _serve(engines[1], stochastic=True) == sync
+    counts = kernels.launch_counts()
+    suffix = "_int8" if kv == "int8" else ""
+    assert counts["paged_chunk_attention" + suffix] > 0, counts
+    assert counts["paged_decode_attention" + suffix] > 0, counts
+    assert engines[0].stats.prefill_chunks > 0
+    assert engines[0].graph.replays == engines[0].stats.decode_steps

@@ -116,10 +116,16 @@ def test_unported_options_raise():
     cfg = get_arch("smollm-360m").reduced()
     params = M.init_params(cfg, device="cpu")
     for kw in (dict(mode="wave"), dict(kv_tier="flash"),
-               dict(prefix_cache=True), dict(kv_dtype="int8"),
-               dict(scheduler=make_scheduler("fcfs", chunk_tokens=8))):
+               dict(prefix_cache=True)):
         with pytest.raises(NotImplementedError):
             EngineCore(cfg, params, device="cpu", **kw)
+    # int8 KV pools and chunk budgets are ported; an unknown pool dtype is
+    # refused as the JAX engine refuses it
+    eng = EngineCore(cfg, params, device="cpu", kv_dtype="int8",
+                     scheduler=make_scheduler("fcfs", chunk_tokens=8))
+    assert eng.kv_dtype == "int8" and eng.scheduler.chunk_tokens == 8
+    with pytest.raises(ValueError):
+        EngineCore(cfg, params, device="cpu", kv_dtype="fp8")
     # the overlapped loop and stochastic sampling are ported
     eng = EngineCore(cfg, params, device="cpu", overlap=True)
     eng.add_request(Request(rid=0, prompt=[1, 2],
