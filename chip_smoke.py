@@ -187,6 +187,16 @@ SOURCES = {
                    "src/repro/kernels/ecc_decode/ecc_decode.py:53"),
     "ssd_intra_chunk": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan/ssd_scan.py:43"),
+    "paged_decode_attention_int8": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:61"),
+    # no Pallas counterpart: the JAX package computes it in jnp
+    "paged_chunk_attention": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/models/attention.py:233"),
+    "paged_chunk_attention_int8": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/models/attention.py:233"),
 }
 # the phase whose run each kernel's launch count is read around
 COUNTED_IN = {"int8_gemv": "serve", "int8_gemv_dp4a": "serve",
@@ -194,7 +204,10 @@ COUNTED_IN = {"int8_gemv": "serve", "int8_gemv_dp4a": "serve",
               "paged_decode_attention": "serve", "flash_attention": "serve",
               "ecc_decode": "hybrid", "w4a16_gemv": "serve_hybrid_w4a16",
               "w4a16_gemm": "serve_hybrid_w4a16",
-              "ssd_intra_chunk": "serve_hybrid"}
+              "ssd_intra_chunk": "serve_hybrid",
+              "paged_chunk_attention": "serve_chunked",
+              "paged_decode_attention_int8": "serve_int8kv",
+              "paged_chunk_attention_int8": "serve_int8kv_chunked"}
 # kept for shapes no model has (K not a multiple of 16, a misaligned base):
 # a serving path must not launch them
 OFF_PATH = ("int8_gemm", "int8_gemv_dp4a")
@@ -205,6 +218,9 @@ KERNEL_NAMES = {"int8_gemv": "int8_gemv_mma_kernel",
                 "int8_gemm": "int8_gemm_kernel",
                 "int8_gemm_tc": "int8_gemm_tc_kernel",
                 "paged_decode_attention": "paged_decode_attention_",
+                "paged_decode_attention_int8": "paged_decode_attention_",
+                "paged_chunk_attention": "paged_chunk_attention_",
+                "paged_chunk_attention_int8": "paged_chunk_attention_",
                 "w4a16_gemv": "w4a16_gemv_mma_kernel",
                 "w4a16_gemm": "w4a16_gemm_"}
 # the kernels every W8A8 serving phase must go through
@@ -803,6 +819,8 @@ def phase_kernels(torch, results: dict) -> None:
     _kernels_ecc(torch, results)
     _kernels_w4a16(torch, results)
     _kernels_ssd(torch, results)
+    _kernels_b1_int8(torch, results)
+    _kernels_chunk(torch, results)
 
 
 def _planted_collisions(torch, ecc, pages):
@@ -1312,6 +1330,278 @@ def _kernels_ssd(torch, results: dict) -> None:
         log(line)
 
 
+# ---------------------------------------------------------------------------
+# the paged chunk kernel and the int8 pools (B1's int8 variant)
+# ---------------------------------------------------------------------------
+
+# chunks of 1, 7 (valid rows of a bucket of 16), 16 and 128 rows at cache
+# starts 0, 5 and 300
+CHUNK_CASES = [(c, start) for c in (1, 7, 16, 128) for start in (0, 5, 300)]
+
+
+def _quantized(pages):
+    """A bf16 pool as the int8 cache holds it: an (int8, float32 scale)
+    pair, quantized per row and head."""
+    from repro_torch.models.attention import quantize_rows
+
+    return quantize_rows(pages)
+
+
+def _chunk_inputs(torch, gen, c, h, hkv, d, kv, pps=32, page=16,
+                  copies=1):
+    """Chunk queries [rows, H, D] (a 7-row chunk in a bucket of 16), pool
+    copies of pps + 3 pages (bf16 or int8 pairs) and a block row of pps
+    pages in random order."""
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    rows = 16 if c == 7 else c
+    n_pages = pps + 3
+    pools = []
+    for _ in range(copies):
+        kp, vp = randn(n_pages, page, hkv, d), randn(n_pages, page, hkv, d)
+        pools.append((_quantized(kp), _quantized(vp)) if kv == "int8"
+                     else (kp, vp))
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
+    return randn(rows, h, d), pools, (perm[:pps] + 1).to(torch.int32)
+
+
+def _b1_of_chunk(torch, q, kp, vp, row, start, c):
+    """B1 over the chunk's first c queries as c slots of lengths start + i
+    + 1 on the same block row."""
+    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+
+    lens = torch.arange(start + 1, start + c + 1, dtype=torch.int32,
+                        device=q.device)
+    return paged_decode_attention(q[:c].contiguous(), kp, vp,
+                                  row[None].expand(c, -1).contiguous(), lens)
+
+
+def _chunk_key_fault(torch, q, kp, vp, row, start, c, got, kv, page=16):
+    """The key one past query i's position (i = c // 2) overwritten in the
+    pool: query i's output must keep its bits, query i + 1's must move."""
+    from repro_torch.kernels.decode_attention.ops import paged_chunk_attention
+
+    i = c // 2
+    t = start + i + 1
+    pid, off = int(row[t // page]), t % page
+    if kv == "int8":
+        bad_k = (kp[0].clone(), kp[1].clone())
+        bad_v = (vp[0].clone(), vp[1].clone())
+        bad_k[0][pid, off] = 127 - bad_k[0][pid, off].abs()
+        bad_v[0][pid, off] = -bad_v[0][pid, off]
+    else:
+        bad_k, bad_v = kp.clone(), vp.clone()
+        bad_k[pid, off] = bad_k[pid, off] * -4 + 1
+        bad_v[pid, off] = bad_v[pid, off] * 8
+    bad = paged_chunk_attention(q, bad_k, bad_v, row, start, c)
+    torch.cuda.synchronize()
+    kept = torch.equal(bad[i], got[i])
+    moved = not torch.equal(bad[i + 1], got[i + 1])
+    log(f"[kernels] planted fault, paged_chunk_attention {kv} start {start} "
+        f"C {c}: key {t} (one past query {i}) overwritten: query {i} "
+        f"{'unchanged' if kept else 'MOVED'}, query {i + 1} "
+        f"{'moved' if moved else 'UNCHANGED'}")
+    if not kept or not moved:
+        raise AssertionError("paged_chunk_attention attends a key past its "
+                             "query's position, or not the one at it")
+
+
+def _chunk_bound(c, start, h, hkv, d, kv, pps=32, page=16):
+    """(bytes, operations) the chunk's function needs: q and out once,
+    each K/V row up to the last query's position once (int8: codes and
+    scales), the block row; 4 D operations a (query, head, key)."""
+    n_keys = min(start + c, pps * page)
+    elt = 1 if kv == "int8" else 2
+    kv_bytes = 2 * n_keys * hkv * d * elt + (2 * n_keys * hkv * 4
+                                             if kv == "int8" else 0)
+    pairs = sum(start + i + 1 for i in range(c))
+    return 2 * c * h * d * 2 + kv_bytes + pps * 4, 4 * h * d * pairs
+
+
+def _kernels_chunk(torch, results: dict) -> None:
+    """The paged chunk kernel (bf16 and int8 pools) at D 128 and 112 and
+    every CHUNK_CASES shape: within ATTN_TOL of its plain version (the JAX
+    float32 formula), every valid query bit-equal to B1 at its length,
+    padding rows 0; a planted key fault; timed at 128 rows from 0 and
+    300 beside SDPA over the gathered block row with a boolean mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import paged_chunk_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_chunk_attention_ref)
+    from repro_torch.models.attention import gather_paged_rows
+
+    gen = torch.Generator(device=torch.device("cuda"))
+    gen.manual_seed(19)
+    h = hkv = 32
+    for kv in ("bf16", "int8"):
+        name = "paged_chunk_attention" + ("_int8" if kv == "int8" else "")
+        res = results[name]
+        res["max_abs_err"] = 0.0
+        for d in (128, 112):
+            worst = 0.0
+            for c, start in CHUNK_CASES:
+                timed = d == 128 and c == 128 and start in (0, 300)
+                q, pools, row = _chunk_inputs(torch, gen, c, h, hkv, d, kv,
+                                              copies=3 if timed else 1)
+                kp, vp = pools[0]
+                got = paged_chunk_attention(q, kp, vp, row, start, c)
+                pos = start + torch.arange(q.shape[0], device=q.device)
+                ref = paged_chunk_attention_ref(q[None], kp, vp, row[None],
+                                                pos[None])[0]
+                b1 = _b1_of_chunk(torch, q, kp, vp, row, start, c)
+                torch.cuda.synchronize()
+                err, used = _check_close(
+                    torch, f"{name}[D {d} C {c} start {start}]", got[:c],
+                    ref[:c])
+                worst = max(worst, used)
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                if not torch.equal(got[:c], b1):
+                    bad = int((got[:c] != b1).any(-1).any(-1).sum())
+                    raise AssertionError(
+                        f"{name} D {d} C {c} start {start}: {bad} of {c} "
+                        f"queries differ from B1 at their lengths")
+                if bool(got[c:].float().any()):
+                    raise AssertionError(f"{name}: a padding row is not 0")
+                if d == 128 and c == 16 and start == 5:
+                    _chunk_key_fault(torch, q, kp, vp, row, start, c, got, kv)
+                if not timed:
+                    continue
+                ms = time_ms(torch, lambda i: paged_chunk_attention(
+                    q, pools[i][0], pools[i][1], row, start, c), 3)
+                dev_ms = profiled_ms(torch, lambda i: paged_chunk_attention(
+                    q, pools[i][0], pools[i][1], row, start, c),
+                    (KERNEL_NAMES[name],), 3)
+                plain = time_ms(torch, lambda i: paged_chunk_attention_ref(
+                    q[None], pools[i][0], pools[i][1], row[None], pos[None]),
+                    3)
+                # SDPA over the block row gathered (int8: dequantized) to
+                # bf16 beforehand, with a boolean causal mask from start
+                kd = [gather_paged_rows(p[0], row[None]).to(torch.bfloat16)
+                      .transpose(1, 2).contiguous() for p in pools]
+                vd = [gather_paged_rows(p[1], row[None]).to(torch.bfloat16)
+                      .transpose(1, 2).contiguous() for p in pools]
+                mask = (torch.arange(kd[0].shape[2], device=q.device)[None]
+                        <= pos[:, None])[None, None]
+                q4 = q[None].transpose(1, 2)
+                lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                    q4, kd[i], vd[i], attn_mask=mask), 3)
+                lib_dev = profiled_ms(
+                    torch, lambda i: F.scaled_dot_product_attention(
+                        q4, kd[i], vd[i], attn_mask=mask), None, 3)
+                b_bytes, b_ops = _chunk_bound(c, start, h, hkv, d, kv)
+                b_ms, b_by = bound(b_bytes, b_ops, "bf16")
+                if start == 0:
+                    res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                               library_ms=lib, library_device_ms=lib_dev,
+                               bound_ms=b_ms, bound_by=b_by,
+                               shape=f"C={c} start={start} H={h} D={d}")
+                log(f"[kernels] {name} C={c} start={start} H={h} D={d}: "
+                    f"{ms:.4f} ms (device time {dev_ms:.4f} ms, "
+                    f"{b_ops / dev_ms / 1e9:.1f} GFLOP/s, "
+                    f"{100 * b_ms / dev_ms:.1f}% of the bound), plain "
+                    f"{plain:.4f} ms, SDPA on the gathered block row "
+                    f"{lib:.4f} ms (device {lib_dev:.4f} ms), bound "
+                    f"{b_ms:.4f} ms ({b_by})")
+            log(f"[kernels] {name} D={d}, chunks of 1, 7 (in 16), 16 and 128 "
+                f"rows at starts 0, 5 and 300: every valid query bit-equal "
+                f"to B1 at its length, padding rows 0, within {ATTN_TOL} of "
+                f"the plain version (worst |err|/limit {worst:.3f})")
+
+
+def _kernels_b1_int8(torch, results: dict) -> None:
+    """B1 over int8 pools: against its plain version (which dequantizes as
+    the kernel does) within ATTN_TOL at the llama2-7b and zamba2-7b
+    batches and the serve trace's lengths, length-0 lanes 0, the planted
+    faults and batch invariance; timed beside B1's bf16 row and SDPA over
+    the dequantized, gathered cache."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_decode_attention_ref)
+    from repro_torch.models.attention import gather_paged_rows
+
+    gen = torch.Generator(device=torch.device("cuda"))
+    gen.manual_seed(20)
+    dev = torch.device("cuda")
+    res = results["paged_decode_attention_int8"]
+    res["max_abs_err"] = 0.0
+    page, max_seq = 16, 1024
+    for tag, b, h, hkv, d, lens in [
+            ("llama2-7b", 4, 32, 32, 128, [1024, 545, 17, 0]),
+            ("zamba2-7b", 4, 32, 32, 112, [1024, 545, 17, 0]),
+            ("smollm-360m", 4, 15, 5, 64, [700, 64, 1, 0]),
+            ("serve group 2", 4, 32, 32, 128, [403, 331, 275, 439])]:
+        pps = max_seq // page
+        n_pages = b * pps + 1
+        timed = tag in ("llama2-7b", "serve group 2")
+        pools = [tuple(_quantized(torch.randn(
+            (n_pages, page, hkv, d), generator=gen, device=dev).to(
+                torch.bfloat16)) for _ in range(2))
+            for _ in range(3 if timed else 1)]
+        perm = torch.randperm(n_pages - 1, generator=gen, device=dev)
+        block = (perm[:b * pps] + 1).reshape(b, pps).to(torch.int32)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        kp, vp = pools[0]
+        got = paged_decode_attention(q, kp, vp, block, lengths)
+        ref = paged_decode_attention_ref(q, kp, vp, block, lengths)
+        torch.cuda.synchronize()
+        live = lengths > 0
+        err, used = _check_close(torch, f"paged_decode_attention_int8[{tag}]",
+                                 got[live], ref[live])
+        if bool(got[~live].float().any()):
+            raise AssertionError("int8: a length-0 lane is not 0")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        line = (f"[kernels] paged_decode_attention_int8 {tag} B={b} H={h} "
+                f"Hkv={hkv} D={d} lens={lens}: max|err| {err:.3e} (worst "
+                f"|err|/limit {used:.3f}; tol {ATTN_TOL})")
+        if tag in ("llama2-7b", "zamba2-7b"):
+            _planted_faults(torch, q, kp, vp, block, lengths, ref, page)
+            _b1_batch_invariance(torch, q, kp, vp, block, lengths, got)
+        if timed:
+            ms = time_ms(torch, lambda i: paged_decode_attention(
+                q, pools[i][0], pools[i][1], block, lengths), 3)
+            dev_ms = profiled_ms(torch, lambda i: paged_decode_attention(
+                q, pools[i][0], pools[i][1], block, lengths),
+                (KERNEL_NAMES["paged_decode_attention_int8"],), 3)
+            plain = time_ms(torch, lambda i: paged_decode_attention_ref(
+                q, pools[i][0], pools[i][1], block, lengths), 3)
+            kd = [gather_paged_rows(p[0], block).to(torch.bfloat16)
+                  .transpose(1, 2).contiguous() for p in pools]
+            vd = [gather_paged_rows(p[1], block).to(torch.bfloat16)
+                  .transpose(1, 2).contiguous() for p in pools]
+            mask = (torch.arange(max_seq, device=dev)[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            q4 = q[:, :, None, :]
+            lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                q4, kd[i], vd[i], attn_mask=mask), 3)
+            lib_dev = profiled_ms(
+                torch, lambda i: F.scaled_dot_product_attention(
+                    q4, kd[i], vd[i], attn_mask=mask), None, 3)
+            n_tok = sum(lens)
+            kv_bytes = 2 * n_tok * hkv * (d + 4)   # codes and scales
+            bytes_moved = 2 * b * h * d * 2 + kv_bytes + block.numel() * 4 \
+                + b * 4
+            b_ms, b_by = bound(bytes_moved, 4 * n_tok * h * d, "bf16")
+            if tag == "llama2-7b":
+                res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                           library_ms=lib, library_device_ms=lib_dev,
+                           bound_ms=b_ms, bound_by=b_by,
+                           shape=f"B={b} H={h} D={d} lens={lens}")
+            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms, K/V "
+                     f"{kv_bytes / dev_ms / 1e6:.0f} GB/s), plain "
+                     f"{plain:.4f} ms, SDPA on the dequantized gathered "
+                     f"cache {lib:.4f} ms (device {lib_dev:.4f} ms), bound "
+                     f"{b_ms:.4f} ms ({b_by})")
+        log(line)
+
+
 def _to_runs(torch, params_cpu) -> dict:
     """The same W8A8 weights three ways: card bf16 (kernels), CPU bf16
     (plain versions), CPU float32 (plain versions, the yardstick)."""
@@ -1439,14 +1729,16 @@ def phase_model(torch) -> None:
 
 
 def _serve_full(torch, arch: str, tag: str, smi: str, quant: str = "w8a8",
-                n_req: int = 8, max_new: int = 32,
-                required: tuple = ()) -> tuple[dict, object]:
+                n_req: int = 8, max_new: int = 32, required: tuple = (),
+                chunk_prefill: int = 0, kv_dtype: str = "bf16",
+                serving: tuple = SERVING_KERNELS) -> tuple[dict, object]:
     """``arch`` at full width, ``quant``, through launch/serve.py's
     build_client: 4 slots, max_seq 1024, page 16, ``n_req`` greedy requests
-    with 64-512-token prompts and ``max_new`` new tokens each.  Every launch
-    counter is zeroed before the run and read after; the kernels the phase
-    owns (COUNTED_IN), SERVING_KERNELS and ``required`` must have launched.
-    Returns the counts and the client."""
+    with 64-512-token prompts and ``max_new`` new tokens each
+    (``chunk_prefill``: the chunk budget; ``kv_dtype``: the page pools).
+    Every launch counter is zeroed before the run and read after; the
+    kernels the phase owns (COUNTED_IN), ``serving`` and ``required`` must
+    have launched.  Returns the counts and the client."""
     import numpy as np
 
     from repro_torch import kernels
@@ -1457,7 +1749,8 @@ def _serve_full(torch, arch: str, tag: str, smi: str, quant: str = "w8a8",
     t0 = time.monotonic()
     cfg, client = build_client(arch, reduced=False, quant=quant,
                                max_batch=4, max_seq=1024, seed=0,
-                               device="cuda")
+                               chunk_prefill=chunk_prefill,
+                               kv_dtype=kv_dtype, device="cuda")
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated() / 2**30
     log(f"[{tag}] {arch} full width {quant.upper()} built in "
@@ -1470,15 +1763,21 @@ def _serve_full(torch, arch: str, tag: str, smi: str, quant: str = "w8a8",
                for n in rng.randint(64, 513, size=n_req)]
 
     # a direct prefill of the first prompt, outside the engine, as the
-    # reference for the engine's first token of that request
-    ref_cache = M.init_paged_cache(cfg, 1, 1024, device="cuda")
+    # reference for the engine's first token of that request: in chunks of
+    # the budget where the engine chunks it
+    ref_cache = M.init_paged_cache(cfg, 1, 1024, device="cuda",
+                                   kv_dtype=kv_dtype)
     ref_cache["block"] = torch.arange(1, 65, dtype=torch.int32,
                                       device="cuda")[None]
     p0 = prompts[0]
-    ref_logits, _ = M.prefill_into_slots(
-        core.params, cfg, torch.tensor([p0], device="cuda"),
-        torch.tensor([len(p0)], device="cuda"), ref_cache,
-        torch.tensor([0], device="cuda"))
+    if chunk_prefill and len(p0) > chunk_prefill:
+        ref_logits = _chunked_logits(torch, core.params, cfg, p0,
+                                     chunk_prefill, ref_cache)[None]
+    else:
+        ref_logits, _ = M.prefill_into_slots(
+            core.params, cfg, torch.tensor([p0], device="cuda"),
+            torch.tensor([len(p0)], device="cuda"), ref_cache,
+            torch.tensor([0], device="cuda"))
     if ref_logits.shape != (1, cfg.vocab_size) \
             or not bool(torch.isfinite(ref_logits).all()):
         raise AssertionError("reference prefill logits malformed")
@@ -1533,7 +1832,7 @@ def _serve_full(torch, arch: str, tag: str, smi: str, quant: str = "w8a8",
         f"wall above on {smi}")
     missing = [k for k, phase in COUNTED_IN.items()
                if phase == tag and counts[k] <= 0 and k not in OFF_PATH]
-    missing += [k for k in SERVING_KERNELS + tuple(required)
+    missing += [k for k in tuple(serving) + tuple(required)
                 if counts[k] <= 0 and k not in missing]
     if missing:
         raise AssertionError(f"the serving path never launched {missing}")
@@ -1999,8 +2298,9 @@ def _overlap_streams(torch, client, prompts, max_new, sampling=None,
 
 def _check_graph_run(core, run: dict, tag: str, mode: str) -> None:
     """Every decode step of a graph run was one replay, the dispatches a
-    step are 1 (overlap) or 2 (sync), and B1 and the decode GeMV(s) were
-    counted through the replays (the capture's launches times replays)."""
+    step are 1 (overlap) or 2 (sync), and B1 (its int8 variant over int8
+    pools) and the decode GeMV(s) were counted through the replays (the
+    capture's launches times replays)."""
     want = 1 if core.overlap else 2
     if run["steps"] <= 0 or run["dispatches"] != want * run["steps"]:
         raise AssertionError(f"[{tag}] {mode}: {run['dispatches']} "
@@ -2009,7 +2309,9 @@ def _check_graph_run(core, run: dict, tag: str, mode: str) -> None:
     if run["replays"] != run["steps"]:
         raise AssertionError(f"[{tag}] {mode}: {run['replays']} graph "
                              f"replays for {run['steps']} decode steps")
-    for k in ("paged_decode_attention", "int8_gemv"):
+    b1 = ("paged_decode_attention_int8" if core.kv_dtype == "int8"
+          else "paged_decode_attention")
+    for k in (b1, "int8_gemv"):
         per_replay = min(d.get(k, 0) for d in core.graph._deltas.values())
         if per_replay <= 0 or \
                 run["counts"][k] < run["replays"] * per_replay:
@@ -2212,12 +2514,473 @@ def phase_serve_overlap(torch, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# chunked prefill and int8 KV pools at full width
+# ---------------------------------------------------------------------------
+
+CHUNK_BUDGET = 128
+# two engines' greedy streams (chunked and one-shot prefill, int8 and bf16
+# pools) are compared on margin-checked prompts, after the method of
+# tests/test_quant_serving.py:83-99: a prompt is kept where, with both
+# paths fed the first path's greedy tokens, they pick the same token at
+# every step with a top-1 / top-2 logit margin above MARGIN on both (the
+# engines run the same computations but may batch a row differently)
+MARGIN = 1e-2
+
+
+def _new_cache(torch, cfg, slots: int, kv_dtype: str) -> dict:
+    """A paged cache of ``slots`` slots of 1024 tokens (page 16), each
+    slot's block row its own pages in descending order."""
+    from repro_torch.models import model as M
+
+    cache = M.init_paged_cache(cfg, slots, 1024, page_size=16, device="cuda",
+                               kv_dtype=kv_dtype)
+    n = slots * 64
+    cache["block"] = torch.arange(n, 0, -1, dtype=torch.int32,
+                                  device="cuda").reshape(slots, 64)
+    return cache
+
+
+def _chunked_logits(torch, params, cfg, prompt, budget, cache, slot=0):
+    """Prefill ``prompt`` into ``slot`` of ``cache`` (block table set) in
+    chunks of ``budget`` tokens in the engine's buckets (floor = page
+    size); returns the last chunk's logits [V]."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.kv_cache import chunk_spans, prefill_bucket
+
+    page = cache["k"].shape[2]
+    cap = cache["block"].shape[1] * page
+    for start, n in chunk_spans(len(prompt), budget):
+        toks = torch.zeros(min(prefill_bucket(n, floor=page), cap),
+                           dtype=torch.int32)
+        toks[:n] = torch.tensor(prompt[start:start + n], dtype=torch.int32)
+        logits, cache = M.prefill_chunk_into_slot(
+            params, cfg, toks.to("cuda"), start, n, cache, slot)
+    return logits
+
+
+def _chunk_invariance(torch, params, cfg, prompt, budgets, kv_dtype: str,
+                      tag: str) -> None:
+    """``prompt`` through the chunk path at each budget, then 5 greedy
+    decode steps: the slot's valid K/V rows (and scales), the first
+    token's logits and the 5 decode logits must equal the one-chunk run's
+    (budget len(prompt)) bit for bit."""
+    from repro_torch.models import blocks
+    from repro_torch.models import model as M
+
+    runs = {}
+    for budget in budgets:
+        cache = _new_cache(torch, cfg, 2, kv_dtype)
+        t0 = time.perf_counter()
+        logits = _chunked_logits(torch, params, cfg, prompt, budget, cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pages = cache["block"][0].long()
+        rows = {key: cache[key][:, pages].flatten(1, 2)[:, :len(prompt)]
+                .clone() for key in blocks.paged_pool_keys(cache)}
+        out = [logits.clone()]
+        tok = torch.zeros(2, dtype=torch.int32, device="cuda")
+        active = torch.tensor([True, False], device="cuda")
+        for _ in range(5):
+            tok[0] = torch.argmax(out[-1])
+            step, cache = M.decode_step_paged(params, cfg, tok, cache, active)
+            out.append(step[0].clone())
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(x).all()) for x in out):
+            raise AssertionError(f"[{tag}] budget {budget}: non-finite logits")
+        runs[budget] = (out, rows, wall)
+        del cache
+    one, one_rows, _ = runs[len(prompt)]
+    for budget, (out, rows, wall) in runs.items():
+        same_rows = all(torch.equal(rows[k], one_rows[k]) for k in rows)
+        same = [torch.equal(a, b) for a, b in zip(out, one)]
+        log(f"[{tag}] {kv_dtype} pools, a {len(prompt)}-token prompt in "
+            f"chunks of {budget} ({-(-len(prompt) // budget)} chunks, "
+            f"{wall * 1e3:.0f} ms): valid K/V rows "
+            f"{'bit-equal' if same_rows else 'DIFFERENT'}, first-token "
+            f"logits {'bit-equal' if same[0] else 'DIFFERENT'}, decode "
+            f"logits bit-equal at {sum(same[1:])} of 5 steps to the "
+            f"one-chunk run")
+        if not same_rows or not all(same):
+            raise AssertionError(f"[{tag}] chunked != one-shot at budget "
+                                 f"{budget} under {kv_dtype} pools")
+
+
+def _paired_logits(torch, params, cfg, prompts, n_new, paths):
+    """Greedy logits of ``prompts`` (4 at a time) along each path of
+    ``paths`` (name -> (kv_dtype, chunk budget, 0 for the one-shot group
+    prefill)), every path fed the first path's greedy tokens.  Returns
+    (margins, drifts, agree): per prompt the smallest top-1 / top-2 margin
+    over the paths and steps, the largest |logit difference| of the other
+    paths to the first, and whether every path picks the first path's
+    token at every step."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.kv_cache import prefill_bucket
+
+    margins, drifts, agree = [], [], []
+    names = list(paths)
+    for i0 in range(0, len(prompts), 4):
+        group = prompts[i0:i0 + 4]
+        m = len(group)
+        logits, caches = {}, {}
+        for name, (kv_dtype, budget) in paths.items():
+            cache = _new_cache(torch, cfg, 4, kv_dtype)
+            if budget:
+                first = torch.stack([_chunked_logits(
+                    torch, params, cfg, p, budget, cache, slot)
+                    for slot, p in enumerate(group)])
+            else:
+                bucket = prefill_bucket(max(len(p) for p in group))
+                toks = torch.tensor([p + [0] * (bucket - len(p))
+                                     for p in group], device="cuda")
+                first, cache = M.prefill_into_slots(
+                    params, cfg, toks, torch.tensor(
+                        [len(p) for p in group], device="cuda"), cache,
+                    torch.arange(m, device="cuda"))
+            logits[name], caches[name] = [first.float()], cache
+        active = torch.arange(4, device="cuda") < m
+        for _ in range(n_new - 1):
+            tok = torch.zeros(4, dtype=torch.int32, device="cuda")
+            tok[:m] = torch.argmax(logits[names[0]][-1], -1).to(torch.int32)
+            for name in names:
+                step, caches[name] = M.decode_step_paged(
+                    params, cfg, tok, caches[name], active)
+                logits[name].append(step[:m].float())
+        ref = torch.stack(logits[names[0]])              # [steps, m, V]
+        margin = torch.full((m,), float("inf"), device="cuda")
+        drift = torch.zeros(m, device="cuda")
+        same = torch.ones(m, dtype=torch.bool, device="cuda")
+        for name in names:
+            path = torch.stack(logits[name])
+            top2 = torch.topk(path, 2, dim=-1).values
+            margin = torch.minimum(margin, (top2[..., 0] - top2[..., 1])
+                                   .amin(0))
+            drift = torch.maximum(drift, (path - ref).abs().amax(-1).amax(0))
+            same &= (path.argmax(-1) == ref.argmax(-1)).all(0)
+        margins += margin.tolist()
+        drifts += drift.tolist()
+        agree += same.tolist()
+        del caches
+    return margins, drifts, agree
+
+
+def _streams(torch, client, prompts, max_new):
+    """Greedy streams of ``prompts`` through ``client``."""
+    handles = [client.submit(p, max_new_tokens=max_new) for p in prompts]
+    client.run()
+    torch.cuda.synchronize()
+    return [h.request.out_tokens for h in handles]
+
+
+def _margin_checked_streams(torch, params, cfg, prompts, n_new, paths,
+                            clients, tag: str) -> None:
+    """Greedy streams of the two ``clients`` (one per path, in ``paths``'s
+    order) must agree on every margin-checked prompt (MARGIN); at least two
+    of the prompts must pass the check."""
+    margins, drifts, agree = _paired_logits(torch, params, cfg, prompts,
+                                            n_new, paths)
+    keep = [i for i, (mg, ok) in enumerate(zip(margins, agree))
+            if ok and mg > MARGIN]
+    log(f"[{tag}] {' vs '.join(paths)}: per prompt (top-1 margin, max "
+        f"|dlogit| between the paths, same tokens) over {n_new} greedy "
+        f"tokens: "
+        + ", ".join(f"({mg:.4f}, {dr:.4f}, {'y' if ok else 'n'})"
+                    for mg, dr, ok in zip(margins, drifts, agree))
+        + f"; {len(keep)} of {len(prompts)} kept (same tokens, margin above "
+          f"{MARGIN})")
+    if len(keep) < 2:
+        raise AssertionError(f"[{tag}] fewer than 2 margin-checked prompts")
+    chosen = [prompts[i] for i in keep]
+    a, b = (_streams(torch, c, chosen, n_new) for c in clients)
+    if a != b:
+        bad = [keep[i] for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        raise AssertionError(f"[{tag}] the engines' greedy streams differ "
+                             f"on margin-checked prompts {bad}")
+    log(f"[{tag}] the two engines' greedy streams are identical on the "
+        f"{len(keep)} margin-checked prompts ({n_new} tokens each)")
+
+
+def _norm_rows_diagnostic(torch, cfg, params, tag: str) -> None:
+    """Whether torch's row mean (the rms_norm the rest of the model runs)
+    gives a row other bits at 16 rows than at 256, and the fixed-order sum
+    the chunk path runs does not."""
+    from repro_torch.models import blocks
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((256, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    gp = params["layers"][0]["attn_norm"]
+    out = {}
+    for fixed in (False, True):
+        few = blocks.norm(cfg, gp, x[:16], fixed_order=fixed)
+        many = blocks.norm(cfg, gp, x, fixed_order=fixed)[:16]
+        out[fixed] = int((few != many).any(-1).sum())
+    log(f"[{tag}] rms_norm row bits, 16 rows against the same rows among "
+        f"256: torch's mean {out[False]} of 16 rows differ; the chunk "
+        f"path's fixed-order sum {out[True]} differ")
+    if out[True]:
+        raise AssertionError("the fixed-order norm depends on the row count")
+
+
+def _starvation(torch, client, cfg, smi: str, tag: str) -> None:
+    """A 64-token request decoding alone, then a 512-token prompt admitted
+    (4 chunks of 128): the short request must emit one token on every step
+    the long one spends prefilling; each step's wall clock (synchronized)
+    with and without a chunk in flight."""
+    import numpy as np
+
+    rng = np.random.RandomState(11)
+    short = [int(t) for t in rng.randint(0, cfg.vocab_size, 64)]
+    long = [int(t) for t in rng.randint(0, cfg.vocab_size, 512)]
+    hs = client.submit(short, max_new_tokens=48)
+    client.pump()
+    torch.cuda.synchronize()
+    plain = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        evs = client.pump()
+        torch.cuda.synchronize()
+        plain.append(time.perf_counter() - t0)
+        if sum(1 for e in evs if e.rid == hs.rid and e.token is not None) != 1:
+            raise AssertionError(f"[{tag}] the short request missed a step")
+    hl = client.submit(long, max_new_tokens=4)
+    walls, per_step = [], []
+    while hl.request.t_first_token == 0.0:
+        t0 = time.perf_counter()
+        evs = client.pump()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_step.append(sum(1 for e in evs
+                            if e.rid == hs.rid and e.token is not None))
+        if len(walls) > 16:
+            raise AssertionError(f"[{tag}] the long prompt never finished "
+                                 f"prefilling")
+    client.run()
+    if hl.request.n_chunks != 4 or per_step != [1] * len(per_step):
+        raise AssertionError(f"[{tag}] starvation: {hl.request.n_chunks} "
+                             f"chunks, short tokens a step {per_step}")
+    log(f"[{tag}] a 64-token request decoding while a 512-token prompt "
+        f"prefills in {hl.request.n_chunks} chunks of {CHUNK_BUDGET}: one "
+        f"token on each of those {len(per_step)} steps {per_step}; step "
+        f"wall {statistics.median(walls) * 1e3:.2f} ms with a chunk in "
+        f"flight (median of {len(walls)}), "
+        f"{statistics.median(plain) * 1e3:.2f} ms without (median of "
+        f"{len(plain)}; synchronous loop, synchronized clock) on {smi}")
+
+
+def _chunk_times(torch, params, cfg, smi: str, tag: str) -> None:
+    """ms per chunk (wall clock around one synchronized
+    prefill_chunk_into_slot, median of 5) and device ms per chunk
+    (torch.profiler) at budgets 16, 128 and 512, at cache start 0."""
+    from repro_torch.models import model as M
+
+    cache = _new_cache(torch, cfg, 1, "bf16")
+    prompt = torch.randint(0, cfg.vocab_size, (512,),
+                           generator=torch.Generator().manual_seed(12),
+                           dtype=torch.int32)
+    for budget in (16, 128, 512):
+        toks = prompt[:budget].to("cuda")
+
+        def call(_i=0):
+            return M.prefill_chunk_into_slot(params, cfg, toks, 0, budget,
+                                             cache, 0)
+
+        call()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        dev = profiled_ms(torch, call, None, iters=3)
+        chunk_dev = profiled_ms(torch, call, ("paged_chunk_attention_",),
+                                iters=3)
+        log(f"[{tag}] one chunk of {budget} tokens (32 layers, W8A8, start "
+            f"0): wall {statistics.median(walls) * 1e3:.2f} ms (median of 5,"
+            f" synchronized), device kernels {dev:.2f} ms, of which the "
+            f"chunk kernel {chunk_dev:.3f} ms, on {smi}")
+
+
+def phase_serve_chunked(torch, smi: str) -> dict:
+    """llama2-7b W8A8 at full width with a chunk budget of 128: the serve
+    trace through the engine (counted), synchronous == overlapped (greedy
+    and sampled), the engine against the unchunked engine on
+    margin-checked prompts, chunked == one-shot bit for bit at budgets {1,
+    7, 16, 128, len}, no decode starvation, ms per chunk."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.serving.client import ServingClient
+    from repro_torch.serving.scheduler import SamplingParams, make_scheduler
+
+    tag = "serve_chunked"
+    counts, client = _serve_full(torch, "llama2-7b", tag, smi,
+                                 chunk_prefill=CHUNK_BUDGET,
+                                 required=("paged_chunk_attention",))
+    core = client.router.cores[0]
+    cfg, params = core.cfg, core.params
+    log(f"[{tag}] {core.stats.prefill_chunks} chunks of up to "
+        f"{CHUNK_BUDGET} tokens, {core.stats.prefills} group prefills; "
+        f"paged_chunk_attention launches {counts['paged_chunk_attention']} "
+        f"({cfg.n_layers} a chunk)")
+    if core.stats.prefill_chunks * cfg.n_layers \
+            != counts["paged_chunk_attention"]:
+        raise AssertionError(f"[{tag}] chunk kernel launches do not match "
+                             f"the chunks run")
+    _norm_rows_diagnostic(torch, cfg, params, tag)
+    kw = dict(max_batch=4, max_seq=1024, page_size=16, eos_id=-1,
+              device="cuda")
+    olap = ServingClient(cfg, params, overlap=True, scheduler=make_scheduler(
+        "fcfs", chunk_tokens=CHUNK_BUDGET), **kw)
+    rng = np.random.RandomState(0)
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+               for n in rng.randint(64, 513, size=8)]
+
+    def stochastic(i):
+        return (SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
+                               seed=100 + i) if i % 2 else None)
+
+    for mode, sampling in (("greedy", None), ("stochastic", stochastic)):
+        a, ra = _overlap_streams(torch, client, prompts, 32, sampling)
+        b, rb = _overlap_streams(torch, olap, prompts, 32, sampling)
+        _check_graph_run(core, ra, tag, f"{mode} sync")
+        _check_graph_run(olap.router.cores[0], rb, tag, f"{mode} overlap")
+        if a != b:
+            raise AssertionError(f"[{tag}] {mode}: overlap differs from sync")
+        log(f"[{tag}] {mode}, 8 requests x 32 tokens with chunked "
+            f"admission: sync and overlap identical; decode steps "
+            f"{ra['steps']} / {rb['steps']}, chunk kernel launches "
+            f"{ra['counts']['paged_chunk_attention']} / "
+            f"{rb['counts']['paged_chunk_attention']}")
+    del olap
+    one_shot = ServingClient(cfg, params, **kw)
+    rng = np.random.RandomState(5)
+    cands = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+             for n in rng.randint(140, 400, size=12)]
+    _margin_checked_streams(
+        torch, params, cfg, cands, 8,
+        {"one-shot": ("bf16", 0), "chunked": ("bf16", CHUNK_BUDGET)},
+        (one_shot, client), tag)
+    del one_shot
+    prompt = [int(t) for t in np.random.RandomState(7).randint(
+        0, cfg.vocab_size, 150)]
+    _chunk_invariance(torch, params, cfg, prompt, (1, 7, 16, 128, 150),
+                      "bf16", tag)
+    _starvation(torch, client, cfg, smi, tag)
+    _chunk_times(torch, params, cfg, smi, tag)
+    del client, core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_serve_int8kv(torch, smi: str) -> tuple[dict, dict]:
+    """llama2-7b W8A8 at full width with int8 KV pools: the serve trace
+    through the engine (counted: B1-int8, never B1 over bf16), sync ==
+    overlap bit for bit (greedy and sampled), the engine against the bf16
+    engine on margin-checked prompts, chunked == one-shot bit for bit
+    under int8 pools, a chunked int8 engine (counted: the chunk kernel's
+    int8 variant), the pool's bytes and the decode step by kernel."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.serving.client import ServingClient
+    from repro_torch.serving.scheduler import SamplingParams, make_scheduler
+
+    tag = "serve_int8kv"
+    counts, client = _serve_full(
+        torch, "llama2-7b", tag, smi, kv_dtype="int8",
+        required=("paged_decode_attention_int8",),
+        serving=("int8_gemv", "int8_gemm_tc", "flash_attention"))
+    if counts["paged_decode_attention"]:
+        raise AssertionError(f"[{tag}] B1 over bf16 pools launched with "
+                             f"int8 pools")
+    core = client.router.cores[0]
+    cfg, params = core.cfg, core.params
+    kw = dict(max_batch=4, max_seq=1024, page_size=16, eos_id=-1,
+              device="cuda")
+    olap = ServingClient(cfg, params, overlap=True, kv_dtype="int8", **kw)
+    rng = np.random.RandomState(0)
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+               for n in rng.randint(64, 513, size=8)]
+
+    def stochastic(i):
+        return (SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
+                               seed=100 + i) if i % 2 else None)
+
+    for mode, sampling in (("greedy", None), ("stochastic", stochastic)):
+        a, ra = _overlap_streams(torch, client, prompts, 32, sampling)
+        b, rb = _overlap_streams(torch, olap, prompts, 32, sampling)
+        _check_graph_run(core, ra, tag, f"{mode} sync")
+        _check_graph_run(olap.router.cores[0], rb, tag, f"{mode} overlap")
+        if a != b:
+            raise AssertionError(f"[{tag}] {mode}: overlap differs from sync")
+        log(f"[{tag}] {mode}, 8 requests x 32 tokens over int8 pools: sync "
+            f"and overlap identical; decode steps {ra['steps']} / "
+            f"{rb['steps']}, B1-int8 launches "
+            f"{ra['counts']['paged_decode_attention_int8']} / "
+            f"{rb['counts']['paged_decode_attention_int8']}")
+    del olap
+    bf16 = ServingClient(cfg, params, **kw)
+    bf16_core = bf16.router.cores[0]
+    rng = np.random.RandomState(6)
+    cands = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+             for n in rng.randint(64, 400, size=12)]
+    _margin_checked_streams(
+        torch, params, cfg, cands, 8,
+        {"bf16 pools": ("bf16", 0), "int8 pools": ("int8", 0)},
+        (bf16, client), tag)
+    per_tok = {name: c.kv_page_bytes / c.page_size
+               for name, c in (("bf16", bf16_core), ("int8", core))}
+    pool = {name: c.kv_page_bytes * c.num_pages / 2**30
+            for name, c in (("bf16", bf16_core), ("int8", core))}
+    log(f"[{tag}] KV pool, 4 slots x 1024 tokens (page 16, "
+        f"{core.num_pages} pages): int8 {per_tok['int8'] / 1024:.1f} KiB a "
+        f"token, {pool['int8']:.3f} GiB (scales included); bf16 "
+        f"{per_tok['bf16'] / 1024:.1f} KiB a token, {pool['bf16']:.3f} GiB")
+    del bf16, bf16_core
+    prompt = [int(t) for t in np.random.RandomState(7).randint(
+        0, cfg.vocab_size, 150)]
+    _chunk_invariance(torch, params, cfg, prompt, (7, 16, 128, 150), "int8",
+                      tag)
+    chunked = ServingClient(cfg, params, kv_dtype="int8",
+                            scheduler=make_scheduler(
+                                "fcfs", chunk_tokens=CHUNK_BUDGET), **kw)
+    handles = [chunked.submit(p, max_new_tokens=16) for p in prompts[:4]]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    chunked.run()
+    torch.cuda.synchronize()
+    counts_chunked = kernels.launch_counts()
+    if not all(h.finished and len(h.request.out_tokens) == 16
+               for h in handles):
+        raise AssertionError(f"[{tag}] the chunked int8 engine did not "
+                             f"finish its requests")
+    for k in ("paged_chunk_attention_int8", "paged_decode_attention_int8"):
+        if counts_chunked[k] <= 0:
+            raise AssertionError(f"[{tag}] the chunked int8 engine never "
+                                 f"launched {k}")
+    log(f"[{tag}] chunk budget {CHUNK_BUDGET} over int8 pools, 4 requests x "
+        f"16 tokens: {chunked.router.cores[0].stats.prefill_chunks} chunks; "
+        f"launches {counts_chunked}")
+    del chunked
+    phase_profile(torch, client, smi, tag)
+    del client, core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, counts_chunked
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="card,build,kernels,model,serve,profile,hybrid,"
                             "serve_w4a16,serve_hybrid,serve_hybrid_w4a16,"
-                            "serve_overlap")
+                            "serve_overlap,serve_chunked,serve_int8kv")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2261,6 +3024,11 @@ def main(argv=None) -> int:
                                                                 smi_line)
     if "serve_overlap" in phases:
         phase_serve_overlap(torch, smi_line)
+    if "serve_chunked" in phases:
+        counts["serve_chunked"] = phase_serve_chunked(torch, smi_line)
+    if "serve_int8kv" in phases:
+        counts["serve_int8kv"], counts["serve_int8kv_chunked"] = \
+            phase_serve_int8kv(torch, smi_line)
     rows = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]

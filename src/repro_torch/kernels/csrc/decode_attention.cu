@@ -148,7 +148,7 @@ struct Lanes {
 };
 
 template <typename KT>
-constexpr bool is_int8() {
+__host__ __device__ constexpr bool is_int8() {
   return std::is_same<KT, int8_t>::value;
 }
 
@@ -156,11 +156,11 @@ constexpr bool is_int8() {
 // scales, and the warps' p @ V sums; B1 over bf16 pools keeps those sums in
 // the K rows once the scores are done (its layout before int8 and chunks)
 template <int D, int MAXR, typename KT, bool kChunk>
-constexpr bool red_in_k_rows() {
+__host__ __device__ constexpr bool red_in_k_rows() {
   return !kChunk && !is_int8<KT>();
 }
 template <int D, int MAXR, typename KT, bool kChunk>
-constexpr int smem_bytes() {
+__host__ __device__ constexpr int smem_bytes() {
   return 2 * kSplit * D * static_cast<int>(sizeof(KT)) + (is_int8<KT>() ? 2 * kSplit * 4 : 0) +
          (red_in_k_rows<D, MAXR, KT, kChunk>() ? 0 : kWarps * MAXR * D * 4);
 }
