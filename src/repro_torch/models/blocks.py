@@ -22,14 +22,10 @@ from repro_torch.models.layers import (apply_rope, init_linear, layer_norm,
                                        linear, rms_norm)
 
 
-def norm(cfg: ModelConfig, params: dict, x: torch.Tensor,
-         fixed_order: bool = False) -> torch.Tensor:
-    """``fixed_order``: each row's sums in one order whatever the row count
-    (``layers.row_sum``), as a prefill chunk needs."""
+def norm(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm == "ln":
-        return layer_norm(x, params["g"], params["b"], cfg.norm_eps,
-                          fixed_order)
-    return rms_norm(x, params["g"], cfg.norm_eps, fixed_order)
+        return layer_norm(x, params["g"], params["b"], cfg.norm_eps)
+    return rms_norm(x, params["g"], cfg.norm_eps)
 
 
 def init_norm(cfg: ModelConfig, dtype: torch.dtype,

@@ -16,44 +16,19 @@ from repro_torch.kernels.w4a16_gemv.ops import w4a16_gemm
 from repro_torch.quant.int8 import INV127
 
 
-def row_sum(x: torch.Tensor) -> torch.Tensor:
-    """x [..., D] -> [..., 1], summed in one fixed order: the row halved
-    and added elementwise until one value is left (zero-padded to a power
-    of two).  A torch reduction may split a row by the number of rows it
-    is given; these sums give each row the same bits in a batch of any
-    size, as a prefill chunk of any bucket needs."""
-    d = x.shape[-1]
-    width = 1 << max(d - 1, 0).bit_length()
-    if width != d:
-        x = F.pad(x, (0, width - d))
-    while x.shape[-1] > 1:
-        half = x.shape[-1] // 2
-        x = x[..., :half] + x[..., half:]
-    return x
-
-
-def _row_mean(x: torch.Tensor, fixed_order: bool) -> torch.Tensor:
-    if fixed_order:
-        return row_sum(x) / x.shape[-1]
-    return x.mean(-1, keepdim=True)
-
-
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,
-             fixed_order: bool = False) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
-    var = _row_mean(xf.square(), fixed_order)
+    var = xf.square().mean(-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * gamma.float()).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-               eps: float = 1e-5, fixed_order: bool = False) -> torch.Tensor:
+               eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
-    mu = _row_mean(xf, fixed_order)
-    if fixed_order:
-        var = _row_mean((xf - mu).square(), True)
-    else:
-        var = xf.var(-1, unbiased=False, keepdim=True)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, unbiased=False, keepdim=True)
     out = (xf - mu) * torch.rsqrt(var + eps)
     return (out * gamma.float() + beta.float()).to(x.dtype)
 

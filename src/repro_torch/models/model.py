@@ -446,10 +446,12 @@ def prefill_chunk_into_slot(params: dict, cfg: ModelConfig,
     power-of-two buckets with the page size as floor).  Each chunk
     position's K/V is scattered into the slot's pages first, then the
     chunk's queries attend the block row up to their own positions (the
-    buffer decode reads), and every row-wise sum (the norms' means) is taken
-    in a fixed order (``layers.row_sum``): a position's bits do not depend
-    on how the prompt was split, so the cache, the returned logits and
-    every later decode logit are the same for ANY chunk schedule, the
+    buffer decode reads; on CUDA the chunk kernel, which gives each query
+    the decode kernel's bits at its length), and every other op is row-wise
+    (the int8 products exact, the norms' means the same for any row count
+    of a bucket, as the card and the CPU show): a position's bits do not
+    depend on how the prompt was split, so the cache, the returned logits
+    and every later decode logit are the same for ANY chunk schedule, the
     single chunk included.  The pools and ``cache["lens"][slot]`` (= start
     + chunk_len) are written in place.
 
@@ -466,13 +468,13 @@ def prefill_chunk_into_slot(params: dict, cfg: ModelConfig,
         x = x + tbl[torch.clamp(gpos, 0, tbl.shape[0] - 1)][None]
     block_row = cache["block"][slot]
     for li, lp in enumerate(params["layers"]):
-        hn = blocks.norm(cfg, lp["attn_norm"], x, fixed_order=True)
+        hn = blocks.norm(cfg, lp["attn_norm"], x)
         attn_out = blocks.attn_prefill_chunk_paged(
             lp["attn"], hn, cfg, _pool(cache, "k", li), _pool(cache, "v", li),
             block_row, start, chunk_len)
         x = x + attn_out
-        x = x + ffn(lp["ffn"], blocks.norm(cfg, lp["ffn_norm"], x,
-                                           fixed_order=True), cfg.gated_ffn)
+        x = x + ffn(lp["ffn"], blocks.norm(cfg, lp["ffn_norm"], x),
+                    cfg.gated_ffn)
     cache["lens"][slot] = start + chunk_len
     x_last = x[:, min(max(chunk_len - 1, 0), c - 1)]
     x_last = blocks.norm(cfg, params["final_norm"], x_last)
