@@ -2773,7 +2773,8 @@ def _starvation(torch, client, cfg, smi: str, tag: str) -> None:
 def _chunk_times(torch, params, cfg, smi: str, tag: str) -> None:
     """ms per chunk (wall clock around one synchronized
     prefill_chunk_into_slot, median of 5) and device ms per chunk
-    (torch.profiler) at budgets 16, 128 and 512, at cache start 0."""
+    (torch.profiler over 3 chunks) at budgets 16, 128 and 512, at cache
+    start 0."""
     from repro_torch.models import model as M
 
     cache = _new_cache(torch, cfg, 1, "bf16")
@@ -2795,13 +2796,29 @@ def _chunk_times(torch, params, cfg, smi: str, tag: str) -> None:
             call()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        dev = profiled_ms(torch, call, None, iters=3)
-        chunk_dev = profiled_ms(torch, call, ("paged_chunk_attention_",),
-                                iters=3)
-        log(f"[{tag}] one chunk of {budget} tokens (32 layers, W8A8, start "
-            f"0): wall {statistics.median(walls) * 1e3:.2f} ms (median of 5,"
-            f" synchronized), device kernels {dev:.2f} ms, of which the "
-            f"chunk kernel {chunk_dev:.3f} ms, on {smi}")
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        rows = _kernel_rows(prof)
+        dev = sum(r[0] for r in rows) / 3e3
+        chunk_dev = sum(r[0] for r in rows
+                        if "paged_chunk_attention_" in r[1]) / 3e3
+        dev_s = (f"device kernels {dev:.2f} ms, of which the chunk kernel "
+                 f"{chunk_dev:.3f} ms" if dev > 0 else
+                 "device time not measured (the profiler recorded none)")
+        log(f"[{tag}] one chunk of {budget} tokens ({cfg.n_layers} layers, "
+            f"W8A8, start 0): wall {statistics.median(walls) * 1e3:.2f} ms "
+            f"(median of 5, synchronized), {dev_s}, on {smi}")
+
+
+def _lap(tag: str, what: str, t0: float) -> float:
+    now = time.monotonic()
+    log(f"[{tag}] ({what}: {now - t0:.1f} s)")
+    return now
 
 
 def phase_serve_chunked(torch, smi: str) -> dict:
@@ -2818,6 +2835,7 @@ def phase_serve_chunked(torch, smi: str) -> dict:
     from repro_torch.serving.scheduler import SamplingParams, make_scheduler
 
     tag = "serve_chunked"
+    t0 = time.monotonic()
     counts, client = _serve_full(torch, "llama2-7b", tag, smi,
                                  chunk_prefill=CHUNK_BUDGET,
                                  required=("paged_chunk_attention",))
@@ -2832,6 +2850,7 @@ def phase_serve_chunked(torch, smi: str) -> dict:
         raise AssertionError(f"[{tag}] chunk kernel launches do not match "
                              f"the chunks run")
     _norm_rows_diagnostic(torch, cfg, params, tag)
+    t0 = _lap(tag, "counted run", t0)
     kw = dict(max_batch=4, max_seq=1024, page_size=16, eos_id=-1,
               device="cuda")
     olap = ServingClient(cfg, params, overlap=True, scheduler=make_scheduler(
@@ -2857,21 +2876,25 @@ def phase_serve_chunked(torch, smi: str) -> dict:
             f"{ra['counts']['paged_chunk_attention']} / "
             f"{rb['counts']['paged_chunk_attention']}")
     del olap
+    t0 = _lap(tag, "sync and overlap", t0)
     one_shot = ServingClient(cfg, params, **kw)
     rng = np.random.RandomState(5)
     cands = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
-             for n in rng.randint(140, 400, size=16)]
+             for n in rng.randint(140, 400, size=12)]
     _margin_checked_streams(
         torch, params, cfg, cands, MARGIN_TOKENS,
         {"one-shot": ("bf16", 0), "chunked": ("bf16", CHUNK_BUDGET)},
         (one_shot, client), tag)
     del one_shot
+    t0 = _lap(tag, "margin-checked streams", t0)
     prompt = [int(t) for t in np.random.RandomState(7).randint(
         0, cfg.vocab_size, 150)]
     _chunk_invariance(torch, params, cfg, prompt, (1, 7, 16, 128, 150),
                       "bf16", tag)
+    t0 = _lap(tag, "chunked == one-shot", t0)
     _starvation(torch, client, cfg, smi, tag)
     _chunk_times(torch, params, cfg, smi, tag)
+    _lap(tag, "starvation and chunk times", t0)
     del client, core
     gc.collect()
     torch.cuda.empty_cache()
@@ -2931,7 +2954,7 @@ def phase_serve_int8kv(torch, smi: str) -> tuple[dict, dict]:
     bf16_core = bf16.router.cores[0]
     rng = np.random.RandomState(6)
     cands = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
-             for n in rng.randint(64, 400, size=16)]
+             for n in rng.randint(64, 400, size=12)]
     _margin_checked_streams(
         torch, params, cfg, cands, MARGIN_TOKENS,
         {"bf16 pools": ("bf16", 0), "int8 pools": ("int8", 0)},
