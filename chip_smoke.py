@@ -117,6 +117,25 @@ Phases, each printing its own lines:
             with every row sampled.  Then zamba2-7b W8A8: 4 greedy
             requests of 16 tokens, synchronous and overlapped identical,
             and its decode wall ms a step synchronous and overlapped.
+12. serve_chunked  llama2-7b W8A8 at full width through build_client(
+            chunk_prefill=128): the serve trace (counted: the chunk kernel
+            32 times a chunk), synchronous and overlapped identical; the
+            unchunked engine's streams on margin-checked prompts; a
+            150-token prompt through the chunk path at budgets {1, 7, 16,
+            128, 150}: valid K/V rows, first-token logits and 5 decode
+            logits bit-equal (and whether torch's rms_norm gives a row
+            other bits at another row count); a 64-token request emitting
+            a token on every step while a 512-token prompt takes 4 chunks,
+            each step's wall with and without a chunk; ms per chunk and
+            device ms at 16, 128 and 512 tokens.
+13. serve_int8kv  the same with kv_dtype="int8": the serve trace
+            (counted: B1's int8 variant, never B1 over bf16), the first
+            token against a direct prefill, synchronous and overlapped
+            identical greedy and sampled, the bf16 engine's streams on
+            margin-checked prompts, chunked == one-shot under int8 at
+            budgets {7, 16, 128, 150}, a chunked int8 engine (counted: the
+            chunk kernel's int8 variant), the pool's bytes a token, and the
+            prefill and decode profiles.
 
 Every serving phase's engine replays one CUDA graph a decode step
 (``serving/graphs.py``); the launch counters count each replay's kernels.
@@ -131,12 +150,21 @@ that must fail (lo/hi nibbles swapped, each group's partial scaled by the
 next group's scale, the tiled variant's last K tile skipped), a row's bits
 the same at M = 1..8, and timed beside its bound on the bf16 tensor cores
 (3x the operations for float32 x) and torch._weight_int4pack_mm, a
-yardstick that rounds the scales and the output to bf16.
+yardstick that rounds the scales and the output to bf16.  The paged chunk
+kernel (bf16 and int8 pools, D 128 and 112, chunks of 1, 7 in a bucket of
+16, 16 and 128 rows at starts 0, 5 and 300) within ATTN_TOL of its plain
+version (the JAX float32 formula), every valid query bit-equal to B1 at
+length start + i + 1, padding rows 0, and a key one past a query's
+position changed without moving that query; B1 over int8 pools against
+its plain version with B1's planted faults and batch invariance; both
+timed beside SDPA over the gathered (int8: dequantized) rows.
 
 The last three lines are the kernels JSON, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``; each kernel's ``launches`` is read
 around the run of the phase that owns it (serve for B1-B3, hybrid for
-B5, serve_hybrid_w4a16 for B4's two variants, serve_hybrid for B6).  B2's __dp4a GeMV and
+B5, serve_hybrid_w4a16 for B4's two variants, serve_hybrid for B6,
+serve_chunked for the chunk kernel, serve_int8kv for B1-int8 and its
+chunked engine for the chunk kernel's int8 variant).  B2's __dp4a GeMV and
 tiled GEMM (``int8_gemv_dp4a``, ``int8_gemm``) are on no model's path
 (every model K is a multiple of 16 and every base aligned): a serving
 phase that launches either fails.  Any failure
@@ -2773,8 +2801,8 @@ def _starvation(torch, client, cfg, smi: str, tag: str) -> None:
 def _chunk_times(torch, params, cfg, smi: str, tag: str) -> None:
     """ms per chunk (wall clock around one synchronized
     prefill_chunk_into_slot, median of 5) and device ms per chunk
-    (torch.profiler over 3 chunks) at budgets 16, 128 and 512, at cache
-    start 0."""
+    (torch.profiler, device activity only, over one chunk) at budgets 16,
+    128 and 512, at cache start 0."""
     from repro_torch.models import model as M
 
     cache = _new_cache(torch, cfg, 1, "bf16")
@@ -2798,17 +2826,16 @@ def _chunk_times(torch, params, cfg, smi: str, tag: str) -> None:
             walls.append(time.perf_counter() - t0)
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                call()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
             torch.cuda.synchronize()
         rows = _kernel_rows(prof)
-        dev = sum(r[0] for r in rows) / 3e3
+        dev = sum(r[0] for r in rows) / 1e3
         chunk_dev = sum(r[0] for r in rows
-                        if "paged_chunk_attention_" in r[1]) / 3e3
-        dev_s = (f"device kernels {dev:.2f} ms, of which the chunk kernel "
-                 f"{chunk_dev:.3f} ms" if dev > 0 else
+                        if "paged_chunk_attention_" in r[1]) / 1e3
+        launches = sum(r[2] for r in rows)
+        dev_s = (f"{launches:.0f} device kernels, {dev:.2f} ms, of which "
+                 f"the chunk kernel {chunk_dev:.3f} ms" if dev > 0 else
                  "device time not measured (the profiler recorded none)")
         log(f"[{tag}] one chunk of {budget} tokens ({cfg.n_layers} layers, "
             f"W8A8, start 0): wall {statistics.median(walls) * 1e3:.2f} ms "
@@ -2823,8 +2850,9 @@ def _lap(tag: str, what: str, t0: float) -> float:
 
 def phase_serve_chunked(torch, smi: str) -> dict:
     """llama2-7b W8A8 at full width with a chunk budget of 128: the serve
-    trace through the engine (counted), synchronous == overlapped (greedy
-    and sampled), the engine against the unchunked engine on
+    trace through the engine (counted), synchronous == overlapped (greedy;
+    sampled rows in tests/test_torch_gpu.py), the engine against the
+    unchunked engine on
     margin-checked prompts, chunked == one-shot bit for bit at budgets {1,
     7, 16, 128, len}, no decode starvation, ms per chunk."""
     import gc
@@ -2832,7 +2860,7 @@ def phase_serve_chunked(torch, smi: str) -> dict:
     import numpy as np
 
     from repro_torch.serving.client import ServingClient
-    from repro_torch.serving.scheduler import SamplingParams, make_scheduler
+    from repro_torch.serving.scheduler import make_scheduler
 
     tag = "serve_chunked"
     t0 = time.monotonic()
@@ -2859,22 +2887,17 @@ def phase_serve_chunked(torch, smi: str) -> dict:
     prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
                for n in rng.randint(64, 513, size=8)]
 
-    def stochastic(i):
-        return (SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
-                               seed=100 + i) if i % 2 else None)
-
-    for mode, sampling in (("greedy", None), ("stochastic", stochastic)):
-        a, ra = _overlap_streams(torch, client, prompts, 32, sampling)
-        b, rb = _overlap_streams(torch, olap, prompts, 32, sampling)
-        _check_graph_run(core, ra, tag, f"{mode} sync")
-        _check_graph_run(olap.router.cores[0], rb, tag, f"{mode} overlap")
-        if a != b:
-            raise AssertionError(f"[{tag}] {mode}: overlap differs from sync")
-        log(f"[{tag}] {mode}, 8 requests x 32 tokens with chunked "
-            f"admission: sync and overlap identical; decode steps "
-            f"{ra['steps']} / {rb['steps']}, chunk kernel launches "
-            f"{ra['counts']['paged_chunk_attention']} / "
-            f"{rb['counts']['paged_chunk_attention']}")
+    a, ra = _overlap_streams(torch, client, prompts, 32)
+    b, rb = _overlap_streams(torch, olap, prompts, 32)
+    _check_graph_run(core, ra, tag, "sync")
+    _check_graph_run(olap.router.cores[0], rb, tag, "overlap")
+    if a != b:
+        raise AssertionError(f"[{tag}] overlap differs from sync")
+    log(f"[{tag}] greedy, 8 requests x 32 tokens with chunked admission: "
+        f"sync and overlap identical; decode steps {ra['steps']} / "
+        f"{rb['steps']}, chunk kernel launches "
+        f"{ra['counts']['paged_chunk_attention']} / "
+        f"{rb['counts']['paged_chunk_attention']}")
     del olap
     t0 = _lap(tag, "sync and overlap", t0)
     one_shot = ServingClient(cfg, params, **kw)

@@ -602,12 +602,10 @@ class EngineCore:
             else:
                 self._emit(req, tok)
 
-    def _prefill_chunks(self) -> int:
+    def _prefill_chunks(self) -> None:
         """Run one prefill chunk (the policy's per-step token budget) for
         every mid-prefill slot.  A slot whose prompt completes samples its
-        first token and joins decode from the next lane mask on.  Returns
-        the chunks run."""
-        ran = 0
+        first token and joins decode from the next lane mask on."""
         for i in range(self.max_batch):
             req = self.slots[i]
             if req is None or not self.prefilling[i]:
@@ -628,7 +626,6 @@ class EngineCore:
                 {**self.cache, "block": self._tensor(self.block)}, i)
             req.n_chunks += 1
             self.stats.prefill_chunks += 1
-            ran += 1
             pos += clen
             self.prefill_pos[i] = pos
             self.slot_len[i] = pos
@@ -646,7 +643,6 @@ class EngineCore:
                 self._finish(i, req, reason, token=tok)
             else:
                 self._emit(req, tok)
-        return ran
 
     def _ensure_pages(self) -> None:
         """Allocate the page each decoding slot's next write lands in; on a
