@@ -39,6 +39,7 @@ from test_torch_chunked import w8a8  # noqa: F401  (fixture)
 from test_torch_serving import _drive, _prompts
 
 DRIFT = 0.05   # int8 vs bf16 decode logits (the JAX test's bound)
+JQUANT = jax.jit(JA.quantize_rows)   # as the JAX engine runs it
 
 
 @pytest.mark.parametrize("scale", [1e-3, 1.0, 300.0])
@@ -51,7 +52,7 @@ def test_quantize_rows_bit_exact_against_jitted_jax(scale):
         x *= rng.rand(4096, 1).astype(np.float32)
         x[:8] = 0.0
         x[8:16, 3] *= 50.0
-        qj, sj = jax.jit(JA.quantize_rows)(jnp.asarray(x))
+        qj, sj = JQUANT(jnp.asarray(x))
         qt, st = TA.quantize_rows(torch.from_numpy(x))
         assert qt.dtype == torch.int8 and st.dtype == torch.float32
         np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
@@ -61,7 +62,7 @@ def test_quantize_rows_bit_exact_against_jitted_jax(scale):
             back, np.asarray(JA.dequantize_rows(qj, sj)))
     # bf16 rows quantize from their float32 values
     xb = jnp.asarray(rng.randn(64, 128), jnp.bfloat16)
-    qj, sj = jax.jit(JA.quantize_rows)(xb)
+    qj, sj = JQUANT(xb)
     qt, st = TA.quantize_rows(torch.from_numpy(np.array(
         xb.astype(jnp.float32))).to(torch.bfloat16))
     np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
