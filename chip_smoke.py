@@ -136,6 +136,30 @@ Phases, each printing its own lines:
             budgets {7, 16, 128, 150}, a chunked int8 engine (counted: the
             chunk kernel's int8 variant), the pool's bytes a token, and the
             prefill and decode profiles.
+14. serve_tiered  llama2-7b W8A8 at full width, 4 slots, kv_tier="flash"
+            over a 65-page hot pool (1,024 tokens; a page is 8 MiB) under
+            the serve trace (up to 4 x 544 tokens): streams bit-equal to
+            the resident engine's, synchronous and overlapped, with spills,
+            prefetches and preemptions; a tier bounded to 16 pages finishes
+            every request; the same under int8 pools; ms a page each way
+            (synchronized) and the decode wall a step against the resident
+            engine's.  Then zamba2-7b over a 41-page pool: 4 requests equal
+            the resident engine's, the Mamba state restored on resume.
+15. serve_prefix  llama2-7b with prefix_cache=True on the JAX benchmark's
+            chat trace (4 sessions, 3 turns, a 992-token system prompt,
+            every turn submitted twice): resume hits equal their cold run
+            with no prefill; with a chunk budget of 256 (every prompt
+            chunks) all 24 streams equal the cold chunked engine's, partial
+            hits included; partial hits over one-shot pages equal the
+            one-shot cold engine on margin-checked prompts; refcounts back
+            to idle; B1 and the chunk kernel counted; TTFT p50 cold and
+            warm, prefill device ms cold against a partial hit's suffix.
+16. serve_migrate  two llama2-7b replicas on the card sharing one params
+            dict behind Router(migrate=True): every request on a starved
+            tiered replica, the router drains it into a donor; streams
+            equal one resident replica's, synchronous and overlapped; a
+            snapshot's bytes decode to equal pages and resume with the
+            unmigrated stream; bytes a snapshot, ms to snapshot and inject.
 
 Every serving phase's engine replays one CUDA graph a decode step
 (``serving/graphs.py``); the launch counters count each replay's kernels.
@@ -988,7 +1012,7 @@ def _kernels_ecc(torch, results: dict) -> None:
 # decode (M = 4 slots, the GeMV) and at prefill (M = 2048, the tiled GEMM);
 # llama2-7b's lm_head and MLP, smollm's width (7.5 groups), M = 1, 9, 20 and
 # 130 (ragged M tiles), a ragged K (g = 100, byte-wise loads) and N; each in
-# bf16 and in float32 x.  Timed (bf16 x; float32 too at llama2-7b's lm_head)
+# bf16 and in float32 x.  Timed (bf16 x; float32 too at the W4_JSON shapes)
 # where a tag is given; the JSON rows are llama2-7b's lm_head at decode and
 # zamba2-7b's gate/up at prefill
 W4_SHAPES = {(4, 3584, 3584): "zamba2-7b q/k/v/o",
@@ -1158,7 +1182,7 @@ def _kernels_w4a16(torch, results: dict) -> None:
             if dt == torch.bfloat16 and (m, k, n) in W4_JSON.values():
                 _w4_faults(torch, var, x, wp, sc, ref, check)
             timed = tag is not None and (
-                dt == torch.bfloat16 or (m, k, n) == W4_JSON["w4a16_gemv"])
+                dt == torch.bfloat16 or (m, k, n) in W4_JSON.values())
             if timed:
                 kname = KERNEL_NAMES[var]
                 ms = time_ms(torch, lambda i: w4a16_gemm(x, *wps[i]), copies)
@@ -3023,6 +3047,605 @@ def phase_serve_int8kv(torch, smi: str) -> tuple[dict, dict]:
     return counts, counts_chunked
 
 
+# ---------------------------------------------------------------------------
+# the flash KV tier, the prefix cache and slot migration (ROADMAP A5)
+# ---------------------------------------------------------------------------
+A5_ENG = dict(max_batch=4, max_seq=1024, page_size=16, eos_id=-1,
+              device="cuda")
+# serve_tiered's hot pool: 64 usable pages (1,024 tokens) under 4 slots of
+# up to 544 tokens; zamba2-7b's: 40 pages (640 tokens) under 4 of up to 272
+TIER_PAGES = 65
+TIER_HYBRID_PAGES = 41
+TIER_FLASH_BOUND = 16
+PREFIX_CHUNK = 256    # below every prompt of the chat trace: all chunk
+PREFIX_CACHED = 256   # the cached prefix of the margin-checked partial hits
+_FULL: dict = {}
+
+
+def _full_model(torch, arch: str):
+    """(cfg, params) of ``arch`` at full width, W8A8, built once for the A5
+    phases (its build engine's pool freed)."""
+    if arch not in _FULL:
+        import gc
+
+        from repro_torch.launch.serve import build_client
+
+        t0 = time.monotonic()
+        cfg, client = build_client(arch, reduced=False, quant="w8a8",
+                                   max_batch=4, max_seq=1024, seed=0,
+                                   device="cuda")
+        _FULL[arch] = (cfg, client.router.cores[0].params)
+        del client
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[a5] {arch} full width W8A8 built in "
+            f"{time.monotonic() - t0:.1f} s")
+    return _FULL[arch]
+
+
+def _drop_full(torch, arch: str) -> None:
+    import gc
+
+    _FULL.pop(arch, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _a5_engine(cfg, params, **kw):
+    from repro_torch.serving.core import EngineCore
+
+    return EngineCore(cfg, params, **{**A5_ENG, **kw})
+
+
+def _serve_trace(cfg, n: int = 8) -> list[list[int]]:
+    """The serve phase's prompts: ``n`` of 64-512 tokens from seed 0."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    return [[int(t) for t in rng.randint(0, cfg.vocab_size, k)]
+            for k in rng.randint(64, 513, size=8)][:n]
+
+
+def _run_trace(torch, eng, prompts, max_new: int, tag: str
+               ) -> tuple[list, float]:
+    """Every prompt submitted at once, the engine run to its end; each
+    request must finish with ``max_new`` tokens in the vocabulary.
+    Returns (streams, synchronized wall s)."""
+    from repro_torch.serving.core import Request
+
+    reqs = [Request(rid=i, prompt=list(p), max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.add_request(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        if not r.done or len(r.out_tokens) != max_new or not all(
+                0 <= t < eng.cfg.vocab_size for t in r.out_tokens):
+            raise AssertionError(f"[{tag}] request {r.rid}: done={r.done} "
+                                 f"reason={r.finish_reason} "
+                                 f"n={len(r.out_tokens)}")
+    return [r.out_tokens for r in reqs], wall
+
+
+def _step_ms(eng) -> float:
+    return eng.stats.wall_decode_s * 1e3 / max(eng.stats.decode_steps, 1)
+
+
+def _page_transfer_ms(torch, eng, n: int = 16, reps: int = 5
+                      ) -> tuple[float, float]:
+    """(ms a page spilled, ms a page prefetched), synchronized, median of
+    ``reps``: ``n`` pages of random content gathered and copied to pinned
+    host memory (the spill, up to its event), then written back from the
+    host onto the same pids (the prefetch: the pinned stacking, the copy
+    and the in-place scatter).  Every round trip must return the bits."""
+    from repro_torch.models import blocks
+    from repro_torch.models import model as M
+    from repro_torch.serving.core import _LazyPagePayload, _SpillBatch
+
+    pids = eng.allocator.alloc(n)
+    ids = eng._page_ids(pids)
+    keys = blocks.paged_pool_keys(eng.cache)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for k in keys:
+        pool = eng.cache[k]
+        shape = (pool.shape[0], n, *pool.shape[2:])
+        if pool.dtype == torch.int8:
+            val = torch.randint(-127, 128, shape, generator=gen,
+                                device="cuda", dtype=torch.int8)
+        else:
+            val = torch.randn(shape, generator=gen, device="cuda").to(
+                pool.dtype)
+        pool.index_copy_(1, ids, val)
+    want = [eng.cache[k].index_select(1, ids) for k in keys]
+    outs, ins = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = _SpillBatch(M.swap_out_pages(eng.cache, ids))
+        batch.wait()
+        outs.append(time.perf_counter() - t0)
+        for k in keys:
+            eng.cache[k].index_fill_(1, ids, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._scatter_pages(pids, [_LazyPagePayload(batch, j)
+                                  for j in range(n)])
+        torch.cuda.synchronize()
+        ins.append(time.perf_counter() - t0)
+        if not all(torch.equal(eng.cache[k].index_select(1, ids), w)
+                   for k, w in zip(keys, want)):
+            raise AssertionError("a page round trip through the host "
+                                 "changed its bits")
+    eng.allocator.free(pids)
+    return (statistics.median(outs) * 1e3 / n,
+            statistics.median(ins) * 1e3 / n)
+
+
+def _tier_line(tag, name, eng, wall, same, res_wall, res_step) -> None:
+    s = eng.stats
+    mib = eng.kv_page_bytes / 2**20
+    log(f"[{tag}] {name}: streams {'bit-equal to' if same else 'DIFFER from'}"
+        f" the resident engine's; preemptions {s.preemptions}, resumes "
+        f"{s.resumes}, OutOfPages absorbed {s.pool_exhausted}; spilled "
+        f"{s.kv_spill_pages} pages ({s.kv_spill_pages * mib:.0f} MiB), "
+        f"prefetched {s.kv_prefetch_pages} ({s.kv_prefetch_pages * mib:.0f} "
+        f"MiB); decode steps {s.decode_steps} (resident "
+        f"{res_step[1]}), wall {wall:.2f} s (resident {res_wall:.2f} s), "
+        f"decode wall a step {_step_ms(eng):.2f} ms (resident "
+        f"{res_step[0]:.2f} ms)")
+
+
+def phase_serve_tiered(torch, smi: str) -> None:
+    """llama2-7b W8A8 at full width, 4 slots, kv_tier="flash" over a
+    65-page hot pool (1,024 tokens) against the serve trace (up to 4 x 544
+    tokens): the streams equal the resident engine's bit for bit,
+    synchronous and overlapped, with spills, prefetches and preemptions; a
+    bounded tier (16 pages) finishes every request; the same with int8
+    pools.  ms a page each way.  Then zamba2-7b: 4 requests over a 41-page
+    pool equal the resident engine's, the Mamba state restored on resume."""
+    import gc
+
+    tag = "serve_tiered"
+    t0 = time.monotonic()
+    cfg, params = _full_model(torch, "llama2-7b")
+    prompts = _serve_trace(cfg)
+    for kv in ("bf16", "int8"):
+        res = _a5_engine(cfg, params, kv_dtype=kv)
+        want, res_wall = _run_trace(torch, res, prompts, 32, tag)
+        res_step = (_step_ms(res), res.stats.decode_steps)
+        del res
+        variants = [("sync", {})]
+        if kv == "bf16":
+            variants += [("overlap", {"overlap": True}),
+                         ("bounded", {"flash_pages": TIER_FLASH_BOUND})]
+        for name, extra in variants:
+            eng = _a5_engine(cfg, params, kv_dtype=kv, kv_tier="flash",
+                             num_pages=TIER_PAGES, **extra)
+            got, wall = _run_trace(torch, eng, prompts, 32, tag)
+            s = eng.stats
+            _tier_line(tag, f"{kv} pools, {name}, {TIER_PAGES} hot pages"
+                       + (f", tier of {TIER_FLASH_BOUND} pages"
+                          if name == "bounded" else ""),
+                       eng, wall, got == want, res_wall, res_step)
+            if eng.allocator.available != TIER_PAGES - 1 \
+                    or eng.allocator.cold_count or any(eng.suspended):
+                raise AssertionError(f"[{tag}] {kv} {name}: pages leaked")
+            if name != "bounded":
+                if got != want:
+                    raise AssertionError(f"[{tag}] {kv} {name}: tiered != "
+                                         f"resident")
+                if not (s.kv_spill_pages > 0 and s.preemptions > 0
+                        and s.kv_prefetch_pages == s.kv_spill_pages):
+                    raise AssertionError(f"[{tag}] {kv} {name}: the tier "
+                                         f"never spilled and prefetched")
+            if kv == "bf16" and name == "sync":
+                out_ms, in_ms = _page_transfer_ms(torch, eng)
+                mb = eng.kv_page_bytes / 1e6
+                log(f"[{tag}] a {eng.kv_page_bytes / 2**20:.0f} MiB page "
+                    f"(16 pages a call, median of 5, synchronized): spill "
+                    f"{out_ms:.3f} ms ({mb / out_ms:.1f} GB/s), prefetch "
+                    f"{in_ms:.3f} ms ({mb / in_ms:.1f} GB/s), on {smi}")
+            del eng
+            gc.collect()
+    t0 = _lap(tag, "llama2-7b", t0)
+    hcfg, hparams = _full_model(torch, "zamba2-7b")
+    hprompts = _serve_trace(hcfg, 4)
+    res = _a5_engine(hcfg, hparams)
+    want, res_wall = _run_trace(torch, res, hprompts, 16, tag)
+    res_step = (_step_ms(res), res.stats.decode_steps)
+    del res
+    eng = _a5_engine(hcfg, hparams, kv_tier="flash",
+                     num_pages=TIER_HYBRID_PAGES)
+    got, wall = _run_trace(torch, eng, hprompts, 16, tag)
+    _tier_line(tag, f"zamba2-7b, {TIER_HYBRID_PAGES} hot pages", eng, wall,
+               got == want, res_wall, res_step)
+    s = eng.stats
+    if got != want or not (s.preemptions > 0 and s.resumes > 0
+                           and s.kv_spill_pages > 0) or eng._ssm_ckpt:
+        raise AssertionError(f"[{tag}] zamba2-7b: tiered != resident, or no "
+                             f"suspension and resume")
+    del eng
+    _drop_full(torch, "zamba2-7b")
+    _lap(tag, "zamba2-7b", t0)
+
+
+def _chat_sessions(cfg, max_seq: int = 1024, page: int = 16,
+                   n_sessions: int = 4, n_turns: int = 3,
+                   user_len: int = 4, m: int = 4):
+    """The multi-turn chat trace of the JAX package's
+    benchmarks/bench_serving.py make_prefix_sessions: per session a
+    page-aligned system prompt that fills max_seq with the turns, and a
+    user span a turn; odd sessions sample with a pinned seed."""
+    import numpy as np
+
+    from repro_torch.serving.scheduler import SamplingParams
+
+    sys_len = ((max_seq - n_turns * (user_len + m)) // page) * page
+    rng = np.random.RandomState(5)
+    return [{"sid": f"sess-{s}",
+             "system": rng.randint(0, cfg.vocab_size, sys_len).tolist(),
+             "users": [rng.randint(0, cfg.vocab_size, user_len).tolist()
+                       for _ in range(n_turns)],
+             "sampling": (None if s % 2 == 0 else SamplingParams(
+                 temperature=0.8, top_k=20, seed=1000 + s))}
+            for s in range(n_sessions)], m, n_turns
+
+
+def _chat(torch, eng, cfg, tag: str) -> dict:
+    """One pass over the chat trace: sessions interleave turn by turn and
+    every turn is submitted again at once (an exact-prompt resubmission);
+    histories grow from the engine's own outputs.  Returns {(turn, session,
+    kind): (stream, ttft s)}."""
+    from repro_torch.serving.core import Request
+
+    sessions, m, n_turns = _chat_sessions(cfg)
+    history = {s["sid"]: list(s["system"]) for s in sessions}
+    out, rid = {}, 0
+    for t in range(n_turns):
+        for k, sess in enumerate(sessions):
+            prompt = history[sess["sid"]] + sess["users"][t]
+            for kind in ("turn", "regen"):
+                req = Request(rid=rid, prompt=list(prompt), max_new_tokens=m,
+                              session=sess["sid"],
+                              sampling=sess["sampling"])
+                rid += 1
+                eng.add_request(req)
+                eng.run()
+                torch.cuda.synchronize()
+                if not req.done or len(req.out_tokens) != m:
+                    raise AssertionError(f"[{tag}] request {req.rid} did not "
+                                         f"complete")
+                out[(t, k, kind)] = (list(req.out_tokens), req.ttft_s)
+            history[sess["sid"]] = prompt + out[(t, k, "turn")][0]
+    return out
+
+
+def _partial_paths(torch, params, cfg, prompt, primer, n_new):
+    """Greedy logits of ``prompt`` two ways on a fresh cache: a one-shot
+    prefill, and the partial hit's path (the primer's one-shot prefill
+    writes the cached pages, then the suffix from PREFIX_CACHED runs
+    through the chunk path), each then decoding the first path's tokens.
+    Returns (smallest top-1 margin, max |dlogit|, same tokens)."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.kv_cache import prefill_bucket
+
+    outs, caches = [], []
+    for partial in (False, True):
+        cache = _new_cache(torch, cfg, 1, "bf16")
+        first = primer if partial else prompt
+        b = prefill_bucket(len(first))
+        logits, cache = M.prefill_into_slots(
+            params, cfg, torch.tensor([first + [0] * (b - len(first))],
+                                      device="cuda"),
+            torch.tensor([len(first)], device="cuda"), cache,
+            torch.tensor([0], device="cuda"))
+        logits = logits[0]
+        if partial:
+            logits = _chunked_logits_from(torch, params, cfg, prompt,
+                                          PREFIX_CACHED, cache)
+        outs.append([logits.float()])
+        caches.append(cache)
+    active = torch.tensor([True], device="cuda")
+    for _ in range(n_new - 1):
+        tok = torch.argmax(outs[0][-1]).to(torch.int32).reshape(1)
+        for p in (0, 1):
+            step, caches[p] = M.decode_step_paged(params, cfg, tok,
+                                                  caches[p], active)
+            outs[p].append(step[0].float())
+    a, b = torch.stack(outs[0]), torch.stack(outs[1])
+    margin = min(float((torch.topk(x, 2, -1).values[:, 0]
+                        - torch.topk(x, 2, -1).values[:, 1]).min())
+                 for x in (a, b))
+    same = bool((a.argmax(-1) == b.argmax(-1)).all())
+    return margin, float((a - b).abs().max()), same
+
+
+def _chunked_logits_from(torch, params, cfg, prompt, start, cache):
+    """``prompt[start:]`` through the chunk path in one chunk (the engine's
+    partial-hit admission without a budget), slot 0; its logits [V]."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.kv_cache import prefill_bucket
+
+    n = len(prompt) - start
+    toks = torch.zeros(prefill_bucket(n, floor=16), dtype=torch.int32)
+    toks[:n] = torch.tensor(prompt[start:], dtype=torch.int32)
+    logits, _ = M.prefill_chunk_into_slot(params, cfg, toks.to("cuda"),
+                                          start, n, cache, 0)
+    return logits
+
+
+def _prefill_device_ms(torch, fn) -> tuple[float, float]:
+    """(wall ms, synchronized, median of 3; device kernel ms from
+    torch.profiler over one call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return (statistics.median(walls) * 1e3,
+            sum(r[0] for r in _kernel_rows(prof)) / 1e3)
+
+
+def phase_serve_prefix(torch, smi: str) -> None:
+    """llama2-7b W8A8 at full width, prefix caching on the JAX benchmark's
+    chat trace (4 sessions, 3 turns, a 992-token system prompt, every turn
+    submitted twice).  Gates: resume hits replay the cold run's bits with
+    no prefill; a same-path pair (chunk budget 256 below every prompt)
+    gives the cold run's streams bit for bit, partial hits included;
+    partial hits over one-shot pages agree with the one-shot cold engine
+    on margin-checked prompts; refcounts return to idle; B1 and the chunk
+    kernel counted.  TTFT p50 cold and warm; prefill device ms of a cold
+    prompt against a partial hit's suffix."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.serving.core import Request
+    from repro_torch.serving.scheduler import make_scheduler
+
+    tag = "serve_prefix"
+    t0 = time.monotonic()
+    cfg, params = _full_model(torch, "llama2-7b")
+    cold = _chat(torch, _a5_engine(cfg, params), cfg, tag)
+    warm_eng = _a5_engine(cfg, params, prefix_cache=True)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    warm = _chat(torch, warm_eng, cfg, tag)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    s = warm_eng.stats
+    n_sess = 4
+    regen_ok = all(warm[(t, k, "regen")][0] == warm[(t, k, "turn")][0]
+                   for t, k, kind in warm if kind == "turn")
+    first_ok = all(warm[(0, k, kind)][0] == cold[(0, k, kind)][0]
+                   for k in range(n_sess) for kind in ("turn", "regen"))
+    agree = sum(warm[key][0] == cold[key][0] for key in warm
+                if key[0] > 0 and key[2] == "turn")
+    log(f"[{tag}] one-shot engines, 24 requests (4 sessions x 3 turns x 2): "
+        f"prefills {s.prefills}, prefill chunks {s.prefill_chunks}, prefix "
+        f"hits {s.prefix_hits}/{s.prefix_lookups}, pages {s.prefix_hit_pages}"
+        f", tokens {s.prefix_tokens_reused}, cow {s.cow_copies}; resume hits "
+        f"equal their turn: {regen_ok}; turn 0 (both kinds) equal the cold "
+        f"engine's: {first_ok}; later turns equal the cold engine's: "
+        f"{agree} of 8 (partial hits run the chunk kernel over B3's pages);"
+        f" launches B1 {counts['paged_decode_attention']}, chunk kernel "
+        f"{counts['paged_chunk_attention']}, B3 {counts['flash_attention']}")
+    if not (regen_ok and first_ok):
+        raise AssertionError(f"[{tag}] a resume hit differs from its cold "
+                             f"run")
+    if (s.prefills, s.prefill_chunks, s.prefix_hits) != (n_sess, 8, 20):
+        raise AssertionError(f"[{tag}] resume hits ran a prefill, or the "
+                             f"partial hits did not chunk")
+    if counts["paged_decode_attention"] <= 0 \
+            or counts["paged_chunk_attention"] <= 0:
+        raise AssertionError(f"[{tag}] B1 or the chunk kernel never ran")
+    idle = all(warm_eng.allocator.refcount(e.pid) == 0
+               for e in warm_eng._px._pages.values() if not e.cold)
+    n_entries = len(warm_eng._px)
+    if not idle or (warm_eng.allocator.available + warm_eng._px_reclaimable
+                    != warm_eng.num_pages - 1) \
+            or warm_eng.clear_prefix_cache() != n_entries \
+            or warm_eng.allocator.available != warm_eng.num_pages - 1:
+        raise AssertionError(f"[{tag}] refcounts did not return to idle")
+    ttft_c = [v[1] for v in cold.values()]
+    ttft_res = [warm[k][1] for k in warm if k[2] == "regen"]
+    ttft_par = [warm[k][1] for k in warm if k[2] == "turn" and k[0] > 0]
+    ttft_w = ttft_res + ttft_par
+    log(f"[{tag}] TTFT p50 cold {statistics.median(ttft_c) * 1e3:.1f} ms "
+        f"(24 requests); warm hits {statistics.median(ttft_w) * 1e3:.1f} ms"
+        f" (20): resume hits {statistics.median(ttft_res) * 1e3:.1f} ms "
+        f"(12), partial hits {statistics.median(ttft_par) * 1e3:.1f} ms "
+        f"(8), on {smi}")
+    del warm_eng
+    t0 = _lap(tag, "one-shot engines", t0)
+    sched = make_scheduler("fcfs", chunk_tokens=PREFIX_CHUNK)
+    cold_c = _chat(torch, _a5_engine(cfg, params, scheduler=sched), cfg, tag)
+    warm_c_eng = _a5_engine(cfg, params, prefix_cache=True,
+                            scheduler=make_scheduler(
+                                "fcfs", chunk_tokens=PREFIX_CHUNK))
+    warm_c = _chat(torch, warm_c_eng, cfg, tag)
+    same = sum(warm_c[k][0] == cold_c[k][0] for k in warm_c)
+    sc = warm_c_eng.stats
+    log(f"[{tag}] chunk budget {PREFIX_CHUNK} (every prompt chunks): "
+        f"{same} of 24 streams bit-equal to the cold chunked engine's "
+        f"(prefix hits {sc.prefix_hits}, partial {sc.prefix_hits - 12}, "
+        f"chunks {sc.prefill_chunks})")
+    if same != 24 or sc.prefix_hits != 20:
+        raise AssertionError(f"[{tag}] a same-path prefix hit differs from "
+                             f"the cold run")
+    del warm_c_eng
+    t0 = _lap(tag, "same-path engines", t0)
+    rng = np.random.RandomState(13)
+    cands = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+             for n in rng.randint(PREFIX_CACHED + 20, 480, size=8)]
+    primers = [c[:PREFIX_CACHED] + [(c[PREFIX_CACHED] + 1) % cfg.vocab_size]
+               for c in cands]
+    checks = [_partial_paths(torch, params, cfg, c, p, MARGIN_TOKENS)
+              for c, p in zip(cands, primers)]
+    keep = [i for i, (mg, _d, ok) in enumerate(checks) if ok and mg > MARGIN]
+    log(f"[{tag}] partial hit (one-shot prefix of {PREFIX_CACHED} tokens + "
+        f"chunked suffix) vs one-shot, per prompt (top-1 margin, max "
+        f"|dlogit|, same tokens) over {MARGIN_TOKENS} greedy tokens: "
+        + ", ".join(f"({mg:.4f}, {dr:.4f}, {'y' if ok else 'n'})"
+                    for mg, dr, ok in checks)
+        + f"; {len(keep)} of {len(cands)} kept")
+    if len(keep) < 2:
+        raise AssertionError(f"[{tag}] fewer than 2 margin-checked prompts")
+    cold_e = _a5_engine(cfg, params)
+    warm_e = _a5_engine(cfg, params, prefix_cache=True)
+    bad = []
+    for i in keep:
+        a = Request(rid=3 * i, prompt=list(cands[i]),
+                    max_new_tokens=MARGIN_TOKENS)
+        cold_e.add_request(a)
+        cold_e.run()
+        warm_e.add_request(Request(rid=3 * i + 1, prompt=primers[i],
+                                   max_new_tokens=1))
+        warm_e.run()
+        hits = warm_e.stats.prefix_hits
+        b = Request(rid=3 * i + 2, prompt=list(cands[i]),
+                    max_new_tokens=MARGIN_TOKENS)
+        warm_e.add_request(b)
+        warm_e.run()
+        if warm_e.stats.prefix_hits != hits + 1:
+            raise AssertionError(f"[{tag}] prompt {i} was not a partial hit")
+        if a.out_tokens != b.out_tokens:
+            bad.append(i)
+    if bad:
+        raise AssertionError(f"[{tag}] partial hits differ from the one-shot"
+                             f" engine on margin-checked prompts {bad}")
+    log(f"[{tag}] partial hits equal the one-shot cold engine's streams on "
+        f"the {len(keep)} margin-checked prompts")
+    del cold_e, warm_e
+    sessions, _m, _n = _chat_sessions(cfg)
+    prompt = sessions[0]["system"] + sessions[0]["users"][0]
+    cache = _new_cache(torch, cfg, 1, "bf16")
+    from repro_torch.models import model as M
+    from repro_torch.serving.kv_cache import prefill_bucket
+
+    bk = prefill_bucket(len(prompt))
+    toks = torch.tensor([prompt + [0] * (bk - len(prompt))], device="cuda")
+    n = torch.tensor([len(prompt)], device="cuda")
+    slot = torch.tensor([0], device="cuda")
+    cold_ms = _prefill_device_ms(torch, lambda: M.prefill_into_slots(
+        params, cfg, toks, n, cache, slot))
+    part_ms = _prefill_device_ms(torch, lambda: _chunked_logits_from(
+        torch, params, cfg, prompt, len(sessions[0]["system"]), cache))
+    log(f"[{tag}] prefill of a {len(prompt)}-token prompt: cold one-shot "
+        f"wall {cold_ms[0]:.1f} ms, device {cold_ms[1]:.2f} ms; a partial "
+        f"hit's {len(prompt) - len(sessions[0]['system'])}-token suffix "
+        f"from {len(sessions[0]['system'])}: wall {part_ms[0]:.1f} ms, "
+        f"device {part_ms[1]:.2f} ms, on {smi}")
+    _lap(tag, "margin-checked partial hits and prefill times", t0)
+
+
+def phase_serve_migrate(torch, smi: str) -> None:
+    """Two llama2-7b W8A8 replicas on the one card sharing one params dict,
+    behind Router(migrate=True, session_affinity): every request lands on
+    a tiered replica whose 65-page pool starves, a full-pool donor beside
+    it.  Gates: migrations > 0 and the streams equal one resident replica's
+    bit for bit, synchronous and overlapped; a snapshot's bytes decode to
+    equal pages and resume with the unmigrated stream.  Bytes a snapshot,
+    ms to snapshot, encode, decode and inject."""
+    import zlib
+
+    from repro_torch.serving.core import Request, SlotSnapshot
+    from repro_torch.serving.router import Router
+
+    tag = "serve_migrate"
+    t0 = time.monotonic()
+    cfg, params = _full_model(torch, "llama2-7b")
+    prompts = _serve_trace(cfg)
+    want, res_wall = _run_trace(torch, _a5_engine(cfg, params), prompts, 32,
+                                tag)
+    for overlap in (False, True):
+        starved = _a5_engine(cfg, params, num_pages=TIER_PAGES,
+                             kv_tier="flash", overlap=overlap)
+        donor = _a5_engine(cfg, params, overlap=overlap)
+        cores = [None, None]
+        hot = zlib.crc32(b"hot") % 2
+        cores[hot], cores[1 - hot] = starved, donor
+        rt = Router(cores, policy="session_affinity", migrate=True)
+        reqs = [Request(rid=i, prompt=list(p), max_new_tokens=32,
+                        session="hot") for i, p in enumerate(prompts)]
+        for r in reqs:
+            if rt.submit(r) is not starved:
+                raise AssertionError(f"[{tag}] affinity missed the replica")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        steps = 0
+        while rt.has_work and steps < 2000:
+            rt.step()
+            steps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        got = [r.out_tokens for r in reqs]
+        log(f"[{tag}] {'overlapped' if overlap else 'synchronous'}: "
+            f"{rt.migrations} migrations (starved replica: preemptions "
+            f"{starved.stats.preemptions}, spilled "
+            f"{starved.stats.kv_spill_pages} pages; donor took "
+            f"{donor.stats.migrated_in}); streams "
+            f"{'bit-equal to' if got == want else 'DIFFER from'} one "
+            f"resident replica's; wall {wall:.2f} s (one replica "
+            f"{res_wall:.2f} s)")
+        if rt.migrations <= 0 or got != want or not all(r.done for r in reqs):
+            raise AssertionError(f"[{tag}] migrated != one replica")
+        for c in (starved, donor):
+            if c.allocator.available != c.num_pages - 1:
+                raise AssertionError(f"[{tag}] pages leaked")
+        del rt, cores, starved, donor
+    t0 = _lap(tag, "router runs", t0)
+    i = max(range(len(prompts)), key=lambda j: len(prompts[j]))
+    a, b = _a5_engine(cfg, params), _a5_engine(cfg, params)
+    a.add_request(Request(rid=i, prompt=list(prompts[i]), max_new_tokens=32))
+    for _ in range(5):
+        a.step()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    snap = a.snapshot_slot(i)
+    t_snap = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    data = snap.to_bytes()
+    t_enc = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    back = SlotSnapshot.from_bytes(data, expect_family="dense",
+                                   expect_page_size=16)
+    t_dec = time.perf_counter() - t1
+    if not all(torch.equal(x, y) for p, q in zip(snap.pages, back.pages)
+               for x, y in zip(p, q)) or len(back.pages) != len(snap.pages):
+        raise AssertionError(f"[{tag}] a snapshot's bytes decode to other "
+                             f"pages")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    b.inject_slot(back)
+    torch.cuda.synchronize()
+    t_inj = time.perf_counter() - t1
+    b.run()
+    if back.req.out_tokens != want[i]:
+        raise AssertionError(f"[{tag}] the injected request's stream "
+                             f"differs")
+    log(f"[{tag}] a {len(prompts[i])}-token request after 5 steps "
+        f"({back.slot_len} tokens, {back.n_pages} pages): snapshot "
+        f"{len(data)} bytes ({len(data) / 2**20:.1f} MiB); snapshot "
+        f"{t_snap * 1e3:.1f} ms, to_bytes {t_enc * 1e3:.1f} ms, from_bytes "
+        f"{t_dec * 1e3:.1f} ms, inject {t_inj * 1e3:.1f} ms (synchronized); "
+        f"pages bit-equal after the bytes, and the injected stream equals "
+        f"the unmigrated one, on {smi}")
+    del a, b, snap, back, data
+    _drop_full(torch, "llama2-7b")
+    _lap(tag, "snapshot and inject", t0)
+
 _MARKS: list[tuple[str, float]] = []
 
 
@@ -3040,7 +3663,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="card,build,kernels,model,serve,profile,hybrid,"
                             "serve_w4a16,serve_hybrid,serve_hybrid_w4a16,"
-                            "serve_overlap,serve_chunked,serve_int8kv")
+                            "serve_overlap,serve_chunked,serve_int8kv,"
+                            "serve_tiered,serve_prefix,serve_migrate")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3101,6 +3725,15 @@ def main(argv=None) -> int:
     if "serve_int8kv" in phases:
         counts["serve_int8kv"], counts["serve_int8kv_chunked"] = \
             phase_serve_int8kv(torch, smi_line)
+    _mark("serve_tiered")
+    if "serve_tiered" in phases:
+        phase_serve_tiered(torch, smi_line)
+    _mark("serve_prefix")
+    if "serve_prefix" in phases:
+        phase_serve_prefix(torch, smi_line)
+    _mark("serve_migrate")
+    if "serve_migrate" in phases:
+        phase_serve_migrate(torch, smi_line)
     _mark("end")
     log(f"[time] phases {args.phases} took "
         f"{time.monotonic() - t_start:.0f} s after the card check")

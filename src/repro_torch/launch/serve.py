@@ -12,7 +12,13 @@ its tokens read back one step late).  ``--chunk-prefill N`` prefills a
 prompt longer than N tokens in chunks of N, one a step between decode
 steps (dense family; a hybrid engine prefills in one shot);
 ``--kv-dtype int8`` keeps the KV pages in int8 with a float32 scale per
-row and head.  ``--device`` defaults to ``cuda``,
+row and head.  ``--kv-tier flash`` spills KV pages of suspended slots to
+a cold tier (pinned host memory on a card; ``--flash-pages`` bounds it,
+``--num-pages`` sizes the hot pool below the demand) and prefetches them
+back before their slot decodes; ``--prefix-cache`` shares prefill-written
+pages among requests with a common prompt prefix; replicas migrate slots
+off a page-starved replica unless ``--no-migrate``.  ``--device``
+defaults to ``cuda``,
 where each decode step is one replayed CUDA graph; ``--device cpu`` runs
 the plain PyTorch versions of the kernels.
 
@@ -23,14 +29,15 @@ the plain PyTorch versions of the kernels.
       --top-k 20 --top-p 0.9 --device cpu
   python src/repro_torch/launch/serve.py --chunk-prefill 4 --kv-dtype int8 \\
       --device cpu
+  python src/repro_torch/launch/serve.py --kv-tier flash --num-pages 6 \\
+      --prefix-cache --replicas 2 --route session_affinity --device cpu
 
 ``--arch`` takes every configuration of ``configs/registry.py`` the engine
 serves: the dense family and the hybrid zamba2-7b (Mamba-2 layers and a
 shared attention block; mamba2-130m has ``forward`` only).
 
 Flags of the JAX driver whose features are not ported yet (fleet workers,
-prefix cache, wave mode) exit with a message naming what is missing.  Replicas never
-migrate slots (migration is not ported), so there is no ``--no-migrate``.
+wave mode) exit with a message naming what is missing.
 """
 
 from __future__ import annotations
@@ -61,13 +68,19 @@ def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
                  replicas: int = 1, route: str = "round_robin",
                  policy: str = "fcfs", seed: int = 0, eos_id: int = -1,
                  overlap: bool = False, chunk_prefill: int = 0,
-                 kv_dtype: str = "bf16", device: str = "cuda"
+                 kv_dtype: str = "bf16", kv_tier: str = "none",
+                 flash_pages: int | None = None,
+                 num_pages: int | None = None, prefix_cache: bool = False,
+                 migrate: bool = True, device: str = "cuda"
                  ) -> tuple[ModelConfig, ServingClient]:
     """The model and serving stack the driver serves: ``init_params`` on
     the device from ``seed``, W8A8 or W4A16 quantization matrix by matrix
     (each bf16 matrix freed as it goes), then a ServingClient over ``replicas``
     engines (``overlap``: the overlapped decode loop; ``chunk_prefill``: the
-    chunk budget, 0 for none; ``kv_dtype``: "bf16" or "int8" page pools)."""
+    chunk budget, 0 for none; ``kv_dtype``: "bf16" or "int8" page pools;
+    ``kv_tier`` / ``flash_pages`` / ``num_pages``: the flash KV tier and
+    the hot pool's size; ``prefix_cache``; ``migrate``: slot migration
+    between replicas)."""
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -79,10 +92,12 @@ def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
         raise ValueError(f"unknown quantization {quant!r}")
     client = ServingClient(
         cfg, params, replicas=replicas, route=route, seed_base=seed,
-        max_batch=max_batch, max_seq=max_seq, eos_id=eos_id,
-        page_size=page_size,
+        migrate=migrate, max_batch=max_batch, max_seq=max_seq,
+        eos_id=eos_id, page_size=page_size,
         scheduler=make_scheduler(policy, chunk_tokens=chunk_prefill or None),
-        overlap=overlap, kv_dtype=kv_dtype, device=device)
+        overlap=overlap, kv_dtype=kv_dtype, kv_tier=kv_tier,
+        flash_pages=flash_pages, num_pages=num_pages,
+        prefix_cache=prefix_cache, device=device)
     return cfg, client
 
 
@@ -90,8 +105,6 @@ def _unported(args) -> list[str]:
     out = []
     if args.workers:
         out.append("--workers (fleet serving)")
-    if args.prefix_cache:
-        out.append("--prefix-cache")
     if args.mode == "wave":
         out.append("--mode wave")
     return out
@@ -109,12 +122,24 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--route", default="round_robin",
                     choices=ROUTE_POLICIES)
+    ap.add_argument("--no-migrate", action="store_true",
+                    help="disable cross-replica slot migration")
     ap.add_argument("--workers", type=int, default=0)
     ap.add_argument("--mode", default="auto",
                     choices=["auto", "wave", "continuous"])
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--overlap", action="store_true")
-    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="refcounted prefix caching: repeated prompts map "
+                         "shared KV pages instead of re-prefilling them")
+    ap.add_argument("--kv-tier", default="none", choices=["none", "flash"],
+                    help="flash: spill suspended slots' KV pages to a cold "
+                         "tier and prefetch them back")
+    ap.add_argument("--flash-pages", type=int, default=0,
+                    help="cold-tier capacity in pages (0 = unbounded)")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="hot page pool per replica (0 = every slot at "
+                         "max_seq)")
     ap.add_argument("--policy", default="fcfs", choices=sorted(POLICIES))
     ap.add_argument("--deadline", type=float, default=0.0)
     ap.add_argument("--chunk-prefill", type=int, default=0)
@@ -144,7 +169,9 @@ def main(argv: list[str] | None = None) -> None:
         page_size=args.page_size, replicas=args.replicas, route=args.route,
         policy=args.policy, seed=args.seed, overlap=args.overlap,
         chunk_prefill=args.chunk_prefill, kv_dtype=args.kv_dtype,
-        device=args.device)
+        kv_tier=args.kv_tier, flash_pages=args.flash_pages or None,
+        num_pages=args.num_pages or None, prefix_cache=args.prefix_cache,
+        migrate=not args.no_migrate, device=args.device)
     rng = np.random.RandomState(42)
     for i in range(args.requests):
         plen = int(rng.randint(2, 9))

@@ -218,3 +218,26 @@ def paged_chunk_attention(q: torch.Tensor, k_pages, v_pages,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhcs,bshd->bchd", p, v.float())
     return out.to(q.dtype)
+
+
+def gather_kv_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                    page_ids: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whole pages out of a layer-stacked pool (the flash tier's spill).
+
+    k/v_pages: [L, P, page, Hkv, D]; page_ids: [n] int.  Returns new
+    tensors [L, n, page, Hkv, D]; the pool is untouched."""
+    ids = page_ids.to(device=k_pages.device, dtype=torch.long)
+    return k_pages.index_select(1, ids), v_pages.index_select(1, ids)
+
+
+def scatter_kv_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                     page_ids: torch.Tensor, ks: torch.Tensor,
+                     vs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whole pages back into a layer-stacked pool (the tier's prefetch),
+    in place: ks/vs [L, n, page, Hkv, D] land on ``page_ids`` [n], which
+    must be distinct.  Returns the pools, which keep their storage."""
+    ids = page_ids.to(device=k_pages.device, dtype=torch.long)
+    k_pages.index_copy_(1, ids, ks.to(k_pages.device, k_pages.dtype))
+    v_pages.index_copy_(1, ids, vs.to(v_pages.device, v_pages.dtype))
+    return k_pages, v_pages

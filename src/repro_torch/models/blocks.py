@@ -16,7 +16,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import (paged_chunk_attention,
                                                       paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.attention import (pool_page_size, scatter_chunk_rows,
+from repro_torch.models.attention import (gather_kv_pages, pool_page_size,
+                                          scatter_chunk_rows, scatter_kv_pages,
                                           write_paged_rows)
 from repro_torch.models.layers import (apply_rope, init_linear, layer_norm,
                                        linear, rms_norm)
@@ -139,3 +140,31 @@ def paged_pool_keys(cache: dict) -> tuple[str, ...]:
     if "k_scale" in cache:
         keys += ("k_scale", "v_scale")
     return keys
+
+
+def kv_swap_out(cache: dict, page_ids: torch.Tensor
+                ) -> tuple[torch.Tensor, ...]:
+    """The tier's spill: whole pages gathered from every pool of
+    ``paged_pool_keys`` (K / V, then their scales under int8), each
+    [L, n, page, ...] in a new tensor; the pools are untouched and the
+    caller hands the freed pids back to the allocator."""
+    keys = paged_pool_keys(cache)
+    out = []
+    for a, b in zip(keys[::2], keys[1::2]):
+        out += gather_kv_pages(cache[a], cache[b], page_ids)
+    return tuple(out)
+
+
+def kv_swap_in(cache: dict, page_ids: torch.Tensor,
+               *payloads: torch.Tensor) -> dict:
+    """The tier's prefetch and a migration's inject: one payload per
+    ``paged_pool_keys`` entry, as ``kv_swap_out`` returns them, written
+    onto ``page_ids`` in place (the pools keep their storage, which a
+    captured decode graph reads); the caller remaps the block table."""
+    keys = paged_pool_keys(cache)
+    if len(payloads) != len(keys):
+        raise ValueError(f"{len(payloads)} payloads for pools {keys}")
+    pay = dict(zip(keys, payloads))
+    for a, b in zip(keys[::2], keys[1::2]):
+        scatter_kv_pages(cache[a], cache[b], page_ids, pay[a], pay[b])
+    return cache

@@ -15,6 +15,7 @@ Counterpart of ``repro.models.model`` for the paged serving path:
                                              -> (logits [B, V], cache)
     decode_and_sample_paged(params, cfg, tok_host, tok_dev, use_dev, cache,
                             active, sample_fn)  -> (tokens [B], cache)
+    swap_out_pages(cache, page_ids) / swap_in_pages(cache, page_ids, *pay)
     checkpoint_slot_state(cache, slot) / restore_slot_state(cache, slot, ck)
 
 Params are plain dicts of tensors with the JAX package's key names; where
@@ -307,6 +308,21 @@ def _pool(cache: dict, key: str, li: int):
     float32 scales) pair under kv_dtype="int8"."""
     sk = key + "_scale"
     return (cache[key][li], cache[sk][li]) if sk in cache else cache[key][li]
+
+
+def swap_out_pages(cache: dict, page_ids: torch.Tensor
+                   ) -> tuple[torch.Tensor, ...]:
+    """Page payloads for the flash tier or a snapshot: one tensor per
+    ``blocks.paged_pool_keys`` entry, [L, n, page, ...] (float32 scale
+    payloads beside int8 ones), gathered into new device tensors."""
+    return blocks.kv_swap_out(cache, page_ids)
+
+
+def swap_in_pages(cache: dict, page_ids: torch.Tensor,
+                  *payloads: torch.Tensor) -> dict:
+    """Scatter page payloads onto ``page_ids`` of the hot pools, in place;
+    the caller remaps the owning slot's block-table row to the new pids."""
+    return blocks.kv_swap_in(cache, page_ids, *payloads)
 
 
 def checkpoint_slot_state(cache: dict, slot: int):

@@ -9,14 +9,13 @@ Counterpart of ``repro.serving.client``::
         ...
     for out in client.stream():     # or: merged fleet-wide event stream
         ...
-
-Aborting goes through ``EngineCore.abort_request``; the client-level abort
-comes with the next serving slice.
+    client.abort(h.rid)             # or h.abort()
 
 The client is the single place global request ids are allocated, and so
 the single place a stochastic request's seed is derived (``seed_base +
-rid``), exactly as in the JAX package.  Fleet workers (``workers=``) are
-not ported yet.
+rid``), exactly as in the JAX package.  Replicas migrate slots off a
+page-starved replica (``migrate=True``, the default).  Fleet workers
+(``workers=``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -67,17 +66,20 @@ class RequestHandle:
             pass
         return self.request
 
+    def abort(self) -> bool:
+        return self._client.abort(self.rid)
+
 
 class ServingClient:
     """User-facing serving surface over N engine replicas: wrap a router
     (``router=``) or let the client build one from ``(cfg, params)`` with
     ``replicas`` / ``route`` and any EngineCore keyword (``max_batch``,
-    ``max_seq``, ``scheduler``, ``overlap``, ``device``, ...); a request's
-    ``SamplingParams`` may be stochastic."""
+    ``max_seq``, ``scheduler``, ``overlap``, ``kv_tier``, ``prefix_cache``,
+    ``device``, ...); a request's ``SamplingParams`` may be stochastic."""
 
     def __init__(self, cfg=None, params=None, *, router: Router = None,
                  replicas: int = 1, route: str = "round_robin",
-                 migrate: bool = False, seed_base: int = 0,
+                 migrate: bool = True, seed_base: int = 0,
                  workers: int = 0, **engine_kw):
         if router is None:
             if cfg is None or params is None:
@@ -112,6 +114,9 @@ class ServingClient:
         handle = RequestHandle(self, req)
         self._handles[rid] = handle
         return handle
+
+    def abort(self, rid: int) -> bool:
+        return self.router.abort(rid)
 
     @property
     def has_work(self) -> bool:

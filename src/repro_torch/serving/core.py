@@ -37,11 +37,48 @@ overlapped, with the per-request sampler (greedy, or temperature / top-k /
 top-p under jax's threefry keys, ``serving/sampler.py``).  A hybrid slot's
 Mamba conv window and SSM state live in the cache's slot-indexed state
 pools: a prefill overwrites the slot's rows and decode masks inactive
-lanes, and preemption here is requeue-and-re-prefill, so no state
-checkpoint is taken (the JAX engine takes one only on its tiered and
-migration paths).  The other options of the JAX engine raise until their
-slices land: ``mode="wave"``, ``kv_tier="flash"``, ``prefix_cache`` and
-slot migration (``snapshot_slot`` / ``inject_slot``).
+lanes; a suspension, a migration and a prefix resume point checkpoint them
+host-side (``checkpoint_slot_state``) and write them back on resume.
+``mode="wave"`` raises until its slice lands; the straggler watchdog is
+not ported.
+
+Tiered KV (``kv_tier="flash"``), as in the JAX engine: the hot page pool
+may be sized below the demand (``num_pages``); when it runs dry the engine
+suspends a victim slot (``scheduler.victim``), spills its pages to the
+cold tier and prefetches them back, onto whatever hot pids are free,
+before the slot's next decode step; the block table is remapped, so decode
+gives the all-resident run's bits.  On a card the cold tier is pinned host
+memory: a spill gathers the pages into one device bucket on the compute
+stream (``models.model.swap_out_pages``), queues its copy into a pinned
+buffer and records an event; the device bucket stays referenced until that
+event, and a payload is read (prefetch, snapshot) only after it.  A
+prefetch stacks the payloads into a fresh pinned buffer, copies it to the
+card without blocking (the pinned allocator reuses the buffer only after
+the copy's event) and writes the pages into the pools in place
+(``swap_in_pages``: ``index_copy_`` on the page axis), so the pools keep
+the storage a captured decode graph reads.  ``flash_pages`` bounds the
+tier; a pinned allocation or a copy that fails raises.
+
+Prefix caching (``prefix_cache=True``): finished requests leave their
+prefill-written pages in a content-addressed ``kv_cache.PrefixIndex``,
+refcounted at the allocator.  An exact-prompt hit maps the shared full
+pages, scatters a private copy of the tail page, restores a hybrid slot's
+state and samples the first token from the stored prefill logits: zero
+prefill dispatches, the cold run's bits.  A partial hit (dense family,
+bf16 pools only, as in the JAX engine) maps the cached leading pages and
+prefills the suffix through the chunk path from the cached length.  On a
+card the chunk path (the chunk kernel) and the one-shot group prefill (B3)
+give other bits, so a partial hit equals a cold run bit for bit where
+both take the chunk path; against a one-shot cold run it agrees on
+margin-checked prompts (ROADMAP section C).  Idle cached pages are
+reclaimed LRU under pressure or, under the flash tier, spilled under
+``("px", key)`` and prefetched on their next hit.
+
+Migration: ``snapshot_slot`` drains a slot (after draining a pending
+overlapped step) into a ``SlotSnapshot`` of host tensors (pages,
+lengths, sampler cursor, hybrid state, shared pages' chain keys), and
+``inject_slot`` resumes it on another engine with the same bits;
+``serving/fleet/wire.py`` gives it the JAX package's byte format.
 
 The device state is the cache dict of ``init_paged_cache`` on ``device``,
 whose tensors keep their storage for the engine's life (prefill's new
@@ -78,10 +115,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import blocks
 from repro_torch.models import model as model_lib
 from repro_torch.serving import graphs, sampler
 from repro_torch.serving.kv_cache import (OutOfPages, PageAllocator,
-                                          pages_needed, prefill_bucket)
+                                          PrefixIndex, ResumeEntry,
+                                          TieredPageAllocator, pages_needed,
+                                          prefill_bucket)
 from repro_torch.serving.scheduler import (SamplingParams, Scheduler,
                                            SlotView, make_scheduler)
 
@@ -105,8 +145,8 @@ class Request:
     finish_reason: Optional[str] = None
     n_folded: int = 0  # out_tokens already folded into prompt by restarts
     n_chunks: int = 0      # chunked-prefill passes run for this request
-    n_preempted: int = 0   # restarts suffered
-    n_migrated: int = 0    # cross-replica moves (always 0 in this port)
+    n_preempted: int = 0   # restarts + tiered suspensions suffered
+    n_migrated: int = 0    # cross-replica slot moves suffered
     # lifecycle timestamps (time.monotonic), filled by the engine
     t_submit: float = 0.0
     t_admit: float = 0.0
@@ -147,6 +187,101 @@ class RequestOutput:
 
 
 @dataclasses.dataclass
+class SlotSnapshot:
+    """One slot's entire serving state as host data: the migration wire
+    format, field for field the JAX package's ``SlotSnapshot``.
+
+    ``pages[j]`` is the payload tuple of the slot's j-th page, one CPU
+    tensor per ``blocks.paged_pool_keys`` component, [L, page, ...]:
+    ``(k, v)`` for bf16 pools, ``(k, v, k_scale, v_scale)`` for int8 ones;
+    ``ssm`` is the ``checkpoint_slot_state`` snapshot of a hybrid slot
+    (None otherwise); ``prefix_keys`` maps the slot's shared pages to their
+    chain keys (None when the source engine has no prefix cache).  No
+    device tensor leaks into it."""
+
+    req: Request
+    slot_len: int          # valid cache length (prefill_pos mid-prefill)
+    last_token: int        # next decode step's input token
+    prefilling: bool       # still mid chunked-prefill
+    prefill_pos: int
+    pages: list            # [tuple of tensors] per page, in pool-key order
+    ssm: object            # checkpoint_slot_state payload (None if none)
+    page_size: int
+    family: str
+    prefix_keys: Optional[dict] = None
+
+    @property
+    def n_pages(self) -> int:
+        return len(self.pages)
+
+    def to_bytes(self) -> bytes:
+        """The JAX package's standalone snapshot bytes (``fleet/wire.py``)."""
+        from repro_torch.serving.fleet import wire
+        return wire.snapshot_to_bytes(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes, expect_family: str = None,
+                   expect_page_size: int = None,
+                   expect_dtype: str = None) -> "SlotSnapshot":
+        """Inverse of :meth:`to_bytes`, with its geometry guard."""
+        from repro_torch.serving.fleet import wire
+        return wire.snapshot_from_bytes(
+            data, expect_family=expect_family,
+            expect_page_size=expect_page_size, expect_dtype=expect_dtype)
+
+
+class _SpillBatch:
+    """One spill's gathered pages on their way to the cold tier.
+
+    On a card the copy into pinned host memory is queued on the compute
+    stream behind the gather and an event recorded; the device bucket is
+    held until that event (so the caching allocator cannot hand its memory
+    out while the copy reads it), and the host buffer is read only after
+    it.  On the CPU the gathered tensors are the host copy."""
+
+    __slots__ = ("dev", "host", "event")
+
+    def __init__(self, arrays: tuple[torch.Tensor, ...]):
+        if arrays[0].device.type == "cuda":
+            self.host = tuple(torch.empty(a.shape, dtype=a.dtype,
+                                          pin_memory=True) for a in arrays)
+            for h, a in zip(self.host, arrays):
+                h.copy_(a, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+            self.dev = arrays
+        else:
+            self.host, self.event, self.dev = arrays, None, None
+
+    def wait(self) -> tuple[torch.Tensor, ...]:
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
+            self.dev = None
+        return self.host
+
+
+class _LazyPagePayload:
+    """A spilled page's payload still on its way to the host: column ``j``
+    of a :class:`_SpillBatch`, materialized when a prefetch or a snapshot
+    reads it, so a spill never blocks the engine loop."""
+
+    __slots__ = ("batch", "j")
+
+    def __init__(self, batch: _SpillBatch, j: int):
+        self.batch, self.j = batch, j
+
+    def materialize(self) -> tuple[torch.Tensor, ...]:
+        return tuple(h[:, self.j] for h in self.batch.wait())
+
+
+def _payload_host(payload) -> tuple[torch.Tensor, ...]:
+    if isinstance(payload, _LazyPagePayload):
+        return payload.materialize()
+    return payload
+
+
+@dataclasses.dataclass
 class EngineStats:
     prefills: int = 0
     prefill_chunks: int = 0    # chunked-prefill passes (chunk granularity)
@@ -164,10 +299,24 @@ class EngineStats:
     completed: int = 0
     mode: str = ""
     policy: str = ""
+    # pool pressure / tiered KV accounting
     pool_exhausted: int = 0    # OutOfPages events absorbed (requeue/reject)
     rejected: int = 0
     aborted: int = 0
-    preemptions: int = 0       # requeue restarts
+    preemptions: int = 0       # slots suspended (tiered) or restarted
+    resumes: int = 0           # suspended slots brought back hot
+    migrated_out: int = 0      # slots drained via snapshot_slot
+    migrated_in: int = 0       # slots resumed via inject_slot
+    kv_spill_pages: int = 0
+    kv_prefetch_pages: int = 0
+    kv_spill_bytes: float = 0.0
+    kv_prefetch_bytes: float = 0.0
+    # prefix-cache accounting
+    prefix_lookups: int = 0    # admissions that consulted the index
+    prefix_hits: int = 0       # admissions served any cached prefix
+    prefix_hit_pages: int = 0  # shared pages mapped instead of re-prefilled
+    prefix_tokens_reused: int = 0  # prompt tokens whose prefill was skipped
+    cow_copies: int = 0        # private copies made of (tail) shared pages
     admission_wait_s: list = dataclasses.field(default_factory=list)
     ttft_s: list = dataclasses.field(default_factory=list)
     latency_s: list = dataclasses.field(default_factory=list)
@@ -189,9 +338,19 @@ class EngineStats:
              f"admission p50/p99={adm['p50']:.3f}/{adm['p99']:.3f}s")
         if self.prefill_chunks:
             s += f" prefill_chunks={self.prefill_chunks}"
-        if self.pool_exhausted or self.rejected:
+        if self.kv_spill_pages or self.pool_exhausted or self.rejected:
             s += (f" pool_exhausted={self.pool_exhausted} "
-                  f"rejected={self.rejected} preempt={self.preemptions}")
+                  f"rejected={self.rejected} preempt={self.preemptions} "
+                  f"spill/prefetch pages={self.kv_spill_pages}"
+                  f"/{self.kv_prefetch_pages}")
+        if self.migrated_out or self.migrated_in:
+            s += (f" migrated out/in={self.migrated_out}"
+                  f"/{self.migrated_in}")
+        if self.prefix_lookups:
+            s += (f" prefix hits={self.prefix_hits}/{self.prefix_lookups}"
+                  f" pages={self.prefix_hit_pages}"
+                  f" tokens={self.prefix_tokens_reused}"
+                  f" cow={self.cow_copies}")
         return s
 
 
@@ -209,6 +368,7 @@ class EngineCore:
                  mode: str = "auto",
                  page_size: int = 16, num_pages: Optional[int] = None,
                  kv_tier: str = "none", exhaust_policy: str = "requeue",
+                 flash_pages: Optional[int] = None,
                  scheduler: "Scheduler | str | None" = None,
                  overlap: bool = False, prefix_cache: bool = False,
                  kv_dtype: str = "bf16", device: str | torch.device = "cuda"):
@@ -221,10 +381,8 @@ class EngineCore:
         if not model_lib.supports_paged(cfg):
             raise _not_ported(f"serving family {cfg.family!r}",
                               "dense and hybrid only; ssm needs wave mode")
-        if kv_tier != "none":
-            raise _not_ported(f"kv_tier={kv_tier!r}", "the tiered KV slice")
-        if prefix_cache:
-            raise _not_ported("prefix_cache=True", "the prefix-cache slice")
+        if kv_tier not in ("none", "flash"):
+            raise ValueError(f"kv_tier {kv_tier!r} not in ('none', 'flash')")
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype {kv_dtype!r} not in ('bf16', 'int8')")
         if exhaust_policy not in ("requeue", "reject"):
@@ -247,6 +405,7 @@ class EngineCore:
         self._pending: Optional[dict] = None
         self._inflight: list[int] = [0] * max_batch
         self._slot_epoch: list[int] = [0] * max_batch
+        self.kv_tier = kv_tier
         self.exhaust_policy = exhaust_policy
         self.stats = EngineStats(mode=mode, policy=self.scheduler.name)
         self.queue: list[Request] = []
@@ -262,12 +421,30 @@ class EngineCore:
             num_pages=self.num_pages, device=self.device, kv_dtype=kv_dtype)
         self.kv_page_bytes = model_lib.kv_page_bytes(
             cfg, page_size, model_lib.paged_pool_dtype(self.cache))
+        # hybrid: per-slot Mamba state checkpoints, taken on suspend
+        self._has_state = model_lib.has_slot_state(cfg)
+        self._ssm_ckpt: dict[int, object] = {}
         # host-side bookkeeping: block table, last tokens, per-slot pages
         self.block = np.zeros((max_batch, self.pages_per_slot), np.int32)
         self.last_np = np.zeros((max_batch,), np.int32)
-        self.allocator = PageAllocator(self.num_pages)
+        if kv_tier == "flash":
+            self.allocator = TieredPageAllocator(self.num_pages, flash_pages)
+        else:
+            self.allocator = PageAllocator(self.num_pages)
+        # prefix cache: the content-addressed page index and, per slot,
+        # {page_idx: chain key} of the pages it maps from the index
+        self._px = PrefixIndex(page_size) if prefix_cache else None
+        self.slot_shared: list[dict[int, bytes]] = [
+            {} for _ in range(max_batch)]
+        self._px_pin: set[bytes] = set()  # keys mid-acquire (shed shield)
+        # per-slot page lists mirror the block table; a 0 entry marks a
+        # page currently cold (spilled to the flash tier)
         self.slot_pages: list[list[int]] = [[] for _ in range(max_batch)]
         self.slot_len: list[int] = [0] * max_batch  # host mirror of lens
+        self.suspended: list[bool] = [False] * max_batch
+        self.resume_order: list[int] = []  # FIFO of suspended slots
+        self._resumed_now: set[int] = set()
+        self._idle_steps = 0  # consecutive steps with nothing decodable
         # chunked-prefill state: a prefilling slot holds a request whose
         # prompt is prefilled up to prefill_pos
         self.prefilling: list[bool] = [False] * max_batch
@@ -282,11 +459,13 @@ class EngineCore:
         if len(req.prompt) >= self.max_seq:
             raise ValueError(f"prompt ({len(req.prompt)}) does not fit "
                              f"max_seq ({self.max_seq})")
+        # the whole-lifetime page demand of one request must fit the hot
+        # pool, or requeue / suspend-and-resume could never finish it
         worst = min(self.max_seq, len(req.prompt) + req.max_new_tokens)
         if pages_needed(worst, self.page_size) > self.num_pages - 1:
             raise ValueError(
                 f"request needs up to {pages_needed(worst, self.page_size)}"
-                f" pages, pool has {self.num_pages - 1}")
+                f" pages, hot pool has {self.num_pages - 1}")
         req.t_submit = time.monotonic()
         if req.arrival_s is None:
             req.arrival_s = req.t_submit
@@ -314,12 +493,6 @@ class EngineCore:
         self.stats.aborted += 1
         self._emit(req, None, finished=True)
 
-    def snapshot_slot(self, rid: int, release: bool = True):
-        raise _not_ported("snapshot_slot", "the migration slice")
-
-    def inject_slot(self, snap) -> int:
-        raise _not_ported("inject_slot", "the migration slice")
-
     # ------------------------------------------------------------------
     # load introspection (what the router routes on)
     # ------------------------------------------------------------------
@@ -336,8 +509,167 @@ class EngineCore:
         return sum(1 for s in self.slots if s is not None)
 
     @property
+    def n_free_slots(self) -> int:
+        return sum(1 for s in self.slots if s is None)
+
+    @property
     def free_pages(self) -> int:
+        """Hot pages currently allocatable."""
         return self.allocator.available
+
+    @property
+    def page_starved(self) -> bool:
+        """True when this replica cannot make progress on all it holds: a
+        suspended slot waits for pages, or nothing in the queue can claim a
+        slot and its prefill pages.  The router's migration trigger."""
+        if any(self.suspended):
+            return True
+        if not self.queue:
+            return False
+        if self.n_free_slots == 0:
+            return True
+        need = min(pages_needed(len(r.prompt), self.page_size)
+                   for r in self.queue)
+        return need > self.allocator.available + self._px_reclaimable
+
+    def migration_candidate(self) -> Optional[tuple[int, int]]:
+        """``(rid, n_pages)`` of the slot this replica would rather hand to
+        a peer, or None: suspended slots first, then, with a backlogged
+        queue and no free slot, the scheduler's victim."""
+        if self.resume_order:
+            i = self.resume_order[0]
+        elif self.queue and self.n_free_slots == 0:
+            views = [self._slot_view(j) for j, r in enumerate(self.slots)
+                     if r is not None and not self.suspended[j]]
+            if not views:
+                return None
+            i = self.scheduler.victim(views)
+            if self.slots[i] is None:  # defensive: policy returned junk
+                return None
+        else:
+            return None
+        return self.slots[i].rid, len(self.slot_pages[i])
+
+    def can_accept(self, n_pages: int) -> bool:
+        """Whether ``inject_slot`` of an ``n_pages`` snapshot would succeed
+        without evicting anyone: a free slot plus the pages, with one page
+        of growth headroom."""
+        return (not self.page_starved and self.n_free_slots > 0
+                and n_pages <= self.pages_per_slot
+                and (self.allocator.available + self._px_reclaimable
+                     >= n_pages + 1))
+
+    @property
+    def _px_reclaimable(self) -> int:
+        """Idle (refcount-0) hot prefix-cache pages: freeable on demand."""
+        return self._px.n_idle_hot if self._px is not None else 0
+
+    # ------------------------------------------------------------------
+    # snapshot / inject (cross-replica slot migration)
+    # ------------------------------------------------------------------
+    def snapshot_slot(self, rid: int, release: bool = True) -> SlotSnapshot:
+        """Drain request ``rid``'s slot into a :class:`SlotSnapshot` and
+        release it here (the request is not finished: it continues where
+        the snapshot is injected).  Hot pages come out through one gather,
+        cold ones from the tier's store, so a suspended slot snapshots
+        without a prefetch.  ``release=False`` leaves the slot running and
+        the tier intact (a checkpoint; serialize it before the next step)."""
+        # an in-flight fused step's token must land in out_tokens /
+        # slot_len / last_np before they are copied out
+        self._drain_pending()
+        for i, req in enumerate(self.slots):
+            if req is not None and req.rid == rid:
+                break
+        else:
+            raise KeyError(f"request {rid} is not active in any slot")
+        n_pages = len(self.slot_pages[i])
+        pages: list = [None] * n_pages
+        hot = [(j, pid) for j, pid in enumerate(self.slot_pages[i])
+               if pid != 0]
+        if hot:
+            payloads = self._gather_pages([pid for _, pid in hot])
+            for (j, _pid), payload in zip(hot, payloads):
+                pages[j] = payload
+        for j, pid in enumerate(self.slot_pages[i]):
+            if pid == 0:  # cold: the payload is host-side (or on its way)
+                pages[j] = _payload_host(
+                    self.allocator.fetch((i, j)) if release
+                    else self.allocator.peek((i, j)))
+        snap = SlotSnapshot(
+            req=req, slot_len=self.slot_len[i],
+            last_token=int(self.last_np[i]),
+            prefilling=self.prefilling[i], prefill_pos=self.prefill_pos[i],
+            pages=pages,
+            ssm=(model_lib.checkpoint_slot_state(self.cache, i)
+                 if self._has_state else None),
+            page_size=self.page_size, family=self.cfg.family,
+            prefix_keys=(dict(self.slot_shared[i]) if self._px is not None
+                         else None))
+        if release:
+            self._release_slot(i)
+            req.n_migrated += 1
+            self.stats.migrated_out += 1
+        return snap
+
+    def inject_slot(self, snap: SlotSnapshot) -> int:
+        """Resume a snapshotted request in a free slot here; returns the
+        slot index.  The pages scatter onto fresh pids (the prefetch path,
+        a block-table remap), ``lens`` and the sampler cursor come from the
+        snapshot and a hybrid slot's state through ``restore_slot_state``,
+        all in place, so decode continues with the unmigrated run's bits."""
+        if snap.family != self.cfg.family or snap.page_size != self.page_size:
+            raise ValueError(
+                f"snapshot ({snap.family}, page_size={snap.page_size}) does "
+                f"not match replica ({self.cfg.family}, {self.page_size})")
+        if snap.n_pages > self.pages_per_slot:
+            raise ValueError(f"snapshot holds {snap.n_pages} pages, slots "
+                             f"here cap at {self.pages_per_slot}")
+        free = [i for i in range(self.max_batch) if self.slots[i] is None]
+        if not free:
+            raise OutOfPages("no free slot to inject into")
+        i = free[0]
+        # re-share against the local index where it holds a carried chain
+        # key (equal keys: the same tokens prefilled with the same params),
+        # copy the rest; carried keys the index lacks register the copy
+        shared_map = (dict(snap.prefix_keys or {})
+                      if self._px is not None else {})
+        reuse_idx = sorted(j for j, k in shared_map.items()
+                           if j < snap.n_pages
+                           and self._px.get(k) is not None)
+        acquired = self._px_acquire([shared_map[j] for j in reuse_idx])
+        fresh_idx = [j for j in range(snap.n_pages) if j not in set(reuse_idx)]
+        try:
+            fresh = self._alloc_pages(len(fresh_idx))
+        except OutOfPages:
+            for j in reuse_idx:
+                self._px_release_key(shared_map[j])
+            raise
+        if fresh_idx:
+            self._scatter_pages(fresh, [snap.pages[j] for j in fresh_idx])
+        pids = [0] * snap.n_pages
+        for j, pid in zip(reuse_idx, acquired):
+            pids[j] = pid
+        for j, pid in zip(fresh_idx, fresh):
+            pids[j] = pid
+        self.slot_shared[i] = {j: shared_map[j] for j in reuse_idx}
+        if self._px is not None:
+            for j, key in shared_map.items():
+                if (j not in self.slot_shared[i] and j < snap.n_pages
+                        and self._px.get(key) is None):
+                    self._px.insert(key, pids[j])
+                    self.slot_shared[i][j] = key
+        self.slot_pages[i] = pids
+        self.block[i, :snap.n_pages] = pids
+        self.slot_len[i] = snap.slot_len
+        self.cache["lens"][i] = snap.slot_len
+        self.last_np[i] = snap.last_token
+        self.prefilling[i] = snap.prefilling
+        self.prefill_pos[i] = snap.prefill_pos
+        if self._has_state and snap.ssm is not None:
+            model_lib.restore_slot_state(self.cache, i, snap.ssm)
+        self.slots[i] = snap.req
+        self.stats.migrated_in += 1
+        return i
 
     # ------------------------------------------------------------------
     # streaming events
@@ -430,7 +762,8 @@ class EngineCore:
                         arrival_s=r.arrival_s, seq_len=seq,
                         n_out=len(r.out_tokens),
                         remaining=r.max_new_tokens - len(r.out_tokens),
-                        prefilling=self.prefilling[i], suspended=False,
+                        prefilling=self.prefilling[i],
+                        suspended=self.suspended[i],
                         deadline_s=(r.arrival_s + r.deadline_s
                                     if r.deadline_s is not None else None))
 
@@ -442,18 +775,457 @@ class EngineCore:
         # a fresh copy on the device: the host arrays keep changing
         return torch.tensor(arr, device=self.device)
 
+    # ------------------------------------------------------------------
+    # tiered KV: spill / prefetch / suspend / resume
+    # ------------------------------------------------------------------
+    def _page_ids(self, pids: list[int]) -> torch.Tensor:
+        # the exact page list: the port has no trace to pad a bucket for
+        return torch.tensor(pids, dtype=torch.long, device=self.device)
+
+    def _gather_pages(self, pids: list[int]) -> list[tuple[torch.Tensor, ...]]:
+        """Hot pages as per-page host payload tuples (one CPU tensor per
+        pool component), through one ``swap_out_pages`` gather and one
+        synchronous copy to the host; each column is copied out so a
+        payload does not pin the whole gathered bucket.  The payload format
+        of the tier's cold store and of a snapshot."""
+        host = [a.cpu() for a in model_lib.swap_out_pages(
+            self.cache, self._page_ids(pids))]
+        return [tuple(a[:, j].clone() for a in host)
+                for j in range(len(pids))]
+
+    def _scatter_pages(self, pids: list[int], payloads: list) -> None:
+        """Write per-page payload tuples onto freshly allocated hot pids:
+        one stacked host buffer per component (pinned on a card, so its
+        copy to the card does not block the host; the pinned allocator
+        hands the buffer out again only after that copy's event), then one
+        ``swap_in_pages`` in place.  The caller remaps the owning
+        block-table row.  Shared by the tier's prefetch and inject."""
+        payloads = [_payload_host(p) for p in payloads]
+        pools = [self.cache[k] for k in blocks.paged_pool_keys(self.cache)]
+        comps = []
+        for c, pool in enumerate(pools):
+            parts = [p[c] for p in payloads]
+            shape = (parts[0].shape[0], len(parts), *parts[0].shape[1:])
+            buf = torch.empty(shape, dtype=pool.dtype,
+                              pin_memory=self.device.type == "cuda")
+            torch.stack([x.to(pool.dtype) for x in parts], dim=1, out=buf)
+            comps.append(buf.to(self.device, non_blocking=True))
+        model_lib.swap_in_pages(self.cache, self._page_ids(pids), *comps)
+
+    def _spill(self, items: list[tuple[tuple, int]]) -> int:
+        """Swap ``(key=(slot, page_idx), pid)`` hot pages out to the cold
+        tier; returns how many moved.  With a bounded tier, items past its
+        capacity go back on the eviction queue instead of half-spilling
+        (which would leak their hot pids)."""
+        room = self.allocator.flash_available
+        if room is not None and len(items) > room and self._px is not None:
+            # cold cached-prefix payloads are droppable (nobody maps them;
+            # a re-miss re-prefills): shed LRU ones for room
+            for key in self._px.cold_idle_keys(len(items) - room):
+                if key in self._px_pin:
+                    continue  # mid-acquire, about to prefetch
+                self.allocator.drop_slot(
+                    lambda k, key=key: k == ("px", key))
+                self._px.drop(key)
+            room = self.allocator.flash_available
+        if room is not None and len(items) > room:
+            for key, pid in items[room:]:
+                self.allocator.mark_evictable(key, pid)
+            items = items[:room]
+        if not items:
+            return 0
+        pids = [pid for _, pid in items]
+        # one gather, its copy to pinned host memory queued behind it;
+        # the payloads are read only after the copy's event
+        batch = _SpillBatch(model_lib.swap_out_pages(
+            self.cache, self._page_ids(pids)))
+        for j, (key, _pid) in enumerate(items):
+            self.allocator.store(key, _LazyPagePayload(batch, j))
+            if key[0] == "px":
+                # an idle cached-prefix page going cold: no block-table row
+                # to clear, just the index residency flip
+                self._px.mark_cold(key[1])
+            else:
+                slot, page_idx = key
+                self.block[slot, page_idx] = 0
+                self.slot_pages[slot][page_idx] = 0
+        self.allocator.free(pids)
+        self.stats.kv_spill_pages += len(pids)
+        self.stats.kv_spill_bytes += len(pids) * self.kv_page_bytes
+        return len(items)
+
+    def _prefetch_slot(self, i: int) -> bool:
+        """Bring all of slot ``i``'s cold pages back hot (before its next
+        decode step); False when the hot pool cannot take them yet."""
+        keys = self.allocator.cold_keys(lambda k: k[0] == i)
+        if not keys:
+            return True
+        need = len(keys)
+        if self.allocator.available < need:
+            short = need - self.allocator.available
+            self._spill(self.allocator.pop_evictable(
+                short, exclude=lambda k: k[0] == i))
+        if self.allocator.available < need:
+            return False
+        keys.sort(key=lambda k: k[1])
+        pids = self.allocator.alloc(need)
+        self._scatter_pages(pids, [self.allocator.fetch(k) for k in keys])
+        # residency-aware block-table remap: the pages came back on new pids
+        for key, pid in zip(keys, pids):
+            self.block[i, key[1]] = pid
+            self.slot_pages[i][key[1]] = pid
+        self.stats.kv_prefetch_pages += need
+        self.stats.kv_prefetch_bytes += need * self.kv_page_bytes
+        return True
+
+    def _suspend(self, i: int) -> None:
+        """Preempt slot ``i``: it stops decoding and its pages become LRU
+        eviction candidates, oldest (lowest page index) first.  A hybrid
+        slot's Mamba state is checkpointed host-side and written back on
+        resume."""
+        self.suspended[i] = True
+        self.resume_order.append(i)
+        self.stats.preemptions += 1
+        self.slots[i].n_preempted += 1
+        if self._has_state:
+            self._ssm_ckpt[i] = model_lib.checkpoint_slot_state(self.cache, i)
+        for page_idx, pid in enumerate(self.slot_pages[i]):
+            # shared prefix pages stay hot while mapped (other slots may
+            # read them); they become spill candidates once idle
+            if pid != 0 and page_idx not in self.slot_shared[i]:
+                self.allocator.mark_evictable((i, page_idx), pid)
+
+    def _resume_suspended(self) -> None:
+        """Head-of-line resume: the oldest suspended slot gets first claim
+        on freed pages (evicting other suspended slots' pages if need be),
+        so every preempted request comes back."""
+        while self.resume_order:
+            i = self.resume_order[0]
+            if not self._prefetch_slot(i):
+                break
+            self.resume_order.pop(0)
+            self.suspended[i] = False
+            self.allocator.unmark_slot(lambda k, i=i: k[0] == i)
+            if self._has_state and i in self._ssm_ckpt:
+                model_lib.restore_slot_state(self.cache, i,
+                                             self._ssm_ckpt.pop(i))
+            self._resumed_now.add(i)
+            self.stats.resumes += 1
+
+    def _make_room(self, n: int, avoid: frozenset = frozenset()) -> None:
+        """Free hot pages until ``n`` are available: spill LRU eviction
+        candidates first, then suspend the policy's victim slot and retry.
+        ``avoid`` shields slots (e.g. ones resumed this very step)."""
+        while self.allocator.available < n:
+            short = n - self.allocator.available
+            items = self.allocator.pop_evictable(short)
+            if items:
+                if self._spill(items) == 0:
+                    return  # tier full: eviction cannot free anything
+                continue
+            victims = [i for i, r in enumerate(self.slots)
+                       if r is not None and not self.suspended[i]
+                       and i not in avoid]
+            if not victims:
+                return
+            choice = self.scheduler.victim(
+                [self._slot_view(i) for i in victims])
+            if choice not in victims:  # defensive: policy returned junk
+                choice = max(victims, key=lambda i: self.slot_len[i])
+            self._suspend(choice)
+
+    def _alloc_pages(self, n: int, avoid: frozenset = frozenset()
+                     ) -> list[int]:
+        if self.kv_tier == "flash" and self.allocator.available < n:
+            self._make_room(n, avoid)
+        if self._px is not None and self.allocator.available < n:
+            # LRU-reclaim idle cached-prefix pages: live slots beat the
+            # cache (a reclaimed prefix re-prefills on its next miss)
+            self._px_reclaim(n - self.allocator.available)
+        return self.allocator.alloc(n)
+
+    def _px_reclaim(self, n: int) -> None:
+        ents = self._px.pop_idle_hot(n)
+        if not ents:
+            return
+        if self.kv_tier == "flash":
+            keys = {("px", key) for key, _pid in ents}
+            self.allocator.unmark_slot(lambda k: k in keys)
+        self.allocator.free([pid for _key, pid in ents])
+
+    # ------------------------------------------------------------------
+    # prefix cache: lookup / acquire / release / register / COW
+    # ------------------------------------------------------------------
+    def _key_tokens(self, req: Request) -> list[int]:
+        """The token sequence the prefix hash chains over, one entry per
+        cache position (the port serves no vision family)."""
+        return list(req.prompt)
+
+    def _px_lookup(self, req: Request, len0: int):
+        """``("resume", entry)`` for an exact-prompt resume point,
+        ``("partial", keys)`` for a leading run of cached full pages (the
+        chunk-capable family, bf16 pools), or None.  A resume entry citing
+        a reclaimed page entry dies here."""
+        if self._px is None:
+            return None
+        self.stats.prefix_lookups += 1
+        kt = self._key_tokens(req)
+        rkey = self._px.resume_key(kt)
+        rent = self._px.get_resume(rkey)
+        if rent is not None:
+            if all(self._px.get(k) is not None for k in rent.page_keys):
+                return ("resume", rent)
+            self._px.drop_resume(rkey)
+        if not self._chunk_ok:
+            return None
+        if self.kv_dtype == "int8":
+            # the one-shot prefill and a chunked suffix replay agree only to
+            # quantization precision under int8 pools, which would break
+            # "a prompt's pages are a function of its tokens"; resume hits
+            # replay stored bits and stay
+            return None
+        keys = self._px.page_keys(kt)
+        # at least one token remains to prefill: the suffix chunk gives the
+        # first token's logits
+        n = min(self._px.match(keys), (len0 - 1) // self.page_size)
+        if n >= 1:
+            return ("partial", keys[:n])
+        return None
+
+    def _px_acquire(self, keys: list[bytes],
+                    avoid: frozenset = frozenset()) -> list[int]:
+        """Map cached page entries into a slot: incref hot ones (an idle
+        entry leaves the idle LRU and its spill candidacy), prefetch cold
+        ones onto fresh pids.  Returns pids in ``keys`` order; OutOfPages
+        rolls the acquisition back."""
+        done: list[bytes] = []
+        cold: list[bytes] = []
+        for k in keys:
+            ent = self._px.get(k)
+            if ent.cold:
+                cold.append(k)
+                continue
+            if self.allocator.incref(ent.pid) == 1:
+                self._px.unpark(k)
+                if self.kv_tier == "flash":
+                    self.allocator.unmark_slot(
+                        lambda kk, k=k: kk == ("px", k))
+            done.append(k)
+        if cold:
+            # pop the payloads before allocating: _make_room may shed cold
+            # prefix payloads for room, and _px_pin shields these
+            payloads = [self.allocator.fetch(("px", k)) for k in cold]
+            self._px_pin.update(cold)
+            try:
+                npids = self._alloc_pages(len(cold), avoid=avoid)
+            except OutOfPages:
+                for k, p in zip(cold, payloads):
+                    self.allocator.store(("px", k), p)
+                for k in done:
+                    self._px_release_key(k)
+                raise
+            finally:
+                self._px_pin.difference_update(cold)
+            self._scatter_pages(npids, payloads)
+            for k, pid in zip(cold, npids):
+                self._px.mark_hot(k, pid)
+            self.stats.kv_prefetch_pages += len(cold)
+            self.stats.kv_prefetch_bytes += len(cold) * self.kv_page_bytes
+        return [self._px.get(k).pid for k in keys]
+
+    def _px_release_key(self, key: bytes) -> None:
+        """Drop one slot's reference; at 0 the page parks on the idle LRU
+        (cached for the next hit) and becomes a spill candidate."""
+        ent = self._px.get(key)
+        if self.allocator.decref(ent.pid) == 0:
+            self._px.park(key)
+            if self.kv_tier == "flash":
+                self.allocator.mark_evictable(("px", key), ent.pid)
+
+    def _px_register_prompt(self, i: int, req: Request, len0: int,
+                            logits_row: torch.Tensor) -> None:
+        """Register slot ``i``'s freshly prefill-written prompt pages and
+        an exact-prompt resume point, right after a one-shot prefill or a
+        chunked prefill's last chunk; never decode-written pages."""
+        kt = self._key_tokens(req)
+        keys = self._px.page_keys(kt)
+        shared = self.slot_shared[i]
+        for j, key in enumerate(keys):
+            if j in shared:
+                continue  # a partial hit already maps the index's page
+            if self._px.get(key) is None:
+                self._px.insert(key, self.slot_pages[i][j])
+                shared[j] = key
+            # else: a twin prompt of the same group registered its page
+        rkey = self._px.resume_key(kt)
+        if self._px.peek_resume(rkey) is None:
+            tail_len = len0 - len(keys) * self.page_size
+            tail = (self._gather_pages([self.slot_pages[i][len(keys)]])[0]
+                    if tail_len else None)
+            self._px.put_resume(rkey, ResumeEntry(
+                page_keys=keys, tail=tail, tail_len=tail_len,
+                logits=logits_row.clone(), length=len0,
+                ssm=(model_lib.checkpoint_slot_state(self.cache, i)
+                     if self._has_state else None)))
+
+    def _px_cow(self, i: int, pj: int) -> None:
+        """Copy-on-write: give slot ``i`` a private copy of its shared page
+        ``pj`` before a write dirties it (a safety net: registered pages
+        lie behind every write frontier)."""
+        key = self.slot_shared[i][pj]
+        payload = self._gather_pages([self.slot_pages[i][pj]])[0]
+        pid = self._alloc_pages(
+            1, avoid=frozenset({i}) | self._resumed_now)[0]
+        self._scatter_pages([pid], [payload])
+        del self.slot_shared[i][pj]
+        self._px_release_key(key)
+        self.slot_pages[i][pj] = pid
+        self.block[i, pj] = pid
+        self.stats.cow_copies += 1
+
+    def _admit_resume_hit(self, i: int, req: Request, len0: int,
+                          rent: ResumeEntry, now: float) -> None:
+        """Admit an exact-prompt hit with zero prefill dispatches: map the
+        shared full pages, scatter the stored tail page onto a private
+        page, restore a hybrid slot's state and sample the first token
+        from the stored prefill logits: every bit consumed is the cold
+        run's."""
+        avoid = frozenset(self._resumed_now)
+        shared = self._px_acquire(rent.page_keys, avoid=avoid)
+        tail: list[int] = []
+        if rent.tail_len:
+            try:
+                tail = self._alloc_pages(1, avoid=avoid)
+            except OutOfPages:
+                for k in rent.page_keys:
+                    self._px_release_key(k)
+                raise
+            self._scatter_pages(tail, [rent.tail])
+            self.stats.cow_copies += 1
+        pids = shared + tail
+        self.slot_pages[i] = pids
+        self.block[i, :len(pids)] = pids
+        self.slot_shared[i] = dict(enumerate(rent.page_keys))
+        self.slot_len[i] = rent.length
+        self.cache["lens"][i] = rent.length
+        self.prefilling[i] = False
+        self.prefill_pos[i] = 0
+        if self._has_state and rent.ssm is not None:
+            model_lib.restore_slot_state(self.cache, i, rent.ssm)
+        self.slots[i] = req
+        self.stats.admitted += 1
+        self.stats.prefix_hits += 1
+        self.stats.prefix_hit_pages += len(shared)
+        self.stats.prefix_tokens_reused += rent.length
+        tok = int(self._sample_rows(rent.logits[None], [(0, req)])[0])
+        t1 = time.monotonic()
+        if req.t_admit == 0.0:  # restarts keep their first-admit times
+            req.t_admit = now
+            req.t_first_token = t1
+        req.out_tokens.append(tok)
+        self.stats.tokens_out += 1
+        self.last_np[i] = tok
+        reason = self._finish_reason_for(req, tok, rent.length)
+        if reason is not None:
+            self._finish(i, req, reason, token=tok)
+        else:
+            self._emit(req, tok)
+
+    def _admit_partial_hit(self, i: int, req: Request, len0: int,
+                           keys: list[bytes], now: float) -> None:
+        """Admit a partial hit: map the cached leading pages, allocate the
+        rest and enter the chunk path at the cached length."""
+        avoid = frozenset(self._resumed_now)
+        cached = len(keys) * self.page_size
+        shared = self._px_acquire(keys, avoid=avoid)
+        try:
+            fresh = self._alloc_pages(
+                pages_needed(len0, self.page_size) - len(keys), avoid=avoid)
+        except OutOfPages:
+            for k in keys:
+                self._px_release_key(k)
+            raise
+        pids = shared + fresh
+        self.slot_pages[i] = pids
+        self.block[i, :len(pids)] = pids
+        self.slot_shared[i] = dict(enumerate(keys))
+        self.slots[i] = req
+        self.prefilling[i] = True
+        self.prefill_pos[i] = cached
+        self.slot_len[i] = cached
+        self.cache["lens"][i] = cached
+        if req.t_admit == 0.0:
+            req.t_admit = now
+        self.stats.admitted += 1
+        self.stats.prefix_hits += 1
+        self.stats.prefix_hit_pages += len(keys)
+        self.stats.prefix_tokens_reused += cached
+
+    def prefix_hit_estimate(self, req: Request) -> int:
+        """Prompt tokens this replica's prefix cache could serve ``req``
+        without prefilling (the router's ``least_loaded`` discount and
+        ``session_affinity`` placement); LRU-neutral."""
+        if self._px is None:
+            return 0
+        kt = self._key_tokens(req)
+        rent = self._px.peek_resume(self._px.resume_key(kt))
+        if rent is not None and all(
+                self._px.get(k) is not None for k in rent.page_keys):
+            return rent.length
+        if not self._chunk_ok:
+            return 0
+        n = min(self._px.match(self._px.page_keys(kt)),
+                (len(req.prompt) - 1) // self.page_size)
+        return n * self.page_size
+
+    def clear_prefix_cache(self) -> int:
+        """Drop every idle cached prefix page (hot and cold) and every
+        resume entry; pages mapped by live slots stay shared.  Returns the
+        number of page entries dropped."""
+        if self._px is None:
+            return 0
+        ents = self._px.pop_idle_hot(1 << 30)
+        if ents:
+            if self.kv_tier == "flash":
+                keys = {("px", k) for k, _pid in ents}
+                self.allocator.unmark_slot(lambda kk: kk in keys)
+            self.allocator.free([pid for _k, pid in ents])
+        cold = self._px.cold_idle_keys(1 << 30)
+        for key in cold:
+            self.allocator.drop_slot(lambda k, key=key: k == ("px", key))
+            self._px.drop(key)
+        self._px.clear_resume()
+        return len(ents) + len(cold)
+
+    # ------------------------------------------------------------------
+    # release / finish / restart
+    # ------------------------------------------------------------------
     def _release_slot(self, i: int) -> None:
         # a pending fused-step row of this slot is stale now: the epoch
         # bump makes the lagged drain skip it
         self._slot_epoch[i] += 1
         self._inflight[i] = 0
         self.slots[i] = None
-        self.allocator.free([p for p in self.slot_pages[i] if p != 0])
+        # shared pages decref (at 0 they park on the index's idle LRU);
+        # exclusively owned pages free outright, and the allocator's
+        # refcount guard raises for a misclassified shared page
+        own = [p for j, p in enumerate(self.slot_pages[i])
+               if p != 0 and j not in self.slot_shared[i]]
+        self.allocator.free(own)
+        for j in self.slot_shared[i]:
+            self._px_release_key(self.slot_shared[i][j])
+        self.slot_shared[i] = {}
+        if self.kv_tier == "flash":
+            self.allocator.drop_slot(lambda k, i=i: k[0] == i)
+            if self.suspended[i]:
+                self.suspended[i] = False
+                self.resume_order.remove(i)
         self.slot_pages[i] = []
         self.slot_len[i] = 0
         self.prefilling[i] = False
         self.prefill_pos[i] = 0
         self.block[i] = 0
+        self._ssm_ckpt.pop(i, None)
         self.cache["lens"][i] = 0
 
     def _finish(self, i: int, req: Request, reason: str,
@@ -498,24 +1270,29 @@ class EngineCore:
         return None
 
     # ------------------------------------------------------------------
-    # admission: one batched prefill per step, or a chunked admission
+    # admission: prefix hits, one batched prefill per step, or a chunked
+    # admission
     # ------------------------------------------------------------------
     def _admit_continuous(self) -> None:
-        """Claim free slots for the plan's head requests.  Prompts within
-        the policy's chunk budget prefill together in one batched pass;
-        longer ones claim their slot and pages now and prefill chunk by
-        chunk over the following steps (``_prefill_chunks``)."""
+        """Claim free slots for the plan's head requests.  Prefix hits
+        admit without a group prefill; prompts within the policy's chunk
+        budget prefill together in one batched pass; longer ones claim
+        their slot and pages now and prefill chunk by chunk over the
+        following steps (``_prefill_chunks``)."""
         plan = self.scheduler.admit(list(self.queue), self._views(),
                                     self.allocator.available)
         head = next((r for r in plan.order if r in self.queue), None)
         for vi in plan.preempt:
-            if not 0 <= vi < self.max_batch or self.slots[vi] is None:
+            if (not 0 <= vi < self.max_batch or self.slots[vi] is None
+                    or self.suspended[vi]):
                 continue
-            if head is not None:
-                # restart a victim only if its pages cover the arrival
-                victim_pages = sum(1 for p in self.slot_pages[vi] if p != 0)
+            if head is not None and self.kv_tier != "flash":
+                # futility gate: without a flash tier, restarting a victim
+                # whose pages still do not cover the arrival's prefill only
+                # throws its progress away; the tier can always spill
+                victim_hot = sum(1 for p in self.slot_pages[vi] if p != 0)
                 need = pages_needed(len(head.prompt), self.page_size)
-                if self.allocator.available + victim_pages < need:
+                if self.allocator.available + victim_hot < need:
                     continue
             self._preempt_restart(vi, self.slots[vi])
         free = [i for i in range(self.max_batch) if self.slots[i] is None]
@@ -528,8 +1305,21 @@ class EngineCore:
                 continue
             i = free[0]
             len0 = len(req.prompt)
+            hit = self._px_lookup(req, len0)
             try:
-                pids = self.allocator.alloc(pages_needed(len0, self.page_size))
+                if hit is not None and hit[0] == "resume":
+                    self._admit_resume_hit(i, req, len0, hit[1], now)
+                    free.pop(0)
+                    self.queue.remove(req)
+                    continue
+                if hit is not None and hit[0] == "partial":
+                    self._admit_partial_hit(i, req, len0, hit[1], now)
+                    free.pop(0)
+                    self.queue.remove(req)
+                    continue
+                pids = self._alloc_pages(
+                    pages_needed(len0, self.page_size),
+                    avoid=frozenset(self._resumed_now))
             except OutOfPages:
                 self.stats.pool_exhausted += 1
                 if self.exhaust_policy == "reject":
@@ -596,19 +1386,25 @@ class EngineCore:
             self.last_np[i] = tok
             self.slot_len[i] = len0
             self.slots[i] = req
+            if self._px is not None:
+                # register before any finish below: the pages outlive the
+                # slot as cached entries even for one-token requests
+                self._px_register_prompt(i, req, len0, logits[row])
             reason = self._finish_reason_for(req, tok, len0)
             if reason is not None:
                 self._finish(i, req, reason, token=tok)
             else:
                 self._emit(req, tok)
 
-    def _prefill_chunks(self) -> None:
+    def _prefill_chunks(self) -> int:
         """Run one prefill chunk (the policy's per-step token budget) for
-        every mid-prefill slot.  A slot whose prompt completes samples its
-        first token and joins decode from the next lane mask on."""
+        every mid-prefill slot; returns how many ran.  A slot whose prompt
+        completes samples its first token and joins decode from the next
+        lane mask on."""
+        ran = 0
         for i in range(self.max_batch):
             req = self.slots[i]
-            if req is None or not self.prefilling[i]:
+            if req is None or not self.prefilling[i] or self.suspended[i]:
                 continue
             len0 = len(req.prompt)
             pos = self.prefill_pos[i]
@@ -626,12 +1422,15 @@ class EngineCore:
                 {**self.cache, "block": self._tensor(self.block)}, i)
             req.n_chunks += 1
             self.stats.prefill_chunks += 1
+            ran += 1
             pos += clen
             self.prefill_pos[i] = pos
             self.slot_len[i] = pos
             if pos < len0:
                 continue
             self.prefilling[i] = False
+            if self._px is not None:
+                self._px_register_prompt(i, req, len0, logits)
             tok = int(self._sample_rows(logits[None], [(0, req)])[0])
             if req.t_first_token == 0.0:
                 req.t_first_token = time.monotonic()
@@ -643,24 +1442,33 @@ class EngineCore:
                 self._finish(i, req, reason, token=tok)
             else:
                 self._emit(req, tok)
+        return ran
 
     def _ensure_pages(self) -> None:
         """Allocate the page each decoding slot's next write lands in; on a
-        dry pool, requeue or reject the slot's request."""
+        dry pool, preempt (tiered: suspend and spill; untiered: requeue or
+        reject)."""
         for i in range(self.max_batch):
             req = self.slots[i]
-            if req is None or self.prefilling[i]:
+            if req is None or self.suspended[i] or self.prefilling[i]:
                 continue
             # the next write position counts the in-flight token the host
             # has not drained yet (slot_len is the drained length)
             pj = (self.slot_len[i] + self._inflight[i]) // self.page_size
-            if pj < len(self.slot_pages[i]):
-                continue
             try:
-                pid = self.allocator.alloc(1)[0]
+                if pj < len(self.slot_pages[i]):
+                    if self._px is not None and pj in self.slot_shared[i]:
+                        # the next write lands in a shared page: copy it
+                        # before it can dirty the other readers
+                        self._px_cow(i, pj)
+                    continue
+                pid = self._alloc_pages(
+                    1, avoid=frozenset({i}) | self._resumed_now)[0]
             except OutOfPages:
                 self.stats.pool_exhausted += 1
-                if self.exhaust_policy == "reject":
+                if self.kv_tier == "flash":
+                    self._suspend(i)
+                elif self.exhaust_policy == "reject":
                     self._reject(req)
                     self._release_slot(i)
                 else:
@@ -758,21 +1566,40 @@ class EngineCore:
                 active_list[i] = False
 
     def _step_continuous(self) -> bool:
+        self._resumed_now = set()
+        if self.kv_tier == "flash":
+            self._resume_suspended()
         self._admit_continuous()
         # the chunks run before the lane mask is built: a slot whose last
         # chunk ran decodes in this step (as in the JAX engine)
-        self._prefill_chunks()
+        chunks_ran = self._prefill_chunks()
         if all(s is None for s in self.slots):
             self._drain_pending()  # discard a stale speculative step
             return bool(self.queue)
         self._ensure_pages()
-        active_list = [self.slots[i] is not None and not self.prefilling[i]
+        active_list = [self.slots[i] is not None and not self.suspended[i]
+                       and not self.prefilling[i]
                        for i in range(self.max_batch)]
         if self.overlap:
             self._mask_predicted_finishes(active_list)
         if not any(active_list):
+            had_pending = self._pending is not None
             self._drain_pending()  # lagged finishes still need to land
+            if chunks_ran or had_pending:
+                self._idle_steps = 0  # chunk or drain progress is progress
+                return True
+            # everything suspended and nothing resumed: a full bounded tier
+            # can wedge (no spill room, no free hot pages); after a second
+            # step without progress, restart the head slot, which frees its
+            # pages outright
+            self._idle_steps += 1
+            if self.resume_order and self._idle_steps >= 2:
+                i = self.resume_order[0]
+                self.stats.pool_exhausted += 1
+                self._preempt_restart(i, self.slots[i])
+                self._idle_steps = 0
             return True
+        self._idle_steps = 0
         if self.overlap:
             self._overlap_round_continuous(active_list)
             return True

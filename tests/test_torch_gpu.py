@@ -602,8 +602,9 @@ def test_hybrid_engine_on_card_launches_its_kernels(cuda_device):
 
 
 # ------------------------------------------------ decode as a CUDA graph
-def _graph_engines(arch, quant, overlap=(False, False)):
-    """Two engines on one reduced model's weights (card, 4 slots)."""
+def _graph_engines(arch, quant, overlap=(False, False), **engine_kw):
+    """Two engines on one reduced model's weights (card, 4 slots);
+    ``engine_kw`` goes to both (``kv_dtype``, ``kv_tier``, ...)."""
     from repro_torch.launch.serve import build_client
     from repro_torch.serving.core import EngineCore
 
@@ -611,7 +612,7 @@ def _graph_engines(arch, quant, overlap=(False, False)):
                                device="cuda")
     params = client.router.cores[0].params
     return cfg, [EngineCore(cfg, params, max_batch=4, max_seq=128,
-                            eos_id=-1, overlap=o, device="cuda")
+                            eos_id=-1, overlap=o, device="cuda", **engine_kw)
                  for o in overlap]
 
 
@@ -888,3 +889,232 @@ def test_chunked_engine_on_card(cuda_device, kv):
     assert counts["paged_decode_attention" + suffix] > 0, counts
     assert engines[0].stats.prefill_chunks > 0
     assert engines[0].graph.replays == engines[0].stats.decode_steps
+
+
+# ------------------------------ the flash KV tier, prefix cache, migration
+def _relocate(engine, slot):
+    """Move every page of ``slot`` to other pids through the host (the
+    tier's gather and scatter) and remap its block-table row."""
+    old = list(engine.slot_pages[slot])
+    payloads = engine._gather_pages(old)
+    new = engine.allocator.alloc(len(old))
+    engine._scatter_pages(new, payloads)
+    engine.allocator.free(old)
+    engine.slot_pages[slot] = new
+    engine.block[slot, :len(new)] = new
+    return old, new
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_swap_in_keeps_captured_pools_and_replays_after_remap(cuda_device,
+                                                              kv):
+    """Pages moved to other pids between decode steps: the pools keep the
+    storage the captured graph holds (no recapture, no raise), and each
+    replayed step after the remap gives the eager step's logits on a twin
+    engine moved the same way, bit for bit."""
+    import numpy as np
+
+    from repro_torch.serving import graphs
+    from repro_torch.serving.core import Request
+
+    _, (a, b) = _graph_engines("llama2-7b", "w8a8", kv_dtype=kv)
+    for e in (a, b):
+        for i in range(3):
+            e.add_request(Request(rid=i, prompt=[5 + i, 11, 42, 9] * (i + 3),
+                                  max_new_tokens=12))
+        e._admit_continuous()
+    active = np.array([True, True, True, False])
+
+    def step(e, eager):
+        e._ensure_pages()
+        e.graph.stage(e.last_np, active, e.block)
+        if eager:
+            with graphs.disabled():
+                out = e.graph.run("sync", e.cache).clone()
+        else:
+            out = e.graph.run("sync", e.cache).clone()
+        e.last_np[:] = out.argmax(-1).cpu().numpy()
+        e.slot_len[:3] = [n + 1 for n in e.slot_len[:3]]
+        return out
+
+    for k in range(5):
+        if k in (1, 3):
+            for e in (a, b):
+                old, new = _relocate(e, k % 3)
+                assert set(old).isdisjoint(new)
+        got, want = step(b, False), step(a, True)
+        assert torch.equal(got[:3], want[:3]), k
+        ptrs = [t.data_ptr() for t in graphs._cache_tensors(b.cache)]
+        assert ptrs == b.graph._pointers["sync"]
+    assert b.graph.replays == 5 and a.graph.replays == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_spill_payload_equals_pool_pages_after_its_event(cuda_device, kv):
+    """A spill's copy lands in pinned host memory behind an event; once the
+    event has passed, each lazy payload holds the pool's page bits."""
+    from repro_torch.models import blocks
+    from repro_torch.models import model as M
+    from repro_torch.serving.core import Request, _LazyPagePayload, \
+        _SpillBatch
+
+    _, (e, _unused) = _graph_engines("llama2-7b", "w8a8", kv_dtype=kv,
+                                     kv_tier="flash")
+    e.add_request(Request(rid=0, prompt=list(range(3, 60)),
+                          max_new_tokens=4))
+    e.step()
+    pids = list(e.slot_pages[0])
+    keys = blocks.paged_pool_keys(e.cache)
+    want = [e.cache[k][:, pids].cpu() for k in keys]
+    batch = _SpillBatch(M.swap_out_pages(e.cache, e._page_ids(pids)))
+    assert batch.event is not None and batch.dev is not None
+    assert all(h.is_pinned() for h in batch.host)
+    for j in range(len(pids)):
+        page = _LazyPagePayload(batch, j).materialize()
+        assert batch.event is None and batch.dev is None
+        for got, w in zip(page, want):
+            assert torch.equal(got, w[:, j])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overlap", [False, True])
+def test_tiered_engine_matches_resident_on_card(cuda_device, overlap):
+    """A hot pool below the demand: the tiered engine spills, prefetches
+    and emits the all-resident engine's streams, bit for bit."""
+    from repro_torch.serving.core import EngineCore
+
+    _, (resident, _unused) = _graph_engines("llama2-7b", "w8a8",
+                                            overlap=(overlap, overlap))
+    tiered = EngineCore(resident.cfg, resident.params, max_batch=4,
+                        max_seq=128, eos_id=-1, overlap=overlap,
+                        num_pages=9, kv_tier="flash", device="cuda")
+    want = _serve(resident, n=6, max_new=24)
+    assert _serve(tiered, n=6, max_new=24) == want
+    s = tiered.stats
+    assert s.kv_spill_pages > 0 and s.kv_prefetch_pages == s.kv_spill_pages
+    assert s.preemptions > 0 and s.resumes > 0
+    assert tiered.allocator.available == 8
+
+
+@pytest.mark.gpu
+def test_resume_hit_and_migration_on_card(cuda_device):
+    """A resume hit replays the cold run's stream with no prefill; a slot
+    snapshotted mid-decode, through its bytes, finishes on another engine
+    with the unmigrated stream."""
+    from repro_torch.serving.core import EngineCore, Request, SlotSnapshot
+
+    _, (cold, _unused) = _graph_engines("llama2-7b", "w8a8")
+    kw = dict(max_batch=4, max_seq=128, eos_id=-1, device="cuda")
+    warm = EngineCore(cold.cfg, cold.params, prefix_cache=True, **kw)
+    prompt = list(range(7, 47))
+    ref = Request(rid=0, prompt=list(prompt), max_new_tokens=10)
+    cold.add_request(ref)
+    cold.run()
+    for rid in (1, 2):
+        r = Request(rid=rid, prompt=list(prompt), max_new_tokens=10)
+        warm.add_request(r)
+        warm.run()
+        assert r.out_tokens == ref.out_tokens
+    assert warm.stats.prefix_hits == 1 and warm.stats.prefills == 1
+    a = EngineCore(cold.cfg, cold.params, **kw)
+    b = EngineCore(cold.cfg, cold.params, **kw)
+    a.add_request(Request(rid=5, prompt=list(prompt), max_new_tokens=10))
+    for _ in range(4):
+        a.step()
+    snap = SlotSnapshot.from_bytes(a.snapshot_slot(5).to_bytes())
+    b.inject_slot(snap)
+    b.run()
+    assert snap.req.out_tokens == ref.out_tokens
+
+
+@pytest.mark.gpu
+def test_partial_hit_page_paths_on_card(cuda_device):
+    """C-open-2 (ROADMAP section C): a partial hit's suffix runs the chunk
+    kernel over pages B3 wrote, so its bits are not a one-shot run's.  Held
+    here: over pages the chunk path wrote, a partial hit's first-token
+    logits equal a cold chunked run's bit for bit; over B3's pages, the
+    partial-hit engine's greedy stream equals the one-shot cold engine's
+    on every margin-checked prompt (top-1 margin above 1e-2 on both paths
+    over 4 tokens); how many candidates are bit-equal across the two paths
+    is printed."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.core import EngineCore, Request
+    from repro_torch.serving.kv_cache import prefill_bucket
+
+    cfg, (cold, _unused) = _graph_engines("llama2-7b", "w8a8")
+    params = cold.params
+    warm = EngineCore(cfg, params, max_batch=4, max_seq=128, eos_id=-1,
+                      prefix_cache=True, device="cuda")
+    gen = torch.Generator().manual_seed(3)
+
+    def first_logits(prompt, cached, chunk_prefix):
+        cache = M.init_paged_cache(cfg, 1, 128, device="cuda")
+        cache["block"] = torch.arange(8, 0, -1, dtype=torch.int32,
+                                      device="cuda")[None]
+        head = prompt[:cached] + [0]
+        if chunk_prefix:
+            toks = torch.zeros(prefill_bucket(len(head), floor=16),
+                               dtype=torch.int32)
+            toks[:len(head)] = torch.tensor(head)
+            M.prefill_chunk_into_slot(params, cfg, toks.cuda(), 0,
+                                      len(head), cache, 0)
+        else:
+            b = prefill_bucket(len(head))
+            M.prefill_into_slots(
+                params, cfg, torch.tensor([head + [0] * (b - len(head))],
+                                          device="cuda"),
+                torch.tensor([len(head)], device="cuda"), cache,
+                torch.tensor([0], device="cuda"))
+        n = len(prompt) - cached
+        toks = torch.zeros(prefill_bucket(n, floor=16), dtype=torch.int32)
+        toks[:n] = torch.tensor(prompt[cached:])
+        logits, _ = M.prefill_chunk_into_slot(params, cfg, toks.cuda(),
+                                              cached, n, cache, 0)
+        return logits
+
+    def chunked_cold(prompt):
+        cache = M.init_paged_cache(cfg, 1, 128, device="cuda")
+        cache["block"] = torch.arange(8, 0, -1, dtype=torch.int32,
+                                      device="cuda")[None]
+        toks = torch.zeros(prefill_bucket(len(prompt), floor=16),
+                           dtype=torch.int32)
+        toks[:len(prompt)] = torch.tensor(prompt)
+        logits, _ = M.prefill_chunk_into_slot(params, cfg, toks.cuda(), 0,
+                                              len(prompt), cache, 0)
+        return logits
+
+    bit_equal, kept = 0, 0
+    for i in range(6):
+        prompt = torch.randint(0, cfg.vocab_size, (40 + 5 * i,),
+                               generator=gen).tolist()
+        assert torch.equal(first_logits(prompt, 32, True),
+                           chunked_cold(prompt))
+        a = Request(rid=10 * i, prompt=list(prompt), max_new_tokens=4)
+        cold.add_request(a)
+        cold.run()
+        warm.add_request(Request(rid=10 * i + 1, prompt=prompt[:32] + [0],
+                                 max_new_tokens=1))
+        warm.run()
+        b = Request(rid=10 * i + 2, prompt=list(prompt), max_new_tokens=4)
+        warm.add_request(b)
+        warm.run()
+        one_shot = M.prefill_into_slots(
+            params, cfg, torch.tensor([prompt + [0] * (
+                prefill_bucket(len(prompt)) - len(prompt))], device="cuda"),
+            torch.tensor([len(prompt)], device="cuda"),
+            {**M.init_paged_cache(cfg, 1, 128, device="cuda"),
+             "block": torch.arange(8, 0, -1, dtype=torch.int32,
+                                   device="cuda")[None]},
+            torch.tensor([0], device="cuda"))[0][0]
+        partial = first_logits(prompt, 32, False)
+        bit_equal += int(torch.equal(one_shot, partial))
+        top = [torch.topk(x.float(), 2).values for x in (one_shot, partial)]
+        if min(float(t[0] - t[1]) for t in top) > 1e-2 \
+                and a.out_tokens[0] == b.out_tokens[0]:
+            kept += 1
+            assert a.out_tokens == b.out_tokens, i
+    assert warm.stats.prefix_hits == 6
+    print(f"partial hit over B3's pages bit-equal to one-shot in "
+          f"{bit_equal} of 6; {kept} margin-checked streams equal")

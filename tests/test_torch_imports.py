@@ -1,6 +1,7 @@
 """The port stands alone: importing ``repro_torch`` (every module of it)
-pulls in neither JAX nor the ``repro`` package, and its entry points refuse
-to fall back to the CPU when asked for a card that is not there."""
+pulls in neither JAX, the ``repro`` package nor ``ml_dtypes`` (the card's
+machine has none of them), and its entry points refuse to fall back to the
+CPU when asked for a card that is not there."""
 
 import os
 import pkgutil
@@ -29,14 +30,17 @@ def test_port_imports_neither_jax_nor_repro():
               "examples.quickstart", "examples.ecc_resilience",
               "models.ssm", "kernels.ssd_scan.ops", "kernels.ssd_scan.ref",
               "configs.zamba2_7b", "configs.mamba2_130m", "serving.graphs",
-              "serving.threefry", "serving.sampler"):
+              "serving.threefry", "serving.sampler", "serving.kv_cache",
+              "serving.fleet", "serving.fleet.wire", "serving.router",
+              "serving.client"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
+        "or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))\n"
         "print(','.join(bad))\n")
     env = {**os.environ, "PYTHONPATH": SRC}
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -115,10 +119,15 @@ def test_unported_options_raise():
 
     cfg = get_arch("smollm-360m").reduced()
     params = M.init_params(cfg, device="cpu")
-    for kw in (dict(mode="wave"), dict(kv_tier="flash"),
-               dict(prefix_cache=True)):
-        with pytest.raises(NotImplementedError):
-            EngineCore(cfg, params, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        EngineCore(cfg, params, device="cpu", mode="wave")
+    # the flash KV tier and the prefix cache are ported; an unknown tier
+    # is refused as the JAX engine refuses it
+    eng = EngineCore(cfg, params, device="cpu", kv_tier="flash",
+                     flash_pages=4, prefix_cache=True)
+    assert eng.allocator.flash_available == 4 and eng._px is not None
+    with pytest.raises(ValueError):
+        EngineCore(cfg, params, device="cpu", kv_tier="ssd")
     # int8 KV pools and chunk budgets are ported; an unknown pool dtype is
     # refused as the JAX engine refuses it
     eng = EngineCore(cfg, params, device="cpu", kv_dtype="int8",
@@ -130,7 +139,7 @@ def test_unported_options_raise():
     eng = EngineCore(cfg, params, device="cpu", overlap=True)
     eng.add_request(Request(rid=0, prompt=[1, 2],
                             sampling=SamplingParams(temperature=0.7)))
-    with pytest.raises(NotImplementedError):
+    # migration is ported: a queued request has no slot to snapshot
+    with pytest.raises(KeyError):
         eng.snapshot_slot(0)
-    with pytest.raises(NotImplementedError):
-        Router([eng], migrate=True)
+    assert Router([eng], migrate=True).migrate
