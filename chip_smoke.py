@@ -2597,21 +2597,24 @@ def _new_cache(torch, cfg, slots: int, kv_dtype: str) -> dict:
     return cache
 
 
-def _chunked_logits(torch, params, cfg, prompt, budget, cache, slot=0):
-    """Prefill ``prompt`` into ``slot`` of ``cache`` (block table set) in
-    chunks of ``budget`` tokens in the engine's buckets (floor = page
-    size); returns the last chunk's logits [V]."""
+def _chunked_logits(torch, params, cfg, prompt, budget, cache, slot=0,
+                    start=0):
+    """Prefill ``prompt[start:]`` into ``slot`` of ``cache`` (block table
+    set, the first ``start`` positions already written) in chunks of
+    ``budget`` tokens in the engine's buckets (floor = page size); returns
+    the last chunk's logits [V]."""
     from repro_torch.models import model as M
     from repro_torch.serving.kv_cache import chunk_spans, prefill_bucket
 
     page = cache["k"].shape[2]
     cap = cache["block"].shape[1] * page
-    for start, n in chunk_spans(len(prompt), budget):
+    for pos, n in chunk_spans(len(prompt) - start, budget):
+        pos += start
         toks = torch.zeros(min(prefill_bucket(n, floor=page), cap),
                            dtype=torch.int32)
-        toks[:n] = torch.tensor(prompt[start:start + n], dtype=torch.int32)
+        toks[:n] = torch.tensor(prompt[pos:pos + n], dtype=torch.int32)
         logits, cache = M.prefill_chunk_into_slot(
-            params, cfg, toks.to("cuda"), start, n, cache, slot)
+            params, cfg, toks.to("cuda"), pos, n, cache, slot)
     return logits
 
 
@@ -3344,9 +3347,9 @@ def _partial_paths(torch, params, cfg, prompt, primer, n_new):
             torch.tensor([len(first)], device="cuda"), cache,
             torch.tensor([0], device="cuda"))
         logits = logits[0]
-        if partial:
-            logits = _chunked_logits_from(torch, params, cfg, prompt,
-                                          PREFIX_CACHED, cache)
+        if partial:   # the engine's partial hit: one chunk, no budget
+            logits = _chunked_logits(torch, params, cfg, prompt, len(prompt),
+                                     cache, start=PREFIX_CACHED)
         outs.append([logits.float()])
         caches.append(cache)
     active = torch.tensor([True], device="cuda")
@@ -3362,20 +3365,6 @@ def _partial_paths(torch, params, cfg, prompt, primer, n_new):
                  for x in (a, b))
     same = bool((a.argmax(-1) == b.argmax(-1)).all())
     return margin, float((a - b).abs().max()), same
-
-
-def _chunked_logits_from(torch, params, cfg, prompt, start, cache):
-    """``prompt[start:]`` through the chunk path in one chunk (the engine's
-    partial-hit admission without a budget), slot 0; its logits [V]."""
-    from repro_torch.models import model as M
-    from repro_torch.serving.kv_cache import prefill_bucket
-
-    n = len(prompt) - start
-    toks = torch.zeros(prefill_bucket(n, floor=16), dtype=torch.int32)
-    toks[:n] = torch.tensor(prompt[start:], dtype=torch.int32)
-    logits, _ = M.prefill_chunk_into_slot(params, cfg, toks.to("cuda"),
-                                          start, n, cache, 0)
-    return logits
 
 
 def _prefill_device_ms(torch, fn) -> tuple[float, float]:
@@ -3411,7 +3400,9 @@ def phase_serve_prefix(torch, smi: str) -> None:
     import numpy as np
 
     from repro_torch import kernels
+    from repro_torch.models import model as M
     from repro_torch.serving.core import Request
+    from repro_torch.serving.kv_cache import prefill_bucket
     from repro_torch.serving.scheduler import make_scheduler
 
     tag = "serve_prefix"
@@ -3529,24 +3520,27 @@ def phase_serve_prefix(torch, smi: str) -> None:
         f"the {len(keep)} margin-checked prompts")
     del cold_e, warm_e
     sessions, _m, _n = _chat_sessions(cfg)
+    sys_len = len(sessions[0]["system"])
     prompt = sessions[0]["system"] + sessions[0]["users"][0]
-    cache = _new_cache(torch, cfg, 1, "bf16")
-    from repro_torch.models import model as M
-    from repro_torch.serving.kv_cache import prefill_bucket
-
+    cache = _new_cache(torch, cfg, 4, "bf16")
     bk = prefill_bucket(len(prompt))
-    toks = torch.tensor([prompt + [0] * (bk - len(prompt))], device="cuda")
-    n = torch.tensor([len(prompt)], device="cuda")
-    slot = torch.tensor([0], device="cuda")
-    cold_ms = _prefill_device_ms(torch, lambda: M.prefill_into_slots(
-        params, cfg, toks, n, cache, slot))
-    part_ms = _prefill_device_ms(torch, lambda: _chunked_logits_from(
-        torch, params, cfg, prompt, len(sessions[0]["system"]), cache))
+    ms = {}
+    for rows in (1, 4):   # a direct prefill; the engine's group of 4 rows
+        toks = torch.tensor([prompt + [0] * (bk - len(prompt))] * rows,
+                            device="cuda")
+        n = torch.tensor([len(prompt)] * rows, device="cuda")
+        slots = torch.zeros(rows, dtype=torch.long, device="cuda")
+        ms[rows] = _prefill_device_ms(
+            torch, lambda toks=toks, n=n, slots=slots: M.prefill_into_slots(
+                params, cfg, toks, n, cache, slots))
+    part_ms = _prefill_device_ms(torch, lambda: _chunked_logits(
+        torch, params, cfg, prompt, len(prompt), cache, start=sys_len))
     log(f"[{tag}] prefill of a {len(prompt)}-token prompt: cold one-shot "
-        f"wall {cold_ms[0]:.1f} ms, device {cold_ms[1]:.2f} ms; a partial "
-        f"hit's {len(prompt) - len(sessions[0]['system'])}-token suffix "
-        f"from {len(sessions[0]['system'])}: wall {part_ms[0]:.1f} ms, "
-        f"device {part_ms[1]:.2f} ms, on {smi}")
+        f"as one row wall {ms[1][0]:.1f} ms, device {ms[1][1]:.2f} ms; as "
+        f"the engine admits it alone (the row repeated to 4, bucket {bk}) "
+        f"wall {ms[4][0]:.1f} ms, device {ms[4][1]:.2f} ms; a partial "
+        f"hit's {len(prompt) - sys_len}-token suffix from {sys_len}: wall "
+        f"{part_ms[0]:.1f} ms, device {part_ms[1]:.2f} ms, on {smi}")
     _lap(tag, "margin-checked partial hits and prefill times", t0)
 
 

@@ -15,6 +15,7 @@ JAX's bytes decode in the port's; frames and values encode to the same
 bytes.
 """
 
+import dataclasses
 import zlib
 
 import jax
@@ -28,12 +29,11 @@ from repro.models import model as JM
 from repro.serving.core import EngineCore as JEngine, Request as JRequest
 from repro.serving.fleet import wire as jwire
 from repro.serving.router import Router as JRouter
-from repro.serving.scheduler import (SamplingParams as JSampling,
-                                     make_scheduler as jmake_scheduler)
+from repro.serving.scheduler import SamplingParams as JSampling
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs.registry import get_arch
 from repro_torch.models import model as TM
-from repro_torch.serving.core import (EngineCore, Request, SlotSnapshot)
+from repro_torch.serving.core import EngineCore, Request, SlotSnapshot
 from repro_torch.serving.fleet import wire
 from repro_torch.serving.kv_cache import OutOfPages
 from repro_torch.serving.router import Router
@@ -391,6 +391,5 @@ def test_values_and_frames_encode_to_the_same_bytes():
     for name, cls in (("Request", Request), ("SamplingParams",
                                              SamplingParams),
                       ("SlotSnapshot", SlotSnapshot)):
-        import dataclasses
         assert tuple(f.name for f in dataclasses.fields(cls)) == \
             wire.WIRE_FIELDS[name], name
