@@ -27,9 +27,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("common.cu", "int8_gemm.cu", "decode_attention.cu",
-           "flash_attention.cu", "ecc_decode.cu", "w4a16_gemv.cu",
-           "ssd_scan.cu")
-HEADERS = ("hopper.cuh",)  # included by the tensor-core sources
+           "flash_attention.cu", "paged_chunk_attention.cu", "ecc_decode.cu",
+           "w4a16_gemv.cu", "ssd_scan.cu")
+# included by the tensor-core sources; attention_tile.cuh holds the
+# per-block arithmetic B3 and the paged chunk kernel share
+HEADERS = ("hopper.cuh", "attention_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libreprokernels.so"
@@ -46,8 +48,8 @@ SIGNATURES = {
     "repro_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                      _P],
-    "repro_paged_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "repro_paged_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _F, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                               ctypes.POINTER(ctypes.c_longlong), _F, _P],
     "repro_ecc_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -1,43 +1,34 @@
-// Paged GQA attention over one layer's K/V page pool: one query token per
-// (slot, head) at decode (B1), and the queries of one slot's prefill chunk
-// (the paged chunk kernel), both from one set of per-split device functions.
+// Paged GQA attention over one layer's K/V page pool at decode (B1): one
+// query token per (slot, head).
 //
-//   q      bf16 [B, H, D]            decode: this step's queries (rope applied)
-//          bf16 [C, H, D]            chunk: the chunk's queries
+//   q      bf16 [B, H, D]            this step's queries (rope applied)
 //   k, v   bf16 or int8 [P, page, Hkv, D]   the layer's page pools
 //   ks, vs f32 [P, page, Hkv]        int8 pools only: one scale per row and head
-//   block  int32 [B, pps]            decode: page ids of each slot (0 = null page)
-//          int32 [pps]               chunk: the slot's block-table row
-//   lens   int32 [B]                 decode: valid tokens per slot (new token included)
-//   ws     f32  [rows, H, n_split, D+2]  the splits' partials (scratch)
-//   out    bf16 [B or C, H, D]
+//   block  int32 [B, pps]            page ids of each slot (0 = null page)
+//   lens   int32 [B]                 valid tokens per slot (new token included)
+//   ws     f32  [B, H, n_split, D+2] the splits' partials (scratch)
+//   out    bf16 [B, H, D]
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/decode_attention/decode_attention.py::gqa_decode_attention
 // and its paged front-end ops.py::paged_decode_attention_op, which first
-// gathers every slot's pages into a contiguous [B, Smax, Hkv, D] copy; the
-// chunk kernel computes src/repro/models/attention.py::paged_chunk_attention,
-// which the JAX package runs in jnp (it has no Pallas kernel).  These kernels
-// read the block table themselves, so no copy of the cache is made.
+// gathers every slot's pages into a contiguous [B, Smax, Hkv, D] copy; this
+// kernel reads the block table itself, so no copy of the cache is made.
+// (A prefill chunk's queries run paged_chunk_attention.cu, B3's arithmetic.)
 //
-// What bounds them on the H100: each valid K/V row is read once per CTA and
-// used for 2*D operations per grouped head and query, far below the card's
-// 295 operations per byte at decode, so B1 is bound by device memory bytes
-// (the slots' valid K/V rows).  The chunk kernel reads each split's rows once
-// per tile of kChunkTile queries and does the math on CUDA cores in float32,
-// as B1 does: its bound is the bytes at small chunks and the operations
-// (at the bf16 tensor-core peak, which it does not use) at long ones.  int8
-// pools halve the bytes: codes and one float32 scale per row and head.
+// What bounds it on the H100: each valid K/V row is read once per CTA and
+// used for 2*D operations per grouped head, far below the card's 295
+// operations per byte, so B1 is bound by device memory bytes (the slots'
+// valid K/V rows).  int8 pools halve the bytes: codes and one float32
+// scale per row and head.
 //
 // Design: split-KV with a fixed-order combine, two kernels launched from one
-// C entry each.
-//  * Split kernel, one CTA (128 threads) per (split, kv head, slot) at
-//    decode, per (split, kv head, tile of kChunkTile chunk queries) for a
-//    chunk.  A split is kSplit = 64 keys; split s holds keys [64 s, 64 s +
-//    64) of its slot, so a query's splits and their arithmetic depend on its
-//    own length alone (never on B, C, pps, the page size or the SM count).
-//    CTAs past the last split of their slot (decode) or of their tile's last
-//    query (chunk) return at once.
+// C entry.
+//  * Split kernel, one CTA (128 threads) per (split, kv head, slot).  A
+//    split is kSplit = 64 keys; split s holds keys [64 s, 64 s + 64) of its
+//    slot, so a query's splits and their arithmetic depend on its own
+//    length alone (never on B, pps, the page size or the SM count).  CTAs
+//    past the last split of their slot return at once.
 //  * The CTA issues every 16-byte chunk of its split's valid K rows, then of
 //    its V rows, as cp.async copies into shared memory (two commit groups),
 //    so all of the split's bytes (32 KB at D = 128 in bf16) are in flight at
@@ -45,29 +36,22 @@
 //    loaded: their scores are set to -1e30 and the V sum stops at the
 //    length.  Page ids come from the block table, read in-kernel, one per
 //    key; an int8 pool's scales come beside the rows.
-//  * Per query (decode: the one; chunk: each query of the tile in turn, the
-//    split's rows loaded once for all of them), the same device functions:
-//    scores by D/8 lanes per key (rounded up to a power of two) over 8 dims
-//    each, the grouped heads of the kv head (GQA) sharing the K row, lane
-//    shuffles summing the dot products; an int8 element dequantized in
-//    registers as float(q) * scale, one float32 product.  Scaled by
-//    1/sqrt(D); keys past the query's length at -1e30.  Then per grouped
-//    head the split's max m, p = exp(s - m) and l = sum p; p @ V with the
-//    same lane layout, a thread summing its 8 dims over every 8th key
-//    (D >= 72), the partial sums merged in a fixed order.  The partial
-//    (acc[D], m, l) goes to the workspace in float32.  A chunk query i
-//    attends with length start + i + 1, so its partials are the bits B1
-//    computes for a slot of that length: the chunk kernel's output is B1's,
-//    bit for bit, whatever the chunk's size or start.
-//  * Combine kernel, one CTA per (head, slot or chunk query): M = max of the
-//    splits' m; out = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M), both
-//    sums taken in split-index order, rounded once to bf16.  A length-0 slot
-//    has no split and comes out 0, finite (the Pallas kernel gives the
-//    uniform mean there; callers ignore inactive lanes either way); so do
-//    the chunk's padding rows (i >= n_valid), which callers discard.
-//  Every sum is taken in an order fixed by the key's position, so a query's
-//  output bits are the same in any batch, under any block-table width and in
-//  any chunk.
+//  * Scores by D/8 lanes per key (rounded up to a power of two) over 8
+//    dims each, the grouped heads of the kv head (GQA) sharing the K row,
+//    lane shuffles summing the dot products; an int8 element dequantized
+//    in registers as float(q) * scale, one float32 product.  Scaled by
+//    1/sqrt(D); keys past the length at -1e30.  Then per grouped head the
+//    split's max m, p = exp(s - m) and l = sum p; p @ V with the same lane
+//    layout, a thread summing its 8 dims over every 8th key (D >= 72), the
+//    partial sums merged in a fixed order.  The partial (acc[D], m, l) goes
+//    to the workspace in float32.
+//  * Combine kernel, one CTA per (head, slot): M = max of the splits' m;
+//    out = sum_s acc_s e^(m_s - M) / sum_s l_s e^(m_s - M), both sums taken
+//    in split-index order, rounded once to bf16.  A length-0 slot has no
+//    split and comes out 0, finite (the Pallas kernel gives the uniform mean
+//    there; callers ignore inactive lanes either way).
+//  Every sum is taken in an order fixed by the key's position, so a slot's
+//  output bits are the same in any batch and under any block-table width.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,8 +64,7 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSplit = 64;      // keys per split; the wrapper's ref.SPLIT
-constexpr int kChunkTile = 16;  // chunk queries per CTA
+constexpr int kSplit = 64;  // keys per split; the wrapper's ref.SPLIT
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
@@ -125,12 +108,10 @@ struct Params {
   const void* v;
   const float* ks;   // int8 pools: [P, page, Hkv] scales; else null
   const float* vs;
-  const int* block;  // decode [B, pps]; chunk [pps]
-  const int* lens;   // decode only
+  const int* block;  // [B, pps]
+  const int* lens;
   float* ws;
   __nv_bfloat16* out;
-  int start;         // chunk: cache position of query 0
-  int n_valid;       // chunk: queries computed (the rest come out 0)
   int H, Hkv, page, pps, n_split;
   float scale;
 };
@@ -153,16 +134,12 @@ __host__ __device__ constexpr bool is_int8() {
 }
 
 // dynamic shared memory: the split's K and V rows, an int8 pool's row
-// scales, and the warps' p @ V sums; B1 over bf16 pools keeps those sums in
-// the K rows once the scores are done (its layout before int8 and chunks)
-template <int D, int MAXR, typename KT, bool kChunk>
-__host__ __device__ constexpr bool red_in_k_rows() {
-  return !kChunk && !is_int8<KT>();
-}
-template <int D, int MAXR, typename KT, bool kChunk>
+// scales, and the warps' p @ V sums; over bf16 pools those sums go in the
+// K rows once the scores are done (the layout before int8 pools)
+template <int D, int MAXR, typename KT>
 __host__ __device__ constexpr int smem_bytes() {
   return 2 * kSplit * D * static_cast<int>(sizeof(KT)) + (is_int8<KT>() ? 2 * kSplit * 4 : 0) +
-         (red_in_k_rows<D, MAXR, KT, kChunk>() ? 0 : kWarps * MAXR * D * 4);
+         (is_int8<KT>() ? kWarps * MAXR * D * 4 : 0);
 }
 
 // issue the split's n_tok K rows, then its V rows, as 16-byte cp.async
@@ -356,7 +333,7 @@ __device__ __forceinline__ void split_store(const float* red, const float* s_m, 
 }
 
 // the dynamic shared memory of a split CTA, carved
-template <int D, int MAXR, typename KT, bool kChunk>
+template <int D, typename KT>
 struct SplitSmem {
   KT* sk;
   KT* sv;
@@ -368,18 +345,17 @@ struct SplitSmem {
     sv = sk + kSplit * D;             // [kSplit][D]
     sks = reinterpret_cast<float*>(sv + kSplit * D);  // int8: [kSplit] each
     svs = sks + kSplit;
-    red = red_in_k_rows<D, MAXR, KT, kChunk>() ? reinterpret_cast<float*>(sk)
-                                               : (is_int8<KT>() ? svs + kSplit : sks);
+    red = is_int8<KT>() ? svs + kSplit : reinterpret_cast<float*>(sk);
   }
 };
 
 template <int D, int MAXR, typename KT>
 __global__ void __launch_bounds__(kThreads) paged_decode_attention_split_kernel(const Params p) {
-  static_assert(!red_in_k_rows<D, MAXR, KT, false>() ||
+  static_assert(is_int8<KT>() ||
                     kWarps * MAXR * D * 4 <= kSplit * D * static_cast<int>(sizeof(KT)),
                 "the warps' V sums fit in the K rows");
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  const SplitSmem<D, MAXR, KT, false> sm(smem_raw);
+  const SplitSmem<D, KT> sm(smem_raw);
   __shared__ float s_p[MAXR][kSplit];  // scores, then probabilities
   __shared__ int s_row[kSplit];        // pool row (pid * page + offset) per key
   __shared__ float s_m[MAXR], s_l[MAXR];
@@ -417,56 +393,6 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_split_kernel(
                        p.n_split, split, n_rep);
 }
 
-// the chunk's queries i in [tile * kChunkTile, min(+kChunkTile, n_valid)),
-// query i at cache position start + i with length start + i + 1: per query
-// exactly B1's split arithmetic over the split's rows, loaded once
-template <int D, int MAXR, typename KT>
-__global__ void __launch_bounds__(kThreads) paged_chunk_attention_split_kernel(const Params p) {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  const SplitSmem<D, MAXR, KT, true> sm(smem_raw);
-  __shared__ float s_p[MAXR][kSplit];
-  __shared__ int s_row[kSplit];
-  __shared__ float s_m[MAXR], s_l[MAXR];
-
-  const int split = blockIdx.x;
-  const int g = blockIdx.y;                  // kv head
-  const int i0 = blockIdx.z * kChunkTile;    // the tile's first query
-  const int i1 = min(i0 + kChunkTile, p.n_valid);
-  const int cap = p.pps * p.page;
-  const int t0 = split * kSplit;
-  const int L_last = min(p.start + i1, cap);  // the tile's last query's length
-  if (t0 >= L_last) return;
-  const int n_load = min(kSplit, L_last - t0);
-  const int n_rep = p.H / p.Hkv;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < n_load; i += kThreads) {
-    const int t = t0 + i;
-    s_row[i] = p.block[t / p.page] * p.page + t % p.page;
-  }
-  __syncthreads();
-  issue_split_loads<D, KT>(p, g, s_row, n_load, sm.sk, sm.sv, sm.sks, sm.svs);
-  cp_async_wait<0>();
-  __syncthreads();
-  for (int i = i0; i < i1; ++i) {
-    const int L = min(p.start + i + 1, cap);
-    if (t0 >= L) continue;  // the same for every thread of the CTA
-    const int n_tok = min(kSplit, L - t0);
-    float qf[MAXR][8];
-    load_queries<D, MAXR>(p.q + (static_cast<size_t>(i) * p.H + g * n_rep) * D, n_rep, qf);
-    split_scores<D, MAXR, KT>(qf, sm.sk, sm.sks, s_p, n_tok, n_rep, p.scale);
-    __syncthreads();
-    split_softmax<MAXR>(s_p, s_m, s_l, n_rep);
-    __syncthreads();
-    split_pv<D, MAXR, KT>(sm.sv, sm.svs, s_p, n_tok, n_rep, sm.red);
-    __syncthreads();
-    split_store<D, MAXR>(sm.red, s_m, s_l,
-                         p.ws + (static_cast<size_t>(i) * p.H + g * n_rep) * p.n_split * (D + 2),
-                         p.n_split, split, n_rep);
-    __syncthreads();  // s_p, s_m, s_l and red are the next query's
-  }
-}
-
 // one (row, head)'s output from its first ns splits' partials at part
 // [n_split][D + 2], merged in split-index order
 template <int D>
@@ -496,71 +422,46 @@ paged_decode_attention_combine_kernel(const Params p) {
   combine_row<D>(p.ws + row * p.n_split * (D + 2), ns, p.out + row * D);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-paged_chunk_attention_combine_kernel(const Params p) {
-  const int h = blockIdx.x;
-  const int i = blockIdx.y;  // chunk query
-  const size_t row = static_cast<size_t>(i) * p.H + h;
-  if (i >= p.n_valid) {  // a padding row: 0, discarded by the caller
-    for (int d = threadIdx.x; d < D; d += kThreads) p.out[row * D + d] = __float2bfloat16(0.f);
-    return;
-  }
-  const int L = min(p.start + i + 1, p.pps * p.page);
-  const int ns = min((L + kSplit - 1) / kSplit, p.n_split);
-  combine_row<D>(p.ws + row * p.n_split * (D + 2), ns, p.out + row * D);
-}
-
-template <int D, int MAXR, typename KT, bool kChunk>
+template <int D, int MAXR, typename KT>
 cudaError_t launch_split(const Params& p, int rows, cudaStream_t s) {
-  constexpr int smem = smem_bytes<D, MAXR, KT, kChunk>();
-  void (*kernel)(const Params);
-  if constexpr (kChunk) {
-    kernel = paged_chunk_attention_split_kernel<D, MAXR, KT>;
-  } else {
-    kernel = paged_decode_attention_split_kernel<D, MAXR, KT>;
-  }
+  constexpr int smem = smem_bytes<D, MAXR, KT>();
+  void (*kernel)(const Params) = paged_decode_attention_split_kernel<D, MAXR, KT>;
   // above 48 KB of dynamic shared memory needs the kernel's opt-in
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.n_split, p.Hkv, kChunk ? (p.n_valid + kChunkTile - 1) / kChunkTile : rows);
-  kernel<<<grid, kThreads, smem, s>>>(p);
+  kernel<<<dim3(p.n_split, p.Hkv, rows), kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, typename KT, bool kChunk>
+template <int D, typename KT>
 int launch_for_dim(const Params& p, int rows, cudaStream_t s) {
   const int n_rep = p.H / p.Hkv;
   cudaError_t err;
   if (n_rep <= 1) {
-    err = launch_split<D, 1, KT, kChunk>(p, rows, s);
+    err = launch_split<D, 1, KT>(p, rows, s);
   } else if (n_rep <= 2) {
-    err = launch_split<D, 2, KT, kChunk>(p, rows, s);
+    err = launch_split<D, 2, KT>(p, rows, s);
   } else if (n_rep <= 4) {
-    err = launch_split<D, 4, KT, kChunk>(p, rows, s);
+    err = launch_split<D, 4, KT>(p, rows, s);
   } else if (n_rep <= 8) {
-    err = launch_split<D, 8, KT, kChunk>(p, rows, s);
+    err = launch_split<D, 8, KT>(p, rows, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  if constexpr (kChunk) {
-    paged_chunk_attention_combine_kernel<D><<<dim3(p.H, rows), kThreads, 0, s>>>(p);
-  } else {
-    paged_decode_attention_combine_kernel<D><<<dim3(p.H, rows), kThreads, 0, s>>>(p);
-  }
+  paged_decode_attention_combine_kernel<D><<<dim3(p.H, rows), kThreads, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename KT, bool kChunk>
+template <typename KT>
 int launch(const Params& p, int D, int rows, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_for_dim<16, KT, kChunk>(p, rows, s);
-    case 32: return launch_for_dim<32, KT, kChunk>(p, rows, s);
-    case 64: return launch_for_dim<64, KT, kChunk>(p, rows, s);
-    case 112: return launch_for_dim<112, KT, kChunk>(p, rows, s);
-    case 128: return launch_for_dim<128, KT, kChunk>(p, rows, s);
+    case 16: return launch_for_dim<16, KT>(p, rows, s);
+    case 32: return launch_for_dim<32, KT>(p, rows, s);
+    case 64: return launch_for_dim<64, KT>(p, rows, s);
+    case 112: return launch_for_dim<112, KT>(p, rows, s);
+    case 128: return launch_for_dim<128, KT>(p, rows, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -588,7 +489,7 @@ Params make_params(const void* q, const void* k, const void* v, const void* ks, 
 
 }  // namespace
 
-// Decode (B1).  kv_int8: k/v pools int8 with float32 scale pools ks/vs
+// kv_int8: k/v pools int8 with float32 scale pools ks/vs
 // (else bf16, ks/vs unused).  n_split must be ceil(pps * page / kSplit) and
 // ws hold B * H * n_split * (D + 2) floats
 extern "C" int repro_paged_decode_attention(const void* q, const void* k_pages,
@@ -607,33 +508,5 @@ extern "C" int repro_paged_decode_attention(const void* q, const void* k_pages,
                          page, pps, n_split, scale);
   p.lens = static_cast<const int*>(lengths);
   auto s = static_cast<cudaStream_t>(stream);
-  return kv_int8 ? launch<int8_t, false>(p, D, B, s) : launch<__nv_bfloat16, false>(p, D, B, s);
-}
-
-// One slot's prefill chunk: C query rows at cache positions start ..
-// start + C - 1, of which the first n_valid are computed (the others come
-// out 0).  block_row is the slot's [pps] page ids; n_split must be
-// ceil(min(start + n_valid, pps * page) / kSplit) and ws hold n_valid * H *
-// n_split * (D + 2) floats
-extern "C" int repro_paged_chunk_attention(const void* q, const void* k_pages,
-                                           const void* v_pages, const void* k_scale,
-                                           const void* v_scale, const void* block_row,
-                                           void* ws, void* out, int C, int n_valid, int start,
-                                           int H, int Hkv, int D, int page, int pps,
-                                           int n_split, int kv_int8, float scale,
-                                           void* stream) {
-  const int cap = pps * page;
-  const int last = start + n_valid < cap ? start + n_valid : cap;
-  if (C <= 0 || n_valid <= 0 || n_valid > C || start < 0 || Hkv <= 0 || H % Hkv != 0 ||
-      page <= 0 || pps <= 0 ||
-      n_split != (last + kSplit - 1) / kSplit ||
-      (kv_int8 && (k_scale == nullptr || v_scale == nullptr))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Params p = make_params(q, k_pages, v_pages, k_scale, v_scale, block_row, ws, out, H, Hkv,
-                         page, pps, n_split, scale);
-  p.start = start;
-  p.n_valid = n_valid;
-  auto s = static_cast<cudaStream_t>(stream);
-  return kv_int8 ? launch<int8_t, true>(p, D, C, s) : launch<__nv_bfloat16, true>(p, D, C, s);
+  return kv_int8 ? launch<int8_t>(p, D, B, s) : launch<__nv_bfloat16>(p, D, B, s);
 }

@@ -51,36 +51,26 @@
 //  * out = O / max(l, 1e-20), cast to bf16.  Rows past S (a bucket that is
 //    not a multiple of 64) are computed on TMA's zeros and not stored; keys
 //    past S lie after every valid query, so the causal mask hides them.
+//  The per-block arithmetic (S, the mask, the online softmax, P hi + lo, P V
+//  and the final division) lives in attention_tile.cuh and is shared with
+//  the paged chunk kernel (paged_chunk_attention.cu): a query's output
+//  depends only on its own row, its absolute position and the keys up to
+//  it, so a prefill chunk's query gets this kernel's one-shot bits.
 
-#include "hopper.cuh"
+#include "attention_tile.cuh"
 
 #include <cuda_bf16.h>
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kRows = 64;           // query rows per CTA: one warpgroup
-constexpr int kKeys = 64;           // keys per K/V block
-constexpr int kBox = 64 * 128;      // one TMA box: 64 rows x 64 bf16 = 8 KB
-constexpr int kThreads = 128;
+using attn_tile::kBox;
+using attn_tile::kKeys;
+using attn_tile::kRows;
+using attn_tile::kThreads;
 
 template <int DP>
 constexpr int smem_bytes() {
   return 5 * (DP / 64) * kBox + 3 * 8 + 1024;  // Q, 2 x K, 2 x V, barriers
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int DP>
-__device__ __forceinline__ void pv_product(float (&o)[DP / 2], const uint32_t (&a)[4],
-                                           uint64_t dv) {
-  if constexpr (DP == 64) {
-    hopper::wgmma_m64n64k16_bf16_rs_tnspb(o, a, dv);
-  } else {
-    hopper::wgmma_m64n128k16_bf16_rs_tnspb(o, a, dv);
-  }
 }
 
 // one thread: K/V block kb of kv head g, batch row b into one ring stage
@@ -135,127 +125,32 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     load_kv<NB>(&tk, &tv, sk, sv, &bars[1], 0, g, b);
   }
 
-  float o[DP / 2];
-#pragma unroll
-  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
-  float m_r[2] = {kNegInf, kNegInf};  // rows row0 and row0 + 8
-  float l_r[2] = {0.f, 0.f};          // this thread's share of each row's sum
+  attn_tile::Rows<DP> st;
+  st.init();
   const int row0 = q0 + warp * 16 + lane / 4;
   const uint32_t qa = hopper::smem_u32(sq);
   hopper::mbar_wait(&bars[0], 0);
 
   for (int kb = 0; kb <= qb; ++kb) {
-    const int st = kb & 1;
+    const int s = kb & 1;
     if (kb < qb) {
-      // every warp is past block kb - 1, the last reader of stage st ^ 1
+      // every warp is past block kb - 1, the last reader of stage s ^ 1
       asm volatile("bar.sync 1, 128;\n" ::: "memory");
-      if (tid == 0) load_kv<NB>(&tk, &tv, sk + (st ^ 1) * kTile, sv + (st ^ 1) * kTile,
-                                &bars[1 + (st ^ 1)], kb + 1, g, b);
+      if (tid == 0) load_kv<NB>(&tk, &tv, sk + (s ^ 1) * kTile, sv + (s ^ 1) * kTile,
+                                &bars[1 + (s ^ 1)], kb + 1, g, b);
     }
-    hopper::mbar_wait(&bars[1 + st], (kb >> 1) & 1);
-
-    // S = Q K^T
+    hopper::mbar_wait(&bars[1 + s], (kb >> 1) & 1);
     float sc[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-    const uint32_t ka = hopper::smem_u32(sk + st * kTile);
-    hopper::fence_regs(sc);
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
-      hopper::wgmma_m64n64k16_bf16_ss(sc, hopper::desc_sw128(qa + off, 16, 1024),
-                                      hopper::desc_sw128(ka + off, 16, 1024), 1);
-    }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(sc);
-
-    // online softmax, f32
-    const bool diag = kb == qb;
-    const int key0 = kb * kKeys + 2 * (lane % 4);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float v = sc[4 * j + e] * scale;
-        if (diag && key0 + 8 * j + (e & 1) > row0 + 8 * (e >> 1)) v = kNegInf;
-        sc[4 * j + e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_r[r], mx[r]);
-      corr[r] = expf(m_r[r] - m_new);
-      m_r[r] = m_new;
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float p = expf(sc[i] - m_r[(i >> 1) & 1]);
-      sc[i] = p;
-      sum[(i >> 1) & 1] += p;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * corr[r] + sum[r];
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] *= corr[(i >> 1) & 1];
-
-    // P as bf16 hi + lo in the A-operand layout: for keys 16kc..16kc+15,
-    // register r holds sc[8kc + 2r], sc[8kc + 2r + 1]
-    uint32_t phi[4][4], plo[4][4];
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p0 = sc[8 * kc + 2 * r];
-        const float p1 = sc[8 * kc + 2 * r + 1];
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-        const float2 hf = __bfloat1622float2(hi);
-        phi[kc][r] = bf16x2_bits(hi);
-        plo[kc][r] = bf16x2_bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
-      }
-    }
-
-    // O += P V: V [64 keys][DP] is the MN-major B operand; 16 keys a step
-    const uint32_t va = hopper::smem_u32(sv + st * kTile);
-    hopper::fence_regs(o);
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      const uint64_t dv = hopper::desc_sw128(va + kc * 16 * 128, kBox, 1024);
-      pv_product<DP>(o, phi[kc], dv);
-      pv_product<DP>(o, plo[kc], dv);
-    }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(o);
+    attn_tile::scores<DP>(sc, qa, hopper::smem_u32(sk + s * kTile));
+    attn_tile::softmax<DP>(sc, st, scale, kb == qb, kb * kKeys, row0, nullptr);
+    attn_tile::pv<DP>(st, sc, hopper::smem_u32(sv + s * kTile), nullptr);
   }
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-  }
+  attn_tile::finish<DP>(st);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int s = row0 + 8 * r;
-    if (s >= S) continue;
-    const float denom = fmaxf(l_r[r], 1e-20f);
-    __nv_bfloat16* orow = out + b * osb + s * oss + h * osh;
-#pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = 8 * j + 2 * (lane % 4);
-      if (col < D) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            __floats2bfloat162_rn(o[4 * j + 2 * r] / denom, o[4 * j + 2 * r + 1] / denom);
-      }
-    }
+    if (s < S) attn_tile::store_row<DP>(st, r, out + b * osb + s * oss + h * osh, D);
   }
 }
 

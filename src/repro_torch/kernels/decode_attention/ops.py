@@ -1,20 +1,23 @@
-"""Wrappers of the paged GQA attention kernels (``csrc/decode_attention.cu``).
+"""Wrappers of the paged GQA attention kernels.
 
-``paged_decode_attention(q, k_pages, v_pages, block_table, lengths)`` (B1):
-one query token per (slot, head) against one layer's page pools through
-the block table.  ``paged_chunk_attention(q, k_pages, v_pages, block_row,
-start, n_valid)``: the queries of one slot's prefill chunk, query i at
-cache position ``start + i``, each attending the keys up to its own
-position.  A pool is a bf16 tensor ``[P, page, Hkv, D]`` or an int8
-``(data, scale)`` pair (``models.attention``).
+``paged_decode_attention(q, k_pages, v_pages, block_table, lengths)`` (B1,
+``csrc/decode_attention.cu``): one query token per (slot, head) against one
+layer's page pools through the block table, split-KV over splits of
+``ref.SPLIT`` keys at absolute positions, the splits' float32 partials in a
+workspace allocated here, merged in split-index order by a second kernel
+that the same C entry launches.
 
-A CPU tensor takes the plain version (``models.attention``); a CUDA tensor
-launches the kernels, which read the block table themselves: split-KV over
-splits of ``ref.SPLIT`` keys at absolute positions, the splits' float32
-partials in a workspace allocated here, merged in split-index order by a
-second kernel that the same C entry launches.  The chunk kernel runs B1's
-per-query arithmetic (the same device functions) with length ``start + i
-+ 1`` for query i, so its rows are B1's bits for those lengths.
+``paged_chunk_attention(q, k_pages, v_pages, block_row, start, n_valid)``
+(``csrc/paged_chunk_attention.cu``): the queries of one slot's prefill
+chunk, query i at cache position ``start + i``, each attending the keys up
+to its own position.  The kernel runs B3's per-block arithmetic
+(``csrc/attention_tile.cuh``) on 64-row query tiles at absolute multiples
+of 64, the K/V blocks read through the block row, so over bf16 pools a
+chunk query's output is B3's one-shot bits for that query.
+
+A pool is a bf16 tensor ``[P, page, Hkv, D]`` or an int8 ``(data, scale)``
+pair (``models.attention``).  A CPU tensor takes the plain version
+(``models.attention``); a CUDA tensor launches the kernels.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from repro_torch.kernels.decode_attention.ref import (
     SPLIT, paged_chunk_attention_ref, paged_decode_attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 112, 128)  # 112: zamba2-7b's shared block
-MAX_GROUP = 8  # grouped query heads per kv head
+MAX_GROUP = 8  # grouped query heads per kv head (B1)
+CHUNK_BLOCK = 64  # keys per K/V block and rows per query tile, chunk kernel
 LAUNCHES = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0,
             "paged_chunk_attention": 0, "paged_chunk_attention_int8": 0}
 
@@ -115,10 +119,10 @@ def paged_chunk_attention(q: torch.Tensor, k_pages, v_pages,
                           n_valid: int) -> torch.Tensor:
     """q: [C, H, D] a slot's chunk queries at cache positions start ..
     start + C - 1, of which the first ``n_valid`` are the chunk's (the rest
-    bucket padding); k/v_pages: bf16 or int8 (data, scale) pools;
-    block_row: [pps] int32 the slot's page ids -> [C, H, D].  Rows past
-    ``n_valid`` are discarded by the caller: the plain version computes them
-    as the JAX formula does, the kernel writes 0."""
+    bucket padding); k/v_pages: bf16 or int8 (data, scale) pools whose page
+    size divides 64; block_row: [pps] int32 the slot's page ids -> [C, H,
+    D].  Rows past ``n_valid`` are discarded by the caller: the plain
+    version computes them as the JAX formula does, the kernel writes 0."""
     c = q.shape[0]
     if q.device.type == "cpu":
         pos = start + torch.arange(c, device=q.device)
@@ -132,20 +136,23 @@ def paged_chunk_attention(q: torch.Tensor, k_pages, v_pages,
     _, h, d = q.shape
     _, page, hkv, _ = k.shape
     pps = block_row.shape[0]
-    if block_row.dim() != 1 or not 0 < n_valid <= c or start < 0:
+    if block_row.dim() != 1 or not 0 < n_valid <= c or start < 0 \
+            or start + n_valid > pps * page:
         raise ValueError(f"paged_chunk_attention: block_row "
                          f"{tuple(block_row.shape)}, n_valid {n_valid} of "
-                         f"{c} rows, start {start}")
-    # the workspace spans the chunk's last split, not the slot's capacity
-    n_split = -(-min(start + n_valid, pps * page) // SPLIT)
-    ws = torch.empty(n_valid * h * n_split * (d + 2), dtype=torch.float32,
-                     device=q.device)
+                         f"{c} rows, start {start}, page {page}")
+    if CHUNK_BLOCK % page:
+        raise ValueError(f"paged_chunk_attention: page size {page} does not "
+                         f"divide the kernel's {CHUNK_BLOCK}-key blocks")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("paged_chunk_attention: q and the pools must start "
+                         "on a 16-byte boundary")
     out = torch.empty_like(q)
     status = build.library().repro_paged_chunk_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         ks.data_ptr() if int8 else None, vs.data_ptr() if int8 else None,
-        block_row.data_ptr(), ws.data_ptr(), out.data_ptr(), c, n_valid,
-        start, h, hkv, d, page, pps, n_split, int(int8), float(d ** -0.5),
+        block_row.data_ptr(), out.data_ptr(), c, n_valid, start, h, hkv, d,
+        page, pps, int(int8), float(d ** -0.5),
         build.stream_handle(q.device))
     name = "paged_chunk_attention_int8" if int8 else "paged_chunk_attention"
     build.check(status, name)

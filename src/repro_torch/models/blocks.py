@@ -3,9 +3,11 @@
 Counterpart of ``repro.models.blocks``.  Where the JAX model runs the jnp
 twins of its Pallas kernels, this module calls the kernel wrappers: on a
 CUDA tensor they launch the Hopper kernels (B3 flash attention for prefill,
-B1 paged decode attention, the paged chunk attention built from B1 for a
-prefill chunk), on a CPU tensor their plain versions.  The page pools are
-bf16 tensors or int8 ``(data, scale)`` pairs (``models.attention``).
+B1 paged decode attention, and for a prefill chunk the paged chunk
+attention, which runs B3's per-block arithmetic through the block row, so
+a chunk query gets B3's one-shot bits), on a CPU tensor their plain
+versions.  The page pools are bf16 tensors or int8 ``(data, scale)`` pairs
+(``models.attention``).
 """
 
 from __future__ import annotations
@@ -110,9 +112,10 @@ def attn_prefill_chunk_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
     The chunk's K/V is scattered into the slot's pages FIRST (padding rows
     are redirected to the null page 0), then every query attends the block
-    row up to its own position (the paged chunk kernel on CUDA), so each
-    position's math is the same however the prompt was chunked.  Returns
-    out [1, C, D].
+    row up to its own position (the paged chunk kernel on CUDA: over bf16
+    pools a query's bits are B3's in a one-shot prefill), so each
+    position's math is the same however the prompt was chunked, the
+    one-shot prefill included.  Returns out [1, C, D].
     """
     b, c, _ = x.shape
     q = linear(params["q"], x).reshape(b, c, cfg.n_heads, cfg.d_head)

@@ -463,13 +463,14 @@ def prefill_chunk_into_slot(params: dict, cfg: ModelConfig,
     position's K/V is scattered into the slot's pages first, then the
     chunk's queries attend the block row up to their own positions (the
     buffer decode reads; on CUDA the chunk kernel, which gives each query
-    the decode kernel's bits at its length), and every other op is row-wise
+    B3's bits, the one-shot prefill's), and every other op is row-wise
     (the int8 products exact, the norms' means the same for any row count
     of a bucket, as the card and the CPU show): a position's bits do not
     depend on how the prompt was split, so the cache, the returned logits
     and every later decode logit are the same for ANY chunk schedule, the
-    single chunk included.  The pools and ``cache["lens"][slot]`` (= start
-    + chunk_len) are written in place.
+    single chunk and, over bf16 pools, ``prefill_into_slots`` included (a
+    partial prefix hit equals a cold run).  The pools and
+    ``cache["lens"][slot]`` (= start + chunk_len) are written in place.
 
     Returns (logits [V] at chunk position ``chunk_len - 1``, cache).
     """

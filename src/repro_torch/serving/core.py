@@ -67,10 +67,9 @@ state and samples the first token from the stored prefill logits: zero
 prefill dispatches, the cold run's bits.  A partial hit (dense family,
 bf16 pools only, as in the JAX engine) maps the cached leading pages and
 prefills the suffix through the chunk path from the cached length.  On a
-card the chunk path (the chunk kernel) and the one-shot group prefill (B3)
-give other bits, so a partial hit equals a cold run bit for bit where
-both take the chunk path; against a one-shot cold run it agrees on
-margin-checked prompts (ROADMAP section C).  Idle cached pages are
+card the chunk kernel gives each query B3's one-shot bits, so a partial
+hit equals a cold run bit for bit whether the cold run and the cached
+pages came from the one-shot prefill or from chunks.  Idle cached pages are
 reclaimed LRU under pressure or, under the flash tier, spilled under
 ``("px", key)`` and prefetched on their next hit.
 
@@ -168,6 +167,13 @@ class Request:
     @property
     def latency_s(self) -> float:
         return self.t_done - self.t_submit
+
+    @property
+    def deadline_missed(self) -> bool:
+        """True when the request finished more than ``deadline_s`` seconds
+        after submission (False without a deadline or before completion)."""
+        return (self.deadline_s is not None and self.t_done > 0.0
+                and self.latency_s > self.deadline_s)
 
 
 @dataclasses.dataclass(frozen=True)

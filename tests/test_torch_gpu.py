@@ -753,32 +753,57 @@ def _chunk_inputs(dev, seed, c, h, hkv, d, pps, page=16):
                                      (15, 5, 64), (4, 2, 16)])
 @pytest.mark.parametrize("c,start", [(1, 0), (7, 5), (16, 300), (128, 0),
                                      (128, 300)])
-def test_paged_chunk_attention_is_b1_bit_for_bit(cuda_device, c, start, h,
+def test_paged_chunk_attention_is_b3_bit_for_bit(cuda_device, c, start, h,
                                                  hkv, d, kv):
-    """Each valid query i of a chunk equals B1's output for a slot of
-    length start + i + 1 over the same block row, bit for bit, and the
-    chunk is within two bf16 steps of its plain version; padding rows (a
-    chunk of 7 valid rows in a bucket of 16) come out 0."""
+    """Over bf16 pools each valid query i of a chunk equals, bit for bit,
+    B3's output for the query at position start + i in a one-shot run over
+    the same keys laid out contiguously; over both kinds of pool the chunk
+    is within two bf16 steps of its plain version, padding rows (a chunk of
+    7 valid rows in a bucket of 16) come out 0, and a query gives the same
+    bits in a chunk from ``start`` and in one chunk from 0."""
     from repro_torch.kernels.decode_attention.ops import paged_chunk_attention
     from repro_torch.kernels.decode_attention.ref import (
         paged_chunk_attention_ref)
+    from repro_torch.models.attention import gather_paged_rows
 
     pps = 32   # 512 keys
     rows = max(c, 16) if c == 7 else c
     q, kp, vp, row = _chunk_inputs(cuda_device, c + start + d, rows, h, hkv,
                                    d, pps)
+    n = start + c
     if kv == "int8":
         kp, vp = _int8_pools(kp, vp)
+    else:
+        q_all = torch.zeros((1, n, h, d), dtype=torch.bfloat16,
+                            device=cuda_device)
+        q_all[0, start:] = q[:c]
+        k_all, v_all = (gather_paged_rows(x, row[None])[:, :n].contiguous()
+                        for x in (kp, vp))
+        b3 = flash_attention(q_all, k_all, v_all)[0, start:]
     got = paged_chunk_attention(q, kp, vp, row, start, c)
-    lens = torch.arange(start + 1, start + c + 1, dtype=torch.int32,
-                        device=cuda_device)
-    b1 = paged_decode_attention(q[:c].contiguous(), kp, vp,
-                                row[None].expand(c, pps).contiguous(), lens)
-    assert torch.equal(got[:c], b1)
+    if kv == "bf16":
+        assert torch.equal(got[:c], b3)
     pos = start + torch.arange(rows, device=cuda_device)
     ref = paged_chunk_attention_ref(q[None], kp, vp, row[None], pos[None])[0]
     assert_bf16_close(got[:c], ref[:c])
     assert not bool(got[c:].float().any())
+    q_from_0 = torch.zeros((n, h, d), dtype=torch.bfloat16,
+                           device=cuda_device)
+    q_from_0[start:] = q[:c]
+    from_0 = paged_chunk_attention(q_from_0, kp, vp, row, 0, n)
+    assert torch.equal(from_0[start:], got[:c])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [3, 48])
+def test_paged_chunk_attention_refuses_a_page_that_does_not_divide_64(
+        cuda_device, page):
+    from repro_torch.kernels.decode_attention.ops import paged_chunk_attention
+
+    q, kp, vp, row = _chunk_inputs(cuda_device, page, 16, 4, 4, 64, 8,
+                                   page=page)
+    with pytest.raises(ValueError, match="does not divide"):
+        paged_chunk_attention(q, kp, vp, row, 0, 16)
 
 
 @pytest.mark.gpu
@@ -855,6 +880,72 @@ def test_chunked_prefill_bit_identical_to_one_shot_on_card(cuda_device, kv):
     one, one_rows = run(len(prompt))
     name = "paged_chunk_attention" + ("_int8" if kv == "int8" else "")
     assert kernels.launch_counts()[name] == cfg.n_layers
+    for budget in (1, 7, 16, 128):
+        got, rows = run(budget)
+        for key in one_rows:
+            assert torch.equal(rows[key], one_rows[key]), (budget, key)
+        for step, (a, b) in enumerate(zip(one, got)):
+            assert torch.equal(a, b), (budget, step)
+
+
+@pytest.mark.gpu
+def test_one_shot_prefill_equals_chunked_prefill_on_card(cuda_device):
+    """llama2-7b at full width, 2 layers, W8A8, bf16 pools: a 150-token
+    prompt through ``prefill_into_slots`` (B3) and through
+    ``prefill_chunk_into_slot`` at budgets {1, 7, 16, 128} (the chunk
+    kernel) leaves the same valid K/V rows, first-token logits and 3 decode
+    logits, bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import blocks
+    from repro_torch.models import model as M
+    from repro_torch.quant.convert import quantize_params
+    from repro_torch.serving.kv_cache import chunk_spans, prefill_bucket
+
+    cfg = dataclasses.replace(get_arch("llama2-7b"), n_layers=2)
+    params = quantize_params(M.init_params(cfg, seed=3, max_seq=256,
+                                           device="cuda"), consume=True)
+    prompt = torch.randint(0, cfg.vocab_size, (150,),
+                           generator=torch.Generator().manual_seed(4)).tolist()
+
+    def run(budget):
+        cache = M.init_paged_cache(cfg, 2, 256, page_size=16, device="cuda")
+        cache["block"] = torch.zeros((2, 16), dtype=torch.int32,
+                                     device="cuda")
+        cache["block"][0] = torch.arange(17, 1, -1, device="cuda")
+        if budget is None:
+            bucket = prefill_bucket(len(prompt))
+            toks = torch.tensor([prompt + [0] * (bucket - len(prompt))],
+                                device="cuda")
+            lg, cache = M.prefill_into_slots(
+                params, cfg, toks, torch.tensor([len(prompt)], device="cuda"),
+                cache, torch.tensor([0], device="cuda"))
+            lg = lg[0]
+        else:
+            for start, n in chunk_spans(len(prompt), budget):
+                toks = torch.zeros(min(prefill_bucket(n, floor=16), 256),
+                                   dtype=torch.int32)
+                toks[:n] = torch.tensor(prompt[start:start + n])
+                lg, cache = M.prefill_chunk_into_slot(
+                    params, cfg, toks.to("cuda"), start, n, cache, 0)
+        pages = cache["block"][0].long()
+        rows = {key: cache[key][:, pages].flatten(1, 2)[:, :len(prompt)]
+                .clone() for key in blocks.paged_pool_keys(cache)}
+        out = [lg.clone()]
+        tok = torch.zeros(2, dtype=torch.int32, device="cuda")
+        active = torch.tensor([True, False], device="cuda")
+        for _ in range(3):
+            tok[0] = torch.argmax(out[-1])
+            step, cache = M.decode_step_paged(params, cfg, tok, cache,
+                                              active)
+            out.append(step[0].clone())
+        torch.cuda.synchronize()
+        return out, rows
+
+    kernels.reset_launch_counts()
+    one, one_rows = run(None)
+    assert kernels.launch_counts()["flash_attention"] == cfg.n_layers
     for budget in (1, 7, 16, 128):
         got, rows = run(budget)
         for key in one_rows:
@@ -1031,14 +1122,12 @@ def test_resume_hit_and_migration_on_card(cuda_device):
 
 @pytest.mark.gpu
 def test_partial_hit_page_paths_on_card(cuda_device):
-    """C-open-2 (ROADMAP section C): a partial hit's suffix runs the chunk
-    kernel over pages B3 wrote, so its bits are not a one-shot run's.  Held
-    here: over pages the chunk path wrote, a partial hit's first-token
-    logits equal a cold chunked run's bit for bit; over B3's pages, the
-    partial-hit engine's greedy stream equals the one-shot cold engine's
-    on every margin-checked prompt (top-1 margin above 1e-2 on both paths
-    over 4 tokens); how many candidates are bit-equal across the two paths
-    is printed."""
+    """C-open-2, repaired (ROADMAP section C): a partial hit's suffix runs
+    the chunk kernel, which gives each query B3's one-shot bits.  Over
+    pages the chunk path wrote, a partial hit's first-token logits equal a
+    cold chunked run's; over pages B3 wrote, they equal the cold one-shot
+    run's, bit for bit; and the partial-hit engine's greedy stream equals
+    the one-shot cold engine's on every prompt."""
     from repro_torch.models import model as M
     from repro_torch.serving.core import EngineCore, Request
     from repro_torch.serving.kv_cache import prefill_bucket
@@ -1085,7 +1174,6 @@ def test_partial_hit_page_paths_on_card(cuda_device):
                                               len(prompt), cache, 0)
         return logits
 
-    bit_equal, kept = 0, 0
     for i in range(6):
         prompt = torch.randint(0, cfg.vocab_size, (40 + 5 * i,),
                                generator=gen).tolist()
@@ -1108,13 +1196,6 @@ def test_partial_hit_page_paths_on_card(cuda_device):
              "block": torch.arange(8, 0, -1, dtype=torch.int32,
                                    device="cuda")[None]},
             torch.tensor([0], device="cuda"))[0][0]
-        partial = first_logits(prompt, 32, False)
-        bit_equal += int(torch.equal(one_shot, partial))
-        top = [torch.topk(x.float(), 2).values for x in (one_shot, partial)]
-        if min(float(t[0] - t[1]) for t in top) > 1e-2 \
-                and a.out_tokens[0] == b.out_tokens[0]:
-            kept += 1
-            assert a.out_tokens == b.out_tokens, i
+        assert torch.equal(first_logits(prompt, 32, False), one_shot), i
+        assert a.out_tokens == b.out_tokens, i
     assert warm.stats.prefix_hits == 6
-    print(f"partial hit over B3's pages bit-equal to one-shot in "
-          f"{bit_equal} of 6; {kept} margin-checked streams equal")

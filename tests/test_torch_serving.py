@@ -156,3 +156,21 @@ def test_serving_client_matches_jax(models):
         [h.result().out_tokens for h in jh]
     assert sum(s.completed for s in tc.router.stats) == 5
     assert all(s.completed for s in tc.router.stats)   # both replicas
+
+
+@pytest.mark.parametrize("deadline_s,t_done", [
+    (None, 5.0),    # no deadline
+    (2.0, 0.0),     # not finished
+    (2.0, 2.5),     # met
+    (2.0, 4.0),     # missed
+    (2.0, 3.0),     # finished exactly at the deadline
+])
+def test_request_deadline_missed_matches_jax(deadline_s, t_done):
+    """``Request.deadline_missed`` against the JAX property on the same
+    timestamps (submitted at 1.0 s)."""
+    reqs = [cls(rid=0, prompt=[1, 2], deadline_s=deadline_s)
+            for cls in (JRequest, TRequest)]
+    for r in reqs:
+        r.t_submit, r.t_done = 1.0, t_done
+    assert reqs[1].deadline_missed == reqs[0].deadline_missed
+    assert reqs[1].deadline_missed is (deadline_s == 2.0 and t_done == 4.0)
