@@ -119,8 +119,9 @@ Phases, each printing its own lines:
             and its decode wall ms a step synchronous and overlapped.
 12. serve_chunked  llama2-7b W8A8 at full width through build_client(
             chunk_prefill=128): the serve trace (counted: the chunk kernel
-            32 times a chunk), synchronous and overlapped identical; the
-            unchunked engine's streams on margin-checked prompts; a
+            32 times a chunk), synchronous and overlapped identical; on 12
+            prompts the one-shot (B3) and chunked paths' logits and the two
+            engines' streams bit-equal; a
             150-token prompt through the chunk path at budgets {1, 7, 16,
             128, 150}: valid K/V rows, first-token logits and 5 decode
             logits bit-equal (and whether torch's rms_norm gives a row
@@ -148,12 +149,14 @@ Phases, each printing its own lines:
 15. serve_prefix  llama2-7b with prefix_cache=True on the JAX benchmark's
             chat trace (4 sessions, 3 turns, a 992-token system prompt,
             every turn submitted twice): resume hits equal their cold run
-            with no prefill; with a chunk budget of 256 (every prompt
-            chunks) all 24 streams equal the cold chunked engine's, partial
-            hits included; partial hits over one-shot pages equal the
-            one-shot cold engine on margin-checked prompts; refcounts back
-            to idle; B1 and the chunk kernel counted; TTFT p50 cold and
-            warm, prefill device ms cold against a partial hit's suffix.
+            with no prefill; all 24 streams equal the cold one-shot
+            engine's, partial hits (the chunk kernel over B3's pages)
+            included, and with a chunk budget of 256 (every prompt chunks)
+            the cold chunked engine's; on 8 more prompts a partial hit over
+            one-shot pages gives the one-shot logits and stream bit for
+            bit; refcounts back to idle; B1 and the chunk kernel counted;
+            TTFT p50 cold and warm, prefill device ms cold against a
+            partial hit's suffix.
 16. serve_migrate  two llama2-7b replicas on the card sharing one params
             dict behind Router(migrate=True): every request on a starved
             tiered replica, the router drains it into a donor; streams
@@ -177,11 +180,14 @@ the same at M = 1..8, and timed beside its bound on the bf16 tensor cores
 yardstick that rounds the scales and the output to bf16.  The paged chunk
 kernel (bf16 and int8 pools, D 128 and 112, chunks of 1, 7 in a bucket of
 16, 16 and 128 rows at starts 0, 5 and 300) within ATTN_TOL of its plain
-version (the JAX float32 formula), every valid query bit-equal to B1 at
-length start + i + 1, padding rows 0, and a key one past a query's
-position changed without moving that query; B1 over int8 pools against
-its plain version with B1's planted faults and batch invariance; both
-timed beside SDPA over the gathered (int8: dequantized) rows.
+version (the JAX float32 formula), every valid query bit-equal to B3's
+output in the one-shot run over the same keys (bf16 pools) and to the
+same query in one chunk from 0, padding rows 0, and a key one past a
+query's position changed without moving that query; timed at C 128 from
+0 and 300 (bf16, int8), C 16 from 992 and C 512 from 0 beside SDPA over
+the gathered (int8: dequantized) rows and B3 over the one-shot run.  B1
+over int8 pools against its plain version with B1's planted faults and
+batch invariance, timed beside SDPA.
 
 The last three lines are the kernels JSON, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``; each kernel's ``launches`` is read
@@ -244,10 +250,10 @@ SOURCES = {
         "src/repro/kernels/decode_attention/decode_attention.py:61"),
     # no Pallas counterpart: the JAX package computes it in jnp
     "paged_chunk_attention": (
-        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro_torch/kernels/csrc/paged_chunk_attention.cu",
         "src/repro/models/attention.py:233"),
     "paged_chunk_attention_int8": (
-        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro_torch/kernels/csrc/paged_chunk_attention.cu",
         "src/repro/models/attention.py:233"),
 }
 # the phase whose run each kernel's launch count is read around
@@ -1386,9 +1392,14 @@ def _kernels_ssd(torch, results: dict) -> None:
 # the paged chunk kernel and the int8 pools (B1's int8 variant)
 # ---------------------------------------------------------------------------
 
-# chunks of 1, 7 (valid rows of a bucket of 16), 16 and 128 rows at cache
-# starts 0, 5 and 300
+# the paged chunk kernel: chunks of 1, 7 (in a bucket of 16), 16 and 128
+# rows at starts 0, 5 and 300
 CHUNK_CASES = [(c, start) for c in (1, 7, 16, 128) for start in (0, 5, 300)]
+# timed at D 128: (pools, C, start); the first of each kind is its JSON row.
+# A chunk of the serve trace, a partial hit's suffix after the chat trace's
+# 992-token system prompt, and a one-shot-sized chunk
+CHUNK_TIMED = [("bf16", 128, 0), ("bf16", 128, 300), ("bf16", 16, 992),
+               ("bf16", 512, 0), ("int8", 128, 0), ("int8", 128, 300)]
 
 
 def _quantized(pages):
@@ -1399,7 +1410,7 @@ def _quantized(pages):
     return quantize_rows(pages)
 
 
-def _chunk_inputs(torch, gen, c, h, hkv, d, kv, pps=32, page=16,
+def _chunk_inputs(torch, gen, c, h, hkv, d, kv, pps=64, page=16,
                   copies=1):
     """Chunk queries [rows, H, D] (a 7-row chunk in a bucket of 16), pool
     copies of pps + 3 pages (bf16 or int8 pairs) and a block row of pps
@@ -1420,15 +1431,20 @@ def _chunk_inputs(torch, gen, c, h, hkv, d, kv, pps=32, page=16,
     return randn(rows, h, d), pools, (perm[:pps] + 1).to(torch.int32)
 
 
-def _b1_of_chunk(torch, q, kp, vp, row, start, c):
-    """B1 over the chunk's first c queries as c slots of lengths start + i
-    + 1 on the same block row."""
-    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+def _one_shot_of_chunk(torch, q, kp, vp, row, start, c):
+    """(q, k, v) of the one-shot run the chunk's first c queries sit in: B=1,
+    S = start + c, the keys gathered from the block row (int8 pools:
+    dequantized to bf16), the chunk's queries at their positions and
+    zeros before them."""
+    from repro_torch.models.attention import gather_paged_rows
 
-    lens = torch.arange(start + 1, start + c + 1, dtype=torch.int32,
-                        device=q.device)
-    return paged_decode_attention(q[:c].contiguous(), kp, vp,
-                                  row[None].expand(c, -1).contiguous(), lens)
+    n = start + c
+    qa = torch.zeros((1, n) + tuple(q.shape[1:]), dtype=torch.bfloat16,
+                     device=q.device)
+    qa[0, start:] = q[:c]
+    k, v = (gather_paged_rows(x, row[None])[:, :n].to(torch.bfloat16)
+            .contiguous() for x in (kp, vp))
+    return qa, k, v
 
 
 def _chunk_key_fault(torch, q, kp, vp, row, start, c, got, kv, page=16):
@@ -1461,11 +1477,11 @@ def _chunk_key_fault(torch, q, kp, vp, row, start, c, got, kv, page=16):
                              "query's position, or not the one at it")
 
 
-def _chunk_bound(c, start, h, hkv, d, kv, pps=32, page=16):
+def _chunk_bound(c, start, h, hkv, d, kv, pps=64):
     """(bytes, operations) the chunk's function needs: q and out once,
     each K/V row up to the last query's position once (int8: codes and
     scales), the block row; 4 D operations a (query, head, key)."""
-    n_keys = min(start + c, pps * page)
+    n_keys = start + c
     elt = 1 if kv == "int8" else 2
     kv_bytes = 2 * n_keys * hkv * d * elt + (2 * n_keys * hkv * 4
                                              if kv == "int8" else 0)
@@ -1473,17 +1489,51 @@ def _chunk_bound(c, start, h, hkv, d, kv, pps=32, page=16):
     return 2 * c * h * d * 2 + kv_bytes + pps * 4, 4 * h * d * pairs
 
 
+def _check_chunk(torch, name, kv, q, kp, vp, row, start, c):
+    """The chunk against its plain version (ATTN_TOL), B3's one-shot bits
+    (bf16 pools), the same queries in one chunk from 0 (bit for bit) and
+    its padding rows (0).  Returns (chunk output, max |err|, worst
+    |err|/limit)."""
+    from repro_torch.kernels.decode_attention.ops import paged_chunk_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_chunk_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    tag = f"{name}[D {q.shape[-1]} C {c} start {start}]"
+    got = paged_chunk_attention(q, kp, vp, row, start, c)
+    pos = start + torch.arange(q.shape[0], device=q.device)
+    ref = paged_chunk_attention_ref(q[None], kp, vp, row[None], pos[None])[0]
+    qa, ka, va = _one_shot_of_chunk(torch, q, kp, vp, row, start, c)
+    from_0 = paged_chunk_attention(qa[0], kp, vp, row, 0, start + c)[start:]
+    b3 = flash_attention(qa, ka, va)[0, start:] if kv == "bf16" else None
+    torch.cuda.synchronize()
+    err, used = _check_close(torch, tag, got[:c], ref[:c])
+    if b3 is not None and not torch.equal(got[:c], b3):
+        bad = int((got[:c] != b3).any(-1).any(-1).sum())
+        raise AssertionError(f"{tag}: {bad} of {c} queries differ from B3's "
+                             f"one-shot bits")
+    if not torch.equal(got[:c], from_0):
+        raise AssertionError(f"{tag}: a query's bits differ between this "
+                             f"chunk and one chunk from 0")
+    if bool(got[c:].float().any()):
+        raise AssertionError(f"{tag}: a padding row is not 0")
+    return got, err, used
+
+
 def _kernels_chunk(torch, results: dict) -> None:
     """The paged chunk kernel (bf16 and int8 pools) at D 128 and 112 and
     every CHUNK_CASES shape: within ATTN_TOL of its plain version (the JAX
-    float32 formula), every valid query bit-equal to B1 at its length,
-    padding rows 0; a planted key fault; timed at 128 rows from 0 and
-    300 beside SDPA over the gathered block row with a boolean mask."""
+    float32 formula), every valid query bit-equal to B3's one-shot output
+    (bf16 pools) and to the same query in one chunk from 0, padding rows
+    0; a planted key fault; timed at CHUNK_TIMED beside SDPA over the
+    gathered block row with a boolean mask and B3 over the one-shot run up
+    to the chunk's end."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.ops import paged_chunk_attention
     from repro_torch.kernels.decode_attention.ref import (
         paged_chunk_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.models.attention import gather_paged_rows
 
     gen = torch.Generator(device=torch.device("cuda"))
@@ -1496,72 +1546,78 @@ def _kernels_chunk(torch, results: dict) -> None:
         for d in (128, 112):
             worst = 0.0
             for c, start in CHUNK_CASES:
-                timed = d == 128 and c == 128 and start in (0, 300)
-                q, pools, row = _chunk_inputs(torch, gen, c, h, hkv, d, kv,
-                                              copies=3 if timed else 1)
+                q, pools, row = _chunk_inputs(torch, gen, c, h, hkv, d, kv)
                 kp, vp = pools[0]
-                got = paged_chunk_attention(q, kp, vp, row, start, c)
-                pos = start + torch.arange(q.shape[0], device=q.device)
-                ref = paged_chunk_attention_ref(q[None], kp, vp, row[None],
-                                                pos[None])[0]
-                b1 = _b1_of_chunk(torch, q, kp, vp, row, start, c)
-                torch.cuda.synchronize()
-                err, used = _check_close(
-                    torch, f"{name}[D {d} C {c} start {start}]", got[:c],
-                    ref[:c])
+                got, err, used = _check_chunk(torch, name, kv, q, kp, vp,
+                                              row, start, c)
                 worst = max(worst, used)
                 res["max_abs_err"] = max(res["max_abs_err"], err)
-                if not torch.equal(got[:c], b1):
-                    bad = int((got[:c] != b1).any(-1).any(-1).sum())
-                    raise AssertionError(
-                        f"{name} D {d} C {c} start {start}: {bad} of {c} "
-                        f"queries differ from B1 at their lengths")
-                if bool(got[c:].float().any()):
-                    raise AssertionError(f"{name}: a padding row is not 0")
                 if d == 128 and c == 16 and start == 5:
                     _chunk_key_fault(torch, q, kp, vp, row, start, c, got, kv)
-                if not timed:
-                    continue
-                ms = time_ms(torch, lambda i: paged_chunk_attention(
-                    q, pools[i][0], pools[i][1], row, start, c), 3)
-                dev_ms = profiled_ms(torch, lambda i: paged_chunk_attention(
-                    q, pools[i][0], pools[i][1], row, start, c),
-                    (KERNEL_NAMES[name],), 3)
-                plain = time_ms(torch, lambda i: paged_chunk_attention_ref(
-                    q[None], pools[i][0], pools[i][1], row[None], pos[None]),
-                    3)
-                # SDPA over the block row gathered (int8: dequantized) to
-                # bf16 beforehand, with a boolean causal mask from start
-                kd = [gather_paged_rows(p[0], row[None]).to(torch.bfloat16)
-                      .transpose(1, 2).contiguous() for p in pools]
-                vd = [gather_paged_rows(p[1], row[None]).to(torch.bfloat16)
-                      .transpose(1, 2).contiguous() for p in pools]
-                mask = (torch.arange(kd[0].shape[2], device=q.device)[None]
-                        <= pos[:, None])[None, None]
-                q4 = q[None].transpose(1, 2)
-                lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-                    q4, kd[i], vd[i], attn_mask=mask), 3)
-                lib_dev = profiled_ms(
-                    torch, lambda i: F.scaled_dot_product_attention(
-                        q4, kd[i], vd[i], attn_mask=mask), None, 3)
-                b_bytes, b_ops = _chunk_bound(c, start, h, hkv, d, kv)
-                b_ms, b_by = bound(b_bytes, b_ops, "bf16")
-                if start == 0:
-                    res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                               library_ms=lib, library_device_ms=lib_dev,
-                               bound_ms=b_ms, bound_by=b_by,
-                               shape=f"C={c} start={start} H={h} D={d}")
-                log(f"[kernels] {name} C={c} start={start} H={h} D={d}: "
-                    f"{ms:.4f} ms (device time {dev_ms:.4f} ms, "
-                    f"{b_ops / dev_ms / 1e9:.1f} GFLOP/s, "
-                    f"{100 * b_ms / dev_ms:.1f}% of the bound), plain "
-                    f"{plain:.4f} ms, SDPA on the gathered block row "
-                    f"{lib:.4f} ms (device {lib_dev:.4f} ms), bound "
-                    f"{b_ms:.4f} ms ({b_by})")
             log(f"[kernels] {name} D={d}, chunks of 1, 7 (in 16), 16 and 128 "
-                f"rows at starts 0, 5 and 300: every valid query bit-equal "
-                f"to B1 at its length, padding rows 0, within {ATTN_TOL} of "
-                f"the plain version (worst |err|/limit {worst:.3f})")
+                f"rows at starts 0, 5 and 300: "
+                + ("every valid query bit-equal to B3's one-shot output, "
+                   if kv == "bf16" else "")
+                + f"every query bit-equal in one chunk from 0, padding rows "
+                f"0, within {ATTN_TOL} of the plain version (worst "
+                f"|err|/limit {worst:.3f})")
+        d = 128
+        json_done = False
+        for tkv, c, start in CHUNK_TIMED:
+            if tkv != kv:
+                continue
+            q, pools, row = _chunk_inputs(torch, gen, c, h, hkv, d, kv,
+                                          copies=3)
+            kp, vp = pools[0]
+            _got, err, used = _check_chunk(torch, name, kv, q, kp, vp, row,
+                                           start, c)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            pos = start + torch.arange(q.shape[0], device=q.device)
+            ms = time_ms(torch, lambda i: paged_chunk_attention(
+                q, pools[i][0], pools[i][1], row, start, c), 3)
+            dev_ms = profiled_ms(torch, lambda i: paged_chunk_attention(
+                q, pools[i][0], pools[i][1], row, start, c),
+                (KERNEL_NAMES[name],), 3)
+            plain = time_ms(torch, lambda i: paged_chunk_attention_ref(
+                q[None], pools[i][0], pools[i][1], row[None], pos[None]), 3)
+            # SDPA over the block row gathered (int8: dequantized) to bf16
+            # beforehand, with a boolean causal mask from start
+            kd = [gather_paged_rows(p[0], row[None]).to(torch.bfloat16)
+                  .transpose(1, 2).contiguous() for p in pools]
+            vd = [gather_paged_rows(p[1], row[None]).to(torch.bfloat16)
+                  .transpose(1, 2).contiguous() for p in pools]
+            mask = (torch.arange(kd[0].shape[2], device=q.device)[None]
+                    <= pos[:, None])[None, None]
+            q4 = q[None].transpose(1, 2)
+            lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                q4, kd[i], vd[i], attn_mask=mask), 3)
+            lib_dev = profiled_ms(
+                torch, lambda i: F.scaled_dot_product_attention(
+                    q4, kd[i], vd[i], attn_mask=mask), None, 3)
+            # B3 over the one-shot run up to the chunk's end (B 1, S start
+            # + C): what prefilling the prompt so far in one shot costs
+            one = [_one_shot_of_chunk(torch, q, p[0], p[1], row, start, c)
+                   for p in pools]
+            b3 = time_ms(torch, lambda i: flash_attention(*one[i]), 3)
+            b3_dev = profiled_ms(torch, lambda i: flash_attention(*one[i]),
+                                 ("flash_attention",), 3)
+            b_bytes, b_ops = _chunk_bound(c, start, h, hkv, d, kv)
+            b_ms, b_by = bound(b_bytes, b_ops, "bf16")
+            if not json_done:
+                json_done = True
+                res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                           library_ms=lib, library_device_ms=lib_dev,
+                           bound_ms=b_ms, bound_by=b_by,
+                           shape=f"C={c} start={start} H={h} D={d}")
+            log(f"[kernels] {name} C={c} start={start} H={h} D={d}: "
+                f"{ms:.4f} ms (device time {dev_ms:.4f} ms, "
+                f"{b_ops / dev_ms / 1e9:.1f} GFLOP/s, "
+                f"{100 * b_ms / dev_ms:.1f}% of the bound), plain "
+                f"{plain:.4f} ms, SDPA on the gathered block row "
+                f"{lib:.4f} ms (device {lib_dev:.4f} ms), B3 one-shot S "
+                f"{start + c} {b3:.4f} ms (device {b3_dev:.4f} ms), bound "
+                f"{b_ms:.4f} ms ({b_by}); B3's bits and the plain version's "
+                f"tolerance held (worst |err|/limit {used:.3f})")
 
 
 def _kernels_b1_int8(torch, results: dict) -> None:
@@ -2759,6 +2815,31 @@ def _margin_checked_streams(torch, params, cfg, prompts, n_new, paths,
         f"{len(keep)} margin-checked prompts ({n_new} tokens each)")
 
 
+def _bit_equal_streams(torch, params, cfg, prompts, n_new, paths, clients,
+                       tag: str) -> None:
+    """The two paths' greedy logits (``_paired_logits``) must be bit-equal
+    at every step of every prompt, and the two ``clients``' greedy streams
+    equal on every prompt: no margin filter."""
+    margins, drifts, agree = _paired_logits(torch, params, cfg, prompts,
+                                            n_new, paths)
+    same = sum(dr == 0.0 and ok for dr, ok in zip(drifts, agree))
+    log(f"[{tag}] {' vs '.join(paths)}: per prompt (top-1 margin, max "
+        f"|dlogit| between the paths) over {n_new} greedy tokens: "
+        + ", ".join(f"({mg:.4f}, {dr:.4f})" for mg, dr in zip(margins, drifts))
+        + f"; logits bit-equal on {same} of {len(prompts)}")
+    if same != len(prompts):
+        raise AssertionError(f"[{tag}] the paths' logits differ on "
+                             f"{len(prompts) - same} of {len(prompts)} "
+                             f"prompts")
+    a, b = (_streams(torch, c, prompts, n_new) for c in clients)
+    bad = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    if bad:
+        raise AssertionError(f"[{tag}] the engines' greedy streams differ "
+                             f"on prompts {bad}")
+    log(f"[{tag}] the two engines' greedy streams are identical on all "
+        f"{len(prompts)} prompts ({n_new} tokens each)")
+
+
 def _norm_rows_diagnostic(torch, cfg, params, tag: str) -> None:
     """Whether torch's row mean in rms_norm (a reduction whose launch
     configuration may depend on the row count) gives 16 rows other bits
@@ -2879,9 +2960,9 @@ def phase_serve_chunked(torch, smi: str) -> dict:
     """llama2-7b W8A8 at full width with a chunk budget of 128: the serve
     trace through the engine (counted), synchronous == overlapped (greedy;
     sampled rows in tests/test_torch_gpu.py), the engine against the
-    unchunked engine on
-    margin-checked prompts, chunked == one-shot bit for bit at budgets {1,
-    7, 16, 128, len}, no decode starvation, ms per chunk."""
+    one-shot engine bit for bit on 12 prompts (logits and streams),
+    chunked == one-chunk bit for bit at budgets {1, 7, 16, 128, len}, no
+    decode starvation, ms per chunk."""
     import gc
 
     import numpy as np
@@ -2931,12 +3012,12 @@ def phase_serve_chunked(torch, smi: str) -> dict:
     rng = np.random.RandomState(5)
     cands = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
              for n in rng.randint(140, 400, size=12)]
-    _margin_checked_streams(
+    _bit_equal_streams(
         torch, params, cfg, cands, MARGIN_TOKENS,
         {"one-shot": ("bf16", 0), "chunked": ("bf16", CHUNK_BUDGET)},
         (one_shot, client), tag)
     del one_shot
-    t0 = _lap(tag, "margin-checked streams", t0)
+    t0 = _lap(tag, "one-shot == chunked engines", t0)
     prompt = [int(t) for t in np.random.RandomState(7).randint(
         0, cfg.vocab_size, 150)]
     _chunk_invariance(torch, params, cfg, prompt, (1, 7, 16, 128, 150),
@@ -3198,8 +3279,11 @@ def _tier_line(tag, name, eng, wall, same, res_wall, res_step) -> None:
         f"prefetched {s.kv_prefetch_pages} ({s.kv_prefetch_pages * mib:.0f} "
         f"MiB); decode steps {s.decode_steps} (resident "
         f"{res_step[1]}), wall {wall:.2f} s (resident {res_wall:.2f} s), "
-        f"decode wall a step {_step_ms(eng):.2f} ms (resident "
-        f"{res_step[0]:.2f} ms)")
+        + (f"decode dispatch a step {_step_ms(eng):.2f} ms (the overlapped "
+           f"loop's wall_decode_s: host time, the compute not awaited; "
+           f"resident sync wall {res_step[0]:.2f} ms)" if eng.overlap else
+           f"decode wall a step {_step_ms(eng):.2f} ms (resident "
+           f"{res_step[0]:.2f} ms)"))
 
 
 def phase_serve_tiered(torch, smi: str) -> None:
@@ -3391,11 +3475,11 @@ def phase_serve_prefix(torch, smi: str) -> None:
     """llama2-7b W8A8 at full width, prefix caching on the JAX benchmark's
     chat trace (4 sessions, 3 turns, a 992-token system prompt, every turn
     submitted twice).  Gates: resume hits replay the cold run's bits with
-    no prefill; a same-path pair (chunk budget 256 below every prompt)
-    gives the cold run's streams bit for bit, partial hits included;
-    partial hits over one-shot pages agree with the one-shot cold engine
-    on margin-checked prompts; refcounts return to idle; B1 and the chunk
-    kernel counted.  TTFT p50 cold and warm; prefill device ms of a cold
+    no prefill; the one-shot pair and a chunked pair (chunk budget 256
+    below every prompt) each give their cold run's 24 streams bit for bit,
+    partial hits included; on 8 more prompts a partial hit over one-shot
+    pages gives the one-shot run's logits and the cold engine's stream;
+    refcounts return to idle; B1 and the chunk kernel counted.  TTFT p50 cold and warm; prefill device ms of a cold
     prompt against a partial hit's suffix."""
     import numpy as np
 
@@ -3423,18 +3507,23 @@ def phase_serve_prefix(torch, smi: str) -> None:
                    for k in range(n_sess) for kind in ("turn", "regen"))
     agree = sum(warm[key][0] == cold[key][0] for key in warm
                 if key[0] > 0 and key[2] == "turn")
+    same_os = sum(warm[key][0] == cold[key][0] for key in warm)
     log(f"[{tag}] one-shot engines, 24 requests (4 sessions x 3 turns x 2): "
         f"prefills {s.prefills}, prefill chunks {s.prefill_chunks}, prefix "
         f"hits {s.prefix_hits}/{s.prefix_lookups}, pages {s.prefix_hit_pages}"
         f", tokens {s.prefix_tokens_reused}, cow {s.cow_copies}; resume hits "
         f"equal their turn: {regen_ok}; turn 0 (both kinds) equal the cold "
-        f"engine's: {first_ok}; later turns equal the cold engine's: "
-        f"{agree} of 8 (partial hits run the chunk kernel over B3's pages);"
-        f" launches B1 {counts['paged_decode_attention']}, chunk kernel "
+        f"engine's: {first_ok}; {same_os} of 24 streams bit-equal to the "
+        f"cold one-shot engine's, the later turns (partial hits: the chunk "
+        f"kernel over B3's pages) {agree} of 8; launches B1 "
+        f"{counts['paged_decode_attention']}, chunk kernel "
         f"{counts['paged_chunk_attention']}, B3 {counts['flash_attention']}")
     if not (regen_ok and first_ok):
         raise AssertionError(f"[{tag}] a resume hit differs from its cold "
                              f"run")
+    if same_os != 24:
+        raise AssertionError(f"[{tag}] a prefix hit over one-shot pages "
+                             f"differs from the cold one-shot run")
     if (s.prefills, s.prefill_chunks, s.prefix_hits) != (n_sess, 8, 20):
         raise AssertionError(f"[{tag}] resume hits ran a prefill, or the "
                              f"partial hits did not chunk")
@@ -3484,19 +3573,19 @@ def phase_serve_prefix(torch, smi: str) -> None:
                for c in cands]
     checks = [_partial_paths(torch, params, cfg, c, p, MARGIN_TOKENS)
               for c, p in zip(cands, primers)]
-    keep = [i for i, (mg, _d, ok) in enumerate(checks) if ok and mg > MARGIN]
+    equal = [i for i, (_mg, dr, ok) in enumerate(checks) if ok and dr == 0.0]
     log(f"[{tag}] partial hit (one-shot prefix of {PREFIX_CACHED} tokens + "
         f"chunked suffix) vs one-shot, per prompt (top-1 margin, max "
-        f"|dlogit|, same tokens) over {MARGIN_TOKENS} greedy tokens: "
-        + ", ".join(f"({mg:.4f}, {dr:.4f}, {'y' if ok else 'n'})"
-                    for mg, dr, ok in checks)
-        + f"; {len(keep)} of {len(cands)} kept")
-    if len(keep) < 2:
-        raise AssertionError(f"[{tag}] fewer than 2 margin-checked prompts")
+        f"|dlogit|) over {MARGIN_TOKENS} greedy tokens: "
+        + ", ".join(f"({mg:.4f}, {dr:.4f})" for mg, dr, _ok in checks)
+        + f"; logits bit-equal on {len(equal)} of {len(cands)}")
+    if len(equal) != len(cands):
+        raise AssertionError(f"[{tag}] a partial hit's logits over one-shot "
+                             f"pages differ from the one-shot run's")
     cold_e = _a5_engine(cfg, params)
     warm_e = _a5_engine(cfg, params, prefix_cache=True)
     bad = []
-    for i in keep:
+    for i in range(len(cands)):
         a = Request(rid=3 * i, prompt=list(cands[i]),
                     max_new_tokens=MARGIN_TOKENS)
         cold_e.add_request(a)
@@ -3515,9 +3604,9 @@ def phase_serve_prefix(torch, smi: str) -> None:
             bad.append(i)
     if bad:
         raise AssertionError(f"[{tag}] partial hits differ from the one-shot"
-                             f" engine on margin-checked prompts {bad}")
+                             f" engine on prompts {bad}")
     log(f"[{tag}] partial hits equal the one-shot cold engine's streams on "
-        f"the {len(keep)} margin-checked prompts")
+        f"all {len(cands)} prompts")
     del cold_e, warm_e
     sessions, _m, _n = _chat_sessions(cfg)
     sys_len = len(sessions[0]["system"])
@@ -3541,7 +3630,7 @@ def phase_serve_prefix(torch, smi: str) -> None:
         f"wall {ms[4][0]:.1f} ms, device {ms[4][1]:.2f} ms; a partial "
         f"hit's {len(prompt) - sys_len}-token suffix from {sys_len}: wall "
         f"{part_ms[0]:.1f} ms, device {part_ms[1]:.2f} ms, on {smi}")
-    _lap(tag, "margin-checked partial hits and prefill times", t0)
+    _lap(tag, "partial hits over one-shot pages and prefill times", t0)
 
 
 def phase_serve_migrate(torch, smi: str) -> None:

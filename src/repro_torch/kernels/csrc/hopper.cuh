@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the tensor-core kernels of this directory
-// (int8_gemm.cu's and w4a16_gemv.cu's wgmma GEMMs, flash_attention.cu):
+// (int8_gemm.cu's and w4a16_gemv.cu's wgmma GEMMs, flash_attention.cu and
+// paged_chunk_attention.cu through attention_tile.cuh):
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the wgmma
 // instructions the kernels issue, in raw PTX for sm_90a; and the host side
 // of TMA, a tensor map encoded with cuTensorMapEncodeTiled, which is reached
