@@ -3729,6 +3729,349 @@ def phase_serve_migrate(torch, smi: str) -> None:
     _drop_full(torch, "llama2-7b")
     _lap(tag, "snapshot and inject", t0)
 
+FLEET_CKPT = 8        # the JAX router's checkpoint_every default
+FLEET_KILL_STEP = 10
+WATCHDOG_STEPS = (3, 7)
+
+
+def _fleet_reqs(prompts, max_new: int = 32):
+    """The serve trace as fleet requests: odd rids sampled with pinned
+    seeds, as tests/test_fleet.py's ``_reqs``."""
+    from repro_torch.serving.core import Request
+    from repro_torch.serving.scheduler import SamplingParams
+
+    return [Request(rid=i, prompt=list(p), max_new_tokens=max_new,
+                    sampling=(SamplingParams(temperature=0.9, top_k=20,
+                                             seed=100 + i)
+                              if i % 2 else None))
+            for i, p in enumerate(prompts)]
+
+
+def _timed_checkpoints(torch, fl) -> dict:
+    """Wrap a loopback fleet's checkpoint path to time each periodic
+    checkpoint: the workers' snapshots (``WorkerHost._checkpoint``, pages
+    to host bytes), the persist (``save_checkpoint``) and the whole pass;
+    the rest of the pass is the wire (encode, frame, decode)."""
+    rec = {"total": [], "snap": [], "save": [], "bytes": []}
+    run, persist = fl._checkpoint, fl._persist
+
+    def timed_total():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        rec["total"].append(time.perf_counter() - t0)
+        rec["bytes"].append(sum(len(b) for b in fl._ckpt.values()))
+
+    def timed_save():
+        t0 = time.perf_counter()
+        persist()
+        rec["save"].append(time.perf_counter() - t0)
+
+    for w in fl.workers + fl._spares:
+        host = w.transport.host
+        snap = host._checkpoint
+
+        def timed_snap(snap=snap):
+            t0 = time.perf_counter()
+            out = snap()
+            rec["snap"].append(time.perf_counter() - t0)
+            return out
+        host._checkpoint = timed_snap
+    fl._checkpoint, fl._persist = timed_total, timed_save
+    return rec
+
+
+def _drive_fleet(torch, fl, reqs, kill=None) -> float:
+    """Submit, step to the end; ``kill(fl)`` after step FLEET_KILL_STEP.
+    Returns the synchronized wall s; every request must finish."""
+    for r in reqs:
+        fl.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    while fl.has_work and steps < 4000:
+        fl.step()
+        steps += 1
+        if kill is not None and steps == FLEET_KILL_STEP:
+            kill(fl)
+    torch.cuda.synchronize()
+    if not all(r.done for r in reqs):
+        raise AssertionError(f"[serve_fleet] lost requests "
+                             f"{[r.rid for r in reqs if not r.done]}")
+    return time.perf_counter() - t0
+
+
+def _fleet_gate(fl, reqs, want, tag: str, what: str) -> None:
+    got = [r.out_tokens for r in reqs]
+    f = fl.fleet
+    if got != want:
+        bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        raise AssertionError(f"[{tag}] {what}: streams of rids {bad} "
+                             f"differ from one undisturbed engine's")
+    if f.workers_lost != 1 or f.failovers != 1 or f.requests_replayed < 1:
+        raise AssertionError(f"[{tag}] {what}: workers_lost "
+                             f"{f.workers_lost}, failovers {f.failovers}, "
+                             f"requests_replayed {f.requests_replayed}")
+
+
+def _ms(xs) -> str:
+    return ("/".join(f"{x * 1e3:.1f}" for x in xs) if xs else "none")
+
+
+def _watchdog_run(torch, eng, reqs) -> tuple[list, list, list]:
+    """Step ``eng`` to its end, each step synchronized and timed; returns
+    (streams, walls of flagged steps, walls of other decode steps)."""
+    for r in reqs:
+        eng.add_request(r)
+    flagged, other = [], []
+    while eng.has_work:
+        before = (eng.stats.straggler_events, eng.stats.decode_steps,
+                  eng.stats.prefills)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if eng.stats.straggler_events > before[0]:
+            flagged.append(dt)
+        elif (eng.stats.decode_steps > before[1]
+              and eng.stats.prefills == before[2]):
+            other.append(dt)
+    return [r.out_tokens for r in reqs], flagged, other
+
+
+def _watchdog_check(torch, cfg, params, prompts, max_new, tag, arch, smi):
+    from repro_torch.serving.core import Request
+
+    def reqs():
+        return [Request(rid=i, prompt=list(p), max_new_tokens=max_new)
+                for i, p in enumerate(prompts)]
+    fired = set()
+
+    def watchdog(step, dt):
+        if step in WATCHDOG_STEPS and step not in fired:
+            fired.add(step)
+            return True
+        return False
+    want, _, _ = _watchdog_run(torch, _a5_engine(cfg, params), reqs())
+    eng = _a5_engine(cfg, params, watchdog=watchdog)
+    got, flagged, other = _watchdog_run(torch, eng, reqs())
+    extra = (statistics.mean(flagged) - statistics.median(other)) * 1e3
+    log(f"[{tag}] watchdog over {arch} (sync loop, flags decode steps "
+        f"{WATCHDOG_STEPS}): straggler_events "
+        f"{eng.stats.straggler_events}, streams "
+        f"{'bit-equal to' if got == want else 'DIFFER from'} the unwatched "
+        f"run's; a flagged step {_ms(flagged)} ms against a median "
+        f"unflagged step {statistics.median(other) * 1e3:.2f} ms: the "
+        f"re-dispatch (state copied back + a second replay) ~{extra:.2f} ms, "
+        f"on {smi}")
+    if got != want or eng.stats.straggler_events != len(WATCHDOG_STEPS):
+        raise AssertionError(f"[{tag}] watchdog re-dispatch over {arch} "
+                             f"changed the streams or missed an event")
+
+
+def phase_serve_fleet(torch, smi: str) -> None:
+    """Fleet serving on the card.  llama2-7b W8A8 at full width, 4 slots a
+    worker, max_seq 1024, page 16, the serve trace, 32 new tokens, odd rids
+    sampled with pinned seeds.
+
+    Gates: (1) a loopback fleet of 2 workers + 1 spare sharing one params
+    dict, ``checkpoint_every=8``, worker 0 killed after step 10, synchronous
+    and overlapped: no request lost, every stream equal to one undisturbed
+    engine's, one worker lost, one failover, requests replayed, the spare
+    promoted (the serving kernels counted over the synchronous run);
+    (2) the watchdog flagging decode steps 3 and 7 of the synchronous loop,
+    llama2-7b and zamba2-7b W8A8 (the Mamba state restored): the unwatched
+    streams and two straggler events; (3) ``REPRO_SANITIZE=1``: an
+    overlapped + tiered (65 hot pages) + prefix-cache engine equals the
+    plain synchronous one with no report and the rails run; (4) 2 socket
+    workers, each building llama2-7b from ("llama2-7b", seed 0) on the
+    card, one SIGKILLed after step 10: the parent's single engine's
+    streams.  Prints seconds until a socket worker is ready, a
+    checkpoint's bytes and ms, recovery s, tokens replayed, the fleet's
+    tok/s with and without checkpoints against one engine, and the
+    watchdog's re-dispatch ms."""
+    import gc
+    import os
+    import signal
+
+    from repro_torch import _sanitize, kernels
+    from repro_torch.serving.fleet.router import FleetRouter
+
+    tag = "serve_fleet"
+    t0 = time.monotonic()
+    cfg, params = _full_model(torch, "llama2-7b")
+    prompts = _serve_trace(cfg)
+    kw = dict(A5_ENG)
+    one = _a5_engine(cfg, params)
+    reqs = _fleet_reqs(prompts)
+    for r in reqs:
+        one.add_request(r)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    one.run()
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t1
+    want = [r.out_tokens for r in reqs]
+    n_tok = sum(len(w) for w in want)
+    del one
+    t0 = _lap(tag, "one engine", t0)
+
+    # (1) loopback fleets, a worker killed mid-decode
+    def kill(fl):
+        fl.workers[0].transport.kill()
+
+    for overlap in (False, True):
+        fl = FleetRouter.build_loopback(cfg, params, workers=2, spares=1,
+                                        checkpoint_every=FLEET_CKPT,
+                                        overlap=overlap, **kw)
+        rec = _timed_checkpoints(torch, fl)
+        reqs = _fleet_reqs(prompts)
+        if not overlap:
+            kernels.reset_launch_counts()
+        wall = _drive_fleet(torch, fl, reqs, kill)
+        if not overlap:
+            counts = kernels.launch_counts()
+            log(f"[{tag}] loopback fleet launches: " + ", ".join(
+                f"{k} {counts[k]}" for k in SERVING_KERNELS))
+            missing = [k for k in ("int8_gemv", "int8_gemm_tc",
+                                   "paged_decode_attention",
+                                   "flash_attention") if not counts.get(k)]
+            if missing:
+                raise AssertionError(f"[{tag}] the fleet path launched no "
+                                     f"{missing}")
+        _fleet_gate(fl, reqs, want, tag,
+                    "overlapped" if overlap else "synchronous")
+        if fl.spares_left != 0:
+            raise AssertionError(f"[{tag}] the spare was not promoted")
+        f = fl.fleet
+        mib = [b / 2**20 for b in rec["bytes"]]
+        log(f"[{tag}] loopback {'overlapped' if overlap else 'synchronous'}"
+            f" (2 workers + 1 spare, checkpoint every {FLEET_CKPT} steps, "
+            f"worker 0 killed after step {FLEET_KILL_STEP}): 0 requests "
+            f"lost, streams bit-equal to one engine's; workers_lost "
+            f"{f.workers_lost}, failovers {f.failovers}, requests_replayed "
+            f"{f.requests_replayed}, tokens_replayed {f.tokens_replayed}, "
+            f"recovery_s {_ms(fl.recovery_s)} ms; checkpoints "
+            f"{len(rec['total'])}: "
+            f"{'/'.join(f'{m:.0f}' for m in mib)} MiB "
+            f"({'/'.join(str(b) for b in rec['bytes'])} bytes), whole pass "
+            f"{_ms(rec['total'])} ms, of which worker snapshots "
+            f"{_ms(rec['snap'])} ms and save_checkpoint {_ms(rec['save'])}"
+            f" ms (the rest: the wire); wall {wall:.2f} s, on {smi}")
+        fl.close()
+        del fl
+    t0 = _lap(tag, "loopback kills", t0)
+
+    # the fleet's throughput with and without checkpoints, undisturbed
+    walls = {}
+    for every in (FLEET_CKPT, 0):
+        fl = FleetRouter.build_loopback(cfg, params, workers=2, spares=0,
+                                        checkpoint_every=every, **kw)
+        reqs = _fleet_reqs(prompts)
+        walls[every] = _drive_fleet(torch, fl, reqs)
+        if [r.out_tokens for r in reqs] != want:
+            raise AssertionError(f"[{tag}] undisturbed fleet streams differ")
+        fl.close()
+        del fl
+    log(f"[{tag}] tok/s (8 requests x 32 tokens, prefill included, "
+        f"synchronized wall): one engine {n_tok / one_wall:.1f} "
+        f"({one_wall:.2f} s); loopback fleet of 2 workers checkpoint every "
+        f"{FLEET_CKPT} steps {n_tok / walls[FLEET_CKPT]:.1f} "
+        f"({walls[FLEET_CKPT]:.2f} s), without checkpoints "
+        f"{n_tok / walls[0]:.1f} ({walls[0]:.2f} s), on {smi}")
+    t0 = _lap(tag, "throughput", t0)
+
+    # (2) the watchdog over llama2-7b
+    _watchdog_check(torch, cfg, params, prompts, 16, tag, "llama2-7b", smi)
+
+    # (3) the sanitizer rails over an overlapped + tiered + prefix engine
+    os.environ["REPRO_SANITIZE"] = "1"
+    try:
+        san = _sanitize.load()
+        if san is None:
+            raise AssertionError(f"[{tag}] REPRO_SANITIZE=1 loaded no "
+                                 f"sanitizer (tools/analysis missing?)")
+        san.reset_counters()
+        eng = _a5_engine(cfg, params, overlap=True, kv_tier="flash",
+                         num_pages=TIER_PAGES, prefix_cache=True)
+        reqs = _fleet_reqs(prompts)
+        for r in reqs:
+            eng.add_request(r)
+        eng.run()
+        got = [r.out_tokens for r in reqs]
+        log(f"[{tag}] REPRO_SANITIZE=1, overlapped + tiered ({TIER_PAGES} "
+            f"hot pages) + prefix cache: {san.check_count()} checks, "
+            f"{san.report_count()} reports; spilled "
+            f"{eng.stats.kv_spill_pages} pages; streams "
+            f"{'bit-equal to' if got == want else 'DIFFER from'} the plain "
+            f"synchronous engine's")
+        if (san.report_count() != 0 or san.check_count() <= 0
+                or got != want or not eng.stats.kv_spill_pages):
+            raise AssertionError(f"[{tag}] the sanitized engine differs, "
+                                 f"reported or did not spill")
+        del eng
+    finally:
+        os.environ.pop("REPRO_SANITIZE", None)
+    t0 = _lap(tag, "watchdog and sanitizer (llama2-7b)", t0)
+    _drop_full(torch, "llama2-7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) the watchdog over zamba2-7b: the Mamba state is restored
+    hcfg, hparams = _full_model(torch, "zamba2-7b")
+    _watchdog_check(torch, hcfg, hparams, _serve_trace(hcfg, 4), 16, tag,
+                    "zamba2-7b", smi)
+    del hparams
+    _drop_full(torch, "zamba2-7b")
+    t0 = _lap(tag, "watchdog (zamba2-7b)", t0)
+
+    # (4) socket workers on the card; the parent holds no model now
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] parent before spawning: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    t1 = time.perf_counter()
+    fl = FleetRouter.build_socket(
+        "llama2-7b", workers=2, spares=0, checkpoint_every=FLEET_CKPT,
+        reduced=False, quant="w8a8", seed=0, max_batch=A5_ENG["max_batch"],
+        max_seq=A5_ENG["max_seq"], page_size=A5_ENG["page_size"],
+        eos_id=A5_ENG["eos_id"], device=A5_ENG["device"],
+        startup_timeout_s=300.0,
+        reply_timeout_s=300.0)
+    ready = time.perf_counter() - t1
+    try:
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True).stdout.strip()
+        log(f"[{tag}] 2 socket workers ready {ready:.1f} s after the spawn "
+            f"(started together; the kernel library built before); "
+            f"nvidia-smi compute apps: {apps.replace(chr(10), '; ')}")
+        reqs = _fleet_reqs(prompts)
+        pids = []
+
+        def sigkill(fl):
+            pids.append(fl.workers[0].transport.pid)
+            os.kill(pids[0], signal.SIGKILL)
+        wall = _drive_fleet(torch, fl, reqs, sigkill)
+        got = [r.out_tokens for r in reqs]
+        f = fl.fleet
+        log(f"[{tag}] socket fleet (2 card workers, worker pid {pids[0]} "
+            f"SIGKILLed after step {FLEET_KILL_STEP}): 0 requests lost, "
+            f"streams {'bit-equal to' if got == want else 'DIFFER from'} the "
+            f"parent's single engine's; workers_lost {f.workers_lost}, "
+            f"failovers {f.failovers}, requests_replayed "
+            f"{f.requests_replayed}, tokens_replayed {f.tokens_replayed}, "
+            f"recovery_s {_ms(fl.recovery_s)} ms; wall {wall:.2f} s, on {smi}")
+        if got != want or f.workers_lost != 1:
+            raise AssertionError(f"[{tag}] the socket fleet's streams "
+                                 f"differ or no worker was lost")
+    finally:
+        fl.close()
+    _lap(tag, "socket fleet", t0)
+
+
 _MARKS: list[tuple[str, float]] = []
 
 
@@ -3747,7 +4090,8 @@ def main(argv=None) -> int:
                     default="card,build,kernels,model,serve,profile,hybrid,"
                             "serve_w4a16,serve_hybrid,serve_hybrid_w4a16,"
                             "serve_overlap,serve_chunked,serve_int8kv,"
-                            "serve_tiered,serve_prefix,serve_migrate")
+                            "serve_tiered,serve_prefix,serve_migrate,"
+                            "serve_fleet")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3817,6 +4161,9 @@ def main(argv=None) -> int:
     _mark("serve_migrate")
     if "serve_migrate" in phases:
         phase_serve_migrate(torch, smi_line)
+    _mark("serve_fleet")
+    if "serve_fleet" in phases:
+        phase_serve_fleet(torch, smi_line)
     _mark("end")
     log(f"[time] phases {args.phases} took "
         f"{time.monotonic() - t_start:.0f} s after the card check")

@@ -7,7 +7,11 @@ hash covers the sources and the flags.  The library is loaded with
 ``ctypes``; nothing here includes PyTorch's headers, so a build takes
 seconds.  Building happens at the first kernel launch (or an explicit
 :func:`build` call), never at import, so the package imports on a machine
-without ``nvcc`` or a card.
+without ``nvcc`` or a card.  Processes started together (a fleet's socket
+workers) build once: the check, the build and the rename run under an
+exclusive ``flock`` on ``build/kernels/<hash>.lock``, so the others wait and
+then load the finished library, and none loads a directory another is
+replacing.
 
 Every C entry point takes the CUDA stream as its last argument and returns
 ``cudaGetLastError()`` (or, where a TMA tensor map cannot be encoded, a
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import fcntl
 import hashlib
 import os
 import shutil
@@ -97,17 +102,25 @@ def _digest() -> str:
 
 def build() -> Build:
     """Compile every source in parallel and link the shared library; a
-    library already built from the same sources and flags is reused."""
+    library already built from the same sources and flags is reused.  Runs
+    under the hash's lock file, so concurrent processes build once."""
     global _BUILD
-    out_dir = repo_root() / "build" / "kernels" / _digest()
+    digest = _digest()
+    root = repo_root() / "build" / "kernels"
+    root.mkdir(parents=True, exist_ok=True)
+    with open(root / f"{digest}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        _BUILD = _build_locked(root / digest)
+    return _BUILD
+
+
+def _build_locked(out_dir: Path) -> Build:
     lib = out_dir / LIB_NAME
     log_file = out_dir / "nvcc.log"
     if lib.exists():
-        _BUILD = Build(lib, log_file.read_text() if log_file.exists() else "",
-                       built=False)
-        return _BUILD
+        return Build(lib, log_file.read_text() if log_file.exists() else "",
+                     built=False)
     nvcc = nvcc_path()
-    out_dir.parent.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=out_dir.parent, prefix="tmp-"))
     procs = []
     for name in SOURCES:
@@ -134,11 +147,10 @@ def build() -> Build:
         shutil.rmtree(work, ignore_errors=True)
         raise RuntimeError(f"linking {LIB_NAME} failed:\n{link.stdout}")
     (work / "nvcc.log").write_text(log)
-    if out_dir.exists():  # a concurrent build finished first: keep it
+    if out_dir.exists():  # a build cut short before its library: replace it
         shutil.rmtree(out_dir)
     os.replace(work, out_dir)
-    _BUILD = Build(lib, log, built=True)
-    return _BUILD
+    return Build(lib, log, built=True)
 
 
 def library() -> ctypes.CDLL:

@@ -17,8 +17,13 @@ a cold tier (pinned host memory on a card; ``--flash-pages`` bounds it,
 ``--num-pages`` sizes the hot pool below the demand) and prefetches them
 back before their slot decodes; ``--prefix-cache`` shares prefill-written
 pages among requests with a common prompt prefix; replicas migrate slots
-off a page-starved replica unless ``--no-migrate``.  ``--device``
-defaults to ``cuda``,
+off a page-starved replica unless ``--no-migrate``.  ``--workers N``
+serves through a fleet router instead (``serving/fleet/router.py``): N
+workers behind the fleet wire protocol, ``--spares`` hot spares,
+checkpoints and failover; ``--transport loopback`` keeps them in this
+process, ``--transport socket`` spawns one subprocess worker each, which
+rebuilds the weights from ``(--arch, --seed)``; the fleet's counters are
+printed on shutdown.  ``--device`` defaults to ``cuda``,
 where each decode step is one replayed CUDA graph; ``--device cpu`` runs
 the plain PyTorch versions of the kernels.
 
@@ -31,13 +36,15 @@ the plain PyTorch versions of the kernels.
       --device cpu
   python src/repro_torch/launch/serve.py --kv-tier flash --num-pages 6 \\
       --prefix-cache --replicas 2 --route session_affinity --device cpu
+  python src/repro_torch/launch/serve.py --workers 2 --spares 1 \\
+      --transport socket --device cpu
 
 ``--arch`` takes every configuration of ``configs/registry.py`` the engine
 serves: the dense family and the hybrid zamba2-7b (Mamba-2 layers and a
 shared attention block; mamba2-130m has ``forward`` only).
 
-Flags of the JAX driver whose features are not ported yet (fleet workers,
-wave mode) exit with a message naming what is missing.
+Flags of the JAX driver whose features are not ported yet (wave mode)
+exit with a message naming what is missing.
 """
 
 from __future__ import annotations
@@ -55,9 +62,8 @@ import numpy as np  # noqa: E402
 
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
-from repro_torch.models import model as model_lib  # noqa: E402
-from repro_torch.quant.convert import quantize_params  # noqa: E402
 from repro_torch.serving.client import ServingClient  # noqa: E402
+from repro_torch.serving.fleet.worker import build_params  # noqa: E402
 from repro_torch.serving.router import ROUTE_POLICIES  # noqa: E402
 from repro_torch.serving.scheduler import (POLICIES, SamplingParams,  # noqa: E402
                                            make_scheduler)
@@ -71,7 +77,8 @@ def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
                  kv_dtype: str = "bf16", kv_tier: str = "none",
                  flash_pages: int | None = None,
                  num_pages: int | None = None, prefix_cache: bool = False,
-                 migrate: bool = True, device: str = "cuda"
+                 migrate: bool = True, workers: int = 0, spares: int = 0,
+                 transport: str = "loopback", device: str = "cuda"
                  ) -> tuple[ModelConfig, ServingClient]:
     """The model and serving stack the driver serves: ``init_params`` on
     the device from ``seed``, W8A8 or W4A16 quantization matrix by matrix
@@ -80,19 +87,32 @@ def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
     chunk budget, 0 for none; ``kv_dtype``: "bf16" or "int8" page pools;
     ``kv_tier`` / ``flash_pages`` / ``num_pages``: the flash KV tier and
     the hot pool's size; ``prefix_cache``; ``migrate``: slot migration
-    between replicas)."""
-    cfg = get_arch(arch)
-    if reduced:
-        cfg = cfg.reduced()
-    params = model_lib.init_params(cfg, seed=seed, max_seq=max_seq,
-                                   device=device)
-    if quant in ("w8a8", "w4a16"):
-        params = quantize_params(params, consume=True, mode=quant)
-    elif quant != "none":
-        raise ValueError(f"unknown quantization {quant!r}")
+    between replicas or workers; ``workers`` / ``spares`` / ``transport``:
+    a fleet router over loopback or subprocess workers).  The weights come
+    from ``fleet.worker.build_params``, the calls a socket worker makes."""
+    if workers and transport == "socket":
+        # subprocess workers rebuild the weights themselves from (arch,
+        # seed) and quantize locally, so nothing heavy ships over the wire;
+        # the prefix cache and the flash tier's bounds are per-worker
+        # features the worker CLI does not expose, as in the JAX driver
+        from repro_torch.serving.fleet.router import FleetRouter
+        cfg = get_arch(arch)
+        if reduced:
+            cfg = cfg.reduced()
+        router = FleetRouter.build_socket(
+            arch, workers=workers, spares=spares, policy=route,
+            migrate=migrate, sched_policy=policy, reduced=reduced,
+            max_batch=max_batch, max_seq=max_seq, page_size=page_size,
+            eos_id=eos_id, overlap=overlap, chunk_prefill=chunk_prefill,
+            kv_dtype=kv_dtype, kv_tier=kv_tier, num_pages=num_pages or 0,
+            quant=quant, seed=seed, device=device)
+        return cfg, ServingClient(router=router, seed_base=seed)
+    cfg, params = build_params(arch, reduced=reduced, max_seq=max_seq,
+                               seed=seed, quant=quant, device=device)
     client = ServingClient(
         cfg, params, replicas=replicas, route=route, seed_base=seed,
-        migrate=migrate, max_batch=max_batch, max_seq=max_seq,
+        migrate=migrate, workers=workers, spares=spares,
+        transport=transport, max_batch=max_batch, max_seq=max_seq,
         eos_id=eos_id, page_size=page_size,
         scheduler=make_scheduler(policy, chunk_tokens=chunk_prefill or None),
         overlap=overlap, kv_dtype=kv_dtype, kv_tier=kv_tier,
@@ -103,8 +123,6 @@ def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
 
 def _unported(args) -> list[str]:
     out = []
-    if args.workers:
-        out.append("--workers (fleet serving)")
     if args.mode == "wave":
         out.append("--mode wave")
     return out
@@ -124,7 +142,18 @@ def main(argv: list[str] | None = None) -> None:
                     choices=ROUTE_POLICIES)
     ap.add_argument("--no-migrate", action="store_true",
                     help="disable cross-replica slot migration")
-    ap.add_argument("--workers", type=int, default=0)
+    ap.add_argument("--workers", type=int, default=0,
+                    help="fleet mode: N workers behind the fleet wire "
+                         "protocol with heartbeat health tracking and "
+                         "snapshot-based failover (0 = in-process "
+                         "replicas)")
+    ap.add_argument("--transport", default="loopback",
+                    choices=["loopback", "socket"],
+                    help="fleet transport: loopback = in-process workers "
+                         "behind the byte-faithful wire codec; socket = "
+                         "subprocess workers over TCP")
+    ap.add_argument("--spares", type=int, default=0,
+                    help="hot spare workers promoted on failover")
     ap.add_argument("--mode", default="auto",
                     choices=["auto", "wave", "continuous"])
     ap.add_argument("--page-size", type=int, default=16)
@@ -171,7 +200,8 @@ def main(argv: list[str] | None = None) -> None:
         chunk_prefill=args.chunk_prefill, kv_dtype=args.kv_dtype,
         kv_tier=args.kv_tier, flash_pages=args.flash_pages or None,
         num_pages=args.num_pages or None, prefix_cache=args.prefix_cache,
-        migrate=not args.no_migrate, device=args.device)
+        migrate=not args.no_migrate, workers=args.workers,
+        spares=args.spares, transport=args.transport, device=args.device)
     rng = np.random.RandomState(42)
     for i in range(args.requests):
         plen = int(rng.randint(2, 9))
@@ -198,6 +228,14 @@ def main(argv: list[str] | None = None) -> None:
           f"decode_steps={steps} wall={dt:.1f}s tok/s={tokens / dt:.1f} "
           f"device={args.device}")
     print(client.summary())
+    fleet = getattr(client.router, "fleet", None)
+    if fleet is not None:   # fleet mode: surface the failover counters
+        print(f"fleet shutdown: workers_lost={fleet.workers_lost} "
+              f"failovers={fleet.failovers} "
+              f"requests_replayed={fleet.requests_replayed} "
+              f"tokens_replayed={fleet.tokens_replayed} "
+              f"heartbeat_misses={fleet.heartbeat_misses}")
+        client.router.close()
 
 
 if __name__ == "__main__":

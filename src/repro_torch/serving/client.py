@@ -14,8 +14,11 @@ Counterpart of ``repro.serving.client``::
 The client is the single place global request ids are allocated, and so
 the single place a stochastic request's seed is derived (``seed_base +
 rid``), exactly as in the JAX package.  Replicas migrate slots off a
-page-starved replica (``migrate=True``, the default).  Fleet workers
-(``workers=``) are not ported yet.
+page-starved replica (``migrate=True``, the default).  ``workers=N``
+builds a loopback ``FleetRouter`` instead (``serving/fleet/router.py``):
+N in-process workers behind the fleet wire codec, ``spares=K`` hot
+spares, checkpoints and failover; for subprocess workers build
+``FleetRouter.build_socket(...)`` and pass it as ``router=``.
 """
 
 from __future__ import annotations
@@ -75,20 +78,32 @@ class ServingClient:
     (``router=``) or let the client build one from ``(cfg, params)`` with
     ``replicas`` / ``route`` and any EngineCore keyword (``max_batch``,
     ``max_seq``, ``scheduler``, ``overlap``, ``kv_tier``, ``prefix_cache``,
-    ``device``, ...); a request's ``SamplingParams`` may be stochastic."""
+    ``device``, ...); a request's ``SamplingParams`` may be stochastic.
+    ``workers`` / ``spares`` / ``transport``: a loopback fleet (see the
+    module docstring)."""
 
     def __init__(self, cfg=None, params=None, *, router: Router = None,
                  replicas: int = 1, route: str = "round_robin",
                  migrate: bool = True, seed_base: int = 0,
-                 workers: int = 0, **engine_kw):
+                 workers: int = 0, transport: str = "loopback",
+                 spares: int = 0, **engine_kw):
         if router is None:
             if cfg is None or params is None:
                 raise ValueError("pass (cfg, params) or a prebuilt router=")
             if workers:
-                raise NotImplementedError(
-                    "fleet workers are not ported to the PyTorch stack yet")
-            router = Router.build(cfg, params, replicas=replicas,
-                                  policy=route, migrate=migrate, **engine_kw)
+                if transport != "loopback":
+                    raise ValueError(
+                        "ServingClient builds loopback fleets only; for "
+                        "socket workers use FleetRouter.build_socket(...) "
+                        "and pass router=")
+                from repro_torch.serving.fleet.router import FleetRouter
+                router = FleetRouter.build_loopback(
+                    cfg, params, workers=workers, spares=spares,
+                    policy=route, migrate=migrate, **engine_kw)
+            else:
+                router = Router.build(cfg, params, replicas=replicas,
+                                      policy=route, migrate=migrate,
+                                      **engine_kw)
         self.router = router
         self.seed_base = seed_base
         self._next_rid = 0

@@ -39,8 +39,21 @@ Mamba conv window and SSM state live in the cache's slot-indexed state
 pools: a prefill overwrites the slot's rows and decode masks inactive
 lanes; a suspension, a migration and a prefix resume point checkpoint them
 host-side (``checkpoint_slot_state``) and write them back on resume.
-``mode="wave"`` raises until its slice lands; the straggler watchdog is
-not ported.
+``mode="wave"`` raises until its slice lands.
+
+The straggler watchdog (``watchdog(step, dt) -> bool``, the synchronous
+loop only, as in the JAX engine): when it flags a decode step, the step
+runs again from the state it started from.  The step writes ``lens``, the
+K/V row at each active slot's position and, for the hybrid family, the
+Mamba state pools in place under its graph, so before the first replay
+the engine keeps a device copy of ``lens`` and of the state pools, and on
+a re-dispatch copies them back on the compute stream and replays again; a
+K/V row rewritten at the same position from the same inputs has the same
+bits, so the page pools need no copy.  The copies are taken only with a
+watchdog set.  With ``REPRO_SANITIZE=1`` the engine arms the sanitizer
+rails (``repro_torch/_sanitize.py``): shadow models of the allocators, the
+overlapped loop's dispatch guard over the arrays it stages, and a budget
+on the decode graph's captures.
 
 Tiered KV (``kv_tier="flash"``), as in the JAX engine: the hot page pool
 may be sized below the demand (``num_pages``); when it runs dry the engine
@@ -107,11 +120,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import _sanitize
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
@@ -297,6 +311,7 @@ class EngineStats:
     # in the overlapped one (1); on CUDA a dispatch is one graph replay
     decode_dispatches: int = 0
     tokens_out: int = 0
+    straggler_events: int = 0  # decode steps the watchdog re-dispatched
     # synchronous loop: decode + sample; overlapped loop: dispatch time
     # only (the compute is deliberately not awaited)
     wall_decode_s: float = 0.0
@@ -323,6 +338,13 @@ class EngineStats:
     prefix_hit_pages: int = 0  # shared pages mapped instead of re-prefilled
     prefix_tokens_reused: int = 0  # prompt tokens whose prefill was skipped
     cow_copies: int = 0        # private copies made of (tail) shared pages
+    # fleet health / failover accounting (the FleetRouter's fleet-level
+    # stats object; always 0 on a single in-process engine)
+    workers_lost: int = 0      # workers declared dead (SIGKILL, hang, EOF)
+    failovers: int = 0         # failover passes run (one per lost worker)
+    requests_replayed: int = 0  # requests re-dispatched by failover
+    tokens_replayed: int = 0   # re-decoded tokens suppressed as duplicates
+    heartbeat_misses: int = 0  # reply deadlines blown (straggle signal)
     admission_wait_s: list = dataclasses.field(default_factory=list)
     ttft_s: list = dataclasses.field(default_factory=list)
     latency_s: list = dataclasses.field(default_factory=list)
@@ -357,6 +379,11 @@ class EngineStats:
                   f" pages={self.prefix_hit_pages}"
                   f" tokens={self.prefix_tokens_reused}"
                   f" cow={self.cow_copies}")
+        if self.workers_lost or self.failovers or self.heartbeat_misses:
+            s += (f" workers_lost={self.workers_lost} "
+                  f"failovers={self.failovers} replayed "
+                  f"req/tok={self.requests_replayed}/{self.tokens_replayed} "
+                  f"heartbeat_misses={self.heartbeat_misses}")
         return s
 
 
@@ -371,13 +398,20 @@ class EngineCore:
 
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 4,
                  max_seq: int = 512, eos_id: int = 2,
-                 mode: str = "auto",
+                 watchdog: Optional[Callable[[int, float], bool]] = None,
+                 straggler_timeout_s: float = 5.0, mode: str = "auto",
                  page_size: int = 16, num_pages: Optional[int] = None,
                  kv_tier: str = "none", exhaust_policy: str = "requeue",
                  flash_pages: Optional[int] = None,
                  scheduler: "Scheduler | str | None" = None,
                  overlap: bool = False, prefix_cache: bool = False,
                  kv_dtype: str = "bf16", device: str | torch.device = "cuda"):
+        if overlap and watchdog is not None:
+            raise ValueError(
+                "overlap=True keeps one decode step in flight past the host "
+                "readback, so the watchdog's replay-from-pre-step-state "
+                "re-dispatch contract cannot hold; use the synchronous loop "
+                "with a watchdog")
         if mode == "auto":
             mode = "continuous"
         if mode == "wave":
@@ -403,8 +437,11 @@ class EngineCore:
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.eos_id = eos_id
+        self.watchdog = watchdog
+        self.straggler_timeout_s = straggler_timeout_s
         self.mode = mode
         self.overlap = overlap
+        self._san = _sanitize.load()  # None unless REPRO_SANITIZE=1
         # overlapped-loop state: at most one dispatched but undrained fused
         # step; per-slot in-flight token counts (0 or 1) and release epochs
         # that invalidate pending rows whose slot was reassigned since
@@ -1508,6 +1545,10 @@ class EngineCore:
             self._drain_rows(pend)
 
     def _drain_rows(self, pend: dict) -> None:
+        if self._san is not None and pend.get("san") is not None:
+            # the step is about to be read back: the host arrays it was
+            # staged from must hold what was dispatched (aliasing guard)
+            self._san.check_drain(pend["san"])
         tok_np = self.graph.tokens(pend["tok"])  # waits for THIS step only
         for i, req, seq_after, epoch in pend["rows"]:
             if (req.done or self.slots[i] is not req
@@ -1535,13 +1576,25 @@ class EngineCore:
         use_dev = np.asarray([n > 0 for n in self._inflight])
         old, self._pending = self._pending, None
         t0 = time.monotonic()
-        self.graph.stage(self.last_np, np.asarray(active_list), self.block,
-                         use_dev=use_dev, rows=rows)
+        # the arrays staged are snapshots: the drain below rewrites
+        # ``last_np`` and a spill ``block`` while this step is in flight
+        last_np = self.last_np.copy()
+        block = self.block.copy()
+        active = np.asarray(active_list)
+        self.graph.stage(last_np, active, block, use_dev=use_dev, rows=rows)
         self.graph.run("fused_greedy" if greedy_only else "fused",
                        self.cache)
         tok = self.graph.readback()
         # dispatch time only: the compute is deliberately not awaited
         self.stats.wall_decode_s += time.monotonic() - t0
+        san = None
+        if self._san is not None:
+            sp = rows if rows is not None else (None,) * 5
+            san = self._san.guard_dispatch(
+                self.stats.decode_steps, last_np=last_np, block=block,
+                use_dev=use_dev, active=active, seeds=sp[0], counts=sp[1],
+                temps=sp[2], topk=sp[3], topp=sp[4])
+            self._san.check_retrace(self.graph, "decode_sample")
         self.stats.decode_steps += 1
         self.stats.decode_dispatches += 1
         pend_rows = []
@@ -1549,7 +1602,7 @@ class EngineCore:
             seq_after = self.slot_len[i] + self._inflight[i] + 1
             pend_rows.append((i, req, seq_after, self._slot_epoch[i]))
             self._inflight[i] += 1
-        self._pending = {"tok": tok, "rows": pend_rows}
+        self._pending = {"tok": tok, "rows": pend_rows, "san": san}
         if old is not None:
             self._drain_rows(old)
 
@@ -1610,8 +1663,18 @@ class EngineCore:
             self._overlap_round_continuous(active_list)
             return True
         t0 = time.monotonic()
-        self.graph.stage(self.last_np, np.asarray(active_list), self.block)
+        active = np.asarray(active_list)
+        kept = self._keep_step_state() if self.watchdog is not None else None
+        self.graph.stage(self.last_np, active, self.block)
         logits = self.graph.run("sync", self.cache)
+        dt = time.monotonic() - t0
+        if self.watchdog is not None and self.watchdog(
+                self.stats.decode_steps, dt):
+            # re-dispatch from the state the step started from
+            self.stats.straggler_events += 1
+            self._restore_step_state(kept)
+            self.graph.stage(self.last_np, active, self.block)
+            logits = self.graph.run("sync", self.cache)
         self.stats.decode_steps += 1
         self.stats.decode_dispatches += 2  # the decode step + the sample
         tok_np = self._sample_rows(  # one sync per step
@@ -1632,6 +1695,26 @@ class EngineCore:
             else:
                 self._emit(req, t)
         return True
+
+    def _keep_step_state(self) -> dict:
+        """Device copies of what a decode step overwrites with new values
+        in place: ``lens`` and, for the hybrid family, the Mamba state
+        pools (the watchdog's re-dispatch source)."""
+        kept = {"lens": self.cache["lens"].clone()}
+        for name in ("mamba", "tail"):
+            pools = self.cache.get(name)
+            if pools is not None:
+                kept[name] = {k: v.clone() for k, v in pools.items()}
+        return kept
+
+    def _restore_step_state(self, kept: dict) -> None:
+        """Copy :meth:`_keep_step_state`'s tensors back in place (the
+        storage a captured graph reads stays put)."""
+        self.cache["lens"].copy_(kept["lens"])
+        for name in ("mamba", "tail"):
+            if name in kept:
+                for k, v in kept[name].items():
+                    self.cache[name][k].copy_(v)
 
     # ------------------------------------------------------------------
     def _advance(self) -> bool:

@@ -49,7 +49,12 @@ import torch
 
 MAGIC = b"\xf1\x37"          # frame magic ("fleet")
 WIRE_VERSION = 1
-MAX_PAYLOAD = 1 << 28        # 256 MiB: far above any snapshot, below insanity
+# The frame cap: the u32 length field's limit.  The JAX package caps a
+# frame at 256 MiB, below one full-width llama2-7b slot's snapshot (64
+# pages of 8 MiB at 1,024 tokens) and a worker's checkpoint reply (every
+# active slot, ~600 MiB on the serve trace), so a full-width fleet's
+# checkpoint could not be framed; the bytes of a frame are unchanged.
+MAX_PAYLOAD = (1 << 32) - 1
 _HEADER = struct.Struct(">2sBBI")   # magic, version, flags, payload length
 HEADER_SIZE = _HEADER.size
 
@@ -107,6 +112,11 @@ def _registry() -> dict[type, bytes]:
     if not _TAG_OF:
         _TYPE_OF.update(_serving_types())
         _TAG_OF.update({t: tag for tag, t in _TYPE_OF.items()})
+        from repro_torch import _sanitize
+        san = _sanitize.load()
+        if san is not None:
+            san.check_wire_manifest(
+                WIRE_FIELDS, {t.__name__: t for t in _TAG_OF})
     return _TAG_OF
 
 

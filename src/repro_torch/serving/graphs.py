@@ -121,6 +121,12 @@ class DecodeGraph:
         else:
             self._host = self.buf.numpy()
 
+    def _cache_size(self) -> int:
+        """The number of captured graphs (at most one a step kind): the
+        sanitizer's retrace budget reads it, as it reads a jitted
+        function's trace-cache size."""
+        return len(self._graphs)
+
     # ------------------------------------------------------------------
     # inputs and outputs
     # ------------------------------------------------------------------

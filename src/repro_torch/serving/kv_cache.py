@@ -31,6 +31,8 @@ from typing import Hashable
 
 import numpy as np
 
+from repro_torch import _sanitize
+
 
 class OutOfPages(RuntimeError):
     pass
@@ -57,6 +59,9 @@ class PageAllocator:
         self._free = list(range(self.num_pages - 1, 0, -1))
         self._free_set = set(self._free)
         self._refs: dict[int, int] = {}
+        san = _sanitize.load()
+        if san is not None:
+            san.attach_page_shadow(self)
 
     @property
     def available(self) -> int:
@@ -138,6 +143,9 @@ class TieredPageAllocator:
         self.flash_pages = flash_pages
         self._cold: dict[PageKey, object] = {}
         self._evictable: OrderedDict[PageKey, int] = OrderedDict()
+        san = _sanitize.load()
+        if san is not None:
+            san.attach_tier_shadow(self)
 
     # -------------------------------------------------------- hot pool
     @property

@@ -1199,3 +1199,119 @@ def test_partial_hit_page_paths_on_card(cuda_device):
         assert torch.equal(first_logits(prompt, 32, False), one_shot), i
         assert a.out_tokens == b.out_tokens, i
     assert warm.stats.prefix_hits == 6
+
+
+# ------------------------------------------- watchdog and fleet (PR 22)
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama2-7b", "zamba2-7b"])
+def test_watchdog_redispatch_replays_the_unwatched_bits(cuda_device, arch):
+    """A watchdog flagging decode steps 1 and 3: the kept ``lens`` (and
+    Mamba state) are copied back on the compute stream and the graph is
+    replayed again; the streams equal the unwatched engine's bit for bit
+    and every step, re-dispatched or not, is a replay."""
+    from repro_torch.serving.core import EngineCore
+
+    cfg, (plain, _) = _graph_engines(arch, "w8a8")
+    fired = set()
+
+    def watchdog(step, dt):
+        if step in (1, 3) and step not in fired:
+            fired.add(step)
+            return True
+        return False
+    watched = EngineCore(cfg, plain.params, max_batch=4, max_seq=128,
+                         eos_id=-1, device="cuda", watchdog=watchdog)
+    assert _serve(watched, stochastic=True) == _serve(plain, stochastic=True)
+    assert watched.stats.straggler_events == 2
+    assert watched.graph.replays == watched.stats.decode_steps + 2
+
+
+def _params_digest(params) -> str:
+    """sha256 over every tensor of a param tree (dtype and bytes), in
+    sorted-key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        elif isinstance(t, (list, tuple)):
+            for x in t:
+                walk(x)
+        elif isinstance(t, torch.Tensor):
+            h.update(str(t.dtype).encode())
+            h.update(t.detach().contiguous().view(-1).view(torch.uint8)
+                     .cpu().numpy().tobytes())
+    walk(params)
+    return h.hexdigest()
+
+
+_DIGEST = """\
+from repro_torch.serving.fleet.worker import build_params
+from test_torch_gpu import _params_digest
+print(_params_digest(build_params("llama2-7b", reduced=True, max_seq=128,
+                                  quant="w8a8", device="cuda")[1]))
+"""
+
+
+@pytest.mark.gpu
+def test_socket_workers_on_card_hold_the_parents_bits(cuda_device):
+    """Two worker processes build llama2-7b (reduced, W8A8) from (arch,
+    seed) on the card with the parent's bits; a socket fleet of two card
+    workers, one SIGKILLed mid-decode, gives the parent's single engine's
+    streams."""
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    from repro_torch.launch.serve import build_client
+    from repro_torch.serving.fleet.router import FleetRouter
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [os.path.join(os.path.dirname(here), "src"), here])}
+    procs = [subprocess.Popen([sys.executable, "-c", _DIGEST], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for _ in range(2)]
+    digests = []
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err
+        digests.append(out.strip())
+    _, client = build_client("llama2-7b", reduced=True, quant="w8a8",
+                             max_seq=128, max_batch=4, device="cuda")
+    parent = _params_digest(client.router.cores[0].params)
+    assert digests[0] == digests[1] == parent
+    ref = _serve(client.router.cores[0], stochastic=True)
+    fl = FleetRouter.build_socket("llama2-7b", workers=2, spares=0,
+                                  checkpoint_every=3, migrate=False,
+                                  quant="w8a8", max_batch=4, max_seq=128,
+                                  eos_id=-1, device="cuda",
+                                  startup_timeout_s=300.0,
+                                  reply_timeout_s=120.0)
+    try:
+        from repro_torch.serving.core import Request
+        from repro_torch.serving.scheduler import SamplingParams
+
+        reqs = [Request(rid=i, prompt=[3 + i, 17, 99, 5] * (i + 1),
+                        max_new_tokens=6,
+                        sampling=SamplingParams(temperature=0.8, top_k=20,
+                                                top_p=0.9, seed=7 + i)
+                        if i % 2 else None)
+                for i in range(6)]
+        for r in reqs:
+            fl.submit(r)
+        steps = 0
+        while fl.has_work and steps < 500:
+            fl.step()
+            steps += 1
+            if steps == 3:
+                os.kill(fl.workers[0].transport.pid, signal.SIGKILL)
+        assert [(r.out_tokens, r.finish_reason) for r in reqs] == ref
+        assert fl.fleet.workers_lost == 1
+    finally:
+        fl.close()

@@ -22,7 +22,12 @@ def _port_modules() -> list[str]:
                                               "repro_torch.")]
 
 
-def test_port_imports_neither_jax_nor_repro():
+@pytest.mark.parametrize("sanitize", ["", "1"], ids=["plain", "sanitize"])
+def test_port_imports_neither_jax_nor_repro(sanitize):
+    """Every module imported (the fleet worker's ``main`` among them);
+    with ``REPRO_SANITIZE=1`` an allocator and the wire registry load the
+    sanitizer rails, which still bring in no JAX, ``repro`` or
+    ``ml_dtypes``."""
     mods = _port_modules()
     for m in ("serving.core", "launch.serve", "core.ecc", "core.hybrid_gemv",
               "core.hw", "core.tiling", "quant.int4", "quant.int8",
@@ -32,17 +37,28 @@ def test_port_imports_neither_jax_nor_repro():
               "configs.zamba2_7b", "configs.mamba2_130m", "serving.graphs",
               "serving.threefry", "serving.sampler", "serving.kv_cache",
               "serving.fleet", "serving.fleet.wire", "serving.router",
-              "serving.client"):
+              "serving.client", "serving.fleet.transport",
+              "serving.fleet.worker", "serving.fleet.router",
+              "distributed", "distributed.checkpoint", "_sanitize"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        "from repro_torch.serving.fleet.worker import main\n"
+        "from repro_torch.serving.kv_cache import TieredPageAllocator\n"
+        "from repro_torch.serving.fleet import wire\n"
+        "from repro_torch import _sanitize\n"
+        "a = TieredPageAllocator(4)\n"
+        "wire._registry()\n"
+        "armed = hasattr(a.hot, '_shadow')\n"
+        "assert armed == _sanitize.enabled(), armed\n"
+        "assert armed == ('tools.analysis.sanitize' in sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
         "or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))\n"
         "print(','.join(bad))\n")
-    env = {**os.environ, "PYTHONPATH": SRC}
+    env = {**os.environ, "PYTHONPATH": SRC, "REPRO_SANITIZE": sanitize}
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -66,7 +82,9 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
 
 @pytest.mark.parametrize("entry", ["init_params", "EngineCore",
                                    "ServingClient", "serve", "quickstart",
-                                   "ecc_resilience"])
+                                   "ecc_resilience", "fleet_client",
+                                   "FleetRouter", "serve_fleet",
+                                   "serve_socket_fleet", "worker"])
 def test_entry_points_raise_without_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the no-card path is not taken")
@@ -87,6 +105,22 @@ def test_entry_points_raise_without_a_card(entry):
         elif entry == "serve":
             from repro_torch.launch.serve import main
             main(["--requests", "1"])
+        elif entry == "fleet_client":
+            from repro_torch.serving.client import ServingClient
+            ServingClient(cfg, params, workers=2)
+        elif entry == "FleetRouter":
+            from repro_torch.serving.fleet.router import FleetRouter
+            FleetRouter.build_loopback(cfg, params, workers=2, spares=1)
+        elif entry == "serve_fleet":
+            from repro_torch.launch.serve import main
+            main(["--requests", "1", "--workers", "2", "--spares", "1"])
+        elif entry == "serve_socket_fleet":
+            from repro_torch.launch.serve import main
+            main(["--requests", "1", "--workers", "2", "--transport",
+                  "socket"])
+        elif entry == "worker":
+            from repro_torch.serving.fleet.worker import main
+            main(["--port", "0"])
         elif entry == "quickstart":
             from repro_torch.examples.quickstart import main
             main(["--reduced", "1"])
@@ -143,3 +177,16 @@ def test_unported_options_raise():
     with pytest.raises(KeyError):
         eng.snapshot_slot(0)
     assert Router([eng], migrate=True).migrate
+    # fleet workers are ported: a client with workers= builds a loopback
+    # fleet router (it raised before), and the driver no longer refuses
+    # --workers; wave mode still raises there
+    from repro_torch.launch.serve import main
+    from repro_torch.serving.client import ServingClient
+    from repro_torch.serving.fleet.router import FleetRouter
+
+    client = ServingClient(cfg, params, workers=2, spares=1, device="cpu")
+    assert isinstance(client.router, FleetRouter)
+    assert len(client.router.workers) == 2 and client.router.spares_left == 1
+    client.router.close()
+    with pytest.raises(SystemExit):
+        main(["--mode", "wave", "--workers", "2", "--device", "cpu"])
