@@ -163,6 +163,23 @@ Phases, each printing its own lines:
             equal one resident replica's, synchronous and overlapped; a
             snapshot's bytes decode to equal pages and resume with the
             unmigrated stream; bytes a snapshot, ms to snapshot and inject.
+17. serve_fleet  llama2-7b W8A8 at full width (4 slots a worker, max_seq
+            1024, the serve trace, 32 new tokens, odd rids sampled with
+            pinned seeds) through FleetRouter: loopback fleets of 2
+            workers + 1 spare sharing one params dict, checkpoints every 8
+            steps, worker 0 killed after step 10, synchronous and
+            overlapped (no request lost, one engine's streams bit for bit,
+            one worker lost, one failover, the spare promoted; the serving
+            kernels counted); undisturbed fleets with and without
+            checkpoints beside one engine (tok/s); the straggler watchdog
+            flagging decode steps 3 and 7 over llama2-7b and zamba2-7b
+            (the unwatched streams, two events, the re-dispatch's ms);
+            REPRO_SANITIZE=1 over an overlapped + tiered + prefix-cache
+            engine (the plain streams, no report); 2 socket workers that
+            build llama2-7b themselves on the card, one SIGKILLed (the
+            parent's streams).  Prints a checkpoint's bytes and ms (worker
+            snapshots, the wire, save_checkpoint), recovery s, tokens
+            replayed and a worker's start-up s.
 
 Every serving phase's engine replays one CUDA graph a decode step
 (``serving/graphs.py``); the launch counters count each replay's kernels.
@@ -3886,8 +3903,8 @@ def phase_serve_fleet(torch, smi: str) -> None:
     overlapped + tiered (65 hot pages) + prefix-cache engine equals the
     plain synchronous one with no report and the rails run; (4) 2 socket
     workers, each building llama2-7b from ("llama2-7b", seed 0) on the
-    card, one SIGKILLed after step 10: the parent's single engine's
-    streams.  Prints seconds until a socket worker is ready, a
+    card, one SIGKILLed after step 10, no checkpoints (failover replays
+    from the client's record): the parent's single engine's streams.  Prints seconds until a socket worker is ready, a
     checkpoint's bytes and ms, recovery s, tokens replayed, the fleet's
     tok/s with and without checkpoints against one engine, and the
     watchdog's re-dispatch ms."""
@@ -4032,8 +4049,11 @@ def phase_serve_fleet(torch, smi: str) -> None:
     log(f"[{tag}] parent before spawning: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     t1 = time.perf_counter()
+    # no checkpoints here: with no spare and the survivor's slots full a
+    # checkpoint could not be injected, so failover replays from the
+    # client's record either way (the checkpoint's cost is the loopback's)
     fl = FleetRouter.build_socket(
-        "llama2-7b", workers=2, spares=0, checkpoint_every=FLEET_CKPT,
+        "llama2-7b", workers=2, spares=0, checkpoint_every=0,
         reduced=False, quant="w8a8", seed=0, max_batch=A5_ENG["max_batch"],
         max_seq=A5_ENG["max_seq"], page_size=A5_ENG["page_size"],
         eos_id=A5_ENG["eos_id"], device=A5_ENG["device"],
@@ -4045,8 +4065,11 @@ def phase_serve_fleet(torch, smi: str) -> None:
             ["nvidia-smi", "--query-compute-apps=pid,used_memory",
              "--format=csv,noheader"], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True).stdout.strip()
+        free, total = torch.cuda.mem_get_info()
         log(f"[{tag}] 2 socket workers ready {ready:.1f} s after the spawn "
-            f"(started together; the kernel library built before); "
+            f"(started together; the kernel library built before); the "
+            f"card holds {(total - free) / 2**30:.1f} GiB in use (parent "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved); "
             f"nvidia-smi compute apps: {apps.replace(chr(10), '; ')}")
         reqs = _fleet_reqs(prompts)
         pids = []

@@ -104,7 +104,8 @@ def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
             migrate=migrate, sched_policy=policy, reduced=reduced,
             max_batch=max_batch, max_seq=max_seq, page_size=page_size,
             eos_id=eos_id, overlap=overlap, chunk_prefill=chunk_prefill,
-            kv_dtype=kv_dtype, kv_tier=kv_tier, num_pages=num_pages or 0,
+            kv_dtype=kv_dtype, kv_tier=kv_tier,
+            num_pages=0 if num_pages is None else num_pages,
             quant=quant, seed=seed, device=device)
         return cfg, ServingClient(router=router, seed_base=seed)
     cfg, params = build_params(arch, reduced=reduced, max_seq=max_seq,

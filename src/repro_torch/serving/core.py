@@ -1576,8 +1576,9 @@ class EngineCore:
         use_dev = np.asarray([n > 0 for n in self._inflight])
         old, self._pending = self._pending, None
         t0 = time.monotonic()
-        # the arrays staged are snapshots: the drain below rewrites
-        # ``last_np`` and a spill ``block`` while this step is in flight
+        # snapshots, as the JAX engine stages them: the drain below
+        # rewrites ``last_np`` (a spill ``block``) while this step is in
+        # flight, and the sanitizer's guard hashes what was staged
         last_np = self.last_np.copy()
         block = self.block.copy()
         active = np.asarray(active_list)

@@ -46,7 +46,6 @@ import select
 import socket
 import subprocess
 import sys
-import threading
 import time
 from collections import deque
 from typing import Optional
@@ -165,7 +164,6 @@ class SocketTransport(Transport):
         self._next_id = 0
         self._closed = False
         self.max_payload = max_payload
-        self.output: deque[str] = deque(maxlen=50)   # the worker's last lines
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
 
     @property
@@ -289,15 +287,4 @@ def spawn_worker(arch: str, *, reduced: bool = True, max_batch: int = 4,
         if line.startswith(READY_PREFIX):
             port = int(line[len(READY_PREFIX):].strip())
     sock = socket.create_connection(("127.0.0.1", port), timeout=30.0)
-    t = SocketTransport(sock, proc=proc)
-    # keep reading the worker's output (its warnings, a traceback) so a
-    # full pipe never blocks it; the last lines stay for error messages
-    t.output = deque(lines[-20:], maxlen=50)
-    threading.Thread(target=_drain_output, args=(proc, t.output),
-                     daemon=True).start()
-    return t
-
-
-def _drain_output(proc: subprocess.Popen, tail: deque) -> None:
-    for line in proc.stdout:
-        tail.append(line)
+    return SocketTransport(sock, proc=proc)
