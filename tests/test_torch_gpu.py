@@ -1201,7 +1201,7 @@ def test_partial_hit_page_paths_on_card(cuda_device):
     assert warm.stats.prefix_hits == 6
 
 
-# ------------------------------------------- watchdog and fleet (PR 22)
+# ------------------------------------------------- watchdog and fleet
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["llama2-7b", "zamba2-7b"])
 def test_watchdog_redispatch_replays_the_unwatched_bits(cuda_device, arch):
