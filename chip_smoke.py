@@ -254,6 +254,9 @@ SOURCES = {
         "src/repro/kernels/decode_attention/decode_attention.py:61"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/flash_attention.py:59"),
+    "flash_attention_bidir": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:59"),
     "w4a16_gemv": ("src/repro_torch/kernels/csrc/w4a16_gemv.cu",
                    "src/repro/kernels/w4a16_gemv/w4a16_gemv.py:43"),
     "w4a16_gemm": ("src/repro_torch/kernels/csrc/w4a16_gemv.cu",
@@ -281,6 +284,7 @@ COUNTED_IN = {"int8_gemv": "serve", "int8_gemv_dp4a": "serve",
               "w4a16_gemm": "serve_hybrid_w4a16",
               "ssd_intra_chunk": "serve_hybrid",
               "paged_chunk_attention": "serve_chunked",
+              "flash_attention_bidir": "serve_wave",
               "paged_decode_attention_int8": "serve_int8kv",
               "paged_chunk_attention_int8": "serve_int8kv_chunked"}
 # kept for shapes no model has (K not a multiple of 16, a misaligned base):
@@ -633,6 +637,151 @@ def _flash_faults(torch, q, k, v, ref) -> None:
                                  f"flash_attention check")
 
 
+def _bidir_faults(torch, q, k, v, ref) -> None:
+    """What B3's bidirectional mode computes with a planted fault, in
+    float32 on the card, rounded to bf16: the keys TMA fills with zeros
+    past Skv (up to the next multiple of 64) left unmasked, each scoring 0
+    with a zero value row, or the last K/V block dropped.  The attention
+    check must reject both."""
+    b, s, h, d = q.shape
+    skv = k.shape[1]
+    rep = h // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf, vf = (t.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+              for t in (k, v))
+    sc = (qf @ kf.transpose(-1, -2)) * d ** -0.5
+    pad = -skv % 64
+    zeros = sc.new_zeros((*sc.shape[:-1], pad))
+    faults = (("keys past Skv unmasked (TMA's zero rows)",
+               torch.cat([sc, zeros], -1),
+               torch.cat([vf, vf.new_zeros((b, h, pad, d))], 2)),
+              ("last K/V block dropped",
+               sc[..., :(skv - 1) // 64 * 64], vf[:, :, :(skv - 1) // 64 * 64]))
+    for fault, scores, vals in faults:
+        if scores.shape[-1] == 0:
+            continue
+        bad = (torch.softmax(scores, -1) @ vals).transpose(1, 2).to(q.dtype)
+        err, limit = _attn_errors(torch, bad, ref)
+        caught = int((err > limit).sum())
+        log(f"[kernels] planted fault, flash_attention_bidir with its "
+            f"{fault} (B={b} S={s} Skv={skv} H={h} D={d}): {caught} of "
+            f"{err.numel()} outputs above {ATTN_TOL}, max|err| "
+            f"{err.max().item():.3e}")
+        if caught == 0:
+            raise AssertionError(f"planted fault ({fault}) passes the "
+                                 f"flash_attention_bidir check")
+
+
+# B3 bidirectional: (tag, B, Sq, Skv, H, Hkv, D); the whisper rows timed
+BIDIR_CASES = [("whisper encoder", 4, 1500, 1500, 12, 12, 64),
+               ("whisper cross", 4, 128, 1500, 12, 12, 64),
+               ("reduced encoder", 4, 16, 16, 4, 2, 16),
+               ("reduced cross", 4, 9, 16, 4, 2, 16),
+               ("ragged GQA cross", 2, 200, 77, 8, 2, 128),
+               ("D 112, Skv 300", 2, 130, 300, 8, 8, 112)]
+
+
+def _kernels_bidir(torch, results: dict, randn) -> None:
+    """B3's bidirectional mode against its plain version (the model's
+    chunked attention, causal=False) at the whisper-small encoder and
+    cross-attention shapes, the reduced config's and ragged GQA / D 112
+    shapes; the two whisper shapes timed beside SDPA and their bound, with
+    the planted faults."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    res = results["flash_attention_bidir"]
+    for tag, b, s, skv, h, hkv, d in BIDIR_CASES:
+        q, k, v = randn(b, s, h, d), randn(b, skv, hkv, d), randn(b, skv, hkv, d)
+        got = flash_attention(q, k, v, causal=False)
+        ref = flash_attention_ref(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        err, used = _check_close(torch, f"flash_attention_bidir[{tag}]", got,
+                                 ref)
+        res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
+        line = (f"[kernels] flash_attention_bidir {tag} B={b} S={s} Skv={skv} "
+                f"H={h} Hkv={hkv} D={d}: max|err| {err:.3e} (worst "
+                f"|err|/limit {used:.3f}; tol {ATTN_TOL})")
+        if tag.startswith("whisper"):
+            fn = lambda i: flash_attention(q, k, v, causal=False)  # noqa: E731
+            ms = time_ms(torch, fn)
+            dev_ms = profiled_ms(torch, fn, ("flash_attention",))
+            plain = time_ms(torch, lambda i: flash_attention_ref(
+                q, k, v, causal=False))
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt))
+            lib_dev = profiled_ms(torch, lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt))
+            bytes_moved = (2 * b * s * h * d + 2 * b * skv * hkv * d) * 2
+            b_ms, b_by = bound(bytes_moved, 4 * b * h * d * s * skv, "bf16")
+            if tag == "whisper encoder":
+                res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                           library_ms=lib, library_device_ms=lib_dev,
+                           bound_ms=b_ms, bound_by=b_by,
+                           shape=f"B={b} S={s} Skv={skv} H={h} D={d}")
+            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms, "
+                     f"{100 * b_ms / dev_ms:.1f}% of the bound), plain "
+                     f"{plain:.4f} ms, SDPA {lib:.4f} ms (device {lib_dev:.4f} "
+                     f"ms), bound {b_ms:.4f} ms ({b_by})")
+        log(line)
+        if tag.startswith("whisper"):
+            _bidir_faults(torch, q, k, v, ref)
+
+
+def _kernels_b1_contiguous(torch, results: dict, randn) -> None:
+    """B1 over the wave engine's contiguous cache [B, Smax, Hkv, D], read
+    as B pages of Smax rows (``decode_attention``), against the plain
+    ``models.attention.decode_attention``: whisper-small's decoder
+    self-attention (lengths up to 448), its cross-attention over 1,500
+    encoder rows, and llama2-7b's wave decode; the whisper shapes timed
+    beside SDPA with a length mask and their bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    dev = torch.device("cuda")
+    for tag, b, h, d, smax, lens in [
+            ("whisper self", 4, 12, 64, 448, [448, 300, 129, 1]),
+            ("whisper cross", 4, 12, 64, 1500, [1500] * 4),
+            ("llama2-7b wave", 4, 32, 128, 1024, [611] * 4)]:
+        kc, vc = randn(b, smax, h, d), randn(b, smax, h, d)
+        q = randn(b, h, d)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = decode_attention(q, kc, vc, lengths)
+        ref = decode_attention_ref(q, kc, vc, lengths)
+        torch.cuda.synchronize()
+        err, used = _check_close(torch, f"decode_attention[{tag}]", got, ref)
+        line = (f"[kernels] decode_attention (B1, contiguous cache) {tag} "
+                f"B={b} H={h} D={d} Smax={smax} lens={lens}: max|err| "
+                f"{err:.3e} (worst |err|/limit {used:.3f}; tol {ATTN_TOL})")
+        if tag.startswith("whisper"):
+            fn = lambda i: decode_attention(q, kc, vc, lengths)  # noqa: E731
+            ms = time_ms(torch, fn)
+            dev_ms = profiled_ms(torch, fn,
+                                 (KERNEL_NAMES["paged_decode_attention"],))
+            plain = time_ms(torch, lambda i: decode_attention_ref(
+                q, kc, vc, lengths))
+            kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+            mask = (torch.arange(smax, device=dev)[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            q4 = q[:, :, None, :]
+            lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                q4, kt, vt, attn_mask=mask))
+            lib_dev = profiled_ms(torch, lambda i: F.scaled_dot_product_attention(
+                q4, kt, vt, attn_mask=mask))
+            n_tok = sum(lens)
+            b_ms, b_by = bound(2 * b * h * d * 2 + n_tok * h * d * 4 + b * 4,
+                               4 * n_tok * h * d, "bf16")
+            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), plain "
+                     f"{plain:.4f} ms, SDPA {lib:.4f} ms (device {lib_dev:.4f} "
+                     f"ms), bound {b_ms:.4f} ms ({b_by})")
+        log(line)
+
+
 def phase_kernels(torch, results: dict) -> None:
     import torch.nn.functional as F
 
@@ -890,6 +1039,8 @@ def phase_kernels(torch, results: dict) -> None:
         log(line)
         if tag in timed:
             _flash_faults(torch, q, k, v, ref)
+    _kernels_bidir(torch, results, randn)
+    _kernels_b1_contiguous(torch, results, randn)
 
     _kernels_ecc(torch, results)
     _kernels_w4a16(torch, results)

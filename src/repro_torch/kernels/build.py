@@ -55,8 +55,9 @@ SIGNATURES = {
                                      _P],
     "repro_paged_chunk_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _I, _I, _I, _I, _F, _P],
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              ctypes.POINTER(ctypes.c_longlong), _F, _P],
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              ctypes.POINTER(ctypes.c_longlong), _F, _I,
+                              _P],
     "repro_ecc_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_w4a16_gemv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "repro_w4a16_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

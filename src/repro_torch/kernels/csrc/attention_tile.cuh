@@ -1,14 +1,16 @@
-// The per-block arithmetic of the causal attention kernels, shared by B3
-// (flash_attention.cu, one-shot prefill) and the paged chunk kernel
-// (paged_chunk_attention.cu), so that a query computed by either kernel
-// gets the same bits: one warpgroup (128 threads) holds a 64-row query
-// tile and walks 64-key K/V blocks that lie at absolute multiples of 64
-// from key 0.  Per block:
+// The per-block arithmetic of the attention kernels, shared by B3
+// (flash_attention.cu, one-shot prefill, causal or bidirectional) and the
+// paged chunk kernel (paged_chunk_attention.cu, causal), so that a causal
+// query computed by either kernel gets the same bits: one warpgroup (128
+// threads) holds a 64-row query tile and walks 64-key K/V blocks that lie
+// at absolute multiples of 64 from key 0.  Per block:
 //
 //   S  = Q K^T by wgmma m64n64k16 (bf16 in, f32 accumulate), the head dim
 //        in k-steps of 16 in order; Q and K K-major in shared memory
-//   S' = S * 1/sqrt(D) (int8 pools: (S * key scale) * 1/sqrt(D)), keys
-//        after the row set to -1e30 on the diagonal block
+//   S' = S * 1/sqrt(D) (int8 pools: (S * key scale) * 1/sqrt(D)); causal:
+//        keys after the row set to -1e30 on the diagonal block;
+//        bidirectional: keys from the key count on (TMA's zero rows past
+//        the end, which would score 0) set to -1e30 on the last block
 //   m' = max(m, rowmax S'); corr = exp(m - m'); P = exp(S' - m')
 //   l  = fma(l, corr, rowsum P); O = O * corr + P V
 //
@@ -88,12 +90,14 @@ __device__ __forceinline__ int key_of(int i, int lane) {
 
 // scale and mask the block's scores, update the rows' max, sum and output
 // scaling, and leave P in sc.  diag: the block holds the tile's last keys
-// (keys after a row are masked); key0: the block's first key; row0: the
-// absolute position of this thread's first row.  kscale: null, or the
-// block's 64 key scales (int8 pools)
-template <int DP>
+// (kCausal: keys after a row are masked; else keys from n_keys on);
+// key0: the block's first key; row0: the absolute position of this
+// thread's first row.  kscale: null, or the block's 64 key scales (int8
+// pools).  n_keys: the key count (bidirectional only)
+template <int DP, bool kCausal = true>
 __device__ __forceinline__ void softmax(float (&sc)[32], Rows<DP>& st, float scale, bool diag,
-                                       int key0, int row0, const float* kscale) {
+                                       int key0, int row0, const float* kscale,
+                                       int n_keys = 0) {
   const int lane = threadIdx.x % 32;
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -102,7 +106,11 @@ __device__ __forceinline__ void softmax(float (&sc)[32], Rows<DP>& st, float sca
     float v = sc[i];
     if (kscale != nullptr) v = __fmul_rn(v, kscale[key]);
     v = __fmul_rn(v, scale);
-    if (diag && key0 + key > row0 + 8 * ((i >> 1) & 1)) v = kNegInf;
+    if constexpr (kCausal) {
+      if (diag && key0 + key > row0 + 8 * ((i >> 1) & 1)) v = kNegInf;
+    } else {
+      if (diag && key0 + key >= n_keys) v = kNegInf;
+    }
     sc[i] = v;
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], v);
   }

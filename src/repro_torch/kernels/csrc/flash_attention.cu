@@ -1,17 +1,22 @@
-// Causal GQA flash attention for prefill, in the model's own layout:
+// GQA flash attention for prefill, causal or bidirectional, in the model's
+// own layout:
 //
-//   q    bf16 [B, S, H, D]     k, v  bf16 [B, S, Hkv, D]     out bf16 [B, S, H, D]
+//   q    bf16 [B, S, H, D]     k, v  bf16 [B, Skv, Hkv, D]     out bf16 [B, S, H, D]
 //
 // read and written through their batch / sequence / head strides (the last
 // axis contiguous), so the caller transposes nothing; D in {16, 32, 64, 112,
-// 128}.
+// 128}.  Causal: Skv == S, query i attends keys 0..i.  Bidirectional (the
+// whisper encoder's self-attention, Skv == S, and its decoder's
+// cross-attention over the encoder's rows, any Skv): every query attends
+// every key.
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/flash_attention.py::flash_attention
 // (grid (B*H, q-blocks, kv-blocks), online softmax in VMEM scratch, blocks
-// above the diagonal computed and then masked).  The model path it stands
-// in for is models/attention.py::chunked_attention(causal=True) as
-// models/blocks.py::attn_full calls it.
+// above the diagonal computed and then masked; causal=False leaves the mask
+// out).  The model path it stands in for is
+// models/attention.py::chunked_attention(causal) as models/blocks.py::attn_full
+// calls it.
 //
 // What bounds it on the H100: a causal prefill does 2*2*B*H*D*S(S+1)/2
 // operations on 2*B*S*(2*H+2*Hkv)*D bytes, about S/4 operations per byte
@@ -19,7 +24,9 @@
 // bound by bytes and above it by the bf16 tensor-core rate.  Either way the
 // products have to leave the f32 CUDA cores (67 TFLOP/s) for the tensor
 // cores (989 TFLOP/s bf16, reached only through wgmma), and the K/V loads
-// have to overlap the products.
+// have to overlap the products.  A bidirectional pass does 4*B*H*D*S*Skv
+// operations: whisper's encoder (S = Skv = 1500) is bound by operations,
+// its cross-attention (a prompt of S <= 448 over Skv = 1500) by bytes.
 //
 // Design:
 //  * one CTA of one warpgroup (128 threads) per (64-query block, head,
@@ -32,13 +39,16 @@
 //    columns add nothing to Q K^T, and the output columns past D are not
 //    stored;
 //  * the Q tile is loaded once; K/V blocks of 64 keys stream through a
-//    2-stage ring, block kb+1 loading while block kb computes.  Blocks
-//    above the diagonal are never loaded; block boundaries lie at absolute
-//    multiples of 64 from key 0, so each query's reduction order is fixed
-//    by absolute key position;
+//    2-stage ring, block kb+1 loading while block kb computes.  Causal:
+//    blocks above the diagonal are never loaded; bidirectional: every
+//    block of the Skv keys is.  Block boundaries lie at absolute multiples
+//    of 64 from key 0, so each query's reduction order is fixed by absolute
+//    key position;
 //  * S = Q K^T by wgmma m64n64k16 (bf16 in, f32 accumulate; Q and K
-//    K-major in shared memory), scaled by 1/sqrt(D) and, on the diagonal
-//    block, keys after the query set to -1e30; f32 online softmax in the
+//    K-major in shared memory), scaled by 1/sqrt(D) and, causal, on the
+//    diagonal block keys after the query set to -1e30; bidirectional, on
+//    the last block keys from Skv on (TMA's zero fill, which would score 0
+//    and enter the softmax) set to -1e30; f32 online softmax in the
 //    accumulator registers, row max and sum across the four lanes of a row;
 //  * O += P V by wgmma with P from registers (the accumulator layout of S
 //    is the A-operand layout) and V from shared memory as the MN-major B
@@ -50,12 +60,15 @@
 //    residual of ~2^-17 of P;
 //  * out = O / max(l, 1e-20), cast to bf16.  Rows past S (a bucket that is
 //    not a multiple of 64) are computed on TMA's zeros and not stored; keys
-//    past S lie after every valid query, so the causal mask hides them.
-//  The per-block arithmetic (S, the mask, the online softmax, P hi + lo, P V
-//  and the final division) lives in attention_tile.cuh and is shared with
-//  the paged chunk kernel (paged_chunk_attention.cu): a query's output
-//  depends only on its own row, its absolute position and the keys up to
-//  it, so a prefill chunk's query gets this kernel's one-shot bits.
+//    past S lie after every valid query, so the causal mask hides them
+//    (bidirectional: the last block's mask).
+//  The mode is a template parameter (kCausal), so the causal instantiation
+//  is the code it was before the bidirectional one existed.  The per-block
+//  arithmetic (S, the mask, the online softmax, P hi + lo, P V and the final
+//  division) lives in attention_tile.cuh and is shared with the paged chunk
+//  kernel (paged_chunk_attention.cu): a causal query's output depends only
+//  on its own row, its absolute position and the keys up to it, so a
+//  prefill chunk's query gets this kernel's one-shot bits.
 
 #include "attention_tile.cuh"
 
@@ -86,12 +99,12 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* tk, const CUtensorMap
   }
 }
 
-template <int DP>
+template <int DP, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                       int S, int H, int Hkv, int D, long long osb, long long oss,
+                       int S, int Skv, int H, int Hkv, int D, long long osb, long long oss,
                        long long osh, float scale) {
   constexpr int NB = DP / 64;       // 64-column blocks of the padded head dim
   constexpr int kTile = NB * kBox;  // one 64-row tile of Q, K or V
@@ -109,6 +122,9 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
   const int b = blockIdx.z;
   const int g = h / (H / Hkv);
   const int q0 = qb * kRows;
+  // the last K/V block: the diagonal one (causal) or the one holding key
+  // Skv - 1 (bidirectional)
+  const int last = kCausal ? qb : (Skv + kKeys - 1) / kKeys - 1;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -131,9 +147,9 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t qa = hopper::smem_u32(sq);
   hopper::mbar_wait(&bars[0], 0);
 
-  for (int kb = 0; kb <= qb; ++kb) {
+  for (int kb = 0; kb <= last; ++kb) {
     const int s = kb & 1;
-    if (kb < qb) {
+    if (kb < last) {
       // every warp is past block kb - 1, the last reader of stage s ^ 1
       asm volatile("bar.sync 1, 128;\n" ::: "memory");
       if (tid == 0) load_kv<NB>(&tk, &tv, sk + (s ^ 1) * kTile, sv + (s ^ 1) * kTile,
@@ -142,7 +158,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     hopper::mbar_wait(&bars[1 + s], (kb >> 1) & 1);
     float sc[32];
     attn_tile::scores<DP>(sc, qa, hopper::smem_u32(sk + s * kTile));
-    attn_tile::softmax<DP>(sc, st, scale, kb == qb, kb * kKeys, row0, nullptr);
+    attn_tile::softmax<DP, kCausal>(sc, st, scale, kb == last, kb * kKeys, row0, nullptr, Skv);
     attn_tile::pv<DP>(st, sc, hopper::smem_u32(sv + s * kTile), nullptr);
   }
 
@@ -168,35 +184,46 @@ int encode_bshd(CUtensorMap* map, const void* base, int B, int S, int heads, int
                                    strides, box);
 }
 
-template <int DP>
+template <int DP, bool kCausal>
 int launch_for_dim(const void* q, const void* k, const void* v, __nv_bfloat16* out, int B,
-                   int S, int H, int Hkv, int D, const long long* st, float scale,
+                   int S, int Skv, int H, int Hkv, int D, const long long* st, float scale,
                    cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int status = encode_bshd(&tq, q, B, S, H, D, st);
-  if (status == 0) status = encode_bshd(&tk, k, B, S, Hkv, D, st + 3);
-  if (status == 0) status = encode_bshd(&tv, v, B, S, Hkv, D, st + 6);
+  if (status == 0) status = encode_bshd(&tk, k, B, Skv, Hkv, D, st + 3);
+  if (status == 0) status = encode_bshd(&tv, v, B, Skv, Hkv, D, st + 6);
   if (status != 0) return status;
   constexpr int bytes = smem_bytes<DP>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_attention_kernel<DP, kCausal>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kRows - 1) / kRows, H, B);
-  flash_attention_kernel<DP><<<grid, kThreads, bytes, stream>>>(
-      tq, tk, tv, out, S, H, Hkv, D, st[9], st[10], st[11], scale);
+  flash_attention_kernel<DP, kCausal><<<grid, kThreads, bytes, stream>>>(
+      tq, tk, tv, out, S, Skv, H, Hkv, D, st[9], st[10], st[11], scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_for_mode(const void* q, const void* k, const void* v, __nv_bfloat16* out, int B,
+                    int S, int Skv, int H, int Hkv, int D, const long long* st, float scale,
+                    int causal, cudaStream_t stream) {
+  return causal ? launch_for_dim<DP, true>(q, k, v, out, B, S, Skv, H, Hkv, D, st, scale, stream)
+                : launch_for_dim<DP, false>(q, k, v, out, B, S, Skv, H, Hkv, D, st, scale,
+                                            stream);
 }
 
 }  // namespace
 
-// strides (in elements): q (batch, seq, head), k (...), v (...), out (...);
-// the head-dim stride is 1, every stride a multiple of 8 and every base
-// 16-byte aligned (TMA's rules); returns hopper::kTensorMapError + the
-// CUresult if a tensor map cannot be encoded
+// S queries and Skv keys (causal: Skv == S); strides (in elements): q
+// (batch, seq, head), k (...), v (...), out (...); the head-dim stride is 1,
+// every stride a multiple of 8 and every base 16-byte aligned (TMA's rules);
+// returns hopper::kTensorMapError + the CUresult if a tensor map cannot be
+// encoded
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                     int B, int S, int H, int Hkv, int D,
-                                     const long long* strides, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0) {
+                                     int B, int S, int Skv, int H, int Hkv, int D,
+                                     const long long* strides, float scale, int causal,
+                                     void* stream) {
+  if (B <= 0 || S <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0 || (causal && Skv != S)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto* op = static_cast<__nv_bfloat16*>(out);
@@ -204,9 +231,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   switch (D) {
     case 16:
     case 32:
-    case 64: return launch_for_dim<64>(q, k, v, op, B, S, H, Hkv, D, strides, scale, s);
+    case 64:
+      return launch_for_mode<64>(q, k, v, op, B, S, Skv, H, Hkv, D, strides, scale, causal, s);
     case 112:
-    case 128: return launch_for_dim<128>(q, k, v, op, B, S, H, Hkv, D, strides, scale, s);
+    case 128:
+      return launch_for_mode<128>(q, k, v, op, B, S, Skv, H, Hkv, D, strides, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

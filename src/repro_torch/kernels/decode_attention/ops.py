@@ -15,6 +15,14 @@ to its own position.  The kernel runs B3's per-block arithmetic
 of 64, the K/V blocks read through the block row, so over bf16 pools a
 chunk query's output is B3's one-shot bits for that query.
 
+``decode_attention(q, k_cache, v_cache, lengths)``: B1 over a contiguous
+cache ``[B, Smax, Hkv, D]`` (the wave engine's, and whisper's encoder rows
+for cross-attention), read as a pool of B pages of Smax rows through the
+block table ``[[0], [1], ..., [B - 1]]``: no copy, and B1's splits at
+absolute key positions give a row the bits it has in any batch.  The
+table is made once per (B, device) and kept, so a captured decode graph
+reads one address.
+
 A pool is a bf16 tensor ``[P, page, Hkv, D]`` or an int8 ``(data, scale)``
 pair (``models.attention``).  A CPU tensor takes the plain version
 (``models.attention``); a CUDA tensor launches the kernels.
@@ -26,7 +34,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ref import (
-    SPLIT, paged_chunk_attention_ref, paged_decode_attention_ref)
+    SPLIT, decode_attention_ref, paged_chunk_attention_ref,
+    paged_decode_attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 112, 128)  # 112: zamba2-7b's shared block
 MAX_GROUP = 8  # grouped query heads per kv head (B1)
@@ -112,6 +121,39 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
     build.check(status, name)
     LAUNCHES[name] += 1
     return out
+
+
+# (batch, device) -> the block table [[0], ..., [B - 1]] of a contiguous
+# cache read as B pages
+_CONTIGUOUS_TABLES: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def contiguous_block_table(b: int, device: torch.device) -> torch.Tensor:
+    """int32 [B, 1]: row b of a contiguous cache is page b."""
+    key = (b, device)
+    if key not in _CONTIGUOUS_TABLES:
+        _CONTIGUOUS_TABLES[key] = torch.arange(
+            b, dtype=torch.int32, device=device).reshape(b, 1)
+    return _CONTIGUOUS_TABLES[key]
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """q: [B, H, D]; k/v_cache: bf16 [B, Smax, Hkv, D] contiguous (one
+    layer of the wave cache, or the encoder's K/V); lengths: [B] int32
+    valid rows per slot, the new row included -> [B, H, D].  On the CPU the
+    plain ``models.attention.decode_attention``; on CUDA B1, the cache a
+    pool of B pages of Smax rows (its launches count as
+    ``paged_decode_attention``)."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, lengths)
+    if k_cache.dim() != 4 or v_cache.shape != k_cache.shape \
+            or k_cache.shape[0] != q.shape[0]:
+        raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)} "
+                         f"/ {tuple(v_cache.shape)} for q {tuple(q.shape)}")
+    block = contiguous_block_table(q.shape[0], q.device)
+    return paged_decode_attention(q, k_cache, v_cache, block, lengths)
 
 
 def paged_chunk_attention(q: torch.Tensor, k_pages, v_pages,

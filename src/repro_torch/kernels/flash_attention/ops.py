@@ -1,12 +1,16 @@
-"""Wrapper of the causal prefill flash attention kernel
-(``csrc/flash_attention.cu``).
+"""Wrapper of the prefill flash attention kernel
+(``csrc/flash_attention.cu``), causal or bidirectional.
 
-``flash_attention(q, k, v)`` with q ``[B, S, H, D]`` and k/v
-``[B, S, Hkv, D]`` in the model's layout.  A CPU tensor takes the plain
-version (``models.attention.chunked_attention(causal=True)``); a CUDA tensor
-launches the kernel (wgmma fed by TMA), which reads all three through their
+``flash_attention(q, k, v, causal=True)`` with q ``[B, S, H, D]`` and k/v
+``[B, Skv, Hkv, D]`` in the model's layout: causal, Skv == S (prefill
+self-attention); bidirectional, any Skv (the whisper encoder's
+self-attention and its decoder's cross-attention over the encoder's rows).
+A CPU tensor takes the plain version
+(``models.attention.chunked_attention(causal)``); a CUDA tensor launches
+the kernel (wgmma fed by TMA), which reads all three through their
 strides, within TMA's rules: the last axis contiguous, the other strides
-multiples of 8 elements, 16-byte aligned bases.
+multiples of 8 elements, 16-byte aligned bases.  The two modes count their
+launches apart: ``flash_attention`` and ``flash_attention_bidir``.
 """
 
 from __future__ import annotations
@@ -19,13 +23,13 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 112, 128)  # 112: zamba2-7b's shared block
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bidir": 0}
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v)
+        return flash_attention_ref(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: tensor on {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -36,21 +40,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"{name}: last axis must be contiguous and the "
                              f"other strides multiples of 8, got {t.stride()}")
     b, s, h, d = q.shape
-    hkv = k.shape[2]
-    if k.shape != (b, s, hkv, d) or v.shape != k.shape:
+    skv, hkv = k.shape[1], k.shape[2]
+    if k.shape != (b, skv, hkv, d) or v.shape != k.shape \
+            or (causal and skv != s):
         raise ValueError(f"k/v {tuple(k.shape)} / {tuple(v.shape)} do not "
-                         f"match q {tuple(q.shape)}")
+                         f"match q {tuple(q.shape)} (causal={causal})")
     if d not in HEAD_DIMS or h % hkv:
         raise ValueError(f"unsupported head layout H={h} Hkv={hkv} D={d}")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if b == 0 or s == 0:
         return out
+    if skv == 0:
+        raise ValueError("flash_attention: no keys to attend")
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
+    name = "flash_attention" if causal else "flash_attention_bidir"
     status = build.library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, h, hkv, d, strides, float(d ** -0.5),
+        b, s, skv, h, hkv, d, strides, float(d ** -0.5), int(causal),
         build.stream_handle(q.device))
-    build.check(status, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    build.check(status, name)
+    LAUNCHES[name] += 1
     return out

@@ -23,9 +23,15 @@ workers behind the fleet wire protocol, ``--spares`` hot spares,
 checkpoints and failover; ``--transport loopback`` keeps them in this
 process, ``--transport socket`` spawns one subprocess worker each, which
 rebuilds the weights from ``(--arch, --seed)``; the fleet's counters are
-printed on shutdown.  ``--device`` defaults to ``cuda``,
-where each decode step is one replayed CUDA graph; ``--device cpu`` runs
-the plain PyTorch versions of the kernels.
+printed on shutdown.  ``--mode wave`` serves in wave mode (the
+shared-cursor cache: a wave of up to ``--max-batch`` prompts, left-padded
+to its longest, prefilled together and decoded in lockstep until every
+row finishes); ``--mode auto`` (the default) picks it for the families the
+engine cannot page (mamba2-130m, whisper-small) and continuous mode for the
+others; socket workers always take ``auto``, as the JAX worker CLI does.
+``--device`` defaults to ``cuda``, where each decode step is one replayed
+CUDA graph; ``--device cpu`` runs the plain PyTorch versions of the
+kernels.
 
   python src/repro_torch/launch/serve.py --arch smollm-360m --requests 8 \\
       --max-new 16 --replicas 2 --route least_loaded
@@ -38,13 +44,17 @@ the plain PyTorch versions of the kernels.
       --prefix-cache --replicas 2 --route session_affinity --device cpu
   python src/repro_torch/launch/serve.py --workers 2 --spares 1 \\
       --transport socket --device cpu
+  python src/repro_torch/launch/serve.py --arch whisper-small --device cpu
+  python src/repro_torch/launch/serve.py --arch mamba2-130m --reduced 0 \\
+      --max-seq 1024 --overlap
+  python src/repro_torch/launch/serve.py --arch llama2-7b --mode wave \\
+      --device cpu
 
-``--arch`` takes every configuration of ``configs/registry.py`` the engine
-serves: the dense family and the hybrid zamba2-7b (Mamba-2 layers and a
-shared attention block; mamba2-130m has ``forward`` only).
-
-Flags of the JAX driver whose features are not ported yet (wave mode)
-exit with a message naming what is missing.
+``--arch`` takes every configuration of ``configs/registry.py``: the dense
+family and the hybrid zamba2-7b (Mamba-2 layers and a shared attention
+block) in either mode, the ssm mamba2-130m and the audio whisper-small
+(an encoder over stub frame embeddings, zeros, and a decoder with
+cross-attention) in wave mode.
 """
 
 from __future__ import annotations
@@ -78,7 +88,8 @@ def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
                  flash_pages: int | None = None,
                  num_pages: int | None = None, prefix_cache: bool = False,
                  migrate: bool = True, workers: int = 0, spares: int = 0,
-                 transport: str = "loopback", device: str = "cuda"
+                 transport: str = "loopback", mode: str = "auto",
+                 device: str = "cuda"
                  ) -> tuple[ModelConfig, ServingClient]:
     """The model and serving stack the driver serves: ``init_params`` on
     the device from ``seed``, W8A8 or W4A16 quantization matrix by matrix
@@ -88,8 +99,10 @@ def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
     ``kv_tier`` / ``flash_pages`` / ``num_pages``: the flash KV tier and
     the hot pool's size; ``prefix_cache``; ``migrate``: slot migration
     between replicas or workers; ``workers`` / ``spares`` / ``transport``:
-    a fleet router over loopback or subprocess workers).  The weights come
-    from ``fleet.worker.build_params``, the calls a socket worker makes."""
+    a fleet router over loopback or subprocess workers; ``mode``: the
+    engine's "auto", "wave" or "continuous", which socket workers take as
+    "auto").  The weights come from ``fleet.worker.build_params``, the
+    calls a socket worker makes."""
     if workers and transport == "socket":
         # subprocess workers rebuild the weights themselves from (arch,
         # seed) and quantize locally, so nothing heavy ships over the wire;
@@ -118,15 +131,8 @@ def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
         scheduler=make_scheduler(policy, chunk_tokens=chunk_prefill or None),
         overlap=overlap, kv_dtype=kv_dtype, kv_tier=kv_tier,
         flash_pages=flash_pages, num_pages=num_pages,
-        prefix_cache=prefix_cache, device=device)
+        prefix_cache=prefix_cache, mode=mode, device=device)
     return cfg, client
-
-
-def _unported(args) -> list[str]:
-    out = []
-    if args.mode == "wave":
-        out.append("--mode wave")
-    return out
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -188,10 +194,6 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
     if args.quant == "int8":
         args.quant = "w8a8"
-    missing = _unported(args)
-    if missing:
-        ap.exit(2, "not ported to the PyTorch stack yet: "
-                + ", ".join(missing) + "\n")
 
     cfg, client = build_client(
         args.arch, reduced=bool(args.reduced), quant=args.quant,
@@ -202,7 +204,8 @@ def main(argv: list[str] | None = None) -> None:
         kv_tier=args.kv_tier, flash_pages=args.flash_pages or None,
         num_pages=args.num_pages or None, prefix_cache=args.prefix_cache,
         migrate=not args.no_migrate, workers=args.workers,
-        spares=args.spares, transport=args.transport, device=args.device)
+        spares=args.spares, transport=args.transport, mode=args.mode,
+        device=args.device)
     rng = np.random.RandomState(42)
     for i in range(args.requests):
         plen = int(rng.randint(2, 9))

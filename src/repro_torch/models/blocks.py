@@ -1,13 +1,15 @@
-"""GQA attention block shared by the transformer families (dense subset).
+"""GQA attention block shared by the transformer families (dense,
+hybrid and audio subset).
 
 Counterpart of ``repro.models.blocks``.  Where the JAX model runs the jnp
 twins of its Pallas kernels, this module calls the kernel wrappers: on a
 CUDA tensor they launch the Hopper kernels (B3 flash attention for prefill,
-B1 paged decode attention, and for a prefill chunk the paged chunk
-attention, which runs B3's per-block arithmetic through the block row, so
-a chunk query gets B3's one-shot bits), on a CPU tensor their plain
-versions.  The page pools are bf16 tensors or int8 ``(data, scale)`` pairs
-(``models.attention``).
+causal or, for the whisper encoder and cross-attention, bidirectional; B1
+decode attention over the paged pools or, in wave mode, over the
+contiguous cache; and for a prefill chunk the paged chunk attention, which
+runs B3's per-block arithmetic through the block row, so a chunk query gets
+B3's one-shot bits), on a CPU tensor their plain versions.  The page pools
+are bf16 tensors or int8 ``(data, scale)`` pairs (``models.attention``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attention.ops import (paged_chunk_attention,
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      paged_chunk_attention,
                                                       paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.attention import (gather_kv_pages, pool_page_size,
@@ -61,18 +64,59 @@ def _rope_qk(cfg: ModelConfig, q, k, positions):
 
 
 def attn_full(params: dict, x: torch.Tensor, cfg: ModelConfig,
-              positions: torch.Tensor
+              positions: torch.Tensor, causal: bool = True,
+              kv_override: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Causal full-sequence attention (the B3 flash attention kernel).
-    Returns (out, k, v) so callers can build the cache."""
+    """Full-sequence attention (the B3 flash attention kernel).  Returns
+    (out, k, v) so callers can build the cache.  ``kv_override``:
+    cross-attention source states [B, Senc, D], no RoPE; the attention is
+    bidirectional under ``kv_override`` or ``causal=False``."""
     b, s, _ = x.shape
+    src = kv_override if kv_override is not None else x
     q = linear(params["q"], x).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = linear(params["k"], x).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = linear(params["v"], x).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    q, k = _rope_qk(cfg, q, k, positions)
-    out = flash_attention(q, k, v)
+    k = linear(params["k"], src).reshape(b, src.shape[1], cfg.n_kv_heads,
+                                         cfg.d_head)
+    v = linear(params["v"], src).reshape(b, src.shape[1], cfg.n_kv_heads,
+                                         cfg.d_head)
+    if kv_override is None:
+        q, k = _rope_qk(cfg, q, k, positions)
+    out = flash_attention(q, k, v, causal=causal and kv_override is None)
     out = linear(params["o"], out.reshape(b, s, -1))
     return out, k, v
+
+
+def attn_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                k_cache: torch.Tensor, v_cache: torch.Tensor,
+                pos: torch.Tensor) -> torch.Tensor:
+    """One-token attention against the wave engine's contiguous cache.
+
+    x: [B, D]; k/v_cache: [B, Smax, Hkv, Dh] (one layer's, written IN
+    PLACE: this token's K/V row at ``pos``); pos: int32 [] on the device,
+    the shared cursor.  Every row attends its first pos + 1 rows (B1 over
+    the cache read as B pages on CUDA).  Returns out [B, D]."""
+    b = x.shape[0]
+    q = linear(params["q"], x).reshape(b, 1, cfg.n_heads, cfg.d_head)
+    k = linear(params["k"], x).reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
+    v = linear(params["v"], x).reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
+    q, k = _rope_qk(cfg, q, k, pos.reshape(1, 1).expand(b, 1))
+    at = pos.reshape(1).long()
+    k_cache.index_copy_(1, at, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, at, v.to(v_cache.dtype))
+    lengths = (pos + 1).to(torch.int32).reshape(1).expand(b).contiguous()
+    out = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, lengths)
+    return linear(params["o"], out.reshape(b, -1))
+
+
+def cross_attn_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                      k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      enc_len: int) -> torch.Tensor:
+    """Decoder cross-attention against the fixed encoder K/V
+    ``[B, Senc, Hkv, Dh]``: every row attends its first ``enc_len``."""
+    b = x.shape[0]
+    q = linear(params["q"], x).reshape(b, cfg.n_heads, cfg.d_head)
+    lengths = torch.full((b,), enc_len, dtype=torch.int32, device=x.device)
+    return linear(params["o"], decode_attention(
+        q.contiguous(), k_cache, v_cache, lengths).reshape(b, -1))
 
 
 def attn_decode_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,

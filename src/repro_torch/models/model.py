@@ -1,10 +1,16 @@
-"""Functional model API of the port: init / forward / paged prefill and
-decode for the dense, hybrid and ssm families.
+"""Functional model API of the port: init / forward, the wave engine's
+shared-cursor prefill and decode, and the paged prefill and decode, for the
+dense, hybrid, ssm and audio families.
 
-Counterpart of ``repro.models.model`` for the paged serving path:
+Counterpart of ``repro.models.model``:
 
     init_params(cfg, seed, max_seq, device, dtype)           -> params
-    forward(params, cfg, tokens)                    -> logits [B, S, V]
+    forward(params, cfg, tokens, extras)            -> logits [B, S, V]
+    init_cache(cfg, batch, max_seq, dtype, device)           -> cache
+    prefill(params, cfg, tokens, cache, extras)  -> (last_logits [B, V], cache)
+    decode_step(params, cfg, token, cache)          -> (logits [B, V], cache)
+    decode_and_sample(params, cfg, tok_host, tok_dev, use_dev, cache,
+                      sample_fn)                      -> (tokens [B], cache)
     init_paged_cache(cfg, slots, max_seq, dtype, page_size, num_pages,
                      device, kv_dtype)                       -> cache
     prefill_into_slots(params, cfg, tokens, true_lens, cache, slot_ids)
@@ -20,10 +26,23 @@ Counterpart of ``repro.models.model`` for the paged serving path:
 
 Params are plain dicts of tensors with the JAX package's key names; where
 the JAX package stacks layers on a leading axis the port keeps lists:
-``params["layers"][i]`` (dense, ssm), ``params["groups"][g][i]`` and
+``params["layers"][i]`` (dense, ssm, audio's decoder), ``params["enc_layers"]
+[i]`` (audio's encoder), ``params["groups"][g][i]`` and
 ``params["tail"][i]`` (hybrid, zamba2's Mamba layers; ``tail`` is None when
 the layer count divides), beside ``params["shared"]``, the one dense block
-every group applies.  The paged cache holds the page pools ``k``/``v``
+every group applies.
+
+The wave cache (``init_cache``, JAX's legacy cache) keeps one shared length
+cursor ``len`` (an int32 [] tensor on the device) for all B rows: K/V
+``[L, B, Smax, Hkv, Dh]`` (dense; hybrid one layer per group; audio's
+decoder self-attention, beside its cross-attention rows ``xk``/``xv``
+``[L, B, encoder_seq, Hkv, Dh]``), the hybrid family's Mamba state
+``mamba`` / ``tail`` and the ssm family's ``layers`` (``conv`` ``[..., B,
+K-1, C]``, ``state`` ``[..., B, H, P, N]`` float32).  ``prefill`` takes a
+left-padded batch (the engine pads to the wave's longest prompt) and
+writes every row; ``decode_step`` writes each row's K/V at ``len``.
+
+The paged cache holds the page pools ``k``/``v``
 ``[L, P, page, Hkv, Dh]`` (hybrid: one layer per group), the per-slot
 lengths ``lens``, for the hybrid family the Mamba state pools ``mamba``
 (``conv`` ``[G, every, slots, K-1, C]``, ``state`` ``[G, every, slots, H, P,
@@ -32,14 +51,18 @@ caller, the block table ``block``.  Under ``kv_dtype="int8"`` the K/V pools
 are int8 with float32 scale pools ``k_scale`` / ``v_scale`` (the pool
 shapes less their last axis); rows quantize at their write.
 
-Where the JAX functions return a new cache, these write the page and state
-pools IN PLACE and return a shallow copy of the cache dict with a new
-``lens``.  Families without a branch here (moe, vlm, mla_moe, audio, the
-parallel-block dense models) raise NotImplementedError; the ssm family has
-``forward`` only (its serving needs the wave-mode engine).
+Where the JAX functions return a new cache, these write the page, K/V and
+state tensors IN PLACE and return a shallow copy of the cache dict with a
+new ``lens`` (paged) or ``len`` (wave); a conv window whose dtype the JAX
+function would change (jnp's promotion, C3) is rebound to a new tensor of
+that dtype instead.  Families without a branch here (moe, vlm, mla_moe,
+the parallel-block dense models) raise NotImplementedError; the ssm and
+audio families have no paged path (they serve in wave mode, as in JAX).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -49,18 +72,19 @@ from repro_torch.models import blocks
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import quantize_rows
 from repro_torch.models.layers import (_w4a16_matmul, dense_weight, ffn,
-                                       init_ffn, init_linear)
+                                       init_ffn, init_linear, linear)
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
 
-MODEL_FAMILIES = ("dense", "hybrid", "ssm")   # init_params, forward
+# init_params, forward and the wave cache's prefill / decode
+MODEL_FAMILIES = ("dense", "hybrid", "ssm", "audio")
 PAGED_FAMILIES = ("dense", "hybrid")          # the paged serving path
 # param subtrees the JAX package stacks on leading layer axes, which the
 # port keeps as (nested) lists -> the number of those axes
-STACKED = {"layers": 1, "groups": 2, "tail": 1}
+STACKED = {"layers": 1, "enc_layers": 1, "groups": 2, "tail": 1}
 # rows per float32 lm_head product: a library GEMM may pick its algorithm,
 # and so its summation order, by the row count, so every product has this
 # many rows (the last block zero-padded) and a row's logits do not depend
@@ -80,6 +104,17 @@ def _init_dense_layer(gen, cfg: ModelConfig, dtype, device) -> dict:
     return {
         "attn_norm": blocks.init_norm(cfg, dtype, device),
         "attn": blocks.init_attn(gen, cfg, dtype, device),
+        "ffn_norm": blocks.init_norm(cfg, dtype, device),
+        "ffn": init_ffn(gen, cfg, cfg.d_ff, dtype, device),
+    }
+
+
+def _init_audio_dec_layer(gen, cfg: ModelConfig, dtype, device) -> dict:
+    return {
+        "attn_norm": blocks.init_norm(cfg, dtype, device),
+        "attn": blocks.init_attn(gen, cfg, dtype, device),
+        "xattn_norm": blocks.init_norm(cfg, dtype, device),
+        "xattn": blocks.init_attn(gen, cfg, dtype, device),
         "ffn_norm": blocks.init_norm(cfg, dtype, device),
         "ffn": init_ffn(gen, cfg, cfg.d_ff, dtype, device),
     }
@@ -107,6 +142,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, max_seq: int = 4096,
     if cfg.family == "dense":
         p["layers"] = [_init_dense_layer(gen, cfg, dtype, dev)
                        for _ in range(cfg.n_layers)]
+    elif cfg.family == "audio":
+        p["enc_layers"] = [_init_dense_layer(gen, cfg, dtype, dev)
+                           for _ in range(cfg.n_encoder_layers)]
+        p["layers"] = [_init_audio_dec_layer(gen, cfg, dtype, dev)
+                       for _ in range(cfg.n_layers)]
+        p["enc_pos"] = (torch.randn((cfg.encoder_seq, cfg.d_model),
+                                    generator=gen, dtype=torch.float32,
+                                    device=dev) * 0.02).to(dtype)
+        p["enc_final_norm"] = blocks.init_norm(cfg, dtype, dev)
     elif cfg.family == "hybrid":
         n_groups, every, tail = _hybrid_layout(cfg)
         p["groups"] = [[ssm_mod.init_mamba_block(gen, cfg, dtype, dev)
@@ -155,12 +199,24 @@ def _fixed_row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _dense_layer_full(lp, x, cfg: ModelConfig, positions):
+def _dense_layer_full(lp, x, cfg: ModelConfig, positions, causal=True):
     h = blocks.norm(cfg, lp["attn_norm"], x)
-    attn_out, k, v = blocks.attn_full(lp["attn"], h, cfg, positions)
+    attn_out, k, v = blocks.attn_full(lp["attn"], h, cfg, positions, causal)
     x = x + attn_out
     x = x + ffn(lp["ffn"], blocks.norm(cfg, lp["ffn_norm"], x), cfg.gated_ffn)
     return x, (k, v)
+
+
+def _audio_dec_layer_full(lp, x, cfg: ModelConfig, positions, enc_out):
+    h = blocks.norm(cfg, lp["attn_norm"], x)
+    attn_out, k, v = blocks.attn_full(lp["attn"], h, cfg, positions)
+    x = x + attn_out
+    h = blocks.norm(cfg, lp["xattn_norm"], x)
+    xout, xk, xv = blocks.attn_full(lp["xattn"], h, cfg, positions,
+                                    causal=False, kv_override=enc_out)
+    x = x + xout
+    x = x + ffn(lp["ffn"], blocks.norm(cfg, lp["ffn_norm"], x), cfg.gated_ffn)
+    return x, (k, v, xk, xv)
 
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -170,24 +226,46 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, s = x.shape[0], x.shape[1]
+    return torch.arange(s, device=x.device).expand(b, s)
+
+
+def _encode_audio(params, cfg: ModelConfig,
+                  frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings [B, Senc, D]: learned
+    positions, bidirectional self-attention (B3's bidirectional mode on
+    CUDA), the encoder's final norm."""
+    x = frames + params["enc_pos"][None, :frames.shape[1]]
+    pos = _positions(x)
+    enc_cfg = dataclasses.replace(cfg, rope_mode="none")
+    for lp in params["enc_layers"]:
+        x, _ = _dense_layer_full(lp, x, enc_cfg, pos, causal=False)
+    return blocks.norm(cfg, params["enc_final_norm"], x)
+
+
 def _mamba_full(lp, x, cfg: ModelConfig, valid=None):
     out, state = ssm_mod.mamba_block(lp, x, cfg, valid=valid)
     return x + out, state
 
 
-def forward(params: dict, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced full-sequence logits f32 [B, S, V] (the dense, hybrid
-    and ssm branches of the JAX ``forward``): attention runs causally
-    through the B3 kernel on CUDA, every Mamba layer's intra-chunk term
-    through B6."""
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            extras: dict | None = None) -> torch.Tensor:
+    """Teacher-forced full-sequence logits f32 [B, S, V] (the dense,
+    hybrid, ssm and audio branches of the JAX ``forward``): attention runs
+    through the B3 kernel on CUDA (bidirectional for the whisper encoder
+    and the cross-attention), every Mamba layer's intra-chunk term through
+    B6.  ``extras["frames"]``: the audio family's frame embeddings."""
     _check_family(cfg, MODEL_FAMILIES)
     x = _embed(params, cfg, tokens)
-    b, s = x.shape[0], x.shape[1]
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    positions = _positions(x)
     if cfg.family == "dense":
         for lp in params["layers"]:
             x, _ = _dense_layer_full(lp, x, cfg, positions)
+    elif cfg.family == "audio":
+        enc_out = _encode_audio(params, cfg, extras["frames"])
+        for lp in params["layers"]:
+            x, _ = _audio_dec_layer_full(lp, x, cfg, positions, enc_out)
     elif cfg.family == "hybrid":
         for gp in params["groups"]:
             for lp in gp:
@@ -203,15 +281,256 @@ def forward(params: dict, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
+# the wave cache: one shared length cursor for every row
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: str | torch.device = "cuda") -> dict:
+    """The wave engine's cache (JAX ``init_cache``), zeros:
+
+      k/v    [L, B, Smax, Hkv, Dh]   dense; hybrid L = n_groups; audio
+                                     the decoder's self-attention
+      xk/xv  [L, B, encoder_seq, Hkv, Dh]   audio: cross-attention rows
+      mamba  {conv [G, every, B, K-1, C], state [G, every, B, H, P, N]},
+      tail   the same with [T, B] or None   hybrid
+      layers {conv [L, B, K-1, C], state [L, B, H, P, N]}   ssm
+      len    int32 []                the shared cursor
+    """
+    _check_family(cfg, MODEL_FAMILIES)
+    dev = resolve_device(device)
+    f = cfg.family
+    out: dict = {"len": torch.zeros((), dtype=torch.int32, device=dev)}
+    if f in ("dense", "audio", "hybrid"):
+        n_kv = _hybrid_layout(cfg)[0] if f == "hybrid" else cfg.n_layers
+        shape = (n_kv, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+        out["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        out["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    if f == "audio":
+        shape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
+                 cfg.d_head)
+        out["xk"] = torch.zeros(shape, dtype=dtype, device=dev)
+        out["xv"] = torch.zeros(shape, dtype=dtype, device=dev)
+    if f in ("hybrid", "ssm"):
+        one = ssm_mod.init_mamba_cache(cfg, batch, dtype, dev)
+
+        def rep(*dims):
+            return {k: torch.zeros((*dims, *v.shape), dtype=v.dtype,
+                                   device=dev) for k, v in one.items()}
+        if f == "hybrid":
+            n_groups, every, tail = _hybrid_layout(cfg)
+            out["mamba"] = rep(n_groups, every)
+            out["tail"] = rep(tail) if tail else None
+        else:
+            out["layers"] = rep(cfg.n_layers)
+    return out
+
+
+def state_pools(cache: dict) -> list[dict]:
+    """The Mamba state pool dicts of a cache (hybrid ``mamba`` / ``tail``,
+    the wave ssm cache's ``layers``)."""
+    return [cache[k] for k in ("mamba", "tail", "layers")
+            if isinstance(cache.get(k), dict)]
+
+
+def _promote_conv(cache: dict, dtype: torch.dtype) -> None:
+    """A decode step returns each conv window in the promoted dtype of the
+    pool and this step's activations (``jnp.concatenate``, C3), so a
+    float32 model over a bf16 cache carries float32 conv pools from its
+    first decode step on; the pools are rebound to that dtype (a no-op for
+    a bf16 model)."""
+    for pools in state_pools(cache):
+        pools["conv"] = pools["conv"].to(
+            torch.promote_types(pools["conv"].dtype, dtype))
+
+
+def _mamba_step(lp, h, cfg: ModelConfig, pool: dict, active=None):
+    """One Mamba layer's decode step; pool: the layer's state views,
+    updated in place."""
+    out, new = ssm_mod.mamba_decode_step(lp, h, pool, cfg, active=active)
+    for k, v in pool.items():
+        v.copy_(new[k])
+    return h + out
+
+
+def _conv_tail(h: torch.Tensor, lp, cfg: ModelConfig) -> torch.Tensor:
+    """Last K-1 conv inputs of the sequence (pre-activation), for decode."""
+    z_xbc_dt = linear(lp["in_proj"], h[:, -(cfg.ssm_conv - 1):, :])
+    d_in = cfg.d_inner
+    g, n = cfg.ssm_ngroups, cfg.ssm_state
+    return z_xbc_dt[..., d_in:d_in + d_in + 2 * g * n]
+
+
+def _mamba_prefill(lp, h, cfg: ModelConfig, pool: dict) -> torch.Tensor:
+    """One Mamba layer over the whole (left-padded) rows, no valid mask, as
+    the JAX wave prefill runs it; the final state and the conv tail go
+    into the layer's pool views in place."""
+    out, state = ssm_mod.mamba_block(lp, h, cfg)
+    pool["conv"].copy_(_conv_tail(h, lp, cfg))
+    pool["state"].copy_(state)
+    return h + out
+
+
+def _write_kv(cache: dict, li: int, k: torch.Tensor, v: torch.Tensor,
+              keys=("k", "v")) -> None:
+    """Layer ``li``'s K/V [B, S, Hkv, Dh] at rows 0..S-1 of every batch
+    row, the rows after them zeroed (JAX pads the prefill's K/V to Smax)."""
+    s = k.shape[1]
+    for name, arr in zip(keys, (k, v)):
+        pool = cache[name][li]
+        pool[:, :s].copy_(arr)
+        pool[:, s:].zero_()
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            cache: dict, extras: dict | None = None
+            ) -> tuple[torch.Tensor, dict]:
+    """Process a batch of prompts, left-padded to one length S (the JAX
+    wave prefill, which attends the pads: the engine reproduces that).
+    Writes every row of the cache in place (K/V rows past S zeroed; the
+    audio family's cross-attention rows; the Mamba conv tails and final
+    states) and returns (last-position logits [B, V], a shallow copy of the
+    cache with ``len`` = S).  A conv pool in another dtype than the
+    activations is rebound to theirs, as the JAX cache takes the prefill's
+    conv tails as they are.  ``extras["frames"]``: the audio family's
+    frame embeddings [B, encoder_seq, D].
+
+    Raises ValueError for an ssm / hybrid batch shorter than the conv
+    window (``ssm_conv - 1``): its decode conv state would be short (the
+    JAX reference crashes on its first decode step)."""
+    _check_family(cfg, MODEL_FAMILIES)
+    f = cfg.family
+    s = tokens.shape[1]
+    if f in ("ssm", "hybrid") and s < cfg.ssm_conv - 1:
+        raise ValueError(
+            f"{cfg.name}: a wave prefill of {s} tokens is shorter than the "
+            f"conv window (ssm_conv - 1 = {cfg.ssm_conv - 1}); the decode "
+            f"conv state would be short")
+    x = _embed(params, cfg, tokens)
+    positions = _positions(x)
+    if f == "dense":
+        for li, lp in enumerate(params["layers"]):
+            x, (k, v) = _dense_layer_full(lp, x, cfg, positions)
+            _write_kv(cache, li, k, v)
+    elif f == "audio":
+        enc_out = _encode_audio(params, cfg, extras["frames"])
+        for li, lp in enumerate(params["layers"]):
+            x, (k, v, xk, xv) = _audio_dec_layer_full(lp, x, cfg, positions,
+                                                      enc_out)
+            _write_kv(cache, li, k, v)
+            _write_kv(cache, li, xk, xv, keys=("xk", "xv"))
+    else:
+        for pools in state_pools(cache):
+            if pools["conv"].dtype != x.dtype:
+                pools["conv"] = pools["conv"].to(x.dtype)
+        if f == "hybrid":
+            for gi, gp in enumerate(params["groups"]):
+                for li, lp in enumerate(gp):
+                    x = _mamba_prefill(lp, x, cfg, {
+                        k: v[gi, li] for k, v in cache["mamba"].items()})
+                x, (k, v) = _dense_layer_full(params["shared"], x, cfg,
+                                              positions)
+                _write_kv(cache, gi, k, v)
+            for ti, lp in enumerate(params.get("tail") or ()):
+                x = _mamba_prefill(lp, x, cfg,
+                                   {k: v[ti] for k, v in cache["tail"].items()})
+        else:  # ssm
+            for li, lp in enumerate(params["layers"]):
+                x = _mamba_prefill(lp, x, cfg, {
+                    k: v[li] for k, v in cache["layers"].items()})
+    new_len = torch.full((), s, dtype=torch.int32, device=x.device)
+    x_last = blocks.norm(cfg, params["final_norm"], x[:, -1])
+    return lm_head(params, cfg, x_last), {**cache, "len": new_len}
+
+
+def _dense_layer_wave(lp, x, cfg: ModelConfig, k_cache, v_cache, pos):
+    hn = blocks.norm(cfg, lp["attn_norm"], x)
+    x = x + blocks.attn_decode(lp["attn"], hn, cfg, k_cache, v_cache, pos)
+    return x + ffn(lp["ffn"], blocks.norm(cfg, lp["ffn_norm"], x),
+                   cfg.gated_ffn)
+
+
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                cache: dict) -> tuple[torch.Tensor, dict]:
+    """One token for every row of a wave cache, at the shared cursor.
+
+    token: int [B].  Each row's K/V is written at ``cache["len"]`` and the
+    Mamba states advance, in place; the rows attend their first len + 1
+    keys (B1 over the contiguous cache on CUDA; audio's cross-attention
+    over all encoder_seq rows).  Nothing here reads a device value on the
+    host, so the step can be captured as a CUDA graph.  Returns (logits
+    [B, V], a shallow copy of the cache with ``len`` + 1)."""
+    _check_family(cfg, MODEL_FAMILIES)
+    x = params["embed"][token.long()]
+    pos = cache["len"]
+    if cfg.rope_mode == "learned":
+        x = x + params["pos_embed"].index_select(0, pos.reshape(1).long())
+    f = cfg.family
+    if f == "dense":
+        for li, lp in enumerate(params["layers"]):
+            x = _dense_layer_wave(lp, x, cfg, cache["k"][li], cache["v"][li],
+                                  pos)
+    elif f == "audio":
+        for li, lp in enumerate(params["layers"]):
+            hn = blocks.norm(cfg, lp["attn_norm"], x)
+            x = x + blocks.attn_decode(lp["attn"], hn, cfg, cache["k"][li],
+                                       cache["v"][li], pos)
+            hn = blocks.norm(cfg, lp["xattn_norm"], x)
+            x = x + blocks.cross_attn_decode(
+                lp["xattn"], hn, cfg, cache["xk"][li], cache["xv"][li],
+                cfg.encoder_seq)
+            x = x + ffn(lp["ffn"], blocks.norm(cfg, lp["ffn_norm"], x),
+                        cfg.gated_ffn)
+    else:
+        _promote_conv(cache, x.dtype)
+        if f == "hybrid":
+            for gi, gp in enumerate(params["groups"]):
+                for li, lp in enumerate(gp):
+                    x = _mamba_step(lp, x, cfg, {
+                        k: v[gi, li] for k, v in cache["mamba"].items()})
+                x = _dense_layer_wave(params["shared"], x, cfg,
+                                      cache["k"][gi], cache["v"][gi], pos)
+            for ti, lp in enumerate(params.get("tail") or ()):
+                x = _mamba_step(lp, x, cfg,
+                                {k: v[ti] for k, v in cache["tail"].items()})
+        else:  # ssm
+            for li, lp in enumerate(params["layers"]):
+                x = _mamba_step(lp, x, cfg, {
+                    k: v[li] for k, v in cache["layers"].items()})
+    x = blocks.norm(cfg, params["final_norm"], x)
+    return lm_head(params, cfg, x), {**cache, "len": pos + 1}
+
+
+def decode_and_sample(params: dict, cfg: ModelConfig, tok_host: torch.Tensor,
+                      tok_dev: torch.Tensor, use_dev: torch.Tensor,
+                      cache: dict, sample_fn) -> tuple[torch.Tensor, dict]:
+    """``decode_and_sample_paged`` for the wave cache: the input token
+    merged on the device, ``where(use_dev, tok_dev, tok_host)``, one
+    ``decode_step``, then ``sample_fn(logits)``."""
+    token = torch.where(use_dev.to(torch.bool), tok_dev, tok_host)
+    logits, cache = decode_step(params, cfg, token, cache)
+    return sample_fn(logits), cache
+
+
+# ---------------------------------------------------------------------------
 # paged cache
 # ---------------------------------------------------------------------------
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
     """The port pages the dense family's K/V and the hybrid family's
-    shared-attention K/V (its Mamba state lives in a slot-indexed pool);
-    the other families come later (ssm with the wave-mode engine)."""
+    shared-attention K/V (its Mamba state lives in a slot-indexed pool).
+    The ssm and audio families keep the shared cursor (wave mode), as in
+    JAX; moe, vlm and mla_moe are not ported."""
     return cfg.family in PAGED_FAMILIES and not cfg.parallel_block
+
+
+def wave_only(cfg: ModelConfig) -> bool:
+    """True for the families the JAX package cannot page (pure SSM and
+    encoder-decoder: recurrent or cross-attention state tied to the shared
+    cursor); the engine's ``mode="auto"`` serves them in wave mode."""
+    return cfg.family in ("ssm", "audio")
 
 
 def has_slot_state(cfg: ModelConfig) -> bool:
@@ -248,6 +567,8 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, max_seq: int,
     and passed in as ``cache["block"]``; ``paged_slot_capacity`` is
     ``pages_per_slot * page``.  By default P fits every slot at max_seq.
     """
+    if cfg.family in ("ssm", "audio"):
+        raise ValueError(f"paged cache unsupported for family {cfg.family!r}")
     _check_family(cfg, PAGED_FAMILIES)
     if kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"unknown kv_dtype: {kv_dtype!r}")
@@ -535,33 +856,19 @@ def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
                                     _pool(cache, "v", li), block, lens,
                                     active)
     else:  # hybrid
-        # the JAX step returns each conv window in the promoted dtype of the
-        # pool and this step's activations, so a float32 model over a bf16
-        # cache carries float32 conv pools from its first decode step on;
-        # the port's pools take that dtype too (a no-op for a bf16 model)
-        for pools in (cache["mamba"], cache.get("tail")):
-            if pools is not None:
-                pools["conv"] = pools["conv"].to(
-                    torch.promote_types(pools["conv"].dtype, x.dtype))
-
-        def mamba(lp, h, pool: dict):
-            # pool: one layer's state views, updated in place
-            out, new = ssm_mod.mamba_decode_step(lp, h, pool, cfg,
-                                                 active=active)
-            for k, v in pool.items():
-                v.copy_(new[k])
-            return h + out
-
+        _promote_conv(cache, x.dtype)
         for gi, gp in enumerate(params["groups"]):
             for li, lp in enumerate(gp):
-                x = mamba(lp, x, {k: v[gi, li]
-                                  for k, v in cache["mamba"].items()})
+                x = _mamba_step(lp, x, cfg, {
+                    k: v[gi, li] for k, v in cache["mamba"].items()}, active)
             x = _dense_layer_decode(params["shared"], x, cfg,
                                     _pool(cache, "k", gi),
                                     _pool(cache, "v", gi), block, lens,
                                     active)
         for ti, lp in enumerate(params.get("tail") or ()):
-            x = mamba(lp, x, {k: v[ti] for k, v in cache["tail"].items()})
+            x = _mamba_step(lp, x, cfg,
+                            {k: v[ti] for k, v in cache["tail"].items()},
+                            active)
     cache = {**cache, "lens": lens + active.to(torch.int32)}
     x = blocks.norm(cfg, params["final_norm"], x)
     return lm_head(params, cfg, x), cache

@@ -1,4 +1,4 @@
-"""EngineCore: the per-replica serving loop (continuous mode).
+"""EngineCore: the per-replica serving loop (continuous and wave mode).
 
 The bottom layer of the port's serving API, as in ``repro.serving.core``::
 
@@ -39,17 +39,35 @@ Mamba conv window and SSM state live in the cache's slot-indexed state
 pools: a prefill overwrites the slot's rows and decode masks inactive
 lanes; a suspension, a migration and a prefix resume point checkpoint them
 host-side (``checkpoint_slot_state``) and write them back on resume.
-``mode="wave"`` raises until its slice lands.
+
+Wave mode (``mode="wave"``; ``mode="auto"`` picks it for the families the
+JAX package cannot page, ssm and audio), as in the JAX engine: the legacy
+cache keeps one length cursor for every row (``models.model.init_cache``),
+so a wave of up to ``max_batch`` requests is admitted only when the whole
+batch has drained.  Its prompts are left-padded with token 0 to the wave's
+longest and prefilled in one pass (``models.model.prefill``; the audio
+family's frames are zeros, as the JAX engine feeds them), the pads
+attended as the JAX engine attends them; then every row decodes at the
+shared cursor (``decode_step``), finished rows riding along, until every
+row has finished or the cursor reaches ``max_seq - 1``.  The cursor is
+mirrored on the host, so no step reads a device value for it.  The wave
+cache is allocated once and overwritten in place by each wave's prefill,
+so a captured decode graph keeps its addresses.  A wave engine refuses
+int8 pools, the flash tier and the prefix cache with the JAX engine's
+``ValueError``; it has no slot to snapshot or inject.  A wave of ssm or
+hybrid prompts shorter than the conv window (``ssm_conv - 1`` tokens)
+raises ``ValueError`` at its admission (the JAX reference crashes there).
 
 The straggler watchdog (``watchdog(step, dt) -> bool``, the synchronous
 loop only, as in the JAX engine): when it flags a decode step, the step
-runs again from the state it started from.  The step writes ``lens``, the
-K/V row at each active slot's position and, for the hybrid family, the
-Mamba state pools in place under its graph, so before the first replay
-the engine keeps a device copy of ``lens`` and of the state pools, and on
-a re-dispatch copies them back on the compute stream and replays again; a
-K/V row rewritten at the same position from the same inputs has the same
-bits, so the page pools need no copy.  The copies are taken only with a
+runs again from the state it started from.  The step writes ``lens`` (wave
+mode: the cursor ``len``), the K/V row at each active slot's position and,
+for the hybrid and ssm families, the Mamba state pools in place under its
+graph, so before the first replay the engine keeps a device copy of the
+lengths and of the state pools, and on a re-dispatch copies them back on
+the compute stream and replays again; a K/V row rewritten at the same
+position from the same inputs has the same bits, so the K/V tensors need
+no copy.  The copies are taken only with a
 watchdog set.  With ``REPRO_SANITIZE=1`` the engine arms the sanitizer
 rails (``repro_torch/_sanitize.py``): shadow models of the allocators, the
 overlapped loop's dispatch guard over the arrays it stages, and a budget
@@ -92,10 +110,11 @@ lengths, sampler cursor, hybrid state, shared pages' chain keys), and
 ``inject_slot`` resumes it on another engine with the same bits;
 ``serving/fleet/wire.py`` gives it the JAX package's byte format.
 
-The device state is the cache dict of ``init_paged_cache`` on ``device``,
-whose tensors keep their storage for the engine's life (prefill's new
-lengths are copied into ``cache["lens"]``); the block table, last tokens
-and active mask live host-side in numpy.  A decode step is one
+The device state is the cache dict of ``init_paged_cache`` (wave mode:
+``init_cache``) on ``device``, whose tensors keep their storage for the
+engine's life (prefill's new lengths are copied into ``cache["lens"]`` or
+``cache["len"]``); the block table, last tokens and active mask live
+host-side in numpy.  A decode step is one
 ``serving.graphs.DecodeGraph`` step: the inputs staged into static
 buffers, then on CUDA one replayed CUDA graph (the counterpart of the JAX
 engine's one jitted dispatch).  The synchronous loop replays the decode
@@ -392,6 +411,16 @@ def _not_ported(flag: str, slice_: str) -> NotImplementedError:
         f"{flag} is not ported to the PyTorch engine yet ({slice_})")
 
 
+def _batch_extras(cfg: ModelConfig, batch: int,
+                  device: torch.device) -> dict:
+    """The prefill's extra inputs, as the JAX engine makes them: the audio
+    family's frame embeddings, zeros [batch, encoder_seq, d_model] bf16."""
+    if cfg.family == "audio":
+        return {"frames": torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                      dtype=torch.bfloat16, device=device)}
+    return {}
+
+
 class EngineCore:
     """Single-replica engine over the port's functional model API, on one
     device (``"cuda"`` by default; ``"cpu"`` runs the plain versions)."""
@@ -413,24 +442,37 @@ class EngineCore:
                 "re-dispatch contract cannot hold; use the synchronous loop "
                 "with a watchdog")
         if mode == "auto":
-            mode = "continuous"
-        if mode == "wave":
-            raise _not_ported("mode='wave'", "the shared-cursor cache")
-        if mode != "continuous":
+            mode = "wave" if model_lib.wave_only(cfg) else "continuous"
+        if mode not in ("continuous", "wave"):
             raise ValueError(f"unknown mode {mode!r}")
-        if not model_lib.supports_paged(cfg):
+        if mode == "continuous" and model_lib.wave_only(cfg):
+            raise ValueError(
+                f"continuous mode needs a paged KV cache; family "
+                f"{cfg.family!r} has recurrent state tied to the shared "
+                f"cursor — use mode='wave'")
+        if mode == "continuous" and not model_lib.supports_paged(cfg):
             raise _not_ported(f"serving family {cfg.family!r}",
-                              "dense and hybrid only; ssm needs wave mode")
+                              "dense, hybrid, ssm and audio only")
         if kv_tier not in ("none", "flash"):
             raise ValueError(f"kv_tier {kv_tier!r} not in ('none', 'flash')")
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype {kv_dtype!r} not in ('bf16', 'int8')")
+        if kv_dtype == "int8" and mode != "continuous":
+            raise ValueError("kv_dtype='int8' needs mode='continuous' (only "
+                             "the paged pools quantize per page row)")
         if exhaust_policy not in ("requeue", "reject"):
             raise ValueError(f"exhaust_policy {exhaust_policy!r}")
+        if kv_tier == "flash" and mode != "continuous":
+            raise ValueError("kv_tier='flash' needs mode='continuous'")
+        if prefix_cache and mode != "continuous":
+            raise ValueError(
+                "prefix_cache=True needs mode='continuous' (the wave cache "
+                "has no page pool to share)")
         self.scheduler = make_scheduler(scheduler)
         # chunk budgets apply where the model can prefill a chunk; other
         # families prefill every prompt in one shot
-        self._chunk_ok = model_lib.supports_chunked_prefill(cfg)
+        self._chunk_ok = (mode == "continuous"
+                          and model_lib.supports_chunked_prefill(cfg))
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -454,11 +496,15 @@ class EngineCore:
         self.queue: list[Request] = []
         self.slots: list[Optional[Request]] = [None] * max_batch
         self._events: list[RequestOutput] = []
+        self.kv_dtype = kv_dtype
+        self._px: Optional[PrefixIndex] = None  # set in continuous mode
+        if mode == "wave":
+            self._init_wave()
+            return
         self.page_size = page_size
         self.pages_per_slot = pages_needed(max_seq, page_size)
         full_pool = max_batch * self.pages_per_slot + 1
         self.num_pages = full_pool if num_pages is None else num_pages
-        self.kv_dtype = kv_dtype
         self.cache = model_lib.init_paged_cache(
             cfg, max_batch, max_seq, page_size=page_size,
             num_pages=self.num_pages, device=self.device, kv_dtype=kv_dtype)
@@ -495,20 +541,36 @@ class EngineCore:
         self.graph = graphs.DecodeGraph(cfg, params, max_batch,
                                         self.pages_per_slot, self.device)
 
+    def _init_wave(self) -> None:
+        """Wave mode's state: the shared-cursor cache (allocated once, each
+        wave's prefill overwrites it in place), the last tokens and the
+        cursor mirrored on the host, the prefill's extra inputs."""
+        b = self.max_batch
+        self.cache = model_lib.init_cache(self.cfg, b, self.max_seq,
+                                          device=self.device)
+        self._wave_last_np = np.zeros((b,), np.int32)
+        self._wave_len = 0  # host mirror of cache["len"]
+        self._extras = _batch_extras(self.cfg, b, self.device)
+        self.graph = graphs.DecodeGraph(self.cfg, self.params, b, 0,
+                                        self.device, wave=True)
+
     # ------------------------------------------------------------------
     # command surface: add / abort
     # ------------------------------------------------------------------
     def add_request(self, req: Request) -> None:
-        if len(req.prompt) >= self.max_seq:
+        if self._cache_len0(req) >= self.max_seq:
             raise ValueError(f"prompt ({len(req.prompt)}) does not fit "
                              f"max_seq ({self.max_seq})")
-        # the whole-lifetime page demand of one request must fit the hot
-        # pool, or requeue / suspend-and-resume could never finish it
-        worst = min(self.max_seq, len(req.prompt) + req.max_new_tokens)
-        if pages_needed(worst, self.page_size) > self.num_pages - 1:
-            raise ValueError(
-                f"request needs up to {pages_needed(worst, self.page_size)}"
-                f" pages, hot pool has {self.num_pages - 1}")
+        if self.mode == "continuous":
+            # the whole-lifetime page demand of one request must fit the
+            # hot pool, or requeue / suspend-and-resume could never finish
+            worst = min(self.max_seq,
+                        self._cache_len0(req) + req.max_new_tokens)
+            if pages_needed(worst, self.page_size) > self.num_pages - 1:
+                raise ValueError(
+                    f"request needs up to "
+                    f"{pages_needed(worst, self.page_size)} pages, hot pool "
+                    f"has {self.num_pages - 1}")
         req.t_submit = time.monotonic()
         if req.arrival_s is None:
             req.arrival_s = req.t_submit
@@ -524,10 +586,18 @@ class EngineCore:
                 return True
         for i, req in enumerate(self.slots):
             if req is not None and req.rid == rid:
-                self._release_slot(i)
+                if self.mode == "continuous":
+                    self._release_slot(i)
+                else:
+                    self.slots[i] = None
                 self._abort(req)
                 return True
         return False
+
+    def _cache_len0(self, req: Request) -> int:
+        """Valid cache length right after prefill (the prompt: the port
+        has no vision tokens)."""
+        return len(req.prompt)
 
     def _abort(self, req: Request) -> None:
         req.done = True
@@ -557,7 +627,10 @@ class EngineCore:
 
     @property
     def free_pages(self) -> int:
-        """Hot pages currently allocatable."""
+        """Hot pages currently allocatable (the free slots in wave mode,
+        which has no page pool)."""
+        if self.mode != "continuous":
+            return self.n_free_slots
         return self.allocator.available
 
     @property
@@ -565,6 +638,8 @@ class EngineCore:
         """True when this replica cannot make progress on all it holds: a
         suspended slot waits for pages, or nothing in the queue can claim a
         slot and its prefill pages.  The router's migration trigger."""
+        if self.mode != "continuous":
+            return False
         if any(self.suspended):
             return True
         if not self.queue:
@@ -579,6 +654,8 @@ class EngineCore:
         """``(rid, n_pages)`` of the slot this replica would rather hand to
         a peer, or None: suspended slots first, then, with a backlogged
         queue and no free slot, the scheduler's victim."""
+        if self.mode != "continuous":
+            return None
         if self.resume_order:
             i = self.resume_order[0]
         elif self.queue and self.n_free_slots == 0:
@@ -597,7 +674,8 @@ class EngineCore:
         """Whether ``inject_slot`` of an ``n_pages`` snapshot would succeed
         without evicting anyone: a free slot plus the pages, with one page
         of growth headroom."""
-        return (not self.page_starved and self.n_free_slots > 0
+        return (self.mode == "continuous" and not self.page_starved
+                and self.n_free_slots > 0
                 and n_pages <= self.pages_per_slot
                 and (self.allocator.available + self._px_reclaimable
                      >= n_pages + 1))
@@ -617,6 +695,8 @@ class EngineCore:
         cold ones from the tier's store, so a suspended slot snapshots
         without a prefetch.  ``release=False`` leaves the slot running and
         the tier intact (a checkpoint; serialize it before the next step)."""
+        if self.mode != "continuous":
+            raise ValueError("snapshot_slot needs mode='continuous'")
         # an in-flight fused step's token must land in out_tokens /
         # slot_len / last_np before they are copied out
         self._drain_pending()
@@ -660,6 +740,8 @@ class EngineCore:
         a block-table remap), ``lens`` and the sampler cursor come from the
         snapshot and a hybrid slot's state through ``restore_slot_state``,
         all in place, so decode continues with the unmigrated run's bits."""
+        if self.mode != "continuous":
+            raise ValueError("inject_slot needs mode='continuous'")
         if snap.family != self.cfg.family or snap.page_size != self.page_size:
             raise ValueError(
                 f"snapshot ({snap.family}, page_size={snap.page_size}) does "
@@ -798,15 +880,21 @@ class EngineCore:
 
     def _slot_view(self, i: int) -> SlotView:
         r = self.slots[i]
-        # a mid-prefill slot already holds its whole prompt's pages, so
-        # victim choices keyed on seq_len see that footprint
-        seq = len(r.prompt) if self.prefilling[i] else self.slot_len[i]
+        if self.mode == "continuous":
+            # a mid-prefill slot already holds its whole prompt's pages, so
+            # victim choices keyed on seq_len see that footprint
+            prefilling = self.prefilling[i]
+            seq = len(r.prompt) if prefilling else self.slot_len[i]
+            suspended = self.suspended[i]
+        else:
+            seq = len(r.prompt) + len(r.out_tokens)
+            prefilling = suspended = False
         return SlotView(index=i, rid=r.rid, priority=r.priority,
                         arrival_s=r.arrival_s, seq_len=seq,
                         n_out=len(r.out_tokens),
                         remaining=r.max_new_tokens - len(r.out_tokens),
-                        prefilling=self.prefilling[i],
-                        suspended=self.suspended[i],
+                        prefilling=prefilling,
+                        suspended=suspended,
                         deadline_s=(r.arrival_s + r.deadline_s
                                     if r.deadline_s is not None else None))
 
@@ -1280,7 +1368,10 @@ class EngineCore:
         self.stats.admission_wait_s.append(req.admission_wait_s)
         self.stats.ttft_s.append(req.ttft_s)
         self.stats.latency_s.append(req.latency_s)
-        self._release_slot(i)
+        if self.mode == "continuous":
+            self._release_slot(i)
+        else:
+            self.slots[i] = None
         self._emit(req, token, finished=True)
 
     def _reject(self, req: Request) -> None:
@@ -1523,16 +1614,18 @@ class EngineCore:
     # ------------------------------------------------------------------
     # overlapped decode: dispatch step N+1 before reading step N's tokens
     # ------------------------------------------------------------------
-    def _sampling_rows(self, items: list[tuple[int, Request]]
+    def _sampling_rows(self, items: list[tuple[int, Request]],
+                       lag: Optional[Callable[[int], int]] = None
                        ) -> tuple[bool, Optional[tuple[np.ndarray, ...]]]:
         """(greedy_only, sampling rows) of a fused step.  The sampler
         cursor (``counts``) indexes the token about to be sampled, which
-        trails ``len(out_tokens)`` by the slot's undrained token."""
+        trails ``len(out_tokens)`` by the slot's undrained tokens,
+        ``lag(i)`` (default: the slot's in-flight count)."""
         if all(req.sampling.temperature <= 0.0 for _, req in items):
             return True, None
+        lag = lag or (lambda i: self._inflight[i])
         return False, self._rows_of(self.max_batch, [
-            (i, req, len(req.out_tokens) + self._inflight[i])
-            for i, req in items])
+            (i, req, len(req.out_tokens) + lag(i)) for i, req in items])
 
     def _drain_pending(self) -> None:
         """Read back and account the in-flight fused step (no-op without).
@@ -1550,6 +1643,20 @@ class EngineCore:
             # staged from must hold what was dispatched (aliasing guard)
             self._san.check_drain(pend["san"])
         tok_np = self.graph.tokens(pend["tok"])  # waits for THIS step only
+        if self.mode != "continuous":
+            for i, req, seq_after in pend["rows"]:
+                if req.done or self.slots[i] is not req:
+                    continue
+                t = int(tok_np[i])
+                self._wave_last_np[i] = t
+                req.out_tokens.append(t)
+                self.stats.tokens_out += 1
+                reason = self._wave_finish_reason(req, t, seq_after)
+                if reason is not None:
+                    self._finish(i, req, reason, token=t)
+                else:
+                    self._emit(req, t)
+            return
         for i, req, seq_after, epoch in pend["rows"]:
             if (req.done or self.slots[i] is not req
                     or self._slot_epoch[i] != epoch):
@@ -1699,28 +1806,180 @@ class EngineCore:
 
     def _keep_step_state(self) -> dict:
         """Device copies of what a decode step overwrites with new values
-        in place: ``lens`` and, for the hybrid family, the Mamba state
-        pools (the watchdog's re-dispatch source)."""
-        kept = {"lens": self.cache["lens"].clone()}
-        for name in ("mamba", "tail"):
-            pools = self.cache.get(name)
-            if pools is not None:
-                kept[name] = {k: v.clone() for k, v in pools.items()}
-        return kept
+        in place: the lengths and the Mamba state pools (the watchdog's
+        re-dispatch source)."""
+        return graphs.keep_step_state(self.cache)
 
     def _restore_step_state(self, kept: dict) -> None:
         """Copy :meth:`_keep_step_state`'s tensors back in place (the
         storage a captured graph reads stays put)."""
-        self.cache["lens"].copy_(kept["lens"])
-        for name in ("mamba", "tail"):
-            if name in kept:
-                for k, v in kept[name].items():
-                    self.cache[name][k].copy_(v)
+        graphs.restore_step_state(self.cache, kept)
+
+    # ------------------------------------------------------------------
+    # wave admission and decode over the shared-cursor cache
+    # ------------------------------------------------------------------
+    def _admit_wave(self) -> None:
+        """The shared cursor forces lockstep decode, so new requests start
+        only when the whole batch has drained.  The scheduler still orders
+        the wave (nothing is preempted: no slot has a cache of its own)."""
+        if any(s is not None for s in self.slots):
+            return
+        # with overlap, the call that drained a wave's last tokens has
+        # already dispatched one speculative step, all of whose rows are
+        # stale now: retire it before the next wave
+        self._drain_pending()
+        if not self.queue:
+            return
+        plan = self.scheduler.admit(list(self.queue), self._views(), 1 << 30)
+        wave = [r for r in plan.order if r in self.queue][:self.max_batch]
+        if not wave:
+            return
+        plen = max(len(r.prompt) for r in wave)
+        if self.cfg.family in ("ssm", "hybrid") \
+                and plen < self.cfg.ssm_conv - 1:
+            raise ValueError(
+                f"a wave whose longest prompt has {plen} tokens is shorter "
+                f"than the conv window (ssm_conv - 1 = "
+                f"{self.cfg.ssm_conv - 1} tokens); the JAX reference crashes "
+                f"on such a wave")
+        for r in wave:
+            self.queue.remove(r)
+        now = time.monotonic()
+        # every prompt right-aligned to the wave's longest, padded in front
+        # with token 0 (which the prefill attends, as in JAX)
+        toks = np.zeros((self.max_batch, plen), np.int32)
+        for row, r in enumerate(wave):
+            toks[row, plen - len(r.prompt):] = r.prompt
+        logits, out = model_lib.prefill(
+            self.params, self.cfg, torch.from_numpy(toks).to(self.device),
+            self.cache, self._extras)
+        self.cache["len"].copy_(out["len"])
+        self.stats.prefills += 1
+        self.stats.admitted += len(wave)
+        tok_np = self._sample_rows(logits, list(enumerate(wave)))
+        self._wave_last_np = np.asarray(tok_np, np.int32).copy()
+        self._wave_len = plen
+        t1 = time.monotonic()
+        for i, r in enumerate(wave):
+            self.slots[i] = r
+            r.t_admit = now
+            r.t_first_token = t1
+            tok = int(tok_np[i])
+            r.out_tokens.append(tok)
+            self.stats.tokens_out += 1
+            reason = self._finish_reason_for(r, tok, len(r.prompt))
+            if reason == "capacity":
+                reason = None  # the shared cursor is checked at decode
+            if reason is not None:
+                self._finish(i, r, reason, token=tok)
+            else:
+                self._emit(r, tok)
+
+    def _wave_finish_reason(self, req: Request, tok: int,
+                            cursor: int) -> Optional[str]:
+        if tok == self.eos_id:
+            return "eos"
+        if len(req.out_tokens) >= req.max_new_tokens:
+            return "length"
+        if cursor >= self.max_seq - 1:
+            return "capacity"
+        return None
+
+    def _overlap_round_wave(self) -> None:
+        """Wave mode's overlapped round: dispatch the next fused step, then
+        drain the previous one, as in continuous mode, minus slot churn (no
+        admission mid-wave, no epochs: a row is live while ``slots[i] is
+        req``)."""
+        items = [(i, r) for i, r in enumerate(self.slots) if r is not None]
+        old, self._pending = self._pending, None
+        live = set()
+        if old is not None:
+            for i, req, _cursor in old["rows"]:
+                if self.slots[i] is req and not req.done:
+                    live.add(i)
+        if self._wave_len >= self.max_seq - 1:
+            # the shared cursor at capacity: nothing more may be dispatched
+            # (a write at max_seq would leave the cache); the drain below
+            # finishes every surviving row on capacity
+            if old is not None:
+                self._drain_rows(old)
+            return
+        greedy_only, rows = self._sampling_rows(
+            items, lag=lambda i: 1 if i in live else 0)
+        use_dev = np.asarray([i in live for i in range(self.max_batch)])
+        t0 = time.monotonic()
+        # a snapshot: the drain below rewrites ``_wave_last_np`` while this
+        # step is in flight, and the sanitizer's guard hashes what was staged
+        wave_last = self._wave_last_np.copy()
+        self.graph.stage(wave_last, None, None, use_dev=use_dev, rows=rows)
+        self.graph.run("wave_fused_greedy" if greedy_only else "wave_fused",
+                       self.cache)
+        tok = self.graph.readback()
+        # dispatch time only: the compute is deliberately not awaited
+        self.stats.wall_decode_s += time.monotonic() - t0
+        san = None
+        if self._san is not None:
+            sp = rows if rows is not None else (None,) * 5
+            san = self._san.guard_dispatch(
+                self.stats.decode_steps, wave_last=wave_last,
+                use_dev=use_dev, seeds=sp[0], counts=sp[1], temps=sp[2],
+                topk=sp[3], topp=sp[4])
+            self._san.check_retrace(self.graph, "decode_sample")
+        self.stats.decode_steps += 1
+        self.stats.decode_dispatches += 1
+        self._wave_len += 1
+        self._pending = {"tok": tok, "san": san,
+                         "rows": [(i, r, self._wave_len) for i, r in items]}
+        if old is not None:
+            self._drain_rows(old)
+
+    def _step_wave(self) -> bool:
+        self._admit_wave()
+        if all(s is None for s in self.slots):
+            return bool(self.queue)
+        if self.overlap:
+            self._overlap_round_wave()
+            return True
+        t0 = time.monotonic()
+        kept = self._keep_step_state() if self.watchdog is not None else None
+        self.graph.stage(self._wave_last_np, None, None)
+        logits = self.graph.run("wave", self.cache)
+        dt = time.monotonic() - t0
+        if self.watchdog is not None and self.watchdog(
+                self.stats.decode_steps, dt):
+            # re-dispatch from the state the step started from
+            self.stats.straggler_events += 1
+            self._restore_step_state(kept)
+            self.graph.stage(self._wave_last_np, None, None)
+            logits = self.graph.run("wave", self.cache)
+        self.stats.decode_steps += 1
+        self.stats.decode_dispatches += 2  # the decode step + the sample
+        tok_np = self._sample_rows(  # one sync per step
+            logits, [(i, r) for i, r in enumerate(self.slots)
+                     if r is not None])
+        self.stats.wall_decode_s += time.monotonic() - t0
+        # every row's token feeds the next step, finished rows' included
+        self._wave_last_np = np.asarray(tok_np, np.int32).copy()
+        self._wave_len += 1
+        for i, r in enumerate(self.slots):
+            if r is None:
+                continue
+            t = int(tok_np[i])
+            r.out_tokens.append(t)
+            self.stats.tokens_out += 1
+            reason = self._wave_finish_reason(r, t, self._wave_len)
+            if reason is not None:
+                self._finish(i, r, reason, token=t)
+            else:
+                self._emit(r, t)
+        return True
 
     # ------------------------------------------------------------------
     def _advance(self) -> bool:
         """Admit + one decode step over the active batch; True if any work."""
-        return self._step_continuous()
+        if self.mode == "continuous":
+            return self._step_continuous()
+        return self._step_wave()
 
     def run(self, max_steps: int = 10_000) -> EngineStats:
         steps = 0

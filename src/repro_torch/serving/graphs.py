@@ -1,12 +1,13 @@
 """One engine's decode step as a replayed CUDA graph.
 
 The port's counterpart of the JAX engine's jitted decode dispatches
-(``repro.serving.core._jit_decode_paged`` and
-``_jit_decode_sample_paged``): where XLA makes a decode step one compiled
-dispatch, the port captures the step's few thousand kernel launches once
-and replays them with one host call.  An engine owns one
-:class:`DecodeGraph`, which holds up to three graphs, all over the same
-static buffers and one memory pool:
+(``repro.serving.core._jit_decode_paged``, ``_jit_decode_sample_paged``
+and, in wave mode, ``_jit_decode`` and ``_jit_decode_sample``): where XLA
+makes a decode step one compiled dispatch, the port captures the step's
+few thousand kernel launches once and replays them with one host call.
+An engine owns one :class:`DecodeGraph`, which holds up to three graphs,
+all over the same static buffers and one memory pool.  A continuous-mode
+engine's kinds:
 
 * ``"sync"``: ``decode_step_paged``, the logits left in a static output
   (the synchronous loop samples them in a second dispatch);
@@ -14,6 +15,11 @@ static buffers and one memory pool:
   ``sampler.fused_sample`` for ``greedy_only`` False and True, the tokens
   written to the static ``tok_dev``, which both read as the chained input
   of the next step, so the chain survives a switch between them.
+
+A wave-mode engine's (``wave=True``), over the shared-cursor cache:
+``"wave"`` (``decode_step``) and ``"wave_fused"`` / ``"wave_fused_greedy"``
+(``decode_and_sample``), the new cursor copied into ``cache["len"]`` in
+place.
 
 The host fills the inputs (last tokens, ``use_dev``, the active mask, the
 block table and the five sampling rows) into one pinned staging buffer of
@@ -25,12 +31,13 @@ two pinned buffers right after a fused step and records an event; the
 overlapped loop waits on that event only, never on a younger step.
 
 A graph keeps the addresses it was captured with: the page pools (and an
-int8 cache's scale pools), the lengths ``lens`` (which every step, and a
-prefill chunk between steps, rewrites in place) and the Mamba state
-pools.  Before each replay they are checked against the cache the engine
-passes, and a moved tensor raises; nothing is recaptured or run eagerly in
-its place.  On the CPU, and inside :func:`disabled`, the same step runs
-eagerly on the same buffers.
+int8 cache's scale pools) or the wave cache's K/V (and cross-attention)
+tensors, the lengths ``lens`` (which every step, and a prefill chunk
+between steps, rewrites in place) or the cursor ``len``, and the Mamba
+state pools.  Before each replay they are checked against the cache the
+engine passes, and a moved tensor raises; nothing is recaptured or run
+eagerly in its place.  On the CPU, and inside :func:`disabled`, the same
+step runs eagerly on the same buffers.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.serving import sampler
 
 KINDS = ("sync", "fused", "fused_greedy")
+WAVE_KINDS = ("wave", "wave_fused", "wave_fused_greedy")
 _ENABLED = True
 
 
@@ -70,23 +78,54 @@ def enabled() -> bool:
 
 
 def _cache_tensors(cache: dict) -> list[torch.Tensor]:
-    """The tensors of a paged cache a step reads and writes in place."""
-    out = [cache[key] for key in blocks.paged_pool_keys(cache)]
-    out.append(cache["lens"])
-    for pools in (cache.get("mamba"), cache.get("tail")):
-        if pools is not None:
-            out += [pools[name] for name in sorted(pools)]
+    """The tensors of a paged or wave cache a step reads and writes in
+    place."""
+    if "lens" in cache:
+        out = [cache[key] for key in blocks.paged_pool_keys(cache)]
+        out.append(cache["lens"])
+    else:
+        out = [cache[key] for key in ("k", "v", "xk", "xv") if key in cache]
+        out.append(cache["len"])
+    for pools in model_lib.state_pools(cache):
+        out += [pools[name] for name in sorted(pools)]
     return out
+
+
+def keep_step_state(cache: dict) -> dict:
+    """Device copies of what a decode step overwrites with new values in
+    place: the lengths (``lens``, or a wave cache's ``len``) and the Mamba
+    state pools."""
+    key = "lens" if "lens" in cache else "len"
+    kept = {key: cache[key].clone()}
+    for name in ("mamba", "tail", "layers"):
+        pools = cache.get(name)
+        if isinstance(pools, dict):
+            kept[name] = {k: v.clone() for k, v in pools.items()}
+    return kept
+
+
+def restore_step_state(cache: dict, kept: dict) -> None:
+    """Copy :func:`keep_step_state`'s tensors back in place (the storage a
+    captured graph reads stays put)."""
+    for key, val in kept.items():
+        if isinstance(val, dict):
+            for k, v in val.items():
+                cache[key][k].copy_(v)
+        else:
+            cache[key].copy_(val)
 
 
 class DecodeGraph:
     """Static inputs and the captured decode steps of one engine."""
 
     def __init__(self, cfg: ModelConfig, params: dict, max_batch: int,
-                 pages_per_slot: int, device: torch.device):
+                 pages_per_slot: int, device: torch.device,
+                 wave: bool = False):
         self.cfg = cfg
         self.params = params
         self.device = device
+        self.wave = wave
+        self.kinds = WAVE_KINDS if wave else KINDS
         b = max_batch
         # packed int32 words: tok_host, use_dev, active, seeds, counts,
         # top_k, temperature (float32 bits), top_p (float32 bits), block
@@ -135,7 +174,8 @@ class DecodeGraph:
               rows: Optional[tuple[np.ndarray, ...]] = None) -> None:
         """Write one step's inputs on the host; ``run`` moves them to the
         card.  ``rows`` are the sampling rows (seeds, counts, temperature,
-        top_k, top_p) of a fused step with a stochastic row."""
+        top_k, top_p) of a fused step with a stochastic row.  A wave step
+        has no active mask or block table (None)."""
         b = self._b
         if self._cuda:
             turn = self._stage_turn
@@ -144,7 +184,8 @@ class DecodeGraph:
         h = self._host
         h[0:b] = tok_host
         h[b:2 * b] = 0 if use_dev is None else use_dev
-        h[2 * b:3 * b] = active
+        if active is not None:
+            h[2 * b:3 * b] = active
         if rows is not None:
             seeds, counts, temps, top_k, top_p = rows
             h[3 * b:4 * b] = seeds
@@ -152,7 +193,8 @@ class DecodeGraph:
             h[5 * b:6 * b] = top_k
             h[6 * b:7 * b].view(np.float32)[:] = temps
             h[7 * b:8 * b].view(np.float32)[:] = top_p
-        h[8 * b:] = block.reshape(-1)
+        if block is not None:
+            h[8 * b:] = block.reshape(-1)
 
     def readback(self):
         """Queue the copy of the last fused step's tokens to the host;
@@ -176,6 +218,8 @@ class DecodeGraph:
     # the step
     # ------------------------------------------------------------------
     def _body(self, kind: str, cache: dict) -> torch.Tensor:
+        if self.wave:
+            return self._wave_body(kind, cache)
         c = {**cache, "block": self.block}
         active = self.active != 0
         if kind == "sync":
@@ -194,13 +238,30 @@ class DecodeGraph:
         self.tok_dev.copy_(tok)
         return self.tok_dev
 
+    def _wave_body(self, kind: str, cache: dict) -> torch.Tensor:
+        if kind == "wave":
+            logits, new = model_lib.decode_step(self.params, self.cfg,
+                                                self.tok_host, cache)
+            cache["len"].copy_(new["len"])
+            return logits
+        greedy_only = kind == "wave_fused_greedy"
+        tok, new = model_lib.decode_and_sample(
+            self.params, self.cfg, self.tok_host, self.tok_dev,
+            self.use_dev != 0, cache,
+            lambda lg: sampler.fused_sample(
+                lg, self.seeds, self.counts, self.temps, self.top_k,
+                self.top_p, greedy_only=greedy_only))
+        cache["len"].copy_(new["len"])
+        self.tok_dev.copy_(tok)
+        return self.tok_dev
+
     def _settled(self, cache: dict) -> bool:
-        """False while a hybrid step would still promote a conv pool to its
+        """False while a Mamba step would still promote a conv pool to its
         activations' dtype (a float32 model over a bf16 cache, on its first
         step): that step rebinds the pool, so it runs eagerly."""
         x_dtype = self.params["embed"].dtype
-        for pools in (cache.get("mamba"), cache.get("tail")):
-            if pools is not None and pools["conv"].dtype != \
+        for pools in model_lib.state_pools(cache):
+            if pools["conv"].dtype != \
                     torch.promote_types(pools["conv"].dtype, x_dtype):
                 return False
         return True
@@ -209,8 +270,9 @@ class DecodeGraph:
         """One decode step of ``kind`` over the staged inputs and
         ``cache`` (written in place).  Returns the static logits ("sync")
         or ``tok_dev`` (fused kinds)."""
-        if kind not in KINDS:
-            raise ValueError(f"unknown decode step {kind!r}")
+        if kind not in self.kinds:
+            raise ValueError(f"unknown decode step {kind!r} "
+                             f"(this graph's: {self.kinds})")
         if not self._cuda:
             return self._body(kind, cache)
         graph = enabled() and self._settled(cache)
@@ -237,12 +299,16 @@ class DecodeGraph:
         """Warm the step up eagerly on a side stream with every lane
         inactive (the pools, lengths and states stay as they are; the null
         page takes the writes), which loads the kernel library and its
-        modules, then capture it into the engine's memory pool.  The
-        wrappers count their launches while capturing; those are taken
-        back and added again on every replay."""
+        modules, then capture it into the engine's memory pool.  A wave
+        step has no inactive lane: its warm-up writes the K/V rows at the
+        cursor, which the replay that follows rewrites, and the cursor and
+        the Mamba states, which are copied back.  The wrappers count their
+        launches while capturing; those are taken back and added again on
+        every replay."""
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
         saved_tok = self.tok_dev.clone()
+        kept = keep_step_state(cache) if self.wave else None
         self.active.zero_()
         self.use_dev.zero_()
         side = torch.cuda.Stream(self.device)
@@ -251,6 +317,8 @@ class DecodeGraph:
             self._body(kind, cache)
         cur.wait_stream(side)
         self.tok_dev.copy_(saved_tok)
+        if kept is not None:
+            restore_step_state(cache, kept)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
