@@ -22,7 +22,17 @@ Phases, each printing its own lines:
             split of 64 keys dropped (D 128 and D 112), B3 with its causal
             mask admitting key i+1 or its last K/V block dropped, B2's GEMM
             with its last 128-byte K stage and the GeMV with its last
-            64-byte K slab skipped.  Decode attention is also checked at
+            64-byte K slab skipped.  B2 also at whisper-small's encoder
+            (M 6,000, K 768 and 3,072) and mamba2-130m's projections (N
+            3,352), bit-exact.  B3's bidirectional mode
+            (flash_attention_bidir) at whisper-small's encoder (B 4, S
+            1,500, H 12, D 64) and cross-attention (Sq 128, Skv 1,500)
+            shapes, the reduced config's 16 keys, a ragged GQA Skv 77 and D
+            112, with two planted faults that must fail (TMA's zero keys
+            past Skv left unmasked, the last K/V block dropped); B1 over the
+            contiguous wave cache (``decode_attention``) at whisper's
+            self-attention (lengths up to 448) and cross-attention (1,500)
+            and llama2-7b's wave decode.  Decode attention is also checked at
             the split edges (lengths 1, 63, 64, 65, 1024) and for a
             slot's bits alone, in its batch and under a wider block table.
             B6 (ssd_intra_chunk)
@@ -180,6 +190,21 @@ Phases, each printing its own lines:
             parent's streams).  Prints a checkpoint's bytes and ms (worker
             snapshots, the wire, save_checkpoint), recovery s, tokens
             replayed and a worker's start-up s.
+18. serve_wave  wave mode at full width, W8A8, 4 slots, through
+            build_client: whisper-small (mode "auto" picks wave; max_seq
+            448, its decoder context; the serve trace's prompts cut to
+            128 tokens; frames of zeros) and mamba2-130m (max_seq 1024),
+            then llama2-7b and zamba2-7b asked for mode="wave": 8 greedy
+            requests, 32 new tokens each.  Each model's first run,
+            synchronous over graphs, is counted (whisper-small must launch
+            B3's bidirectional mode, B3, B1 and B2; mamba2-130m B6 and B2)
+            and the same requests run eagerly (graphs.disabled()) give the
+            same streams; the engine's first tokens equal a direct
+            prefill's.  whisper-small and mamba2-130m also run overlapped
+            (the same streams) and with every second request sampled
+            (synchronous == overlapped), and one prompt's wave prefill
+            logits pass the model phase's CPU gate (1.25x).  Prints tok/s,
+            prefill ms a wave, decode wall ms a step and the launches.
 
 Every serving phase's engine replays one CUDA graph a decode step
 (``serving/graphs.py``); the launch counters count each replay's kernels.
@@ -208,8 +233,8 @@ batch invariance, timed beside SDPA.
 
 The last three lines are the kernels JSON, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``; each kernel's ``launches`` is read
-around the run of the phase that owns it (serve for B1-B3, hybrid for
-B5, serve_hybrid_w4a16 for B4's two variants, serve_hybrid for B6,
+around the run of the phase that owns it (serve for B1-B3, serve_wave
+for B3's bidirectional mode, hybrid for B5, serve_hybrid_w4a16 for B4's two variants, serve_hybrid for B6,
 serve_chunked for the chunk kernel, serve_int8kv for B1-int8 and its
 chunked engine for the chunk kernel's int8 variant).  B2's __dp4a GeMV and
 tiled GEMM (``int8_gemv_dp4a``, ``int8_gemm``) are on no model's path
@@ -822,7 +847,13 @@ def phase_kernels(torch, results: dict) -> None:
               (2048, 3584, 14576), (2048, 7168, 3584), (9, 4096, 11008),
               (130, 3584, 14576), (4, 960, 2560), (2048, 2560, 960),
               (1, 960, 320), (5, 1000, 300), (37, 1000, 130), (3, 64, 128),
-              (2048, 4104, 11008), (4, 4104, 11008)]
+              (2048, 4104, 11008), (4, 4104, 11008),
+              # whisper-small's encoder over 4 x 1,500 frames (K 768 and
+              # 3072) and decoder; mamba2-130m's in_proj (N 3352) and
+              # out_proj at prefill and decode
+              (6000, 768, 768), (6000, 768, 3072), (6000, 3072, 768),
+              (4, 768, 3072), (2048, 768, 3352), (4, 768, 3352),
+              (4, 1536, 768)]
     timed_b2 = {(4, 4096, 4096): "llama2-7b q/k/v/o",
                 (4, 4096, 11008): "llama2-7b gate/up",
                 (4, 11008, 4096): "llama2-7b down",
@@ -831,7 +862,9 @@ def phase_kernels(torch, results: dict) -> None:
                 (2048, 4096, 11008): "llama2-7b",
                 (2048, 3584, 14576): "zamba2-7b in_proj",
                 (2048, 4104, 11008): "off every model path, K % 16 == 8",
-                (4, 4104, 11008): "off every model path, K % 16 == 8"}
+                (4, 4104, 11008): "off every model path, K % 16 == 8",
+                (6000, 768, 3072): "whisper-small encoder up",
+                (2048, 768, 3352): "mamba2-130m in_proj"}
     json_b2 = {"int8_gemv": (4, 4096, 11008),
                "int8_gemv_dp4a": (4, 4104, 11008),
                "int8_gemm_tc": (2048, 4096, 11008),
@@ -1878,23 +1911,29 @@ def _kernels_b1_int8(torch, results: dict) -> None:
         log(line)
 
 
-def _to_runs(torch, params_cpu) -> dict:
-    """The same W8A8 weights three ways: card bf16 (kernels), CPU bf16
-    (plain versions), CPU float32 (plain versions, the yardstick)."""
-    def to(tree, dev, f32=False):
-        if isinstance(tree, dict):
-            return {k: to(v, dev, f32) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, dev, f32) for v in tree]
-        if tree is None:
-            return None
-        if f32 and tree.dtype == torch.bfloat16:
-            tree = tree.float()
-        return tree.to(dev)
+def _tree_to(torch, tree, dev, f32=False):
+    """A param tree on ``dev``, its bf16 leaves in float32 with ``f32``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(torch, v, dev, f32) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(torch, v, dev, f32) for v in tree]
+    if tree is None:
+        return None
+    if f32 and tree.dtype == torch.bfloat16:
+        tree = tree.float()
+    return tree.to(dev)
 
+
+def _to_runs(torch, params_cpu, params_cuda=None) -> dict:
+    """The same W8A8 weights three ways: card bf16 (kernels; copied from
+    ``params_cpu`` unless given), CPU bf16 (plain versions), CPU float32
+    (plain versions, the yardstick)."""
+    if params_cuda is None:
+        params_cuda = _tree_to(torch, params_cpu, "cuda")
     return {"cpu": (params_cpu, "cpu", torch.bfloat16),
-            "cuda": (to(params_cpu, "cuda"), "cuda", torch.bfloat16),
-            "f32": (to(params_cpu, "cpu", f32=True), "cpu", torch.float32)}
+            "cuda": (params_cuda, "cuda", torch.bfloat16),
+            "f32": (_tree_to(torch, params_cpu, "cpu", f32=True), "cpu",
+                    torch.float32)}
 
 
 def _ratio_gate(torch, tag: str, logits: dict) -> None:
@@ -4249,6 +4288,192 @@ def phase_serve_fleet(torch, smi: str) -> None:
 _MARKS: list[tuple[str, float]] = []
 
 
+# ---------------------------------------------------------------------------
+# serve_wave: wave mode at full width
+# ---------------------------------------------------------------------------
+
+WAVE_NEW = 32
+# (arch, max_seq, prompt cap, mode, full checks: overlapped, sampled and
+# the CPU logits gate); whisper-small's max_seq is its published decoder
+# context (448), its prompts cut to 128 tokens so a wave fits
+WAVE_ARCHS = (("whisper-small", 448, 128, "auto", True),
+              ("mamba2-130m", 1024, None, "auto", True),
+              ("llama2-7b", 1024, None, "wave", False),
+              ("zamba2-7b", 1024, None, "wave", False))
+# the kernels each model's wave run must launch
+WAVE_REQUIRED = {
+    "whisper-small": ("flash_attention_bidir", "flash_attention",
+                      "paged_decode_attention", "int8_gemv", "int8_gemm_tc"),
+    "mamba2-130m": ("ssd_intra_chunk", "int8_gemv", "int8_gemm_tc"),
+    "llama2-7b": ("flash_attention", "paged_decode_attention", "int8_gemv",
+                  "int8_gemm_tc"),
+    "zamba2-7b": ("flash_attention", "paged_decode_attention",
+                  "ssd_intra_chunk", "int8_gemv", "int8_gemm_tc")}
+
+
+def _wave_sampling(i: int):
+    """Odd requests sampled (temperature 0.8, top-k 20, top-p 0.9, a pinned
+    seed), even ones greedy."""
+    from repro_torch.serving.scheduler import SamplingParams
+
+    return (SamplingParams(temperature=0.8, top_k=20, top_p=0.9, seed=900 + i)
+            if i % 2 else None)
+
+
+def _wave_run(torch, client, prompts, tag: str, what: str, sampling=None,
+              eager=False) -> tuple[list, dict]:
+    """``_overlap_streams`` with the wall clock, the engine's prefill and
+    decode walls and its graph accounting checked: one replay a decode step
+    (none eager), 2 dispatches a step synchronous, 1 overlapped."""
+    core = client.router.cores[0]
+    pre0, dec0 = core.stats.wall_prefill_s, core.stats.wall_decode_s
+    n_pre0 = core.stats.prefills
+    t0 = time.perf_counter()
+    streams, run = _overlap_streams(torch, client, prompts, WAVE_NEW,
+                                    sampling=sampling, eager=eager)
+    run["wall"] = time.perf_counter() - t0
+    run["prefill_ms"] = ((core.stats.wall_prefill_s - pre0) * 1e3
+                         / max(core.stats.prefills - n_pre0, 1))
+    run["step_ms"] = ((core.stats.wall_decode_s - dec0) * 1e3
+                      / max(run["steps"], 1))
+    want = 1 if core.overlap else 2
+    if run["steps"] <= 0 or run["dispatches"] != want * run["steps"] \
+            or run["replays"] != (0 if eager else run["steps"]):
+        raise AssertionError(f"[{tag}] {what}: {run['dispatches']} "
+                             f"dispatches and {run['replays']} replays over "
+                             f"{run['steps']} decode steps")
+    tokens = sum(len(t) for t, _ in streams)
+    log(f"[{tag}] {what}: {tokens} tokens in {run['wall']:.3f} s = "
+        f"{tokens / run['wall']:.1f} tok/s; prefill {run['prefill_ms']:.1f} "
+        f"ms a wave, decode {run['step_ms']:.2f} ms a step "
+        f"({'dispatch only, ' if core.overlap else ''}{run['steps']} steps, "
+        f"{run['replays']} replays)")
+    return streams, run
+
+
+def _wave_first_tokens(torch, cfg, params, prompts, max_seq) -> list[int]:
+    """The greedy first tokens of the first wave from a direct ``prefill``
+    on the card (the engine's left padding, its zero frames)."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.core import _batch_extras
+
+    wave = prompts[:4]
+    plen = max(len(p) for p in wave)
+    toks = torch.zeros((4, plen), dtype=torch.int32)
+    for i, p in enumerate(wave):
+        toks[i, plen - len(p):] = torch.tensor(p, dtype=torch.int32)
+    cache = M.init_cache(cfg, 4, max_seq, device="cuda")
+    logits, _ = M.prefill(params, cfg, toks.cuda(), cache,
+                          _batch_extras(cfg, 4, torch.device("cuda")))
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: non-finite wave prefill logits")
+    return [int(t) for t in torch.argmax(logits, -1)[:len(wave)]]
+
+
+def _wave_cpu_gate(torch, cfg, params, prompt) -> None:
+    """One row's wave prefill logits on the card against the CPU in bf16
+    and in float32 (the same W8A8 weights, the engine's zero frames):
+    within MODEL_RATIO x the CPU bf16 run's distance from float32."""
+    from repro_torch.models import model as M
+
+    t0 = time.monotonic()
+    toks = torch.tensor([prompt], dtype=torch.int32)
+    logits = {}
+    runs = _to_runs(torch, _tree_to(torch, params, "cpu"), params)
+    for name, (p, dev, dtype) in runs.items():
+        cache = M.init_cache(cfg, 1, len(prompt), dtype=dtype, device=dev)
+        ex = ({"frames": torch.zeros((1, cfg.encoder_seq, cfg.d_model),
+                                     dtype=torch.bfloat16, device=dev)}
+              if cfg.family == "audio" else None)
+        lg, _ = M.prefill(p, cfg, toks.to(dev), cache, ex)
+        logits[name] = [lg.float().cpu()]
+    log(f"[serve_wave] {cfg.name} CPU gate: three prefills of "
+        f"{len(prompt)} tokens in {time.monotonic() - t0:.1f} s")
+    _ratio_gate(torch, f"{cfg.name} wave prefill", logits)
+
+
+def phase_serve_wave(torch, smi: str) -> dict:
+    """Wave mode at full width, W8A8, 4 slots, through launch/serve.py's
+    build_client (``mode="auto"`` picks wave for whisper-small and
+    mamba2-130m; llama2-7b and zamba2-7b are asked for it): the serve
+    trace (whisper's prompts cut to 128), 32 new tokens.  Each model's
+    first run, synchronous over graphs, is counted and must launch its
+    kernels (whisper-small: B3's bidirectional mode among them); the same
+    requests run eagerly give the same streams; the engine's first tokens
+    equal a direct prefill's.  whisper-small and mamba2-130m also run
+    overlapped (the same streams), sampled synchronous == overlapped, and
+    their prefill logits pass the model phase's CPU gate.  Returns
+    whisper-small's launch counts."""
+    import gc
+
+    from repro_torch.launch.serve import build_client
+    from repro_torch.serving.client import ServingClient
+
+    owned = None
+    for arch, max_seq, cap, mode, full in WAVE_ARCHS:
+        tag = f"serve_wave {arch}"
+        t0 = time.monotonic()
+        cfg, client = build_client(arch, reduced=False, quant="w8a8",
+                                   max_batch=4, max_seq=max_seq, seed=0,
+                                   mode=mode, device="cuda")
+        core = client.router.cores[0]
+        if core.mode != "wave":
+            raise AssertionError(f"[{tag}] the engine is in {core.mode} mode")
+        params = core.params
+        torch.cuda.synchronize()
+        log(f"[{tag}] full width W8A8 built in {time.monotonic() - t0:.1f} "
+            f"s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+            f"on {smi}")
+        prompts = [p[:cap] if cap else p for p in _serve_trace(cfg)]
+        greedy, run = _wave_run(torch, client, prompts, tag, "sync, graphs")
+        counts = run["counts"]
+        log(f"[{tag}] launches {counts}")
+        missing = [k for k in WAVE_REQUIRED[arch] if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"[{tag}] the wave path never launched "
+                                 f"{missing}")
+        _no_off_path(counts, tag)
+        if arch == "whisper-small":
+            owned = counts
+        eager, _ = _wave_run(torch, client, prompts, tag, "sync, eager",
+                             eager=True)
+        if eager != greedy:
+            raise AssertionError(f"[{tag}] graph replay != eager")
+        # the graphs captured and the kernels loaded: the steady walls
+        warm, _ = _wave_run(torch, client, prompts, tag, "sync, graphs, warm")
+        if warm != greedy:
+            raise AssertionError(f"[{tag}] a second graph run differs")
+        first = _wave_first_tokens(torch, cfg, params, prompts, max_seq)
+        if first != [t[0] for t, _ in greedy[:4]]:
+            raise AssertionError(f"[{tag}] the engine's first tokens "
+                                 f"{[t[0] for t, _ in greedy[:4]]} are not a "
+                                 f"direct prefill's {first}")
+        log(f"[{tag}] graph == eager on {len(greedy)} requests; first "
+            f"tokens == a direct prefill's")
+        if full:
+            over = ServingClient(cfg, params, max_batch=4, max_seq=max_seq,
+                                 eos_id=-1, overlap=True, device="cuda")
+            ov, _ = _wave_run(torch, over, prompts, tag, "overlapped, graphs")
+            if ov != greedy:
+                raise AssertionError(f"[{tag}] overlapped != synchronous")
+            s_sync, _ = _wave_run(torch, client, prompts, tag,
+                                  "sampled, sync", sampling=_wave_sampling)
+            s_ov, _ = _wave_run(torch, over, prompts, tag,
+                                "sampled, overlapped", sampling=_wave_sampling)
+            if s_sync != s_ov:
+                raise AssertionError(f"[{tag}] sampled: overlapped != "
+                                     f"synchronous")
+            if all(a == b for a, b in zip(s_sync[1::2], greedy[1::2])):
+                raise AssertionError(f"[{tag}] no sampled row left argmax")
+            log(f"[{tag}] overlapped == synchronous, greedy and sampled")
+            del over
+            _wave_cpu_gate(torch, cfg, params, prompts[0][:64])
+        del client, core, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return owned
+
+
 def _mark(name: str) -> None:
     """Log the time since the previous mark (the phase before ``name``)."""
     now = time.monotonic()
@@ -4265,7 +4490,7 @@ def main(argv=None) -> int:
                             "serve_w4a16,serve_hybrid,serve_hybrid_w4a16,"
                             "serve_overlap,serve_chunked,serve_int8kv,"
                             "serve_tiered,serve_prefix,serve_migrate,"
-                            "serve_fleet")
+                            "serve_fleet,serve_wave")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -4338,6 +4563,9 @@ def main(argv=None) -> int:
     _mark("serve_fleet")
     if "serve_fleet" in phases:
         phase_serve_fleet(torch, smi_line)
+    _mark("serve_wave")
+    if "serve_wave" in phases:
+        counts["serve_wave"] = phase_serve_wave(torch, smi_line)
     _mark("end")
     log(f"[time] phases {args.phases} took "
         f"{time.monotonic() - t_start:.0f} s after the card check")

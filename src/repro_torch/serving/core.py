@@ -1651,7 +1651,7 @@ class EngineCore:
                 self._wave_last_np[i] = t
                 req.out_tokens.append(t)
                 self.stats.tokens_out += 1
-                reason = self._wave_finish_reason(req, t, seq_after)
+                reason = self._finish_reason_for(req, t, seq_after)
                 if reason is not None:
                     self._finish(i, req, reason, token=t)
                 else:
@@ -1850,6 +1850,7 @@ class EngineCore:
         toks = np.zeros((self.max_batch, plen), np.int32)
         for row, r in enumerate(wave):
             toks[row, plen - len(r.prompt):] = r.prompt
+        t0 = time.monotonic()
         logits, out = model_lib.prefill(
             self.params, self.cfg, torch.from_numpy(toks).to(self.device),
             self.cache, self._extras)
@@ -1860,6 +1861,7 @@ class EngineCore:
         self._wave_last_np = np.asarray(tok_np, np.int32).copy()
         self._wave_len = plen
         t1 = time.monotonic()
+        self.stats.wall_prefill_s += t1 - t0
         for i, r in enumerate(wave):
             self.slots[i] = r
             r.t_admit = now
@@ -1874,16 +1876,6 @@ class EngineCore:
                 self._finish(i, r, reason, token=tok)
             else:
                 self._emit(r, tok)
-
-    def _wave_finish_reason(self, req: Request, tok: int,
-                            cursor: int) -> Optional[str]:
-        if tok == self.eos_id:
-            return "eos"
-        if len(req.out_tokens) >= req.max_new_tokens:
-            return "length"
-        if cursor >= self.max_seq - 1:
-            return "capacity"
-        return None
 
     def _overlap_round_wave(self) -> None:
         """Wave mode's overlapped round: dispatch the next fused step, then
@@ -1967,7 +1959,7 @@ class EngineCore:
             t = int(tok_np[i])
             r.out_tokens.append(t)
             self.stats.tokens_out += 1
-            reason = self._wave_finish_reason(r, t, self._wave_len)
+            reason = self._finish_reason_for(r, t, self._wave_len)
             if reason is not None:
                 self._finish(i, r, reason, token=t)
             else:

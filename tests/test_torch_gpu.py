@@ -1315,3 +1315,107 @@ def test_socket_workers_on_card_hold_the_parents_bits(cuda_device):
         assert fl.fleet.workers_lost == 1
     finally:
         fl.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d", [
+    (4, 1500, 1500, 12, 12, 64),   # whisper-small's encoder
+    (4, 128, 1500, 12, 12, 64),    # its cross-attention
+    (4, 9, 16, 4, 2, 16),          # the reduced config, Skv 16
+    (2, 200, 77, 8, 2, 128),       # ragged GQA cross-attention
+    (2, 130, 300, 8, 8, 112),      # D 112
+])
+def test_bidirectional_flash_attention_on_card(cuda_device, b, sq, skv, h,
+                                               hkv, d):
+    """B3's bidirectional mode against its plain version; its launches
+    count apart from the causal mode's."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sq + skv)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device
+                           ).to(torch.bfloat16)
+               for shape in ((b, sq, h, d), (b, skv, hkv, d),
+                             (b, skv, hkv, d)))
+    kernels.reset_launch_counts()
+    got = flash_attention(q, k, v, causal=False)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_bidir"] == 1
+    assert counts["flash_attention"] == 0
+    assert_bf16_close(got, flash_attention_ref(q, k, v, causal=False))
+    if sq != skv:   # the causal mode needs Skv == Sq
+        with pytest.raises(ValueError):
+            flash_attention(q, k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,hkv,d,smax,lens", [
+    (4, 12, 12, 64, 448, [448, 300, 129, 1]),   # whisper self-attention
+    (4, 12, 12, 64, 1500, [1500] * 4),          # its cross-attention
+    (3, 4, 2, 16, 32, [9, 9, 9]),               # a reduced wave
+])
+def test_contiguous_decode_attention_on_card(cuda_device, b, h, hkv, d, smax,
+                                             lens):
+    """B1 over a contiguous cache (one page a row) against the plain
+    ``models.attention.decode_attention``; a row's bits are the same
+    alone and in its batch."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    gen = torch.Generator(device=cuda_device).manual_seed(smax)
+    q = torch.randn((b, h, d), generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    kc, vc = (torch.randn((b, smax, hkv, d), generator=gen,
+                          device=cuda_device).to(torch.bfloat16)
+              for _ in range(2))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    got = decode_attention(q, kc, vc, lengths)
+    assert_bf16_close(got, decode_attention_ref(q, kc, vc, lengths))
+    alone = decode_attention(q[1:2].contiguous(), kc[1:2].contiguous(),
+                             vc[1:2].contiguous(), lengths[1:2].contiguous())
+    assert torch.equal(alone[0], got[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-small", "mamba2-130m",
+                                  "llama2-7b", "zamba2-7b"])
+def test_wave_engine_on_card(cuda_device, arch):
+    """The reduced model's wave engine, W8A8 on the card: a replayed decode
+    step gives the eager step's streams, overlapped gives the synchronous
+    streams (greedy and sampled rows), every decode step is one replay,
+    and whisper-small's path launches B3's bidirectional mode."""
+    from repro_torch.launch.serve import build_client
+    from repro_torch.serving import graphs
+    from repro_torch.serving.client import ServingClient
+    from repro_torch.serving.scheduler import SamplingParams
+
+    cfg, client = build_client(arch, reduced=True, max_seq=64, mode="wave",
+                               device="cuda")
+    params = client.router.cores[0].params
+
+    def serve(cl, eager=False, sampled=False):
+        hs = [cl.submit([3 + i, 17, 99, 5] * (1 + i % 3), max_new_tokens=7,
+                        sampling=(SamplingParams(temperature=0.8, top_k=20,
+                                                 seed=50 + i)
+                                  if sampled and i % 2 else None))
+              for i in range(6)]
+        if eager:
+            with graphs.disabled():
+                cl.run()
+        else:
+            cl.run()
+        torch.cuda.synchronize()
+        assert all(h.finish_reason == "length" for h in hs)
+        return [h.request.out_tokens for h in hs]
+
+    kernels.reset_launch_counts()
+    want = serve(client)
+    counts = kernels.launch_counts()
+    core = client.router.cores[0]
+    assert core.mode == "wave" and core.graph.replays == \
+        core.stats.decode_steps
+    if arch == "whisper-small":
+        assert counts["flash_attention_bidir"] > 0
+    assert counts["int8_gemv"] > 0 and counts["int8_gemm_tc"] > 0
+    assert serve(client, eager=True) == want
+    over = ServingClient(cfg, params, max_batch=4, max_seq=64, eos_id=-1,
+                         mode="wave", overlap=True, device="cuda")
+    assert serve(over) == want
+    assert serve(over, sampled=True) == serve(client, sampled=True)

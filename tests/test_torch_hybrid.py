@@ -302,8 +302,10 @@ def test_slot_state_checkpoint_round_trip(case):
 
 
 def test_unported_families_raise():
-    """Families without a port branch raise NotImplementedError; the ssm
-    family has forward only, so the paged path and the engine refuse it."""
+    """Families without a port branch raise NotImplementedError.  The ssm
+    and audio families serve in wave mode, as in JAX: the paged cache and
+    continuous mode refuse them with JAX's ValueError, ``mode="auto"``
+    picks wave, and whisper-small's ``init_params`` / ``forward`` run."""
     ssm = get_arch("mamba2-130m").reduced()
     params = TM.init_params(ssm, device="cpu", dtype=torch.float32)
     assert not TM.supports_paged(ssm) and TM.supports_paged(
@@ -311,12 +313,20 @@ def test_unported_families_raise():
     assert TM.has_slot_state(get_arch("zamba2-7b"))
     assert not TM.has_slot_state(ssm) and not TM.has_slot_state(
         get_arch("llama2-7b"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         TM.init_paged_cache(ssm, 2, 16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TEngine(ssm, params, device="cpu")
-    for arch in ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "qwen2-vl-72b",
-                 "whisper-small"):
+    with pytest.raises(ValueError):
+        TEngine(ssm, params, device="cpu", mode="continuous")
+    assert TEngine(ssm, params, device="cpu").mode == "wave"
+    audio = get_arch("whisper-small").reduced()
+    aparams = TM.init_params(audio, device="cpu", dtype=torch.float32)
+    frames = torch.zeros((1, audio.encoder_seq, audio.d_model))
+    assert TM.forward(aparams, audio, torch.zeros((1, 2), dtype=torch.long),
+                      {"frames": frames}).shape == (1, 2, audio.vocab_size)
+    assert TEngine(audio, aparams, device="cpu").mode == "wave"
+    with pytest.raises(ValueError):
+        TM.init_paged_cache(audio, 2, 16, device="cpu")
+    for arch in ("qwen2-moe-a2.7b", "deepseek-v2-lite-16b", "qwen2-vl-72b"):
         from repro.configs.registry import get_arch as jget
         from repro_torch.configs.base import ModelConfig
 

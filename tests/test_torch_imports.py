@@ -39,7 +39,10 @@ def test_port_imports_neither_jax_nor_repro(sanitize):
               "serving.fleet", "serving.fleet.wire", "serving.router",
               "serving.client", "serving.fleet.transport",
               "serving.fleet.worker", "serving.fleet.router",
-              "distributed", "distributed.checkpoint", "_sanitize"):
+              "distributed", "distributed.checkpoint", "_sanitize",
+              "configs.whisper_small", "kernels.flash_attention.ops",
+              "kernels.flash_attention.ref", "kernels.decode_attention.ops",
+              "models.blocks", "models.model"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -153,8 +156,14 @@ def test_unported_options_raise():
 
     cfg = get_arch("smollm-360m").reduced()
     params = M.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        EngineCore(cfg, params, device="cpu", mode="wave")
+    # wave mode is ported: it serves, as the JAX engine does; an unknown
+    # mode is refused
+    eng = EngineCore(cfg, params, device="cpu", mode="wave")
+    eng.add_request(Request(rid=0, prompt=[1, 2, 3], max_new_tokens=2))
+    eng.run()
+    assert eng.mode == "wave" and eng.stats.completed == 1
+    with pytest.raises(ValueError):
+        EngineCore(cfg, params, device="cpu", mode="lockstep")
     # the flash KV tier and the prefix cache are ported; an unknown tier
     # is refused as the JAX engine refuses it
     eng = EngineCore(cfg, params, device="cpu", kv_tier="flash",
@@ -178,8 +187,8 @@ def test_unported_options_raise():
         eng.snapshot_slot(0)
     assert Router([eng], migrate=True).migrate
     # fleet workers are ported: a client with workers= builds a loopback
-    # fleet router (it raised before), and the driver no longer refuses
-    # --workers; wave mode still raises there
+    # fleet router (it raised before), and the driver serves --workers,
+    # in wave mode too
     from repro_torch.launch.serve import main
     from repro_torch.serving.client import ServingClient
     from repro_torch.serving.fleet.router import FleetRouter
@@ -188,5 +197,5 @@ def test_unported_options_raise():
     assert isinstance(client.router, FleetRouter)
     assert len(client.router.workers) == 2 and client.router.spares_left == 1
     client.router.close()
-    with pytest.raises(SystemExit):
-        main(["--mode", "wave", "--workers", "2", "--device", "cpu"])
+    main(["--mode", "wave", "--workers", "2", "--requests", "2",
+          "--max-new", "2", "--device", "cpu"])
