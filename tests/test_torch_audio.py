@@ -186,11 +186,11 @@ def test_encode_audio_matches_jax(quant):
     jcfg, jparams = jax_params(ARCH, quant)
     cfg, tparams = get_arch(ARCH).reduced(), port_params(ARCH, quant)
     rng = np.random.RandomState(6)
+    encode = jax.jit(lambda p, f: JM._encode_audio(p, jcfg, f))
     for frames in (np.zeros((2, cfg.encoder_seq, cfg.d_model), np.float32),
                    rng.randn(2, cfg.encoder_seq, cfg.d_model)
                    .astype(np.float32)):
-        want = jax.jit(lambda p, f: JM._encode_audio(p, jcfg, f))(
-            jparams, jnp.asarray(frames))
+        want = encode(jparams, jnp.asarray(frames))
         got = TM._encode_audio(tparams, cfg, torch.from_numpy(frames))
         np.testing.assert_allclose(np32(got), np32(want), rtol=0,
                                    atol=ATOL[quant])
