@@ -248,6 +248,7 @@ printing a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -300,6 +301,9 @@ SOURCES = {
     "paged_chunk_attention_int8": (
         "src/repro_torch/kernels/csrc/paged_chunk_attention.cu",
         "src/repro/models/attention.py:233"),
+    # no Pallas counterpart: jax.lax.ragged_dot in the MoE layer
+    "grouped_gemm": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
+                     "src/repro/models/moe.py:80"),
 }
 # the phase whose run each kernel's launch count is read around
 COUNTED_IN = {"int8_gemv": "serve", "int8_gemv_dp4a": "serve",
@@ -311,7 +315,8 @@ COUNTED_IN = {"int8_gemv": "serve", "int8_gemv_dp4a": "serve",
               "paged_chunk_attention": "serve_chunked",
               "flash_attention_bidir": "serve_wave",
               "paged_decode_attention_int8": "serve_int8kv",
-              "paged_chunk_attention_int8": "serve_int8kv_chunked"}
+              "paged_chunk_attention_int8": "serve_int8kv_chunked",
+              "grouped_gemm": "serve_moe"}
 # kept for shapes no model has (K not a multiple of 16, a misaligned base):
 # a serving path must not launch them
 OFF_PATH = ("int8_gemm", "int8_gemv_dp4a")
@@ -326,7 +331,8 @@ KERNEL_NAMES = {"int8_gemv": "int8_gemv_mma_kernel",
                 "paged_chunk_attention": "paged_chunk_attention_",
                 "paged_chunk_attention_int8": "paged_chunk_attention_",
                 "w4a16_gemv": "w4a16_gemv_mma_kernel",
-                "w4a16_gemm": "w4a16_gemm_"}
+                "w4a16_gemm": "w4a16_gemm_",
+                "grouped_gemm": "grouped_gemm_kernel"}
 # the kernels every W8A8 serving phase must go through
 SERVING_KERNELS = ("int8_gemv", "int8_gemm_tc", "paged_decode_attention",
                    "flash_attention")
@@ -1080,6 +1086,7 @@ def phase_kernels(torch, results: dict) -> None:
     _kernels_ssd(torch, results)
     _kernels_b1_int8(torch, results)
     _kernels_chunk(torch, results)
+    _kernels_grouped(torch, results)
 
 
 def _planted_collisions(torch, ecc, pages):
@@ -1821,6 +1828,224 @@ def _kernels_chunk(torch, results: dict) -> None:
                 f"tolerance held (worst |err|/limit {used:.3f})")
 
 
+# ---------------------------------------------------------------------------
+# the grouped GEMM (the moe family's ragged_dot)
+# ---------------------------------------------------------------------------
+
+# qwen2-moe-a2.7b: 60 routed experts padded to 64, top-4, d_model 2048,
+# moe_d_ff 1408; up / gate [E, 2048, 1408], down [E, 1408, 2048]
+MOE_E, MOE_D, MOE_F, MOE_TOPK, MOE_REAL = 64, 2048, 1408, 4, 60
+# the kernel against its plain version: both accumulate in float32 and
+# round once to bf16; the float32 sums run in another order, so the two
+# round to the same or adjacent bf16 values, plus float32 summation noise
+# of the sum of |products| on outputs near 0
+GG_ULPS, GG_REL = 2, 1e-5
+GG_TOL = f"{GG_ULPS} bf16 steps of |plain| + {GG_REL} (|x| @ |W|)"
+
+
+def _routing_sizes(torch, tokens: int, seed: int):
+    """int32 group sizes [64] of a real routing: ``tokens`` random tokens
+    through a random float32 router over the 60 real experts, top-4 by a
+    stable descending sort, the 4 padded experts empty."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((tokens, MOE_D), generator=gen, device="cuda")
+    w = torch.randn((MOE_D, MOE_E), generator=gen, device="cuda") \
+        * MOE_D ** -0.5
+    logits = (x @ w).masked_fill(
+        torch.arange(MOE_E, device="cuda") >= MOE_REAL, -1e30)
+    top = torch.sort(logits, -1, descending=True, stable=True)[1][:, :MOE_TOPK]
+    return torch.zeros(MOE_E, dtype=torch.int32, device="cuda").scatter_add_(
+        0, top.reshape(-1), torch.ones(tokens * MOE_TOPK, dtype=torch.int32,
+                                       device="cuda"))
+
+
+def _grouped_limit(torch, x, w, sizes, ref):
+    """(|err| limit per output, rows covered): GG_ULPS bf16 steps of |ref|
+    plus GG_REL (|x| @ |W_e(r)|), the latter by a grouped product of |x|
+    and |W| in float32 (the plain version's own loop)."""
+    from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
+
+    mag = grouped_gemm_ref(x.abs().float(), w.abs().float(), sizes)
+    return GG_ULPS * _bf16_step(torch, ref) + GG_REL * mag, int(sizes.sum())
+
+
+def _check_grouped(torch, name, got, ref, limit, rows) -> tuple[float, float]:
+    """(max |err|, worst |err| / limit) over the covered rows; rows past
+    them must be 0; raises beyond the limit."""
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    if bool(got[rows:].any()):
+        raise AssertionError(f"{name}: rows past the groups' sum not 0")
+    err = (got.float() - ref.float()).abs()[:rows]
+    lim = limit[:rows]
+    bad = int((err > lim).sum())
+    if bad:
+        raise AssertionError(f"{name}: {bad} outputs beyond {GG_TOL}, max "
+                             f"|err| {err.max().item():.3e}")
+    return err.max().item(), (err / lim).max().item()
+
+
+def _grouped_library(torch, x, w, sizes, ref, limit, rows):
+    """One PyTorch call computing the same grouped product, as the
+    yardstick: ``torch._grouped_mm`` (x, W with K contiguous, the int32
+    end offsets) where this torch has it and it agrees with the plain
+    version within GG_TOL; otherwise a per-expert ``torch.matmul`` loop
+    (the group sizes read on the host).  Returns (fn, what it is)."""
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    why = "torch._grouped_mm missing"
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is not None:
+        for wl in (w, w.transpose(-2, -1).contiguous().transpose(-2, -1)):
+            try:
+                out = fn(x, wl, offs=offs, out_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+            except (RuntimeError, TypeError, ValueError) as e:
+                why = f"torch._grouped_mm refused: {str(e).splitlines()[0]}"
+                continue
+            err = (out.float() - ref.float()).abs()[:rows]
+            if bool((err <= limit[:rows]).all()):
+                return (lambda: fn(x, wl, offs=offs,
+                                   out_dtype=torch.bfloat16),
+                        "torch._grouped_mm")
+            why = "torch._grouped_mm disagreed with the plain version"
+    ends = [0] + offs.tolist()
+    spans = [(e, ends[e], ends[e + 1]) for e in range(len(ends) - 1)
+             if ends[e + 1] > ends[e]]
+
+    def loop():
+        return torch.cat([x[a:b] @ w[e] for e, a, b in spans])
+    return loop, f"a per-expert torch.matmul loop ({why})"
+
+
+def _grouped_invariance(torch, w) -> None:
+    """A row's bits at the up shape: alone (a group of 1) and inside groups
+    of 2, 7, 16, 136 and 8,192 rows, first, in the middle and last, with
+    other experts' rows before and after: the same every time."""
+    from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    v = torch.randn((MOE_D,), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def row_of(size, place):
+        sizes = torch.zeros(MOE_E, dtype=torch.int32)
+        sizes[3], sizes[11], sizes[50] = 37, size, 5
+        x = torch.randn((int(sizes.sum()), MOE_D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        at = 37 + {"first": 0, "middle": size // 2, "last": size - 1}[place]
+        x[at] = v
+        return grouped_gemm(x, w, sizes.to("cuda"))[at]
+
+    alone = row_of(1, "first")
+    checked = 0
+    for size in (2, 7, 16, 136, 8192):
+        for place in ("first", "middle", "last"):
+            if not torch.equal(row_of(size, place), alone):
+                raise AssertionError(f"grouped_gemm: a row's bits in a group "
+                                     f"of {size} ({place}) differ from the "
+                                     f"row alone")
+            checked += 1
+    log(f"[kernels] grouped_gemm row invariance: a row's {MOE_F} outputs "
+        f"bit-equal alone and in {checked} placements (groups of 2, 7, 16, "
+        f"136 and 8,192 rows; first, middle, last; experts 3 and 50 loaded "
+        f"around it)")
+
+
+def _kernels_grouped(torch, results: dict) -> None:
+    """The grouped GEMM at qwen2-moe-a2.7b's up (2048 -> 1408) and down
+    (1408 -> 2048) shapes over 64 experts: decode (16 rows on 16 experts,
+    16 rows on one), prefill (8,192 rows with a real routing's group
+    sizes) and a skew (8,192 rows on one expert, 63 empty), each against
+    its plain version within GG_TOL, rows past the groups' sum 0; a row's
+    bits invariant to its group; a planted fault (one row's group offset
+    off by one) must fail; timed beside its bound, the plain version and a
+    library call.  The JSON row is the decode up shape."""
+    from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
+    from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    ws = {(k, n): (torch.randn((MOE_E, k, n), generator=gen, device="cuda")
+                   * k ** -0.5).to(torch.bfloat16)
+          for k, n in ((MOE_D, MOE_F), (MOE_F, MOE_D))}
+    spread = torch.zeros(MOE_E, dtype=torch.int32, device="cuda")
+    spread[torch.randperm(MOE_REAL, generator=torch.Generator()
+                          .manual_seed(3))[:16].to("cuda")] = 1
+    one = torch.zeros(MOE_E, dtype=torch.int32, device="cuda")
+    one[17] = 16
+    skew = torch.zeros(MOE_E, dtype=torch.int32, device="cuda")
+    skew[42] = 8192
+    cases = [("decode, 16 rows on 16 experts", spread),
+             ("decode, 16 rows on one expert", one),
+             ("prefill, 8,192 rows, a real routing", _routing_sizes(
+                 torch, 2048, 5)),
+             ("skew, 8,192 rows on one expert", skew)]
+    res = results["grouped_gemm"]
+    res["max_abs_err"] = 0.0
+    for (k, n), w in ws.items():
+        for tag, sizes in cases:
+            rows = int(sizes.sum())
+            x = torch.randn((rows, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            got = grouped_gemm(x, w, sizes)
+            ref = grouped_gemm_ref(x, w, sizes)
+            torch.cuda.synchronize()
+            limit, covered = _grouped_limit(torch, x, w, sizes, ref)
+            err, used = _check_grouped(torch, "grouped_gemm", got, ref,
+                                       limit, covered)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            nonempty = int((sizes > 0).sum())
+            line = (f"[kernels] grouped_gemm {tag} K={k} N={n} ({nonempty} "
+                    f"of {MOE_E} experts non-empty): max|err| {err:.3e} "
+                    f"(worst |err|/limit {used:.3f}; tol {GG_TOL})")
+            if tag.startswith("decode, 16 rows on 16") and k == MOE_D:
+                # planted fault: the first non-empty expert's last row
+                # handed to the next expert, as an offset off by one would
+                bad_sizes = sizes.clone()
+                e0 = int(torch.nonzero(sizes)[0])
+                bad_sizes[e0] -= 1
+                bad_sizes[e0 + 1] += 1
+                wrong = grouped_gemm(x, w, bad_sizes)
+                caught = int(((wrong.float() - ref.float()).abs()
+                              > limit)[:covered].sum())
+                log(f"[kernels] planted fault, grouped_gemm with expert "
+                    f"{e0}'s group offset off by one: {caught} of "
+                    f"{covered * n} outputs beyond {GG_TOL}")
+                if caught == 0:
+                    raise AssertionError("planted fault (a group offset off "
+                                         "by one) passes the grouped_gemm "
+                                         "check")
+            ms = time_ms(torch, lambda i: grouped_gemm(x, w, sizes))
+            dev_ms = profiled_ms(torch, lambda i: grouped_gemm(x, w, sizes),
+                                 ("grouped_gemm_kernel",))
+            plain = time_ms(torch, lambda i: grouped_gemm_ref(x, w, sizes),
+                            iters=5)
+            lib_fn, lib_what = _grouped_library(torch, x, w, sizes, ref,
+                                                limit, covered)
+            lib = time_ms(torch, lambda i: lib_fn())
+            lib_dev = profiled_ms(torch, lambda i: lib_fn(), None)
+            # each input read once (x, the non-empty experts' weights, the
+            # sizes), the output written once; 2 R K N operations on the
+            # bf16 tensor cores
+            bytes_moved = (rows * k * 2 + nonempty * k * n * 2 + MOE_E * 4
+                           + rows * n * 2)
+            ops = 2 * rows * k * n
+            b_ms, b_by = bound(bytes_moved, ops, "bf16")
+            if not res.get("shape"):
+                res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                           library_ms=lib, library_device_ms=lib_dev,
+                           bound_ms=b_ms, bound_by=b_by,
+                           shape=f"R={rows} K={k} N={n} E={MOE_E} "
+                                 f"({nonempty} non-empty)")
+            line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms, "
+                     f"{100 * b_ms / dev_ms:.1f}% of the bound, "
+                     f"{ops / dev_ms / 1e9:.1f} GFLOP/s), plain {plain:.4f} "
+                     f"ms, library {lib:.4f} ms (device {lib_dev:.4f} ms; "
+                     f"{lib_what}), bound {b_ms:.4f} ms ({b_by}: "
+                     f"{bytes_moved / 1e6:.1f} MB at 3.35 TB/s, "
+                     f"{ops / 1e9:.2f} GFLOP at 989 TFLOP/s)")
+            log(line)
+    _grouped_invariance(torch, ws[(MOE_D, MOE_F)])
+
+
 def _kernels_b1_int8(torch, results: dict) -> None:
     """B1 over int8 pools: against its plain version (which dequantizes as
     the kernel does) within ATTN_TOL at the llama2-7b and zamba2-7b
@@ -2206,9 +2431,11 @@ def phase_serve_hybrid_w4a16(torch, smi: str) -> dict:
 PREFILL_PARTS = (("B2 GEMM", ("int8_gemm_tc",)), ("B3", ("flash_attention",)),
                  ("B6", ("ssd_intra_chunk",)), ("B2 GeMV", ("int8_gemv",)),
                  ("B4 GEMM", ("w4a16_gemm_",)),
-                 ("B4 GeMV", ("w4a16_gemv_",)))
+                 ("B4 GeMV", ("w4a16_gemv_",)),
+                 ("grouped GEMM", ("grouped_gemm_kernel",)))
 DECODE_PARTS = (("B1", ("paged_decode_attention",)),
-                ("B2 GeMV", ("int8_gemv",)), ("B4 GeMV", ("w4a16_gemv_",)))
+                ("B2 GeMV", ("int8_gemv",)), ("B4 GeMV", ("w4a16_gemv_",)),
+                ("grouped GEMM", ("grouped_gemm_kernel",)))
 
 
 def _by_part(rows, parts, per: float = 1.0) -> str:
@@ -4474,6 +4701,275 @@ def phase_serve_wave(torch, smi: str) -> dict:
     return owned
 
 
+# ---------------------------------------------------------------------------
+# serve_moe: the moe family at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_CPU_LAYERS = 2   # the CPU gate's depth (full width; the whole model is
+                     # too large for a CPU run)
+
+
+@contextlib.contextmanager
+def _routes():
+    """Record, for every ``models/moe.py::_route`` call inside the block,
+    (the chosen experts [n, k], each row's k-th / (k+1)-th router logit
+    gap [n]) on the host."""
+    from repro_torch.models import moe
+
+    seen, orig = [], moe._route
+
+    def route(params, xt, cfg, e):
+        topi, probs = orig(params, xt, cfg, e)
+        logits = (xt.float() @ params["router"]["w"].float())[
+            :, :cfg.n_experts]
+        top = logits.sort(-1, descending=True).values
+        seen.append((topi.cpu(), (top[:, cfg.top_k - 1]
+                                  - top[:, cfg.top_k]).cpu()))
+        return topi, probs
+
+    moe._route = route
+    try:
+        yield seen
+    finally:
+        moe._route = orig
+
+
+def _moe_cpu_gate(torch, cfg, params, prompt, tag: str) -> None:
+    """The model phase's gate at full width, the depth cut to
+    MOE_CPU_LAYERS layers: one prompt's prefill and 3 teacher-forced decode
+    steps, card bf16 against CPU bf16 against CPU float32 (the same W8A8
+    weights), within MODEL_RATIO.  Beside it, at each layer, the smallest
+    router k-th / (k+1)-th logit gap and the rows whose experts differ
+    between the card and the float32 run (a near-tie that flips an expert
+    shows there)."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+
+    t0 = time.monotonic()
+    cut = dataclasses.replace(cfg, n_layers=MOE_CPU_LAYERS)
+    card = {**params, "layers": params["layers"][:MOE_CPU_LAYERS]}
+    runs = _to_runs(torch, _tree_to(torch, card, "cpu"), card)
+    logits, routes = {}, {}
+    toks = torch.tensor([prompt], dtype=torch.int32)
+    block = torch.arange(1, 9, dtype=torch.int32)[None]
+    for name, (p, dev, dtype) in runs.items():
+        cache = M.init_paged_cache(cut, 1, 128, dtype=dtype, page_size=16,
+                                   device=dev)
+        cache["block"] = block.to(dev)
+        with _routes() as seen:
+            lg, cache = M.prefill_into_slots(
+                p, cut, toks.to(dev), torch.tensor([len(prompt)]).to(dev),
+                cache, torch.tensor([0]).to(dev))
+            logits[name] = [lg.float().cpu()]
+            for i in range(3):   # teacher-forced with the CPU run's tokens
+                tok = torch.argmax(logits["cpu"][i], -1).to(torch.int32)
+                lg, cache = M.decode_step_paged(
+                    p, cut, tok.to(dev), cache,
+                    torch.tensor([True]).to(dev))
+                logits[name].append(lg.float().cpu())
+        routes[name] = seen
+    log(f"[{tag}] CPU gate: {MOE_CPU_LAYERS} of {cfg.n_layers} layers at "
+        f"full width, a {len(prompt)}-token prompt and 3 decode steps, three "
+        f"runs in {time.monotonic() - t0:.1f} s")
+    for li in range(MOE_CPU_LAYERS):
+        calls = range(li, len(routes["f32"]), MOE_CPU_LAYERS)
+        gap = min(float(routes["f32"][c][1].min()) for c in calls)
+        flips = sum(int((routes["cuda"][c][0].sort(-1).values
+                         != routes["f32"][c][0].sort(-1).values).any(-1)
+                        .sum()) for c in calls)
+        rows = sum(len(routes["f32"][c][0]) for c in calls)
+        log(f"[{tag}] CPU gate, layer {li}: smallest router k-th / (k+1)-th "
+            f"logit gap {gap:.3e} (float32 run) over {rows} rows; rows whose "
+            f"experts differ card vs float32: {flips}")
+    _ratio_gate(torch, f"{MOE_ARCH} {MOE_CPU_LAYERS} layers", logits)
+
+
+def _moe_admission(torch, cfg, params, prompts, tag: str) -> None:
+    """A request admitted while three others decode gives its solo stream
+    bit for bit: its rows meet other rows in every grouped GEMM (the
+    kernel's row invariance at the real routing)."""
+    from repro_torch.serving.client import ServingClient
+
+    client = ServingClient(cfg, params, max_batch=4, max_seq=1024,
+                           page_size=16, eos_id=-1, device="cuda")
+    core = client.router.cores[0]
+    solo = _streams(torch, client, [prompts[0]], 32)[0]
+    others = [client.submit(p, max_new_tokens=32) for p in prompts[1:4]]
+    for _ in range(5):
+        client.pump()
+    prefills = core.stats.prefills
+    late = client.submit(prompts[0], max_new_tokens=32)
+    client.run()
+    torch.cuda.synchronize()
+    if not all(h.finished for h in others):
+        raise AssertionError(f"[{tag}] the decoding requests did not finish")
+    if late.request.out_tokens != solo:
+        raise AssertionError(f"[{tag}] a request admitted mid-stream differs "
+                             f"from its solo stream")
+    log(f"[{tag}] a {len(prompts[0])}-token request admitted after 5 steps "
+        f"of 3 others ({core.stats.prefills - prefills} prefill group) == "
+        f"its solo stream, 32 tokens bit for bit")
+
+
+def _moe_partial_hits(torch, cfg, params, tag: str) -> None:
+    """A partial prefix hit (one-shot pages of a primer's first
+    PREFIX_CACHED tokens, the suffix through the chunk path) against a
+    cold one-shot run, on 3 prompts: the logits (``_partial_paths``) and
+    the engines' streams bit for bit."""
+    import numpy as np
+
+    from repro_torch.serving.core import Request
+
+    rng = np.random.RandomState(17)
+    cands = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+             for n in rng.randint(PREFIX_CACHED + 20, 480, size=3)]
+    primers = [c[:PREFIX_CACHED] + [(c[PREFIX_CACHED] + 1) % cfg.vocab_size]
+               for c in cands]
+    checks = [_partial_paths(torch, params, cfg, c, p, MARGIN_TOKENS)
+              for c, p in zip(cands, primers)]
+    log(f"[{tag}] partial hit (one-shot prefix of {PREFIX_CACHED} tokens + "
+        f"chunked suffix) vs one-shot, per prompt (top-1 margin, max "
+        f"|dlogit|) over {MARGIN_TOKENS} greedy tokens: "
+        + ", ".join(f"({mg:.4f}, {dr:.4f})" for mg, dr, _ok in checks))
+    if not all(ok and dr == 0.0 for _mg, dr, ok in checks):
+        raise AssertionError(f"[{tag}] a partial hit's logits differ from "
+                             f"the one-shot run's")
+    cold_e = _a5_engine(cfg, params)
+    warm_e = _a5_engine(cfg, params, prefix_cache=True)
+    for i, (cand, primer) in enumerate(zip(cands, primers)):
+        a = Request(rid=3 * i, prompt=list(cand), max_new_tokens=16)
+        cold_e.add_request(a)
+        cold_e.run()
+        warm_e.add_request(Request(rid=3 * i + 1, prompt=primer,
+                                   max_new_tokens=1))
+        warm_e.run()
+        hits = warm_e.stats.prefix_hits
+        b = Request(rid=3 * i + 2, prompt=list(cand), max_new_tokens=16)
+        warm_e.add_request(b)
+        warm_e.run()
+        if warm_e.stats.prefix_hits != hits + 1:
+            raise AssertionError(f"[{tag}] prompt {i} was not a partial hit")
+        if a.out_tokens != b.out_tokens:
+            raise AssertionError(f"[{tag}] partial hit {i} differs from the "
+                                 f"cold engine's stream")
+    log(f"[{tag}] 3 partial hits == cold one-shot runs, logits and 16-token "
+        f"streams bit for bit")
+
+
+def phase_serve_moe(torch, smi: str) -> dict:
+    """qwen2-moe-a2.7b at full width (24 layers, d_model 2048, 16 heads of
+    128 with qkv bias, 60 routed experts padded to 64, top-4, 4 shared
+    experts of 1,408, vocab 151,936), random weights from seed 0 built on
+    the card by ``init_params``, W8A8 (the routed experts bf16, as in
+    JAX), 4 slots, max_seq 1024, page 16, the serve trace.  Gates: the
+    counted run launches the grouped GEMM, B1, B2 and B3 (the grouped GEMM
+    through the decode graph, 3 launches a layer); graph == eager and
+    overlapped == synchronous, greedy and sampled; ``--chunk-prefill 128``
+    gives the one-shot logits and streams bit for bit; a request admitted
+    mid-stream gives its solo stream; partial prefix hits equal cold runs;
+    a wave-mode run's first tokens equal a direct prefill's; the CPU gate
+    at 2 layers.  Prints decode tok/s and ms a step (sync, overlapped),
+    prefill ms a group, the grouped GEMM's device ms a step and a group
+    (the profiles), launches a step, peak memory."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.serving.client import ServingClient
+    from repro_torch.serving.scheduler import SamplingParams, make_scheduler
+
+    tag = "serve_moe"
+    t0 = time.monotonic()
+    counts, client = _serve_full(torch, MOE_ARCH, tag, smi,
+                                 required=("grouped_gemm",))
+    core = client.router.cores[0]
+    cfg, params = core.cfg, core.params
+    per_step = core.graph._deltas["sync"].get("grouped_gemm", 0)
+    log(f"[{tag}] grouped GEMM launches: {counts['grouped_gemm']} in the "
+        f"counted run, {per_step} a decode step (captured in the graph; "
+        f"{3 * cfg.n_layers} expected)")
+    if per_step != 3 * cfg.n_layers:
+        raise AssertionError(f"[{tag}] the decode graph holds {per_step} "
+                             f"grouped GEMM launches")
+    t0 = _lap(tag, "counted run", t0)
+    kw = dict(max_batch=4, max_seq=1024, page_size=16, eos_id=-1,
+              device="cuda")
+    prompts = _serve_trace(cfg)
+    olap = ServingClient(cfg, params, overlap=True, **kw)
+    eager, r_e = _overlap_streams(torch, client, prompts, 32, eager=True)
+    graph, r_g = _overlap_streams(torch, client, prompts, 32)
+    over, r_o = _overlap_streams(torch, olap, prompts, 32)
+    _check_graph_run(core, r_g, tag, "sync graph")
+    _check_graph_run(olap.router.cores[0], r_o, tag, "overlap")
+    if r_e["replays"] != 0 or graph != eager or over != eager:
+        raise AssertionError(f"[{tag}] greedy: graph / overlapped differ "
+                             f"from eager")
+
+    def sampled(i):
+        return (SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
+                               seed=300 + i) if i % 2 else None)
+
+    s_sync, _ = _overlap_streams(torch, client, prompts, 32, sampled)
+    s_over, _ = _overlap_streams(torch, olap, prompts, 32, sampled)
+    if s_sync != s_over:
+        raise AssertionError(f"[{tag}] sampled: overlapped != synchronous")
+    drawn = sum(a != b for a, b in zip(s_sync[1::2], graph[1::2]))
+    if drawn == 0:
+        raise AssertionError(f"[{tag}] no sampled stream left its greedy one")
+    log(f"[{tag}] graph == eager == overlapped on 8 greedy requests; sampled "
+        f"synchronous == overlapped ({drawn} of 4 sampled streams left "
+        f"greedy); grouped GEMM launches graph / overlapped / eager "
+        f"{r_g['counts']['grouped_gemm']} / {r_o['counts']['grouped_gemm']} "
+        f"/ {r_e['counts']['grouped_gemm']}")
+    tprompts = [[int(t) for t in np.random.RandomState(3).randint(
+        0, cfg.vocab_size, n)] for n in (200, 240, 280, 320)]
+    walls = {mode: _decode_wall(torch, c, tprompts, 64)
+             for mode, c in (("sync", client), ("overlapped", olap))}
+    log(f"[{tag}] decode, 4 slots at 200-384 tokens: "
+        + ", ".join(f"{mode} {w:.2f} ms a step = {4e3 / w:.1f} tok/s ({n} "
+                    f"steps)" for mode, (w, n) in walls.items())
+        + f" (synchronized clock around the decode loop) on {smi}")
+    del olap
+    t0 = _lap(tag, "graph, eager, overlapped, sampled, walls", t0)
+    chunked = ServingClient(cfg, params, scheduler=make_scheduler(
+        "fcfs", chunk_tokens=CHUNK_BUDGET), **kw)
+    rng = np.random.RandomState(5)
+    cands = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+             for n in rng.randint(140, 400, size=6)]
+    _bit_equal_streams(
+        torch, params, cfg, cands, MARGIN_TOKENS,
+        {"one-shot": ("bf16", 0), "chunked": ("bf16", CHUNK_BUDGET)},
+        (client, chunked), tag)
+    del chunked
+    prompt = [int(t) for t in np.random.RandomState(7).randint(
+        0, cfg.vocab_size, 150)]
+    _chunk_invariance(torch, params, cfg, prompt, (16, CHUNK_BUDGET, 150),
+                      "bf16", tag)
+    t0 = _lap(tag, "one-shot == chunked", t0)
+    _moe_admission(torch, cfg, params, prompts, tag)
+    _moe_partial_hits(torch, cfg, params, tag)
+    t0 = _lap(tag, "admission and partial hits", t0)
+    wave = ServingClient(cfg, params, mode="wave", **kw)
+    wgreedy, _ = _wave_run(torch, wave, prompts, tag, "wave mode, graphs")
+    first = _wave_first_tokens(torch, cfg, params, prompts, 1024)
+    if first != [t[0] for t, _ in wgreedy[:4]]:
+        raise AssertionError(f"[{tag}] the wave engine's first tokens are not "
+                             f"a direct prefill's")
+    log(f"[{tag}] wave mode: first tokens == a direct prefill's")
+    del wave
+    t0 = _lap(tag, "wave mode", t0)
+    phase_profile(torch, client, smi, tag)
+    t0 = _lap(tag, "profiles", t0)
+    _moe_cpu_gate(torch, cfg, params, prompts[0][:64], tag)
+    _lap(tag, "CPU gate", t0)
+    del client, core, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _mark(name: str) -> None:
     """Log the time since the previous mark (the phase before ``name``)."""
     now = time.monotonic()
@@ -4490,7 +4986,7 @@ def main(argv=None) -> int:
                             "serve_w4a16,serve_hybrid,serve_hybrid_w4a16,"
                             "serve_overlap,serve_chunked,serve_int8kv,"
                             "serve_tiered,serve_prefix,serve_migrate,"
-                            "serve_fleet,serve_wave")
+                            "serve_fleet,serve_wave,serve_moe")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -4566,6 +5062,9 @@ def main(argv=None) -> int:
     _mark("serve_wave")
     if "serve_wave" in phases:
         counts["serve_wave"] = phase_serve_wave(torch, smi_line)
+    _mark("serve_moe")
+    if "serve_moe" in phases:
+        counts["serve_moe"] = phase_serve_moe(torch, smi_line)
     _mark("end")
     log(f"[time] phases {args.phases} took "
         f"{time.monotonic() - t_start:.0f} s after the card check")

@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's drivers.
 
 The configurations whose model code the port has: the dense family
-(smollm-360m and the paper's OPT / Llama-2 models), the hybrid family
-(zamba2-7b, served through the paged engine or in wave mode), the ssm
-family (mamba2-130m) and the audio family (whisper-small), both served in
-wave mode.  The other families join as their model code is ported.
+(smollm-360m and the paper's OPT / Llama-2 models), the moe family
+(qwen2-moe-a2.7b) and the hybrid family (zamba2-7b), served through the
+paged engine or in wave mode, the ssm family (mamba2-130m) and the audio
+family (whisper-small), both served in wave mode.  The vlm and mla_moe
+families join as their model code is ported.
 """
 
 from __future__ import annotations
@@ -12,12 +13,14 @@ from __future__ import annotations
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M
 from repro_torch.configs.paper_models import PAPER_MODELS
+from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE_A2_7B
 from repro_torch.configs.smollm_360m import CONFIG as SMOLLM_360M
 from repro_torch.configs.whisper_small import CONFIG as WHISPER_SMALL
 from repro_torch.configs.zamba2_7b import CONFIG as ZAMBA2_7B
 
 ARCHS: dict[str, ModelConfig] = {
-    c.name: c for c in (SMOLLM_360M, ZAMBA2_7B, MAMBA2_130M, WHISPER_SMALL)}
+    c.name: c for c in (SMOLLM_360M, QWEN2_MOE_A2_7B, ZAMBA2_7B, MAMBA2_130M,
+                        WHISPER_SMALL)}
 ARCHS.update(PAPER_MODELS)
 
 

@@ -10,7 +10,7 @@ random prompts, greedy, or sampled under ``--temperature`` / ``--top-k`` /
 runs the overlapped decode loop (one fused decode + sample step a round,
 its tokens read back one step late).  ``--chunk-prefill N`` prefills a
 prompt longer than N tokens in chunks of N, one a step between decode
-steps (dense family; a hybrid engine prefills in one shot);
+steps (dense and moe families; a hybrid engine prefills in one shot);
 ``--kv-dtype int8`` keeps the KV pages in int8 with a float32 scale per
 row and head.  ``--kv-tier flash`` spills KV pages of suspended slots to
 a cold tier (pinned host memory on a card; ``--flash-pages`` bounds it,
@@ -49,10 +49,13 @@ kernels.
       --max-seq 1024 --overlap
   python src/repro_torch/launch/serve.py --arch llama2-7b --mode wave \\
       --device cpu
+  python src/repro_torch/launch/serve.py --arch qwen2-moe-a2.7b \\
+      --chunk-prefill 4 --device cpu
 
 ``--arch`` takes every configuration of ``configs/registry.py``: the dense
-family and the hybrid zamba2-7b (Mamba-2 layers and a shared attention
-block) in either mode, the ssm mamba2-130m and the audio whisper-small
+family, the moe qwen2-moe-a2.7b (60 routed experts, top-4, through the
+grouped GEMM kernel, and 4 shared experts) and the hybrid zamba2-7b
+(Mamba-2 layers and a shared attention block) in either mode, the ssm mamba2-130m and the audio whisper-small
 (an encoder over stub frame embeddings, zeros, and a decoder with
 cross-attention) in wave mode.
 """

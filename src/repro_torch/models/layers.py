@@ -117,6 +117,25 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, use_bias: bool,
     return p
 
 
+# rows per float32 product where a row's bits must not depend on the rows
+# around it: a library GEMM may pick its algorithm, and so its summation
+# order, by the row count, so every product has this many rows (the last
+# block zero-padded)
+FIXED_ROWS = 8
+
+
+def fixed_row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, V] as products of FIXED_ROWS rows each."""
+    xf = x.reshape(-1, x.shape[-1])
+    m = xf.shape[0]
+    if m == 0:
+        return x @ w
+    xf = torch.cat([xf, xf.new_zeros(((-m) % FIXED_ROWS, xf.shape[1]))])
+    out = torch.cat([xf[i:i + FIXED_ROWS] @ w
+                     for i in range(0, len(xf), FIXED_ROWS)])
+    return out[:m].reshape(*x.shape[:-1], w.shape[1])
+
+
 # ---------------------------------------------------------------------------
 # RoPE (interleaved pairs x[0::2], x[1::2], as the JAX package rotates them)
 # ---------------------------------------------------------------------------

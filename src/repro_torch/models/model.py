@@ -1,6 +1,6 @@
 """Functional model API of the port: init / forward, the wave engine's
 shared-cursor prefill and decode, and the paged prefill and decode, for the
-dense, hybrid, ssm and audio families.
+dense, moe, hybrid, ssm and audio families.
 
 Counterpart of ``repro.models.model``:
 
@@ -26,7 +26,9 @@ Counterpart of ``repro.models.model``:
 
 Params are plain dicts of tensors with the JAX package's key names; where
 the JAX package stacks layers on a leading axis the port keeps lists:
-``params["layers"][i]`` (dense, ssm, audio's decoder), ``params["enc_layers"]
+``params["layers"][i]`` (dense, moe, ssm, audio's decoder; a moe layer's
+routed stacks ``moe["up"]`` etc. are its ``[E, in, out]`` slice),
+``params["enc_layers"]
 [i]`` (audio's encoder), ``params["groups"][g][i]`` and
 ``params["tail"][i]`` (hybrid, zamba2's Mamba layers; ``tail`` is None when
 the layer count divides), beside ``params["shared"]``, the one dense block
@@ -55,9 +57,9 @@ Where the JAX functions return a new cache, these write the page, K/V and
 state tensors IN PLACE and return a shallow copy of the cache dict with a
 new ``lens`` (paged) or ``len`` (wave); a conv window whose dtype the JAX
 function would change (jnp's promotion, C3) is rebound to a new tensor of
-that dtype instead.  Families without a branch here (moe, vlm, mla_moe,
-the parallel-block dense models) raise NotImplementedError; the ssm and
-audio families have no paged path (they serve in wave mode, as in JAX).
+that dtype instead.  Families without a branch here (vlm, mla_moe, the
+parallel-block dense models) raise NotImplementedError; the ssm and audio
+families have no paged path (they serve in wave mode, as in JAX).
 """
 
 from __future__ import annotations
@@ -69,10 +71,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import quantize_rows
 from repro_torch.models.layers import (_w4a16_matmul, dense_weight, ffn,
-                                       init_ffn, init_linear, linear)
+                                       fixed_row_matmul, init_ffn,
+                                       init_linear, linear)
 
 # ---------------------------------------------------------------------------
 # init
@@ -80,16 +84,11 @@ from repro_torch.models.layers import (_w4a16_matmul, dense_weight, ffn,
 
 
 # init_params, forward and the wave cache's prefill / decode
-MODEL_FAMILIES = ("dense", "hybrid", "ssm", "audio")
-PAGED_FAMILIES = ("dense", "hybrid")          # the paged serving path
+MODEL_FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio")
+PAGED_FAMILIES = ("dense", "moe", "hybrid")   # the paged serving path
 # param subtrees the JAX package stacks on leading layer axes, which the
 # port keeps as (nested) lists -> the number of those axes
 STACKED = {"layers": 1, "enc_layers": 1, "groups": 2, "tail": 1}
-# rows per float32 lm_head product: a library GEMM may pick its algorithm,
-# and so its summation order, by the row count, so every product has this
-# many rows (the last block zero-padded) and a row's logits do not depend
-# on the batch around it
-LM_HEAD_ROWS = 8
 
 
 def _check_family(cfg: ModelConfig, families: tuple[str, ...]) -> None:
@@ -106,6 +105,15 @@ def _init_dense_layer(gen, cfg: ModelConfig, dtype, device) -> dict:
         "attn": blocks.init_attn(gen, cfg, dtype, device),
         "ffn_norm": blocks.init_norm(cfg, dtype, device),
         "ffn": init_ffn(gen, cfg, cfg.d_ff, dtype, device),
+    }
+
+
+def _init_moe_layer(gen, cfg: ModelConfig, dtype, device) -> dict:
+    return {
+        "attn_norm": blocks.init_norm(cfg, dtype, device),
+        "attn": blocks.init_attn(gen, cfg, dtype, device),
+        "ffn_norm": blocks.init_norm(cfg, dtype, device),
+        "moe": moe_mod.init_moe(gen, cfg, dtype, device),
     }
 
 
@@ -142,6 +150,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, max_seq: int = 4096,
     if cfg.family == "dense":
         p["layers"] = [_init_dense_layer(gen, cfg, dtype, dev)
                        for _ in range(cfg.n_layers)]
+    elif cfg.family == "moe":
+        p["layers"] = [_init_moe_layer(gen, cfg, dtype, dev)
+                       for _ in range(cfg.n_layers)]
     elif cfg.family == "audio":
         p["enc_layers"] = [_init_dense_layer(gen, cfg, dtype, dev)
                            for _ in range(cfg.n_encoder_layers)]
@@ -175,23 +186,11 @@ def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dequantized to float32, as the JAX package does, and multiplied outside
     any kernel."""
     if cfg.tie_embeddings:
-        return _fixed_row_matmul(x.float(), params["embed"].float().T)
+        return fixed_row_matmul(x.float(), params["embed"].float().T)
     head = params["lm_head"]
     if "w_p4" in head:
         return _w4a16_matmul(head["w_p4"], head["scale4"], x, torch.float32)
-    return _fixed_row_matmul(x.float(), dense_weight(head).float())
-
-
-def _fixed_row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [..., K] @ w [K, V] as products of LM_HEAD_ROWS rows each."""
-    xf = x.reshape(-1, x.shape[-1])
-    m = xf.shape[0]
-    if m == 0:
-        return x @ w
-    xf = torch.cat([xf, xf.new_zeros(((-m) % LM_HEAD_ROWS, xf.shape[1]))])
-    out = torch.cat([xf[i:i + LM_HEAD_ROWS] @ w
-                     for i in range(0, len(xf), LM_HEAD_ROWS)])
-    return out[:m].reshape(*x.shape[:-1], w.shape[1])
+    return fixed_row_matmul(x.float(), dense_weight(head).float())
 
 
 # ---------------------------------------------------------------------------
@@ -199,11 +198,24 @@ def _fixed_row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _mlp(lp, h, cfg: ModelConfig) -> torch.Tensor:
+    """The layer's FFN on normed h: the dense FFN, or the moe family's
+    ``moe_ffn`` (JAX calls it on ``[B, S, D]`` in prefill and on
+    ``hn2[:, None]`` in decode; a decode step's h [B, D] is taken so)."""
+    if cfg.family != "moe":
+        return ffn(lp["ffn"], h, cfg.gated_ffn)
+    if h.dim() == 2:
+        return moe_mod.moe_ffn(lp["moe"], h[:, None], cfg)[:, 0]
+    return moe_mod.moe_ffn(lp["moe"], h, cfg)
+
+
 def _dense_layer_full(lp, x, cfg: ModelConfig, positions, causal=True):
+    """A dense or moe layer over full rows (JAX ``_dense_layer_full`` /
+    ``_moe_layer_full``)."""
     h = blocks.norm(cfg, lp["attn_norm"], x)
     attn_out, k, v = blocks.attn_full(lp["attn"], h, cfg, positions, causal)
     x = x + attn_out
-    x = x + ffn(lp["ffn"], blocks.norm(cfg, lp["ffn_norm"], x), cfg.gated_ffn)
+    x = x + _mlp(lp, blocks.norm(cfg, lp["ffn_norm"], x), cfg)
     return x, (k, v)
 
 
@@ -259,7 +271,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     _check_family(cfg, MODEL_FAMILIES)
     x = _embed(params, cfg, tokens)
     positions = _positions(x)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for lp in params["layers"]:
             x, _ = _dense_layer_full(lp, x, cfg, positions)
     elif cfg.family == "audio":
@@ -290,7 +302,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: str | torch.device = "cuda") -> dict:
     """The wave engine's cache (JAX ``init_cache``), zeros:
 
-      k/v    [L, B, Smax, Hkv, Dh]   dense; hybrid L = n_groups; audio
+      k/v    [L, B, Smax, Hkv, Dh]   dense, moe; hybrid L = n_groups; audio
                                      the decoder's self-attention
       xk/xv  [L, B, encoder_seq, Hkv, Dh]   audio: cross-attention rows
       mamba  {conv [G, every, B, K-1, C], state [G, every, B, H, P, N]},
@@ -302,7 +314,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     dev = resolve_device(device)
     f = cfg.family
     out: dict = {"len": torch.zeros((), dtype=torch.int32, device=dev)}
-    if f in ("dense", "audio", "hybrid"):
+    if f in ("dense", "moe", "audio", "hybrid"):
         n_kv = _hybrid_layout(cfg)[0] if f == "hybrid" else cfg.n_layers
         shape = (n_kv, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
         out["k"] = torch.zeros(shape, dtype=dtype, device=dev)
@@ -409,7 +421,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             f"conv state would be short")
     x = _embed(params, cfg, tokens)
     positions = _positions(x)
-    if f == "dense":
+    if f in ("dense", "moe"):
         for li, lp in enumerate(params["layers"]):
             x, (k, v) = _dense_layer_full(lp, x, cfg, positions)
             _write_kv(cache, li, k, v)
@@ -447,8 +459,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def _dense_layer_wave(lp, x, cfg: ModelConfig, k_cache, v_cache, pos):
     hn = blocks.norm(cfg, lp["attn_norm"], x)
     x = x + blocks.attn_decode(lp["attn"], hn, cfg, k_cache, v_cache, pos)
-    return x + ffn(lp["ffn"], blocks.norm(cfg, lp["ffn_norm"], x),
-                   cfg.gated_ffn)
+    return x + _mlp(lp, blocks.norm(cfg, lp["ffn_norm"], x), cfg)
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -467,7 +478,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     if cfg.rope_mode == "learned":
         x = x + params["pos_embed"].index_select(0, pos.reshape(1).long())
     f = cfg.family
-    if f == "dense":
+    if f in ("dense", "moe"):
         for li, lp in enumerate(params["layers"]):
             x = _dense_layer_wave(lp, x, cfg, cache["k"][li], cache["v"][li],
                                   pos)
@@ -519,10 +530,10 @@ def decode_and_sample(params: dict, cfg: ModelConfig, tok_host: torch.Tensor,
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    """The port pages the dense family's K/V and the hybrid family's
-    shared-attention K/V (its Mamba state lives in a slot-indexed pool).
-    The ssm and audio families keep the shared cursor (wave mode), as in
-    JAX; moe, vlm and mla_moe are not ported."""
+    """The port pages the dense and moe families' K/V and the hybrid
+    family's shared-attention K/V (its Mamba state lives in a slot-indexed
+    pool).  The ssm and audio families keep the shared cursor (wave mode),
+    as in JAX; vlm and mla_moe are not ported."""
     return cfg.family in PAGED_FAMILIES and not cfg.parallel_block
 
 
@@ -736,7 +747,7 @@ def prefill_into_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 to_pages(scale, cache[name + "_scale"][li])
             to_pages(arr, cache[name][li])
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for li, lp in enumerate(params["layers"]):
             x, (k, v) = _dense_layer_full(lp, x, cfg, positions)
             write_kv(li, k, v)
@@ -768,7 +779,7 @@ def prefill_into_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
     """Chunked prefill needs a paged cache and a 1-D token / position
-    stream: the dense family (JAX: dense and moe; moe is not ported)."""
+    stream: the dense and moe families, as in JAX."""
     return supports_paged(cfg) and cfg.family in ("dense", "moe")
 
 
@@ -786,7 +797,9 @@ def prefill_chunk_into_slot(params: dict, cfg: ModelConfig,
     buffer decode reads; on CUDA the chunk kernel, which gives each query
     B3's bits, the one-shot prefill's), and every other op is row-wise
     (the int8 products exact, the norms' means the same for any row count
-    of a bucket, as the card and the CPU show): a position's bits do not
+    of a bucket, as the card and the CPU show; the moe family's router in
+    fixed 8-row products and its grouped GEMM, whose row bits do not depend
+    on the group): a position's bits do not
     depend on how the prompt was split, so the cache, the returned logits
     and every later decode logit are the same for ANY chunk schedule, the
     single chunk and, over bf16 pools, ``prefill_into_slots`` included (a
@@ -811,8 +824,7 @@ def prefill_chunk_into_slot(params: dict, cfg: ModelConfig,
             lp["attn"], hn, cfg, _pool(cache, "k", li), _pool(cache, "v", li),
             block_row, start, chunk_len)
         x = x + attn_out
-        x = x + ffn(lp["ffn"], blocks.norm(cfg, lp["ffn_norm"], x),
-                    cfg.gated_ffn)
+        x = x + _mlp(lp, blocks.norm(cfg, lp["ffn_norm"], x), cfg)
     cache["lens"][slot] = start + chunk_len
     x_last = x[:, min(max(chunk_len - 1, 0), c - 1)]
     x_last = blocks.norm(cfg, params["final_norm"], x_last)
@@ -825,8 +837,7 @@ def _dense_layer_decode(lp, x, cfg: ModelConfig, k_pages, v_pages, block,
     hn = blocks.norm(cfg, lp["attn_norm"], x)
     x = x + blocks.attn_decode_paged(lp["attn"], hn, cfg, k_pages, v_pages,
                                      block, lens, active)
-    return x + ffn(lp["ffn"], blocks.norm(cfg, lp["ffn_norm"], x),
-                   cfg.gated_ffn)
+    return x + _mlp(lp, blocks.norm(cfg, lp["ffn_norm"], x), cfg)
 
 
 def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -850,7 +861,7 @@ def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
     if cfg.rope_mode == "learned":
         x = x + params["pos_embed"][lens.long()]
     block = cache["block"]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         for li, lp in enumerate(params["layers"]):
             x = _dense_layer_decode(lp, x, cfg, _pool(cache, "k", li),
                                     _pool(cache, "v", li), block, lens,

@@ -4,15 +4,19 @@ Counterpart of ``repro.quant.convert``.  For ``mode="w8a8"`` every linear
 param dict ``{"w": [in, out]}`` becomes ``{"w_q": int8 [out, in],
 "scale": f32 [out]}``; for ``mode="w4a16"`` ``{"w_p4": uint8 [out, in//2],
 "scale4": f32 [out, ng]}`` (bias kept in both); embeddings and norms stay
-in their float dtype.  (The JAX version also exempts MoE routers; the port
-has no router yet.)
+in their float dtype.  As in JAX, a subtree under a key named ``router``
+keeps full precision at any depth (``_path_exempt``), and the MoE family's
+routed expert stacks ``up`` / ``gate`` / ``down`` (bare ``[E, in, out]``
+tensors, not linear dicts) stay bf16 for the grouped GEMM; its shared
+experts are linear dicts and quantize like any other.
 
 W4A16 follows the reference's outcome, defect included: JAX stacks the
 layer linears (``layers`` ``[L, in, out]``; the hybrid family's ``groups``
 ``[G, every, in, out]`` and ``tail`` ``[T, in, out]``) and ``_quantize_w4``
 falls back to W8A8 for any stacked (or odd-width) weight, so only the
 unstacked linears come out W4A16: ``lm_head`` and, on the hybrid family,
-the ``shared`` block's.  The port keeps those stacks as lists, so it
+the ``shared`` block's (the moe family's shared experts sit in the stacked
+``layers`` and come out W8A8).  The port keeps those stacks as lists, so it
 applies the same fallback to everything under ``models.model.STACKED``.
 The Mamba block's conv taps, ``dt_bias``, ``a_log``, ``d_skip`` and
 ``norm`` are not linear dicts and stay float, as in JAX.
@@ -51,10 +55,18 @@ def _quantize_w4(w: torch.Tensor, stacked: bool) -> dict:
     return {"w_p4": q.w_packed.contiguous(), "scale4": q.scale}
 
 
+def _path_exempt(key) -> bool:
+    """True for a dict key that marks a quantization-exempt subtree (the
+    MoE router: routing decisions are quantization-sensitive, and its
+    weights are negligible)."""
+    return key == "router"
+
+
 def quantize_params(params, consume: bool = False, mode: str = "w8a8",
                     _stacked: bool = False):
     """Recursively rewrite linear dicts into quantized form (``mode``
-    ``"w8a8"`` or ``"w4a16"``).
+    ``"w8a8"`` or ``"w4a16"``); a subtree under a ``router`` key is kept
+    as it is.
 
     ``consume=True`` deletes each float weight from ``params`` once it is
     quantized (the input is left without its ``"w"`` entries).
@@ -72,8 +84,8 @@ def quantize_params(params, consume: bool = False, mode: str = "w8a8",
             if consume:
                 del params["w"]
             return out
-        return {k: quantize_params(v, consume, mode,
-                                   _stacked or k in STACKED)
+        return {k: v if _path_exempt(k) else
+                quantize_params(v, consume, mode, _stacked or k in STACKED)
                 for k, v in params.items()}
     if isinstance(params, list):
         return [quantize_params(v, consume, mode, _stacked) for v in params]

@@ -28,13 +28,14 @@ either requeues the starved request (``"requeue"``: a mid-decode slot
 restarts later with its generated prefix folded into its prompt) or fails
 it (``"reject"``).
 
-What the port serves is the JAX engine's continuous path for the dense and
-hybrid families with bf16 or int8 page pools (``kv_dtype="int8"``: rows
+What the port serves is the JAX engine's continuous path for the dense, moe
+and hybrid families with bf16 or int8 page pools (``kv_dtype="int8"``: rows
 quantized at their write, one float32 scale per row and head), chunked
-prefill for the dense family (a hybrid engine given a budget prefills in
-one shot, as the JAX engine's ``_chunk_ok`` makes it), synchronous or
-overlapped, with the per-request sampler (greedy, or temperature / top-k /
-top-p under jax's threefry keys, ``serving/sampler.py``).  A hybrid slot's
+prefill for the dense and moe families (a hybrid engine given a budget
+prefills in one shot, as the JAX engine's ``_chunk_ok`` makes it),
+synchronous or overlapped, with the per-request sampler (greedy, or
+temperature / top-k / top-p under jax's threefry keys,
+``serving/sampler.py``).  A hybrid slot's
 Mamba conv window and SSM state live in the cache's slot-indexed state
 pools: a prefill overwrites the slot's rows and decode masks inactive
 lanes; a suspension, a migration and a prefix resume point checkpoint them
@@ -95,8 +96,8 @@ prefill-written pages in a content-addressed ``kv_cache.PrefixIndex``,
 refcounted at the allocator.  An exact-prompt hit maps the shared full
 pages, scatters a private copy of the tail page, restores a hybrid slot's
 state and samples the first token from the stored prefill logits: zero
-prefill dispatches, the cold run's bits.  A partial hit (dense family,
-bf16 pools only, as in the JAX engine) maps the cached leading pages and
+prefill dispatches, the cold run's bits.  A partial hit (dense and moe
+families, bf16 pools only, as in the JAX engine) maps the cached leading pages and
 prefills the suffix through the chunk path from the cached length.  On a
 card the chunk kernel gives each query B3's one-shot bits, so a partial
 hit equals a cold run bit for bit whether the cold run and the cached
@@ -452,7 +453,7 @@ class EngineCore:
                 f"cursor — use mode='wave'")
         if mode == "continuous" and not model_lib.supports_paged(cfg):
             raise _not_ported(f"serving family {cfg.family!r}",
-                              "dense, hybrid, ssm and audio only")
+                              "dense, moe, hybrid, ssm and audio only")
         if kv_tier not in ("none", "flash"):
             raise ValueError(f"kv_tier {kv_tier!r} not in ('none', 'flash')")
         if kv_dtype not in ("bf16", "int8"):

@@ -43,7 +43,8 @@ from repro_torch.serving.fleet.worker import build_core
 from repro_torch.serving.scheduler import SamplingParams
 
 ENG = dict(max_batch=2, max_seq=48, eos_id=-1, page_size=8)
-ARCHS = {"dense": "smollm-360m", "hybrid": "zamba2-7b"}
+ARCHS = {"dense": "smollm-360m", "hybrid": "zamba2-7b",
+         "moe": "qwen2-moe-a2.7b"}
 
 
 @functools.lru_cache(maxsize=None)

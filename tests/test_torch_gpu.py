@@ -18,7 +18,10 @@ atol = 1e-4, the JAX package's own B6 tolerance (tests/test_kernels.py).
 The float64 yardstick: at the model's decays a chunk's cumulative sum
 reaches |cs| ~ 2e3, where two float32 summation orders differ by ~1e-4
 and so move L = exp(cs_i - cs_j) by as much as the tolerance; the kernel
-sums in double, so it is held to the exact function.
+sums in double, so it is held to the exact function.  The grouped GEMM
+(the moe family's ragged_dot) and its plain version both accumulate in
+float32 and round once to bf16: two bf16 steps of |ref| plus
+1e-5 (|x| @ |W|) for float32 summation noise.
 """
 
 import pytest
@@ -634,7 +637,7 @@ def _serve(engine, stochastic=False, n=6, max_new=6):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama2-7b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "zamba2-7b", "qwen2-moe-a2.7b"])
 @pytest.mark.parametrize("quant", ["w8a8", "w4a16"])
 def test_decode_graph_matches_eager_bit_for_bit(cuda_device, arch, quant):
     """The replayed decode step runs the eager step's kernels in its order:
@@ -674,7 +677,7 @@ def test_decode_graph_matches_eager_bit_for_bit(cuda_device, arch, quant):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama2-7b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "zamba2-7b", "qwen2-moe-a2.7b"])
 @pytest.mark.parametrize("stochastic", [False, True])
 def test_overlap_matches_sync_on_card(cuda_device, arch, stochastic):
     _, (sync, olap) = _graph_engines(arch, "w8a8", overlap=(False, True))
@@ -1375,7 +1378,8 @@ def test_contiguous_decode_attention_on_card(cuda_device, b, h, hkv, d, smax,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["whisper-small", "mamba2-130m",
-                                  "llama2-7b", "zamba2-7b"])
+                                  "llama2-7b", "zamba2-7b",
+                                  "qwen2-moe-a2.7b"])
 def test_wave_engine_on_card(cuda_device, arch):
     """The reduced model's wave engine, W8A8 on the card: a replayed decode
     step gives the eager step's streams, overlapped gives the synchronous
@@ -1419,3 +1423,114 @@ def test_wave_engine_on_card(cuda_device, arch):
                          mode="wave", overlap=True, device="cuda")
     assert serve(over) == want
     assert serve(over, sampled=True) == serve(client, sampled=True)
+
+
+# ------------------------------------------------ the grouped GEMM (moe)
+def _grouped_inputs(dev, sizes, k, n, seed):
+    """bf16 x [sum(sizes) + extra, K], W [E, K, N] (normal / sqrt(K)) and
+    int32 group sizes on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = int(sum(sizes))
+    x = torch.randn((r, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((len(sizes), k, n), generator=gen, device=dev)
+         * k ** -0.5).to(torch.bfloat16)
+    return x, w, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+def assert_grouped_close(got, ref, x, w, sizes):
+    """Within 2 bf16 steps of |ref| + 1e-5 (|x| @ |W_e(r)|)."""
+    e_of = torch.repeat_interleave(
+        torch.arange(len(sizes), device=x.device), sizes.long())
+    mag = torch.stack([x[r].float().abs() @ w[e_of[r]].float().abs()
+                       for r in range(len(e_of))]) if len(e_of) else ref
+    step = torch.exp2(torch.floor(torch.log2(
+        ref.float().abs().clamp_min(2.0 ** -126))) - 7)
+    err = (got.float() - ref.float()).abs()[:len(e_of)]
+    limit = (BF16_STEPS * step + 1e-5 * mag)[:len(e_of)]
+    assert bool((err <= limit).all()), float((err - limit).max())
+
+
+GROUPED_CASES = {
+    "decode, 16 rows over 16 experts": ([1] * 16 + [0] * 48, 2048, 1408),
+    "decode, 16 rows on one expert": ([0] * 5 + [16] + [0] * 58, 1408, 2048),
+    "reduced, empty groups": ([3, 0, 0, 5, 1, 0, 7, 2] + [0] * 8, 64, 32),
+    "skew, 300 rows on one expert": ([0] * 63 + [300], 2048, 1408),
+    "ragged, 130 rows": ([0, 61, 1, 0, 64, 65, 0, 0] + [0] * 8, 256, 72),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GROUPED_CASES))
+def test_grouped_gemm_on_card(cuda_device, case):
+    """The kernel against its plain version (one launch, counted), rows
+    past the groups' sum written 0."""
+    from repro_torch.kernels.grouped_gemm import ops
+    from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
+
+    sizes, k, n = GROUPED_CASES[case]
+    x, w, gs = _grouped_inputs(cuda_device, sizes, k, n, len(case))
+    x = torch.cat([x, torch.ones((3, k), dtype=x.dtype, device=x.device)])
+    before = ops.LAUNCHES["grouped_gemm"]
+    got = ops.grouped_gemm(x, w, gs)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["grouped_gemm"] == before + 1
+    ref = grouped_gemm_ref(x, w, gs)
+    assert_grouped_close(got, ref, x, w, gs)
+    assert not bool(got[int(gs.sum()):].any())
+
+
+@pytest.mark.gpu
+def test_grouped_gemm_row_bits_do_not_depend_on_the_group_on_card(
+        cuda_device):
+    """Expert 7's row v at qwen2-moe-a2.7b's up shape: alone and inside
+    groups of 2, 7, 16, 136 and 8,192 rows, first, in the middle and last,
+    other experts loaded before and after: the same bits."""
+    from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
+
+    k, n, e = 2048, 1408, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    w = (torch.randn((e, k, n), generator=gen, device=cuda_device)
+         * k ** -0.5).to(torch.bfloat16)
+    v = torch.randn((k,), generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+
+    def row_of(size, place):
+        sizes = torch.zeros(e, dtype=torch.int32)
+        sizes[2], sizes[7], sizes[40] = 37, size, 5
+        x = torch.randn((int(sizes.sum()), k), generator=gen,
+                        device=cuda_device).to(torch.bfloat16)
+        at = 37 + {"first": 0, "middle": size // 2, "last": size - 1}[place]
+        x[at] = v
+        return grouped_gemm(x, w, sizes.to(cuda_device))[at]
+
+    alone = row_of(1, "first")
+    for size in (2, 7, 16, 136, 8192):
+        for place in ("first", "middle", "last"):
+            assert torch.equal(row_of(size, place), alone), (size, place)
+
+
+@pytest.mark.gpu
+def test_grouped_gemm_refuses_what_it_does_not_take(cuda_device):
+    """float32 operands raise on the card (no fallback to the plain
+    version), as do int64 group sizes and a K that is not a multiple of
+    8."""
+    from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
+
+    x, w, gs = _grouped_inputs(cuda_device, [2, 3], 64, 32, 1)
+    with pytest.raises(TypeError):
+        grouped_gemm(x.float(), w.float(), gs)
+    with pytest.raises(TypeError):
+        grouped_gemm(x, w, gs.long())
+    with pytest.raises(ValueError):
+        grouped_gemm(x[:, :60].contiguous(), w[:, :60].contiguous(), gs)
+
+
+@pytest.mark.gpu
+def test_moe_decode_graph_holds_the_grouped_gemm(cuda_device):
+    """qwen2-moe-a2.7b.reduced() W8A8: the captured decode step holds
+    three grouped GEMM launches a layer (the group sizes read on the
+    device), and every decode step is one replay."""
+    _, (e, _unused) = _graph_engines("qwen2-moe-a2.7b", "w8a8")
+    _serve(e, n=5, max_new=5)
+    assert e.graph._deltas["sync"]["grouped_gemm"] == 3 * e.cfg.n_layers
+    assert e.graph.replays == e.stats.decode_steps > 0

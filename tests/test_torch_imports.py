@@ -42,7 +42,9 @@ def test_port_imports_neither_jax_nor_repro(sanitize):
               "distributed", "distributed.checkpoint", "_sanitize",
               "configs.whisper_small", "kernels.flash_attention.ops",
               "kernels.flash_attention.ref", "kernels.decode_attention.ops",
-              "models.blocks", "models.model"):
+              "models.blocks", "models.model", "models.moe",
+              "configs.qwen2_moe_a2_7b", "kernels.grouped_gemm.ops",
+              "kernels.grouped_gemm.ref"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

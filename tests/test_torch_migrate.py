@@ -41,7 +41,8 @@ from repro_torch.serving.scheduler import SamplingParams, make_scheduler
 from test_torch_serving import _prompts
 
 ENG = dict(max_batch=2, max_seq=48, eos_id=-1, page_size=8)
-ARCHS = {"dense": "smollm-360m", "hybrid": "zamba2-7b"}
+ARCHS = {"dense": "smollm-360m", "hybrid": "zamba2-7b",
+         "moe": "qwen2-moe-a2.7b"}
 
 
 @pytest.fixture(scope="module")

@@ -42,7 +42,8 @@ from test_torch_serving import _min_margin
 
 ENG = dict(max_batch=2, max_seq=64, eos_id=-1, page_size=8)
 PROMPT = list(range(1, 19))  # 18 tokens: 2 full pages + a 2-token tail
-ARCHS = {"dense": "smollm-360m", "hybrid": "zamba2-7b"}
+ARCHS = {"dense": "smollm-360m", "hybrid": "zamba2-7b",
+         "moe": "qwen2-moe-a2.7b"}
 
 
 @pytest.fixture(scope="module")
@@ -184,8 +185,8 @@ def test_resume_hit_one_token_request(fam):
 # ------------------------------------------------------- partial hits
 def test_partial_hit_prefills_only_the_suffix(fam):
     """A new continuation of a cached prefix maps the shared full pages and
-    prefills the suffix through the chunk path (dense); the hybrid family
-    takes a clean miss.  Both equal the cold runs."""
+    prefills the suffix through the chunk path (dense, moe); the hybrid
+    family takes a clean miss.  Both equal the cold runs."""
     family, cfg, params = fam
     pfx = list(range(1, 17))
     a, b = pfx + [20, 21], pfx + [30, 31, 32, 33]
@@ -196,7 +197,7 @@ def test_partial_hit_prefills_only_the_suffix(fam):
     warm += _warm(eng, TRequest, [b])
     assert warm == cold
     s = eng.stats
-    if family == "dense":
+    if family in ("dense", "moe"):
         assert (s.prefix_hits, s.prefix_hit_pages,
                 s.prefix_tokens_reused) == (1, 2, 16)
         assert s.prefills == prefills and s.prefill_chunks == 1

@@ -48,7 +48,8 @@ from repro_torch.serving.core import EngineCore, Request
 from repro_torch.serving.scheduler import SamplingParams
 from test_torch_watchdog import _flag
 
-ARCHS = {"dense": "smollm-360m", "hybrid": "zamba2-7b", "ssm": "mamba2-130m"}
+ARCHS = {"dense": "smollm-360m", "hybrid": "zamba2-7b", "ssm": "mamba2-130m",
+         "moe": "qwen2-moe-a2.7b"}
 ATOL = {"float": 1e-4, "w8a8": 5e-3}
 BF16_RATIO = 1.5
 BATCH, MAX_SEQ = 3, 32
