@@ -205,6 +205,23 @@ Phases, each printing its own lines:
             (synchronous == overlapped), and one prompt's wave prefill
             logits pass the model phase's CPU gate (1.25x).  Prints tok/s,
             prefill ms a wave, decode wall ms a step and the launches.
+19. serve_moe  qwen2-moe-a2.7b at full width (24 layers, d_model 2048,
+            60 routed experts padded to 64, top-4, 4 shared experts),
+            W8A8 (the routed experts bf16), 4 slots, max_seq 1024, page
+            16, through build_client: the serve trace (counted: the
+            grouped GEMM, 3 launches a layer inside the decode graph);
+            graph == eager == overlapped, greedy, and sampled synchronous
+            == overlapped; a chunk budget of 128 gives the one-shot
+            logits and streams bit for bit on 6 prompts and chunked ==
+            one chunk at budgets {16, 128, 150}; a request admitted while
+            three others decode gives its solo stream; 3 partial prefix
+            hits equal cold runs (logits and streams); a wave-mode run's
+            first tokens equal a direct prefill's; the CPU gate on 2
+            layers at full width, with each layer's smallest router
+            k-th / (k+1)-th logit gap and the rows whose experts differ
+            between the runs.  Prints decode ms a step and tok/s (sync,
+            overlapped), prefill ms a group, the profiles (the grouped
+            GEMM's device ms a step and a group), peak memory.
 
 Every serving phase's engine replays one CUDA graph a decode step
 (``serving/graphs.py``); the launch counters count each replay's kernels.
@@ -229,14 +246,22 @@ query's position changed without moving that query; timed at C 128 from
 0 and 300 (bf16, int8), C 16 from 992 and C 512 from 0 beside SDPA over
 the gathered (int8: dequantized) rows and B3 over the one-shot run.  B1
 over int8 pools against its plain version with B1's planted faults and
-batch invariance, timed beside SDPA.
+batch invariance, timed beside SDPA.  The grouped GEMM (the moe
+family's ragged_dot) at qwen2-moe-a2.7b's up and down shapes over 64
+experts: decode (16 rows on 16 experts, 16 on one), prefill (8,192 rows
+of a real routing) and a skew (8,192 rows on one expert), within GG_TOL
+of its plain version, rows past the groups' sum 0, a row's bits the same
+alone and in groups of 2 to 8,192 rows, a planted fault (a group offset
+off by one) that must fail; timed beside torch._grouped_mm (or, where
+this torch lacks it, a per-expert matmul loop).
 
 The last three lines are the kernels JSON, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``; each kernel's ``launches`` is read
 around the run of the phase that owns it (serve for B1-B3, serve_wave
 for B3's bidirectional mode, hybrid for B5, serve_hybrid_w4a16 for B4's two variants, serve_hybrid for B6,
 serve_chunked for the chunk kernel, serve_int8kv for B1-int8 and its
-chunked engine for the chunk kernel's int8 variant).  B2's __dp4a GeMV and
+chunked engine for the chunk kernel's int8 variant, serve_moe for the
+grouped GEMM).  B2's __dp4a GeMV and
 tiled GEMM (``int8_gemv_dp4a``, ``int8_gemm``) are on no model's path
 (every model K is a multiple of 16 and every base aligned): a serving
 phase that launches either fails.  Any failure
@@ -1819,7 +1844,7 @@ def _kernels_chunk(torch, results: dict) -> None:
                            shape=f"C={c} start={start} H={h} D={d}")
             log(f"[kernels] {name} C={c} start={start} H={h} D={d}: "
                 f"{ms:.4f} ms (device time {dev_ms:.4f} ms, "
-                f"{b_ops / dev_ms / 1e9:.1f} GFLOP/s, "
+                f"{b_ops / dev_ms / 1e9:.1f} TFLOP/s, "
                 f"{100 * b_ms / dev_ms:.1f}% of the bound), plain "
                 f"{plain:.4f} ms, SDPA on the gathered block row "
                 f"{lib:.4f} ms (device {lib_dev:.4f} ms), B3 one-shot S "
@@ -1853,7 +1878,8 @@ def _routing_sizes(torch, tokens: int, seed: int):
         * MOE_D ** -0.5
     logits = (x @ w).masked_fill(
         torch.arange(MOE_E, device="cuda") >= MOE_REAL, -1e30)
-    top = torch.sort(logits, -1, descending=True, stable=True)[1][:, :MOE_TOPK]
+    top = torch.sort(logits, dim=-1, descending=True,
+                     stable=True)[1][:, :MOE_TOPK]
     return torch.zeros(MOE_E, dtype=torch.int32, device="cuda").scatter_add_(
         0, top.reshape(-1), torch.ones(tokens * MOE_TOPK, dtype=torch.int32,
                                        device="cuda"))
@@ -2037,7 +2063,7 @@ def _kernels_grouped(torch, results: dict) -> None:
                                  f"({nonempty} non-empty)")
             line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms, "
                      f"{100 * b_ms / dev_ms:.1f}% of the bound, "
-                     f"{ops / dev_ms / 1e9:.1f} GFLOP/s), plain {plain:.4f} "
+                     f"{ops / dev_ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} "
                      f"ms, library {lib:.4f} ms (device {lib_dev:.4f} ms; "
                      f"{lib_what}), bound {b_ms:.4f} ms ({b_by}: "
                      f"{bytes_moved / 1e6:.1f} MB at 3.35 TB/s, "
@@ -4776,13 +4802,16 @@ def _moe_cpu_gate(torch, cfg, params, prompt, tag: str) -> None:
     for li in range(MOE_CPU_LAYERS):
         calls = range(li, len(routes["f32"]), MOE_CPU_LAYERS)
         gap = min(float(routes["f32"][c][1].min()) for c in calls)
-        flips = sum(int((routes["cuda"][c][0].sort(-1).values
-                         != routes["f32"][c][0].sort(-1).values).any(-1)
-                        .sum()) for c in calls)
+        def flips(a, b):
+            return sum(int((routes[a][c][0].sort(-1).values
+                            != routes[b][c][0].sort(-1).values).any(-1)
+                           .sum()) for c in calls)
         rows = sum(len(routes["f32"][c][0]) for c in calls)
         log(f"[{tag}] CPU gate, layer {li}: smallest router k-th / (k+1)-th "
             f"logit gap {gap:.3e} (float32 run) over {rows} rows; rows whose "
-            f"experts differ card vs float32: {flips}")
+            f"experts differ: card vs float32 {flips('cuda', 'f32')}, CPU "
+            f"bf16 vs float32 {flips('cpu', 'f32')}, card vs CPU bf16 "
+            f"{flips('cuda', 'cpu')}")
     _ratio_gate(torch, f"{MOE_ARCH} {MOE_CPU_LAYERS} layers", logits)
 
 

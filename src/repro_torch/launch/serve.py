@@ -55,9 +55,9 @@ kernels.
 ``--arch`` takes every configuration of ``configs/registry.py``: the dense
 family, the moe qwen2-moe-a2.7b (60 routed experts, top-4, through the
 grouped GEMM kernel, and 4 shared experts) and the hybrid zamba2-7b
-(Mamba-2 layers and a shared attention block) in either mode, the ssm mamba2-130m and the audio whisper-small
-(an encoder over stub frame embeddings, zeros, and a decoder with
-cross-attention) in wave mode.
+(Mamba-2 layers and a shared attention block) in either mode, the ssm
+mamba2-130m and the audio whisper-small (an encoder over stub frame
+embeddings, zeros, and a decoder with cross-attention) in wave mode.
 """
 
 from __future__ import annotations

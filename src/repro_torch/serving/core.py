@@ -35,11 +35,11 @@ prefill for the dense and moe families (a hybrid engine given a budget
 prefills in one shot, as the JAX engine's ``_chunk_ok`` makes it),
 synchronous or overlapped, with the per-request sampler (greedy, or
 temperature / top-k / top-p under jax's threefry keys,
-``serving/sampler.py``).  A hybrid slot's
-Mamba conv window and SSM state live in the cache's slot-indexed state
-pools: a prefill overwrites the slot's rows and decode masks inactive
-lanes; a suspension, a migration and a prefix resume point checkpoint them
-host-side (``checkpoint_slot_state``) and write them back on resume.
+``serving/sampler.py``).  A hybrid slot's Mamba conv window and SSM state
+live in the cache's slot-indexed state pools: a prefill overwrites the
+slot's rows and decode masks inactive lanes; a suspension, a migration
+and a prefix resume point checkpoint them host-side
+(``checkpoint_slot_state``) and write them back on resume.
 
 Wave mode (``mode="wave"``; ``mode="auto"`` picks it for the families the
 JAX package cannot page, ssm and audio), as in the JAX engine: the legacy
@@ -97,13 +97,13 @@ refcounted at the allocator.  An exact-prompt hit maps the shared full
 pages, scatters a private copy of the tail page, restores a hybrid slot's
 state and samples the first token from the stored prefill logits: zero
 prefill dispatches, the cold run's bits.  A partial hit (dense and moe
-families, bf16 pools only, as in the JAX engine) maps the cached leading pages and
-prefills the suffix through the chunk path from the cached length.  On a
-card the chunk kernel gives each query B3's one-shot bits, so a partial
-hit equals a cold run bit for bit whether the cold run and the cached
-pages came from the one-shot prefill or from chunks.  Idle cached pages are
-reclaimed LRU under pressure or, under the flash tier, spilled under
-``("px", key)`` and prefetched on their next hit.
+families, bf16 pools only, as in the JAX engine) maps the cached leading
+pages and prefills the suffix through the chunk path from the cached
+length.  On a card the chunk kernel gives each query B3's one-shot bits,
+so a partial hit equals a cold run bit for bit whether the cold run and
+the cached pages came from the one-shot prefill or from chunks.  Idle
+cached pages are reclaimed LRU under pressure or, under the flash tier,
+spilled under ``("px", key)`` and prefetched on their next hit.
 
 Migration: ``snapshot_slot`` drains a slot (after draining a pending
 overlapped step) into a ``SlotSnapshot`` of host tensors (pages,

@@ -1441,12 +1441,13 @@ def assert_grouped_close(got, ref, x, w, sizes):
     """Within 2 bf16 steps of |ref| + 1e-5 (|x| @ |W_e(r)|)."""
     e_of = torch.repeat_interleave(
         torch.arange(len(sizes), device=x.device), sizes.long())
+    n = len(e_of)
     mag = torch.stack([x[r].float().abs() @ w[e_of[r]].float().abs()
-                       for r in range(len(e_of))]) if len(e_of) else ref
+                       for r in range(n)])
     step = torch.exp2(torch.floor(torch.log2(
-        ref.float().abs().clamp_min(2.0 ** -126))) - 7)
-    err = (got.float() - ref.float()).abs()[:len(e_of)]
-    limit = (BF16_STEPS * step + 1e-5 * mag)[:len(e_of)]
+        ref[:n].float().abs().clamp_min(2.0 ** -126))) - 7)
+    err = (got[:n].float() - ref[:n].float()).abs()
+    limit = BF16_STEPS * step + 1e-5 * mag
     assert bool((err <= limit).all()), float((err - limit).max())
 
 

@@ -375,7 +375,7 @@ def test_moe_ffn_matches_jax(case, dtype, monkeypatch):
     cfg = get_arch(ARCH).reduced()
     x = np.random.RandomState(9).randn(2, 7, cfg.d_model).astype(np.float32)
     jx = jnp.asarray(x, dtype)
-    x32 = np.asarray(jx.astype(jnp.float32))
+    x32 = np.array(jx.astype(jnp.float32))
     assert _margin_of(x32, _np(tlp["router"]["w"]), cfg) > ROUTE_MARGIN
     monkeypatch.setattr(JMOE, "linear", jax.jit(JMOE.linear))
     want = np.asarray(JMOE.moe_ffn(jlp, jx, jcfg).astype(jnp.float32))
