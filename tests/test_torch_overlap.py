@@ -26,8 +26,7 @@ from repro_torch.serving.scheduler import SamplingParams
 from test_torch_hybrid import _bridge, _jax_params
 from test_torch_serving import _both, _prompts
 
-ARCHS = {"dense": "smollm-360m", "hybrid": "zamba2-7b",
-         "moe": "qwen2-moe-a2.7b"}
+ARCHS = {"dense": "smollm-360m", "hybrid": "zamba2-7b"}
 
 
 @pytest.fixture(scope="module", params=sorted(ARCHS), ids=lambda f: f"fam_{f}")

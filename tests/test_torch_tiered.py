@@ -36,8 +36,7 @@ from test_torch_serving import _drive, _prompts
 
 ENG = dict(max_batch=3, max_seq=48, eos_id=-1, page_size=8)
 TIER = dict(num_pages=6, kv_tier="flash")
-ARCHS = {"dense": "smollm-360m", "hybrid": "zamba2-7b",
-         "moe": "qwen2-moe-a2.7b"}
+ARCHS = {"dense": "smollm-360m", "hybrid": "zamba2-7b"}
 
 
 @pytest.fixture(scope="module")
