@@ -4,9 +4,10 @@
 leaves as numpy arrays (``np.asarray`` of each ``jax.Array``) and returns
 the port's param dict: the same keys, tensors instead of arrays, and the
 stacked layer axes split into lists: ``layers`` ``[L, ...]`` into a list of
-per-layer dicts, the hybrid family's ``groups`` ``[G, every, ...]`` into a
-list of G lists and ``tail`` ``[T, ...]`` into a list (``tail=None`` stays
-None).  bf16 leaves
+per-layer dicts (the moe family's routed stacks ``[L, E, D, F]`` become
+each layer's ``[E, D, F]``, its float32 router ``{"w": [D, E]}``), the
+hybrid family's ``groups`` ``[G, every, ...]`` into a list of G lists and
+``tail`` ``[T, ...]`` into a list (``tail=None`` stays None).  bf16 leaves
 cross through their 16-bit pattern (the uint16 view the fleet wire codec
 uses); int8 / uint8 / float32 leaves (W8A8 ``w_q``/``scale``, W4A16
 ``w_p4``/``scale4``) are copied as they are, so nothing is re-initialised

@@ -21,7 +21,8 @@ carries them over bit for bit; both sides run the same inputs.  Compared:
 - ``forward``, the paged prefill and decode logits (tests/test_torch_
   model.py's tolerances: 1e-4 float32, 5e-3 W8A8 and W4A16);
 - chunked == one-shot bit for bit in float32 at budgets 1, 7 and 16;
-- the engines' greedy streams on margin-checked prompts.
+- the engines' greedy streams on margin-checked prompts, over bf16 and
+  int8 KV pools.
 
 Routing decides several of these equalities: a token whose k-th and
 (k+1)-th router logits are within float32 noise could take another expert
@@ -544,3 +545,29 @@ def test_engine_streams_match_jax(quant):
     for rid in jreqs:
         assert treqs[rid].out_tokens == jreqs[rid].out_tokens
     assert t.stats.prefills == j.stats.prefills > 1
+
+
+def test_int8_kv_engine_streams_match_jax():
+    """The same trace over int8 KV pools (the dense family's pages, rows
+    quantized at their write): the port's events equal the JAX int8
+    engine's, synchronous and overlapped."""
+    jcfg, jparams = _jax_params(ARCH, "float")
+    tparams, cfg = _bridge(jparams), get_arch(ARCH).reduced()
+    rng = np.random.RandomState(8)
+    prompts = []
+    while len(prompts) < 3:
+        p = rng.randint(0, cfg.vocab_size, rng.randint(3, 20)).tolist()
+        if min(_margins(cfg, tparams, p, 6)) > MARGIN:
+            prompts.append(p)
+    trace = [(a, rid, p, 6) for rid, (a, p) in enumerate(zip([0, 0, 2],
+                                                             prompts))]
+    jsteps, jreqs = _drive(JEngine(jcfg, jparams, kv_dtype="int8", **ENG),
+                           JRequest, trace)
+    for overlap in (False, True):
+        t = TEngine(cfg, tparams, kv_dtype="int8", overlap=overlap, **ENG,
+                    device="cpu")
+        tsteps, treqs = _drive(t, TRequest, trace)
+        if not overlap:   # the overlapped loop reads each token a step late
+            assert tsteps == jsteps
+        assert {r: treqs[r].out_tokens for r in treqs} \
+            == {r: jreqs[r].out_tokens for r in jreqs}
