@@ -249,11 +249,14 @@ over int8 pools against its plain version with B1's planted faults and
 batch invariance, timed beside SDPA.  The grouped GEMM (the moe
 family's ragged_dot) at qwen2-moe-a2.7b's up and down shapes over 64
 experts: decode (16 rows on 16 experts, 16 on one), prefill (8,192 rows
-of a real routing) and a skew (8,192 rows on one expert), within GG_TOL
-of its plain version, rows past the groups' sum 0, a row's bits the same
-alone and in groups of 2 to 8,192 rows, a planted fault (a group offset
-off by one) that must fail; timed beside torch._grouped_mm (or, where
-this torch lacks it, a per-expert matmul loop).
+of a real routing), a skew (8,192 rows on one expert) and the tile edges
+(groups of 63, 64, 65, 127, 128 and 129 rows, an empty expert between
+two full 128-row tiles, 37 rows past the groups' sum), within GG_TOL of
+its plain version, rows past the groups' sum 0, a row's bits the same
+alone and in groups of 2 to 8,192 rows (the tile edges among them) at
+both shapes, a planted fault (a group offset off by one) that must fail;
+timed beside torch._grouped_mm (or, where this torch lacks it, a
+per-expert matmul loop).
 
 The last three lines are the kernels JSON, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``; each kernel's ``launches`` is read
@@ -1943,19 +1946,25 @@ def _grouped_library(torch, x, w, sizes, ref, limit, rows):
     return loop, f"a per-expert torch.matmul loop ({why})"
 
 
+# group sizes around the kernel's 64-row warpgroup and 128-row CTA tiles
+GG_EDGES = (63, 64, 65, 127, 128, 129)
+
+
 def _grouped_invariance(torch, w) -> None:
-    """A row's bits at the up shape: alone (a group of 1) and inside groups
-    of 2, 7, 16, 136 and 8,192 rows, first, in the middle and last, with
-    other experts' rows before and after: the same every time."""
+    """A row's bits at one shape: alone (a group of 1) and inside groups
+    of 2, 7, 16, the tile edges, 136 and 8,192 rows, first, in the middle
+    and last, with other experts' rows before and after: the same every
+    time."""
     from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
 
+    k, n = w.shape[1], w.shape[2]
     gen = torch.Generator(device="cuda").manual_seed(31)
-    v = torch.randn((MOE_D,), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((k,), generator=gen, device="cuda").to(torch.bfloat16)
 
     def row_of(size, place):
         sizes = torch.zeros(MOE_E, dtype=torch.int32)
         sizes[3], sizes[11], sizes[50] = 37, size, 5
-        x = torch.randn((int(sizes.sum()), MOE_D), generator=gen,
+        x = torch.randn((int(sizes.sum()), k), generator=gen,
                         device="cuda").to(torch.bfloat16)
         at = 37 + {"first": 0, "middle": size // 2, "last": size - 1}[place]
         x[at] = v
@@ -1963,28 +1972,30 @@ def _grouped_invariance(torch, w) -> None:
 
     alone = row_of(1, "first")
     checked = 0
-    for size in (2, 7, 16, 136, 8192):
+    for size in (2, 7, 16) + GG_EDGES + (136, 8192):
         for place in ("first", "middle", "last"):
             if not torch.equal(row_of(size, place), alone):
-                raise AssertionError(f"grouped_gemm: a row's bits in a group "
-                                     f"of {size} ({place}) differ from the "
-                                     f"row alone")
+                raise AssertionError(f"grouped_gemm K={k} N={n}: a row's "
+                                     f"bits in a group of {size} ({place}) "
+                                     f"differ from the row alone")
             checked += 1
-    log(f"[kernels] grouped_gemm row invariance: a row's {MOE_F} outputs "
-        f"bit-equal alone and in {checked} placements (groups of 2, 7, 16, "
-        f"136 and 8,192 rows; first, middle, last; experts 3 and 50 loaded "
-        f"around it)")
+    log(f"[kernels] grouped_gemm row invariance K={k} N={n}: a row's {n} "
+        f"outputs bit-equal alone and in {checked} placements (groups of 2, "
+        f"7, 16, {', '.join(map(str, GG_EDGES))}, 136 and 8,192 rows; "
+        f"first, middle, last; experts 3 and 50 loaded around it)")
 
 
 def _kernels_grouped(torch, results: dict) -> None:
     """The grouped GEMM at qwen2-moe-a2.7b's up (2048 -> 1408) and down
     (1408 -> 2048) shapes over 64 experts: decode (16 rows on 16 experts,
     16 rows on one), prefill (8,192 rows with a real routing's group
-    sizes) and a skew (8,192 rows on one expert, 63 empty), each against
-    its plain version within GG_TOL, rows past the groups' sum 0; a row's
-    bits invariant to its group; a planted fault (one row's group offset
-    off by one) must fail; timed beside its bound, the plain version and a
-    library call.  The JSON row is the decode up shape."""
+    sizes), a skew (8,192 rows on one expert, 63 empty) and the tile
+    edges (groups of 63 to 129 rows, an empty expert between two full
+    tiles, rows past the groups' sum), each against its plain version
+    within GG_TOL, rows past the groups' sum 0; a row's bits invariant to
+    its group at both shapes; a planted fault (one row's group offset off
+    by one) must fail; the first four timed beside their bound, the plain
+    version and a library call.  The JSON row is the decode up shape."""
     from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
     from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
 
@@ -1999,16 +2010,24 @@ def _kernels_grouped(torch, results: dict) -> None:
     one[17] = 16
     skew = torch.zeros(MOE_E, dtype=torch.int32, device="cuda")
     skew[42] = 8192
-    cases = [("decode, 16 rows on 16 experts", spread),
-             ("decode, 16 rows on one expert", one),
+    # checked, not timed: the tile edges around an empty expert between
+    # two full 128-row tiles, and 37 rows past the groups' sum (R 869,
+    # not a multiple of the row tile)
+    edges = torch.zeros(MOE_E, dtype=torch.int32, device="cuda")
+    edges[4:4 + len(GG_EDGES)] = torch.tensor(GG_EDGES, dtype=torch.int32)
+    edges[20], edges[21], edges[22] = 128, 0, 128
+    cases = [("decode, 16 rows on 16 experts", spread, 0),
+             ("decode, 16 rows on one expert", one, 0),
              ("prefill, 8,192 rows, a real routing", _routing_sizes(
-                 torch, 2048, 5)),
-             ("skew, 8,192 rows on one expert", skew)]
+                 torch, 2048, 5), 0),
+             ("skew, 8,192 rows on one expert", skew, 0),
+             ("tile edges, an empty expert between two full ones, 37 rows "
+              "past the sum", edges, 37)]
     res = results["grouped_gemm"]
     res["max_abs_err"] = 0.0
     for (k, n), w in ws.items():
-        for tag, sizes in cases:
-            rows = int(sizes.sum())
+        for tag, sizes, tail in cases:
+            rows = int(sizes.sum()) + tail
             x = torch.randn((rows, k), generator=gen, device="cuda").to(
                 torch.bfloat16)
             got = grouped_gemm(x, w, sizes)
@@ -2039,6 +2058,9 @@ def _kernels_grouped(torch, results: dict) -> None:
                     raise AssertionError("planted fault (a group offset off "
                                          "by one) passes the grouped_gemm "
                                          "check")
+            if tail:
+                log(line)
+                continue
             ms = time_ms(torch, lambda i: grouped_gemm(x, w, sizes))
             dev_ms = profiled_ms(torch, lambda i: grouped_gemm(x, w, sizes),
                                  ("grouped_gemm_kernel",))
@@ -2069,7 +2091,8 @@ def _kernels_grouped(torch, results: dict) -> None:
                      f"{bytes_moved / 1e6:.1f} MB at 3.35 TB/s, "
                      f"{ops / 1e9:.2f} GFLOP at 989 TFLOP/s)")
             log(line)
-    _grouped_invariance(torch, ws[(MOE_D, MOE_F)])
+    for w in ws.values():
+        _grouped_invariance(torch, w)
 
 
 def _kernels_b1_int8(torch, results: dict) -> None:

@@ -1457,6 +1457,10 @@ GROUPED_CASES = {
     "reduced, empty groups": ([3, 0, 0, 5, 1, 0, 7, 2] + [0] * 8, 64, 32),
     "skew, 300 rows on one expert": ([0] * 63 + [300], 2048, 1408),
     "ragged, 130 rows": ([0, 61, 1, 0, 64, 65, 0, 0] + [0] * 8, 256, 72),
+    "tile edges, an empty expert between two full ones":
+        ([63, 64, 65, 127, 128, 0, 128, 129] + [0] * 56, 2048, 1408),
+    "tile edges, down shape, R not a multiple of the row tile":
+        ([0, 129, 0, 63, 200] + [0] * 59, 1408, 2048),
 }
 
 
@@ -1481,14 +1485,17 @@ def test_grouped_gemm_on_card(cuda_device, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(2048, 1408), (1408, 2048)],
+                         ids=["up", "down"])
 def test_grouped_gemm_row_bits_do_not_depend_on_the_group_on_card(
-        cuda_device):
-    """Expert 7's row v at qwen2-moe-a2.7b's up shape: alone and inside
-    groups of 2, 7, 16, 136 and 8,192 rows, first, in the middle and last,
-    other experts loaded before and after: the same bits."""
+        cuda_device, k, n):
+    """Expert 7's row v at qwen2-moe-a2.7b's up and down shapes: alone and
+    inside groups of 2, 7, 16, the tile edges (63, 64, 65, 127, 128, 129),
+    136 and 8,192 rows, first, in the middle and last, other experts
+    loaded before and after: the same bits."""
     from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
 
-    k, n, e = 2048, 1408, 64
+    e = 64
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     w = (torch.randn((e, k, n), generator=gen, device=cuda_device)
          * k ** -0.5).to(torch.bfloat16)
@@ -1505,7 +1512,7 @@ def test_grouped_gemm_row_bits_do_not_depend_on_the_group_on_card(
         return grouped_gemm(x, w, sizes.to(cuda_device))[at]
 
     alone = row_of(1, "first")
-    for size in (2, 7, 16, 136, 8192):
+    for size in (2, 7, 16, 63, 64, 65, 127, 128, 129, 136, 8192):
         for place in ("first", "middle", "last"):
             assert torch.equal(row_of(size, place), alone), (size, place)
 
