@@ -34,7 +34,16 @@ Phases, each printing its own lines:
             self-attention (lengths up to 448) and cross-attention (1,500)
             and llama2-7b's wave decode.  Decode attention is also checked at
             the split edges (lengths 1, 63, 64, 65, 1024) and for a
-            slot's bits alone, in its batch and under a wider block table.
+            slot's bits alone, in its batch and under a wider block table,
+            and at query groups of 16 (chatglm3-6b: H 32 over Hkv 2) and
+            12 (command-r-plus-104b: H 96 over 8), which the kernel runs
+            in two passes of up to 8 heads, over bf16 and int8 pools: the
+            planted faults, batch invariance, a group of 16 (12) bit-equal
+            to its heads in groups of 8 + 8 (8 + 4, 6 + 6), and groups 1-8
+            bit-equal to B1 as it was while it took groups of up to 8
+            (``csrc/diag/decode_attention_groups8.cu``, built beside the
+            library by the build phase; ``kernels/diag_b1_bits.py``).
+            B3 also at chatglm3-6b's prefill (B 4, S 512, H 32 over 2).
             B6 (ssd_intra_chunk)
             at the zamba2-7b and mamba2-130m prefill shapes, Q 8, G 2, Q 64
             with 22 heads (a ragged last head block) and Q 40 with N 24,
@@ -222,6 +231,20 @@ Phases, each printing its own lines:
             between the runs.  Prints decode ms a step and tok/s (sync,
             overlapped), prefill ms a group, the profiles (the grouped
             GEMM's device ms a step and a group), peak memory.
+20. serve_dense  chatglm3-6b at full width (28 layers, d_model 4096, 32
+            query heads over 2 kv heads: B1's group of 16 in the decode
+            graph; rotary on half of each head; q/k/v and FFN biases), then
+            internlm2-20b (48 layers, d_model 6144, 48 heads over 8), W8A8,
+            4 slots, max_seq 1024, page 16, through build_client: the serve
+            trace (counted: B1-B3, B1 once a layer a step inside the decode
+            graph), the first token a direct prefill's, graph == eager;
+            chatglm3-6b also overlapped == eager, sampled synchronous ==
+            overlapped, a chunk budget of 128 giving the one-shot logits
+            and streams bit for bit (the chunk kernel at group 16 counted)
+            and 3 partial prefix hits equal to cold runs; each the CPU gate
+            on 2 layers at full width.  Prints decode ms a step and tok/s
+            (sync, overlapped), prefill ms a group, the profiles (B1's
+            device ms a step), peak memory.
 
 Every serving phase's engine replays one CUDA graph a decode step
 (``serving/graphs.py``); the launch counters count each replay's kernels.
@@ -238,15 +261,18 @@ the same at M = 1..8, and timed beside its bound on the bf16 tensor cores
 (3x the operations for float32 x) and torch._weight_int4pack_mm, a
 yardstick that rounds the scales and the output to bf16.  The paged chunk
 kernel (bf16 and int8 pools, D 128 and 112, chunks of 1, 7 in a bucket of
-16, 16 and 128 rows at starts 0, 5 and 300) within ATTN_TOL of its plain
+16, 16 and 128 rows at starts 0, 5 and 300; at H 32 over Hkv 2, C 128 from
+0 and 300) within ATTN_TOL of its plain
 version (the JAX float32 formula), every valid query bit-equal to B3's
 output in the one-shot run over the same keys (bf16 pools) and to the
 same query in one chunk from 0, padding rows 0, and a key one past a
 query's position changed without moving that query; timed at C 128 from
-0 and 300 (bf16, int8), C 16 from 992 and C 512 from 0 beside SDPA over
+0 and 300 (bf16, int8; H 32 over 32 and over 2), C 16 from 992 and C 512
+from 0 beside SDPA over
 the gathered (int8: dequantized) rows and B3 over the one-shot run.  B1
 over int8 pools against its plain version with B1's planted faults and
-batch invariance, timed beside SDPA.  The grouped GEMM (the moe
+batch invariance (also at groups 16 and 12), timed beside SDPA.  The
+grouped GEMM (the moe
 family's ragged_dot) at qwen2-moe-a2.7b's up and down shapes over 64
 experts: decode (16 rows on 16 experts, 16 on one), prefill (8,192 rows
 of a real routing), a skew (8,192 rows on one expert) and the tile edges
@@ -489,12 +515,17 @@ def _demangle(names: list[str]) -> list[str]:
 
 
 def phase_build() -> None:
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, diag_b1_bits
 
     t0 = time.monotonic()
+    # B1 as it was while it took groups of up to 8, for the kernels phase's
+    # bit comparison, built beside the library
+    proc = diag_b1_bits.start_build()
     b = build.build()
     build.library()
-    log(f"[build] {b.path.name} {'built' if b.built else 'reused'} in "
+    _B1_GROUPS8.append(diag_b1_bits.load(proc))
+    log(f"[build] {b.path.name} {'built' if b.built else 'reused'}, and "
+        f"B1's groups-of-8 build for the bit comparison, in "
         f"{time.monotonic() - t0:.1f} s")
     entries, name, spill = [], None, ""
     for line in b.log.splitlines():
@@ -510,6 +541,10 @@ def phase_build() -> None:
                                       entries):
         short = re.sub(r"\(.*\)$", "", pretty.replace("(anonymous namespace)::", ""))
         log(f"[build] ptxas {short}: {used}; {sp}")
+
+
+# the library of csrc/diag/decode_attention_groups8.cu, once built
+_B1_GROUPS8: list = []
 
 
 def _bf16_step(torch, ref):
@@ -585,6 +620,59 @@ def _b1_batch_invariance(torch, q, kp, vp, block, lengths, got) -> None:
     if not same:
         raise AssertionError("paged_decode_attention: a slot's bits depend on "
                              "the batch or the block table's width")
+
+
+def _kernels_b1_groups(torch) -> None:
+    """B1 at query groups above 8 runs the group-of-8 arithmetic in two
+    passes, so a head's bits must not depend on its group: a group of 16
+    (12) over one kv head equals, bit for bit, the same queries cut into
+    two calls of 8 + 8 (8 + 4, 6 + 6) over the same pools, over bf16 and
+    int8 pools, at the split edges.  Then groups 1-8 against B1 as it was
+    while it took groups of up to 8 only (``kernels/diag_b1_bits.py``,
+    built beside the library by the build phase): every output bit for
+    bit."""
+    from repro_torch.kernels import diag_b1_bits
+    from repro_torch.kernels.decode_attention.ops import paged_decode_attention
+    from repro_torch.kernels.decode_attention.ref import SPLIT
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    lens = [1024, 545, 17, 0, 1, SPLIT - 1, SPLIT, SPLIT + 1]
+    b, d, page, pps = len(lens), 128, 16, 64
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    n_pages = b * pps + 1
+    kp, vp = (torch.randn((n_pages, page, 1, d), generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    block = (torch.randperm(n_pages - 1, generator=gen, device=dev)
+             + 1).reshape(b, pps).to(torch.int32)
+    for kv, pools in (("bf16", (kp, vp)),
+                      ("int8", (_quantized(kp), _quantized(vp)))):
+        for h, cut in ((16, 8), (12, 8), (12, 6)):
+            q = torch.randn((b, h, d), generator=gen, device=dev).to(
+                torch.bfloat16)
+            whole = paged_decode_attention(q, *pools, block, lengths)
+            parts = torch.cat([
+                paged_decode_attention(q[:, :cut].contiguous(), *pools,
+                                       block, lengths),
+                paged_decode_attention(q[:, cut:].contiguous(), *pools,
+                                       block, lengths)], dim=1)
+            torch.cuda.synchronize()
+            same = torch.equal(whole, parts)
+            log(f"[kernels] paged_decode_attention {kv} pools, a group of "
+                f"{h} over one kv head (D {d}, lens {lens}) against the same "
+                f"queries in groups of {cut} + {h - cut}: "
+                f"{'bit-identical' if same else 'DIFFERENT'}")
+            if not same:
+                raise AssertionError(f"B1: a head's bits depend on its group "
+                                     f"({h} against {cut} + {h - cut}, {kv})")
+    dll = _B1_GROUPS8[0] if _B1_GROUPS8 else diag_b1_bits.load()
+    bad = diag_b1_bits.compare(torch, dll, log)
+    if bad:
+        raise AssertionError(f"B1 at groups 1-8: {bad} outputs differ from "
+                             f"the groups-of-8 build")
+    log(f"[kernels] paged_decode_attention at groups 1-8: every output of "
+        f"{2 * len(diag_b1_bits.CASES)} cases bit-identical to B1 as it was "
+        f"while it took groups of up to 8 only")
 
 
 def _b2_last_stage_fault(torch, variant, stage, x, w, got, ref) -> None:
@@ -984,15 +1072,20 @@ def phase_kernels(torch, results: dict) -> None:
     # its first and second admitted groups 16 tokens into their decode
     page = 16
     timed = ("llama2-7b", "zamba2-7b", "serve group 1", "serve group 2",
-             "serve group 2, D 112")
-    faulted = ("llama2-7b", "zamba2-7b")
+             "serve group 2, D 112", "chatglm3-6b", "command-r-plus-104b")
+    faulted = ("llama2-7b", "zamba2-7b", "chatglm3-6b", "command-r-plus-104b")
     edges = [0, 1, SPLIT - 1, SPLIT, SPLIT + 1, 1024]
     for tag, b, h, hkv, d, max_seq, lens in [
             ("llama2-7b", 4, 32, 32, 128, 1024, [1024, 545, 17, 0]),
             ("zamba2-7b", 4, 32, 32, 112, 1024, [1024, 545, 17, 0]),
             ("smollm-360m", 4, 15, 5, 64, 1024, [700, 64, 1, 0]),
+            # query groups of 16 and 12: two passes of up to 8 heads
+            ("chatglm3-6b", 4, 32, 2, 128, 1024, [1024, 545, 17, 0]),
+            ("command-r-plus-104b", 4, 96, 8, 128, 1024, [1024, 545, 17, 0]),
             ("split edges", 6, 32, 32, 128, 1024, edges),
             ("split edges, D 112", 6, 32, 32, 112, 1024, edges),
+            ("split edges, group 16", 6, 32, 2, 128, 1024, edges),
+            ("split edges, group 12", 6, 96, 8, 128, 1024, edges),
             ("serve group 1", 4, 32, 32, 128, 1024, [252, 127, 197, 272]),
             ("serve group 2", 4, 32, 32, 128, 1024, [403, 331, 275, 439]),
             ("serve group 2, D 112", 4, 32, 32, 112, 1024,
@@ -1042,11 +1135,12 @@ def phase_kernels(torch, results: dict) -> None:
             mask = (torch.arange(max_seq, device=dev)[None, :]
                     < lengths[:, None])[:, None, None, :]
             q4 = q[:, :, None, :]
+            gqa = {"enable_gqa": True} if h != hkv else {}
             lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-                q4, kd[i], vd[i], attn_mask=mask), n_bufs)
+                q4, kd[i], vd[i], attn_mask=mask, **gqa), n_bufs)
             lib_dev = profiled_ms(
                 torch, lambda i: F.scaled_dot_product_attention(
-                    q4, kd[i], vd[i], attn_mask=mask), None, n_bufs)
+                    q4, kd[i], vd[i], attn_mask=mask, **gqa), None, n_bufs)
             n_tok = sum(lens)
             kv_bytes = n_tok * hkv * d * 2 * 2
             bytes_moved = (2 * b * h * d * 2 + kv_bytes + block.numel() * 4
@@ -1064,11 +1158,13 @@ def phase_kernels(torch, results: dict) -> None:
                      f"ms (device {lib_dev:.4f} ms), bound {b_ms:.4f} ms "
                      f"({b_by})")
         log(line)
+    _kernels_b1_groups(torch)
 
     # ---- B3: causal prefill flash attention ---------------------------------
     for tag, b, s, h, hkv, d in [("llama2-7b", 4, 512, 32, 32, 128),
                                  ("zamba2-7b", 4, 512, 32, 32, 112),
                                  ("smollm-360m", 4, 512, 15, 5, 64),
+                                 ("chatglm3-6b", 4, 512, 32, 2, 128),
                                  ("ragged", 2, 200, 8, 2, 128),
                                  ("reduced", 4, 32, 4, 4, 16)]:
         q, k, v = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
@@ -1087,11 +1183,12 @@ def phase_kernels(torch, results: dict) -> None:
                                  ("flash_attention",))
             plain = time_ms(torch, lambda i: flash_attention_ref(q, k, v))
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            gqa = {"enable_gqa": True} if h != hkv else {}
             lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))
+                qt, kt, vt, is_causal=True, **gqa))
             lib_dev = profiled_ms(
                 torch, lambda i: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True))
+                    qt, kt, vt, is_causal=True, **gqa))
             bytes_moved = (2 * b * s * h * d + 2 * b * s * hkv * d) * 2
             ops = 4 * b * h * d * s * (s + 1) / 2
             b_ms, b_by = bound(bytes_moved, ops, "bf16")
@@ -1631,11 +1728,16 @@ def _kernels_ssd(torch, results: dict) -> None:
 # the paged chunk kernel: chunks of 1, 7 (in a bucket of 16), 16 and 128
 # rows at starts 0, 5 and 300
 CHUNK_CASES = [(c, start) for c in (1, 7, 16, 128) for start in (0, 5, 300)]
-# timed at D 128: (pools, C, start); the first of each kind is its JSON row.
-# A chunk of the serve trace, a partial hit's suffix after the chat trace's
-# 992-token system prompt, and a one-shot-sized chunk
-CHUNK_TIMED = [("bf16", 128, 0), ("bf16", 128, 300), ("bf16", 16, 992),
-               ("bf16", 512, 0), ("int8", 128, 0), ("int8", 128, 300)]
+# timed at D 128: (pools, C, start, H, Hkv); the first of each kind is its
+# JSON row.  A chunk of the serve trace, a partial hit's suffix after the
+# chat trace's 992-token system prompt, a one-shot-sized chunk, and the
+# serve trace's chunk at chatglm3-6b's 32 query heads over 2 kv heads
+CHUNK_TIMED = [("bf16", 128, 0, 32, 32), ("bf16", 128, 300, 32, 32),
+               ("bf16", 16, 992, 32, 32), ("bf16", 512, 0, 32, 32),
+               ("int8", 128, 0, 32, 32), ("int8", 128, 300, 32, 32),
+               # chatglm3-6b's query group of 16
+               ("bf16", 128, 0, 32, 2), ("bf16", 128, 300, 32, 2),
+               ("int8", 128, 0, 32, 2), ("int8", 128, 300, 32, 2)]
 
 
 def _quantized(pages):
@@ -1764,14 +1866,6 @@ def _kernels_chunk(torch, results: dict) -> None:
     0; a planted key fault; timed at CHUNK_TIMED beside SDPA over the
     gathered block row with a boolean mask and B3 over the one-shot run up
     to the chunk's end."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.decode_attention.ops import paged_chunk_attention
-    from repro_torch.kernels.decode_attention.ref import (
-        paged_chunk_attention_ref)
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.models.attention import gather_paged_rows
-
     gen = torch.Generator(device=torch.device("cuda"))
     gen.manual_seed(19)
     h = hkv = 32
@@ -1797,63 +1891,80 @@ def _kernels_chunk(torch, results: dict) -> None:
                 + f"every query bit-equal in one chunk from 0, padding rows "
                 f"0, within {ATTN_TOL} of the plain version (worst "
                 f"|err|/limit {worst:.3f})")
-        d = 128
         json_done = False
-        for tkv, c, start in CHUNK_TIMED:
+        for tkv, c, start, th, thkv in CHUNK_TIMED:
             if tkv != kv:
                 continue
-            q, pools, row = _chunk_inputs(torch, gen, c, h, hkv, d, kv,
-                                          copies=3)
-            kp, vp = pools[0]
-            _got, err, used = _check_chunk(torch, name, kv, q, kp, vp, row,
-                                           start, c)
-            res["max_abs_err"] = max(res["max_abs_err"], err)
-            pos = start + torch.arange(q.shape[0], device=q.device)
-            ms = time_ms(torch, lambda i: paged_chunk_attention(
-                q, pools[i][0], pools[i][1], row, start, c), 3)
-            dev_ms = profiled_ms(torch, lambda i: paged_chunk_attention(
-                q, pools[i][0], pools[i][1], row, start, c),
-                (KERNEL_NAMES[name],), 3)
-            plain = time_ms(torch, lambda i: paged_chunk_attention_ref(
-                q[None], pools[i][0], pools[i][1], row[None], pos[None]), 3)
-            # SDPA over the block row gathered (int8: dequantized) to bf16
-            # beforehand, with a boolean causal mask from start
-            kd = [gather_paged_rows(p[0], row[None]).to(torch.bfloat16)
-                  .transpose(1, 2).contiguous() for p in pools]
-            vd = [gather_paged_rows(p[1], row[None]).to(torch.bfloat16)
-                  .transpose(1, 2).contiguous() for p in pools]
-            mask = (torch.arange(kd[0].shape[2], device=q.device)[None]
-                    <= pos[:, None])[None, None]
-            q4 = q[None].transpose(1, 2)
-            lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-                q4, kd[i], vd[i], attn_mask=mask), 3)
-            lib_dev = profiled_ms(
-                torch, lambda i: F.scaled_dot_product_attention(
-                    q4, kd[i], vd[i], attn_mask=mask), None, 3)
-            # B3 over the one-shot run up to the chunk's end (B 1, S start
-            # + C): what prefilling the prompt so far in one shot costs
-            one = [_one_shot_of_chunk(torch, q, p[0], p[1], row, start, c)
-                   for p in pools]
-            b3 = time_ms(torch, lambda i: flash_attention(*one[i]), 3)
-            b3_dev = profiled_ms(torch, lambda i: flash_attention(*one[i]),
-                                 ("flash_attention",), 3)
-            b_bytes, b_ops = _chunk_bound(c, start, h, hkv, d, kv)
-            b_ms, b_by = bound(b_bytes, b_ops, "bf16")
+            row = _time_chunk(torch, gen, res, name, kv, c, start, th, thkv)
             if not json_done:
                 json_done = True
-                res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                           library_ms=lib, library_device_ms=lib_dev,
-                           bound_ms=b_ms, bound_by=b_by,
-                           shape=f"C={c} start={start} H={h} D={d}")
-            log(f"[kernels] {name} C={c} start={start} H={h} D={d}: "
-                f"{ms:.4f} ms (device time {dev_ms:.4f} ms, "
-                f"{b_ops / dev_ms / 1e9:.1f} TFLOP/s, "
-                f"{100 * b_ms / dev_ms:.1f}% of the bound), plain "
-                f"{plain:.4f} ms, SDPA on the gathered block row "
-                f"{lib:.4f} ms (device {lib_dev:.4f} ms), B3 one-shot S "
-                f"{start + c} {b3:.4f} ms (device {b3_dev:.4f} ms), bound "
-                f"{b_ms:.4f} ms ({b_by}); B3's bits and the plain version's "
-                f"tolerance held (worst |err|/limit {used:.3f})")
+                res.update(row)
+
+
+def _time_chunk(torch, gen, res, name, kv, c, start, h, hkv, d=128) -> dict:
+    """The chunk kernel at one CHUNK_TIMED shape: checked as
+    ``_check_chunk`` does, then timed beside its plain version, SDPA over
+    the gathered block row with a boolean causal mask, B3 over the one-shot
+    run up to the chunk's end, and its bound.  Returns the JSON row's
+    numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import paged_chunk_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        paged_chunk_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models.attention import gather_paged_rows
+
+    q, pools, row = _chunk_inputs(torch, gen, c, h, hkv, d, kv, copies=3)
+    kp, vp = pools[0]
+    _got, err, used = _check_chunk(torch, name, kv, q, kp, vp, row, start, c)
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    pos = start + torch.arange(q.shape[0], device=q.device)
+    ms = time_ms(torch, lambda i: paged_chunk_attention(
+        q, pools[i][0], pools[i][1], row, start, c), 3)
+    dev_ms = profiled_ms(torch, lambda i: paged_chunk_attention(
+        q, pools[i][0], pools[i][1], row, start, c),
+        (KERNEL_NAMES[name],), 3)
+    plain = time_ms(torch, lambda i: paged_chunk_attention_ref(
+        q[None], pools[i][0], pools[i][1], row[None], pos[None]), 3)
+    # SDPA over the block row gathered (int8: dequantized) to bf16
+    # beforehand, with a boolean causal mask from start
+    kd = [gather_paged_rows(p[0], row[None]).to(torch.bfloat16)
+          .transpose(1, 2).contiguous() for p in pools]
+    vd = [gather_paged_rows(p[1], row[None]).to(torch.bfloat16)
+          .transpose(1, 2).contiguous() for p in pools]
+    mask = (torch.arange(kd[0].shape[2], device=q.device)[None]
+            <= pos[:, None])[None, None]
+    q4 = q[None].transpose(1, 2)
+    gqa = {"enable_gqa": True} if h != hkv else {}
+    lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q4, kd[i], vd[i], attn_mask=mask, **gqa), 3)
+    lib_dev = profiled_ms(
+        torch, lambda i: F.scaled_dot_product_attention(
+            q4, kd[i], vd[i], attn_mask=mask, **gqa), None, 3)
+    # B3 over the one-shot run up to the chunk's end (B 1, S start + C):
+    # what prefilling the prompt so far in one shot costs
+    one = [_one_shot_of_chunk(torch, q, p[0], p[1], row, start, c)
+           for p in pools]
+    b3 = time_ms(torch, lambda i: flash_attention(*one[i]), 3)
+    b3_dev = profiled_ms(torch, lambda i: flash_attention(*one[i]),
+                         ("flash_attention",), 3)
+    b_bytes, b_ops = _chunk_bound(c, start, h, hkv, d, kv)
+    b_ms, b_by = bound(b_bytes, b_ops, "bf16")
+    log(f"[kernels] {name} C={c} start={start} H={h} Hkv={hkv} D={d}: "
+        f"{ms:.4f} ms (device time {dev_ms:.4f} ms, "
+        f"{b_ops / dev_ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * b_ms / dev_ms:.1f}% of the bound), plain "
+        f"{plain:.4f} ms, SDPA on the gathered block row "
+        f"{lib:.4f} ms (device {lib_dev:.4f} ms), B3 one-shot S "
+        f"{start + c} {b3:.4f} ms (device {b3_dev:.4f} ms), bound "
+        f"{b_ms:.4f} ms ({b_by}); "
+        + ("B3's bits and " if kv == "bf16" else "")
+        + f"the plain version's tolerance held (worst |err|/limit "
+        f"{used:.3f})")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
+                shape=f"C={c} start={start} H={h} D={d}")
 
 
 # ---------------------------------------------------------------------------
@@ -2114,14 +2225,20 @@ def _kernels_b1_int8(torch, results: dict) -> None:
     res = results["paged_decode_attention_int8"]
     res["max_abs_err"] = 0.0
     page, max_seq = 16, 1024
+    edges = [0, 1, 63, 64, 65, 1024]
     for tag, b, h, hkv, d, lens in [
             ("llama2-7b", 4, 32, 32, 128, [1024, 545, 17, 0]),
             ("zamba2-7b", 4, 32, 32, 112, [1024, 545, 17, 0]),
             ("smollm-360m", 4, 15, 5, 64, [700, 64, 1, 0]),
-            ("serve group 2", 4, 32, 32, 128, [403, 331, 275, 439])]:
+            ("serve group 2", 4, 32, 32, 128, [403, 331, 275, 439]),
+            ("chatglm3-6b", 4, 32, 2, 128, [1024, 545, 17, 0]),
+            ("command-r-plus-104b", 4, 96, 8, 128, [1024, 545, 17, 0]),
+            ("split edges, group 16", 6, 32, 2, 128, edges),
+            ("split edges, group 12", 6, 96, 8, 128, edges)]:
         pps = max_seq // page
         n_pages = b * pps + 1
-        timed = tag in ("llama2-7b", "serve group 2")
+        timed = tag in ("llama2-7b", "serve group 2", "chatglm3-6b",
+                        "command-r-plus-104b")
         pools = [tuple(_quantized(torch.randn(
             (n_pages, page, hkv, d), generator=gen, device=dev).to(
                 torch.bfloat16)) for _ in range(2))
@@ -2144,7 +2261,7 @@ def _kernels_b1_int8(torch, results: dict) -> None:
         line = (f"[kernels] paged_decode_attention_int8 {tag} B={b} H={h} "
                 f"Hkv={hkv} D={d} lens={lens}: max|err| {err:.3e} (worst "
                 f"|err|/limit {used:.3f}; tol {ATTN_TOL})")
-        if tag in ("llama2-7b", "zamba2-7b"):
+        if tag in ("llama2-7b", "zamba2-7b", "chatglm3-6b"):
             _planted_faults(torch, q, kp, vp, block, lengths, ref, page)
             _b1_batch_invariance(torch, q, kp, vp, block, lengths, got)
         if timed:
@@ -2162,11 +2279,12 @@ def _kernels_b1_int8(torch, results: dict) -> None:
             mask = (torch.arange(max_seq, device=dev)[None, :]
                     < lengths[:, None])[:, None, None, :]
             q4 = q[:, :, None, :]
+            gqa = {"enable_gqa": True} if h != hkv else {}
             lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-                q4, kd[i], vd[i], attn_mask=mask), 3)
+                q4, kd[i], vd[i], attn_mask=mask, **gqa), 3)
             lib_dev = profiled_ms(
                 torch, lambda i: F.scaled_dot_product_attention(
-                    q4, kd[i], vd[i], attn_mask=mask), None, 3)
+                    q4, kd[i], vd[i], attn_mask=mask, **gqa), None, 3)
             n_tok = sum(lens)
             kv_bytes = 2 * n_tok * hkv * (d + 4)   # codes and scales
             bytes_moved = 2 * b * h * d * 2 + kv_bytes + block.numel() * 4 \
@@ -4784,30 +4902,27 @@ def _routes():
         moe._route = orig
 
 
-def _moe_cpu_gate(torch, cfg, params, prompt, tag: str) -> None:
-    """The model phase's gate at full width, the depth cut to
-    MOE_CPU_LAYERS layers: one prompt's prefill and 3 teacher-forced decode
-    steps, card bf16 against CPU bf16 against CPU float32 (the same W8A8
-    weights), within MODEL_RATIO.  Beside it, at each layer, the smallest
-    router k-th / (k+1)-th logit gap and the rows whose experts differ
-    between the card and the float32 run (a near-tie that flips an expert
-    shows there)."""
+def _cut_logits(torch, cfg, params, prompt, n_layers: int, record=None):
+    """The model cut to its first ``n_layers`` layers at full width: one
+    prompt's prefill and 3 teacher-forced decode steps, card bf16, CPU bf16
+    and CPU float32 on the same weights (``_to_runs``).  Returns (logits per
+    run, per run what the context manager ``record()`` yielded around its
+    steps, None without one)."""
     import dataclasses
 
     from repro_torch.models import model as M
 
-    t0 = time.monotonic()
-    cut = dataclasses.replace(cfg, n_layers=MOE_CPU_LAYERS)
-    card = {**params, "layers": params["layers"][:MOE_CPU_LAYERS]}
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    card = {**params, "layers": params["layers"][:n_layers]}
     runs = _to_runs(torch, _tree_to(torch, card, "cpu"), card)
-    logits, routes = {}, {}
+    logits, seen = {}, {}
     toks = torch.tensor([prompt], dtype=torch.int32)
     block = torch.arange(1, 9, dtype=torch.int32)[None]
     for name, (p, dev, dtype) in runs.items():
         cache = M.init_paged_cache(cut, 1, 128, dtype=dtype, page_size=16,
                                    device=dev)
         cache["block"] = block.to(dev)
-        with _routes() as seen:
+        with record() if record else contextlib.nullcontext() as rec:
             lg, cache = M.prefill_into_slots(
                 p, cut, toks.to(dev), torch.tensor([len(prompt)]).to(dev),
                 cache, torch.tensor([0]).to(dev))
@@ -4818,7 +4933,19 @@ def _moe_cpu_gate(torch, cfg, params, prompt, tag: str) -> None:
                     p, cut, tok.to(dev), cache,
                     torch.tensor([True]).to(dev))
                 logits[name].append(lg.float().cpu())
-        routes[name] = seen
+        seen[name] = rec
+    return logits, seen
+
+
+def _moe_cpu_gate(torch, cfg, params, prompt, tag: str) -> None:
+    """The model phase's gate at full width, the depth cut to
+    MOE_CPU_LAYERS layers (``_cut_logits``), within MODEL_RATIO.  Beside
+    it, at each layer, the smallest router k-th / (k+1)-th logit gap and
+    the rows whose experts differ between the runs (a near-tie that flips
+    an expert shows there)."""
+    t0 = time.monotonic()
+    logits, routes = _cut_logits(torch, cfg, params, prompt, MOE_CPU_LAYERS,
+                                 _routes)
     log(f"[{tag}] CPU gate: {MOE_CPU_LAYERS} of {cfg.n_layers} layers at "
         f"full width, a {len(prompt)}-token prompt and 3 decode steps, three "
         f"runs in {time.monotonic() - t0:.1f} s")
@@ -4865,7 +4992,7 @@ def _moe_admission(torch, cfg, params, prompts, tag: str) -> None:
         f"its solo stream, 32 tokens bit for bit")
 
 
-def _moe_partial_hits(torch, cfg, params, tag: str) -> None:
+def _partial_hits(torch, cfg, params, tag: str) -> None:
     """A partial prefix hit (one-shot pages of a primer's first
     PREFIX_CACHED tokens, the suffix through the chunk path) against a
     cold one-shot run, on 3 prompts: the logits (``_partial_paths``) and
@@ -5001,7 +5128,7 @@ def phase_serve_moe(torch, smi: str) -> dict:
                       "bf16", tag)
     t0 = _lap(tag, "one-shot == chunked", t0)
     _moe_admission(torch, cfg, params, prompts, tag)
-    _moe_partial_hits(torch, cfg, params, tag)
+    _partial_hits(torch, cfg, params, tag)
     t0 = _lap(tag, "admission and partial hits", t0)
     wave = ServingClient(cfg, params, mode="wave", **kw)
     wgreedy, _ = _wave_run(torch, wave, prompts, tag, "wave mode, graphs")
@@ -5022,6 +5149,144 @@ def phase_serve_moe(torch, smi: str) -> dict:
     return counts
 
 
+DENSE_ARCHS = ("chatglm3-6b", "internlm2-20b")
+DENSE_CPU_LAYERS = 2   # the CPU gate's depth (full width)
+
+
+def _dense_cpu_gate(torch, cfg, params, prompt, tag: str) -> None:
+    """The model phase's gate at full width, the depth cut to
+    DENSE_CPU_LAYERS layers (``_cut_logits``), within MODEL_RATIO."""
+    t0 = time.monotonic()
+    logits, _ = _cut_logits(torch, cfg, params, prompt, DENSE_CPU_LAYERS)
+    log(f"[{tag}] CPU gate: {DENSE_CPU_LAYERS} of {cfg.n_layers} layers at "
+        f"full width, a {len(prompt)}-token prompt and 3 decode steps, three "
+        f"runs in {time.monotonic() - t0:.1f} s")
+    _ratio_gate(torch, f"{cfg.name} {DENSE_CPU_LAYERS} layers", logits)
+
+
+def _serve_dense(torch, arch: str, smi: str, every_gate: bool) -> None:
+    """``arch`` at full width, W8A8, random weights from seed 0 built on
+    the card by ``init_params`` and quantized there, through build_client:
+    4 slots, max_seq 1024, page 16, the serve trace (``_serve_full``:
+    counted, B1-B3 launched, the first token a direct prefill's).  B1 runs
+    at the configuration's query group inside the decode graph (one launch
+    a layer a step); graph == eager on the serve trace; with
+    ``every_gate`` also overlapped == eager, sampled synchronous ==
+    overlapped, ``--chunk-prefill 128`` giving the one-shot logits and
+    streams bit for bit (the chunk kernel counted) and 3 partial prefix
+    hits equal to cold runs.  Decode walls (sync, overlapped), the prefill
+    and decode profiles, the CPU gate on DENSE_CPU_LAYERS layers; the
+    model freed at the end."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.serving.client import ServingClient
+    from repro_torch.serving.scheduler import SamplingParams, make_scheduler
+
+    tag = f"serve_dense {arch}"
+    t0 = time.monotonic()
+    counts, client = _serve_full(torch, arch, tag, smi)
+    core = client.router.cores[0]
+    cfg, params = core.cfg, core.params
+    per_step = core.graph._deltas["sync"].get("paged_decode_attention", 0)
+    log(f"[{tag}] B1 at a query group of {cfg.n_heads // cfg.n_kv_heads} "
+        f"({cfg.n_heads} heads over {cfg.n_kv_heads}, D {cfg.d_head}): "
+        f"{counts['paged_decode_attention']} launches in the counted run, "
+        f"{per_step} a decode step inside the decode graph ({cfg.n_layers} "
+        f"expected)")
+    if per_step != cfg.n_layers:
+        raise AssertionError(f"[{tag}] the decode graph holds {per_step} B1 "
+                             f"launches")
+    t0 = _lap(tag, "counted run", t0)
+    kw = dict(max_batch=4, max_seq=1024, page_size=16, eos_id=-1,
+              device="cuda")
+    prompts = _serve_trace(cfg)
+    olap = ServingClient(cfg, params, overlap=True, **kw)
+    eager, r_e = _overlap_streams(torch, client, prompts, 32, eager=True)
+    graph, r_g = _overlap_streams(torch, client, prompts, 32)
+    _check_graph_run(core, r_g, tag, "sync graph")
+    if r_e["replays"] != 0 or graph != eager:
+        raise AssertionError(f"[{tag}] greedy: graph differs from eager")
+    what = "graph == eager"
+    if every_gate:
+        over, r_o = _overlap_streams(torch, olap, prompts, 32)
+        _check_graph_run(olap.router.cores[0], r_o, tag, "overlap")
+        if over != eager:
+            raise AssertionError(f"[{tag}] greedy: overlapped differs from "
+                                 f"eager")
+
+        def sampled(i):
+            return (SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
+                                   seed=300 + i) if i % 2 else None)
+
+        s_sync, _ = _overlap_streams(torch, client, prompts, 32, sampled)
+        s_over, _ = _overlap_streams(torch, olap, prompts, 32, sampled)
+        if s_sync != s_over:
+            raise AssertionError(f"[{tag}] sampled: overlapped != "
+                                 f"synchronous")
+        drawn = sum(a != b for a, b in zip(s_sync[1::2], graph[1::2]))
+        if drawn == 0:
+            raise AssertionError(f"[{tag}] no sampled stream left its "
+                                 f"greedy one")
+        what += (f" == overlapped; sampled synchronous == overlapped "
+                 f"({drawn} of 4 sampled streams left greedy)")
+    log(f"[{tag}] {what} on the serve trace's 8 requests; B1 launches "
+        f"graph / eager {r_g['counts']['paged_decode_attention']} / "
+        f"{r_e['counts']['paged_decode_attention']}")
+    tprompts = [[int(t) for t in np.random.RandomState(3).randint(
+        0, cfg.vocab_size, n)] for n in (200, 240, 280, 320)]
+    walls = {mode: _decode_wall(torch, c, tprompts, 64)
+             for mode, c in (("sync", client), ("overlapped", olap))}
+    log(f"[{tag}] decode, 4 slots at 200-384 tokens: "
+        + ", ".join(f"{mode} {w:.2f} ms a step = {4e3 / w:.1f} tok/s ({n} "
+                    f"steps)" for mode, (w, n) in walls.items())
+        + f" (synchronized clock around the decode loop) on {smi}")
+    del olap
+    t0 = _lap(tag, "graph, eager, overlapped, walls", t0)
+    if every_gate:
+        chunked = ServingClient(cfg, params, scheduler=make_scheduler(
+            "fcfs", chunk_tokens=CHUNK_BUDGET), **kw)
+        rng = np.random.RandomState(5)
+        cands = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+                 for n in rng.randint(140, 400, size=6)]
+        kernels.reset_launch_counts()
+        _bit_equal_streams(
+            torch, params, cfg, cands, MARGIN_TOKENS,
+            {"one-shot": ("bf16", 0), "chunked": ("bf16", CHUNK_BUDGET)},
+            (client, chunked), tag)
+        n_chunk = kernels.launch_counts()["paged_chunk_attention"]
+        log(f"[{tag}] the chunk kernel at a query group of "
+            f"{cfg.n_heads // cfg.n_kv_heads}: {n_chunk} launches in the "
+            f"one-shot vs chunked comparison")
+        if n_chunk <= 0:
+            raise AssertionError(f"[{tag}] the chunked path never launched "
+                                 f"the chunk kernel")
+        del chunked
+        _partial_hits(torch, cfg, params, tag)
+        t0 = _lap(tag, "one-shot == chunked, partial hits", t0)
+    phase_profile(torch, client, smi, tag)
+    t0 = _lap(tag, "profiles", t0)
+    _dense_cpu_gate(torch, cfg, params, prompts[0][:64], tag)
+    _lap(tag, "CPU gate", t0)
+    del client, core, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_dense(torch, smi: str) -> None:
+    """The dense configurations whose query groups B1 takes in two passes
+    or that no other phase serves: chatglm3-6b (28 layers, d_model 4096,
+    32 query heads over 2 kv heads, a group of 16, rotary on half of each
+    head, q/k/v and FFN biases, vocab 65,024) with every gate, then
+    internlm2-20b (48 layers, d_model 6144, 48 heads over 8, vocab 92,544)
+    with the serve trace, graph == eager, the first token and the CPU
+    gate; each freed before the next is built."""
+    _serve_dense(torch, DENSE_ARCHS[0], smi, every_gate=True)
+    _serve_dense(torch, DENSE_ARCHS[1], smi, every_gate=False)
+
+
 def _mark(name: str) -> None:
     """Log the time since the previous mark (the phase before ``name``)."""
     now = time.monotonic()
@@ -5038,7 +5303,8 @@ def main(argv=None) -> int:
                             "serve_w4a16,serve_hybrid,serve_hybrid_w4a16,"
                             "serve_overlap,serve_chunked,serve_int8kv,"
                             "serve_tiered,serve_prefix,serve_migrate,"
-                            "serve_fleet,serve_wave,serve_moe")
+                            "serve_fleet,serve_wave,serve_moe,"
+                            "serve_dense")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -5117,6 +5383,9 @@ def main(argv=None) -> int:
     _mark("serve_moe")
     if "serve_moe" in phases:
         counts["serve_moe"] = phase_serve_moe(torch, smi_line)
+    _mark("serve_dense")
+    if "serve_dense" in phases:
+        phase_serve_dense(torch, smi_line)
     _mark("end")
     log(f"[time] phases {args.phases} took "
         f"{time.monotonic() - t_start:.0f} s after the card check")

@@ -5,7 +5,9 @@
 layer's page pools through the block table, split-KV over splits of
 ``ref.SPLIT`` keys at absolute positions, the splits' float32 partials in a
 workspace allocated here, merged in split-index order by a second kernel
-that the same C entry launches.
+that the same C entry launches.  It takes query groups (``H / Hkv``) of up
+to ``MAX_GROUP`` heads: above 8 the kernel runs the group-of-8 arithmetic
+in two passes, so a head's bits do not depend on its group.
 
 ``paged_chunk_attention(q, k_pages, v_pages, block_row, start, n_valid)``
 (``csrc/paged_chunk_attention.cu``): the queries of one slot's prefill
@@ -13,7 +15,9 @@ chunk, query i at cache position ``start + i``, each attending the keys up
 to its own position.  The kernel runs B3's per-block arithmetic
 (``csrc/attention_tile.cuh``) on 64-row query tiles at absolute multiples
 of 64, the K/V blocks read through the block row, so over bf16 pools a
-chunk query's output is B3's one-shot bits for that query.
+chunk query's output is B3's one-shot bits for that query.  It maps each
+query head to its kv head on its own and takes any group that
+``H % Hkv == 0`` allows.
 
 ``decode_attention(q, k_cache, v_cache, lengths)``: B1 over a contiguous
 cache ``[B, Smax, Hkv, D]`` (the wave engine's, and whisper's encoder rows
@@ -38,15 +42,17 @@ from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_ref)
 
 HEAD_DIMS = (16, 32, 64, 112, 128)  # 112: zamba2-7b's shared block
-MAX_GROUP = 8  # grouped query heads per kv head (B1)
+MAX_GROUP = 16  # grouped query heads per kv head, B1 (two passes of 8)
 CHUNK_BLOCK = 64  # keys per K/V block and rows per query tile, chunk kernel
 LAUNCHES = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0,
             "paged_chunk_attention": 0, "paged_chunk_attention_int8": 0}
 
 
-def _check_pools(q: torch.Tensor, k_pages, v_pages, name: str):
+def _check_pools(q: torch.Tensor, k_pages, v_pages, name: str,
+                 max_group: int | None = None):
     """(k, v, k_scale, v_scale, int8) of bf16 or int8 ``(data, scale)``
-    pools on q's device, or raise."""
+    pools on q's device, or raise; ``max_group``: the most query heads a
+    kv head may have (None: any)."""
     int8 = isinstance(k_pages, tuple)
     if int8 != isinstance(v_pages, tuple):
         raise TypeError(f"{name}: K and V pools of different kinds")
@@ -71,9 +77,12 @@ def _check_pools(q: torch.Tensor, k_pages, v_pages, name: str):
         raise ValueError(f"{name}: scale pools {tuple(ks.shape)} / "
                          f"{tuple(vs.shape)} do not match {tuple(k.shape)}")
     h, d, hkv = q.shape[-2], q.shape[-1], k.shape[2]
-    if d not in HEAD_DIMS or h % hkv or h // hkv > MAX_GROUP:
+    if d not in HEAD_DIMS or h % hkv:
         raise ValueError(f"{name}: unsupported head layout H={h} Hkv={hkv} "
                          f"D={d}")
+    if max_group is not None and h // hkv > max_group:
+        raise ValueError(f"{name}: a query group of {h // hkv} heads (H={h} "
+                         f"Hkv={hkv}); B1 takes at most {max_group}")
     return k, v, ks, vs, int8
 
 
@@ -97,7 +106,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: tensor on {q.device}")
     k, v, ks, vs, int8 = _check_pools(q, k_pages, v_pages,
-                                      "paged_decode_attention")
+                                      "paged_decode_attention", MAX_GROUP)
     _check_int32(q, "paged_decode_attention", block_table=block_table,
                  lengths=lengths)
     b, h, d = q.shape

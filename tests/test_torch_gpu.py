@@ -163,10 +163,13 @@ def _paged_inputs(dev, seed, b, h, hkv, d, pps, page=16):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("h,hkv,d", [(32, 32, 128), (32, 32, 112),
-                                     (15, 5, 64), (8, 1, 16)])
+@pytest.mark.parametrize("h,hkv,d,kv", [
+    (32, 32, 128, "bf16"), (32, 32, 112, "bf16"), (15, 5, 64, "bf16"),
+    (8, 1, 16, "bf16"),
+    (32, 2, 128, "bf16"), (96, 8, 128, "bf16"),   # groups of 16 and 12
+    (32, 2, 128, "int8"), (96, 8, 128, "int8")])
 def test_paged_decode_attention_at_split_edges_on_card(cuda_device, h, hkv,
-                                                       d):
+                                                       d, kv):
     """Lengths 0, 1, SPLIT - 1, SPLIT, SPLIT + 1 and the full capacity of
     the block table (4 splits): within two bf16 steps of the plain version;
     a length-0 slot comes out 0."""
@@ -174,6 +177,8 @@ def test_paged_decode_attention_at_split_edges_on_card(cuda_device, h, hkv,
     pps = 4 * SPLIT // 16
     q, kp, vp, block = _paged_inputs(cuda_device, d + h, len(lens), h, hkv,
                                      d, pps)
+    if kv == "int8":
+        kp, vp = _int8_pools(kp, vp)
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
     got = paged_decode_attention(q, kp, vp, block, lengths)
     ref = paged_decode_attention_ref(q, kp, vp, block, lengths)
@@ -183,13 +188,19 @@ def test_paged_decode_attention_at_split_edges_on_card(cuda_device, h, hkv,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("h,hkv,kv", [(32, 32, "bf16"), (32, 2, "bf16"),
+                                      (96, 8, "bf16"), (32, 2, "int8"),
+                                      (96, 8, "int8")])
 @pytest.mark.parametrize("length", [1, SPLIT, 545, 1024])
 def test_paged_decode_attention_slot_bits_do_not_depend_on_the_batch(
-        cuda_device, length):
+        cuda_device, length, h, hkv, kv):
     """Slot 0 alone, inside a batch of 4 with other lengths, and under a
-    block table twice as wide: the same output bits."""
-    h, hkv, d, pps = 32, 32, 128, 64
+    block table twice as wide: the same output bits (MHA, and query groups
+    of 16 and 12 over bf16 and int8 pools)."""
+    d, pps = 128, 64
     q, kp, vp, block = _paged_inputs(cuda_device, length, 4, h, hkv, d, pps)
+    if kv == "int8":
+        kp, vp = _int8_pools(kp, vp)
     lens = torch.tensor([length, 17, 1024, 0], dtype=torch.int32,
                         device=cuda_device)
     batched = paged_decode_attention(q, kp, vp, block, lens)
@@ -200,6 +211,49 @@ def test_paged_decode_attention_slot_bits_do_not_depend_on_the_batch(
                                    lens[:1].clone())
     assert torch.equal(batched[0], alone[0])
     assert torch.equal(wider[0], alone[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("h,cut", [(16, 8), (12, 8), (12, 6)])
+def test_paged_decode_attention_head_bits_do_not_depend_on_the_group(
+        cuda_device, h, cut, kv):
+    """A group of ``h`` heads over one kv head (two passes of up to 8 in
+    the kernel) equals, bit for bit, the same queries in two calls of
+    ``cut`` and ``h - cut`` heads over the same pools."""
+    lens = [1024, 545, 17, 0, 1, SPLIT - 1, SPLIT, SPLIT + 1]
+    q, kp, vp, block = _paged_inputs(cuda_device, h + cut, len(lens), h, 1,
+                                     128, 64)
+    if kv == "int8":
+        kp, vp = _int8_pools(kp, vp)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    whole = paged_decode_attention(q, kp, vp, block, lengths)
+    parts = torch.cat([
+        paged_decode_attention(q[:, :cut].contiguous(), kp, vp, block,
+                               lengths),
+        paged_decode_attention(q[:, cut:].contiguous(), kp, vp, block,
+                               lengths)], dim=1)
+    assert torch.equal(whole, parts)
+
+
+@pytest.mark.gpu
+def test_paged_decode_attention_keeps_its_bits_at_groups_up_to_8(
+        cuda_device):
+    """Groups 1-8 (the ported configurations' head layouts and each group
+    over 2 kv heads, bf16 and int8 pools) against B1 as it was while it
+    took groups of up to 8 only (``csrc/diag/decode_attention_groups8.cu``,
+    built by ``kernels/diag_b1_bits.py``): every output bit for bit."""
+    from repro_torch.kernels import diag_b1_bits
+
+    assert diag_b1_bits.compare(torch, diag_b1_bits.load()) == 0
+
+
+@pytest.mark.gpu
+def test_paged_decode_attention_refuses_a_group_above_16(cuda_device):
+    q, kp, vp, block = _paged_inputs(cuda_device, 17, 1, 17, 1, 128, 4)
+    lengths = torch.tensor([5], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="B1 takes at most 16"):
+        paged_decode_attention(q, kp, vp, block, lengths)
 
 
 @pytest.mark.gpu
@@ -753,7 +807,8 @@ def _chunk_inputs(dev, seed, c, h, hkv, d, pps, page=16):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 @pytest.mark.parametrize("h,hkv,d", [(32, 32, 128), (32, 32, 112),
-                                     (15, 5, 64), (4, 2, 16)])
+                                     (15, 5, 64), (4, 2, 16),
+                                     (32, 2, 128)])   # chatglm3-6b, group 16
 @pytest.mark.parametrize("c,start", [(1, 0), (7, 5), (16, 300), (128, 0),
                                      (128, 300)])
 def test_paged_chunk_attention_is_b3_bit_for_bit(cuda_device, c, start, h,

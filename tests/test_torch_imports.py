@@ -44,7 +44,8 @@ def test_port_imports_neither_jax_nor_repro(sanitize):
               "kernels.flash_attention.ref", "kernels.decode_attention.ops",
               "models.blocks", "models.model", "models.moe",
               "configs.qwen2_moe_a2_7b", "kernels.grouped_gemm.ops",
-              "kernels.grouped_gemm.ref"):
+              "kernels.grouped_gemm.ref", "configs.chatglm3_6b",
+              "configs.internlm2_20b", "kernels.diag_b1_bits"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -9,7 +9,10 @@
   output within two bf16 steps of the JAX output plus 1e-5, the gate the
   card's check uses (chip_smoke.py, tests/test_torch_gpu.py).  A slot's
   bits must not depend on the batch around it or on the block table's
-  width.
+  width.  Query groups above 8 (the kernel's two passes of up to 8 heads)
+  are held at 12 and 16; a head's bits must not depend on how many heads
+  share its kv head, and the wrappers' group limits (B1 up to 16, the
+  chunk kernel any) are pinned.
 * B2's decode GeMV (``int8_gemv_mma_kernel``): its operand layout (each
   lane's 16 contiguous bytes of two weight rows and one activation row fed
   to ``mma.sync m16n8k32`` with the k order permuted alike in A and B)
@@ -24,6 +27,7 @@ import torch
 
 from repro.models import attention as jattn
 from repro_torch.bridge import params_from_numpy
+from repro_torch.kernels.decode_attention.ops import MAX_GROUP, _check_pools
 from repro_torch.kernels.decode_attention.ref import (
     SPLIT, paged_decode_attention_ref, paged_decode_attention_splitkv)
 from repro_torch.kernels.int8_pagegemv.ops import GEMV_MAX_M, gemm_variant
@@ -63,7 +67,10 @@ def _paged(seed, lens, h, hkv, d, pps, n_pages=None):
     (4, 4, 64),    # MHA
     (6, 2, 16),    # GQA 3:1 (smollm-shaped)
     (2, 2, 112),   # zamba2-7b's head dim
-    (8, 1, 32),    # GQA 8:1, the kernel's widest group
+    (8, 1, 32),    # GQA 8:1, the widest group of one pass
+    (16, 1, 32),   # a group of 16: two passes of 8
+    (32, 2, 128),  # chatglm3-6b's heads (group 16)
+    (12, 1, 64),   # command-r-plus-104b's group of 12: passes of 8 and 4
 ])
 def test_b1_splitkv_rehearsal_vs_jax(h, hkv, d):
     pps = 3 * SPLIT // PAGE   # capacity: three splits
@@ -81,6 +88,57 @@ def test_b1_splitkv_rehearsal_vs_jax(h, hkv, d):
     assert ratio <= 1.0
     assert bool(torch.isfinite(got).all())
     assert not bool(got[0].any())   # a length-0 slot comes out 0
+
+
+@pytest.mark.parametrize("split", [SPLIT, None], ids=["splitkv", "plain"])
+@pytest.mark.parametrize("h,halves", [(16, (8, 8)), (12, (8, 4)),
+                                      (12, (6, 6))])
+def test_b1_head_bits_do_not_depend_on_the_group(h, halves, split):
+    """A group of H heads over one kv head, and the same queries cut into
+    two calls of smaller groups over the same pools: each head's output
+    bits are the same, for the split schedule and for the plain version
+    (the card's oracle)."""
+    d, pps = 32, 3 * SPLIT // PAGE
+    lens = [1, SPLIT, 2 * SPLIT + 37, 0]
+    _, t = _paged(h + sum(halves), lens, h, 1, d, pps)
+
+    def run(q):
+        if split is None:
+            return paged_decode_attention_ref(q, t["k"], t["v"], t["block"],
+                                              t["lens"])
+        return paged_decode_attention_splitkv(q, t["k"], t["v"], t["block"],
+                                              t["lens"])
+
+    whole = run(t["q"])
+    a = halves[0]
+    parts = torch.cat([run(t["q"][:, :a].contiguous()),
+                       run(t["q"][:, a:].contiguous())], dim=1)
+    assert torch.equal(whole[:3], parts[:3])
+
+
+def test_group_limits_of_the_wrappers():
+    """``_check_pools``: B1 (``paged_decode_attention``) takes a group of up
+    to MAX_GROUP = 16 heads and refuses 17 with a message naming B1; the
+    chunk kernel's wrapper takes any group that H % Hkv == 0 allows; a
+    ragged group is refused by both."""
+    assert MAX_GROUP == 16
+    q16 = torch.zeros((2, 32, 128), dtype=torch.bfloat16)
+    q17 = torch.zeros((2, 17, 128), dtype=torch.bfloat16)
+    kp2 = torch.zeros((3, PAGE, 2, 128), dtype=torch.bfloat16)
+    kp1 = torch.zeros((3, PAGE, 1, 128), dtype=torch.bfloat16)
+    int8 = (torch.zeros((3, PAGE, 2, 128), dtype=torch.int8),
+            torch.ones((3, PAGE, 2), dtype=torch.float32))
+    for name, limit in (("paged_decode_attention", MAX_GROUP),
+                        ("paged_chunk_attention", None)):
+        k, _, _, _, is8 = _check_pools(q16, kp2, kp2, name, limit)
+        assert k is kp2 and not is8
+        assert _check_pools(q16, int8, int8, name, limit)[4]
+    with pytest.raises(ValueError, match="B1 takes at most 16"):
+        _check_pools(q17, kp1, kp1, "paged_decode_attention", MAX_GROUP)
+    assert _check_pools(q17, kp1, kp1, "paged_chunk_attention")[0] is kp1
+    for limit in (MAX_GROUP, None):
+        with pytest.raises(ValueError, match="unsupported head layout"):
+            _check_pools(q17, kp2, kp2, "either", limit)
 
 
 @pytest.mark.parametrize("length", [1, SPLIT, 2 * SPLIT + 37])
