@@ -32,13 +32,12 @@ from repro.configs.registry import get_arch as jget_arch
 from repro.models import layers as JL
 from repro.models import model as JM
 from repro.quant.convert import quantize_params as jquantize
-from repro.serving.core import EngineCore as JEngine, Request as JRequest
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs.registry import get_arch
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.quant.convert import quantize_params as tquantize
-from repro_torch.serving.core import EngineCore as TEngine, Request as TRequest
+from test_torch_serving import _both, _prompts
 
 # the published head layout and features put back into reduced()
 RESTORED = {"chatglm3-6b": dict(n_heads=32, n_kv_heads=2, d_head=16,
@@ -46,8 +45,6 @@ RESTORED = {"chatglm3-6b": dict(n_heads=32, n_kv_heads=2, d_head=16,
             "internlm2-20b": dict(n_heads=12, n_kv_heads=2)}
 SLOTS, MAX_SEQ, PAGE = 3, 32, 4
 W8A8_ATOL = 5e-3
-MARGIN = 1e-2
-ENG = dict(max_batch=3, max_seq=48, eos_id=-1, page_size=8)
 
 
 def _cfgs(arch):
@@ -216,42 +213,16 @@ def test_prefill_and_decode_logits_match_jax(model):
                                rtol=0, atol=W8A8_ATOL)
 
 
-def _min_margin(cfg, params, prompt, n_new) -> float:
-    """Smallest top-1 / top-2 logit gap of the port's greedy run."""
-    cache = TM.init_paged_cache(cfg, 1, 64, dtype=torch.bfloat16,
-                                page_size=8, device="cpu")
-    cache["block"] = torch.arange(1, 9, dtype=torch.int32)[None]
-    logits, cache = TM.prefill_into_slots(
-        params, cfg, torch.tensor([prompt]), torch.tensor([len(prompt)]),
-        cache, torch.tensor([0]))
-    gaps = []
-    for _ in range(n_new):
-        top = torch.topk(logits[0], 2).values
-        gaps.append(float(top[0] - top[1]))
-        tok = torch.argmax(logits, -1).to(torch.int32)
-        logits, cache = TM.decode_step_paged(params, cfg, tok, cache,
-                                             torch.tensor([True]))
-    return min(gaps)
-
-
 def test_greedy_engine_streams_match_jax(model):
-    """Three margin-checked prompts through the JAX and the port's W8A8
-    engines (continuous paged mode, 3 slots): the same greedy streams."""
-    jcfg, jq, tcfg, tq = model.jcfg, model.jq, model.tcfg, model.tq
-    rng = np.random.RandomState(4)
-    prompts = []
-    while len(prompts) < 3:
-        p = rng.randint(0, tcfg.vocab_size, rng.randint(3, 20)).tolist()
-        if _min_margin(tcfg, tq, p, 6) > MARGIN:
-            prompts.append(p)
-    streams = []
-    for eng, req in ((JEngine(jcfg, jq, **ENG), JRequest),
-                     (TEngine(tcfg, tq, **ENG, device="cpu"), TRequest)):
-        reqs = [req(rid=i, prompt=list(p), max_new_tokens=6)
-                for i, p in enumerate(prompts)]
-        for r in reqs:
-            eng.add_request(r)
-        eng.run()
-        streams.append([r.out_tokens for r in reqs])
-    assert streams[1] == streams[0]
-    assert all(len(s) == 6 for s in streams[1])
+    """Margin-checked prompts through the JAX and the port's W8A8 engines
+    (continuous paged mode, 3 slots, one request admitted while the others
+    decode): every step's token events equal."""
+    models = (model.jcfg, model.jq, model.tcfg, model.tq)
+    prompts = _prompts(models, 4, 3, 20, 6, seed=4)
+    trace = [(a, rid, p, 6) for rid, (a, p) in enumerate(zip((0, 0, 0, 2),
+                                                             prompts))]
+    (j, jsteps, jreqs), (t, tsteps, treqs) = _both(models, trace)
+    assert tsteps == jsteps
+    assert [treqs[r].out_tokens for r in treqs] == \
+        [jreqs[r].out_tokens for r in jreqs]
+    assert t.stats.prefills == j.stats.prefills > 1
