@@ -33,7 +33,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("common.cu", "int8_gemm.cu", "decode_attention.cu",
            "flash_attention.cu", "paged_chunk_attention.cu", "ecc_decode.cu",
-           "w4a16_gemv.cu", "ssd_scan.cu", "grouped_gemm.cu")
+           "w4a16_gemv.cu", "ssd_scan.cu", "grouped_gemm.cu",
+           "mla_decode_attention.cu")
 # included by the tensor-core sources; attention_tile.cuh holds the
 # per-block arithmetic B3 and the paged chunk kernel share
 HEADERS = ("hopper.cuh", "attention_tile.cuh")
@@ -65,6 +66,8 @@ SIGNATURES = {
                               _I, _I, _I, ctypes.POINTER(ctypes.c_longlong),
                               _P],
     "repro_grouped_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_mla_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 

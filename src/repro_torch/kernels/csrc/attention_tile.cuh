@@ -25,7 +25,7 @@
 // (hopper.cuh): [DP / 64 column blocks][64 rows][128 bytes], the 16-byte
 // chunk j of row r stored at chunk j ^ (r % 8), each tile 1,024-byte
 // aligned.  The head dim is padded with zero columns to DP = 64 (D <= 64)
-// or 128 (D 112, 128).
+// or 128 (D 112, 128); B3 also has DP = 192 (D 192, MLA's prefill).
 //
 // Register layout (the wgmma accumulator, hopper.cuh): thread t, warp w =
 // t / 32, lane l, holds rows 16w + l/4 and 16w + l/4 + 8 of the tile, and
@@ -140,13 +140,25 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// O[:, 0:DP] += A . V for one 16-key slice; dv: the descriptor of the
+// slice's first 64-column block.  DP 192 (MLA's qk head) is an n128
+// product over column blocks 0-1 and an n64 product over block 2: the
+// accumulator entries of columns 128-191 follow those of 0-127, so o[64..95]
+// is the n64 product's accumulator (each column's sum is the same
+// instruction sequence as in an n192 product)
 template <int DP>
 __device__ __forceinline__ void pv_product(float (&o)[DP / 2], const uint32_t (&a)[4],
                                            uint64_t dv) {
   if constexpr (DP == 64) {
     hopper::wgmma_m64n64k16_bf16_rs_tnspb(o, a, dv);
-  } else {
+  } else if constexpr (DP == 128) {
     hopper::wgmma_m64n128k16_bf16_rs_tnspb(o, a, dv);
+  } else {
+    static_assert(DP == 192, "padded head dims: 64, 128, 192");
+    hopper::wgmma_m64n128k16_bf16_rs_tnspb(*reinterpret_cast<float(*)[64]>(&o[0]), a, dv);
+    // the descriptor's start address is in 16-byte units: block 2 is 2 kBox on
+    hopper::wgmma_m64n64k16_bf16_rs_tnspb(*reinterpret_cast<float(*)[32]>(&o[64]), a,
+                                          dv + static_cast<uint64_t>((2 * kBox) >> 4));
   }
 }
 

@@ -4,8 +4,9 @@
 //   q    bf16 [B, S, H, D]     k, v  bf16 [B, Skv, Hkv, D]     out bf16 [B, S, H, D]
 //
 // read and written through their batch / sequence / head strides (the last
-// axis contiguous), so the caller transposes nothing; D in {16, 32, 64, 112,
-// 128}.  Causal: Skv == S, query i attends keys 0..i.  Bidirectional (the
+// axis contiguous), so the caller transposes nothing; D a multiple of 8 up
+// to 64 (MLA's reduced qk head of 24 among them), 112, 128 or 192 (MLA's qk
+// head: 128 no-rope + 64 rope dims, v padded to it by the caller).  Causal: Skv == S, query i attends keys 0..i.  Bidirectional (the
 // whisper encoder's self-attention, Skv == S, and its decoder's
 // cross-attention over the encoder's rows, any Skv): every query attends
 // every key.
@@ -37,7 +38,9 @@
 //    strides stay the caller's.  The head dim is padded in shared memory to
 //    64 (D <= 64) or 128 (D 112, 128) by TMA's zero fill past D: the zero
 //    columns add nothing to Q K^T, and the output columns past D are not
-//    stored;
+//    stored.  D 192 is three boxes (5 x 24 KB of tiles, 121 KB of shared
+//    memory); its P V product is an n128 wgmma and an n64 one
+//    (attention_tile.cuh), and a thread's accumulator grows to 96 floats;
 //  * the Q tile is loaded once; K/V blocks of 64 keys stream through a
 //    2-stage ring, block kb+1 loading while block kb computes.  Causal:
 //    blocks above the diagonal are never loaded; bidirectional: every
@@ -228,14 +231,15 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   }
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto s = static_cast<cudaStream_t>(stream);
+  if (D > 0 && D <= 64 && D % 8 == 0) {
+    return launch_for_mode<64>(q, k, v, op, B, S, Skv, H, Hkv, D, strides, scale, causal, s);
+  }
   switch (D) {
-    case 16:
-    case 32:
-    case 64:
-      return launch_for_mode<64>(q, k, v, op, B, S, Skv, H, Hkv, D, strides, scale, causal, s);
     case 112:
     case 128:
       return launch_for_mode<128>(q, k, v, op, B, S, Skv, H, Hkv, D, strides, scale, causal, s);
+    case 192:
+      return launch_for_mode<192>(q, k, v, op, B, S, Skv, H, Hkv, D, strides, scale, causal, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

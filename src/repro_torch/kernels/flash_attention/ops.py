@@ -22,7 +22,14 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 112, 128)  # 112: zamba2-7b's shared block
+# head dims beside every multiple of 8 up to 64 (deepseek-v2-lite-16b's
+# reduced qk head of 24 among them): 112 zamba2-7b's shared block, 192
+# deepseek-v2-lite-16b's MLA prefill (qk 128 + 64, v padded to it)
+HEAD_DIMS = (112, 128, 192)
+
+
+def head_dim_ok(d: int) -> bool:
+    return (0 < d <= 64 and d % 8 == 0) or d in HEAD_DIMS
 LAUNCHES = {"flash_attention": 0, "flash_attention_bidir": 0}
 
 
@@ -45,7 +52,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or (causal and skv != s):
         raise ValueError(f"k/v {tuple(k.shape)} / {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)} (causal={causal})")
-    if d not in HEAD_DIMS or h % hkv:
+    if not head_dim_ok(d) or h % hkv:
         raise ValueError(f"unsupported head layout H={h} Hkv={hkv} D={d}")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if b == 0 or s == 0:

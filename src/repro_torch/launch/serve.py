@@ -10,7 +10,8 @@ random prompts, greedy, or sampled under ``--temperature`` / ``--top-k`` /
 runs the overlapped decode loop (one fused decode + sample step a round,
 its tokens read back one step late).  ``--chunk-prefill N`` prefills a
 prompt longer than N tokens in chunks of N, one a step between decode
-steps (dense and moe families; a hybrid engine prefills in one shot);
+steps (dense and moe families; hybrid and mla_moe engines prefill in one
+shot);
 ``--kv-dtype int8`` keeps the KV pages in int8 with a float32 scale per
 row and head.  ``--kv-tier flash`` spills KV pages of suspended slots to
 a cold tier (pinned host memory on a card; ``--flash-pages`` bounds it,
@@ -51,10 +52,16 @@ kernels.
       --device cpu
   python src/repro_torch/launch/serve.py --arch qwen2-moe-a2.7b \\
       --chunk-prefill 4 --device cpu
+  python src/repro_torch/launch/serve.py --arch deepseek-v2-lite-16b \\
+      --kv-dtype int8 --device cpu
 
 ``--arch`` takes every configuration of ``configs/registry.py``: the dense
 family, the moe qwen2-moe-a2.7b (60 routed experts, top-4, through the
-grouped GEMM kernel, and 4 shared experts) and the hybrid zamba2-7b
+grouped GEMM kernel, and 4 shared experts), the mla_moe
+deepseek-v2-lite-16b (multi-head latent attention over compressed KV
+pages through the MLA decode kernel, a dense first layer, 64 routed
+experts top-6 and 2 shared; it prefills in one shot, as in JAX) and the
+hybrid zamba2-7b
 (Mamba-2 layers and a shared attention block) in either mode, the ssm
 mamba2-130m and the audio whisper-small (an encoder over stub frame
 embeddings, zeros, and a decoder with cross-attention) in wave mode.

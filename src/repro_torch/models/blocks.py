@@ -1,5 +1,6 @@
 """GQA attention block shared by the transformer families (dense,
-hybrid and audio subset).
+hybrid and audio subset), and DeepSeek's multi-head latent attention
+(MLA, the mla_moe family).
 
 Counterpart of ``repro.models.blocks``.  Where the JAX model runs the jnp
 twins of its Pallas kernels, this module calls the kernel wrappers: on a
@@ -8,7 +9,10 @@ causal or, for the whisper encoder and cross-attention, bidirectional; B1
 decode attention over the paged pools or, in wave mode, over the
 contiguous cache; and for a prefill chunk the paged chunk attention, which
 runs B3's per-block arithmetic through the block row, so a chunk query gets
-B3's one-shot bits), on a CPU tensor their plain versions.  The page pools
+B3's one-shot bits), on a CPU tensor their plain versions.  MLA's prefill
+runs B3 at the qk head (192 at full width: v padded to it), its decode
+the paged MLA decode attention kernel over the compressed ``ckv`` /
+``krope`` pools (in wave mode over the contiguous cache).  The page pools
 are bf16 tensors or int8 ``(data, scale)`` pairs (``models.attention``).
 """
 
@@ -21,10 +25,13 @@ from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       paged_chunk_attention,
                                                       paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.mla_decode_attention.ops import (
+    mla_decode_attention, mla_decode_attention_contiguous)
 from repro_torch.models.attention import (gather_kv_pages, pool_page_size,
                                           scatter_chunk_rows, scatter_kv_pages,
                                           write_paged_rows)
-from repro_torch.models.layers import (apply_rope, init_linear, layer_norm,
+from repro_torch.models.layers import (apply_rope, dense_weight,
+                                       fixed_row_bmm, init_linear, layer_norm,
                                        linear, rms_norm)
 
 
@@ -180,12 +187,20 @@ def attn_prefill_chunk_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return linear(params["o"], out.reshape(b, c, -1))
 
 
+def paged_pool_names(cache: dict) -> tuple[str, str]:
+    """The two layer-stacked page pools of a paged cache: K and V, or MLA's
+    compressed ``ckv`` / ``krope`` rows ([page, R] and [page, Dr])."""
+    return ("ckv", "krope") if "ckv" in cache else ("k", "v")
+
+
 def paged_pool_keys(cache: dict) -> tuple[str, ...]:
-    """The cache keys whose pages move with a page: the K and V pools and,
-    under ``kv_dtype="int8"``, their float32 scale pools, in this order."""
-    keys = ("k", "v")
-    if "k_scale" in cache:
-        keys += ("k_scale", "v_scale")
+    """The cache keys whose pages move with a page: the two pools of
+    ``paged_pool_names`` and, under ``kv_dtype="int8"``, their float32
+    scale pools, in this order."""
+    a, b = paged_pool_names(cache)
+    keys = (a, b)
+    if a + "_scale" in cache:
+        keys += (a + "_scale", b + "_scale")
     return keys
 
 
@@ -215,3 +230,147 @@ def kv_swap_in(cache: dict, page_ids: torch.Tensor,
     for a, b in zip(keys[::2], keys[1::2]):
         scatter_kv_pages(cache[a], cache[b], page_ids, pay[a], pay[b])
     return cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+             device: torch.device) -> dict:
+    qk_head = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "q": init_linear(gen, cfg.d_model, cfg.n_heads * qk_head, False,
+                         dtype, device),
+        "kv_a": init_linear(gen, cfg.d_model,
+                            cfg.kv_lora_rank + cfg.qk_rope_dim, False, dtype,
+                            device),
+        "kv_a_norm": torch.ones((cfg.kv_lora_rank,), dtype=dtype,
+                                device=device),
+        "kv_b": init_linear(gen, cfg.kv_lora_rank,
+                            cfg.n_heads * (cfg.qk_nope_dim + cfg.v_head_dim),
+                            False, dtype, device),
+        "o": init_linear(gen, cfg.n_heads * cfg.v_head_dim, cfg.d_model,
+                         False, dtype, device),
+    }
+
+
+def mla_full(params: dict, x: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-sequence MLA (B3 at the qk head, v padded to it, the output cut
+    back to v's width; the scale qk_head^-0.5).  Returns (out, c_kv [B, S,
+    R], k_rope [B, S, Dr]) for the compressed cache."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    q = linear(params["q"], x).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    kv = linear(params["kv_a"], x)
+    c_kv = rms_norm(kv[..., :r], params["kv_a_norm"], cfg.norm_eps)
+    kvb = linear(params["kv_b"], c_kv).reshape(b, s, h, dn + dv)
+    k_nope, v = kvb[..., :dn], kvb[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope(kv[..., r:].reshape(b, s, 1, dr), positions,
+                        cfg.rope_theta)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    vpad = torch.nn.functional.pad(v, (0, dn + dr - dv))
+    out = flash_attention(qf, kf, vpad, causal=True)[..., :dv]
+    out = linear(params["o"], out.reshape(b, s, -1))
+    return out, c_kv, k_rope[:, :, 0, :]
+
+
+def _mla_decode_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                    posb: torch.Tensor):
+    """The decode token's projections: (q_nope [B, H, Dn], roped q_rope
+    [B, H, Dr], normed c_kv [B, R], roped k_rope [B, Dr]) at per-lane
+    positions ``posb`` [B, 1]."""
+    b = x.shape[0]
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = linear(params["q"], x).reshape(b, h, dn + dr)
+    kv = linear(params["kv_a"], x)
+    c_kv = rms_norm(kv[..., :r], params["kv_a_norm"], cfg.norm_eps)
+    q_rope = apply_rope(q[..., dn:][:, None], posb, cfg.rope_theta)[:, 0]
+    k_rope = apply_rope(kv[..., r:][:, None, None, :], posb,
+                        cfg.rope_theta)[:, 0, 0]
+    return q[..., :dn], q_rope, c_kv, k_rope
+
+
+def _mla_up_weights(params: dict, cfg: ModelConfig):
+    """(W_uk [H, Dn, R], W_uv [H, R, Dv]) float32, from ``kv_b``'s dense
+    weight [R, H * (Dn + Dv)] (dequantized under W8A8, as JAX does)."""
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    dn = cfg.qk_nope_dim
+    wkb = dense_weight(params["kv_b"]).float().reshape(r, h, -1)
+    return wkb[..., :dn].permute(1, 2, 0), wkb[..., dn:].permute(1, 0, 2)
+
+
+def _mla_absorbed_attend(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                         q_nope: torch.Tensor, q_rope: torch.Tensor,
+                         attend) -> torch.Tensor:
+    """JAX's ``_mla_absorbed_attend`` around its attention: the absorbed
+    query ``q_c = q_nope . W_uk`` and the output ``ctx . W_uv`` are float32
+    products per head in fixed 8-row blocks (a row's bits do not depend on
+    the batch), ``attend(q_c, q_rope)`` the attention (the MLA decode
+    kernel on CUDA), then the output projection.  Returns out [B, D]."""
+    b = x.shape[0]
+    w_uk, w_uv = _mla_up_weights(params, cfg)
+    q_c = fixed_row_bmm(q_nope.float().transpose(0, 1), w_uk)  # [H, B, R]
+    ctx = attend(q_c.transpose(0, 1).contiguous(),
+                 q_rope.float().contiguous())                   # [B, H, R]
+    out = fixed_row_bmm(ctx.transpose(0, 1), w_uv).transpose(0, 1)
+    return linear(params["o"], out.reshape(b, -1).to(x.dtype))
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    return (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+
+
+def mla_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+               ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
+               pos: torch.Tensor) -> torch.Tensor:
+    """One-token MLA against the wave engine's contiguous compressed cache:
+    ckv/krope_cache [B, Smax, R] / [B, Smax, Dr] (one layer's, written IN
+    PLACE at ``pos``, the shared cursor, an int32 [] on the device); every
+    row attends its first pos + 1 rows (the MLA decode kernel over the
+    cache read as B pages on CUDA).  Returns out [B, D]."""
+    b = x.shape[0]
+    posb = pos.reshape(1, 1).expand(b, 1)
+    q_nope, q_rope, c_kv, k_rope = _mla_decode_qkv(params, x, cfg, posb)
+    at = pos.reshape(1).long()
+    ckv_cache.index_copy_(1, at, c_kv[:, None].to(ckv_cache.dtype))
+    krope_cache.index_copy_(1, at, k_rope[:, None].to(krope_cache.dtype))
+    lengths = (pos + 1).to(torch.int32).reshape(1).expand(b).contiguous()
+    return _mla_absorbed_attend(
+        params, x, cfg, q_nope, q_rope,
+        lambda q_c, q_r: mla_decode_attention_contiguous(
+            q_c, q_r, ckv_cache, krope_cache, lengths, mla_scale(cfg)))
+
+
+def mla_decode_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                     ckv_pages, krope_pages, block_table: torch.Tensor,
+                     lengths: torch.Tensor,
+                     active: torch.Tensor) -> torch.Tensor:
+    """One-token MLA against a paged compressed cache.
+
+    ckv/krope_pages: [P, page, R] / [P, page, Dr] pools or int8 ``(data,
+    scale)`` pairs (one layer's, written IN PLACE: this token's rows at
+    ``lengths``, inactive lanes to the null page); block_table: [B, pps];
+    lengths: [B] the new token's write positions; active: [B] bool.  The
+    attend is the paged MLA decode kernel on CUDA, through the block
+    table.  Returns out [B, D]."""
+    b = x.shape[0]
+    q_nope, q_rope, c_kv, k_rope = _mla_decode_qkv(params, x, cfg,
+                                                   lengths.reshape(b, 1))
+    write_paged_rows(ckv_pages, c_kv, block_table, lengths, active)
+    write_paged_rows(krope_pages, k_rope, block_table, lengths, active)
+    valid = (lengths + active.to(torch.int32)).contiguous()
+    return _mla_absorbed_attend(
+        params, x, cfg, q_nope, q_rope,
+        lambda q_c, q_r: mla_decode_attention(
+            q_c, q_r, ckv_pages, krope_pages, block_table, valid,
+            mla_scale(cfg)))

@@ -136,6 +136,19 @@ def fixed_row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out[:m].reshape(*x.shape[:-1], w.shape[1])
 
 
+def fixed_row_bmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per group g, x[g] [M, K] @ w[g] [K, N] -> [G, M, N], as batched
+    products of FIXED_ROWS rows each (the rows zero-padded), so a row's
+    bits do not depend on the row count."""
+    g, m, k = x.shape
+    if m == 0:
+        return x.new_zeros((g, 0, w.shape[2]))
+    x = torch.cat([x, x.new_zeros((g, (-m) % FIXED_ROWS, k))], dim=1)
+    out = torch.cat([torch.bmm(x[:, i:i + FIXED_ROWS], w)
+                     for i in range(0, x.shape[1], FIXED_ROWS)], dim=1)
+    return out[:, :m]
+
+
 # ---------------------------------------------------------------------------
 # RoPE (interleaved pairs x[0::2], x[1::2], as the JAX package rotates them)
 # ---------------------------------------------------------------------------

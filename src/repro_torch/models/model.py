@@ -1,6 +1,6 @@
 """Functional model API of the port: init / forward, the wave engine's
 shared-cursor prefill and decode, and the paged prefill and decode, for the
-dense, moe, hybrid, ssm and audio families.
+dense, moe, mla_moe, hybrid, ssm and audio families.
 
 Counterpart of ``repro.models.model``:
 
@@ -26,10 +26,11 @@ Counterpart of ``repro.models.model``:
 
 Params are plain dicts of tensors with the JAX package's key names; where
 the JAX package stacks layers on a leading axis the port keeps lists:
-``params["layers"][i]`` (dense, moe, ssm, audio's decoder; a moe layer's
-routed stacks ``moe["up"]`` etc. are its ``[E, in, out]`` slice),
-``params["enc_layers"]
-[i]`` (audio's encoder), ``params["groups"][g][i]`` and
+``params["layers"][i]`` (dense, moe, mla_moe's MoE layers, ssm, audio's
+decoder; a moe layer's routed stacks ``moe["up"]`` etc. are its ``[E, in,
+out]`` slice), ``params["dense_layers"][i]`` (mla_moe's first
+``first_k_dense`` layers, a dense FFN each), ``params["enc_layers"][i]``
+(audio's encoder), ``params["groups"][g][i]`` and
 ``params["tail"][i]`` (hybrid, zamba2's Mamba layers; ``tail`` is None when
 the layer count divides), beside ``params["shared"]``, the one dense block
 every group applies.
@@ -38,26 +39,31 @@ The wave cache (``init_cache``, JAX's legacy cache) keeps one shared length
 cursor ``len`` (an int32 [] tensor on the device) for all B rows: K/V
 ``[L, B, Smax, Hkv, Dh]`` (dense; hybrid one layer per group; audio's
 decoder self-attention, beside its cross-attention rows ``xk``/``xv``
-``[L, B, encoder_seq, Hkv, Dh]``), the hybrid family's Mamba state
+``[L, B, encoder_seq, Hkv, Dh]``) or MLA's compressed rows ``ckv`` /
+``krope`` ``[L, B, Smax, R]`` / ``[L, B, Smax, Dr]``, the hybrid family's
+Mamba state
 ``mamba`` / ``tail`` and the ssm family's ``layers`` (``conv`` ``[..., B,
 K-1, C]``, ``state`` ``[..., B, H, P, N]`` float32).  ``prefill`` takes a
 left-padded batch (the engine pads to the wave's longest prompt) and
 writes every row; ``decode_step`` writes each row's K/V at ``len``.
 
 The paged cache holds the page pools ``k``/``v``
-``[L, P, page, Hkv, Dh]`` (hybrid: one layer per group), the per-slot
+``[L, P, page, Hkv, Dh]`` (hybrid: one layer per group; mla_moe pages its
+compressed rows, ``ckv`` / ``krope`` ``[L, P, page, R]`` / ``[L, P, page,
+Dr]``, dense layers first), the per-slot
 lengths ``lens``, for the hybrid family the Mamba state pools ``mamba``
 (``conv`` ``[G, every, slots, K-1, C]``, ``state`` ``[G, every, slots, H, P,
 N]``) and ``tail`` (``[T, slots, ...]`` or None), and, passed in by the
-caller, the block table ``block``.  Under ``kv_dtype="int8"`` the K/V pools
-are int8 with float32 scale pools ``k_scale`` / ``v_scale`` (the pool
-shapes less their last axis); rows quantize at their write.
+caller, the block table ``block``.  Under ``kv_dtype="int8"`` the pools
+are int8 with float32 scale pools ``k_scale`` / ``v_scale`` (``ckv_scale``
+/ ``krope_scale``; the pool shapes less their last axis); rows quantize at
+their write.
 
 Where the JAX functions return a new cache, these write the page, K/V and
 state tensors IN PLACE and return a shallow copy of the cache dict with a
 new ``lens`` (paged) or ``len`` (wave); a conv window whose dtype the JAX
 function would change (jnp's promotion, C3) is rebound to a new tensor of
-that dtype instead.  Families without a branch here (vlm, mla_moe, the
+that dtype instead.  Families without a branch here (vlm, the
 parallel-block dense models) raise NotImplementedError; the ssm and audio
 families have no paged path (they serve in wave mode, as in JAX).
 """
@@ -84,11 +90,12 @@ from repro_torch.models.layers import (_w4a16_matmul, dense_weight, ffn,
 
 
 # init_params, forward and the wave cache's prefill / decode
-MODEL_FAMILIES = ("dense", "moe", "hybrid", "ssm", "audio")
-PAGED_FAMILIES = ("dense", "moe", "hybrid")   # the paged serving path
+MODEL_FAMILIES = ("dense", "moe", "mla_moe", "hybrid", "ssm", "audio")
+PAGED_FAMILIES = ("dense", "moe", "mla_moe", "hybrid")   # the paged path
 # param subtrees the JAX package stacks on leading layer axes, which the
 # port keeps as (nested) lists -> the number of those axes
-STACKED = {"layers": 1, "enc_layers": 1, "groups": 2, "tail": 1}
+STACKED = {"layers": 1, "dense_layers": 1, "enc_layers": 1, "groups": 2,
+           "tail": 1}
 
 
 def _check_family(cfg: ModelConfig, families: tuple[str, ...]) -> None:
@@ -115,6 +122,20 @@ def _init_moe_layer(gen, cfg: ModelConfig, dtype, device) -> dict:
         "ffn_norm": blocks.init_norm(cfg, dtype, device),
         "moe": moe_mod.init_moe(gen, cfg, dtype, device),
     }
+
+
+def _init_mla_layer(gen, cfg: ModelConfig, dtype, device,
+                    dense_ffn: bool) -> dict:
+    p = {
+        "attn_norm": blocks.init_norm(cfg, dtype, device),
+        "attn": blocks.init_mla(gen, cfg, dtype, device),
+        "ffn_norm": blocks.init_norm(cfg, dtype, device),
+    }
+    if dense_ffn:
+        p["ffn"] = init_ffn(gen, cfg, cfg.dense_d_ff, dtype, device)
+    else:
+        p["moe"] = moe_mod.init_moe(gen, cfg, dtype, device)
+    return p
 
 
 def _init_audio_dec_layer(gen, cfg: ModelConfig, dtype, device) -> dict:
@@ -153,6 +174,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, max_seq: int = 4096,
     elif cfg.family == "moe":
         p["layers"] = [_init_moe_layer(gen, cfg, dtype, dev)
                        for _ in range(cfg.n_layers)]
+    elif cfg.family == "mla_moe":
+        kd = cfg.first_k_dense
+        p["dense_layers"] = [_init_mla_layer(gen, cfg, dtype, dev, True)
+                             for _ in range(kd)]
+        p["layers"] = [_init_mla_layer(gen, cfg, dtype, dev, False)
+                       for _ in range(cfg.n_layers - kd)]
     elif cfg.family == "audio":
         p["enc_layers"] = [_init_dense_layer(gen, cfg, dtype, dev)
                            for _ in range(cfg.n_encoder_layers)]
@@ -199,10 +226,11 @@ def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp(lp, h, cfg: ModelConfig) -> torch.Tensor:
-    """The layer's FFN on normed h: the dense FFN, or the moe family's
-    ``moe_ffn`` (JAX calls it on ``[B, S, D]`` in prefill and on
-    ``hn2[:, None]`` in decode; a decode step's h [B, D] is taken so)."""
-    if cfg.family != "moe":
+    """The layer's FFN on normed h: the dense FFN, or a MoE layer's
+    ``moe_ffn`` (the moe family's layers, mla_moe's past its dense ones;
+    JAX calls it on ``[B, S, D]`` in prefill and on ``hn2[:, None]`` in
+    decode; a decode step's h [B, D] is taken so)."""
+    if "moe" not in lp:
         return ffn(lp["ffn"], h, cfg.gated_ffn)
     if h.dim() == 2:
         return moe_mod.moe_ffn(lp["moe"], h[:, None], cfg)[:, 0]
@@ -217,6 +245,22 @@ def _dense_layer_full(lp, x, cfg: ModelConfig, positions, causal=True):
     x = x + attn_out
     x = x + _mlp(lp, blocks.norm(cfg, lp["ffn_norm"], x), cfg)
     return x, (k, v)
+
+
+def _mla_layer_full(lp, x, cfg: ModelConfig, positions):
+    """An mla_moe layer over full rows (JAX ``_mla_layer_full``): returns
+    the layer's compressed rows (c_kv [B, S, R], k_rope [B, S, Dr])."""
+    h = blocks.norm(cfg, lp["attn_norm"], x)
+    attn_out, ckv, krope = blocks.mla_full(lp["attn"], h, cfg, positions)
+    x = x + attn_out
+    x = x + _mlp(lp, blocks.norm(cfg, lp["ffn_norm"], x), cfg)
+    return x, (ckv, krope)
+
+
+def _mla_stack(params) -> list:
+    """mla_moe's layers in order: the dense ones, then the MoE ones; a
+    cache's layer axis follows it."""
+    return list(params["dense_layers"]) + list(params["layers"])
 
 
 def _audio_dec_layer_full(lp, x, cfg: ModelConfig, positions, enc_out):
@@ -263,8 +307,9 @@ def _mamba_full(lp, x, cfg: ModelConfig, valid=None):
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             extras: dict | None = None) -> torch.Tensor:
-    """Teacher-forced full-sequence logits f32 [B, S, V] (the dense,
-    hybrid, ssm and audio branches of the JAX ``forward``): attention runs
+    """Teacher-forced full-sequence logits f32 [B, S, V] (the dense, moe,
+    mla_moe, hybrid, ssm and audio branches of the JAX ``forward``):
+    attention runs
     through the B3 kernel on CUDA (bidirectional for the whisper encoder
     and the cross-attention), every Mamba layer's intra-chunk term through
     B6.  ``extras["frames"]``: the audio family's frame embeddings."""
@@ -274,6 +319,9 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.family in ("dense", "moe"):
         for lp in params["layers"]:
             x, _ = _dense_layer_full(lp, x, cfg, positions)
+    elif cfg.family == "mla_moe":
+        for lp in _mla_stack(params):
+            x, _ = _mla_layer_full(lp, x, cfg, positions)
     elif cfg.family == "audio":
         enc_out = _encode_audio(params, cfg, extras["frames"])
         for lp in params["layers"]:
@@ -304,6 +352,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
       k/v    [L, B, Smax, Hkv, Dh]   dense, moe; hybrid L = n_groups; audio
                                      the decoder's self-attention
+      ckv/krope [L, B, Smax, R] / [L, B, Smax, Dr]   mla_moe
       xk/xv  [L, B, encoder_seq, Hkv, Dh]   audio: cross-attention rows
       mamba  {conv [G, every, B, K-1, C], state [G, every, B, H, P, N]},
       tail   the same with [T, B] or None   hybrid
@@ -319,6 +368,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
         shape = (n_kv, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
         out["k"] = torch.zeros(shape, dtype=dtype, device=dev)
         out["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    if f == "mla_moe":
+        for key, width in (("ckv", cfg.kv_lora_rank),
+                           ("krope", cfg.qk_rope_dim)):
+            out[key] = torch.zeros((cfg.n_layers, batch, max_seq, width),
+                                   dtype=dtype, device=dev)
     if f == "audio":
         shape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
                  cfg.d_head)
@@ -386,8 +440,9 @@ def _mamba_prefill(lp, h, cfg: ModelConfig, pool: dict) -> torch.Tensor:
 
 def _write_kv(cache: dict, li: int, k: torch.Tensor, v: torch.Tensor,
               keys=("k", "v")) -> None:
-    """Layer ``li``'s K/V [B, S, Hkv, Dh] at rows 0..S-1 of every batch
-    row, the rows after them zeroed (JAX pads the prefill's K/V to Smax)."""
+    """Layer ``li``'s K/V [B, S, Hkv, Dh] (or MLA's [B, S, R] / [B, S, Dr])
+    at rows 0..S-1 of every batch row, the rows after them zeroed (JAX pads
+    the prefill's K/V to Smax)."""
     s = k.shape[1]
     for name, arr in zip(keys, (k, v)):
         pool = cache[name][li]
@@ -425,6 +480,10 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         for li, lp in enumerate(params["layers"]):
             x, (k, v) = _dense_layer_full(lp, x, cfg, positions)
             _write_kv(cache, li, k, v)
+    elif f == "mla_moe":
+        for li, lp in enumerate(_mla_stack(params)):
+            x, (ckv, krope) = _mla_layer_full(lp, x, cfg, positions)
+            _write_kv(cache, li, ckv, krope, keys=("ckv", "krope"))
     elif f == "audio":
         enc_out = _encode_audio(params, cfg, extras["frames"])
         for li, lp in enumerate(params["layers"]):
@@ -468,8 +527,9 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
 
     token: int [B].  Each row's K/V is written at ``cache["len"]`` and the
     Mamba states advance, in place; the rows attend their first len + 1
-    keys (B1 over the contiguous cache on CUDA; audio's cross-attention
-    over all encoder_seq rows).  Nothing here reads a device value on the
+    keys (B1 over the contiguous cache on CUDA, the MLA decode kernel over
+    mla_moe's compressed rows; audio's cross-attention over all
+    encoder_seq rows).  Nothing here reads a device value on the
     host, so the step can be captured as a CUDA graph.  Returns (logits
     [B, V], a shallow copy of the cache with ``len`` + 1)."""
     _check_family(cfg, MODEL_FAMILIES)
@@ -482,6 +542,12 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         for li, lp in enumerate(params["layers"]):
             x = _dense_layer_wave(lp, x, cfg, cache["k"][li], cache["v"][li],
                                   pos)
+    elif f == "mla_moe":
+        for li, lp in enumerate(_mla_stack(params)):
+            hn = blocks.norm(cfg, lp["attn_norm"], x)
+            x = x + blocks.mla_decode(lp["attn"], hn, cfg, cache["ckv"][li],
+                                      cache["krope"][li], pos)
+            x = x + _mlp(lp, blocks.norm(cfg, lp["ffn_norm"], x), cfg)
     elif f == "audio":
         for li, lp in enumerate(params["layers"]):
             hn = blocks.norm(cfg, lp["attn_norm"], x)
@@ -530,10 +596,10 @@ def decode_and_sample(params: dict, cfg: ModelConfig, tok_host: torch.Tensor,
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    """The port pages the dense and moe families' K/V and the hybrid
-    family's shared-attention K/V (its Mamba state lives in a slot-indexed
-    pool).  The ssm and audio families keep the shared cursor (wave mode),
-    as in JAX; vlm and mla_moe are not ported."""
+    """The port pages the dense and moe families' K/V, mla_moe's
+    compressed rows and the hybrid family's shared-attention K/V (its
+    Mamba state lives in a slot-indexed pool).  The ssm and audio families
+    keep the shared cursor (wave mode), as in JAX; vlm is not ported."""
     return cfg.family in PAGED_FAMILIES and not cfg.parallel_block
 
 
@@ -569,6 +635,10 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, max_seq: int,
                                     application per group; int8 under
                                     kv_dtype="int8", beside
       k_scale/v_scale [L, P, page, Hkv] float32, one scale per row and head
+      ckv/krope [L, P, page, R] / [L, P, page, Dr]   mla_moe instead of
+                                    k/v: the compressed rows, dense layers
+                                    first (int8: ckv_scale / krope_scale
+                                    [L, P, page], one scale per row)
       mamba {conv [G, every, slots, K-1, C] (dtype),
              state [G, every, slots, H, P, N] float32}   hybrid only
       tail  the same with a leading [T, slots] axis, or None
@@ -597,9 +667,13 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, max_seq: int,
         out["tail"] = ({k: torch.zeros((tail, *v.shape), dtype=v.dtype,
                                        device=dev) for k, v in one.items()}
                        if tail else None)
-    shape = (n_kv, num_pages, page_size, cfg.n_kv_heads, cfg.d_head)
+    shapes = {key: (n_kv, num_pages, page_size, cfg.n_kv_heads, cfg.d_head)
+              for key in ("k", "v")}
+    if cfg.family == "mla_moe":
+        shapes = {"ckv": (n_kv, num_pages, page_size, cfg.kv_lora_rank),
+                  "krope": (n_kv, num_pages, page_size, cfg.qk_rope_dim)}
     pools = {}
-    for key in ("k", "v"):
+    for key, shape in shapes.items():
         if kv_dtype == "int8":
             pools[key] = torch.zeros(shape, dtype=torch.int8, device=dev)
             pools[key + "_scale"] = torch.zeros(shape[:-1],
@@ -614,7 +688,7 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, max_seq: int,
 def paged_pool_dtype(cache: dict) -> torch.dtype:
     """dtype of the page pools (the bytes that move with a page): int8
     under kv_dtype="int8"."""
-    return cache["k"].dtype
+    return cache[blocks.paged_pool_names(cache)[0]].dtype
 
 
 def paged_kv_dtype(cache: dict) -> str:
@@ -685,7 +759,8 @@ def restore_slot_state(cache: dict, slot: int, ckpt) -> dict:
 
 def paged_slot_capacity(cache: dict) -> int:
     """Max tokens one slot can hold (pages_per_slot * page_size)."""
-    return cache["block"].shape[1] * cache["k"].shape[2]
+    return (cache["block"].shape[1]
+            * cache[blocks.paged_pool_names(cache)[0]].shape[2])
 
 
 def _first_rows(slot_ids: torch.Tensor) -> torch.Tensor:
@@ -726,7 +801,8 @@ def prefill_into_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     slot_ids = slot_ids.to(device=x.device).long()
     rows = _first_rows(slot_ids)
     slots = slot_ids[rows]
-    page = cache["k"].shape[2]
+    names = blocks.paged_pool_names(cache)
+    page = cache[names[0]].shape[2]
     n_pages = -(-s // page)
     pids = cache["block"][slots][:, :n_pages].long()      # [U, n_pages]
 
@@ -739,8 +815,9 @@ def prefill_into_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                  *arr.shape[2:]).to(pool.dtype)
 
     def write_kv(li: int, k: torch.Tensor, v: torch.Tensor) -> None:
-        # [M, S, Hkv, Dh]; int8 pools quantize per row HERE, at the write
-        for name, arr in (("k", k), ("v", v)):
+        # [M, S, Hkv, Dh] (mla_moe: [M, S, R], [M, S, Dr]); int8 pools
+        # quantize per row HERE, at the write
+        for name, arr in zip(names, (k, v)):
             arr = arr[rows]
             if name + "_scale" in cache:
                 arr, scale = quantize_rows(arr)
@@ -751,6 +828,10 @@ def prefill_into_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         for li, lp in enumerate(params["layers"]):
             x, (k, v) = _dense_layer_full(lp, x, cfg, positions)
             write_kv(li, k, v)
+    elif cfg.family == "mla_moe":
+        for li, lp in enumerate(_mla_stack(params)):
+            x, (ckv, krope) = _mla_layer_full(lp, x, cfg, positions)
+            write_kv(li, ckv, krope)
     else:  # hybrid
         valid = torch.arange(s, device=x.device)[None, :] < true_lens[:, None]
 
@@ -866,6 +947,13 @@ def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
             x = _dense_layer_decode(lp, x, cfg, _pool(cache, "k", li),
                                     _pool(cache, "v", li), block, lens,
                                     active)
+    elif cfg.family == "mla_moe":
+        for li, lp in enumerate(_mla_stack(params)):
+            hn = blocks.norm(cfg, lp["attn_norm"], x)
+            x = x + blocks.mla_decode_paged(
+                lp["attn"], hn, cfg, _pool(cache, "ckv", li),
+                _pool(cache, "krope", li), block, lens, active)
+            x = x + _mlp(lp, blocks.norm(cfg, lp["ffn_norm"], x), cfg)
     else:  # hybrid
         _promote_conv(cache, x.dtype)
         for gi, gp in enumerate(params["groups"]):

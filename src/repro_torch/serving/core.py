@@ -233,7 +233,8 @@ class SlotSnapshot:
 
     ``pages[j]`` is the payload tuple of the slot's j-th page, one CPU
     tensor per ``blocks.paged_pool_keys`` component, [L, page, ...]:
-    ``(k, v)`` for bf16 pools, ``(k, v, k_scale, v_scale)`` for int8 ones;
+    ``(k, v)`` for bf16 pools (mla_moe: the compressed ``(ckv, krope)``
+    rows), ``(k, v, k_scale, v_scale)`` for int8 ones;
     ``ssm`` is the ``checkpoint_slot_state`` snapshot of a hybrid slot
     (None otherwise); ``prefix_keys`` maps the slot's shared pages to their
     chain keys (None when the source engine has no prefix cache).  No
@@ -453,7 +454,8 @@ class EngineCore:
                 f"cursor — use mode='wave'")
         if mode == "continuous" and not model_lib.supports_paged(cfg):
             raise _not_ported(f"serving family {cfg.family!r}",
-                              "dense, moe, hybrid, ssm and audio only")
+                              "dense, moe, mla_moe, hybrid, ssm and audio "
+                              "only")
         if kv_tier not in ("none", "flash"):
             raise ValueError(f"kv_tier {kv_tier!r} not in ('none', 'flash')")
         if kv_dtype not in ("bf16", "int8"):

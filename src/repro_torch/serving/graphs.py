@@ -84,7 +84,8 @@ def _cache_tensors(cache: dict) -> list[torch.Tensor]:
         out = [cache[key] for key in blocks.paged_pool_keys(cache)]
         out.append(cache["lens"])
     else:
-        out = [cache[key] for key in ("k", "v", "xk", "xv") if key in cache]
+        out = [cache[key] for key in ("k", "v", "ckv", "krope", "xk", "xv")
+               if key in cache]
         out.append(cache["len"])
     for pools in model_lib.state_pools(cache):
         out += [pools[name] for name in sorted(pools)]

@@ -449,10 +449,13 @@ def pages_needed(n_tokens: int, page_size: int) -> int:
 
 def kv_page_elems(cfg, page_size: int) -> int:
     """Elements one KV page holds across all its layer-stacked pools: K and
-    V rows of every layer (dense) or of every shared-attention application
-    (hybrid; the Mamba state never pages).  ``models.model.kv_page_bytes``
-    prices a page from it."""
+    V rows of every layer (dense, moe), the compressed ``[R + Dr]`` rows
+    (ckv + krope) of every layer (mla_moe), or K and V of every
+    shared-attention application (hybrid; the Mamba state never pages).
+    ``models.model.kv_page_bytes`` prices a page from it."""
     f = cfg.family
+    if f == "mla_moe":
+        return cfg.n_layers * page_size * (cfg.kv_lora_rank + cfg.qk_rope_dim)
     if f == "hybrid":
         n_groups = cfg.n_layers // cfg.shared_attn_every
         return 2 * n_groups * page_size * cfg.n_kv_heads * cfg.d_head
@@ -463,7 +466,10 @@ def kv_page_elems(cfg, page_size: int) -> int:
 
 def kv_page_scale_elems(cfg, page_size: int) -> int:
     """float32 scales one int8 KV page carries beside its payload: one per
-    page row per kv head, the pool shapes less their last axis."""
+    page row per kv head (GQA pools) or per compressed row of the ckv and
+    krope pools (mla_moe), the pool shapes less their last axis."""
+    if cfg.family == "mla_moe":
+        return 2 * cfg.n_layers * page_size
     return kv_page_elems(cfg, page_size) // cfg.d_head
 
 
