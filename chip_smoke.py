@@ -245,6 +245,25 @@ Phases, each printing its own lines:
             on 2 layers at full width.  Prints decode ms a step and tok/s
             (sync, overlapped), prefill ms a group, the profiles (B1's
             device ms a step), peak memory.
+21. serve_mla  deepseek-v2-lite-16b at full width (27 layers, the first
+            dense, d_model 2048, 16 heads of multi-head latent attention:
+            R 512, qk head 128 + 64, v 128; 64 routed experts top-6, 2
+            shared; vocab 102,400), W8A8 (the routed experts bf16), 4
+            slots, max_seq 1024, page 16, through build_client: the serve
+            trace (counted: B2, B3 at the qk head of 192, the grouped GEMM
+            and the MLA decode kernel, one launch a layer inside the decode
+            graph; B1 never); graph == eager == overlapped, greedy, and
+            sampled synchronous == overlapped; int8 pools (counted: the MLA
+            kernel's int8 variant; overlapped == synchronous; the bf16
+            engine's streams on margin-checked prompts); tiered ==
+            resident over a 65-page hot pool; a snapshot's bytes resumed on
+            another engine == the unmigrated stream; a resume hit == its
+            cold run; a wave run (the MLA kernel over the contiguous cache)
+            whose first tokens equal a direct prefill's; the CPU gate on 2
+            layers (the dense one and a MoE one) at full width.  Prints
+            decode ms a step and tok/s (sync, overlapped), prefill ms a
+            group, the profiles (the MLA kernel's device ms a step), peak
+            memory.
 
 Every serving phase's engine replays one CUDA graph a decode step
 (``serving/graphs.py``); the launch counters count each replay's kernels.
@@ -282,7 +301,17 @@ its plain version, rows past the groups' sum 0, a row's bits the same
 alone and in groups of 2 to 8,192 rows (the tile edges among them) at
 both shapes, a planted fault (a group offset off by one) that must fail;
 timed beside torch._grouped_mm (or, where this torch lacks it, a
-per-expert matmul loop).
+per-expert matmul loop).  B3 at deepseek-v2-lite-16b's MLA prefill (B 4,
+S 512, H 16, D 192: the qk head, v padded to it) and its reduced qk head
+of 24, within ATTN_TOL, with B3's two planted faults.  The MLA decode
+kernel at deepseek-v2-lite-16b's shapes (B 4, H 16, R 512, Dr 64, page
+16, a 64-page table) over bf16 and int8 pools, lengths 1024 / 545 / 17 /
+0, the serve trace's and the split edges 1 / 63 / 64 / 65, within MLA_TOL
+of its plain version (JAX's float32 formula), a length-0 lane 0, two
+planted faults that must fail (lane 0 one page short, every lane's last
+split of 64 keys dropped), a slot's bits alone, in its batch and under a
+wider table; timed beside its bound (float32 operations) and SDPA over the
+gathered, dequantized float32 rows with a length mask.
 
 The last three lines are the kernels JSON, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``; each kernel's ``launches`` is read
@@ -290,7 +319,7 @@ around the run of the phase that owns it (serve for B1-B3, serve_wave
 for B3's bidirectional mode, hybrid for B5, serve_hybrid_w4a16 for B4's two variants, serve_hybrid for B6,
 serve_chunked for the chunk kernel, serve_int8kv for B1-int8 and its
 chunked engine for the chunk kernel's int8 variant, serve_moe for the
-grouped GEMM).  B2's __dp4a GeMV and
+grouped GEMM, serve_mla for the MLA kernel, bf16 and int8).  B2's __dp4a GeMV and
 tiled GEMM (``int8_gemv_dp4a``, ``int8_gemm``) are on no model's path
 (every model K is a multiple of 16 and every base aligned): a serving
 phase that launches either fails.  Any failure
@@ -358,6 +387,13 @@ SOURCES = {
     # no Pallas counterpart: jax.lax.ragged_dot in the MoE layer
     "grouped_gemm": ("src/repro_torch/kernels/csrc/grouped_gemm.cu",
                      "src/repro/models/moe.py:80"),
+    # no Pallas counterpart: the jnp einsums of _mla_absorbed_attend
+    "mla_decode_attention": (
+        "src/repro_torch/kernels/csrc/mla_decode_attention.cu",
+        "src/repro/models/blocks.py:325"),
+    "mla_decode_attention_int8": (
+        "src/repro_torch/kernels/csrc/mla_decode_attention.cu",
+        "src/repro/models/blocks.py:325"),
 }
 # the phase whose run each kernel's launch count is read around
 COUNTED_IN = {"int8_gemv": "serve", "int8_gemv_dp4a": "serve",
@@ -370,7 +406,9 @@ COUNTED_IN = {"int8_gemv": "serve", "int8_gemv_dp4a": "serve",
               "flash_attention_bidir": "serve_wave",
               "paged_decode_attention_int8": "serve_int8kv",
               "paged_chunk_attention_int8": "serve_int8kv_chunked",
-              "grouped_gemm": "serve_moe"}
+              "grouped_gemm": "serve_moe",
+              "mla_decode_attention": "serve_mla",
+              "mla_decode_attention_int8": "serve_mla_int8"}
 # kept for shapes no model has (K not a multiple of 16, a misaligned base):
 # a serving path must not launch them
 OFF_PATH = ("int8_gemm", "int8_gemv_dp4a")
@@ -386,10 +424,15 @@ KERNEL_NAMES = {"int8_gemv": "int8_gemv_mma_kernel",
                 "paged_chunk_attention_int8": "paged_chunk_attention_",
                 "w4a16_gemv": "w4a16_gemv_mma_kernel",
                 "w4a16_gemm": "w4a16_gemm_",
-                "grouped_gemm": "grouped_gemm_kernel"}
-# the kernels every W8A8 serving phase must go through
+                "grouped_gemm": "grouped_gemm_kernel",
+                "mla_decode_attention": "mla_decode_",
+                "mla_decode_attention_int8": "mla_decode_"}
+# the kernels every W8A8 serving phase must go through; the mla_moe
+# family's decode attention is the MLA kernel instead of B1
 SERVING_KERNELS = ("int8_gemv", "int8_gemm_tc", "paged_decode_attention",
                    "flash_attention")
+MLA_SERVING = ("int8_gemv", "int8_gemm_tc", "flash_attention",
+               "grouped_gemm", "mla_decode_attention")
 
 # tolerance of the attention kernels against their plain versions: both
 # accumulate in float32 and round once to bf16; the float32 sums run in
@@ -1072,7 +1115,8 @@ def phase_kernels(torch, results: dict) -> None:
     # its first and second admitted groups 16 tokens into their decode
     page = 16
     timed = ("llama2-7b", "zamba2-7b", "serve group 1", "serve group 2",
-             "serve group 2, D 112", "chatglm3-6b", "command-r-plus-104b")
+             "serve group 2, D 112", "chatglm3-6b", "command-r-plus-104b",
+             "deepseek-v2-lite-16b")
     faulted = ("llama2-7b", "zamba2-7b", "chatglm3-6b", "command-r-plus-104b")
     edges = [0, 1, SPLIT - 1, SPLIT, SPLIT + 1, 1024]
     for tag, b, h, hkv, d, max_seq, lens in [
@@ -1166,7 +1210,13 @@ def phase_kernels(torch, results: dict) -> None:
                                  ("smollm-360m", 4, 512, 15, 5, 64),
                                  ("chatglm3-6b", 4, 512, 32, 2, 128),
                                  ("ragged", 2, 200, 8, 2, 128),
-                                 ("reduced", 4, 32, 4, 4, 16)]:
+                                 ("reduced", 4, 32, 4, 4, 16),
+                                 # MLA's prefill: qk head 128 + 64, v
+                                 # padded to it; the reduced 16 + 8
+                                 ("deepseek-v2-lite-16b", 4, 512, 16, 16,
+                                  192),
+                                 ("deepseek-v2-lite-16b reduced", 2, 100, 4,
+                                  4, 24)]:
         q, k, v = randn(b, s, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
         got = flash_attention(q, k, v)
         ref = flash_attention_ref(q, k, v)
@@ -1201,7 +1251,7 @@ def phase_kernels(torch, results: dict) -> None:
                      f"{plain:.4f} ms, SDPA {lib:.4f} ms (device {lib_dev:.4f} "
                      f"ms), bound {b_ms:.4f} ms ({b_by})")
         log(line)
-        if tag in timed:
+        if tag in timed or tag.startswith("deepseek"):
             _flash_faults(torch, q, k, v, ref)
     _kernels_bidir(torch, results, randn)
     _kernels_b1_contiguous(torch, results, randn)
@@ -1212,6 +1262,7 @@ def phase_kernels(torch, results: dict) -> None:
     _kernels_b1_int8(torch, results)
     _kernels_chunk(torch, results)
     _kernels_grouped(torch, results)
+    _kernels_mla(torch, results)
 
 
 def _planted_collisions(torch, ecc, pages):
@@ -2206,6 +2257,179 @@ def _kernels_grouped(torch, results: dict) -> None:
         _grouped_invariance(torch, w)
 
 
+# ---------------------------------------------------------------------------
+# the paged MLA decode kernel (the mla_moe family's decode attention)
+# ---------------------------------------------------------------------------
+
+# the kernel against its plain version: both float32 (a float32 context,
+# no bf16 rounding), the sums in other orders (the splits' partials, the
+# lanes' shuffles), so the limit is a float32 relative noise of the
+# context's own scale, max|ckv| over the slot's rows
+MLA_RTOL = 1e-5
+MLA_TOL = f"{MLA_RTOL} x max|ckv|"
+# (tag, lengths); deepseek-v2-lite-16b: B 4, H 16, R 512, Dr 64, page 16,
+# a 1,024-token capacity (max_seq 1024)
+MLA_CASES = [("1024/545/17/0", [1024, 545, 17, 0]),
+             ("serve trace", [403, 331, 275, 439]),
+             ("split edges", [1, 63, 64, 65])]
+
+
+def _mla_inputs(torch, gen, lens, kv, h=16, r=512, dr=64, page=16,
+                pps=64):
+    """float32 queries (scores to ~+-10), bf16 or int8 (data, scale) pools
+    of seeded rows, a shuffled block table and int32 lengths, on the
+    card."""
+    from repro_torch.models.attention import quantize_rows
+
+    dev = torch.device("cuda")
+    b = len(lens)
+    n = b * pps + 1
+    ckv = torch.randn((n, page, r), generator=gen, device=dev)
+    kr = torch.randn((n, page, dr), generator=gen, device=dev)
+    pools = ((quantize_rows(ckv), quantize_rows(kr)) if kv == "int8"
+             else (ckv.to(torch.bfloat16), kr.to(torch.bfloat16)))
+    perm = torch.randperm(n - 1, generator=torch.Generator().manual_seed(
+        len(lens) + sum(lens)))[:b * pps] + 1
+    block = perm.reshape(b, pps).to(torch.int32).to(dev)
+    q_c = torch.randn((b, h, r), generator=gen, device=dev) * (0.6 / r ** .5)
+    q_r = torch.randn((b, h, dr), generator=gen, device=dev) * (0.6 / dr ** .5)
+    return (q_c, q_r, *pools, block,
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def _mla_check(torch, name, got, ref, lengths, mag) -> float:
+    """|got - ref| <= MLA_TOL on the live lanes, a length-0 lane 0;
+    returns the max |err|."""
+    live = lengths > 0
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    err = (got - ref).abs()[live]
+    if not bool((err <= MLA_RTOL * mag).all()):
+        raise AssertionError(f"{name}: {int((err > MLA_RTOL * mag).sum())} "
+                             f"outputs above {MLA_TOL}, max |err| "
+                             f"{err.max().item():.3e}")
+    if bool(got[~live].any()):
+        raise AssertionError(f"{name}: a length-0 lane is not 0")
+    return err.max().item()
+
+
+def _kernels_mla(torch, results: dict) -> None:
+    """The MLA decode kernel against its plain version (JAX's formula) at
+    deepseek-v2-lite-16b's shapes over bf16 and int8 pools: the lengths
+    1024 / 545 / 17 / 0, the serve trace's and the split edges; the
+    planted faults (lane 0 one page short, every lane's last split
+    dropped) must fail; a slot's bits alone, in its batch and under a
+    wider table; timed beside its bound (float32 operations or bytes) and
+    SDPA over the gathered, dequantized float32 rows with a length mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.mla_decode_attention.ops import (
+        mla_decode_attention)
+    from repro_torch.kernels.mla_decode_attention.ref import (
+        SPLIT, mla_decode_attention_ref)
+    from repro_torch.models.attention import gather_paged_rows
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    scale = 192 ** -0.5
+    h, r, dr, page = 16, 512, 64, 16
+    for kv in ("bf16", "int8"):
+        name = "mla_decode_attention" + ("_int8" if kv == "int8" else "")
+        for tag, lens in MLA_CASES:
+            q_c, q_r, ckv, kr, block, lengths = _mla_inputs(torch, gen, lens,
+                                                            kv)
+            got = mla_decode_attention(q_c, q_r, ckv, kr, block, lengths,
+                                       scale)
+            torch.cuda.synchronize()
+            ref = mla_decode_attention_ref(q_c, q_r, ckv, kr, block, lengths,
+                                           scale)
+            ckv_g = gather_paged_rows(ckv, block).float()
+            kr_g = gather_paged_rows(kr, block).float()
+            mag = ckv_g.abs().max()
+            err = _mla_check(torch, f"{name}[{tag}]", got, ref, lengths, mag)
+            res = results[name]
+            res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
+            wide = torch.cat([block, block[:, :8]], 1).contiguous()
+            alone = all(torch.equal(mla_decode_attention(
+                q_c[i:i + 1].contiguous(), q_r[i:i + 1].contiguous(), ckv,
+                kr, block[i:i + 1].contiguous(),
+                lengths[i:i + 1].contiguous(), scale)[0], got[i])
+                for i in range(len(lens)))
+            wider = torch.equal(mla_decode_attention(
+                q_c, q_r, ckv, kr, wide, lengths, scale), got)
+            if not (alone and wider):
+                raise AssertionError(f"{name}[{tag}]: a slot's bits depend "
+                                     f"on its batch (alone {alone}) or the "
+                                     f"table's width ({wider})")
+            line = (f"[kernels] {name} {tag} B={len(lens)} H={h} R={r} "
+                    f"Dr={dr} lens={lens}: max|err| {err:.3e} (tol {MLA_TOL}"
+                    f" = {MLA_RTOL * mag.item():.3e}); a slot's bits alone, "
+                    f"in its batch and under a table 8 pages wider: equal")
+            if tag != "split edges":
+                # the faults, computed by the plain version: lane 0 one page
+                # short; every lane cut back to the start of its last split
+                short = lengths.clone()
+                short[0] = max(int(short[0]) - page, 0)
+                cut = torch.where(lengths > 0, (lengths - 1) // SPLIT * SPLIT,
+                                  lengths)
+                for fault, bad_len in (("lane 0 one page short", short),
+                                       ("every lane's last split dropped",
+                                        cut)):
+                    bad = mla_decode_attention_ref(q_c, q_r, ckv, kr, block,
+                                                   bad_len, scale)
+                    bad = torch.where((bad_len > 0)[:, None, None], bad, 0.0)
+                    ferr = (bad - ref).abs()[lengths > 0]
+                    caught = int((ferr > MLA_RTOL * mag).sum())
+                    log(f"[kernels] planted fault, {name} {tag}, {fault}: "
+                        f"{caught} of {ferr.numel()} outputs above "
+                        f"{MLA_TOL}, max|err| {ferr.max().item():.3e}")
+                    if caught == 0:
+                        raise AssertionError(f"planted fault ({fault}) "
+                                             f"passes the {name} check")
+                ms = time_ms(torch, lambda i: mla_decode_attention(
+                    q_c, q_r, ckv, kr, block, lengths, scale))
+                dev_ms = profiled_ms(torch, lambda i: mla_decode_attention(
+                    q_c, q_r, ckv, kr, block, lengths, scale),
+                    ("mla_decode_",))
+                plain = time_ms(torch, lambda i: mla_decode_attention_ref(
+                    q_c, q_r, ckv, kr, block, lengths, scale))
+                # SDPA on the gathered, dequantized float32 rows: q = q_c |
+                # q_rope, one kv head of keys ckv | krope and values ckv
+                qs = torch.cat([q_c, q_r], -1)[:, :, None]
+                ks = torch.cat([ckv_g, kr_g], -1)[:, None]
+                vs = ckv_g[:, None]
+                mask = (torch.arange(ks.shape[2], device="cuda")[None, :]
+                        < lengths[:, None])[:, None, None]
+
+                def sdpa(i):
+                    return F.scaled_dot_product_attention(
+                        qs, ks, vs, attn_mask=mask, scale=scale,
+                        enable_gqa=True)
+
+                lib = time_ms(torch, sdpa)
+                lib_dev = profiled_ms(torch, sdpa)
+                keys = int(lengths.clamp(max=block.shape[1] * page).sum())
+                elem = 1 if kv == "int8" else 2
+                bytes_moved = (keys * ((r + dr) * elem
+                                       + (8 if kv == "int8" else 0))
+                               + len(lens) * h * (2 * r + dr) * 4
+                               + len(lens) * 4)
+                ops = keys * 2 * h * (2 * r + dr)
+                b_ms, b_by = bound(bytes_moved, ops, "f32")
+                if tag == "1024/545/17/0":
+                    res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                               library_ms=lib, library_device_ms=lib_dev,
+                               bound_ms=b_ms, bound_by=b_by,
+                               shape=f"B={len(lens)} H={h} R={r} Dr={dr} "
+                                     f"lens={lens}")
+                line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), "
+                         f"plain {plain:.4f} ms, SDPA on the gathered "
+                         f"float32 rows {lib:.4f} ms (device {lib_dev:.4f} "
+                         f"ms), bound {b_ms:.4f} ms ({b_by}: {ops / 1e6:.1f} "
+                         f"MFLOP float32, {bytes_moved / 1e6:.2f} MB)")
+            log(line)
+
+
 def _kernels_b1_int8(torch, results: dict) -> None:
     """B1 over int8 pools: against its plain version (which dequantizes as
     the kernel does) within ATTN_TOL at the llama2-7b and zamba2-7b
@@ -2601,6 +2825,7 @@ PREFILL_PARTS = (("B2 GEMM", ("int8_gemm_tc",)), ("B3", ("flash_attention",)),
                  ("B4 GeMV", ("w4a16_gemv_",)),
                  ("grouped GEMM", ("grouped_gemm_kernel",)))
 DECODE_PARTS = (("B1", ("paged_decode_attention",)),
+                ("MLA", ("mla_decode_",)),
                 ("B2 GeMV", ("int8_gemv",)), ("B4 GeMV", ("w4a16_gemv_",)),
                 ("grouped GEMM", ("grouped_gemm_kernel",)))
 
@@ -3018,8 +3243,10 @@ def _check_graph_run(core, run: dict, tag: str, mode: str) -> None:
     if run["replays"] != run["steps"]:
         raise AssertionError(f"[{tag}] {mode}: {run['replays']} graph "
                              f"replays for {run['steps']} decode steps")
-    b1 = ("paged_decode_attention_int8" if core.kv_dtype == "int8"
+    b1 = ("mla_decode_attention" if core.cfg.family == "mla_moe"
           else "paged_decode_attention")
+    if core.kv_dtype == "int8":
+        b1 += "_int8"
     for k in (b1, "int8_gemv"):
         per_replay = min(d.get(k, 0) for d in core.graph._deltas.values())
         if per_replay <= 0 or \
@@ -4913,7 +5140,9 @@ def _cut_logits(torch, cfg, params, prompt, n_layers: int, record=None):
     from repro_torch.models import model as M
 
     cut = dataclasses.replace(cfg, n_layers=n_layers)
-    card = {**params, "layers": params["layers"][:n_layers]}
+    # mla_moe keeps its dense first layers (``dense_layers``) in the cut
+    card = {**params,
+            "layers": params["layers"][:n_layers - cfg.first_k_dense]}
     runs = _to_runs(torch, _tree_to(torch, card, "cpu"), card)
     logits, seen = {}, {}
     toks = torch.tensor([prompt], dtype=torch.int32)
@@ -4939,18 +5168,20 @@ def _cut_logits(torch, cfg, params, prompt, n_layers: int, record=None):
 
 def _moe_cpu_gate(torch, cfg, params, prompt, tag: str) -> None:
     """The model phase's gate at full width, the depth cut to
-    MOE_CPU_LAYERS layers (``_cut_logits``), within MODEL_RATIO.  Beside
-    it, at each layer, the smallest router k-th / (k+1)-th logit gap and
-    the rows whose experts differ between the runs (a near-tie that flips
-    an expert shows there)."""
+    MOE_CPU_LAYERS layers (``_cut_logits``; mla_moe's dense first layer
+    among them), within MODEL_RATIO.  Beside it, at each MoE layer, the
+    smallest router k-th / (k+1)-th logit gap and the rows whose experts
+    differ between the runs (a near-tie that flips an expert shows
+    there)."""
     t0 = time.monotonic()
     logits, routes = _cut_logits(torch, cfg, params, prompt, MOE_CPU_LAYERS,
                                  _routes)
     log(f"[{tag}] CPU gate: {MOE_CPU_LAYERS} of {cfg.n_layers} layers at "
         f"full width, a {len(prompt)}-token prompt and 3 decode steps, three "
         f"runs in {time.monotonic() - t0:.1f} s")
-    for li in range(MOE_CPU_LAYERS):
-        calls = range(li, len(routes["f32"]), MOE_CPU_LAYERS)
+    routed = MOE_CPU_LAYERS - cfg.first_k_dense
+    for li in range(routed):
+        calls = range(li, len(routes["f32"]), routed)
         gap = min(float(routes["f32"][c][1].min()) for c in calls)
         def flips(a, b):
             return sum(int((routes[a][c][0].sort(-1).values
@@ -4962,7 +5193,7 @@ def _moe_cpu_gate(torch, cfg, params, prompt, tag: str) -> None:
             f"experts differ: card vs float32 {flips('cuda', 'f32')}, CPU "
             f"bf16 vs float32 {flips('cpu', 'f32')}, card vs CPU bf16 "
             f"{flips('cuda', 'cpu')}")
-    _ratio_gate(torch, f"{MOE_ARCH} {MOE_CPU_LAYERS} layers", logits)
+    _ratio_gate(torch, f"{cfg.name} {MOE_CPU_LAYERS} layers", logits)
 
 
 def _moe_admission(torch, cfg, params, prompts, tag: str) -> None:
@@ -5287,6 +5518,213 @@ def phase_serve_dense(torch, smi: str) -> None:
     _serve_dense(torch, DENSE_ARCHS[1], smi, every_gate=False)
 
 
+# ---------------------------------------------------------------------------
+# serve_mla: the mla_moe family at full width
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v2-lite-16b"
+
+
+def _mla_int8(torch, client, cfg, params, prompts, kw, tag: str) -> dict:
+    """int8 pools: the serve trace counted (the MLA kernel's int8 variant,
+    neither its bf16 variant nor B1), overlapped == synchronous, and the
+    bf16 engine's greedy streams on margin-checked prompts."""
+    import numpy as np
+
+    from repro_torch.serving.client import ServingClient
+
+    c8 = ServingClient(cfg, params, kv_dtype="int8", **kw)
+    o8 = ServingClient(cfg, params, kv_dtype="int8", overlap=True, **kw)
+    sync, run = _overlap_streams(torch, c8, prompts, 32)
+    _check_graph_run(c8.router.cores[0], run, tag, "int8 pools")
+    counts = run["counts"]
+    stray = [k for k in ("mla_decode_attention", "paged_decode_attention",
+                         "paged_decode_attention_int8") if counts[k] > 0]
+    if counts["mla_decode_attention_int8"] <= 0 or stray:
+        raise AssertionError(f"[{tag}] int8 pools: launches {counts}")
+    over, _ = _overlap_streams(torch, o8, prompts, 32)
+    if over != sync:
+        raise AssertionError(f"[{tag}] int8 pools: overlapped != sync")
+    log(f"[{tag}] int8 pools: the serve trace with "
+        f"{counts['mla_decode_attention_int8']} launches of the MLA "
+        f"kernel's int8 variant; overlapped == synchronous")
+    rng = np.random.RandomState(5)
+    cands = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+             for n in rng.randint(140, 400, size=8)]
+    _margin_checked_streams(torch, params, cfg, cands, MARGIN_TOKENS,
+                            {"bf16": ("bf16", 0), "int8": ("int8", 0)},
+                            (client, c8), tag)
+    return counts
+
+
+def _mla_tier_and_moves(torch, cfg, params, prompts, smi: str,
+                        tag: str) -> None:
+    """The A5 gates over mla_moe's compressed pages: tiered == resident
+    (a 65-page hot pool under the serve trace's ~136 pages), a snapshot's
+    bytes resumed on another engine == the unmigrated stream, and a
+    resume hit == its cold run with no prefill."""
+    from repro_torch.serving.core import Request, SlotSnapshot
+
+    want, res_wall = _run_trace(torch, _a5_engine(cfg, params), prompts, 32,
+                                tag)
+    eng = _a5_engine(cfg, params, kv_tier="flash", num_pages=TIER_PAGES)
+    got, wall = _run_trace(torch, eng, prompts, 32, tag)
+    s = eng.stats
+    log(f"[{tag}] tiered, {TIER_PAGES} hot pages of "
+        f"{eng.kv_page_bytes / 2**10:.0f} KiB: {s.kv_spill_pages} pages "
+        f"spilled, {s.kv_prefetch_pages} prefetched, {s.preemptions} "
+        f"preemptions; streams {'equal' if got == want else 'DIFFER'} to "
+        f"the resident engine's; wall {wall:.2f} s (resident "
+        f"{res_wall:.2f} s) on {smi}")
+    if got != want or not (s.kv_spill_pages > 0 and s.preemptions > 0) \
+            or eng.allocator.available != TIER_PAGES - 1:
+        raise AssertionError(f"[{tag}] tiered != resident, or no spill")
+    del eng
+    i = max(range(len(prompts)), key=lambda j: len(prompts[j]))
+    a, b = _a5_engine(cfg, params), _a5_engine(cfg, params)
+    a.add_request(Request(rid=i, prompt=list(prompts[i]), max_new_tokens=32))
+    for _ in range(5):
+        a.step()
+    snap = a.snapshot_slot(i)
+    data = snap.to_bytes()
+    back = SlotSnapshot.from_bytes(data, expect_family="mla_moe",
+                                   expect_page_size=16)
+    if len(back.pages[0]) != 2 or not all(
+            torch.equal(x, y) for p, q in zip(snap.pages, back.pages)
+            for x, y in zip(p, q)):
+        raise AssertionError(f"[{tag}] a snapshot's bytes decode to other "
+                             f"pages")
+    b.inject_slot(back)
+    b.run()
+    if back.req.out_tokens != want[i]:
+        raise AssertionError(f"[{tag}] the migrated stream differs")
+    log(f"[{tag}] a {len(prompts[i])}-token request migrated after 5 steps "
+        f"({back.n_pages} pages of compressed (ckv, krope) rows, "
+        f"{len(data) / 2**20:.2f} MiB of snapshot bytes) == its unmigrated "
+        f"stream")
+    del a, b
+    warm = _a5_engine(cfg, params, prefix_cache=True)
+    outs = []
+    for rid in (0, 1):
+        r = Request(rid=rid, prompt=list(prompts[0]), max_new_tokens=32)
+        warm.add_request(r)
+        prefills = warm.stats.prefills
+        warm.run()
+        outs.append((r.out_tokens, warm.stats.prefills - prefills))
+    if warm.stats.prefix_hits != 1 or outs[1][1] != 0 \
+            or outs[0][0] != want[0] or outs[1][0] != want[0]:
+        raise AssertionError(f"[{tag}] resume hit: {warm.stats.prefix_hits} "
+                             f"hits, {outs[1][1]} prefills; streams equal "
+                             f"to cold: {[o == want[0] for o, _ in outs]}")
+    log(f"[{tag}] a resubmitted prompt: a resume hit with no prefill, its "
+        f"stream == the cold run's")
+
+
+def phase_serve_mla(torch, smi: str) -> tuple[dict, dict]:
+    """deepseek-v2-lite-16b at full width (27 layers, the first dense with
+    d_ff 10944, d_model 2048, 16 heads, MLA with R 512, Dn 128, Dr 64, Dv
+    128; 64 routed experts of 1,408 top-6 and 2 shared; vocab 102,400),
+    random weights from seed 0 built on the card by ``init_params``, W8A8
+    (the routed experts bf16, as in JAX), 4 slots, max_seq 1024, page 16,
+    the serve trace.  Gates: the counted run launches B2, B3 (at the qk
+    head of 192), the grouped GEMM and the MLA kernel (one a layer inside
+    the decode graph) and not B1; graph == eager == overlapped, greedy,
+    and sampled synchronous == overlapped; int8 pools (``_mla_int8``);
+    tiered == resident, migrated == unmigrated, a resume hit == cold
+    (``_mla_tier_and_moves``); a wave run's first tokens == a direct
+    prefill's; the CPU gate on 2 layers.  Prints decode ms a step and
+    tok/s (sync, overlapped), prefill ms a group, the profiles, peak
+    memory.  Returns the launch counts of the bf16 and int8 runs."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.serving.client import ServingClient
+    from repro_torch.serving.scheduler import SamplingParams
+
+    tag = "serve_mla"
+    t0 = time.monotonic()
+    counts, client = _serve_full(torch, MLA_ARCH, tag, smi,
+                                 serving=MLA_SERVING)
+    core = client.router.cores[0]
+    cfg, params = core.cfg, core.params
+    per_step = core.graph._deltas["sync"].get("mla_decode_attention", 0)
+    log(f"[{tag}] MLA kernel launches: {counts['mla_decode_attention']} in "
+        f"the counted run, {per_step} a decode step (captured in the graph; "
+        f"{cfg.n_layers} expected); B1 {counts['paged_decode_attention']}")
+    if per_step != cfg.n_layers or counts["paged_decode_attention"] \
+            or counts["paged_decode_attention_int8"]:
+        raise AssertionError(f"[{tag}] the decode graph holds {per_step} MLA "
+                             f"launches, or B1 ran")
+    t0 = _lap(tag, "counted run", t0)
+    kw = dict(max_batch=4, max_seq=1024, page_size=16, eos_id=-1,
+              device="cuda")
+    prompts = _serve_trace(cfg)
+    olap = ServingClient(cfg, params, overlap=True, **kw)
+    eager, r_e = _overlap_streams(torch, client, prompts, 32, eager=True)
+    graph, r_g = _overlap_streams(torch, client, prompts, 32)
+    over, r_o = _overlap_streams(torch, olap, prompts, 32)
+    _check_graph_run(core, r_g, tag, "sync graph")
+    _check_graph_run(olap.router.cores[0], r_o, tag, "overlap")
+    if r_e["replays"] != 0 or graph != eager or over != eager:
+        raise AssertionError(f"[{tag}] greedy: graph / overlapped differ "
+                             f"from eager")
+
+    def sampled(i):
+        return (SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
+                               seed=300 + i) if i % 2 else None)
+
+    s_sync, _ = _overlap_streams(torch, client, prompts, 32, sampled)
+    s_over, _ = _overlap_streams(torch, olap, prompts, 32, sampled)
+    if s_sync != s_over:
+        raise AssertionError(f"[{tag}] sampled: overlapped != synchronous")
+    drawn = sum(a != b for a, b in zip(s_sync[1::2], graph[1::2]))
+    if drawn == 0:
+        raise AssertionError(f"[{tag}] no sampled stream left its greedy one")
+    log(f"[{tag}] graph == eager == overlapped on 8 greedy requests; sampled "
+        f"synchronous == overlapped ({drawn} of 4 sampled streams left "
+        f"greedy); MLA kernel launches graph / overlapped / eager "
+        f"{r_g['counts']['mla_decode_attention']} / "
+        f"{r_o['counts']['mla_decode_attention']} / "
+        f"{r_e['counts']['mla_decode_attention']}")
+    tprompts = [[int(t) for t in np.random.RandomState(3).randint(
+        0, cfg.vocab_size, n)] for n in (200, 240, 280, 320)]
+    walls = {mode: _decode_wall(torch, c, tprompts, 64)
+             for mode, c in (("sync", client), ("overlapped", olap))}
+    log(f"[{tag}] decode, 4 slots at 200-384 tokens: "
+        + ", ".join(f"{mode} {w:.2f} ms a step = {4e3 / w:.1f} tok/s ({n} "
+                    f"steps)" for mode, (w, n) in walls.items())
+        + f" (synchronized clock around the decode loop) on {smi}")
+    del olap
+    t0 = _lap(tag, "graph, eager, overlapped, sampled, walls", t0)
+    counts8 = _mla_int8(torch, client, cfg, params, prompts, kw, tag)
+    gc.collect()
+    t0 = _lap(tag, "int8 pools", t0)
+    _mla_tier_and_moves(torch, cfg, params, prompts, smi, tag)
+    gc.collect()
+    t0 = _lap(tag, "tiered, migrated, resume hit", t0)
+    wave = ServingClient(cfg, params, mode="wave", **kw)
+    wgreedy, run = _wave_run(torch, wave, prompts, tag, "wave mode, graphs")
+    first = _wave_first_tokens(torch, cfg, params, prompts, 1024)
+    if first != [t[0] for t, _ in wgreedy[:4]] \
+            or run["counts"]["mla_decode_attention"] <= 0:
+        raise AssertionError(f"[{tag}] the wave engine's first tokens are not "
+                             f"a direct prefill's, or it ran no MLA kernel")
+    log(f"[{tag}] wave mode: first tokens == a direct prefill's; the MLA "
+        f"kernel over the contiguous cache "
+        f"{run['counts']['mla_decode_attention']} launches")
+    del wave
+    t0 = _lap(tag, "wave mode", t0)
+    phase_profile(torch, client, smi, tag)
+    t0 = _lap(tag, "profiles", t0)
+    _moe_cpu_gate(torch, cfg, params, prompts[0][:64], tag)
+    _lap(tag, "CPU gate", t0)
+    del client, core, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, counts8
+
+
 def _mark(name: str) -> None:
     """Log the time since the previous mark (the phase before ``name``)."""
     now = time.monotonic()
@@ -5304,7 +5742,7 @@ def main(argv=None) -> int:
                             "serve_overlap,serve_chunked,serve_int8kv,"
                             "serve_tiered,serve_prefix,serve_migrate,"
                             "serve_fleet,serve_wave,serve_moe,"
-                            "serve_dense")
+                            "serve_dense,serve_mla")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -5386,6 +5824,10 @@ def main(argv=None) -> int:
     _mark("serve_dense")
     if "serve_dense" in phases:
         phase_serve_dense(torch, smi_line)
+    _mark("serve_mla")
+    if "serve_mla" in phases:
+        counts["serve_mla"], counts["serve_mla_int8"] = phase_serve_mla(
+            torch, smi_line)
     _mark("end")
     log(f"[time] phases {args.phases} took "
         f"{time.monotonic() - t_start:.0f} s after the card check")

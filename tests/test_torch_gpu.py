@@ -21,7 +21,10 @@ and so move L = exp(cs_i - cs_j) by as much as the tolerance; the kernel
 sums in double, so it is held to the exact function.  The grouped GEMM
 (the moe family's ragged_dot) and its plain version both accumulate in
 float32 and round once to bf16: two bf16 steps of |ref| plus
-1e-5 (|x| @ |W|) for float32 summation noise.
+1e-5 (|x| @ |W|) for float32 summation noise.  The MLA decode kernel and
+its plain version are float32 throughout (a float32 context, no bf16
+rounding), summed in other orders: |got - ref| <= 1e-5 max|ckv|, the
+context's own scale.
 """
 
 import pytest
@@ -290,6 +293,8 @@ def test_paged_decode_attention_on_card(cuda_device, b, h, hkv, d, lens):
     (4, 32, 4, 2, 16),       # reduced
     (4, 512, 32, 32, 112),   # zamba2-7b's shared block
     (2, 200, 8, 2, 128),     # ragged S at D 128, GQA
+    (4, 512, 16, 16, 192),   # deepseek-v2-lite-16b's MLA prefill
+    (2, 200, 4, 4, 24),      # its reduced qk head
 ])
 def test_flash_attention_on_card(cuda_device, b, s, h, hkv, d):
     gen = torch.Generator(device=cuda_device).manual_seed(s)
@@ -1597,3 +1602,115 @@ def test_moe_decode_graph_holds_the_grouped_gemm(cuda_device):
     _serve(e, n=5, max_new=5)
     assert e.graph._deltas["sync"]["grouped_gemm"] == 3 * e.cfg.n_layers
     assert e.graph.replays == e.stats.decode_steps > 0
+
+
+# ------------------------------------------- the MLA decode kernel (mla_moe)
+MLA_RTOL = 1e-5
+
+
+def _mla_inputs(dev, lens, h, r, dr, kv, page=16, pps=64, seed=0):
+    """float32 queries (scores to ~+-10), bf16 or int8 pools of seeded
+    rows, a shuffled block table, int32 lengths, on the card."""
+    from repro_torch.models.attention import quantize_rows
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = len(lens)
+    n = b * pps + 1
+    ckv = torch.randn((n, page, r), generator=gen, device=dev)
+    kr = torch.randn((n, page, dr), generator=gen, device=dev)
+    pools = ((quantize_rows(ckv), quantize_rows(kr)) if kv == "int8"
+             else (ckv.to(torch.bfloat16), kr.to(torch.bfloat16)))
+    perm = torch.randperm(n - 1, generator=torch.Generator().manual_seed(
+        seed))[:b * pps] + 1
+    block = perm.reshape(b, pps).to(torch.int32).to(dev)
+    q_c = torch.randn((b, h, r), generator=gen, device=dev) * (0.6 / r ** .5)
+    q_r = torch.randn((b, h, dr), generator=gen, device=dev) * (0.6 / dr ** .5)
+    return (q_c, q_r, *pools, block,
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+MLA_CASES = {
+    "deepseek-v2-lite-16b, 1024/545/17/0": ([1024, 545, 17, 0], 16, 512, 64),
+    "deepseek-v2-lite-16b, split edges": ([1, 63, 64, 65], 16, 512, 64),
+    "reduced, split edges": ([1, 63, 64, 65, 0], 4, 32, 8),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("case", sorted(MLA_CASES))
+def test_mla_decode_attention_on_card(cuda_device, case, kv):
+    """The kernel against its plain version (JAX's formula) within
+    MLA_RTOL of max|ckv|, one launch counted; a length-0 lane comes out
+    0; a slot's bits alone, in its batch and under a wider table."""
+    from repro_torch.kernels.mla_decode_attention.ops import (
+        mla_decode_attention)
+    from repro_torch.kernels.mla_decode_attention.ref import (
+        mla_decode_attention_ref)
+    from repro_torch.models.attention import gather_paged_rows
+
+    lens, h, r, dr = MLA_CASES[case]
+    q_c, q_r, ckv, kr, block, lengths = _mla_inputs(cuda_device, lens, h, r,
+                                                    dr, kv)
+    scale = 192 ** -0.5
+    kernels.reset_launch_counts()
+    got = mla_decode_attention(q_c, q_r, ckv, kr, block, lengths, scale)
+    torch.cuda.synchronize()
+    name = "mla_decode_attention" + ("_int8" if kv == "int8" else "")
+    assert kernels.launch_counts()[name] == 1
+    ref = mla_decode_attention_ref(q_c, q_r, ckv, kr, block, lengths, scale)
+    live = lengths > 0
+    mag = gather_paged_rows(ckv, block).float().abs().max()
+    err = (got - ref).abs()[live]
+    assert bool((err <= MLA_RTOL * mag).all()), float(err.max())
+    assert not bool(got[~live].any())
+    wide = torch.cat([block, block[:, :8]], 1).contiguous()
+    assert torch.equal(mla_decode_attention(q_c, q_r, ckv, kr, wide, lengths,
+                                            scale), got)
+    for i in range(len(lens)):
+        alone = mla_decode_attention(
+            q_c[i:i + 1].contiguous(), q_r[i:i + 1].contiguous(), ckv, kr,
+            block[i:i + 1].contiguous(), lengths[i:i + 1].contiguous(),
+            scale)
+        assert torch.equal(alone[0], got[i]), i
+
+
+@pytest.mark.gpu
+def test_mla_decode_attention_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.mla_decode_attention.ops import (
+        mla_decode_attention)
+
+    q_c, q_r, ckv, kr, block, lengths = _mla_inputs(
+        cuda_device, [5, 9], 4, 32, 8, "bf16")
+    with pytest.raises(ValueError):      # no (R, Dr) instance
+        mla_decode_attention(q_c[..., :16].contiguous(), q_r, ckv[..., :16],
+                             kr, block, lengths, 1.0)
+    with pytest.raises(TypeError):       # a float32 pool
+        mla_decode_attention(q_c, q_r, ckv.float(), kr, block, lengths, 1.0)
+    with pytest.raises(TypeError):       # int64 lengths
+        mla_decode_attention(q_c, q_r, ckv, kr, block, lengths.long(), 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_mla_engine_on_card(cuda_device, kv):
+    """deepseek-v2-lite-16b.reduced() W8A8 on the card: the decode graph
+    holds one MLA kernel launch a layer and no B1 launch, the replayed
+    step gives the eager step's streams and the overlapped loop the
+    synchronous one's, prefill runs B3 at the qk head of 24."""
+    from repro_torch.serving import graphs
+
+    cfg, (e, o) = _graph_engines("deepseek-v2-lite-16b", "w8a8",
+                                 overlap=(False, True), kv_dtype=kv)
+    kernels.reset_launch_counts()
+    want = _serve(e, stochastic=True)
+    counts = kernels.launch_counts()
+    name = "mla_decode_attention" + ("_int8" if kv == "int8" else "")
+    assert e.graph._deltas["sync"][name] == cfg.n_layers
+    assert e.graph.replays == e.stats.decode_steps > 0
+    assert counts["flash_attention"] > 0 and counts[name] > 0
+    assert counts["paged_decode_attention"] == 0
+    assert counts["paged_decode_attention_int8"] == 0
+    with graphs.disabled():
+        assert _serve(e, stochastic=True) == want
+    assert _serve(o, stochastic=True) == want

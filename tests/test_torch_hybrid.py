@@ -326,7 +326,8 @@ def test_unported_families_raise():
     assert TEngine(audio, aparams, device="cpu").mode == "wave"
     with pytest.raises(ValueError):
         TM.init_paged_cache(audio, 2, 16, device="cpu")
-    for arch in ("deepseek-v2-lite-16b", "qwen2-vl-72b"):
+    assert TM.supports_paged(get_arch("deepseek-v2-lite-16b"))  # ported
+    for arch in ("qwen2-vl-72b",):
         from repro.configs.registry import get_arch as jget
         from repro_torch.configs.base import ModelConfig
 

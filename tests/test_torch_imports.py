@@ -45,7 +45,10 @@ def test_port_imports_neither_jax_nor_repro(sanitize):
               "models.blocks", "models.model", "models.moe",
               "configs.qwen2_moe_a2_7b", "kernels.grouped_gemm.ops",
               "kernels.grouped_gemm.ref", "configs.chatglm3_6b",
-              "configs.internlm2_20b", "kernels.diag_b1_bits"):
+              "configs.internlm2_20b", "kernels.diag_b1_bits",
+              "configs.deepseek_v2_lite_16b",
+              "kernels.mla_decode_attention.ops",
+              "kernels.mla_decode_attention.ref"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
