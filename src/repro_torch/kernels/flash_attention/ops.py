@@ -29,7 +29,9 @@ HEAD_DIMS = (112, 128, 192)
 
 
 def head_dim_ok(d: int) -> bool:
-    return (0 < d <= 64 and d % 8 == 0) or d in HEAD_DIMS
+    if 0 < d <= 64:
+        return d % 8 == 0
+    return d in HEAD_DIMS
 LAUNCHES = {"flash_attention": 0, "flash_attention_bidir": 0}
 
 

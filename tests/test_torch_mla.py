@@ -68,6 +68,17 @@ BLOCK_ATOL = 1e-5
 SLOTS, MAX_SEQ, PAGE = 3, 32, 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's tests: the reduced model's
+    ops are small, one thread runs them faster than eight, and a run with
+    several test workers does not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.float().numpy()
 

@@ -60,6 +60,17 @@ MARGIN = 1e-2
 ENG = dict(max_batch=3, max_seq=48, eos_id=-1, page_size=8)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this module's tests: the reduced model's
+    ops are small, one thread runs them faster than eight, and a run with
+    several test workers does not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def fam():
     """(family, port cfg, the port's own float32 weights): the other
