@@ -48,6 +48,7 @@ from repro_torch.models import blocks as tblocks
 from repro_torch.models import model as TM
 from repro_torch.quant.convert import quantize_params as tquantize
 from repro_torch.serving.core import EngineCore
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 from test_torch_wave import (ATOL, check_bf16_gate, check_decode_and_sample,
                              check_engine_against_jax,
                              check_model_against_jax, check_watchdog,

@@ -41,6 +41,7 @@ from repro_torch.models import model as TM
 from repro_torch.serving.core import EngineCore as TEngine, Request as TRequest
 from repro_torch.serving.kv_cache import chunk_spans, prefill_bucket
 from repro_torch.serving.scheduler import FCFSScheduler
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 from test_torch_serving import _drive, _prompts
 
 PAGE = 8

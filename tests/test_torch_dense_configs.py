@@ -37,6 +37,7 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.quant.convert import quantize_params as tquantize
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 from test_torch_serving import _both, _prompts
 
 # the published head layout and features put back into reduced()

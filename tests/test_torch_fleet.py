@@ -41,6 +41,7 @@ from repro_torch.serving.fleet.router import FleetRouter
 from repro_torch.serving.fleet.transport import TransportClosed, unwrap
 from repro_torch.serving.fleet.worker import build_core
 from repro_torch.serving.scheduler import SamplingParams
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 
 ENG = dict(max_batch=2, max_seq=48, eos_id=-1, page_size=8)
 ARCHS = {"dense": "smollm-360m", "hybrid": "zamba2-7b",

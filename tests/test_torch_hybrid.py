@@ -36,6 +36,7 @@ from repro_torch.quant.convert import quantize_params as tquantize
 from repro_torch.serving.core import EngineCore as TEngine
 # the engine-trace harness (margin-checked prompts, per-step events of both
 # engines) is the dense family's, run here on the hybrid models
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 from test_torch_serving import _both, _prompts
 
 SLOTS, MAX_SEQ, PAGE = 3, 32, 4

@@ -35,6 +35,7 @@ from repro_torch.models import blocks as TB
 from repro_torch.models import model as TM
 from repro_torch.serving.core import EngineCore as TEngine, Request as TRequest
 from repro_torch.serving.scheduler import FCFSScheduler, SamplingParams
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 from test_torch_chunked import w8a8  # noqa: F401  (fixture)
 from test_torch_serving import _drive, _prompts
 

@@ -38,6 +38,7 @@ from repro_torch.serving.fleet import wire
 from repro_torch.serving.kv_cache import OutOfPages
 from repro_torch.serving.router import Router
 from repro_torch.serving.scheduler import SamplingParams, make_scheduler
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 from test_torch_serving import _prompts
 
 ENG = dict(max_batch=2, max_seq=48, eos_id=-1, page_size=8)

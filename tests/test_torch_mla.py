@@ -57,6 +57,7 @@ from repro_torch.serving import kv_cache as TKV
 from repro_torch.serving.core import EngineCore, Request
 from repro_torch.serving.fleet import wire
 from repro_torch.serving.scheduler import SamplingParams
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 from test_torch_fleet import (  # noqa: F401  (collected here)
     _models, test_loopback_kill_mid_decode_bit_identical)
 from test_torch_hybrid import _assert_same_tree, _bridge, _jax_params
@@ -66,17 +67,6 @@ ARCH = "deepseek-v2-lite-16b"
 ATOL = {"float": 1e-4, "w8a8": 5e-3}
 BLOCK_ATOL = 1e-5
 SLOTS, MAX_SEQ, PAGE = 3, 32, 4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module's tests: the reduced model's
-    ops are small, one thread runs them faster than eight, and a run with
-    several test workers does not oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(t: torch.Tensor) -> np.ndarray:

@@ -53,6 +53,7 @@ from repro_torch.models import moe as TMOE
 from repro_torch.models.layers import fixed_row_matmul
 from repro_torch.quant.convert import quantize_params as tquantize
 from repro_torch.serving.core import EngineCore as TEngine, Request as TRequest
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 from test_torch_chunked import _chunked_then_decode
 from test_torch_hybrid import _assert_same_tree, _bridge, _jax_params
 from test_torch_serving import _drive

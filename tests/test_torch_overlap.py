@@ -23,6 +23,7 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.models import model as TM
 from repro_torch.serving.core import EngineCore, Request
 from repro_torch.serving.scheduler import SamplingParams
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 from test_torch_hybrid import _bridge, _jax_params
 from test_torch_serving import _both, _prompts
 

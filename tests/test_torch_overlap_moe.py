@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.configs.registry import get_arch
 from repro_torch.models import model as TM
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 from test_torch_overlap import (  # noqa: F401  (collected here)
     test_overlap_abort_mid_stream, test_overlap_bit_identical,
     test_overlap_capacity_identity, test_overlap_eos_lag_identity,

@@ -38,6 +38,7 @@ from repro_torch.serving.kv_cache import (PrefixIndex as TIndex,
                                           ResumeEntry as TResume)
 from repro_torch.serving.router import Router
 from repro_torch.serving.scheduler import SamplingParams
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 from test_torch_serving import _min_margin
 
 ENG = dict(max_batch=2, max_seq=64, eos_id=-1, page_size=8)

@@ -36,6 +36,7 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.models import model as TM
 from repro_torch.serving.core import EngineCore as TEngine, Request as TRequest
 from repro_torch.serving.scheduler import SamplingParams
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 from test_torch_hybrid import _bridge, _jax_params
 from test_torch_migrate import (  # noqa: F401  (collected here)
     test_slot_migration_bit_identity)
@@ -58,17 +59,6 @@ from test_torch_wave import check_engine_against_jax
 ARCH = "deepseek-v2-lite-16b"
 MARGIN = 1e-2
 ENG = dict(max_batch=3, max_seq=48, eos_id=-1, page_size=8)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread for this module's tests: the reduced model's
-    ops are small, one thread runs them faster than eight, and a run with
-    several test workers does not oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,7 @@ from repro_torch.kernels.ssd_scan.ops import ssd_intra_chunk
 from repro_torch.kernels.ssd_scan.ref import (ssd_intra_chunk_model_ref,
                                               ssd_intra_chunk_ref)
 from repro_torch.models import ssm as tssm
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

@@ -32,6 +32,7 @@ from repro_torch.models import model as TM
 from repro_torch.serving.core import EngineCore as TEngine, Request as TRequest
 from repro_torch.serving.kv_cache import (OutOfPages as TOutOfPages,
                                           TieredPageAllocator as TTiered)
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 from test_torch_serving import _drive, _prompts
 
 ENG = dict(max_batch=3, max_seq=48, eos_id=-1, page_size=8)

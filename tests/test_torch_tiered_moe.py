@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.configs.registry import get_arch
 from repro_torch.models import model as TM
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 from test_torch_tiered import (  # noqa: F401  (collected here)
     test_tiered_engine_bounded_flash_tier,
     test_tiered_engine_matches_all_resident)

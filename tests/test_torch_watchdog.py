@@ -33,6 +33,7 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.serving.core import EngineCore, Request
 from repro_torch.serving.fleet import wire
 from repro_torch.serving.scheduler import SamplingParams
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 
 ENG = dict(max_batch=2, max_seq=48, eos_id=-1, page_size=8)
 ARCHS = {"dense": "smollm-360m", "hybrid": "zamba2-7b",

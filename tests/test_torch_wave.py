@@ -46,6 +46,7 @@ from repro_torch.models import model as TM
 from repro_torch.serving import sampler
 from repro_torch.serving.core import EngineCore, Request
 from repro_torch.serving.scheduler import SamplingParams
+from _torch_threads import one_thread  # noqa: F401  (autouse)
 from test_torch_watchdog import _flag
 
 ARCHS = {"dense": "smollm-360m", "hybrid": "zamba2-7b", "ssm": "mamba2-130m",
