@@ -263,7 +263,8 @@ Phases, each printing its own lines:
             layers (the dense one and a MoE one) at full width.  Prints
             decode ms a step and tok/s (sync, overlapped), prefill ms a
             group, the profiles (the MLA kernel's device ms a step), peak
-            memory.
+            memory; the decode profile must hold one MLA device kernel a
+            layer-step (the merge of the splits fused into it).
 
 Every serving phase's engine replays one CUDA graph a decode step
 (``serving/graphs.py``); the launch counters count each replay's kernels.
@@ -310,8 +311,13 @@ kernel at deepseek-v2-lite-16b's shapes (B 4, H 16, R 512, Dr 64, page
 of its plain version (JAX's float32 formula), a length-0 lane 0, two
 planted faults that must fail (lane 0 one page short, every lane's last
 split of 64 keys dropped), a slot's bits alone, in its batch and under a
-wider table; timed beside its bound (float32 operations) and SDPA over the
-gathered, dequantized float32 rows with a length mask.
+wider table; timed beside its bound (bytes, or float32 operations: the
+function's; and 3x the operations on the bf16 tensor cores, the kernel's
+instruction mix), SDPA over the gathered, dequantized float32 rows with a
+length mask, and, in turns in the same call, the kernel it replaced (the
+CUDA-core split and combine kernels of PR 27,
+``csrc/diag/mla_decode_attention_pr27.cu``, built beside the library by
+the build phase; ``kernels/diag_mla.py``).
 
 The last three lines are the kernels JSON, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``; each kernel's ``launches`` is read
@@ -558,18 +564,21 @@ def _demangle(names: list[str]) -> list[str]:
 
 
 def phase_build() -> None:
-    from repro_torch.kernels import build, diag_b1_bits
+    from repro_torch.kernels import build, diag_b1_bits, diag_mla
 
     t0 = time.monotonic()
     # B1 as it was while it took groups of up to 8, for the kernels phase's
-    # bit comparison, built beside the library
+    # bit comparison, and the MLA kernel as it was before its tensor-core
+    # redesign, for its timing, built beside the library
     proc = diag_b1_bits.start_build()
+    proc_mla = diag_mla.start_build()
     b = build.build()
     build.library()
     _B1_GROUPS8.append(diag_b1_bits.load(proc))
+    _MLA_PR27.append(diag_mla.load(proc_mla))
     log(f"[build] {b.path.name} {'built' if b.built else 'reused'}, and "
-        f"B1's groups-of-8 build for the bit comparison, in "
-        f"{time.monotonic() - t0:.1f} s")
+        f"B1's groups-of-8 build for the bit comparison and the PR 27 MLA "
+        f"kernel for its timing, in {time.monotonic() - t0:.1f} s")
     entries, name, spill = [], None, ""
     for line in b.log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -588,6 +597,8 @@ def phase_build() -> None:
 
 # the library of csrc/diag/decode_attention_groups8.cu, once built
 _B1_GROUPS8: list = []
+# the library of csrc/diag/mla_decode_attention_pr27.cu, once built
+_MLA_PR27: list = []
 
 
 def _bf16_step(torch, ref):
@@ -2319,10 +2330,14 @@ def _kernels_mla(torch, results: dict) -> None:
     1024 / 545 / 17 / 0, the serve trace's and the split edges; the
     planted faults (lane 0 one page short, every lane's last split
     dropped) must fail; a slot's bits alone, in its batch and under a
-    wider table; timed beside its bound (float32 operations or bytes) and
-    SDPA over the gathered, dequantized float32 rows with a length mask."""
+    wider table; timed beside its bound (float32 operations or bytes; and
+    the bound of its instruction mix, 3x the operations on the bf16 tensor
+    cores), SDPA over the gathered, dequantized float32 rows with a length
+    mask, and the PR 27 kernel it replaced, in turns (new, PR 27, PR 27,
+    new) in this call."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import diag_mla
     from repro_torch.kernels.mla_decode_attention.ops import (
         mla_decode_attention)
     from repro_torch.kernels.mla_decode_attention.ref import (
@@ -2386,11 +2401,27 @@ def _kernels_mla(torch, results: dict) -> None:
                     if caught == 0:
                         raise AssertionError(f"planted fault ({fault}) "
                                              f"passes the {name} check")
-                ms = time_ms(torch, lambda i: mla_decode_attention(
-                    q_c, q_r, ckv, kr, block, lengths, scale))
-                dev_ms = profiled_ms(torch, lambda i: mla_decode_attention(
-                    q_c, q_r, ckv, kr, block, lengths, scale),
-                    ("mla_decode_",))
+                old = _MLA_PR27[0] if _MLA_PR27 else diag_mla.load()
+
+                def new_fn(i):
+                    return mla_decode_attention(q_c, q_r, ckv, kr, block,
+                                                lengths, scale)
+
+                def old_fn(i):
+                    return diag_mla.pr27(old, q_c, q_r, ckv, kr, block,
+                                         lengths, scale)
+
+                old_err = _mla_check(torch, f"PR 27 {name}[{tag}]",
+                                     old_fn(0), ref, lengths, mag)
+                turns = {"new": [], "pr27": []}
+                for k in ("new", "pr27", "pr27", "new"):
+                    turns[k].append(time_ms(torch, new_fn if k == "new"
+                                            else old_fn))
+                ms = statistics.mean(turns["new"])
+                old_ms = statistics.mean(turns["pr27"])
+                dev_ms = profiled_ms(torch, new_fn,
+                                     ("mla_decode_attention_kernel",))
+                old_dev = profiled_ms(torch, old_fn, diag_mla.PR27_KERNELS)
                 plain = time_ms(torch, lambda i: mla_decode_attention_ref(
                     q_c, q_r, ckv, kr, block, lengths, scale))
                 # SDPA on the gathered, dequantized float32 rows: q = q_c |
@@ -2416,17 +2447,23 @@ def _kernels_mla(torch, results: dict) -> None:
                                + len(lens) * 4)
                 ops = keys * 2 * h * (2 * r + dr)
                 b_ms, b_by = bound(bytes_moved, ops, "f32")
+                tc_ms, tc_by = bound(bytes_moved, 3 * ops, "bf16")
                 if tag == "1024/545/17/0":
                     res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
                                library_ms=lib, library_device_ms=lib_dev,
                                bound_ms=b_ms, bound_by=b_by,
                                shape=f"B={len(lens)} H={h} R={r} Dr={dr} "
                                      f"lens={lens}")
-                line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms), "
-                         f"plain {plain:.4f} ms, SDPA on the gathered "
-                         f"float32 rows {lib:.4f} ms (device {lib_dev:.4f} "
-                         f"ms), bound {b_ms:.4f} ms ({b_by}: {ops / 1e6:.1f} "
-                         f"MFLOP float32, {bytes_moved / 1e6:.2f} MB)")
+                line += (f" | {ms:.4f} ms (device time {dev_ms:.4f} ms; "
+                         f"event turns {turns['new'][0]:.4f} / "
+                         f"{turns['new'][1]:.4f}), the PR 27 kernel in "
+                         f"turns {old_ms:.4f} ms (device {old_dev:.4f} ms; "
+                         f"max|err| {old_err:.3e}), plain {plain:.4f} ms, "
+                         f"SDPA on the gathered float32 rows {lib:.4f} ms "
+                         f"(device {lib_dev:.4f} ms), bound {b_ms:.4f} ms "
+                         f"({b_by}: {ops / 1e6:.1f} MFLOP float32, "
+                         f"{bytes_moved / 1e6:.2f} MB); the three-term bf16 "
+                         f"mix's bound {tc_ms:.4f} ms ({tc_by})")
             log(line)
 
 
@@ -2899,10 +2936,12 @@ def _prefill_profile(torch, client, smi: str, tag: str) -> None:
             f"{key[:90]}")
 
 
-def phase_profile(torch, client, smi: str, tag: str = "profile") -> None:
+def phase_profile(torch, client, smi: str, tag: str = "profile"):
     """Where the time of a serve phase's engine (after its run) goes: one
     prefill group (``_prefill_profile``), then torch.profiler over 6 decode
-    steps of 4 slots, device kernel time against the host's wall clock."""
+    steps of 4 slots, device kernel time against the host's wall clock.
+    Returns the decode window's kernel rows (``_kernel_rows``) and its
+    steps."""
     from torch.profiler import ProfilerActivity, profile
 
     _prefill_profile(torch, client, smi, tag)
@@ -2937,6 +2976,7 @@ def phase_profile(torch, client, smi: str, tag: str = "profile") -> None:
     for dev_us, key, count in rows[:8]:
         log(f"[{tag}]   {dev_us / 1e3 / steps:8.3f} ms/step  "
             f"{count // steps:5d} calls/step  {key[:90]}")
+    return rows, steps
 
 
 def _device_ms(prof, names=None) -> float | None:
@@ -5715,7 +5755,17 @@ def phase_serve_mla(torch, smi: str) -> tuple[dict, dict]:
         f"{run['counts']['mla_decode_attention']} launches")
     del wave
     t0 = _lap(tag, "wave mode", t0)
-    phase_profile(torch, client, smi, tag)
+    rows, steps = phase_profile(torch, client, smi, tag)
+    mla = [r for r in rows if "mla_decode_" in r[1]]
+    launches = sum(r[2] for r in mla) / steps
+    log(f"[{tag}] the MLA kernel in the decode profile: {launches:g} device "
+        f"launches a step ({cfg.n_layers} layers), "
+        f"{sum(r[0] for r in mla) / 1e3 / steps:.4f} device ms a step "
+        f"({'; '.join(r[1][:60] for r in mla)}) on {smi}")
+    if launches != cfg.n_layers or any(
+            "mla_decode_attention_kernel" not in r[1] for r in mla):
+        raise AssertionError(f"[{tag}] the decode step launches {launches:g} "
+                             f"MLA device kernels, not one a layer")
     t0 = _lap(tag, "profiles", t0)
     _moe_cpu_gate(torch, cfg, params, prompts[0][:64], tag)
     _lap(tag, "CPU gate", t0)

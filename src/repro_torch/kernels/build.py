@@ -36,8 +36,9 @@ SOURCES = ("common.cu", "int8_gemm.cu", "decode_attention.cu",
            "w4a16_gemv.cu", "ssd_scan.cu", "grouped_gemm.cu",
            "mla_decode_attention.cu")
 # included by the tensor-core sources; attention_tile.cuh holds the
-# per-block arithmetic B3 and the paged chunk kernel share
-HEADERS = ("hopper.cuh", "attention_tile.cuh")
+# per-block arithmetic B3 and the paged chunk kernel share, mma_bf16.cuh
+# the mma.sync device functions of B6 and the MLA decode kernel
+HEADERS = ("hopper.cuh", "attention_tile.cuh", "mma_bf16.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libreprokernels.so"
@@ -67,7 +68,9 @@ SIGNATURES = {
                               _P],
     "repro_grouped_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_mla_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                                   _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _F, _P],
+    "repro_mla_decode_attention_col_split": [_I],
 }
 
 

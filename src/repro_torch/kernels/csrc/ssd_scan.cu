@@ -76,7 +76,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using namespace tc_bf16;
 
 constexpr int kMaxQ = 128;
 constexpr int kMaxDevices = 16;
@@ -119,54 +123,8 @@ constexpr int kMaxHeads = 8;                                 // heads per CTA
 // bf16 terms of S, each 8 significant bits of it: three hold a float32
 // exactly; two leave ~2^-16 |S|, which reaches the 1e-4 gate on the CPU
 // rehearsal's outputs at mamba2-130m's widths
-constexpr int kTerms = 3;
+constexpr int kTerms = kSplitTerms;
 constexpr double kLog2e = 1.4426950408889634;
-
-// 16 bytes global -> shared, asynchronous; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8; r[m] holds matrix m's (row l / 4, columns 2 (l % 4) + {0, 1}), or
-// with .trans its (rows 2 (l % 4) + {0, 1}, column l / 4)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
-
-// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 out (mma.sync fragments,
-// g = lane / 4, q = lane % 4: a0 row g, a1 row g + 8, k 2q + {0, 1}; a2 / a3
-// the same rows, k 8 + 2q + {0, 1}; b0 k 2q + {0, 1}, b1 k 8 + 2q + {0, 1},
-// column g; c0 / c1 row g, c2 / c3 row g + 8, columns 2q + {0, 1})
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // A bf16 tile of rows of W elements in shared memory: rows of 64 or more
 // are XOR-swizzled by 16-byte chunk (chunk c of row r stored at c ^ (r % 8)),
@@ -403,16 +361,10 @@ ssd_intra_chunk_tc_kernel(const __nv_bfloat16* __restrict__ x, const float* __re
             uint32_t af[kTerms][4];
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
-              float r0 = s[2 * r];
-              float r1 = s[2 * r + 1];
+              uint32_t t3[kTerms];
+              split3_bf16x2(s[2 * r], s[2 * r + 1], t3);
 #pragma unroll
-              for (int t = 0; t < kTerms; ++t) {
-                const uint32_t b0 = __float_as_uint(r0);
-                const uint32_t b1 = __float_as_uint(r1);
-                af[t][r] = __byte_perm(b0, b1, 0x7632);  // k 2q: low half
-                r0 -= __uint_as_float(b0 & 0xFFFF0000u);
-                r1 -= __uint_as_float(b1 & 0xFFFF0000u);
-              }
+              for (int t = 0; t < kTerms; ++t) af[t][r] = t3[t];
             }
             uint32_t xf[P / 16][4];
 #pragma unroll

@@ -8,10 +8,13 @@ latent attention, the absorbed query ``q_c`` (the no-rope query times
 slot's compressed rows ``ckv`` [R] and ``krope`` [Dr], read through the
 block table; returns the value context ``softmax(s) @ ckv`` in float32
 [B, H, R] (the caller applies ``W_uv`` and the output projection).  The
-kernel is split-KV, splits of ``ref.SPLIT`` keys at absolute positions, a
-float32 workspace allocated here, the splits merged in split-index order
-by a second kernel that the same C entry launches; its grid spans the
-block table's capacity, so a decode graph captures it.
+kernel is split-KV, splits of ``ref.SPLIT`` keys at absolute positions,
+scores and context on the tensor cores; each split's float32 partial goes
+to a workspace allocated here, and the last CTA of a slot to finish (a
+per-slot ticket) merges the slot's partials in split-index order, inside
+the same launch.  Its grid spans the block table's capacity, so a decode
+graph captures it.  The tickets live in buffers this module owns
+(:func:`_tickets`), zero between launches.
 
 ``mla_decode_attention_contiguous``: the same over the wave engine's
 contiguous ``[B, Smax, R]`` / ``[B, Smax, Dr]`` caches, read as a pool of
@@ -36,6 +39,37 @@ from repro_torch.kernels.mla_decode_attention.ref import (
 SHAPES = ((512, 64), (32, 8))
 MAX_HEADS = 16
 LAUNCHES = {"mla_decode_attention": 0, "mla_decode_attention_int8": 0}
+# entries of a ticket buffer: a launch's B x column blocks at most
+TICKET_SLOTS = 4096
+# (device index, stream handle or "graph") -> int32 [TICKET_SLOTS] zeros
+_TICKETS: dict[tuple, torch.Tensor] = {}
+
+
+def _tickets(dev: torch.device, need: int) -> torch.Tensor:
+    """The ticket buffer of a launch on the current stream: launches on one
+    stream run in order, so they share it (the kernel leaves it zero); an
+    eager launch on another stream gets its own.  Launches captured into a
+    CUDA graph share one buffer a device (the port replays its graphs in
+    one stream order), which, like every buffer here, is allocated and
+    zeroed outside capture: at the first eager launch, which a decode
+    graph's warm-up makes."""
+    if need > TICKET_SLOTS:
+        raise ValueError(f"mla_decode_attention: {need} tickets, more than "
+                         f"{TICKET_SLOTS}")
+    capturing = torch.cuda.is_current_stream_capturing()
+    keys = [(dev.index, "graph")]
+    if not capturing:
+        keys.append((dev.index, build.stream_handle(dev)))
+    for key in keys:
+        if key not in _TICKETS:
+            if capturing:
+                raise RuntimeError("mla_decode_attention: captured before "
+                                   "any eager launch on this device; its "
+                                   "ticket buffer is allocated outside "
+                                   "capture, at the first eager launch")
+            _TICKETS[key] = torch.zeros(TICKET_SLOTS, dtype=torch.int32,
+                                        device=dev)
+    return _TICKETS[keys[-1]]
 
 
 def _pool_parts(pool, want_rows: int, name: str, dev):
@@ -109,14 +143,20 @@ def mla_decode_attention(q_c: torch.Tensor, q_rope: torch.Tensor,
     int8 = ckv_s is not None
     page, pps = ckv.shape[1], block_table.shape[1]
     n_split = -(-pps * page // SPLIT)
-    ws = torch.empty(b * n_split * h * (r + 2), dtype=torch.float32,
-                     device=q_c.device)
-    status = build.library().repro_mla_decode_attention(
+    lib = build.library()
+    cols = lib.repro_mla_decode_attention_col_split(r)
+    # a split's partial: 16 heads (the mma's rows) x R, and each column
+    # block's (m, l) for the 16
+    ws = torch.empty(b * n_split * MAX_HEADS * (r + 2 * cols),
+                     dtype=torch.float32, device=q_c.device)
+    tickets = _tickets(q_c.device, b * cols)
+    status = lib.repro_mla_decode_attention(
         q_c.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(), kr.data_ptr(),
         ckv_s.data_ptr() if int8 else None, kr_s.data_ptr() if int8 else None,
         block_table.data_ptr(), lengths.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), b, h, r, dr, page, pps, n_split, int(int8),
-        float(scale), build.stream_handle(q_c.device))
+        tickets.data_ptr(), tickets.numel(), out.data_ptr(), b, h, r, dr,
+        page, pps, n_split, int(int8), float(scale),
+        build.stream_handle(q_c.device))
     name = "mla_decode_attention_int8" if int8 else "mla_decode_attention"
     build.check(status, name)
     LAUNCHES[name] += 1

@@ -1676,6 +1676,79 @@ def test_mla_decode_attention_on_card(cuda_device, case, kv):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_mla_decode_attention_length_past_the_table(cuda_device, kv):
+    """A length past the block table's capacity (1,024 keys) reads the
+    table's keys only, as the plain version's mask does: within MLA_RTOL
+    of it, and the bits of the same slot at the capacity."""
+    from repro_torch.kernels.mla_decode_attention.ops import (
+        mla_decode_attention)
+    from repro_torch.kernels.mla_decode_attention.ref import (
+        mla_decode_attention_ref)
+    from repro_torch.models.attention import gather_paged_rows
+
+    q_c, q_r, ckv, kr, block, lengths = _mla_inputs(
+        cuda_device, [1090, 1025, 17], 16, 512, 64, kv, seed=3)
+    scale = 192 ** -0.5
+    got = mla_decode_attention(q_c, q_r, ckv, kr, block, lengths, scale)
+    ref = mla_decode_attention_ref(q_c, q_r, ckv, kr, block, lengths, scale)
+    mag = gather_paged_rows(ckv, block).float().abs().max()
+    assert bool(((got - ref).abs() <= MLA_RTOL * mag).all())
+    at_cap = mla_decode_attention(q_c, q_r, ckv, kr, block,
+                                  lengths.clamp(max=1024), scale)
+    assert torch.equal(got, at_cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_mla_decode_attention_tickets_reset_between_launches(cuda_device,
+                                                             kv):
+    """Ten launches in a row on one stream share a ticket buffer and give
+    the first launch's bits: the CTA that merges a slot sets its ticket
+    back to 0, and every ticket buffer is zero after them."""
+    from repro_torch.kernels.mla_decode_attention import ops
+
+    q_c, q_r, ckv, kr, block, lengths = _mla_inputs(
+        cuda_device, [1024, 545, 17, 0, 200], 16, 512, 64, kv, seed=4)
+    scale = 192 ** -0.5
+    first = ops.mla_decode_attention(q_c, q_r, ckv, kr, block, lengths,
+                                     scale)
+    for _ in range(10):
+        again = ops.mla_decode_attention(q_c, q_r, ckv, kr, block, lengths,
+                                         scale)
+        assert torch.equal(again, first)
+    torch.cuda.synchronize()
+    assert all(not bool(t.any()) for t in ops._TICKETS.values())
+
+
+@pytest.mark.gpu
+def test_mla_decode_attention_graph_replays_hold_the_bits(cuda_device):
+    """The kernel captured into a CUDA graph (after one eager launch, which
+    allocates the tickets outside capture) and replayed three times gives
+    the eager bits each time; lengths changed in place between replays
+    are read at the replay."""
+    from repro_torch.kernels.mla_decode_attention.ops import (
+        mla_decode_attention)
+
+    q_c, q_r, ckv, kr, block, lengths = _mla_inputs(
+        cuda_device, [1024, 545, 17, 0], 16, 512, 64, "bf16", seed=5)
+    scale = 192 ** -0.5
+    eager = mla_decode_attention(q_c, q_r, ckv, kr, block, lengths, scale)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mla_decode_attention(q_c, q_r, ckv, kr, block, lengths, scale)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    lengths.copy_(torch.tensor([65, 64, 1000, 3], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, mla_decode_attention(q_c, q_r, ckv, kr, block,
+                                                 lengths, scale))
+
+
+@pytest.mark.gpu
 def test_mla_decode_attention_refuses_what_it_does_not_take(cuda_device):
     from repro_torch.kernels.mla_decode_attention.ops import (
         mla_decode_attention)

@@ -48,7 +48,7 @@ from repro.serving.fleet import wire as jwire
 from repro_torch.configs.registry import get_arch
 from repro_torch.kernels.mla_decode_attention import ops as mla_ops
 from repro_torch.kernels.mla_decode_attention.ref import (
-    mla_decode_attention_ref, mla_decode_attention_splitkv)
+    bf16_terms, mla_decode_attention_ref, mla_decode_attention_splitkv)
 from repro_torch.models import blocks as TB
 from repro_torch.models import model as TM
 from repro_torch.models.attention import gather_paged_rows, quantize_rows
@@ -308,6 +308,53 @@ def test_mla_split_schedule_matches_ref_and_is_batch_invariant(kv):
             q_c[i:i + 1], q_r[i:i + 1], ckv, kr, block[i:i + 1],
             lens[i:i + 1], scale)
         assert torch.equal(alone[0], got[i]), i
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_mla_split_schedule_matches_jax(kv):
+    """The kernel's schedule and arithmetic (the three bf16 terms of the
+    query and of P', the latent and rope sums apart, the split-order merge)
+    against JAX's attention lines on the same gathered rows, at lengths 0,
+    1 and the split edges 63 / 64 / 65: within 1e-5 of max|ckv| on the
+    live lanes."""
+    q_c, q_r, ckv, kr, block, lens = _mla_inputs(5, kv, LENS)
+    scale = 24 ** -0.5
+    got = mla_decode_attention_splitkv(q_c, q_r, ckv, kr, block, lens, scale)
+    ckv_g, kr_g = _gathered(ckv, block), _gathered(kr, block)
+    want = np.asarray(_jax_attend(q_c.numpy(), q_r.numpy(), ckv_g, kr_g,
+                                  lens.numpy(), scale))
+    live = (lens > 0).numpy()
+    mag = np.abs(ckv_g).max()
+    np.testing.assert_allclose(got.numpy()[live], want[live], rtol=1e-5,
+                               atol=1e-5 * mag)
+
+
+def test_bf16_terms_sum_back_to_the_float32_exactly():
+    """Three terms of 8 significant bits each, every one a bf16 value, sum
+    back to the float32 bit for bit wherever |x| >= 2^-110 (each remainder
+    stays a normal float32), over 60 decades and float32's extremes; two
+    terms do not.  Below 2^-110 a term that falls among the subnormals
+    keeps only the bits of their top half: the sum is then within 2^-133
+    of x (a softmax weight that small adds nothing the gate can see)."""
+    rng = np.random.RandomState(6)
+    x = np.concatenate([
+        rng.randn(4096) * 10.0 ** rng.uniform(-30, 30, 4096),
+        [0.0, -0.0, 1.0, -1.0, 3.4e38, -3.4e38, 2.0 ** -110, 1.2e-38,
+         1e-40, 1e-45]]).astype(np.float32)
+    xt = torch.from_numpy(x)
+    terms = bf16_terms(xt)
+    for t in terms:
+        assert torch.equal(t.to(torch.bfloat16).float(), t)
+    total = (terms[0] + terms[1]) + terms[2]
+    big = (xt.abs() >= 2.0 ** -110) | (xt == 0)
+    assert int(big.sum()) == len(x) - 3
+    assert torch.equal(total[big], xt[big])
+    np.testing.assert_array_equal(
+        sum(t.double() for t in terms).numpy()[big.numpy()],
+        x.astype(np.float64)[big.numpy()])
+    assert float((total - xt).abs().max()) < 2.0 ** -133
+    two = bf16_terms(xt, 2)
+    assert not torch.equal(two[0] + two[1], xt)
 
 
 def test_mla_wrapper_refuses_other_devices():
