@@ -311,9 +311,9 @@ kernel at deepseek-v2-lite-16b's shapes (B 4, H 16, R 512, Dr 64, page
 of its plain version (JAX's float32 formula), a length-0 lane 0, two
 planted faults that must fail (lane 0 one page short, every lane's last
 split of 64 keys dropped), a slot's bits alone, in its batch and under a
-wider table; timed beside its bound (bytes, or float32 operations: the
-function's; and 3x the operations on the bf16 tensor cores, the kernel's
-instruction mix), SDPA over the gathered, dequantized float32 rows with a
+wider table; timed beside its bound (bytes, or 3x the operations on the
+bf16 tensor cores: the kernel's instruction mix, each float32 product as
+three bf16 ones; the float32 CUDA-core bound printed beside it), SDPA over the gathered, dequantized float32 rows with a
 length mask, and, in turns in the same call, the kernel it replaced (the
 CUDA-core split and combine kernels of PR 27,
 ``csrc/diag/mla_decode_attention_pr27.cu``, built beside the library by
@@ -2446,8 +2446,11 @@ def _kernels_mla(torch, results: dict) -> None:
                                + len(lens) * h * (2 * r + dr) * 4
                                + len(lens) * 4)
                 ops = keys * 2 * h * (2 * r + dr)
-                b_ms, b_by = bound(bytes_moved, ops, "f32")
-                tc_ms, tc_by = bound(bytes_moved, 3 * ops, "bf16")
+                # the kernel's instruction mix: each float32 product as
+                # three bf16 products on the tensor cores; the float32
+                # CUDA-core bound printed beside it
+                b_ms, b_by = bound(bytes_moved, 3 * ops, "bf16")
+                f32_ms, f32_by = bound(bytes_moved, ops, "f32")
                 if tag == "1024/545/17/0":
                     res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
                                library_ms=lib, library_device_ms=lib_dev,
@@ -2461,9 +2464,9 @@ def _kernels_mla(torch, results: dict) -> None:
                          f"max|err| {old_err:.3e}), plain {plain:.4f} ms, "
                          f"SDPA on the gathered float32 rows {lib:.4f} ms "
                          f"(device {lib_dev:.4f} ms), bound {b_ms:.4f} ms "
-                         f"({b_by}: {ops / 1e6:.1f} MFLOP float32, "
-                         f"{bytes_moved / 1e6:.2f} MB); the three-term bf16 "
-                         f"mix's bound {tc_ms:.4f} ms ({tc_by})")
+                         f"({b_by}: {bytes_moved / 1e6:.2f} MB, 3 x "
+                         f"{ops / 1e6:.1f} MFLOP bf16); on the float32 "
+                         f"CUDA cores {f32_ms:.4f} ms ({f32_by})")
             log(line)
 
 
@@ -5672,13 +5675,15 @@ def phase_serve_mla(torch, smi: str) -> tuple[dict, dict]:
     and sampled synchronous == overlapped; int8 pools (``_mla_int8``);
     tiered == resident, migrated == unmigrated, a resume hit == cold
     (``_mla_tier_and_moves``); a wave run's first tokens == a direct
-    prefill's; the CPU gate on 2 layers.  Prints decode ms a step and
-    tok/s (sync, overlapped), prefill ms a group, the profiles, peak
-    memory.  Returns the launch counts of the bf16 and int8 runs."""
+    prefill's; every MLA ticket buffer zero after the runs; the CPU gate
+    on 2 layers.  Prints decode ms a step and tok/s (sync, overlapped),
+    prefill ms a group, the profiles, peak memory.  Returns the launch
+    counts of the bf16 and int8 runs."""
     import gc
 
     import numpy as np
 
+    from repro_torch.kernels.mla_decode_attention import ops as mla_ops
     from repro_torch.serving.client import ServingClient
     from repro_torch.serving.scheduler import SamplingParams
 
@@ -5767,6 +5772,15 @@ def phase_serve_mla(torch, smi: str) -> tuple[dict, dict]:
         raise AssertionError(f"[{tag}] the decode step launches {launches:g} "
                              f"MLA device kernels, not one a layer")
     t0 = _lap(tag, "profiles", t0)
+    # a ticket left above 0 would make every later launch that shares its
+    # buffer skip the merge
+    torch.cuda.synchronize()
+    stuck = [k for k, t in mla_ops._TICKETS.items() if bool(t.any())]
+    log(f"[{tag}] the MLA kernel's ticket buffers after every run above: "
+        f"{len(mla_ops._TICKETS)}, {len(stuck)} not zero")
+    if stuck:
+        raise AssertionError(f"[{tag}] MLA ticket buffers left non-zero: "
+                             f"{stuck}")
     _moe_cpu_gate(torch, cfg, params, prompts[0][:64], tag)
     _lap(tag, "CPU gate", t0)
     del client, core, params

@@ -67,10 +67,9 @@ SIGNATURES = {
                               _I, _I, _I, ctypes.POINTER(ctypes.c_longlong),
                               _P],
     "repro_grouped_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_mla_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                   _F, _P],
-    "repro_mla_decode_attention_col_split": [_I],
+    "repro_mla_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   ctypes.c_longlong, _P, _I, _P, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _F, _P],
 }
 
 

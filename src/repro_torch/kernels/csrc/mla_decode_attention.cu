@@ -45,8 +45,8 @@
 //    split compute the same scores, and each merges its own columns, so
 //    the merge, which one CTA's latency bounds, reads a quarter of the
 //    partials (on an H100 at 1,024 keys, one block: a 6.4 us merge of a
-//    14.3 us launch, four: 2.6 of 10.0, kernels/diag_mla.py's stamps; the
-//    bits are the same).
+//    14.3 us launch, four: 2.6 of 10.0, from %globaltimer stamps at the
+//    phase boundaries; the bits are the same).
 //  * The page ids are read beside the length; the query beside the row
 //    ids, straight into mma fragments (below).
 //  * Scores on the tensor cores, split over the dims: warp w owns a slice
@@ -96,28 +96,6 @@
 
 #include "mma_bf16.cuh"
 
-#ifndef MLA_COL_SPLIT
-#define MLA_COL_SPLIT 4
-#endif
-// MLA_DIAG_CLOCKS (kernels/diag_mla.py's builds): thread 0 of each CTA
-// stamps %globaltimer at the phase boundaries into g_mla_clocks
-#ifdef MLA_DIAG_CLOCKS
-__device__ unsigned long long g_mla_clocks[4096 * 8];
-#define MLA_STAMP(k)                                                                  \
-  do {                                                                              \
-    if (threadIdx.x == 0) {                                                         \
-      unsigned long long t_;                                                        \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                         \
-      const int cta_ = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x; \
-      if (cta_ < 4096) g_mla_clocks[cta_ * 8 + (k)] = t_;                             \
-    }                                                                               \
-  } while (0)
-#else
-#define MLA_STAMP(k) \
-  do {               \
-  } while (0)
-#endif
-
 namespace {
 
 using namespace tc_bf16;
@@ -132,7 +110,7 @@ constexpr int kHeads = 16;              // an mma's 16 rows: the heads, zeros pa
 constexpr int kPPitch = kSplit + 8;     // floats a head's row of scores / P
 
 // column blocks of the context (CTAs a split); one at the reduced R 32
-__host__ __device__ constexpr int col_split(int R) { return R >= 128 ? MLA_COL_SPLIT : 1; }
+__host__ __device__ constexpr int col_split(int R) { return R >= 128 ? 4 : 1; }
 
 template <typename KT>
 __host__ __device__ constexpr bool is_int8() {
@@ -350,7 +328,6 @@ __global__ void __launch_bounds__(kThreads, 1) mla_decode_attention_kernel(const
   const int mi = lane / 8;  // ldmatrix: the matrix this lane addresses
   const int mr = lane % 8;  //           and its row
   float* out = p.out + static_cast<size_t>(b) * H * R;
-  MLA_STAMP(0);
   // the split's page ids, read beside the length (the table holds every
   // key below its capacity)
   const int t0 = split * kSplit;
@@ -389,7 +366,6 @@ __global__ void __launch_bounds__(kThreads, 1) mla_decode_attention_kernel(const
   for (int s = 0; s < LPW; ++s) load_query<R>(qv[s], qc, 16 * (lat0 + s), lat_warp ? H : 0, lg, lq);
   load_query<DR>(qv[LPW], qr, 16 * rope_ks, rope_warp ? H : 0, lg, lq);
   __syncthreads();  // the row ids
-  MLA_STAMP(1);
 
   // ---- issue this warp's slice of the rows, key tile by key tile
   const KT* ckv = static_cast<const KT*>(p.ckv);
@@ -432,7 +408,6 @@ __global__ void __launch_bounds__(kThreads, 1) mla_decode_attention_kernel(const
   uint32_t qa[LPW + 1][kSplitTerms][4];
 #pragma unroll
   for (int s = 0; s < LPW + 1; ++s) split_query(qa[s], qv[s]);
-  MLA_STAMP(2);
 
   // ---- scores: this warp's slice for every key, key tile by key tile;
   // per 8-key mma tile n, element e of lat / rope: head lg (+ 8 for e >= 2),
@@ -495,7 +470,6 @@ __global__ void __launch_bounds__(kThreads, 1) mla_decode_attention_kernel(const
     }
   }
   __syncthreads();
-  MLA_STAMP(3);
 
   // ---- per head (rows w and w + 8; heads past H: zero rows of P): the
   // scores, the slices summed in warp order, the latent and rope apart;
@@ -553,7 +527,6 @@ __global__ void __launch_bounds__(kThreads, 1) mla_decode_attention_kernel(const
     }
   }
   __syncthreads();
-  MLA_STAMP(4);
 
   // ---- context: ctx[16 heads x this warp's columns] = P' . rows
   constexpr int NP = Lay::kPairsPerWarp;
@@ -590,7 +563,6 @@ __global__ void __launch_bounds__(kThreads, 1) mla_decode_attention_kernel(const
       }
     }
   }
-  MLA_STAMP(5);
 
   // ---- one split: ctx / l.  Else the partial, then the ticket
   // element e of acc[n]: head lg (+ 8 for e >= 2), column wc0 + 8 n + 2 lq + e % 2
@@ -609,7 +581,6 @@ __global__ void __launch_bounds__(kThreads, 1) mla_decode_attention_kernel(const
         }
       }
     }
-    MLA_STAMP(6);
     return;
   }
   constexpr int kPart = Lay::kPartFloats;
@@ -645,7 +616,6 @@ __global__ void __launch_bounds__(kThreads, 1) mla_decode_attention_kernel(const
     }
   }
   __syncthreads();
-  MLA_STAMP(6);
   if (!s_last) return;
 
   // ---- the merge of the slot's partials (its columns), in split-index
@@ -719,13 +689,15 @@ __global__ void __launch_bounds__(kThreads, 1) mla_decode_attention_kernel(const
           __fdiv_rn(a[j].x, l), __fdiv_rn(a[j].y, l), __fdiv_rn(a[j].z, l), __fdiv_rn(a[j].w, l));
     }
   }
-  MLA_STAMP(7);
 }
 
 template <typename KT, int R, int DR>
-int launch(const Params& p, int B, cudaStream_t s) {
+int launch(const Params& p, int B, long long ws_cap, cudaStream_t s) {
   using Lay = Layout<R, DR>;
-  if (p.n_split > Lay::kMaxSplits) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.n_split > Lay::kMaxSplits ||
+      static_cast<long long>(B) * p.n_split * Lay::kPartFloats > ws_cap) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   void (*kernel)(const Params) = mla_decode_attention_kernel<KT, R, DR>;
   // above 48 KB of dynamic shared memory needs the kernel's opt-in
   cudaError_t err =
@@ -736,9 +708,9 @@ int launch(const Params& p, int B, cudaStream_t s) {
 }
 
 template <typename KT>
-int launch_for_shape(const Params& p, int B, int R, int Dr, cudaStream_t s) {
-  if (R == 512 && Dr == 64) return launch<KT, 512, 64>(p, B, s);  // deepseek-v2-lite-16b
-  if (R == 32 && Dr == 8) return launch<KT, 32, 8>(p, B, s);      // its reduced config
+int launch_for_shape(const Params& p, int B, int R, int Dr, long long ws_cap, cudaStream_t s) {
+  if (R == 512 && Dr == 64) return launch<KT, 512, 64>(p, B, ws_cap, s);  // deepseek-v2-lite-16b
+  if (R == 32 && Dr == 8) return launch<KT, 32, 8>(p, B, ws_cap, s);      // its reduced config
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -746,14 +718,15 @@ int launch_for_shape(const Params& p, int B, int R, int Dr, cudaStream_t s) {
 
 // kv_int8: ckv / krope pools int8 with float32 row-scale pools (else bf16,
 // the scale pointers unused).  H at most 16; (R, Dr) one of (512, 64),
-// (32, 8).  n_split must be ceil(pps * page / 64); ws must hold B *
-// n_split * 16 (R + 2 C) floats, C = col_split(R); ticket must hold
-// ticket_cap >= B C zeros, which the kernel leaves zero.
+// (32, 8).  n_split must be ceil(pps * page / 64); ws must hold ws_cap >=
+// B n_split 16 (R + 2 C) floats, C = col_split(R) (4 at R 512, else 1);
+// ticket must hold ticket_cap >= B C zeros, which the kernel leaves zero.
 extern "C" int repro_mla_decode_attention(const void* q_c, const void* q_rope,
                                           const void* ckv_pages, const void* krope_pages,
                                           const void* ckv_scale, const void* krope_scale,
                                           const void* block_table, const void* lengths,
-                                          void* ws, void* ticket, int ticket_cap, void* out,
+                                          void* ws, long long ws_cap, void* ticket,
+                                          int ticket_cap, void* out,
                                           int B, int H, int R, int Dr, int page, int pps,
                                           int n_split, int kv_int8, float scale, void* stream) {
   if (B <= 0 || H <= 0 || H > kHeads || page <= 0 || pps <= 0 ||
@@ -780,23 +753,6 @@ extern "C" int repro_mla_decode_attention(const void* q_c, const void* q_rope,
   p.n_split = n_split;
   p.scale = scale;
   auto s = static_cast<cudaStream_t>(stream);
-  return kv_int8 ? launch_for_shape<int8_t>(p, B, R, Dr, s)
-                 : launch_for_shape<__nv_bfloat16>(p, B, R, Dr, s);
+  return kv_int8 ? launch_for_shape<int8_t>(p, B, R, Dr, ws_cap, s)
+                 : launch_for_shape<__nv_bfloat16>(p, B, R, Dr, ws_cap, s);
 }
-
-// the column blocks of a launch at R (its tickets and m / l copies a slot)
-extern "C" int repro_mla_decode_attention_col_split(int R) { return col_split(R); }
-
-#ifdef MLA_DIAG_CLOCKS
-// the stamps of the last launch: [CTA][8] ns of %globaltimer, 0 where none
-extern "C" int repro_mla_decode_attention_clocks(unsigned long long* host, int n) {
-  return static_cast<int>(
-      cudaMemcpyFromSymbol(host, g_mla_clocks, sizeof(unsigned long long) * n));
-}
-extern "C" int repro_mla_decode_attention_clocks_reset() {
-  void* p = nullptr;
-  cudaError_t err = cudaGetSymbolAddress(&p, g_mla_clocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaMemset(p, 0, sizeof(g_mla_clocks)));
-}
-#endif

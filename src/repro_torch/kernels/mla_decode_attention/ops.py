@@ -38,8 +38,11 @@ from repro_torch.kernels.mla_decode_attention.ref import (
 # (R, Dr) instances: deepseek-v2-lite-16b's and its reduced config's
 SHAPES = ((512, 64), (32, 8))
 MAX_HEADS = 16
+# a split's CTAs at R 512, each merging a quarter of the context's columns
+# (one at the reduced R 32); the workspace and tickets are sized for it
+COL_BLOCKS = 4
 LAUNCHES = {"mla_decode_attention": 0, "mla_decode_attention_int8": 0}
-# entries of a ticket buffer: a launch's B x column blocks at most
+# entries of a ticket buffer: a launch's B x COL_BLOCKS at most
 TICKET_SLOTS = 4096
 # (device index, stream handle or "graph") -> int32 [TICKET_SLOTS] zeros
 _TICKETS: dict[tuple, torch.Tensor] = {}
@@ -143,17 +146,15 @@ def mla_decode_attention(q_c: torch.Tensor, q_rope: torch.Tensor,
     int8 = ckv_s is not None
     page, pps = ckv.shape[1], block_table.shape[1]
     n_split = -(-pps * page // SPLIT)
-    lib = build.library()
-    cols = lib.repro_mla_decode_attention_col_split(r)
     # a split's partial: 16 heads (the mma's rows) x R, and each column
     # block's (m, l) for the 16
-    ws = torch.empty(b * n_split * MAX_HEADS * (r + 2 * cols),
+    ws = torch.empty(b * n_split * MAX_HEADS * (r + 2 * COL_BLOCKS),
                      dtype=torch.float32, device=q_c.device)
-    tickets = _tickets(q_c.device, b * cols)
-    status = lib.repro_mla_decode_attention(
+    tickets = _tickets(q_c.device, b * COL_BLOCKS)
+    status = build.library().repro_mla_decode_attention(
         q_c.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(), kr.data_ptr(),
         ckv_s.data_ptr() if int8 else None, kr_s.data_ptr() if int8 else None,
-        block_table.data_ptr(), lengths.data_ptr(), ws.data_ptr(),
+        block_table.data_ptr(), lengths.data_ptr(), ws.data_ptr(), ws.numel(),
         tickets.data_ptr(), tickets.numel(), out.data_ptr(), b, h, r, dr,
         page, pps, n_split, int(int8), float(scale),
         build.stream_handle(q_c.device))

@@ -1726,7 +1726,8 @@ def test_mla_decode_attention_graph_replays_hold_the_bits(cuda_device):
     """The kernel captured into a CUDA graph (after one eager launch, which
     allocates the tickets outside capture) and replayed three times gives
     the eager bits each time; lengths changed in place between replays
-    are read at the replay."""
+    are read at the replay; every ticket buffer is zero after them."""
+    from repro_torch.kernels.mla_decode_attention import ops
     from repro_torch.kernels.mla_decode_attention.ops import (
         mla_decode_attention)
 
@@ -1746,6 +1747,8 @@ def test_mla_decode_attention_graph_replays_hold_the_bits(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(out, mla_decode_attention(q_c, q_r, ckv, kr, block,
                                                  lengths, scale))
+    torch.cuda.synchronize()
+    assert all(not bool(t.any()) for t in ops._TICKETS.values())
 
 
 @pytest.mark.gpu

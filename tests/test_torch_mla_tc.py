@@ -15,9 +15,8 @@ kernel's rounding rehearsal (``ref.mla_decode_attention_splitkv``) within
 1e-5 of max|ckv| (the same roundings, float32 sums in another order),
 where a misplaced fragment is off by O(1); planted index mutations must
 fail that check.  Both instances: deepseek-v2-lite-16b's (R 512, Dr 64,
-H 16; four column blocks, and the one a diagnostic build can take) and the
-reduced config's (R 32, Dr 8 padded to 16, H 4), over bf16 and int8
-pools, at lengths crossing the split edges.  The int8 codes' widening to
+H 16; four column blocks) and the reduced config's (R 32, Dr 8 padded to
+16, H 4), over bf16 and int8 pools, at lengths crossing the split edges.  The int8 codes' widening to
 bf16 is checked bit for bit on every code.
 """
 
@@ -282,21 +281,26 @@ def _emulate(q_c, q_r, ckv, kr, block, lens, scale, **kw):
     return np.stack(outs)
 
 
-CASES = {   # (lens, H, R, Dr, column blocks)
-    "deepseek-v2-lite-16b": ([65, 17, 0], 16, 512, 64, 4),
-    "deepseek-v2-lite-16b, 1 column block": ([65, 17], 16, 512, 64, 1),
-    "reduced": ([1, 63, 64, 65, 96, 0], 4, 32, 8, 1),
+CASES = {   # (lens, H, R, Dr)
+    "deepseek-v2-lite-16b": ([65, 17, 0], 16, 512, 64),
+    "deepseek-v2-lite-16b, split edges": ([64, 1], 16, 512, 64),
+    "reduced": ([1, 63, 64, 65, 96, 0], 4, 32, 8),
 }
+
+
+def _col_split(r: int) -> int:
+    """The kernel's column blocks a split (``col_split``)."""
+    return 4 if r >= 128 else 1
 
 
 @pytest.mark.parametrize("kv", ["bf16", "int8"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_mla_fragment_layout_matches_rehearsal(case, kv):
-    lens, h, r, dr, col_split = CASES[case]
+    lens, h, r, dr = CASES[case]
     q_c, q_r, ckv, kr, block, lengths = _inputs(len(case), kv, lens, h, r, dr)
     scale = 192 ** -0.5
     got = _emulate(q_c, q_r, ckv, kr, block, lengths, scale,
-                   col_split=col_split)
+                   col_split=_col_split(r))
     want = mla_decode_attention_splitkv(q_c, q_r, ckv, kr, block, lengths,
                                         scale).numpy()
     mag = float(gather_paged_rows(ckv, block).float().abs().max())
@@ -309,7 +313,7 @@ def test_mla_fragment_mutations_fail(mutate):
     """The score's row operand read with its key halves and dim halves
     crossed, or the context's rows read 8 columns off: the emulation
     leaves the gate."""
-    lens, h, r, dr, _ = CASES["reduced"]
+    lens, h, r, dr = CASES["reduced"]
     q_c, q_r, ckv, kr, block, lengths = _inputs(1, "bf16", lens, h, r, dr)
     scale = 192 ** -0.5
     got = _emulate(q_c, q_r, ckv, kr, block, lengths, scale, mutate=mutate)
