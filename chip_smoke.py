@@ -136,9 +136,10 @@ Phases, each printing its own lines:
             with every row sampled.  Then zamba2-7b W8A8: 4 greedy
             requests of 16 tokens, synchronous and overlapped identical,
             and its decode wall ms a step synchronous and overlapped.
-12. serve_chunked  llama2-7b W8A8 at full width through build_client(
-            chunk_prefill=128): the serve trace (counted: the chunk kernel
-            32 times a chunk), synchronous and overlapped identical; on 12
+12. serve_chunked  llama2-7b W8A8 at full width, cut to its first 8
+            layers, through build_client(chunk_prefill=128): the serve
+            trace (counted: the chunk kernel once a layer a chunk),
+            synchronous and overlapped identical; on 12
             prompts the one-shot (B3) and chunked paths' logits and the two
             engines' streams bit-equal; a
             150-token prompt through the chunk path at budgets {1, 7, 16,
@@ -148,8 +149,8 @@ Phases, each printing its own lines:
             a token on every step while a 512-token prompt takes 4 chunks,
             each step's wall with and without a chunk; ms per chunk and
             device ms at 16, 128 and 512 tokens.
-13. serve_int8kv  the same with kv_dtype="int8": the serve trace
-            (counted: B1's int8 variant, never B1 over bf16), the first
+13. serve_int8kv  the same (8 layers) with kv_dtype="int8": the serve
+            trace (counted: B1's int8 variant, never B1 over bf16), the first
             token against a direct prefill, synchronous and overlapped
             identical greedy and sampled, the bf16 engine's streams on
             margin-checked prompts, chunked == one-shot under int8 at
@@ -165,7 +166,8 @@ Phases, each printing its own lines:
             (synchronized) and the decode wall a step against the resident
             engine's.  Then zamba2-7b over a 41-page pool: 4 requests equal
             the resident engine's, the Mamba state restored on resume.
-15. serve_prefix  llama2-7b with prefix_cache=True on the JAX benchmark's
+15. serve_prefix  llama2-7b (its first 8 layers at full width) with
+            prefix_cache=True on the JAX benchmark's
             chat trace (4 sessions, 3 turns, a 992-token system prompt,
             every turn submitted twice): resume hits equal their cold run
             with no prefill; all 24 streams equal the cold one-shot
@@ -184,7 +186,8 @@ Phases, each printing its own lines:
             unmigrated stream; bytes a snapshot, ms to snapshot and inject.
 17. serve_fleet  llama2-7b W8A8 at full width (4 slots a worker, max_seq
             1024, the serve trace, 32 new tokens, odd rids sampled with
-            pinned seeds) through FleetRouter: loopback fleets of 2
+            pinned seeds) through FleetRouter: loopback fleets (on its
+            first 8 of 32 layers, as the sanitized engine) of 2
             workers + 1 spare sharing one params dict, checkpoints every 8
             steps, worker 0 killed after step 10, synchronous and
             overlapped (no request lost, one engine's streams bit for bit,
@@ -214,8 +217,9 @@ Phases, each printing its own lines:
             (synchronous == overlapped), and one prompt's wave prefill
             logits pass the model phase's CPU gate (1.25x).  Prints tok/s,
             prefill ms a wave, decode wall ms a step and the launches.
-19. serve_moe  qwen2-moe-a2.7b at full width (24 layers, d_model 2048,
-            60 routed experts padded to 64, top-4, 4 shared experts),
+19. serve_moe  qwen2-moe-a2.7b at full width (its first 8 of 24 layers,
+            d_model 2048, 60 routed experts padded to 64, top-4, 4 shared
+            experts),
             W8A8 (the routed experts bf16), 4 slots, max_seq 1024, page
             16, through build_client: the serve trace (counted: the
             grouped GEMM, 3 launches a layer inside the decode graph);
@@ -231,10 +235,14 @@ Phases, each printing its own lines:
             between the runs.  Prints decode ms a step and tok/s (sync,
             overlapped), prefill ms a group, the profiles (the grouped
             GEMM's device ms a step and a group), peak memory.
-20. serve_dense  chatglm3-6b at full width (28 layers, d_model 4096, 32
-            query heads over 2 kv heads: B1's group of 16 in the decode
+20. serve_dense  chatglm3-6b at full width (its first 8 of 28 layers,
+            d_model 4096, 32 query heads over 2 kv heads: B1's group of
+            16 in the decode
             graph; rotary on half of each head; q/k/v and FFN biases), then
-            internlm2-20b (48 layers, d_model 6144, 48 heads over 8), W8A8,
+            internlm2-20b (its first 8 of 48 layers, d_model 6144, 48
+            heads over 8) and
+            the paper's llama2-70b (80 layers, d_model 8192, 64 heads over
+            8: 68.45 GB of layers, built layer by layer), W8A8,
             4 slots, max_seq 1024, page 16, through build_client: the serve
             trace (counted: B1-B3, B1 once a layer a step inside the decode
             graph), the first token a direct prefill's, graph == eager;
@@ -245,8 +253,9 @@ Phases, each printing its own lines:
             on 2 layers at full width.  Prints decode ms a step and tok/s
             (sync, overlapped), prefill ms a group, the profiles (B1's
             device ms a step), peak memory.
-21. serve_mla  deepseek-v2-lite-16b at full width (27 layers, the first
-            dense, d_model 2048, 16 heads of multi-head latent attention:
+21. serve_mla  deepseek-v2-lite-16b at full width (its first 8 of 27
+            layers, the first dense, d_model 2048, 16 heads of multi-head
+            latent attention:
             R 512, qk head 128 + 64, v 128; 64 routed experts top-6, 2
             shared; vocab 102,400), W8A8 (the routed experts bf16), 4
             slots, max_seq 1024, page 16, through build_client: the serve
@@ -265,6 +274,29 @@ Phases, each printing its own lines:
             group, the profiles (the MLA kernel's device ms a step), peak
             memory; the decode profile must hold one MLA device kernel a
             layer-step (the merge of the splits fused into it).
+22. serve_vlm  qwen2-vl-72b at full width (80 layers, d_model 8192, 64
+            query heads over 8 kv heads, q/k/v and FFN biases, d_ff
+            29,568, vocab 152,064, M-RoPE over 256 prepended vision
+            embeddings, zeros as the engine feeds them), W8A8 built on
+            the card layer by layer from seed 0 (75.5 GB resident), 4
+            slots, max_seq 1024, page 16, through build_client: the serve
+            trace (counted: B1 once a layer inside the decode graph, B2,
+            B3 over 320-768 rows); graph == overlapped, == eager on the
+            first group, and sampled synchronous == overlapped; int8 pools
+            (counted: B1's int8 variant; the int8 engine == the direct
+            int8 path on margin-checked prompts, == the bf16 engine where
+            both paths keep their margins and tokens; overlapped ==
+            synchronous); tiered == resident over a 65-page hot pool; a
+            snapshot's bytes resumed on another engine == the unmigrated
+            stream; a resume hit == cold through the vision rows'
+            sentinel keys; a wave run's first tokens == a direct
+            prefill's; the CPU gate on 2 layers at full width.  One engine
+            at a time beside the weights; the allocator's expandable
+            segments, set by main for this phase, keep the memory freed
+            between engines usable.  Prints the build's time and peak
+            against the resident bytes and memory.total, decode ms a step
+            and tok/s (sync, overlapped), prefill ms a group, the
+            profiles (B1's and the GeMV's device ms a step).
 
 Every serving phase's engine replays one CUDA graph a decode step
 (``serving/graphs.py``); the launch counters count each replay's kernels.
@@ -325,7 +357,8 @@ around the run of the phase that owns it (serve for B1-B3, serve_wave
 for B3's bidirectional mode, hybrid for B5, serve_hybrid_w4a16 for B4's two variants, serve_hybrid for B6,
 serve_chunked for the chunk kernel, serve_int8kv for B1-int8 and its
 chunked engine for the chunk kernel's int8 variant, serve_moe for the
-grouped GEMM, serve_mla for the MLA kernel, bf16 and int8).  B2's __dp4a GeMV and
+grouped GEMM, serve_mla for the MLA kernel, bf16 and int8; serve_vlm
+prints its own counts of B1-B3).  B2's __dp4a GeMV and
 tiled GEMM (``int8_gemv_dp4a``, ``int8_gemm``) are on no model's path
 (every model K is a multiple of 16 and every base aligned): a serving
 phase that launches either fails.  Any failure
@@ -338,6 +371,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -457,6 +491,13 @@ ATTN_TOL = f"{ATTN_ULPS} bf16 steps of |ref| + {ATTN_ATOL}"
 # compared with a float32 run of the same weights, and the card must stay
 # within MODEL_RATIO times that distance of the float32 run at every step
 MODEL_RATIO = 1.25
+# the depth of the earlier paths whose gates hold at any depth (the
+# bit-equalities of engines and paths, the launch counts a layer):
+# serve_chunked, serve_int8kv, serve_prefix, serve_fleet's loopback fleets,
+# serve_moe, serve_mla and serve_dense's chatglm3-6b and internlm2-20b run
+# their model's first CUT_LAYERS layers at full width, so the whole script
+# stays well inside its time limit on a slow host
+CUT_LAYERS = 8
 # B4 against its plain version: both dequantize to the same float32 weights
 # and sum float32 products in another order, so each output may differ by
 # a few float32 roundings of the sum of |products|
@@ -1029,7 +1070,10 @@ def phase_kernels(torch, results: dict) -> None:
               # out_proj at prefill and decode
               (6000, 768, 768), (6000, 768, 3072), (6000, 3072, 768),
               (4, 768, 3072), (2048, 768, 3352), (4, 768, 3352),
-              (4, 1536, 768)]
+              (4, 1536, 768),
+              # qwen2-vl-72b's gate/up and down at decode and gate/up over
+              # a prefill group of 4 x 768 rows (256 vision rows each)
+              (4, 8192, 29568), (4, 29568, 8192), (3072, 8192, 29568)]
     timed_b2 = {(4, 4096, 4096): "llama2-7b q/k/v/o",
                 (4, 4096, 11008): "llama2-7b gate/up",
                 (4, 11008, 4096): "llama2-7b down",
@@ -1040,7 +1084,10 @@ def phase_kernels(torch, results: dict) -> None:
                 (2048, 4104, 11008): "off every model path, K % 16 == 8",
                 (4, 4104, 11008): "off every model path, K % 16 == 8",
                 (6000, 768, 3072): "whisper-small encoder up",
-                (2048, 768, 3352): "mamba2-130m in_proj"}
+                (2048, 768, 3352): "mamba2-130m in_proj",
+                (4, 8192, 29568): "qwen2-vl-72b gate/up",
+                (4, 29568, 8192): "qwen2-vl-72b down",
+                (3072, 8192, 29568): "qwen2-vl-72b gate/up"}
     json_b2 = {"int8_gemv": (4, 4096, 11008),
                "int8_gemv_dp4a": (4, 4104, 11008),
                "int8_gemm_tc": (2048, 4096, 11008),
@@ -1127,8 +1174,10 @@ def phase_kernels(torch, results: dict) -> None:
     page = 16
     timed = ("llama2-7b", "zamba2-7b", "serve group 1", "serve group 2",
              "serve group 2, D 112", "chatglm3-6b", "command-r-plus-104b",
-             "deepseek-v2-lite-16b")
-    faulted = ("llama2-7b", "zamba2-7b", "chatglm3-6b", "command-r-plus-104b")
+             "deepseek-v2-lite-16b", "qwen2-vl-72b",
+             "qwen2-vl-72b serve group 1", "qwen2-vl-72b serve group 2")
+    faulted = ("llama2-7b", "zamba2-7b", "chatglm3-6b", "command-r-plus-104b",
+               "qwen2-vl-72b serve group 2")
     edges = [0, 1, SPLIT - 1, SPLIT, SPLIT + 1, 1024]
     for tag, b, h, hkv, d, max_seq, lens in [
             ("llama2-7b", 4, 32, 32, 128, 1024, [1024, 545, 17, 0]),
@@ -1144,7 +1193,13 @@ def phase_kernels(torch, results: dict) -> None:
             ("serve group 1", 4, 32, 32, 128, 1024, [252, 127, 197, 272]),
             ("serve group 2", 4, 32, 32, 128, 1024, [403, 331, 275, 439]),
             ("serve group 2, D 112", 4, 32, 32, 112, 1024,
-             [403, 331, 275, 439])]:
+             [403, 331, 275, 439]),
+            # qwen2-vl-72b: 64 heads over 8, the serve trace's groups with
+            # 256 vision rows before each prompt
+            ("qwen2-vl-72b serve group 1", 4, 64, 8, 128, 1024,
+             [508, 383, 453, 528]),
+            ("qwen2-vl-72b serve group 2", 4, 64, 8, 128, 1024,
+             [659, 587, 531, 695])]:
         pps = max_seq // page
         n_pages = b * pps + 1
         n_bufs = 3 if tag in timed else 1
@@ -1220,6 +1275,9 @@ def phase_kernels(torch, results: dict) -> None:
                                  ("zamba2-7b", 4, 512, 32, 32, 112),
                                  ("smollm-360m", 4, 512, 15, 5, 64),
                                  ("chatglm3-6b", 4, 512, 32, 2, 128),
+                                 # a group of 4 prompts of 512 tokens
+                                 # after 256 vision rows
+                                 ("qwen2-vl-72b", 4, 768, 64, 8, 128),
                                  ("ragged", 2, 200, 8, 2, 128),
                                  ("reduced", 4, 32, 4, 4, 16),
                                  # MLA's prefill: qk head 128 + 64, v
@@ -2498,7 +2556,9 @@ def _kernels_b1_int8(torch, results: dict) -> None:
             ("chatglm3-6b", 4, 32, 2, 128, [1024, 545, 17, 0]),
             ("command-r-plus-104b", 4, 96, 8, 128, [1024, 545, 17, 0]),
             ("split edges, group 16", 6, 32, 2, 128, edges),
-            ("split edges, group 12", 6, 96, 8, 128, edges)]:
+            ("split edges, group 12", 6, 96, 8, 128, edges),
+            ("qwen2-vl-72b serve group 2", 4, 64, 8, 128,
+             [659, 587, 531, 695])]:
         pps = max_seq // page
         n_pages = b * pps + 1
         timed = tag in ("llama2-7b", "serve group 2", "chatglm3-6b",
@@ -2525,7 +2585,8 @@ def _kernels_b1_int8(torch, results: dict) -> None:
         line = (f"[kernels] paged_decode_attention_int8 {tag} B={b} H={h} "
                 f"Hkv={hkv} D={d} lens={lens}: max|err| {err:.3e} (worst "
                 f"|err|/limit {used:.3f}; tol {ATTN_TOL})")
-        if tag in ("llama2-7b", "zamba2-7b", "chatglm3-6b"):
+        if tag in ("llama2-7b", "zamba2-7b", "chatglm3-6b",
+                   "qwen2-vl-72b serve group 2"):
             _planted_faults(torch, q, kp, vp, block, lengths, ref, page)
             _b1_batch_invariance(torch, q, kp, vp, block, lengths, got)
         if timed:
@@ -2565,6 +2626,17 @@ def _kernels_b1_int8(torch, results: dict) -> None:
                      f"cache {lib:.4f} ms (device {lib_dev:.4f} ms), bound "
                      f"{b_ms:.4f} ms ({b_by})")
         log(line)
+
+
+def _prefill_extras(torch, cfg, rows: int, dev="cuda") -> tuple[dict, int]:
+    """(the engine's prefill extras for ``rows`` rows, the cache rows they
+    add to each): the vlm family's zero vision embeddings (256 rows at
+    qwen2-vl-72b), the audio family's zero frames, as the engine feeds
+    them."""
+    from repro_torch.serving.core import _batch_extras
+
+    extra = cfg.n_vision_tokens if cfg.family == "vlm" else 0
+    return _batch_extras(cfg, rows, torch.device(dev)), extra
 
 
 def _tree_to(torch, tree, dev, f32=False):
@@ -2702,14 +2774,16 @@ def phase_model(torch) -> None:
 def _serve_full(torch, arch: str, tag: str, smi: str, quant: str = "w8a8",
                 n_req: int = 8, max_new: int = 32, required: tuple = (),
                 chunk_prefill: int = 0, kv_dtype: str = "bf16",
-                serving: tuple = SERVING_KERNELS) -> tuple[dict, object]:
+                serving: tuple = SERVING_KERNELS,
+                layers: int = 0) -> tuple[dict, object]:
     """``arch`` at full width, ``quant``, through launch/serve.py's
     build_client: 4 slots, max_seq 1024, page 16, ``n_req`` greedy requests
     with 64-512-token prompts and ``max_new`` new tokens each
     (``chunk_prefill``: the chunk budget; ``kv_dtype``: the page pools).
     Every launch counter is zeroed before the run and read after; the
     kernels the phase owns (COUNTED_IN), ``serving`` and ``required`` must
-    have launched.  Returns the counts and the client."""
+    have launched; ``layers``: the depth cut to its first ``layers``
+    (``_cut_depth``).  Returns the counts and the client."""
     import numpy as np
 
     from repro_torch import kernels
@@ -2722,6 +2796,17 @@ def _serve_full(torch, arch: str, tag: str, smi: str, quant: str = "w8a8",
                                max_batch=4, max_seq=1024, seed=0,
                                chunk_prefill=chunk_prefill,
                                kv_dtype=kv_dtype, device="cuda")
+    if layers:
+        from repro_torch.serving.client import ServingClient
+        from repro_torch.serving.scheduler import make_scheduler
+
+        cfg, params = _cut_depth(cfg, client.router.cores[0].params, layers)
+        client = ServingClient(
+            cfg, params, max_batch=4, max_seq=1024, eos_id=-1, page_size=16,
+            scheduler=make_scheduler("fcfs",
+                                     chunk_tokens=chunk_prefill or None),
+            kv_dtype=kv_dtype, device="cuda")
+        log(f"[{tag}] {arch}'s first {layers} layers at full width")
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated() / 2**30
     log(f"[{tag}] {arch} full width {quant.upper()} built in "
@@ -2745,10 +2830,11 @@ def _serve_full(torch, arch: str, tag: str, smi: str, quant: str = "w8a8",
         ref_logits = _chunked_logits(torch, core.params, cfg, p0,
                                      chunk_prefill, ref_cache)[None]
     else:
+        ex, extra = _prefill_extras(torch, cfg, 1)
         ref_logits, _ = M.prefill_into_slots(
             core.params, cfg, torch.tensor([p0], device="cuda"),
-            torch.tensor([len(p0)], device="cuda"), ref_cache,
-            torch.tensor([0], device="cuda"))
+            torch.tensor([len(p0) + extra], device="cuda"), ref_cache,
+            torch.tensor([0], device="cuda"), ex)
     if ref_logits.shape != (1, cfg.vocab_size) \
             or not bool(torch.isfinite(ref_logits).all()):
         raise AssertionError("reference prefill logits malformed")
@@ -3237,6 +3323,15 @@ def _host_launches(prof) -> dict[str, int]:
     return out
 
 
+def _sampled(i: int):
+    """Odd requests sampled (temperature 0.8, top-k 20, top-p 0.9, a pinned
+    seed), even ones greedy."""
+    from repro_torch.serving.scheduler import SamplingParams
+
+    return (SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
+                           seed=300 + i) if i % 2 else None)
+
+
 def _overlap_streams(torch, client, prompts, max_new, sampling=None,
                      eager=False) -> tuple[list, dict]:
     """Serve ``prompts`` through ``client`` (``sampling(i)`` the params of
@@ -3592,14 +3687,15 @@ def _chunk_invariance(torch, params, cfg, prompt, budgets, kv_dtype: str,
                                  f"{budget} under {kv_dtype} pools")
 
 
-def _paired_logits(torch, params, cfg, prompts, n_new, paths):
+def _paired_logits(torch, params, cfg, prompts, n_new, paths, tokens=None):
     """Greedy logits of ``prompts`` (4 at a time) along each path of
     ``paths`` (name -> (kv_dtype, chunk budget, 0 for the one-shot group
     prefill)), every path fed the first path's greedy tokens.  Returns
     (margins, drifts, agree): per prompt the smallest top-1 / top-2 margin
     over the paths and steps, the largest |logit difference| of the other
     paths to the first, and whether every path picks the first path's
-    token at every step."""
+    token at every step; with ``tokens``, the first path's greedy tokens
+    of each prompt are appended to it."""
     from repro_torch.models import model as M
     from repro_torch.serving.kv_cache import prefill_bucket
 
@@ -3619,10 +3715,11 @@ def _paired_logits(torch, params, cfg, prompts, n_new, paths):
                 bucket = prefill_bucket(max(len(p) for p in group))
                 toks = torch.tensor([p + [0] * (bucket - len(p))
                                      for p in group], device="cuda")
+                ex, extra = _prefill_extras(torch, cfg, m)
                 first, cache = M.prefill_into_slots(
                     params, cfg, toks, torch.tensor(
-                        [len(p) for p in group], device="cuda"), cache,
-                    torch.arange(m, device="cuda"))
+                        [len(p) + extra for p in group], device="cuda"),
+                    cache, torch.arange(m, device="cuda"), ex)
             logits[name], caches[name] = [first.float()], cache
         active = torch.arange(4, device="cuda") < m
         for _ in range(n_new - 1):
@@ -3646,6 +3743,8 @@ def _paired_logits(torch, params, cfg, prompts, n_new, paths):
         margins += margin.tolist()
         drifts += drift.tolist()
         agree += same.tolist()
+        if tokens is not None:
+            tokens += ref.argmax(-1).T.tolist()
         del caches
     return margins, drifts, agree
 
@@ -3663,6 +3762,25 @@ def _margin_checked_streams(torch, params, cfg, prompts, n_new, paths,
     """Greedy streams of the two ``clients`` (one per path, in ``paths``'s
     order) must agree on every margin-checked prompt (MARGIN); at least two
     of the prompts must pass the check."""
+    chosen = _margin_checked(torch, params, cfg, prompts, n_new, paths, tag)
+    a, b = (_streams(torch, c, chosen, n_new) for c in clients)
+    _same_streams(a, b, len(chosen), n_new, tag)
+
+
+def _same_streams(a, b, n: int, n_new: int, tag: str) -> None:
+    if a != b:
+        bad = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        raise AssertionError(f"[{tag}] the engines' greedy streams differ "
+                             f"on margin-checked prompts {bad}")
+    log(f"[{tag}] the greedy streams are identical on the {n} "
+        f"margin-checked prompts ({n_new} tokens each)")
+
+
+def _margin_checked(torch, params, cfg, prompts, n_new, paths,
+                    tag: str) -> list:
+    """The prompts on which every path of ``paths`` picks the same greedy
+    tokens with a top-1 margin above MARGIN (``_paired_logits``); at least
+    two must pass."""
     margins, drifts, agree = _paired_logits(torch, params, cfg, prompts,
                                             n_new, paths)
     keep = [i for i, (mg, ok) in enumerate(zip(margins, agree))
@@ -3676,14 +3794,7 @@ def _margin_checked_streams(torch, params, cfg, prompts, n_new, paths,
           f"{MARGIN})")
     if len(keep) < 2:
         raise AssertionError(f"[{tag}] fewer than 2 margin-checked prompts")
-    chosen = [prompts[i] for i in keep]
-    a, b = (_streams(torch, c, chosen, n_new) for c in clients)
-    if a != b:
-        bad = [keep[i] for i, (x, y) in enumerate(zip(a, b)) if x != y]
-        raise AssertionError(f"[{tag}] the engines' greedy streams differ "
-                             f"on margin-checked prompts {bad}")
-    log(f"[{tag}] the two engines' greedy streams are identical on the "
-        f"{len(keep)} margin-checked prompts ({n_new} tokens each)")
+    return [prompts[i] for i in keep]
 
 
 def _bit_equal_streams(torch, params, cfg, prompts, n_new, paths, clients,
@@ -3828,7 +3939,8 @@ def _lap(tag: str, what: str, t0: float) -> float:
 
 
 def phase_serve_chunked(torch, smi: str) -> dict:
-    """llama2-7b W8A8 at full width with a chunk budget of 128: the serve
+    """llama2-7b W8A8 at full width, cut to its first CUT_LAYERS layers,
+    with a chunk budget of 128: the serve
     trace through the engine (counted), synchronous == overlapped (greedy;
     sampled rows in tests/test_torch_gpu.py), the engine against the
     one-shot engine bit for bit on 12 prompts (logits and streams),
@@ -3845,7 +3957,8 @@ def phase_serve_chunked(torch, smi: str) -> dict:
     t0 = time.monotonic()
     counts, client = _serve_full(torch, "llama2-7b", tag, smi,
                                  chunk_prefill=CHUNK_BUDGET,
-                                 required=("paged_chunk_attention",))
+                                 required=("paged_chunk_attention",),
+                                 layers=CUT_LAYERS)
     core = client.router.cores[0]
     cfg, params = core.cfg, core.params
     log(f"[{tag}] {core.stats.prefill_chunks} chunks of up to "
@@ -3922,7 +4035,8 @@ def phase_serve_int8kv(torch, smi: str) -> tuple[dict, dict]:
     counts, client = _serve_full(
         torch, "llama2-7b", tag, smi, kv_dtype="int8",
         required=("paged_decode_attention_int8",),
-        serving=("int8_gemv", "int8_gemm_tc", "flash_attention"))
+        serving=("int8_gemv", "int8_gemm_tc", "flash_attention"),
+        layers=CUT_LAYERS)
     if counts["paged_decode_attention"]:
         raise AssertionError(f"[{tag}] B1 over bf16 pools launched with "
                              f"int8 pools")
@@ -4013,6 +4127,7 @@ TIER_PAGES = 65
 TIER_HYBRID_PAGES = 41
 TIER_FLASH_BOUND = 16
 PREFIX_CHUNK = 256    # below every prompt of the chat trace: all chunk
+
 PREFIX_CACHED = 256   # the cached prefix of the margin-checked partial hits
 _FULL: dict = {}
 
@@ -4343,11 +4458,12 @@ def _prefill_device_ms(torch, fn) -> tuple[float, float]:
 
 
 def phase_serve_prefix(torch, smi: str) -> None:
-    """llama2-7b W8A8 at full width, prefix caching on the JAX benchmark's
-    chat trace (4 sessions, 3 turns, a 992-token system prompt, every turn
-    submitted twice).  Gates: resume hits replay the cold run's bits with
-    no prefill; the one-shot pair and a chunked pair (chunk budget 256
-    below every prompt) each give their cold run's 24 streams bit for bit,
+    """llama2-7b W8A8 at full width, cut to its first CUT_LAYERS layers,
+    prefix caching on the JAX benchmark's chat trace (4 sessions, 3 turns,
+    a 992-token system prompt, every turn submitted twice).  Gates: resume
+    hits replay the cold run's bits with no prefill; the one-shot pair and
+    a chunked pair (chunk budget 256 below every prompt) each give their
+    cold run's 24 streams bit for bit,
     partial hits included; on 8 more prompts a partial hit over one-shot
     pages gives the one-shot run's logits and the cold engine's stream;
     refcounts return to idle; B1 and the chunk kernel counted.  TTFT p50 cold and warm; prefill device ms of a cold
@@ -4362,7 +4478,8 @@ def phase_serve_prefix(torch, smi: str) -> None:
 
     tag = "serve_prefix"
     t0 = time.monotonic()
-    cfg, params = _full_model(torch, "llama2-7b")
+    cfg, params = _cut_depth(*_full_model(torch, "llama2-7b"), CUT_LAYERS)
+    log(f"[{tag}] llama2-7b's first {CUT_LAYERS} layers at full width")
     cold = _chat(torch, _a5_engine(cfg, params), cfg, tag)
     warm_eng = _a5_engine(cfg, params, prefix_cache=True)
     torch.cuda.synchronize()
@@ -4601,6 +4718,7 @@ def phase_serve_migrate(torch, smi: str) -> None:
     _lap(tag, "snapshot and inject", t0)
 
 FLEET_CKPT = 8        # the JAX router's checkpoint_every default
+
 FLEET_KILL_STEP = 10
 WATCHDOG_STEPS = (3, 7)
 
@@ -4742,9 +4860,11 @@ def _watchdog_check(torch, cfg, params, prompts, max_new, tag, arch, smi):
 
 
 def phase_serve_fleet(torch, smi: str) -> None:
-    """Fleet serving on the card.  llama2-7b W8A8 at full width, 4 slots a
-    worker, max_seq 1024, page 16, the serve trace, 32 new tokens, odd rids
-    sampled with pinned seeds.
+    """Fleet serving on the card.  llama2-7b W8A8 at full width (the
+    loopback fleets, their one-engine reference and the sanitized engine
+    cut to its first CUT_LAYERS layers), 4 slots a worker, max_seq 1024,
+    page 16, the serve trace, 32 new tokens, odd rids sampled with pinned
+    seeds.
 
     Gates: (1) a loopback fleet of 2 workers + 1 spare sharing one params
     dict, ``checkpoint_every=8``, worker 0 killed after step 10, synchronous
@@ -4774,7 +4894,10 @@ def phase_serve_fleet(torch, smi: str) -> None:
     cfg, params = _full_model(torch, "llama2-7b")
     prompts = _serve_trace(cfg)
     kw = dict(A5_ENG)
-    one = _a5_engine(cfg, params)
+    fcfg, fparams = _cut_depth(cfg, params, CUT_LAYERS)
+    log(f"[{tag}] the loopback fleets run llama2-7b's first {CUT_LAYERS} "
+        f"of {cfg.n_layers} layers at full width")
+    one = _a5_engine(fcfg, fparams)
     reqs = _fleet_reqs(prompts)
     for r in reqs:
         one.add_request(r)
@@ -4786,6 +4909,14 @@ def phase_serve_fleet(torch, smi: str) -> None:
     want = [r.out_tokens for r in reqs]
     n_tok = sum(len(w) for w in want)
     del one
+    # the socket workers build the whole model: their reference
+    full = _a5_engine(cfg, params)
+    reqs = _fleet_reqs(prompts)
+    for r in reqs:
+        full.add_request(r)
+    full.run()
+    want_full = [r.out_tokens for r in reqs]
+    del full
     t0 = _lap(tag, "one engine", t0)
 
     # (1) loopback fleets, a worker killed mid-decode
@@ -4793,7 +4924,7 @@ def phase_serve_fleet(torch, smi: str) -> None:
         fl.workers[0].transport.kill()
 
     for overlap in (False, True):
-        fl = FleetRouter.build_loopback(cfg, params, workers=2, spares=1,
+        fl = FleetRouter.build_loopback(fcfg, fparams, workers=2, spares=1,
                                         checkpoint_every=FLEET_CKPT,
                                         overlap=overlap, **kw)
         rec = _timed_checkpoints(torch, fl)
@@ -4837,7 +4968,7 @@ def phase_serve_fleet(torch, smi: str) -> None:
     # the fleet's throughput with and without checkpoints, undisturbed
     walls = {}
     for every in (FLEET_CKPT, 0):
-        fl = FleetRouter.build_loopback(cfg, params, workers=2, spares=0,
+        fl = FleetRouter.build_loopback(fcfg, fparams, workers=2, spares=0,
                                         checkpoint_every=every, **kw)
         reqs = _fleet_reqs(prompts)
         walls[every] = _drive_fleet(torch, fl, reqs)
@@ -4864,7 +4995,7 @@ def phase_serve_fleet(torch, smi: str) -> None:
             raise AssertionError(f"[{tag}] REPRO_SANITIZE=1 loaded no "
                                  f"sanitizer (tools/analysis missing?)")
         san.reset_counters()
-        eng = _a5_engine(cfg, params, overlap=True, kv_tier="flash",
+        eng = _a5_engine(fcfg, fparams, overlap=True, kv_tier="flash",
                          num_pages=TIER_PAGES, prefix_cache=True)
         reqs = _fleet_reqs(prompts)
         for r in reqs:
@@ -4936,12 +5067,12 @@ def phase_serve_fleet(torch, smi: str) -> None:
         f = fl.fleet
         log(f"[{tag}] socket fleet (2 card workers, worker pid {pids[0]} "
             f"SIGKILLed after step {FLEET_KILL_STEP}): 0 requests lost, "
-            f"streams {'bit-equal to' if got == want else 'DIFFER from'} the "
-            f"parent's single engine's; workers_lost {f.workers_lost}, "
+            f"streams {'bit-equal to' if got == want_full else 'DIFFER from'} "
+            f"the parent's single engine's; workers_lost {f.workers_lost}, "
             f"failovers {f.failovers}, requests_replayed "
             f"{f.requests_replayed}, tokens_replayed {f.tokens_replayed}, "
             f"recovery_s {_ms(fl.recovery_s)} ms; wall {wall:.2f} s, on {smi}")
-        if got != want or f.workers_lost != 1:
+        if got != want_full or f.workers_lost != 1:
             raise AssertionError(f"[{tag}] the socket fleet's streams "
                                  f"differ or no worker was lost")
     finally:
@@ -5172,6 +5303,25 @@ def _routes():
         moe._route = orig
 
 
+def _int8_as_f64(torch, tree):
+    """``tree`` with every int8 leaf as float64 (the same values)."""
+    if isinstance(tree, dict):
+        return {k: _int8_as_f64(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_int8_as_f64(torch, v) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.int8:
+        return tree.to(torch.float64)
+    return tree
+
+
+def _cut_depth(cfg, params, n: int):
+    """(cfg, params) cut to the first ``n`` layers at full width (mla_moe
+    keeps its dense first layers): an earlier path's depth cut so the
+    script stays inside its time limit."""
+    return (dataclasses.replace(cfg, n_layers=n),
+            {**params, "layers": params["layers"][:n - cfg.first_k_dense]})
+
+
 def _cut_logits(torch, cfg, params, prompt, n_layers: int, record=None):
     """The model cut to its first ``n_layers`` layers at full width: one
     prompt's prefill and 3 teacher-forced decode steps, card bf16, CPU bf16
@@ -5186,18 +5336,30 @@ def _cut_logits(torch, cfg, params, prompt, n_layers: int, record=None):
     # mla_moe keeps its dense first layers (``dense_layers``) in the cut
     card = {**params,
             "layers": params["layers"][:n_layers - cfg.first_k_dense]}
-    runs = _to_runs(torch, _tree_to(torch, card, "cpu"), card)
+    cpu = _tree_to(torch, card, "cpu")
+    # the CPU's plain int8 product runs in float64 and converts its
+    # operands at every call: the layers' int8 weights are held as float64
+    # once (the same integers, so the same products; both CPU runs share
+    # them)
+    for key in ("dense_layers", "layers"):
+        if key in cpu:
+            cpu[key] = _int8_as_f64(torch, cpu[key])
+    runs = _to_runs(torch, cpu, card)
     logits, seen = {}, {}
     toks = torch.tensor([prompt], dtype=torch.int32)
-    block = torch.arange(1, 9, dtype=torch.int32)[None]
+    extra = _prefill_extras(torch, cfg, 1)[1]
+    pages = -(-(len(prompt) + extra + 4) // 16)
+    block = torch.arange(1, pages + 1, dtype=torch.int32)[None]
     for name, (p, dev, dtype) in runs.items():
-        cache = M.init_paged_cache(cut, 1, 128, dtype=dtype, page_size=16,
-                                   device=dev)
+        cache = M.init_paged_cache(cut, 1, 16 * pages, dtype=dtype,
+                                   page_size=16, device=dev)
         cache["block"] = block.to(dev)
+        ex = _prefill_extras(torch, cfg, 1, dev)[0]
         with record() if record else contextlib.nullcontext() as rec:
             lg, cache = M.prefill_into_slots(
-                p, cut, toks.to(dev), torch.tensor([len(prompt)]).to(dev),
-                cache, torch.tensor([0]).to(dev))
+                p, cut, toks.to(dev),
+                torch.tensor([len(prompt) + extra]).to(dev), cache,
+                torch.tensor([0]).to(dev), ex)
             logits[name] = [lg.float().cpu()]
             for i in range(3):   # teacher-forced with the CPU run's tokens
                 tok = torch.argmax(logits["cpu"][i], -1).to(torch.int32)
@@ -5331,12 +5493,13 @@ def phase_serve_moe(torch, smi: str) -> dict:
     import numpy as np
 
     from repro_torch.serving.client import ServingClient
-    from repro_torch.serving.scheduler import SamplingParams, make_scheduler
+    from repro_torch.serving.scheduler import make_scheduler
 
     tag = "serve_moe"
     t0 = time.monotonic()
     counts, client = _serve_full(torch, MOE_ARCH, tag, smi,
-                                 required=("grouped_gemm",))
+                                 required=("grouped_gemm",),
+                                 layers=CUT_LAYERS)
     core = client.router.cores[0]
     cfg, params = core.cfg, core.params
     per_step = core.graph._deltas["sync"].get("grouped_gemm", 0)
@@ -5360,12 +5523,8 @@ def phase_serve_moe(torch, smi: str) -> dict:
         raise AssertionError(f"[{tag}] greedy: graph / overlapped differ "
                              f"from eager")
 
-    def sampled(i):
-        return (SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
-                               seed=300 + i) if i % 2 else None)
-
-    s_sync, _ = _overlap_streams(torch, client, prompts, 32, sampled)
-    s_over, _ = _overlap_streams(torch, olap, prompts, 32, sampled)
+    s_sync, _ = _overlap_streams(torch, client, prompts, 32, _sampled)
+    s_over, _ = _overlap_streams(torch, olap, prompts, 32, _sampled)
     if s_sync != s_over:
         raise AssertionError(f"[{tag}] sampled: overlapped != synchronous")
     drawn = sum(a != b for a, b in zip(s_sync[1::2], graph[1::2]))
@@ -5423,7 +5582,7 @@ def phase_serve_moe(torch, smi: str) -> dict:
     return counts
 
 
-DENSE_ARCHS = ("chatglm3-6b", "internlm2-20b")
+DENSE_ARCHS = ("chatglm3-6b", "internlm2-20b", "llama2-70b")
 DENSE_CPU_LAYERS = 2   # the CPU gate's depth (full width)
 
 
@@ -5438,7 +5597,8 @@ def _dense_cpu_gate(torch, cfg, params, prompt, tag: str) -> None:
     _ratio_gate(torch, f"{cfg.name} {DENSE_CPU_LAYERS} layers", logits)
 
 
-def _serve_dense(torch, arch: str, smi: str, every_gate: bool) -> None:
+def _serve_dense(torch, arch: str, smi: str, every_gate: bool,
+                 layers: int = 0) -> None:
     """``arch`` at full width, W8A8, random weights from seed 0 built on
     the card by ``init_params`` and quantized there, through build_client:
     4 slots, max_seq 1024, page 16, the serve trace (``_serve_full``:
@@ -5457,11 +5617,11 @@ def _serve_dense(torch, arch: str, smi: str, every_gate: bool) -> None:
 
     from repro_torch import kernels
     from repro_torch.serving.client import ServingClient
-    from repro_torch.serving.scheduler import SamplingParams, make_scheduler
+    from repro_torch.serving.scheduler import make_scheduler
 
     tag = f"serve_dense {arch}"
     t0 = time.monotonic()
-    counts, client = _serve_full(torch, arch, tag, smi)
+    counts, client = _serve_full(torch, arch, tag, smi, layers=layers)
     core = client.router.cores[0]
     cfg, params = core.cfg, core.params
     per_step = core.graph._deltas["sync"].get("paged_decode_attention", 0)
@@ -5491,12 +5651,8 @@ def _serve_dense(torch, arch: str, smi: str, every_gate: bool) -> None:
             raise AssertionError(f"[{tag}] greedy: overlapped differs from "
                                  f"eager")
 
-        def sampled(i):
-            return (SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
-                                   seed=300 + i) if i % 2 else None)
-
-        s_sync, _ = _overlap_streams(torch, client, prompts, 32, sampled)
-        s_over, _ = _overlap_streams(torch, olap, prompts, 32, sampled)
+        s_sync, _ = _overlap_streams(torch, client, prompts, 32, _sampled)
+        s_over, _ = _overlap_streams(torch, olap, prompts, 32, _sampled)
         if s_sync != s_over:
             raise AssertionError(f"[{tag}] sampled: overlapped != "
                                  f"synchronous")
@@ -5556,9 +5712,15 @@ def phase_serve_dense(torch, smi: str) -> None:
     head, q/k/v and FFN biases, vocab 65,024) with every gate, then
     internlm2-20b (48 layers, d_model 6144, 48 heads over 8, vocab 92,544)
     with the serve trace, graph == eager, the first token and the CPU
-    gate; each freed before the next is built."""
-    _serve_dense(torch, DENSE_ARCHS[0], smi, every_gate=True)
-    _serve_dense(torch, DENSE_ARCHS[1], smi, every_gate=False)
+    gate; then the paper's llama2-70b (80 layers, d_model 8192, 64 heads
+    over 8, d_ff 28,672, vocab 32,000: 68.45 GB of W8A8 layers, which only
+    the layer-by-layer build fits on the card) with internlm2-20b's gates;
+    each freed before the next is built."""
+    _serve_dense(torch, DENSE_ARCHS[0], smi, every_gate=True,
+                 layers=CUT_LAYERS)
+    _serve_dense(torch, DENSE_ARCHS[1], smi, every_gate=False,
+                 layers=CUT_LAYERS)
+    _serve_dense(torch, DENSE_ARCHS[2], smi, every_gate=False)
 
 
 # ---------------------------------------------------------------------------
@@ -5600,12 +5762,13 @@ def _mla_int8(torch, client, cfg, params, prompts, kw, tag: str) -> dict:
     return counts
 
 
-def _mla_tier_and_moves(torch, cfg, params, prompts, smi: str,
-                        tag: str) -> None:
-    """The A5 gates over mla_moe's compressed pages: tiered == resident
-    (a 65-page hot pool under the serve trace's ~136 pages), a snapshot's
-    bytes resumed on another engine == the unmigrated stream, and a
-    resume hit == its cold run with no prefill."""
+def _tier_and_moves(torch, cfg, params, prompts, smi: str,
+                    tag: str) -> None:
+    """The A5 gates over a family's pages (mla_moe's compressed rows,
+    vlm's K/V with the vision rows first): tiered == resident (a 65-page
+    hot pool under the serve trace's demand), a snapshot's bytes resumed
+    on another engine == the unmigrated stream, and a resume hit == its
+    cold run with no prefill."""
     from repro_torch.serving.core import Request, SlotSnapshot
 
     want, res_wall = _run_trace(torch, _a5_engine(cfg, params), prompts, 32,
@@ -5630,7 +5793,7 @@ def _mla_tier_and_moves(torch, cfg, params, prompts, smi: str,
         a.step()
     snap = a.snapshot_slot(i)
     data = snap.to_bytes()
-    back = SlotSnapshot.from_bytes(data, expect_family="mla_moe",
+    back = SlotSnapshot.from_bytes(data, expect_family=cfg.family,
                                    expect_page_size=16)
     if len(back.pages[0]) != 2 or not all(
             torch.equal(x, y) for p, q in zip(snap.pages, back.pages)
@@ -5642,7 +5805,7 @@ def _mla_tier_and_moves(torch, cfg, params, prompts, smi: str,
     if back.req.out_tokens != want[i]:
         raise AssertionError(f"[{tag}] the migrated stream differs")
     log(f"[{tag}] a {len(prompts[i])}-token request migrated after 5 steps "
-        f"({back.n_pages} pages of compressed (ckv, krope) rows, "
+        f"({back.n_pages} pages of {cfg.family} rows, "
         f"{len(data) / 2**20:.2f} MiB of snapshot bytes) == its unmigrated "
         f"stream")
     del a, b
@@ -5674,7 +5837,7 @@ def phase_serve_mla(torch, smi: str) -> tuple[dict, dict]:
     the decode graph) and not B1; graph == eager == overlapped, greedy,
     and sampled synchronous == overlapped; int8 pools (``_mla_int8``);
     tiered == resident, migrated == unmigrated, a resume hit == cold
-    (``_mla_tier_and_moves``); a wave run's first tokens == a direct
+    (``_tier_and_moves``); a wave run's first tokens == a direct
     prefill's; every MLA ticket buffer zero after the runs; the CPU gate
     on 2 layers.  Prints decode ms a step and tok/s (sync, overlapped),
     prefill ms a group, the profiles, peak memory.  Returns the launch
@@ -5685,12 +5848,11 @@ def phase_serve_mla(torch, smi: str) -> tuple[dict, dict]:
 
     from repro_torch.kernels.mla_decode_attention import ops as mla_ops
     from repro_torch.serving.client import ServingClient
-    from repro_torch.serving.scheduler import SamplingParams
 
     tag = "serve_mla"
     t0 = time.monotonic()
     counts, client = _serve_full(torch, MLA_ARCH, tag, smi,
-                                 serving=MLA_SERVING)
+                                 serving=MLA_SERVING, layers=CUT_LAYERS)
     core = client.router.cores[0]
     cfg, params = core.cfg, core.params
     per_step = core.graph._deltas["sync"].get("mla_decode_attention", 0)
@@ -5715,12 +5877,8 @@ def phase_serve_mla(torch, smi: str) -> tuple[dict, dict]:
         raise AssertionError(f"[{tag}] greedy: graph / overlapped differ "
                              f"from eager")
 
-    def sampled(i):
-        return (SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
-                               seed=300 + i) if i % 2 else None)
-
-    s_sync, _ = _overlap_streams(torch, client, prompts, 32, sampled)
-    s_over, _ = _overlap_streams(torch, olap, prompts, 32, sampled)
+    s_sync, _ = _overlap_streams(torch, client, prompts, 32, _sampled)
+    s_over, _ = _overlap_streams(torch, olap, prompts, 32, _sampled)
     if s_sync != s_over:
         raise AssertionError(f"[{tag}] sampled: overlapped != synchronous")
     drawn = sum(a != b for a, b in zip(s_sync[1::2], graph[1::2]))
@@ -5745,7 +5903,7 @@ def phase_serve_mla(torch, smi: str) -> tuple[dict, dict]:
     counts8 = _mla_int8(torch, client, cfg, params, prompts, kw, tag)
     gc.collect()
     t0 = _lap(tag, "int8 pools", t0)
-    _mla_tier_and_moves(torch, cfg, params, prompts, smi, tag)
+    _tier_and_moves(torch, cfg, params, prompts, smi, tag)
     gc.collect()
     t0 = _lap(tag, "tiered, migrated, resume hit", t0)
     wave = ServingClient(cfg, params, mode="wave", **kw)
@@ -5789,6 +5947,239 @@ def phase_serve_mla(torch, smi: str) -> tuple[dict, dict]:
     return counts, counts8
 
 
+# ---------------------------------------------------------------------------
+# serve_vlm: the vlm family at full width
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "qwen2-vl-72b"
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_bytes(v) for v in tree)
+    return 0 if tree is None else tree.numel() * tree.element_size()
+
+
+def _smi_memory_total() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.total", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _int8_margins(torch, cfg, params, client, tag: str):
+    """The int8 pools' direct greedy path and the bf16 pools' on 8
+    candidate prompts (``_paired_logits``, the bf16 path fed the int8
+    path's tokens).  Returns (the prompts whose top-1 margins exceed
+    MARGIN on both paths, the int8 path's tokens of them; of those, the
+    prompts on which the bf16 path picks the same tokens, and the bf16
+    engine ``client``'s streams of them)."""
+    import numpy as np
+
+    rng = np.random.RandomState(5)
+    cands = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+             for n in rng.randint(140, 400, size=8)]
+    toks = []
+    margins, drifts, agree = _paired_logits(
+        torch, params, cfg, cands, MARGIN_TOKENS,
+        {"int8": ("int8", 0), "bf16": ("bf16", 0)}, toks)
+    own = [i for i, mg in enumerate(margins) if mg > MARGIN]
+    both = [i for i in own if agree[i]]
+    log(f"[{tag}] int8 vs bf16 pools: per prompt (top-1 margin, max "
+        f"|dlogit| between the paths, same tokens) over {MARGIN_TOKENS} "
+        f"greedy tokens: "
+        + ", ".join(f"({mg:.4f}, {dr:.4f}, {'y' if ok else 'n'})"
+                    for mg, dr, ok in zip(margins, drifts, agree))
+        + f"; {len(own)} of {len(cands)} above {MARGIN}, {len(both)} of "
+          f"them with the same tokens on both paths")
+    if len(own) < 2:
+        raise AssertionError(f"[{tag}] fewer than 2 margin-checked prompts")
+    chosen = [cands[i] for i in both]
+    return ([cands[i] for i in own], [toks[i] for i in own], chosen,
+            _streams(torch, client, chosen, MARGIN_TOKENS))
+
+
+def _vlm_int8(torch, cfg, params, prompts, margins, kw, tag: str) -> dict:
+    """int8 pools, one engine at a time: the serve trace's first group
+    counted (B1's int8 variant, never its bf16 one); on ``_int8_margins``'s
+    prompts the int8
+    engine's greedy streams == the direct int8 path's tokens, and == the
+    bf16 engine's streams where both paths keep their margins and tokens;
+    then an overlapped int8 engine == the synchronous one."""
+    import gc
+
+    from repro_torch.serving.client import ServingClient
+
+    own, own_toks, both, want = margins
+    c8 = ServingClient(cfg, params, kv_dtype="int8", **kw)
+    sync, run = _overlap_streams(torch, c8, prompts[:4], 32)
+    _check_graph_run(c8.router.cores[0], run, tag, "int8 pools")
+    counts = run["counts"]
+    if counts["paged_decode_attention_int8"] <= 0 \
+            or counts["paged_decode_attention"]:
+        raise AssertionError(f"[{tag}] int8 pools: launches {counts}")
+    _same_streams(own_toks, _streams(torch, c8, own, MARGIN_TOKENS),
+                  len(own), MARGIN_TOKENS,
+                  f"{tag} int8 engine vs the direct int8 path")
+    if both:
+        _same_streams(want, _streams(torch, c8, both, MARGIN_TOKENS),
+                      len(both), MARGIN_TOKENS, f"{tag} bf16 vs int8 pools")
+    del c8
+    gc.collect()
+    torch.cuda.empty_cache()
+    o8 = ServingClient(cfg, params, kv_dtype="int8", overlap=True, **kw)
+    over, _ = _overlap_streams(torch, o8, prompts[:4], 32)
+    if over != sync:
+        raise AssertionError(f"[{tag}] int8 pools: overlapped != sync")
+    log(f"[{tag}] int8 pools: the serve trace's first 4 requests with "
+        f"{counts['paged_decode_attention_int8']} launches of B1's int8 "
+        f"variant; overlapped == synchronous")
+    del o8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_serve_vlm(torch, smi: str) -> tuple[dict, dict]:
+    """qwen2-vl-72b at full width (80 layers, d_model 8192, 64 query heads
+    over 8 kv heads of 128, q/k/v and FFN biases, d_ff 29,568, vocab
+    152,064, M-RoPE over 256 prepended vision embeddings, zeros as the
+    engine feeds them), random weights from seed 0 built on the card layer
+    by layer and quantized W8A8 as they are made, 4 slots, max_seq 1024,
+    page 16, the serve trace (caches of 320-768 rows).  Gates: the counted
+    run launches B1, B2 and B3, B1 once a layer a step inside the decode
+    graph; graph == overlapped, greedy (== eager on the first group of 4),
+    and sampled synchronous == overlapped (the first group); int8 pools
+    (``_vlm_int8``);
+    tiered == resident over the first 4 prompts, migrated == unmigrated, a
+    resume hit == cold through the vision rows' sentinel keys
+    (``_tier_and_moves``); a wave run's first tokens == a direct
+    prefill's; the CPU gate on 2 layers at full width.  One engine
+    is alive at a time beside the weights.  Prints the build's time and
+    peak against the resident bytes, the run's peak against memory.total,
+    decode ms a step and tok/s (sync, overlapped), prefill ms a group, the
+    profiles.  Returns the launch counts of the bf16 and int8 runs."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.serving.client import ServingClient
+
+    tag = "serve_vlm"
+    t0 = time.monotonic()
+    counts, client = _serve_full(torch, VLM_ARCH, tag, smi)
+    core = client.router.cores[0]
+    cfg, params = core.cfg, core.params
+    weights = _tree_bytes(params)
+    pools = _tree_bytes([core.cache[k] for k in ("k", "v")])
+    log(f"[{tag}] resident: weights {weights / 1e9:.2f} GB, page pools "
+        f"{pools / 1e9:.2f} GB ({core.num_pages} pages); "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB "
+        f"(nvidia-smi memory.total {_smi_memory_total()}) on {smi}")
+    per_step = core.graph._deltas["sync"].get("paged_decode_attention", 0)
+    log(f"[{tag}] B1 at H {cfg.n_heads} over Hkv {cfg.n_kv_heads}: "
+        f"{counts['paged_decode_attention']} launches in the counted run, "
+        f"{per_step} a decode step inside the decode graph ({cfg.n_layers} "
+        f"expected); B2 GeMV {counts['int8_gemv']}, B2 GEMM "
+        f"{counts['int8_gemm_tc']}, B3 {counts['flash_attention']}")
+    if per_step != cfg.n_layers:
+        raise AssertionError(f"[{tag}] the decode graph holds {per_step} B1 "
+                             f"launches")
+    t0 = _lap(tag, "counted run", t0)
+    kw = dict(max_batch=4, max_seq=1024, page_size=16, eos_id=-1,
+              device="cuda")
+    prompts = _serve_trace(cfg)
+    # eager over the first group of 4 only (an eager 72B step is ~0.5 s of
+    # host launches); its streams are the graph run's first 4
+    eager, r_e = _overlap_streams(torch, client, prompts[:4], 32, eager=True)
+    graph, r_g = _overlap_streams(torch, client, prompts, 32)
+    _check_graph_run(core, r_g, tag, "sync graph")
+    if r_e["replays"] != 0 or graph[:4] != eager:
+        raise AssertionError(f"[{tag}] greedy: graph differs from eager")
+    s_sync, _ = _overlap_streams(torch, client, prompts[:4], 32, _sampled)
+    tprompts = [[int(t) for t in np.random.RandomState(3).randint(
+        0, cfg.vocab_size, n)] for n in (200, 240, 280, 320)]
+    walls = {"sync": _decode_wall(torch, client, tprompts, 64)}
+    margins = _int8_margins(torch, cfg, params, client, tag)
+    t0 = _lap(tag, "graph, eager, sampled, sync wall, margins", t0)
+    rows, steps = phase_profile(torch, client, smi, tag)
+    b1 = [r for r in rows if "paged_decode_attention" in r[1]]
+    gemv = [r for r in rows if "int8_gemv" in r[1]]
+    total = sum(r[0] for r in rows)
+    log(f"[{tag}] decode step: B1 {sum(r[0] for r in b1) / 1e3 / steps:.4f} "
+        f"device ms, B2's GeMV {sum(r[0] for r in gemv) / 1e3 / steps:.3f} "
+        f"({100 * sum(r[0] for r in gemv) / max(total, 1e-9):.1f}% of "
+        f"{total / 1e3 / steps:.3f}) on {smi}")
+    t0 = _lap(tag, "profiles", t0)
+    _dense_cpu_gate(torch, cfg, params, prompts[0][:16], tag)
+    t0 = _lap(tag, "CPU gate", t0)
+    del client, core
+    gc.collect()
+    torch.cuda.empty_cache()
+    olap = ServingClient(cfg, params, overlap=True, **kw)
+    over, r_o = _overlap_streams(torch, olap, prompts, 32)
+    _check_graph_run(olap.router.cores[0], r_o, tag, "overlap")
+    if over != graph:
+        raise AssertionError(f"[{tag}] greedy: overlapped differs from the "
+                             f"graph run")
+    s_over, _ = _overlap_streams(torch, olap, prompts[:4], 32, _sampled)
+    if s_sync != s_over:
+        raise AssertionError(f"[{tag}] sampled: overlapped != synchronous")
+    drawn = sum(a != b for a, b in zip(s_sync[1::2], graph[1:4:2]))
+    if drawn == 0:
+        raise AssertionError(f"[{tag}] no sampled stream left its greedy one")
+    walls["overlapped"] = _decode_wall(torch, olap, tprompts, 64)
+    log(f"[{tag}] graph == overlapped on 8 greedy requests, == eager on the "
+        f"first 4; sampled synchronous == overlapped on the first 4 ({drawn} "
+        f"of 2 sampled streams left greedy); B1 launches graph / overlapped "
+        f"/ eager "
+        f"{r_g['counts']['paged_decode_attention']} / "
+        f"{r_o['counts']['paged_decode_attention']} / "
+        f"{r_e['counts']['paged_decode_attention']}")
+    log(f"[{tag}] decode, 4 slots at 456-640 rows (256 vision rows each): "
+        + ", ".join(f"{mode} {w:.2f} ms a step = {4e3 / w:.1f} tok/s ({n} "
+                    f"steps)" for mode, (w, n) in walls.items())
+        + f" (synchronized clock around the decode loop) on {smi}")
+    del olap
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = _lap(tag, "overlapped, sampled, overlapped wall", t0)
+    counts8 = _vlm_int8(torch, cfg, params, prompts, margins, kw, tag)
+    t0 = _lap(tag, "int8 pools", t0)
+    # the first 4 prompts: ~150 pages of demand over the 65-page pool
+    _tier_and_moves(torch, cfg, params, prompts[:4], smi, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = _lap(tag, "tiered, migrated, resume hit", t0)
+    wave = ServingClient(cfg, params, mode="wave", **kw)
+    wgreedy, run = _wave_run(torch, wave, prompts, tag, "wave mode, graphs")
+    del wave
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = _wave_first_tokens(torch, cfg, params, prompts, 1024)
+    if first != [t[0] for t, _ in wgreedy[:4]] \
+            or run["counts"]["paged_decode_attention"] <= 0:
+        raise AssertionError(f"[{tag}] the wave engine's first tokens are not "
+                             f"a direct prefill's, or it ran no B1")
+    log(f"[{tag}] wave mode: first tokens == a direct prefill's; B1 over the "
+        f"contiguous cache {run['counts']['paged_decode_attention']} "
+        f"launches")
+    log(f"[{tag}] peak memory over the phase "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB "
+        f"on {smi}")
+    _lap(tag, "wave mode", t0)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, counts8
+
+
 def _mark(name: str) -> None:
     """Log the time since the previous mark (the phase before ``name``)."""
     now = time.monotonic()
@@ -5806,7 +6197,7 @@ def main(argv=None) -> int:
                             "serve_overlap,serve_chunked,serve_int8kv,"
                             "serve_tiered,serve_prefix,serve_migrate,"
                             "serve_fleet,serve_wave,serve_moe,"
-                            "serve_dense,serve_mla")
+                            "serve_dense,serve_mla,serve_vlm")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -5891,6 +6282,18 @@ def main(argv=None) -> int:
     _mark("serve_mla")
     if "serve_mla" in phases:
         counts["serve_mla"], counts["serve_mla_int8"] = phase_serve_mla(
+            torch, smi_line)
+    _mark("serve_vlm")
+    if "serve_vlm" in phases:
+        # qwen2-vl-72b leaves ~8 GiB of the card beside its weights while
+        # engines come and go: expandable segments map freed memory again
+        # whatever blocks it was split into (CUDA graphs' private pools keep
+        # ordinary segments).  Set for the last phase only: it slows the
+        # allocation churn of the earlier ones (serve_chunked's one-shot ==
+        # chunked check took 45% longer under it)
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+        counts["serve_vlm"], counts["serve_vlm_int8"] = phase_serve_vlm(
             torch, smi_line)
     _mark("end")
     log(f"[time] phases {args.phases} took "

@@ -1,17 +1,18 @@
 """Serving driver of the port over the ServingClient surface.
 
 Counterpart of ``repro.launch.serve``: builds the model (random weights
-from a seeded ``torch.Generator`` on the device), quantizes it to W8A8 by
-default (``--quant w4a16``: W4A16 where the JAX launcher makes it, which on
-the dense family is the ``lm_head``, the layers staying W8A8), puts
+from a seeded ``torch.Generator`` on the device), quantizing it to W8A8 by
+default layer by layer as it is drawn (``--quant w4a16``: W4A16 where the
+JAX launcher makes it, which on the dense family is the ``lm_head``, the
+layers staying W8A8), puts
 ``--replicas`` engine replicas behind a router and serves ``--requests``
 random prompts, greedy, or sampled under ``--temperature`` / ``--top-k`` /
 ``--top-p`` (each request's seed is ``--seed`` + its id).  ``--overlap``
 runs the overlapped decode loop (one fused decode + sample step a round,
 its tokens read back one step late).  ``--chunk-prefill N`` prefills a
 prompt longer than N tokens in chunks of N, one a step between decode
-steps (dense and moe families; hybrid and mla_moe engines prefill in one
-shot);
+steps (dense and moe families; hybrid, mla_moe and vlm engines prefill
+in one shot);
 ``--kv-dtype int8`` keeps the KV pages in int8 with a float32 scale per
 row and head.  ``--kv-tier flash`` spills KV pages of suspended slots to
 a cold tier (pinned host memory on a card; ``--flash-pages`` bounds it,
@@ -54,14 +55,18 @@ kernels.
       --chunk-prefill 4 --device cpu
   python src/repro_torch/launch/serve.py --arch deepseek-v2-lite-16b \\
       --kv-dtype int8 --device cpu
+  python src/repro_torch/launch/serve.py --arch qwen2-vl-72b --device cpu
+  python src/repro_torch/launch/serve.py --arch qwen2-vl-72b --reduced 0 \\
+      --max-seq 1024
 
 ``--arch`` takes every configuration of ``configs/registry.py``: the dense
 family, the moe qwen2-moe-a2.7b (60 routed experts, top-4, through the
 grouped GEMM kernel, and 4 shared experts), the mla_moe
 deepseek-v2-lite-16b (multi-head latent attention over compressed KV
 pages through the MLA decode kernel, a dense first layer, 64 routed
-experts top-6 and 2 shared; it prefills in one shot, as in JAX) and the
-hybrid zamba2-7b
+experts top-6 and 2 shared; it prefills in one shot, as in JAX), the vlm
+qwen2-vl-72b (M-RoPE over 256 prepended vision embeddings, zeros from the
+stub frontend; one-shot prefill) and the hybrid zamba2-7b
 (Mamba-2 layers and a shared attention block) in either mode, the ssm
 mamba2-130m and the audio whisper-small (an encoder over stub frame
 embeddings, zeros, and a decoder with cross-attention) in wave mode.
@@ -102,9 +107,10 @@ def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
                  device: str = "cuda"
                  ) -> tuple[ModelConfig, ServingClient]:
     """The model and serving stack the driver serves: ``init_params`` on
-    the device from ``seed``, W8A8 or W4A16 quantization matrix by matrix
-    (each bf16 matrix freed as it goes), then a ServingClient over ``replicas``
-    engines (``overlap``: the overlapped decode loop; ``chunk_prefill``: the
+    the device from ``seed``, each layer W8A8 or W4A16 as soon as it is
+    drawn (one layer's bf16 alive at a time), then a ServingClient over
+    ``replicas`` engines (``overlap``: the overlapped decode loop;
+    ``chunk_prefill``: the
     chunk budget, 0 for none; ``kv_dtype``: "bf16" or "int8" page pools;
     ``kv_tier`` / ``flash_pages`` / ``num_pages``: the flash KV tier and
     the hot pool's size; ``prefix_cache``; ``migrate``: slot migration

@@ -1,6 +1,6 @@
-"""GQA attention block shared by the transformer families (dense,
-hybrid and audio subset), and DeepSeek's multi-head latent attention
-(MLA, the mla_moe family).
+"""GQA attention block shared by the transformer families (dense, vlm
+with M-RoPE, hybrid and audio subset), and DeepSeek's multi-head latent
+attention (MLA, the mla_moe family).
 
 Counterpart of ``repro.models.blocks``.  Where the JAX model runs the jnp
 twins of its Pallas kernels, this module calls the kernel wrappers: on a
@@ -30,9 +30,10 @@ from repro_torch.kernels.mla_decode_attention.ops import (
 from repro_torch.models.attention import (gather_kv_pages, pool_page_size,
                                           scatter_chunk_rows, scatter_kv_pages,
                                           write_paged_rows)
-from repro_torch.models.layers import (apply_rope, dense_weight,
-                                       fixed_row_bmm, init_linear, layer_norm,
-                                       linear, rms_norm)
+from repro_torch.models.layers import (apply_mrope, apply_rope,
+                                       dense_weight, fixed_row_bmm,
+                                       init_linear, layer_norm, linear,
+                                       mrope_grid_side, rms_norm)
 
 
 def norm(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -61,12 +62,30 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
     }
 
 
+def _mrope_decode_pos(cfg: ModelConfig, pos):
+    """M-RoPE position of the text token at cache index ``pos``: prefill
+    gives text tokens ``idx - n_vision + side`` (layers.mrope_positions),
+    and decode continues that stream, not the raw cache index."""
+    return pos - cfg.n_vision_tokens + mrope_grid_side(cfg.n_vision_tokens)
+
+
+def _decode_positions(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """The rotary positions of one decode token per row, from its cache
+    index ``pos`` [B, 1] (a device tensor, so a captured step reads it):
+    itself, or under M-RoPE the text stream's position in all three
+    streams, [3, B, 1]."""
+    if cfg.rope_mode == "mrope":
+        return _mrope_decode_pos(cfg, pos)[None].expand(3, *pos.shape)
+    return pos
+
+
 def _rope_qk(cfg: ModelConfig, q, k, positions):
     if cfg.rope_mode == "standard":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     elif cfg.rope_mode == "mrope":
-        raise NotImplementedError("M-RoPE (vlm family) is not ported yet")
+        q = apply_mrope(q, positions, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.rope_theta)
     return q, k
 
 
@@ -105,7 +124,8 @@ def attn_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     q = linear(params["q"], x).reshape(b, 1, cfg.n_heads, cfg.d_head)
     k = linear(params["k"], x).reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
     v = linear(params["v"], x).reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
-    q, k = _rope_qk(cfg, q, k, pos.reshape(1, 1).expand(b, 1))
+    q, k = _rope_qk(cfg, q, k,
+                    _decode_positions(cfg, pos.reshape(1, 1).expand(b, 1)))
     at = pos.reshape(1).long()
     k_cache.index_copy_(1, at, k.to(k_cache.dtype))
     v_cache.index_copy_(1, at, v.to(v_cache.dtype))
@@ -142,7 +162,7 @@ def attn_decode_paged(params: dict, x: torch.Tensor, cfg: ModelConfig,
     q = linear(params["q"], x).reshape(b, 1, cfg.n_heads, cfg.d_head)
     k = linear(params["k"], x).reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
     v = linear(params["v"], x).reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
-    q, k = _rope_qk(cfg, q, k, lengths.reshape(b, 1))
+    q, k = _rope_qk(cfg, q, k, _decode_positions(cfg, lengths.reshape(b, 1)))
     write_paged_rows(k_pages, k[:, 0], block_table, lengths, active)
     write_paged_rows(v_pages, v[:, 0], block_table, lengths, active)
     out = paged_decode_attention(q[:, 0].contiguous(), k_pages, v_pages,

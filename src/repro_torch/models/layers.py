@@ -1,4 +1,5 @@
-"""Shared model layers: norms, RoPE, linear (float, W8A8 or W4A16), MLP.
+"""Shared model layers: norms, RoPE and M-RoPE, linear (float, W8A8 or
+W4A16), MLP.
 
 PyTorch counterparts of ``repro.models.layers``, formula for formula, so
 that the same inputs give the same numbers up to float rounding order (and
@@ -6,6 +7,8 @@ bit for bit in the int8 product).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -72,8 +75,11 @@ def _w8a8_matmul(w_q: torch.Tensor, scale: torch.Tensor,
     lead = x.shape[:-1]
     acc = int8_gemm(x_q.reshape(-1, x.shape[-1]), w_q).reshape(
         *lead, w_q.shape[0])
-    y = acc.float() * scale.float() * x_scale
-    return y.to(x.dtype)
+    # (acc * scale) * x_scale, rounded as written, in place: at a prefill
+    # group of qwen2-vl-72b each float32 [3072, 29568] copy is 363 MB
+    y = acc.float()
+    del acc
+    return y.mul_(scale.float()).mul_(x_scale).to(x.dtype)
 
 
 def _w4a16_matmul(w_p4: torch.Tensor, scale4: torch.Tensor,
@@ -179,6 +185,47 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     y2 = x2 * cos + x1 * sin
     yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
     return torch.cat([yr.to(x.dtype), xp], dim=-1)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: the head dim cut into 3 sections (``d//3`` rounded
+    down to even, twice, the rest in the third: 42/42/44 at D 128), each
+    rotated by ``apply_rope`` with its own frequencies over its own
+    position stream (temporal, height, width).  x: [B, S, H, D];
+    positions3: [3, B, S] int."""
+    d = x.shape[-1]
+    sec = d // 3 - (d // 3) % 2
+    secs = [sec, sec, d - 2 * sec - (d - 2 * sec) % 2]
+    outs, off = [], 0
+    for i, ds in enumerate(secs):
+        outs.append(apply_rope(x[..., off:off + ds], positions3[i], theta))
+        off += ds
+    if off < d:
+        outs.append(x[..., off:])
+    return torch.cat(outs, dim=-1)
+
+
+def mrope_grid_side(n_vision: int) -> int:
+    """Vision-grid side length; also the first text position's offset (the
+    text token at cache index ``idx`` sits at ``idx - n_vision + side`` in
+    every stream), which decode continues."""
+    return max(int(math.sqrt(max(n_vision, 1))), 1)
+
+
+def mrope_positions(batch: int, seq: int, n_vision: int,
+                    device=None) -> torch.Tensor:
+    """M-RoPE position streams [3, batch, seq] (int64): vision tokens on a
+    ``side x side`` grid at t = 0, text tokens sequential in all three
+    streams from ``side`` on."""
+    side = mrope_grid_side(n_vision)
+    idx = torch.arange(seq, device=device)
+    is_vis = idx < n_vision
+    text = idx - n_vision + side
+    pos = torch.stack([torch.where(is_vis, 0, text),
+                       torch.where(is_vis, idx // side, text),
+                       torch.where(is_vis, idx % side, text)])   # [3, S]
+    return pos[:, None, :].expand(3, batch, seq)
 
 
 # ---------------------------------------------------------------------------

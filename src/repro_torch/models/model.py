@@ -1,10 +1,10 @@
 """Functional model API of the port: init / forward, the wave engine's
 shared-cursor prefill and decode, and the paged prefill and decode, for the
-dense, moe, mla_moe, hybrid, ssm and audio families.
+dense, vlm, moe, mla_moe, hybrid, ssm and audio families.
 
 Counterpart of ``repro.models.model``:
 
-    init_params(cfg, seed, max_seq, device, dtype)           -> params
+    init_params(cfg, seed, max_seq, device, dtype, finish)   -> params
     forward(params, cfg, tokens, extras)            -> logits [B, S, V]
     init_cache(cfg, batch, max_seq, dtype, device)           -> cache
     prefill(params, cfg, tokens, cache, extras)  -> (last_logits [B, V], cache)
@@ -13,8 +13,8 @@ Counterpart of ``repro.models.model``:
                       sample_fn)                      -> (tokens [B], cache)
     init_paged_cache(cfg, slots, max_seq, dtype, page_size, num_pages,
                      device, kv_dtype)                       -> cache
-    prefill_into_slots(params, cfg, tokens, true_lens, cache, slot_ids)
-                                             -> (last_logits [M, V], cache)
+    prefill_into_slots(params, cfg, tokens, true_lens, cache, slot_ids,
+                       extras)               -> (last_logits [M, V], cache)
     prefill_chunk_into_slot(params, cfg, tokens, start, chunk_len, cache,
                             slot)                  -> (logits [V], cache)
     decode_step_paged(params, cfg, token, cache, active)
@@ -26,7 +26,7 @@ Counterpart of ``repro.models.model``:
 
 Params are plain dicts of tensors with the JAX package's key names; where
 the JAX package stacks layers on a leading axis the port keeps lists:
-``params["layers"][i]`` (dense, moe, mla_moe's MoE layers, ssm, audio's
+``params["layers"][i]`` (dense, vlm, moe, mla_moe's MoE layers, ssm, audio's
 decoder; a moe layer's routed stacks ``moe["up"]`` etc. are its ``[E, in,
 out]`` slice), ``params["dense_layers"][i]`` (mla_moe's first
 ``first_k_dense`` layers, a dense FFN each), ``params["enc_layers"][i]``
@@ -37,8 +37,8 @@ every group applies.
 
 The wave cache (``init_cache``, JAX's legacy cache) keeps one shared length
 cursor ``len`` (an int32 [] tensor on the device) for all B rows: K/V
-``[L, B, Smax, Hkv, Dh]`` (dense; hybrid one layer per group; audio's
-decoder self-attention, beside its cross-attention rows ``xk``/``xv``
+``[L, B, Smax, Hkv, Dh]`` (dense, vlm, moe; hybrid one layer per group;
+audio's decoder self-attention, beside its cross-attention rows ``xk``/``xv``
 ``[L, B, encoder_seq, Hkv, Dh]``) or MLA's compressed rows ``ckv`` /
 ``krope`` ``[L, B, Smax, R]`` / ``[L, B, Smax, Dr]``, the hybrid family's
 Mamba state
@@ -63,9 +63,14 @@ Where the JAX functions return a new cache, these write the page, K/V and
 state tensors IN PLACE and return a shallow copy of the cache dict with a
 new ``lens`` (paged) or ``len`` (wave); a conv window whose dtype the JAX
 function would change (jnp's promotion, C3) is rebound to a new tensor of
-that dtype instead.  Families without a branch here (vlm, the
-parallel-block dense models) raise NotImplementedError; the ssm and audio
-families have no paged path (they serve in wave mode, as in JAX).
+that dtype instead.  The parallel-block dense models have no branch here
+and raise NotImplementedError; the ssm and audio families have no paged
+path (they serve in wave mode, as in JAX).
+
+The vlm family prepends ``extras["vision_embeds"]`` [B, n_vision, D] (the
+stub vision frontend's patch embeddings) to the token embeddings and
+rotates q/k by M-RoPE (``layers.apply_mrope``): its caches hold the vision
+rows first, so a slot's length counts them.
 """
 
 from __future__ import annotations
@@ -80,9 +85,9 @@ from repro_torch.models import blocks
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import quantize_rows
-from repro_torch.models.layers import (_w4a16_matmul, dense_weight, ffn,
+from repro_torch.models.layers import (_w4a16_matmul, ffn,
                                        fixed_row_matmul, init_ffn,
-                                       init_linear, linear)
+                                       init_linear, linear, mrope_positions)
 
 # ---------------------------------------------------------------------------
 # init
@@ -90,8 +95,8 @@ from repro_torch.models.layers import (_w4a16_matmul, dense_weight, ffn,
 
 
 # init_params, forward and the wave cache's prefill / decode
-MODEL_FAMILIES = ("dense", "moe", "mla_moe", "hybrid", "ssm", "audio")
-PAGED_FAMILIES = ("dense", "moe", "mla_moe", "hybrid")   # the paged path
+MODEL_FAMILIES = ("dense", "vlm", "moe", "mla_moe", "hybrid", "ssm", "audio")
+PAGED_FAMILIES = ("dense", "vlm", "moe", "mla_moe", "hybrid")  # the paged path
 # param subtrees the JAX package stacks on leading layer axes, which the
 # port keeps as (nested) lists -> the number of those axes
 STACKED = {"layers": 1, "dense_layers": 1, "enc_layers": 1, "groups": 2,
@@ -151,59 +156,84 @@ def _init_audio_dec_layer(gen, cfg: ModelConfig, dtype, device) -> dict:
 
 def init_params(cfg: ModelConfig, seed: int = 0, max_seq: int = 4096,
                 device: str | torch.device = "cuda",
-                dtype: torch.dtype = torch.bfloat16) -> dict:
+                dtype: torch.dtype = torch.bfloat16, finish=None) -> dict:
     """Random weights (bf16 by default) with the JAX package's
     distributions (normal * 0.02 embeddings, normal / sqrt(d_in) linears,
     unit norms), drawn from a ``torch.Generator`` seeded with ``seed`` on
     ``device``.  The bits differ from ``jax.random``'s; parity tests carry
-    JAX weights over with ``repro_torch.bridge`` instead."""
+    JAX weights over with ``repro_torch.bridge`` instead.
+
+    ``finish(subtree, stacked)``, when given, receives each top-level
+    entry and each layer as soon as it is made (``stacked``: the layer sits
+    under a ``STACKED`` key) and returns what the params keep.
+    ``serving.fleet.worker.build_params`` quantizes there, so no more than
+    one layer's float weights are alive at a time; the draws and their
+    order do not depend on it."""
     _check_family(cfg, MODEL_FAMILIES)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    fin = finish or (lambda tree, stacked: tree)
+
+    def stack(make, n: int) -> list:
+        return [fin(make(gen, cfg, dtype, dev), True) for _ in range(n)]
+
+    def normal(rows: int) -> torch.Tensor:
+        return (torch.randn((rows, cfg.d_model), generator=gen,
+                            dtype=torch.float32, device=dev) * 0.02).to(dtype)
+
     p: dict = {}
-    p["embed"] = (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                              dtype=torch.float32, device=dev) * 0.02).to(dtype)
-    p["final_norm"] = blocks.init_norm(cfg, dtype, dev)
+    p["embed"] = fin(normal(cfg.vocab_size), False)
+    p["final_norm"] = fin(blocks.init_norm(cfg, dtype, dev), False)
     if not cfg.tie_embeddings:
-        p["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size, False,
-                                   dtype, dev)
-    if cfg.family == "dense":
-        p["layers"] = [_init_dense_layer(gen, cfg, dtype, dev)
-                       for _ in range(cfg.n_layers)]
+        p["lm_head"] = fin(init_linear(gen, cfg.d_model, cfg.vocab_size,
+                                       False, dtype, dev), False)
+    if cfg.family in ("dense", "vlm"):
+        p["layers"] = stack(_init_dense_layer, cfg.n_layers)
     elif cfg.family == "moe":
-        p["layers"] = [_init_moe_layer(gen, cfg, dtype, dev)
-                       for _ in range(cfg.n_layers)]
+        p["layers"] = stack(_init_moe_layer, cfg.n_layers)
     elif cfg.family == "mla_moe":
         kd = cfg.first_k_dense
-        p["dense_layers"] = [_init_mla_layer(gen, cfg, dtype, dev, True)
-                             for _ in range(kd)]
-        p["layers"] = [_init_mla_layer(gen, cfg, dtype, dev, False)
-                       for _ in range(cfg.n_layers - kd)]
+        p["dense_layers"] = stack(
+            lambda *a: _init_mla_layer(*a, dense_ffn=True), kd)
+        p["layers"] = stack(
+            lambda *a: _init_mla_layer(*a, dense_ffn=False),
+            cfg.n_layers - kd)
     elif cfg.family == "audio":
-        p["enc_layers"] = [_init_dense_layer(gen, cfg, dtype, dev)
-                           for _ in range(cfg.n_encoder_layers)]
-        p["layers"] = [_init_audio_dec_layer(gen, cfg, dtype, dev)
-                       for _ in range(cfg.n_layers)]
-        p["enc_pos"] = (torch.randn((cfg.encoder_seq, cfg.d_model),
-                                    generator=gen, dtype=torch.float32,
-                                    device=dev) * 0.02).to(dtype)
-        p["enc_final_norm"] = blocks.init_norm(cfg, dtype, dev)
+        p["enc_layers"] = stack(_init_dense_layer, cfg.n_encoder_layers)
+        p["layers"] = stack(_init_audio_dec_layer, cfg.n_layers)
+        p["enc_pos"] = fin(normal(cfg.encoder_seq), False)
+        p["enc_final_norm"] = fin(blocks.init_norm(cfg, dtype, dev), False)
     elif cfg.family == "hybrid":
         n_groups, every, tail = _hybrid_layout(cfg)
-        p["groups"] = [[ssm_mod.init_mamba_block(gen, cfg, dtype, dev)
-                        for _ in range(every)] for _ in range(n_groups)]
-        p["tail"] = [ssm_mod.init_mamba_block(gen, cfg, dtype, dev)
-                     for _ in range(tail)] if tail else None
-        p["shared"] = _init_dense_layer(gen, cfg, dtype, dev)
+        p["groups"] = [stack(ssm_mod.init_mamba_block, every)
+                       for _ in range(n_groups)]
+        p["tail"] = stack(ssm_mod.init_mamba_block, tail) if tail else None
+        p["shared"] = fin(_init_dense_layer(gen, cfg, dtype, dev), False)
     else:  # ssm
-        p["layers"] = [ssm_mod.init_mamba_block(gen, cfg, dtype, dev)
-                       for _ in range(cfg.n_layers)]
+        p["layers"] = stack(ssm_mod.init_mamba_block, cfg.n_layers)
     if cfg.rope_mode == "learned":
-        p["pos_embed"] = (torch.randn((max_seq, cfg.d_model), generator=gen,
-                                      dtype=torch.float32, device=dev)
-                          * 0.02).to(dtype)
+        p["pos_embed"] = fin(normal(max_seq), False)
     return p
+
+
+# vocabulary rows of the float32 head weight made at a time (a 0.54 GB
+# block at d_model 8192), so the whole float32 matrix (4.98 GB at
+# qwen2-vl-72b) never exists
+LM_HEAD_BLOCK = 16384
+
+
+def _head_block(params: dict, cfg: ModelConfig, v0: int,
+                v1: int) -> torch.Tensor:
+    """Vocabulary rows v0:v1 of the float or W8A8 head (or the tied
+    embedding) as a float32 [d_model, v1 - v0] weight: JAX's dequantized
+    head, a block of columns at a time."""
+    if cfg.tie_embeddings:
+        return params["embed"][v0:v1].float().T
+    head = params["lm_head"]
+    if "w" in head:
+        return head["w"][:, v0:v1].float()
+    return head["w_q"][v0:v1].float().mul_(head["scale"][v0:v1, None]).T
 
 
 def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -211,13 +241,17 @@ def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     (the product of x, read in its own dtype, with the dequantized weights,
     which the JAX package materializes first); a float or W8A8 head is
     dequantized to float32, as the JAX package does, and multiplied outside
-    any kernel."""
-    if cfg.tie_embeddings:
-        return fixed_row_matmul(x.float(), params["embed"].float().T)
-    head = params["lm_head"]
-    if "w_p4" in head:
+    any kernel, LM_HEAD_BLOCK vocabulary rows at a time, each block in
+    ``fixed_row_matmul``'s 8-row products (a row's bits do not depend on
+    the batch)."""
+    head = params.get("lm_head")
+    if head is not None and "w_p4" in head:
         return _w4a16_matmul(head["w_p4"], head["scale4"], x, torch.float32)
-    return fixed_row_matmul(x.float(), dense_weight(head).float())
+    xf = x.float()
+    return torch.cat(
+        [fixed_row_matmul(xf, _head_block(params, cfg, v0, min(
+            v0 + LM_HEAD_BLOCK, cfg.vocab_size)))
+         for v0 in range(0, cfg.vocab_size, LM_HEAD_BLOCK)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -275,15 +309,24 @@ def _audio_dec_layer_full(lp, x, cfg: ModelConfig, positions, enc_out):
     return x, (k, v, xk, xv)
 
 
-def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
+           extras: dict | None = None) -> torch.Tensor:
+    """Token embeddings [B, S, D]; the vlm family's ``vision_embeds``
+    [B, n_vision, D] prepended (JAX ``_embed``)."""
     x = params["embed"][tokens.long()]
+    if cfg.family == "vlm":
+        vis = extras["vision_embeds"].to(device=x.device, dtype=x.dtype)
+        x = torch.cat([vis, x], dim=1)
     if cfg.rope_mode == "learned":
         x = x + params["pos_embed"][:x.shape[1]][None]
     return x
 
 
-def _positions(x: torch.Tensor) -> torch.Tensor:
+def _positions(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Rotary positions of x's rows: [B, S], or M-RoPE's [3, B, S]."""
     b, s = x.shape[0], x.shape[1]
+    if cfg.rope_mode == "mrope":
+        return mrope_positions(b, s, cfg.n_vision_tokens, x.device)
     return torch.arange(s, device=x.device).expand(b, s)
 
 
@@ -293,7 +336,7 @@ def _encode_audio(params, cfg: ModelConfig,
     positions, bidirectional self-attention (B3's bidirectional mode on
     CUDA), the encoder's final norm."""
     x = frames + params["enc_pos"][None, :frames.shape[1]]
-    pos = _positions(x)
+    pos = _positions(cfg, x)
     enc_cfg = dataclasses.replace(cfg, rope_mode="none")
     for lp in params["enc_layers"]:
         x, _ = _dense_layer_full(lp, x, enc_cfg, pos, causal=False)
@@ -307,16 +350,18 @@ def _mamba_full(lp, x, cfg: ModelConfig, valid=None):
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             extras: dict | None = None) -> torch.Tensor:
-    """Teacher-forced full-sequence logits f32 [B, S, V] (the dense, moe,
-    mla_moe, hybrid, ssm and audio branches of the JAX ``forward``):
+    """Teacher-forced full-sequence logits f32 [B, S, V] (the dense, vlm,
+    moe, mla_moe, hybrid, ssm and audio branches of the JAX ``forward``):
     attention runs
     through the B3 kernel on CUDA (bidirectional for the whisper encoder
     and the cross-attention), every Mamba layer's intra-chunk term through
-    B6.  ``extras["frames"]``: the audio family's frame embeddings."""
+    B6.  ``extras["frames"]``: the audio family's frame embeddings;
+    ``extras["vision_embeds"]``: the vlm family's, whose rows lead the
+    returned logits."""
     _check_family(cfg, MODEL_FAMILIES)
-    x = _embed(params, cfg, tokens)
-    positions = _positions(x)
-    if cfg.family in ("dense", "moe"):
+    x = _embed(params, cfg, tokens, extras)
+    positions = _positions(cfg, x)
+    if cfg.family in ("dense", "vlm", "moe"):
         for lp in params["layers"]:
             x, _ = _dense_layer_full(lp, x, cfg, positions)
     elif cfg.family == "mla_moe":
@@ -350,8 +395,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: str | torch.device = "cuda") -> dict:
     """The wave engine's cache (JAX ``init_cache``), zeros:
 
-      k/v    [L, B, Smax, Hkv, Dh]   dense, moe; hybrid L = n_groups; audio
-                                     the decoder's self-attention
+      k/v    [L, B, Smax, Hkv, Dh]   dense, vlm, moe; hybrid L = n_groups;
+                                     audio the decoder's self-attention
       ckv/krope [L, B, Smax, R] / [L, B, Smax, Dr]   mla_moe
       xk/xv  [L, B, encoder_seq, Hkv, Dh]   audio: cross-attention rows
       mamba  {conv [G, every, B, K-1, C], state [G, every, B, H, P, N]},
@@ -363,7 +408,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     dev = resolve_device(device)
     f = cfg.family
     out: dict = {"len": torch.zeros((), dtype=torch.int32, device=dev)}
-    if f in ("dense", "moe", "audio", "hybrid"):
+    if f in ("dense", "vlm", "moe", "audio", "hybrid"):
         n_kv = _hybrid_layout(cfg)[0] if f == "hybrid" else cfg.n_layers
         shape = (n_kv, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
         out["k"] = torch.zeros(shape, dtype=dtype, device=dev)
@@ -461,7 +506,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     cache with ``len`` = S).  A conv pool in another dtype than the
     activations is rebound to theirs, as the JAX cache takes the prefill's
     conv tails as they are.  ``extras["frames"]``: the audio family's
-    frame embeddings [B, encoder_seq, D].
+    frame embeddings [B, encoder_seq, D]; ``extras["vision_embeds"]``: the
+    vlm family's [B, n_vision, D], prepended (``len`` = n_vision + S).
 
     Raises ValueError for an ssm / hybrid batch shorter than the conv
     window (``ssm_conv - 1``): its decode conv state would be short (the
@@ -474,9 +520,10 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             f"{cfg.name}: a wave prefill of {s} tokens is shorter than the "
             f"conv window (ssm_conv - 1 = {cfg.ssm_conv - 1}); the decode "
             f"conv state would be short")
-    x = _embed(params, cfg, tokens)
-    positions = _positions(x)
-    if f in ("dense", "moe"):
+    x = _embed(params, cfg, tokens, extras)
+    s = x.shape[1]
+    positions = _positions(cfg, x)
+    if f in ("dense", "vlm", "moe"):
         for li, lp in enumerate(params["layers"]):
             x, (k, v) = _dense_layer_full(lp, x, cfg, positions)
             _write_kv(cache, li, k, v)
@@ -538,7 +585,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     if cfg.rope_mode == "learned":
         x = x + params["pos_embed"].index_select(0, pos.reshape(1).long())
     f = cfg.family
-    if f in ("dense", "moe"):
+    if f in ("dense", "vlm", "moe"):
         for li, lp in enumerate(params["layers"]):
             x = _dense_layer_wave(lp, x, cfg, cache["k"][li], cache["v"][li],
                                   pos)
@@ -596,10 +643,11 @@ def decode_and_sample(params: dict, cfg: ModelConfig, tok_host: torch.Tensor,
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    """The port pages the dense and moe families' K/V, mla_moe's
+    """The port pages the dense, vlm and moe families' K/V, mla_moe's
     compressed rows and the hybrid family's shared-attention K/V (its
     Mamba state lives in a slot-indexed pool).  The ssm and audio families
-    keep the shared cursor (wave mode), as in JAX; vlm is not ported."""
+    keep the shared cursor (wave mode), as in JAX; the parallel-block
+    dense models are not ported."""
     return cfg.family in PAGED_FAMILIES and not cfg.parallel_block
 
 
@@ -778,13 +826,16 @@ def _first_rows(slot_ids: torch.Tensor) -> torch.Tensor:
 
 def prefill_into_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                        true_lens: torch.Tensor, cache: dict,
-                       slot_ids: torch.Tensor) -> tuple[torch.Tensor, dict]:
+                       slot_ids: torch.Tensor, extras: dict | None = None
+                       ) -> tuple[torch.Tensor, dict]:
     """Prefill M requests into M slots of a paged cache, in one pass.
 
     tokens: [M, Sp] right-padded to a common bucket length; true_lens: [M]
-    int32 valid lengths; slot_ids: [M].  Only the named slots' pages
-    (already in their block-table rows) and state rows are written.
-    Returns (per-request last-valid-position logits [M, V], cache).
+    int32 valid cache lengths (the prompt, and the vlm family's prepended
+    ``extras["vision_embeds"]`` rows); slot_ids: [M].  Only the named
+    slots' pages (already in their block-table rows) and state rows are
+    written.  Returns (per-request last-valid-position logits [M, V],
+    cache).
 
     Right-padding keeps every row's positions 0-based; causality keeps the
     pads out of every valid position's attention, and pad K/V land in the
@@ -794,9 +845,9 @@ def prefill_into_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     and the decode conv window is gathered at each row's own length.
     """
     _check_family(cfg, PAGED_FAMILIES)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, extras)
     m, s = x.shape[0], x.shape[1]
-    positions = torch.arange(s, device=x.device).expand(m, s)
+    positions = _positions(cfg, x)
     true_lens = true_lens.to(device=x.device, dtype=torch.int32)
     slot_ids = slot_ids.to(device=x.device).long()
     rows = _first_rows(slot_ids)
@@ -824,7 +875,7 @@ def prefill_into_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 to_pages(scale, cache[name + "_scale"][li])
             to_pages(arr, cache[name][li])
 
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         for li, lp in enumerate(params["layers"]):
             x, (k, v) = _dense_layer_full(lp, x, cfg, positions)
             write_kv(li, k, v)
@@ -860,7 +911,8 @@ def prefill_into_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
     """Chunked prefill needs a paged cache and a 1-D token / position
-    stream: the dense and moe families, as in JAX."""
+    stream (no prepended vision or audio embeddings to split across chunk
+    calls): the dense and moe families, as in JAX."""
     return supports_paged(cfg) and cfg.family in ("dense", "moe")
 
 
@@ -942,7 +994,7 @@ def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
     if cfg.rope_mode == "learned":
         x = x + params["pos_embed"][lens.long()]
     block = cache["block"]
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         for li, lp in enumerate(params["layers"]):
             x = _dense_layer_decode(lp, x, cfg, _pool(cache, "k", li),
                                     _pool(cache, "v", li), block, lens,

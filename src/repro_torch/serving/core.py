@@ -47,7 +47,8 @@ cache keeps one length cursor for every row (``models.model.init_cache``),
 so a wave of up to ``max_batch`` requests is admitted only when the whole
 batch has drained.  Its prompts are left-padded with token 0 to the wave's
 longest and prefilled in one pass (``models.model.prefill``; the audio
-family's frames are zeros, as the JAX engine feeds them), the pads
+family's frames and the vlm family's vision embeddings are zeros, as the
+JAX engine feeds them, the cursor counting the vision rows), the pads
 attended as the JAX engine attends them; then every row decodes at the
 shared cursor (``decode_step``), finished rows riding along, until every
 row has finished or the cursor reaches ``max_seq - 1``.  The cursor is
@@ -416,10 +417,16 @@ def _not_ported(flag: str, slice_: str) -> NotImplementedError:
 def _batch_extras(cfg: ModelConfig, batch: int,
                   device: torch.device) -> dict:
     """The prefill's extra inputs, as the JAX engine makes them: the audio
-    family's frame embeddings, zeros [batch, encoder_seq, d_model] bf16."""
+    family's frame embeddings, zeros [batch, encoder_seq, d_model] bf16;
+    the vlm family's vision embeddings, zeros [batch, n_vision, d_model]
+    bf16 (the stub frontend's, constant per config)."""
     if cfg.family == "audio":
         return {"frames": torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
                                       dtype=torch.bfloat16, device=device)}
+    if cfg.family == "vlm":
+        return {"vision_embeds": torch.zeros(
+            (batch, cfg.n_vision_tokens, cfg.d_model), dtype=torch.bfloat16,
+            device=device)}
     return {}
 
 
@@ -454,8 +461,8 @@ class EngineCore:
                 f"cursor — use mode='wave'")
         if mode == "continuous" and not model_lib.supports_paged(cfg):
             raise _not_ported(f"serving family {cfg.family!r}",
-                              "dense, moe, mla_moe, hybrid, ssm and audio "
-                              "only")
+                              "dense, vlm, moe, mla_moe, hybrid, ssm and "
+                              "audio only")
         if kv_tier not in ("none", "flash"):
             raise ValueError(f"kv_tier {kv_tier!r} not in ('none', 'flash')")
         if kv_dtype not in ("bf16", "int8"):
@@ -598,9 +605,10 @@ class EngineCore:
         return False
 
     def _cache_len0(self, req: Request) -> int:
-        """Valid cache length right after prefill (the prompt: the port
-        has no vision tokens)."""
-        return len(req.prompt)
+        """Valid cache length right after prefill (vision tokens
+        included)."""
+        extra = self.cfg.n_vision_tokens if self.cfg.family == "vlm" else 0
+        return len(req.prompt) + extra
 
     def _abort(self, req: Request) -> None:
         req.done = True
@@ -649,7 +657,7 @@ class EngineCore:
             return False
         if self.n_free_slots == 0:
             return True
-        need = min(pages_needed(len(r.prompt), self.page_size)
+        need = min(pages_needed(self._cache_len0(r), self.page_size)
                    for r in self.queue)
         return need > self.allocator.available + self._px_reclaimable
 
@@ -887,7 +895,7 @@ class EngineCore:
             # a mid-prefill slot already holds its whole prompt's pages, so
             # victim choices keyed on seq_len see that footprint
             prefilling = self.prefilling[i]
-            seq = len(r.prompt) if prefilling else self.slot_len[i]
+            seq = self._cache_len0(r) if prefilling else self.slot_len[i]
             suspended = self.suspended[i]
         else:
             seq = len(r.prompt) + len(r.out_tokens)
@@ -1092,7 +1100,12 @@ class EngineCore:
     # ------------------------------------------------------------------
     def _key_tokens(self, req: Request) -> list[int]:
         """The token sequence the prefix hash chains over, one entry per
-        cache position (the port serves no vision family)."""
+        cache position (``_cache_len0`` long).  vlm prepends a ``-1``
+        sentinel per vision token: the vision embeds are config-constant
+        here, so equal sentinels imply equal page contents, as real tokens
+        do for the text families."""
+        if self.cfg.family == "vlm":
+            return [-1] * self.cfg.n_vision_tokens + list(req.prompt)
         return list(req.prompt)
 
     def _px_lookup(self, req: Request, len0: int):
@@ -1309,7 +1322,7 @@ class EngineCore:
         if not self._chunk_ok:
             return 0
         n = min(self._px.match(self._px.page_keys(kt)),
-                (len(req.prompt) - 1) // self.page_size)
+                (self._cache_len0(req) - 1) // self.page_size)
         return n * self.page_size
 
     def clear_prefix_cache(self) -> int:
@@ -1428,7 +1441,7 @@ class EngineCore:
                 # whose pages still do not cover the arrival's prefill only
                 # throws its progress away; the tier can always spill
                 victim_hot = sum(1 for p in self.slot_pages[vi] if p != 0)
-                need = pages_needed(len(head.prompt), self.page_size)
+                need = pages_needed(self._cache_len0(head), self.page_size)
                 if self.allocator.available + victim_hot < need:
                     continue
             self._preempt_restart(vi, self.slots[vi])
@@ -1441,7 +1454,7 @@ class EngineCore:
             if req not in self.queue:  # defensive: stale plan entry
                 continue
             i = free[0]
-            len0 = len(req.prompt)
+            len0 = self._cache_len0(req)
             hit = self._px_lookup(req, len0)
             try:
                 if hit is not None and hit[0] == "resume":
@@ -1487,7 +1500,10 @@ class EngineCore:
                 group.append((i, req, len0))
         if not group:
             return
-        cap = self.pages_per_slot * self.page_size
+        # the group's bucket, capped so bucket + vision tokens still fits a
+        # slot's block-table row
+        extra = max(len0 - len(req.prompt) for i, req, len0 in group)
+        cap = self.pages_per_slot * self.page_size - extra
         bucket = min(max(prefill_bucket(len(req.prompt))
                          for i, req, len0 in group), cap)
         # pad the group to max_batch rows by REPEATING row 0 (duplicate
@@ -1503,7 +1519,8 @@ class EngineCore:
             self.params, self.cfg, self._tensor(toks),
             self._tensor(true_lens),
             {**self.cache, "block": self._tensor(self.block)},
-            self._tensor(slot_ids))
+            self._tensor(slot_ids),
+            _batch_extras(self.cfg, len(rows), self.device))
         # the pools were written in place; the lengths keep their storage,
         # which a captured decode step reads and writes
         self.cache["lens"].copy_(out_cache["lens"])
@@ -1543,7 +1560,7 @@ class EngineCore:
             req = self.slots[i]
             if req is None or not self.prefilling[i] or self.suspended[i]:
                 continue
-            len0 = len(req.prompt)
+            len0 = self._cache_len0(req)
             pos = self.prefill_pos[i]
             budget = max(1, int(self.scheduler.prefill_budget(
                 self._slot_view(i))))
@@ -1862,7 +1879,9 @@ class EngineCore:
         self.stats.admitted += len(wave)
         tok_np = self._sample_rows(logits, list(enumerate(wave)))
         self._wave_last_np = np.asarray(tok_np, np.int32).copy()
-        self._wave_len = plen
+        # the cursor counts the vlm family's vision rows (the JAX engine's
+        # host mirror leaves them out, and so lets a write pass max_seq)
+        self._wave_len = plen + self._cache_len0(wave[0]) - len(wave[0].prompt)
         t1 = time.monotonic()
         self.stats.wall_prefill_s += t1 - t0
         for i, r in enumerate(wave):

@@ -179,22 +179,29 @@ def build_core(arch: str, *, reduced: bool = True, max_batch: int = 4,
 def build_params(arch: str, *, reduced: bool = True, max_seq: int = 128,
                  seed: int = 0, quant: str = "none", device: str = "cuda"):
     """(cfg, params) by the calls ``launch/serve.py`` ``build_client``
-    makes: ``init_params`` on ``device`` from ``seed``, then (W8A8 or
-    W4A16) ``quantize_params`` matrix by matrix, AFTER the deterministic
-    init, so every worker derives the same quantized weights."""
+    makes: ``init_params`` on ``device`` from ``seed``, each top-level
+    entry and each layer (W8A8 or W4A16) through ``quantize_params`` as
+    soon as it is made, so no more than one layer's bf16 weights are alive
+    (qwen2-vl-72b and llama2-70b fit one card that way).  The draws are
+    the deterministic init's, so every worker derives the same quantized
+    weights, the bits of the whole model's init quantized after."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import model as model_lib
 
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
-    params = model_lib.init_params(cfg, seed=seed, max_seq=max_seq,
-                                   device=device)
+    finish = None
     if quant in ("w8a8", "w4a16"):
         from repro_torch.quant.convert import quantize_params
-        params = quantize_params(params, consume=True, mode=quant)
+
+        def finish(tree, stacked: bool):
+            return quantize_params(tree, consume=True, mode=quant,
+                                   _stacked=stacked)
     elif quant != "none":
         raise ValueError(f"unknown quantization {quant!r}")
+    params = model_lib.init_params(cfg, seed=seed, max_seq=max_seq,
+                                   device=device, finish=finish)
     return cfg, params
 
 

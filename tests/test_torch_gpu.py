@@ -365,6 +365,45 @@ def test_lm_head_row_bits_do_not_depend_on_the_batch(cuda_device, head):
 
 
 @pytest.mark.gpu
+def test_blocked_lm_head_at_qwen2_vl_72b_vocab(cuda_device):
+    """qwen2-vl-72b's W8A8 head (152,064 x 8192: 1.25e9 int8 weights) in
+    LM_HEAD_BLOCK-row float32 blocks: within 1e-5 (|x| @ |W|) + 1e-6 of the
+    float64 product of the dequantized weights, a row's bits the same at
+    M = 1, 4 and 8, and no more memory taken than two float32 blocks and
+    the logits (the whole float32 head would be 4.98 GB)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as TM
+
+    cfg = get_arch("qwen2-vl-72b")
+    v, d = cfg.vocab_size, cfg.d_model
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    w_q = torch.randint(-127, 128, (v, d), generator=gen, device=cuda_device,
+                        dtype=torch.int8)
+    scale = torch.rand(v, generator=gen, device=cuda_device) * 1e-3 + 1e-4
+    params = {"lm_head": {"w_q": w_q, "scale": scale}}
+    x = torch.randn((8, d), generator=gen, device=cuda_device
+                    ).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = TM.lm_head(params, cfg, x)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert got.shape == (8, v)
+    assert extra <= 2 * TM.LM_HEAD_BLOCK * d * 4 + 2 * got.numel() * 4 \
+        + (64 << 20), extra
+    xd = x.double()
+    for v0 in range(0, v, 32768):
+        w = w_q[v0:v0 + 32768].double() * scale[v0:v0 + 32768, None].double()
+        ref = xd @ w.T
+        limit = 1e-5 * (xd.abs() @ w.abs().T) + 1e-6
+        assert bool(((got[:, v0:v0 + 32768].double() - ref).abs()
+                     <= limit).all()), v0
+    for m in (1, 4):
+        assert torch.equal(TM.lm_head(params, cfg, x[:m]), got[:m]), m
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("ber", [0.0, 1e-4, 2e-3])
 def test_ecc_decode_bit_exact_on_card(cuda_device, ber):
     """B5 against its plain version on 512 random int8 pages corrupted

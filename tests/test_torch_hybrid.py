@@ -303,7 +303,8 @@ def test_slot_state_checkpoint_round_trip(case):
 
 
 def test_unported_families_raise():
-    """Families without a port branch raise NotImplementedError.  The ssm
+    """Families without a port branch (the parallel-block dense model)
+    raise NotImplementedError.  The ssm
     and audio families serve in wave mode, as in JAX: the paged cache and
     continuous mode refuse them with JAX's ValueError, ``mode="auto"``
     picks wave, and whisper-small's ``init_params`` / ``forward`` run."""
@@ -328,7 +329,8 @@ def test_unported_families_raise():
     with pytest.raises(ValueError):
         TM.init_paged_cache(audio, 2, 16, device="cpu")
     assert TM.supports_paged(get_arch("deepseek-v2-lite-16b"))  # ported
-    for arch in ("qwen2-vl-72b",):
+    assert TM.supports_paged(get_arch("qwen2-vl-72b"))          # ported
+    for arch in ("command-r-plus-104b",):   # the parallel block
         from repro.configs.registry import get_arch as jget
         from repro_torch.configs.base import ModelConfig
 

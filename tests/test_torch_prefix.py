@@ -65,6 +65,12 @@ def fam(request):
         cfg, seed=0, max_seq=64, device="cpu", dtype=torch.float32)
 
 
+def _len0(cfg, prompt=PROMPT) -> int:
+    """Cache length of a prompt: vlm prepends its vision rows (keyed by
+    sentinels), as tests/test_prefix_cache.py:32 counts them."""
+    return len(prompt) + (cfg.n_vision_tokens if cfg.family == "vlm" else 0)
+
+
 def _sp(stochastic, seed=7):
     return (SamplingParams(temperature=0.8, top_k=20, seed=seed)
             if stochastic else None)
@@ -168,9 +174,10 @@ def test_resume_hit_bit_identity(fam, sampling):
     assert warm == cold
     assert (eng.stats.prefills, eng.stats.prefill_chunks) == (prefills,
                                                               chunks)
-    s = eng.stats
+    s, len0 = eng.stats, _len0(cfg)
     assert (s.prefix_hits, s.prefix_lookups, s.prefix_hit_pages,
-            s.prefix_tokens_reused, s.cow_copies) == (1, 2, 2, 18, 1)
+            s.prefix_tokens_reused, s.cow_copies) == (
+        1, 2, len0 // 8, len0, 1 if len0 % 8 else 0)
 
 
 def test_resume_hit_one_token_request(fam):
@@ -263,14 +270,14 @@ def test_refcounted_release_parks_and_reclaims(fam):
     ``clear_prefix_cache`` returns every page to the pool."""
     family, cfg, params = fam
     eng = TEngine(cfg, params, prefix_cache=True, **ENG, device="cpu")
-    pool = eng.num_pages - 1
+    pool, n_full = eng.num_pages - 1, _len0(cfg) // 8
     first = _warm(eng, TRequest, [PROMPT])
-    assert eng.allocator.available == pool - 2
-    assert eng._px_reclaimable == 2
+    assert eng.allocator.available == pool - n_full
+    assert eng._px_reclaimable == n_full
     assert all(eng.allocator.refcount(e.pid) == 0
                for e in eng._px._pages.values())
     assert eng.can_accept(eng.pages_per_slot)
-    assert eng.clear_prefix_cache() == 2
+    assert eng.clear_prefix_cache() == n_full
     assert eng.allocator.available == pool
     again = TRequest(rid=9, prompt=list(PROMPT), max_new_tokens=6)
     eng.add_request(again)
@@ -297,7 +304,7 @@ def test_tiered_spill_prefetch_shared_pages(fam):
     fillers = [[30 + i] * 18 for i in range(3)]
     prompts = [PROMPT] + fillers + [PROMPT]
     cold = _cold(cfg, params, prompts)
-    per_req = -(-min(64, len(PROMPT) + 6) // 8)
+    per_req = -(-min(64, _len0(cfg) + 6) // 8)
     eng = TEngine(cfg, params, prefix_cache=True, kv_tier="flash",
                   **{**ENG, "num_pages": per_req + 3}, device="cpu")
     assert _warm(eng, TRequest, prompts) == cold

@@ -43,7 +43,7 @@ from repro.serving.scheduler import SamplingParams as JSampling
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs.registry import get_arch
 from repro_torch.models import model as TM
-from repro_torch.serving import sampler
+from repro_torch.serving import core as tcore, sampler
 from repro_torch.serving.core import EngineCore, Request
 from repro_torch.serving.scheduler import SamplingParams
 from _torch_threads import one_thread  # noqa: F401  (autouse)
@@ -102,13 +102,11 @@ def tokens(arch, seed=0, lens=(9, 6, 4)):
 
 
 def extras(cfg, framework):
-    """The engine's prefill extras (the audio family's zero frames)."""
+    """The engine's prefill extras (the audio family's zero frames, the vlm
+    family's zero vision embeddings)."""
     if framework == "jax":
         return jcore._batch_extras(cfg, BATCH)
-    if cfg.family == "audio":
-        return {"frames": torch.zeros((BATCH, cfg.encoder_seq, cfg.d_model),
-                                      dtype=torch.bfloat16)}
-    return None
+    return tcore._batch_extras(cfg, BATCH, torch.device("cpu"))
 
 
 def run_jax(arch, quant="float", dtype="f32", n_steps=3):
