@@ -240,19 +240,26 @@ Phases, each printing its own lines:
             16 in the decode
             graph; rotary on half of each head; q/k/v and FFN biases), then
             internlm2-20b (its first 8 of 48 layers, d_model 6144, 48
-            heads over 8) and
-            the paper's llama2-70b (80 layers, d_model 8192, 64 heads over
-            8: 68.45 GB of layers, built layer by layer), W8A8,
+            heads over 8),
+            the paper's llama2-70b (its first 8 of 80 layers, d_model 8192,
+            64 heads over 8) and the parallel-block command-r-plus-104b
+            (its first 44 of 64 layers, d_model 12,288, 96 heads over 8:
+            B1's group of 12; d_ff 33,792; a tied 256,000 x 12,288
+            embedding; 69.2 GB of layers built layer by layer, the deepest
+            cut the card holds: the whole model's 100.7 GB of W8A8 layers
+            do not fit it), W8A8,
             4 slots, max_seq 1024, page 16, through build_client: the serve
             trace (counted: B1-B3, B1 once a layer a step inside the decode
             graph), the first token a direct prefill's, graph == eager;
-            chatglm3-6b also overlapped == eager, sampled synchronous ==
-            overlapped, a chunk budget of 128 giving the one-shot logits
-            and streams bit for bit (the chunk kernel at group 16 counted)
-            and 3 partial prefix hits equal to cold runs; each the CPU gate
-            on 2 layers at full width.  Prints decode ms a step and tok/s
-            (sync, overlapped), prefill ms a group, the profiles (B1's
-            device ms a step), peak memory.
+            chatglm3-6b and command-r-plus-104b also overlapped == eager,
+            sampled synchronous == overlapped, a chunk budget of 128
+            giving the one-shot logits and streams bit for bit (the chunk
+            kernel at groups 16 and 12 counted) and 3 partial prefix hits
+            equal to cold runs; each the CPU gate on 2 layers at full
+            width (the host's free memory printed before it).  Prints
+            decode ms a step and tok/s (sync, overlapped), prefill ms a
+            group, the profiles (B1's device ms a step), the resident
+            weights and pools, the build's and the phase's peak memory.
 21. serve_mla  deepseek-v2-lite-16b at full width (its first 8 of 27
             layers, the first dense, d_model 2048, 16 heads of multi-head
             latent attention:
@@ -274,11 +281,12 @@ Phases, each printing its own lines:
             group, the profiles (the MLA kernel's device ms a step), peak
             memory; the decode profile must hold one MLA device kernel a
             layer-step (the merge of the splits fused into it).
-22. serve_vlm  qwen2-vl-72b at full width (80 layers, d_model 8192, 64
+22. serve_vlm  qwen2-vl-72b at full width (its first 20 of 80 layers,
+            d_model 8192, 64
             query heads over 8 kv heads, q/k/v and FFN biases, d_ff
             29,568, vocab 152,064, M-RoPE over 256 prepended vision
             embeddings, zeros as the engine feeds them), W8A8 built on
-            the card layer by layer from seed 0 (75.5 GB resident), 4
+            the card layer by layer from seed 0 (21.3 GB of weights), 4
             slots, max_seq 1024, page 16, through build_client: the serve
             trace (counted: B1 once a layer inside the decode graph, B2,
             B3 over 320-768 rows); graph == overlapped, == eager on the
@@ -291,9 +299,7 @@ Phases, each printing its own lines:
             stream; a resume hit == cold through the vision rows'
             sentinel keys; a wave run's first tokens == a direct
             prefill's; the CPU gate on 2 layers at full width.  One engine
-            at a time beside the weights; the allocator's expandable
-            segments, set by main for this phase, keep the memory freed
-            between engines usable.  Prints the build's time and peak
+            at a time beside the weights.  Prints the build's time and peak
             against the resident bytes and memory.total, decode ms a step
             and tok/s (sync, overlapped), prefill ms a group, the
             profiles (B1's and the GeMV's device ms a step).
@@ -494,10 +500,13 @@ MODEL_RATIO = 1.25
 # the depth of the earlier paths whose gates hold at any depth (the
 # bit-equalities of engines and paths, the launch counts a layer):
 # serve_chunked, serve_int8kv, serve_prefix, serve_fleet's loopback fleets,
-# serve_moe, serve_mla and serve_dense's chatglm3-6b and internlm2-20b run
-# their model's first CUT_LAYERS layers at full width, so the whole script
-# stays well inside its time limit on a slow host
+# serve_moe, serve_mla and serve_dense's chatglm3-6b, internlm2-20b and
+# llama2-70b run their model's first CUT_LAYERS layers at full width, and
+# serve_vlm qwen2-vl-72b's first VLM_LAYERS, so the whole script stays well
+# inside its time limit on a slow host beside command-r-plus-104b's
+# COMMAND_R_LAYERS
 CUT_LAYERS = 8
+VLM_LAYERS = 20
 # B4 against its plain version: both dequantize to the same float32 weights
 # and sum float32 products in another order, so each output may differ by
 # a few float32 roundings of the sum of |products|
@@ -1073,7 +1082,10 @@ def phase_kernels(torch, results: dict) -> None:
               (4, 1536, 768),
               # qwen2-vl-72b's gate/up and down at decode and gate/up over
               # a prefill group of 4 x 768 rows (256 vision rows each)
-              (4, 8192, 29568), (4, 29568, 8192), (3072, 8192, 29568)]
+              (4, 8192, 29568), (4, 29568, 8192), (3072, 8192, 29568),
+              # command-r-plus-104b's gate/up and down at decode and
+              # gate/up over a prefill group of 4 x 512 rows
+              (4, 12288, 33792), (4, 33792, 12288), (2048, 12288, 33792)]
     timed_b2 = {(4, 4096, 4096): "llama2-7b q/k/v/o",
                 (4, 4096, 11008): "llama2-7b gate/up",
                 (4, 11008, 4096): "llama2-7b down",
@@ -1087,7 +1099,10 @@ def phase_kernels(torch, results: dict) -> None:
                 (2048, 768, 3352): "mamba2-130m in_proj",
                 (4, 8192, 29568): "qwen2-vl-72b gate/up",
                 (4, 29568, 8192): "qwen2-vl-72b down",
-                (3072, 8192, 29568): "qwen2-vl-72b gate/up"}
+                (3072, 8192, 29568): "qwen2-vl-72b gate/up",
+                (4, 12288, 33792): "command-r-plus-104b gate/up",
+                (4, 33792, 12288): "command-r-plus-104b down",
+                (2048, 12288, 33792): "command-r-plus-104b gate/up"}
     json_b2 = {"int8_gemv": (4, 4096, 11008),
                "int8_gemv_dp4a": (4, 4104, 11008),
                "int8_gemm_tc": (2048, 4096, 11008),
@@ -1278,6 +1293,10 @@ def phase_kernels(torch, results: dict) -> None:
                                  # a group of 4 prompts of 512 tokens
                                  # after 256 vision rows
                                  ("qwen2-vl-72b", 4, 768, 64, 8, 128),
+                                 # a group of 4 prompts of 512 tokens at
+                                 # 96 heads over 8
+                                 ("command-r-plus-104b", 4, 512, 96, 8,
+                                  128),
                                  ("ragged", 2, 200, 8, 2, 128),
                                  ("reduced", 4, 32, 4, 4, 16),
                                  # MLA's prefill: qk head 128 + 64, v
@@ -2782,31 +2801,29 @@ def _serve_full(torch, arch: str, tag: str, smi: str, quant: str = "w8a8",
     (``chunk_prefill``: the chunk budget; ``kv_dtype``: the page pools).
     Every launch counter is zeroed before the run and read after; the
     kernels the phase owns (COUNTED_IN), ``serving`` and ``required`` must
-    have launched; ``layers``: the depth cut to its first ``layers``
-    (``_cut_depth``).  Returns the counts and the client."""
+    have launched; ``layers``: the configuration cut to its first
+    ``layers`` layers and built so (the same draws for those layers as the
+    whole model's, ``build_params``), for a path whose gates hold at any
+    depth or a model the card cannot hold whole.  Returns the counts and
+    the client."""
     import numpy as np
 
     from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
     from repro_torch.launch.serve import build_client
     from repro_torch.models import model as M
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    cfg, client = build_client(arch, reduced=False, quant=quant,
+    build = (dataclasses.replace(get_arch(arch), n_layers=layers) if layers
+             else arch)
+    cfg, client = build_client(build, reduced=False, quant=quant,
                                max_batch=4, max_seq=1024, seed=0,
                                chunk_prefill=chunk_prefill,
                                kv_dtype=kv_dtype, device="cuda")
     if layers:
-        from repro_torch.serving.client import ServingClient
-        from repro_torch.serving.scheduler import make_scheduler
-
-        cfg, params = _cut_depth(cfg, client.router.cores[0].params, layers)
-        client = ServingClient(
-            cfg, params, max_batch=4, max_seq=1024, eos_id=-1, page_size=16,
-            scheduler=make_scheduler("fcfs",
-                                     chunk_tokens=chunk_prefill or None),
-            kv_dtype=kv_dtype, device="cuda")
-        log(f"[{tag}] {arch}'s first {layers} layers at full width")
+        log(f"[{tag}] {arch}'s first {layers} of "
+            f"{get_arch(arch).n_layers} layers at full width")
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated() / 2**30
     log(f"[{tag}] {arch} full width {quant.upper()} built in "
@@ -5582,13 +5599,46 @@ def phase_serve_moe(torch, smi: str) -> dict:
     return counts
 
 
-DENSE_ARCHS = ("chatglm3-6b", "internlm2-20b", "llama2-70b")
+DENSE_ARCHS = ("chatglm3-6b", "internlm2-20b", "llama2-70b",
+               "command-r-plus-104b")
 DENSE_CPU_LAYERS = 2   # the CPU gate's depth (full width)
+# command-r-plus-104b's depth on one card: 64 layers of W8A8 are 100.7 GB
+# (1.573 GB a layer) beside a 6.29 GB tied bf16 embedding, more than the
+# card holds in any quantization the reference offers; its first
+# COMMAND_R_LAYERS layers leave room for the build's one bf16 layer and
+# its quantizing temporaries, the engines' pools and graphs and a prefill
+# group's float32 FFN temporaries (at 44 the build peaked at 79.7 GB and
+# the phase at 79.9 of the card's 85.0; each layer more adds 1.59)
+COMMAND_R_LAYERS = 44
+
+
+def _int8_elems(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_int8_elems(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_int8_elems(v) for v in tree)
+    return tree.numel() if getattr(tree, "dtype", None) is not None \
+        and str(tree.dtype) == "torch.int8" else 0
+
+
+def _host_gb_available() -> float:
+    """MemAvailable of /proc/meminfo in GB (the CPU gate's host memory)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
 
 
 def _dense_cpu_gate(torch, cfg, params, prompt, tag: str) -> None:
     """The model phase's gate at full width, the depth cut to
     DENSE_CPU_LAYERS layers (``_cut_logits``), within MODEL_RATIO."""
+    f64 = 8 * sum(_int8_elems(lp) for lp in params["layers"][
+        :DENSE_CPU_LAYERS])
+    log(f"[{tag}] CPU gate: host MemAvailable {_host_gb_available():.1f} GB "
+        f"before it; its layers' int8 weights as float64 take "
+        f"{f64 / 1e9:.1f} GB, beside a float32 and a bf16 copy of the "
+        f"{_tree_bytes(params['embed']) / 1e9:.2f} GB embedding")
     t0 = time.monotonic()
     logits, _ = _cut_logits(torch, cfg, params, prompt, DENSE_CPU_LAYERS)
     log(f"[{tag}] CPU gate: {DENSE_CPU_LAYERS} of {cfg.n_layers} layers at "
@@ -5610,7 +5660,8 @@ def _serve_dense(torch, arch: str, smi: str, every_gate: bool,
     streams bit for bit (the chunk kernel counted) and 3 partial prefix
     hits equal to cold runs.  Decode walls (sync, overlapped), the prefill
     and decode profiles, the CPU gate on DENSE_CPU_LAYERS layers; the
-    model freed at the end."""
+    resident weights and pools and the peak from the counted run to the
+    phase's end against the card's memory; the model freed at the end."""
     import gc
 
     import numpy as np
@@ -5624,6 +5675,13 @@ def _serve_dense(torch, arch: str, smi: str, every_gate: bool,
     counts, client = _serve_full(torch, arch, tag, smi, layers=layers)
     core = client.router.cores[0]
     cfg, params = core.cfg, core.params
+    log(f"[{tag}] resident: weights {_tree_bytes(params) / 1e9:.2f} GB "
+        f"({cfg.n_layers} layers), page pools "
+        f"{_tree_bytes([core.cache[k] for k in ('k', 'v')]) / 1e9:.2f} GB "
+        f"({core.num_pages} pages); "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB "
+        f"on {smi}")
     per_step = core.graph._deltas["sync"].get("paged_decode_attention", 0)
     log(f"[{tag}] B1 at a query group of {cfg.n_heads // cfg.n_kv_heads} "
         f"({cfg.n_heads} heads over {cfg.n_kv_heads}, D {cfg.d_head}): "
@@ -5698,6 +5756,10 @@ def _serve_dense(torch, arch: str, smi: str, every_gate: bool,
         t0 = _lap(tag, "one-shot == chunked, partial hits", t0)
     phase_profile(torch, client, smi, tag)
     t0 = _lap(tag, "profiles", t0)
+    log(f"[{tag}] peak memory from the counted run to the phase's end "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB "
+        f"on {smi}")
     _dense_cpu_gate(torch, cfg, params, prompts[0][:64], tag)
     _lap(tag, "CPU gate", t0)
     del client, core, params
@@ -5713,14 +5775,20 @@ def phase_serve_dense(torch, smi: str) -> None:
     internlm2-20b (48 layers, d_model 6144, 48 heads over 8, vocab 92,544)
     with the serve trace, graph == eager, the first token and the CPU
     gate; then the paper's llama2-70b (80 layers, d_model 8192, 64 heads
-    over 8, d_ff 28,672, vocab 32,000: 68.45 GB of W8A8 layers, which only
-    the layer-by-layer build fits on the card) with internlm2-20b's gates;
-    each freed before the next is built."""
+    over 8, d_ff 28,672, vocab 32,000; its first CUT_LAYERS) with
+    internlm2-20b's gates;
+    then the parallel-block command-r-plus-104b (d_model 12,288, 96 heads
+    over 8, a group of 12, d_ff 33,792, a tied 256,000-row embedding; its
+    first COMMAND_R_LAYERS of 64 layers, the deepest cut the card holds)
+    with every gate; each freed before the next is built."""
     _serve_dense(torch, DENSE_ARCHS[0], smi, every_gate=True,
                  layers=CUT_LAYERS)
     _serve_dense(torch, DENSE_ARCHS[1], smi, every_gate=False,
                  layers=CUT_LAYERS)
-    _serve_dense(torch, DENSE_ARCHS[2], smi, every_gate=False)
+    _serve_dense(torch, DENSE_ARCHS[2], smi, every_gate=False,
+                 layers=CUT_LAYERS)
+    _serve_dense(torch, DENSE_ARCHS[3], smi, every_gate=True,
+                 layers=COMMAND_R_LAYERS)
 
 
 # ---------------------------------------------------------------------------
@@ -6043,7 +6111,8 @@ def _vlm_int8(torch, cfg, params, prompts, margins, kw, tag: str) -> dict:
 
 
 def phase_serve_vlm(torch, smi: str) -> tuple[dict, dict]:
-    """qwen2-vl-72b at full width (80 layers, d_model 8192, 64 query heads
+    """qwen2-vl-72b at full width (its first VLM_LAYERS of 80 layers,
+    d_model 8192, 64 query heads
     over 8 kv heads of 128, q/k/v and FFN biases, d_ff 29,568, vocab
     152,064, M-RoPE over 256 prepended vision embeddings, zeros as the
     engine feeds them), random weights from seed 0 built on the card layer
@@ -6069,7 +6138,8 @@ def phase_serve_vlm(torch, smi: str) -> tuple[dict, dict]:
 
     tag = "serve_vlm"
     t0 = time.monotonic()
-    counts, client = _serve_full(torch, VLM_ARCH, tag, smi)
+    counts, client = _serve_full(torch, VLM_ARCH, tag, smi,
+                                 layers=VLM_LAYERS)
     core = client.router.cores[0]
     cfg, params = core.cfg, core.params
     weights = _tree_bytes(params)
@@ -6278,6 +6348,15 @@ def main(argv=None) -> int:
         counts["serve_moe"] = phase_serve_moe(torch, smi_line)
     _mark("serve_dense")
     if "serve_dense" in phases:
+        # command-r-plus-104b's build leaves ~6 GB of the card beside its
+        # weights while each layer's float temporaries come and go:
+        # expandable segments map freed memory again whatever blocks it
+        # was split into (4.7 GiB sat reserved in splinters when it ran out
+        # of memory without them).  Set from this phase on only: it slows
+        # the allocation churn of the earlier ones (serve_chunked's
+        # one-shot == chunked check took 45% longer under it)
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
         phase_serve_dense(torch, smi_line)
     _mark("serve_mla")
     if "serve_mla" in phases:
@@ -6285,14 +6364,6 @@ def main(argv=None) -> int:
             torch, smi_line)
     _mark("serve_vlm")
     if "serve_vlm" in phases:
-        # qwen2-vl-72b leaves ~8 GiB of the card beside its weights while
-        # engines come and go: expandable segments map freed memory again
-        # whatever blocks it was split into (CUDA graphs' private pools keep
-        # ordinary segments).  Set for the last phase only: it slows the
-        # allocation churn of the earlier ones (serve_chunked's one-shot ==
-        # chunked check took 45% longer under it)
-        torch.cuda.empty_cache()
-        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
         counts["serve_vlm"], counts["serve_vlm_int8"] = phase_serve_vlm(
             torch, smi_line)
     _mark("end")

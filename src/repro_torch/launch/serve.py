@@ -94,8 +94,9 @@ from repro_torch.serving.scheduler import (POLICIES, SamplingParams,  # noqa: E4
                                            make_scheduler)
 
 
-def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
-                 max_batch: int = 4, max_seq: int = 128, page_size: int = 16,
+def build_client(arch: str | ModelConfig, reduced: bool = True,
+                 quant: str = "w8a8", max_batch: int = 4,
+                 max_seq: int = 128, page_size: int = 16,
                  replicas: int = 1, route: str = "round_robin",
                  policy: str = "fcfs", seed: int = 0, eos_id: int = -1,
                  overlap: bool = False, chunk_prefill: int = 0,
@@ -118,8 +119,12 @@ def build_client(arch: str, reduced: bool = True, quant: str = "w8a8",
     a fleet router over loopback or subprocess workers; ``mode``: the
     engine's "auto", "wave" or "continuous", which socket workers take as
     "auto").  The weights come from ``fleet.worker.build_params``, the
-    calls a socket worker makes."""
+    calls a socket worker makes; ``arch`` is a registered name or, served
+    in this process, a ``ModelConfig``."""
     if workers and transport == "socket":
+        if not isinstance(arch, str):
+            raise ValueError("socket workers rebuild the model from its "
+                             "registered name")
         # subprocess workers rebuild the weights themselves from (arch,
         # seed) and quantize locally, so nothing heavy ships over the wire;
         # the prefix cache and the flash tier's bounds are per-worker

@@ -115,8 +115,9 @@ def dense_weight(params: dict) -> torch.Tensor:
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, use_bias: bool,
                 dtype: torch.dtype, device: torch.device) -> dict:
+    # scaled in place: one float32 draw alive, the same bits
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
-                    device=device) * d_in ** -0.5
+                    device=device).mul_(d_in ** -0.5)
     p = {"w": w.to(dtype)}
     if use_bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)

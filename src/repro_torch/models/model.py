@@ -63,9 +63,13 @@ Where the JAX functions return a new cache, these write the page, K/V and
 state tensors IN PLACE and return a shallow copy of the cache dict with a
 new ``lens`` (paged) or ``len`` (wave); a conv window whose dtype the JAX
 function would change (jnp's promotion, C3) is rebound to a new tensor of
-that dtype instead.  The parallel-block dense models have no branch here
-and raise NotImplementedError; the ssm and audio families have no paged
-path (they serve in wave mode, as in JAX).
+that dtype instead.  The ssm and audio families have no paged path (they
+serve in wave mode, as in JAX).
+
+A parallel-block dense model (``cfg.parallel_block``, command-r-plus-104b)
+gives its attention and its FFN the same normed input, ``x + attn(hn) +
+ffn(hn)``, in every path, as the JAX package's four branches do; its
+``ffn_norm`` is drawn and kept, unused, as JAX keeps it.
 
 The vlm family prepends ``extras["vision_embeds"]`` [B, n_vision, D] (the
 stub vision frontend's patch embeddings) to the token embeddings and
@@ -104,11 +108,10 @@ STACKED = {"layers": 1, "dense_layers": 1, "enc_layers": 1, "groups": 2,
 
 
 def _check_family(cfg: ModelConfig, families: tuple[str, ...]) -> None:
-    if cfg.family not in families or cfg.parallel_block:
+    if cfg.family not in families:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r}"
-            f"{' (parallel block)' if cfg.parallel_block else ''} is not "
-            f"ported for this function (ported: {', '.join(families)})")
+            f"{cfg.name}: family {cfg.family!r} is not ported for this "
+            f"function (ported: {', '.join(families)})")
 
 
 def _init_dense_layer(gen, cfg: ModelConfig, dtype, device) -> dict:
@@ -179,8 +182,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, max_seq: int = 4096,
         return [fin(make(gen, cfg, dtype, dev), True) for _ in range(n)]
 
     def normal(rows: int) -> torch.Tensor:
-        return (torch.randn((rows, cfg.d_model), generator=gen,
-                            dtype=torch.float32, device=dev) * 0.02).to(dtype)
+        # scaled in place: one float32 copy alive (12.6 GB for
+        # command-r-plus-104b's 256,000 x 12,288 embedding), the same bits
+        return torch.randn((rows, cfg.d_model), generator=gen,
+                           dtype=torch.float32, device=dev).mul_(0.02).to(
+                               dtype)
 
     p: dict = {}
     p["embed"] = fin(normal(cfg.vocab_size), False)
@@ -271,14 +277,23 @@ def _mlp(lp, h, cfg: ModelConfig) -> torch.Tensor:
     return moe_mod.moe_ffn(lp["moe"], h, cfg)
 
 
+def _residual(lp, x, hn, attn_out, cfg: ModelConfig) -> torch.Tensor:
+    """A layer's two residual adds after its attention on ``hn``, the
+    normed x: the FFN on the normed sum, or, in a parallel block
+    (command-r), on ``hn`` itself, ``x + attn_out + ffn(hn)``, summed in
+    JAX's order."""
+    if cfg.parallel_block:
+        return x + attn_out + _mlp(lp, hn, cfg)
+    x = x + attn_out
+    return x + _mlp(lp, blocks.norm(cfg, lp["ffn_norm"], x), cfg)
+
+
 def _dense_layer_full(lp, x, cfg: ModelConfig, positions, causal=True):
     """A dense or moe layer over full rows (JAX ``_dense_layer_full`` /
     ``_moe_layer_full``)."""
     h = blocks.norm(cfg, lp["attn_norm"], x)
     attn_out, k, v = blocks.attn_full(lp["attn"], h, cfg, positions, causal)
-    x = x + attn_out
-    x = x + _mlp(lp, blocks.norm(cfg, lp["ffn_norm"], x), cfg)
-    return x, (k, v)
+    return _residual(lp, x, h, attn_out, cfg), (k, v)
 
 
 def _mla_layer_full(lp, x, cfg: ModelConfig, positions):
@@ -564,8 +579,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _dense_layer_wave(lp, x, cfg: ModelConfig, k_cache, v_cache, pos):
     hn = blocks.norm(cfg, lp["attn_norm"], x)
-    x = x + blocks.attn_decode(lp["attn"], hn, cfg, k_cache, v_cache, pos)
-    return x + _mlp(lp, blocks.norm(cfg, lp["ffn_norm"], x), cfg)
+    return _residual(lp, x, hn, blocks.attn_decode(
+        lp["attn"], hn, cfg, k_cache, v_cache, pos), cfg)
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -645,10 +660,10 @@ def decode_and_sample(params: dict, cfg: ModelConfig, tok_host: torch.Tensor,
 def supports_paged(cfg: ModelConfig) -> bool:
     """The port pages the dense, vlm and moe families' K/V, mla_moe's
     compressed rows and the hybrid family's shared-attention K/V (its
-    Mamba state lives in a slot-indexed pool).  The ssm and audio families
-    keep the shared cursor (wave mode), as in JAX; the parallel-block
-    dense models are not ported."""
-    return cfg.family in PAGED_FAMILIES and not cfg.parallel_block
+    Mamba state lives in a slot-indexed pool), the parallel-block dense
+    model among them.  The ssm and audio families keep the shared cursor
+    (wave mode), as in JAX."""
+    return cfg.family in PAGED_FAMILIES
 
 
 def wave_only(cfg: ModelConfig) -> bool:
@@ -909,6 +924,22 @@ def prefill_into_slots(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return lm_head(params, cfg, x_last), {**cache, "lens": lens}
 
 
+def prefill_into_slot(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                      true_len, cache: dict, slot, extras: dict | None = None
+                      ) -> tuple[torch.Tensor, dict]:
+    """One request's ``prefill_into_slots`` (JAX ``prefill_into_slot``).
+
+    tokens: [1, Sp]; true_len, slot: ints or 0-d tensors.  Returns
+    (logits [V], cache)."""
+    dev = tokens.device
+    logits, cache = prefill_into_slots(
+        params, cfg, tokens,
+        torch.as_tensor(true_len, dtype=torch.int32).reshape(1).to(dev),
+        cache, torch.as_tensor(slot, dtype=torch.int32).reshape(1).to(dev),
+        extras)
+    return logits[0], cache
+
+
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
     """Chunked prefill needs a paged cache and a 1-D token / position
     stream (no prepended vision or audio embeddings to split across chunk
@@ -956,8 +987,7 @@ def prefill_chunk_into_slot(params: dict, cfg: ModelConfig,
         attn_out = blocks.attn_prefill_chunk_paged(
             lp["attn"], hn, cfg, _pool(cache, "k", li), _pool(cache, "v", li),
             block_row, start, chunk_len)
-        x = x + attn_out
-        x = x + _mlp(lp, blocks.norm(cfg, lp["ffn_norm"], x), cfg)
+        x = _residual(lp, x, hn, attn_out, cfg)
     cache["lens"][slot] = start + chunk_len
     x_last = x[:, min(max(chunk_len - 1, 0), c - 1)]
     x_last = blocks.norm(cfg, params["final_norm"], x_last)
@@ -968,9 +998,8 @@ def _dense_layer_decode(lp, x, cfg: ModelConfig, k_pages, v_pages, block,
                         lens, active):
     # k/v_pages: one layer's pools (``_pool``)
     hn = blocks.norm(cfg, lp["attn_norm"], x)
-    x = x + blocks.attn_decode_paged(lp["attn"], hn, cfg, k_pages, v_pages,
-                                     block, lens, active)
-    return x + _mlp(lp, blocks.norm(cfg, lp["ffn_norm"], x), cfg)
+    return _residual(lp, x, hn, blocks.attn_decode_paged(
+        lp["attn"], hn, cfg, k_pages, v_pages, block, lens, active), cfg)
 
 
 def decode_step_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,

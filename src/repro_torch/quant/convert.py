@@ -35,11 +35,16 @@ from repro_torch.models.model import STACKED
 
 
 def _quantize_w(w: torch.Tensor) -> dict:
-    """w: [in, out] float -> per-output-channel symmetric int8 [out, in]."""
-    wt = w.float().T                                    # [out, in]
-    absmax = wt.abs().amax(-1)
+    """w: [in, out] float -> per-output-channel symmetric int8 [out, in].
+
+    One float32 copy of ``w`` is the only temporary (1.66 GB for
+    command-r-plus-104b's 12,288 x 33,792 FFN matrices): the row absmax is
+    max(max, -min) and the division, rounding and clamp run in place on
+    the copy, the same values as out of place."""
+    wt = w.to(torch.float32, copy=True).T               # [out, in]
+    absmax = torch.maximum(wt.amax(-1), wt.amin(-1).neg_())
     scale = torch.clamp_min(absmax / 127.0, 1e-8)
-    w_q = torch.clamp(torch.round(wt / scale[:, None]), -127, 127)
+    w_q = wt.div_(scale[:, None]).round_().clamp_(-127, 127)
     return {"w_q": w_q.to(torch.int8).contiguous(),
             "scale": scale.to(torch.float32)}
 

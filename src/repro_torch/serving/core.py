@@ -586,6 +586,10 @@ class EngineCore:
             req.arrival_s = req.t_submit
         self.queue.append(req)
 
+    # the historical name (``serving.engine.ServingEngine``'s surface);
+    # Router and new code use add_request
+    submit = add_request
+
     def abort_request(self, rid: int) -> bool:
         """Cancel a queued or running request: frees its slot/pages and
         emits exactly one terminal event with ``finish_reason="aborted"``."""

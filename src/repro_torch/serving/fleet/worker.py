@@ -176,7 +176,7 @@ def build_core(arch: str, *, reduced: bool = True, max_batch: int = 4,
         device=device)
 
 
-def build_params(arch: str, *, reduced: bool = True, max_seq: int = 128,
+def build_params(arch, *, reduced: bool = True, max_seq: int = 128,
                  seed: int = 0, quant: str = "none", device: str = "cuda"):
     """(cfg, params) by the calls ``launch/serve.py`` ``build_client``
     makes: ``init_params`` on ``device`` from ``seed``, each top-level
@@ -184,11 +184,13 @@ def build_params(arch: str, *, reduced: bool = True, max_seq: int = 128,
     soon as it is made, so no more than one layer's bf16 weights are alive
     (qwen2-vl-72b and llama2-70b fit one card that way).  The draws are
     the deterministic init's, so every worker derives the same quantized
-    weights, the bits of the whole model's init quantized after."""
+    weights, the bits of the whole model's init quantized after.  ``arch``
+    is a registered name or a ``ModelConfig`` (a configuration cut to
+    fewer layers draws the same first layers as the whole one)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import model as model_lib
 
-    cfg = get_arch(arch)
+    cfg = get_arch(arch) if isinstance(arch, str) else arch
     if reduced:
         cfg = cfg.reduced()
     finish = None

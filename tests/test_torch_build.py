@@ -33,7 +33,8 @@ from repro_torch.quant import convert
 from repro_torch.serving.fleet.worker import build_params
 
 ARCHS = ("smollm-360m", "opt-6.7b", "qwen2-vl-72b", "qwen2-moe-a2.7b",
-         "deepseek-v2-lite-16b", "zamba2-7b", "mamba2-130m", "whisper-small")
+         "deepseek-v2-lite-16b", "zamba2-7b", "mamba2-130m", "whisper-small",
+         "command-r-plus-104b")
 
 
 def _assert_equal_trees(got, want, path="params"):
@@ -68,6 +69,28 @@ def test_layer_by_layer_build_equals_init_then_quantize(arch, mode):
     _assert_equal_trees(got, want)
     if mode == "w4a16" and "lm_head" in want:
         assert "w_p4" in got["lm_head"]     # the unstacked head is W4A16
+
+
+@pytest.mark.parametrize("arch", ["command-r-plus-104b", "qwen2-vl-72b",
+                                  "deepseek-v2-lite-16b"])
+def test_a_cut_config_builds_the_whole_models_first_layers(arch):
+    """``build_params`` given a ModelConfig cut to fewer layers (how a
+    model the card cannot hold whole is served at a depth cut) draws the
+    whole model's embedding, head, norms and first layers bit for bit
+    (mla_moe: its dense first layer among them)."""
+    import dataclasses
+
+    cfg = get_arch(arch).reduced()
+    whole_cfg = dataclasses.replace(cfg, n_layers=4)
+    cut_cfg = dataclasses.replace(cfg, n_layers=2)
+    _, whole = build_params(whole_cfg, reduced=False, max_seq=32, seed=4,
+                            quant="w8a8", device="cpu")
+    got_cfg, cut = build_params(cut_cfg, reduced=False, max_seq=32, seed=4,
+                                quant="w8a8", device="cpu")
+    assert got_cfg == cut_cfg
+    n_stack = cut_cfg.n_layers - cut_cfg.first_k_dense
+    assert len(cut["layers"]) == n_stack < len(whole["layers"])
+    _assert_equal_trees(cut, {**whole, "layers": whole["layers"][:n_stack]})
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-72b", "zamba2-7b",

@@ -404,6 +404,42 @@ def test_blocked_lm_head_at_qwen2_vl_72b_vocab(cuda_device):
 
 
 @pytest.mark.gpu
+def test_tied_lm_head_past_2_31_elements(cuda_device):
+    """command-r-plus-104b's tied head: the bf16 embedding of 256,000 x
+    12,288 = 3.15e9 elements, more than 2^31, read LM_HEAD_BLOCK rows at a
+    time.  Rows at both ends of the vocabulary (where an offset of the
+    whole matrix passes 2^31) within 1e-5 (|x| @ |W|) + 1e-6 of the
+    float64 product, the logits finite, a row's bits the same at M = 1."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as TM
+
+    cfg = get_arch("command-r-plus-104b")
+    v, d = cfg.vocab_size, cfg.d_model
+    assert cfg.tie_embeddings and v * d > 2 ** 31
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    embed = torch.empty((v, d), dtype=torch.bfloat16, device=cuda_device)
+    for v0 in range(0, v, 32768):   # drawn in blocks: no float32 copy
+        embed[v0:v0 + 32768] = torch.randn(
+            (min(32768, v - v0), d), generator=gen,
+            device=cuda_device).mul_(0.02)
+    params = {"embed": embed}
+    x = torch.randn((4, d), generator=gen, device=cuda_device
+                    ).to(torch.bfloat16)
+    got = TM.lm_head(params, cfg, x)
+    torch.cuda.synchronize()
+    assert got.shape == (4, v) and bool(torch.isfinite(got).all())
+    xd = x.double()
+    for v0, v1 in ((0, 4096), (2 ** 31 // d - 2048, 2 ** 31 // d + 2048),
+                   (v - 4096, v)):
+        w = embed[v0:v1].double()
+        ref = xd @ w.T
+        limit = 1e-5 * (xd.abs() @ w.abs().T) + 1e-6
+        assert bool(((got[:, v0:v1].double() - ref).abs() <= limit).all()), \
+            (v0, v1)
+    assert torch.equal(TM.lm_head(params, cfg, x[:1]), got[:1])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("ber", [0.0, 1e-4, 2e-3])
 def test_ecc_decode_bit_exact_on_card(cuda_device, ber):
     """B5 against its plain version on 512 random int8 pages corrupted

@@ -20,6 +20,8 @@ use margin-checked prompts, through tests/test_torch_serving.py's
 harness.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -303,8 +305,9 @@ def test_slot_state_checkpoint_round_trip(case):
 
 
 def test_unported_families_raise():
-    """Families without a port branch (the parallel-block dense model)
-    raise NotImplementedError.  The ssm
+    """Every family has a port branch now, the parallel-block dense model
+    (command-r-plus-104b) the last to get one: it builds, runs ``forward``
+    and pages.  The ssm
     and audio families serve in wave mode, as in JAX: the paged cache and
     continuous mode refuse them with JAX's ValueError, ``mode="auto"``
     picks wave, and whisper-small's ``init_params`` / ``forward`` run."""
@@ -330,18 +333,17 @@ def test_unported_families_raise():
         TM.init_paged_cache(audio, 2, 16, device="cpu")
     assert TM.supports_paged(get_arch("deepseek-v2-lite-16b"))  # ported
     assert TM.supports_paged(get_arch("qwen2-vl-72b"))          # ported
-    for arch in ("command-r-plus-104b",):   # the parallel block
-        from repro.configs.registry import get_arch as jget
-        from repro_torch.configs.base import ModelConfig
-
-        cfg = ModelConfig(**{k: v for k, v in jget(arch).reduced()
-                             .__dict__.items()})
-        for fn in (lambda: TM.init_params(cfg, device="cpu"),
-                   lambda: TM.forward({}, cfg, torch.zeros((1, 2), dtype=
-                                                           torch.long)),
-                   lambda: TM.init_paged_cache(cfg, 2, 16, device="cpu")):
-            with pytest.raises(NotImplementedError):
-                fn()
+    cfg = get_arch("command-r-plus-104b").reduced()   # the parallel block
+    assert cfg.parallel_block and TM.supports_paged(cfg)
+    params = TM.init_params(cfg, device="cpu", dtype=torch.float32)
+    assert TM.forward(params, cfg, torch.zeros((1, 2), dtype=torch.long)
+                      ).shape == (1, 2, cfg.vocab_size)
+    assert TM.init_paged_cache(cfg, 2, 16, device="cpu")["k"].shape[0] == \
+        cfg.n_layers
+    assert TEngine(cfg, params, device="cpu").mode == "continuous"
+    with pytest.raises(NotImplementedError):   # still no such family
+        TM.init_params(dataclasses.replace(cfg, family="retnet"),
+                       device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,11 @@ def test_port_imports_neither_jax_nor_repro(sanitize):
               "configs.internlm2_20b", "kernels.diag_b1_bits",
               "configs.deepseek_v2_lite_16b",
               "kernels.mla_decode_attention.ops",
-              "kernels.mla_decode_attention.ref"):
+              "kernels.mla_decode_attention.ref",
+              "configs.command_r_plus_104b", "serving.engine",
+              "examples.serve_hybrid", "core.schedule", "core.planner",
+              "sim", "sim.engine", "sim.llm_perf", "sim.energy",
+              "sim.baselines"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -93,7 +97,8 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
                                    "ServingClient", "serve", "quickstart",
                                    "ecc_resilience", "fleet_client",
                                    "FleetRouter", "serve_fleet",
-                                   "serve_socket_fleet", "worker"])
+                                   "serve_socket_fleet", "worker",
+                                   "ServingEngine", "serve_hybrid"])
 def test_entry_points_raise_without_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the no-card path is not taken")
@@ -130,6 +135,12 @@ def test_entry_points_raise_without_a_card(entry):
         elif entry == "worker":
             from repro_torch.serving.fleet.worker import main
             main(["--port", "0"])
+        elif entry == "ServingEngine":
+            from repro_torch.serving.engine import ServingEngine
+            ServingEngine(cfg, params)
+        elif entry == "serve_hybrid":
+            from repro_torch.examples.serve_hybrid import main
+            main([])
         elif entry == "quickstart":
             from repro_torch.examples.quickstart import main
             main(["--reduced", "1"])
