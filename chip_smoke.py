@@ -75,6 +75,23 @@ Phases, each printing its own lines:
             the CPU bf16 run's own distance from float32.  Then
             mamba2-130m at full width, W8A8: forward on 2 x 256 tokens
             under the same gate.
+4a. train   smollm-360m at full width (32 layers, d_model 960, 15 heads
+            over 5, head dim 64, a tied 49,152-row embedding; 362M
+            params) in float32 from the port's init_params seed 0:
+            make_batch -> make_train_step (no remat, one microbatch, lr
+            3e-4) for 20 steps of 8 x 256 tokens, counted: the float32
+            attention forward, dK/dV and dQ kernels 32 times a step each
+            and nothing else; the mean loss of the last five steps below
+            the first five's; a checkpoint after step 10 (JAX's layout)
+            restored and resumed to step 20 equal to the uninterrupted run
+            bit for bit (losses, params, moments); on a fresh batch remat
+            == no remat and a second backward pass == the first, bit for
+            bit; 2 microbatches against 1 within 1e-4; the card against
+            the CPU at 2 layers, 2 x 64 tokens (loss 1e-5 relative,
+            gradient leaves 1e-4 of their max).  Prints the losses, step
+            wall ms, tok/s, peak memory, a profiled step's device ms by
+            part (the attention pair, sgemm, the rest) and the tied head's
+            8-row products alone, forward and backward.
 5. serve    llama2-7b at full width, W8A8, through the port's serving
             driver (launch/serve.py build_client -> ServingClient ->
             Router -> EngineCore): 8 greedy requests with 64-512-token
@@ -102,7 +119,11 @@ Phases, each printing its own lines:
 8. serve_w4a16  llama2-7b at full width through build_client(quant=
             "w4a16") (W8A8 layers, W4A16 lm_head, as the JAX convert
             makes them): 4 greedy requests; all complete, the first token
-            equals a direct prefill's, and B4's GeMV launched.
+            equals a direct prefill's, and B4's GeMV launched.  Then the
+            W4A16 head above 8 rows (ROADMAP C11): a row's logits alone,
+            among 4 rows and among 12 the same bits, and an engine of 12
+            slots serving the same 4 requests beside 8 more gives their
+            streams at 4 slots.
 9. serve_hybrid  zamba2-7b at full width (81 Mamba-2 layers, the shared
             attention block after every 6), W8A8, through build_client:
             4 slots, max_seq 1024, page 16, 8 greedy requests with
@@ -243,11 +264,11 @@ Phases, each printing its own lines:
             heads over 8),
             the paper's llama2-70b (its first 8 of 80 layers, d_model 8192,
             64 heads over 8) and the parallel-block command-r-plus-104b
-            (its first 44 of 64 layers, d_model 12,288, 96 heads over 8:
+            (its first 24 of 64 layers, d_model 12,288, 96 heads over 8:
             B1's group of 12; d_ff 33,792; a tied 256,000 x 12,288
-            embedding; 69.2 GB of layers built layer by layer, the deepest
-            cut the card holds: the whole model's 100.7 GB of W8A8 layers
-            do not fit it), W8A8,
+            embedding; 37.7 GB of layers built layer by layer; the whole
+            model's 100.7 GB of W8A8 layers do not fit the card, 44 was the
+            deepest cut it held), W8A8,
             4 slots, max_seq 1024, page 16, through build_client: the serve
             trace (counted: B1-B3, B1 once a layer a step inside the decode
             graph), the first token a direct prefill's, graph == eager;
@@ -281,12 +302,12 @@ Phases, each printing its own lines:
             group, the profiles (the MLA kernel's device ms a step), peak
             memory; the decode profile must hold one MLA device kernel a
             layer-step (the merge of the splits fused into it).
-22. serve_vlm  qwen2-vl-72b at full width (its first 20 of 80 layers,
+22. serve_vlm  qwen2-vl-72b at full width (its first 12 of 80 layers,
             d_model 8192, 64
             query heads over 8 kv heads, q/k/v and FFN biases, d_ff
             29,568, vocab 152,064, M-RoPE over 256 prepended vision
             embeddings, zeros as the engine feeds them), W8A8 built on
-            the card layer by layer from seed 0 (21.3 GB of weights), 4
+            the card layer by layer from seed 0 (~13 GB of weights), 4
             slots, max_seq 1024, page 16, through build_client: the serve
             trace (counted: B1 once a layer inside the decode graph, B2,
             B3 over 320-768 rows); graph == overlapped, == eager on the
@@ -357,13 +378,25 @@ CUDA-core split and combine kernels of PR 27,
 ``csrc/diag/mla_decode_attention_pr27.cu``, built beside the library by
 the build phase; ``kernels/diag_mla.py``).
 
+The float32 causal attention pair (training; no Pallas counterpart: the
+JAX package differentiates the jnp chunked_attention): the forward, dK/dV
+(after delta = rowsum(dO * O)) and dQ kernels at smollm-360m's training
+shape (B 8, S 256, H 15 over 5, D 64), llama2-7b's (B 1, S 2,048, H 32, D
+128) and S 200 / 65, against float64 autograd of the plain forward within
+F32_ATTN_TOL, two runs bit-identical, a planted fault (the last query
+tile's lse raised by 1e-3) that must fail every gradient; timed beside
+the float32 CUDA-core bound, the plain (tiled) versions and SDPA in
+float32 (enable_gqa; forward, and one backward pass for all three
+gradients).
+
 The last three lines are the kernels JSON, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``; each kernel's ``launches`` is read
 around the run of the phase that owns it (serve for B1-B3, serve_wave
 for B3's bidirectional mode, hybrid for B5, serve_hybrid_w4a16 for B4's two variants, serve_hybrid for B6,
 serve_chunked for the chunk kernel, serve_int8kv for B1-int8 and its
 chunked engine for the chunk kernel's int8 variant, serve_moe for the
-grouped GEMM, serve_mla for the MLA kernel, bf16 and int8; serve_vlm
+grouped GEMM, serve_mla for the MLA kernel, bf16 and int8, train for the float32
+attention pair; serve_vlm
 prints its own counts of B1-B3).  B2's __dp4a GeMV and
 tiled GEMM (``int8_gemv_dp4a``, ``int8_gemm``) are on no model's path
 (every model K is a multiple of 16 and every base aligned): a serving
@@ -440,6 +473,17 @@ SOURCES = {
     "mla_decode_attention_int8": (
         "src/repro_torch/kernels/csrc/mla_decode_attention.cu",
         "src/repro/models/blocks.py:325"),
+    # no Pallas counterpart: the JAX package trains through
+    # jax.value_and_grad of the jnp chunked_attention
+    "flash_attention_f32": (
+        "src/repro_torch/kernels/csrc/flash_attention_f32.cu",
+        "src/repro/models/attention.py:31"),
+    "flash_attention_f32_dkdv": (
+        "src/repro_torch/kernels/csrc/flash_attention_f32.cu",
+        "src/repro/models/attention.py:31"),
+    "flash_attention_f32_dq": (
+        "src/repro_torch/kernels/csrc/flash_attention_f32.cu",
+        "src/repro/models/attention.py:31"),
 }
 # the phase whose run each kernel's launch count is read around
 COUNTED_IN = {"int8_gemv": "serve", "int8_gemv_dp4a": "serve",
@@ -454,7 +498,10 @@ COUNTED_IN = {"int8_gemv": "serve", "int8_gemv_dp4a": "serve",
               "paged_chunk_attention_int8": "serve_int8kv_chunked",
               "grouped_gemm": "serve_moe",
               "mla_decode_attention": "serve_mla",
-              "mla_decode_attention_int8": "serve_mla_int8"}
+              "mla_decode_attention_int8": "serve_mla_int8",
+              "flash_attention_f32": "train",
+              "flash_attention_f32_dkdv": "train",
+              "flash_attention_f32_dq": "train"}
 # kept for shapes no model has (K not a multiple of 16, a misaligned base):
 # a serving path must not launch them
 OFF_PATH = ("int8_gemm", "int8_gemv_dp4a")
@@ -472,7 +519,10 @@ KERNEL_NAMES = {"int8_gemv": "int8_gemv_mma_kernel",
                 "w4a16_gemm": "w4a16_gemm_",
                 "grouped_gemm": "grouped_gemm_kernel",
                 "mla_decode_attention": "mla_decode_",
-                "mla_decode_attention_int8": "mla_decode_"}
+                "mla_decode_attention_int8": "mla_decode_",
+                "flash_attention_f32": "attention_f32_fwd_kernel",
+                "flash_attention_f32_dkdv": "attention_f32_dkdv_kernel",
+                "flash_attention_f32_dq": "attention_f32_dq_kernel"}
 # the kernels every W8A8 serving phase must go through; the mla_moe
 # family's decode attention is the MLA kernel instead of B1
 SERVING_KERNELS = ("int8_gemv", "int8_gemm_tc", "paged_decode_attention",
@@ -504,9 +554,10 @@ MODEL_RATIO = 1.25
 # llama2-70b run their model's first CUT_LAYERS layers at full width, and
 # serve_vlm qwen2-vl-72b's first VLM_LAYERS, so the whole script stays well
 # inside its time limit on a slow host beside command-r-plus-104b's
-# COMMAND_R_LAYERS
+# COMMAND_R_LAYERS and the train phase (VLM_LAYERS 20 and COMMAND_R_LAYERS
+# 44 until the train phase came)
 CUT_LAYERS = 8
-VLM_LAYERS = 20
+VLM_LAYERS = 12
 # B4 against its plain version: both dequantize to the same float32 weights
 # and sum float32 products in another order, so each output may differ by
 # a few float32 roundings of the sum of |products|
@@ -982,6 +1033,163 @@ def _kernels_bidir(torch, results: dict, randn) -> None:
             _bidir_faults(torch, q, k, v, ref)
 
 
+
+# the float32 causal attention pair (training) against autograd of its
+# plain version run in float64: each of O, lse, dq, dk and dv within
+# F32_ATTN_REL of its own max |ref| (float32 sums in another order; ~1e-6
+# in the CPU rehearsal, tests/test_torch_train_attention.py)
+F32_ATTN_REL = 1e-5
+F32_ATTN_TOL = f"{F32_ATTN_REL} x max|ref| a tensor"
+# (tag, B, S, H, Hkv, D): smollm-360m's training shape (timed; its rows in
+# the kernels line), llama2-7b's (timed), and S off the 64-row grid
+F32_ATTN_CASES = [("smollm-360m", 8, 256, 15, 5, 64),
+                  ("llama2-7b", 1, 2048, 32, 32, 128),
+                  ("S 200, group 3", 2, 200, 6, 2, 64),
+                  ("S 65, D 128", 1, 65, 4, 4, 128)]
+
+
+def _f32_attn_check(torch, tag, got, want) -> dict:
+    """max|err| / max|ref| of each named output; raises past the bound."""
+    out = {}
+    for name, g, w in zip(("O", "lse", "dq", "dk", "dv"), got, want):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"flash_attention_f32 {tag}: non-finite "
+                                 f"{name}")
+        err = (g.double() - w).abs().max().item()
+        scale = w.abs().max().item()
+        if err > F32_ATTN_REL * scale:
+            raise AssertionError(f"flash_attention_f32 {tag}: {name} max|err| "
+                                 f"{err:.3e} above {F32_ATTN_TOL} "
+                                 f"(max|ref| {scale:.3e})")
+        out[name] = (err, err / scale)
+    return out
+
+
+def _f32_attn_bounds(b, s, h, hkv, d) -> dict:
+    """(ms, by) of the forward, the dK/dV entry (delta included) and dQ:
+    each function's float32 operations on the CUDA cores (the causal
+    pairs only) against its bytes read and written once."""
+    pairs = b * h * s * (s + 1) / 2
+    q_el, kv_el, row = b * s * h * d, b * s * hkv * d, b * h * s
+    return {
+        "fwd": bound(4 * (2 * q_el + 2 * kv_el + row), 4 * d * pairs, "f32"),
+        "dkdv": bound(4 * (3 * q_el + 4 * kv_el + 2 * row),
+                      8 * d * pairs + 2 * q_el, "f32"),
+        "dq": bound(4 * (3 * q_el + 2 * kv_el + 2 * row), 6 * d * pairs,
+                    "f32")}
+
+
+def _kernels_attention_f32(torch, results: dict) -> None:
+    """The forward, dK/dV and dQ kernels against float64 autograd of the
+    plain forward, at F32_ATTN_CASES; two runs the same bits; a planted
+    fault (the last query tile's lse raised by 1e-3, as a kernel that
+    mis-summed a row's softmax would hand the backward) must fail every
+    gradient; the two model shapes timed beside their bounds, the plain
+    versions and SDPA in float32 (forward; backward: one autograd pass,
+    all three gradients)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_f32_dkdv_ref, attention_f32_dq_ref, attention_f32_fwd_ref)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    for tag, b, s, h, hkv, d in F32_ATTN_CASES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       for shape in ((b, s, h, d), (b, s, hkv, d),
+                                     (b, s, hkv, d), (b, s, h, d)))
+        o, lse = ops.attention_f32_fwd(q, k, v)
+        dk, dv, delta = ops.attention_f32_dkdv(q, k, v, o, lse, do)
+        dq = ops.attention_f32_dq(q, k, v, lse, do, delta)
+        torch.cuda.synchronize()
+        leaves = [t.double().requires_grad_(True) for t in (q, k, v)]
+        o64, lse64 = attention_f32_fwd_ref(*leaves)
+        want = [o64.detach(), lse64.detach(),
+                *torch.autograd.grad(o64, leaves, do.double())]
+        del leaves, o64, lse64
+        errs = _f32_attn_check(torch, tag, (o, lse, dq, dk, dv), want)
+        o2, lse2 = ops.attention_f32_fwd(q, k, v)
+        dk2, dv2, delta2 = ops.attention_f32_dkdv(q, k, v, o2, lse2, do)
+        dq2 = ops.attention_f32_dq(q, k, v, lse2, do, delta2)
+        same = all(torch.equal(x, y) for x, y in (
+            (o, o2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)))
+        if not same:
+            raise AssertionError(f"flash_attention_f32 {tag}: two runs give "
+                                 f"other bits")
+        bad_lse = lse.clone()
+        bad_lse[..., (s - 1) // 64 * 64:] += 1e-3
+        bdk, bdv, bdelta = ops.attention_f32_dkdv(q, k, v, o, bad_lse, do)
+        bdq = ops.attention_f32_dq(q, k, v, bad_lse, do, bdelta)
+        caught = []
+        for name, g, w in (("dq", bdq, want[2]), ("dk", bdk, want[3]),
+                           ("dv", bdv, want[4])):
+            rel = (g.double() - w).abs().max().item() / w.abs().max().item()
+            if rel > F32_ATTN_REL:
+                caught.append(f"{name} {rel:.2e}")
+        log(f"[kernels] flash_attention_f32 {tag} B={b} S={s} H={h} "
+            f"Hkv={hkv} D={d}: max|err|/max|ref| " + ", ".join(
+                f"{n} {e[1]:.2e}" for n, e in errs.items())
+            + f" (tol {F32_ATTN_TOL}); two runs bit-identical; planted "
+            f"fault (last tile's lse + 1e-3) caught in {caught}")
+        if len(caught) < 3:
+            raise AssertionError(f"planted fault (a wrong lse) passes the "
+                                 f"flash_attention_f32 check at {tag}")
+        for name, (err, _rel) in errs.items():
+            res = results[{"O": "flash_attention_f32", "lse":
+                           "flash_attention_f32", "dq": "flash_attention_f32_dq"}
+                          .get(name, "flash_attention_f32_dkdv")]
+            res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
+        if tag not in ("smollm-360m", "llama2-7b"):
+            continue
+        bounds = _f32_attn_bounds(b, s, h, hkv, d)
+        fns = {"fwd": (lambda i: ops.attention_f32_fwd(q, k, v),
+                       ("attention_f32_fwd",),
+                       lambda i: attention_f32_fwd_ref(q, k, v)),
+               "dkdv": (lambda i: ops.attention_f32_dkdv(q, k, v, o, lse, do),
+                        ("attention_f32_delta", "attention_f32_dkdv"),
+                        lambda i: attention_f32_dkdv_ref(q, k, v, o, lse, do)),
+               "dq": (lambda i: ops.attention_f32_dq(q, k, v, lse, do, delta),
+                      ("attention_f32_dq",),
+                      lambda i: attention_f32_dq_ref(q, k, v, lse, do, delta))}
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=h != hkv)
+        with torch.no_grad():
+            lib_fwd = time_ms(torch, lambda i: sdpa())
+            lib_fwd_dev = profiled_ms(torch, lambda i: sdpa())
+        out = sdpa()
+        dot = do.transpose(1, 2).contiguous()
+        lib_bwd_fn = lambda i: torch.autograd.grad(  # noqa: E731
+            out, (qt, kt, vt), dot, retain_graph=True)
+        lib_bwd = time_ms(torch, lib_bwd_fn)
+        lib_bwd_dev = profiled_ms(torch, lib_bwd_fn)
+        for part, name in (("fwd", "flash_attention_f32"),
+                           ("dkdv", "flash_attention_f32_dkdv"),
+                           ("dq", "flash_attention_f32_dq")):
+            fn, kernel_names, plain_fn = fns[part]
+            ms = time_ms(torch, fn)
+            dev_ms = profiled_ms(torch, fn, kernel_names)
+            plain = time_ms(torch, plain_fn, iters=5, warmup=1)
+            b_ms, b_by = bounds[part]
+            lib, lib_dev = ((lib_fwd, lib_fwd_dev) if part == "fwd"
+                            else (lib_bwd, lib_bwd_dev))
+            log(f"[kernels] {name} {tag} B={b} S={s} H={h} Hkv={hkv} D={d}: "
+                f"{ms:.4f} ms (device time {dev_ms:.4f} ms, "
+                f"{100 * b_ms / dev_ms:.1f}% of the bound), plain "
+                f"{plain:.4f} ms, SDPA float32 "
+                f"{'forward' if part == 'fwd' else 'backward (all three)'} "
+                f"{lib:.4f} ms (device {lib_dev:.4f} ms), bound {b_ms:.4f} "
+                f"ms ({b_by}, float32 on the CUDA cores)")
+            if tag == "smollm-360m":
+                results[name].update(
+                    ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                    library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
+                    shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}")
+        del qt, kt, vt, out, dot
+
+
 def _kernels_b1_contiguous(torch, results: dict, randn) -> None:
     """B1 over the wave engine's contiguous cache [B, Smax, Hkv, D], read
     as B pages of Smax rows (``decode_attention``), against the plain
@@ -1351,6 +1559,7 @@ def phase_kernels(torch, results: dict) -> None:
     _kernels_chunk(torch, results)
     _kernels_grouped(torch, results)
     _kernels_mla(torch, results)
+    _kernels_attention_f32(torch, results)
 
 
 def _planted_collisions(torch, ecc, pages):
@@ -2790,6 +2999,267 @@ def phase_model(torch) -> None:
     _model_forward(torch, "mamba2-130m", 2, 256)
 
 
+
+# the train phase: smollm-360m at full width in float32 (362M params), the
+# JAX driver's batch of 8 x 256 and its lr, TRAIN_STEPS steps counted, a
+# checkpoint after TRAIN_RESUME_AT of them resumed to the end
+TRAIN_ARCH = "smollm-360m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN_STEPS = 20
+TRAIN_RESUME_AT = 10
+TRAIN_LR = 3e-4
+TRAIN_KERNELS = ("flash_attention_f32", "flash_attention_f32_dkdv",
+                 "flash_attention_f32_dq")
+# the card against the CPU: TRAIN_CPU_LAYERS layers at full width, 2 x 64
+# tokens; the bounds the CPU tests hold the port to against JAX (float32
+# sums in other orders): the loss 1e-5 relative, each gradient leaf 1e-4
+# of its max |g|; microbatches 2 against 1 within 1e-4 (JAX's own bound)
+TRAIN_CPU_LAYERS = 2
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+TRAIN_MB_TOL = 1e-4
+TRAIN_PARTS = (("attention fwd", ("attention_f32_fwd",)),
+               ("attention dK/dV", ("attention_f32_delta",
+                                    "attention_f32_dkdv")),
+               ("attention dQ", ("attention_f32_dq",)),
+               ("sgemm", ("gemm", "Gemm")))
+
+
+def _leaves_equal(torch, a, b) -> bool:
+    from repro_torch.distributed.checkpoint import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                  tree_leaves(b)))
+
+
+def _train_cpu_gate(torch, cfg) -> None:
+    """A step's loss and gradients at TRAIN_CPU_LAYERS layers, full width,
+    on the card against the CPU's plain versions."""
+    import dataclasses
+
+    from repro_torch.distributed.checkpoint import tree_leaves
+    from repro_torch.models import model as M
+    from repro_torch.training.data import DataState, make_batch
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.train_loop import value_and_grad
+
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS)
+    params = M.init_params(cut, 1, max_seq=64, device="cpu",
+                           dtype=torch.float32)
+    toks, _ = make_batch(DataState(1, 0), 2, 64, cut.vocab_size, device="cpu")
+    t0 = time.monotonic()
+    l_cpu, g_cpu = value_and_grad(params, cut, toks)
+    l_card, g_card = value_and_grad(tree_map(lambda t: t.cuda(), params), cut,
+                                    toks.cuda())
+    rel_loss = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    worst = max((a.cpu() - c).abs().max().item()
+                / max(c.abs().max().item(), 1e-30)
+                for a, c in zip(tree_leaves(g_card), tree_leaves(g_cpu)))
+    log(f"[train] card vs CPU, {TRAIN_CPU_LAYERS} layers at full width, 2 x "
+        f"64 tokens: loss {float(l_card):.6f} / {float(l_cpu):.6f} (rel. "
+        f"{rel_loss:.2e}, tol {TRAIN_LOSS_RTOL}); worst gradient leaf "
+        f"max|err|/max|g| {worst:.2e} (tol {TRAIN_GRAD_REL}); "
+        f"{time.monotonic() - t0:.1f} s")
+    if rel_loss > TRAIN_LOSS_RTOL or worst > TRAIN_GRAD_REL:
+        raise AssertionError("train: the card's loss or gradients leave the "
+                             "CPU's bounds")
+
+
+def _head_profile(torch, params, cfg) -> None:
+    """The tied head's 8-row products alone, forward and backward, at the
+    step's rows: device ms and launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), device="cuda",
+                    requires_grad=True)
+    emb = params["embed"].detach().requires_grad_(True)
+    g = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size), device="cuda")
+
+    def run():
+        logits = M.lm_head({"embed": emb}, cfg, x)
+        torch.autograd.grad(logits, (x, emb), g)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof)
+    log(f"[train] the tied head alone ({TRAIN_BATCH * TRAIN_SEQ} rows in "
+        f"8-row products, forward + backward): "
+        f"{sum(r[0] for r in rows) / 1e3:.3f} device ms: "
+        + _by_part(rows, (("sgemm", ("gemm", "Gemm")),)))
+
+
+def phase_train(torch, smi: str) -> dict:
+    """smollm-360m at full width in float32 on the card; returns the
+    launch counts of the TRAIN_STEPS counted steps."""
+    import shutil
+    import statistics
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.checkpoint import tree_leaves
+    from repro_torch.launch.train import (restore_train_state,
+                                          save_train_state)
+    from repro_torch.models import model as M
+    from repro_torch.training.data import DataState, make_batch
+    from repro_torch.training.optimizer import init_adamw
+    from repro_torch.training.train_loop import (make_train_step,
+                                                 value_and_grad)
+
+    cfg = get_arch(TRAIN_ARCH)
+    t0 = time.monotonic()
+    params = M.init_params(cfg, 0, max_seq=TRAIN_SEQ, device="cuda",
+                           dtype=torch.float32)
+    opt = init_adamw(params)
+    n = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.name} full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, vocab "
+        f"{cfg.vocab_size}, tied), float32, {n / 1e6:.1f}M params, built in "
+        f"{time.monotonic() - t0:.1f} s")
+    step_fn = make_train_step(cfg, lr=TRAIN_LR, remat=False)
+    ds = DataState(0, 0)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, walls = [], []
+        for i in range(TRAIN_STEPS):
+            toks, ds = make_batch(ds, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
+                                  device="cuda")
+            t = time.monotonic()
+            params, opt, loss = step_fn(params, opt, toks)
+            losses.append(float(loss))
+            walls.append(time.monotonic() - t)
+            if i + 1 == TRAIN_RESUME_AT:
+                t = time.monotonic()
+                path = save_train_state(ckpt, i + 1, params, opt, extra={
+                    "train_step": i + 1, "data_step": ds.step})
+                save_s = time.monotonic() - t
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        timed = walls[2:]
+        tok_s = TRAIN_BATCH * TRAIN_SEQ * len(timed) / sum(timed)
+        log(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+            f"(lr {TRAIN_LR}, no remat, 1 microbatch): losses "
+            + " ".join(f"{x:.4f}" for x in losses))
+        log(f"[train] step wall ms median {1e3 * statistics.median(timed):.2f}"
+            f" (min {1e3 * min(timed):.2f}, first {1e3 * walls[0]:.2f}), "
+            f"{tok_s:,.0f} tok/s over steps 3-{TRAIN_STEPS}; peak memory "
+            f"{peak / 1e9:.2f} GB of "
+            f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}; "
+            f"launches {{{', '.join(f'{k}: {counts[k]}' for k in TRAIN_KERNELS)}}}"
+            f"; {smi}")
+        want = cfg.n_layers * TRAIN_STEPS
+        wrong = {k: counts[k] for k in TRAIN_KERNELS if counts[k] != want}
+        if wrong:
+            raise AssertionError(f"train: the float32 attention kernels "
+                                 f"launched {wrong}, not {cfg.n_layers} a "
+                                 f"step each")
+        others = {k: c for k, c in counts.items()
+                  if c and k not in TRAIN_KERNELS}
+        if others:
+            raise AssertionError(f"train: kernels off the training path "
+                                 f"launched: {others}")
+        head, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        if not tail < head:
+            raise AssertionError(f"train: the loss did not fall (first five "
+                                 f"{head:.4f}, last five {tail:.4f})")
+
+        # save, restore and resume == the uninterrupted run, bit for bit
+        t = time.monotonic()
+        p2, o2, extra = restore_train_state(ckpt, params, opt, "cuda")
+        load_s = time.monotonic() - t
+        ds2, resumed = DataState(0, extra["data_step"]), []
+        for _ in range(extra["train_step"], TRAIN_STEPS):
+            toks, ds2 = make_batch(ds2, TRAIN_BATCH, TRAIN_SEQ,
+                                   cfg.vocab_size, device="cuda")
+            p2, o2, loss = step_fn(p2, o2, toks)
+            resumed.append(float(loss))
+        same = (resumed == losses[TRAIN_RESUME_AT:]
+                and _leaves_equal(torch, p2, params)
+                and _leaves_equal(torch, (o2.mu, o2.nu), (opt.mu, opt.nu))
+                and int(o2.step) == int(opt.step))
+        ck_bytes = sum(os.path.getsize(os.path.join(path, f))
+                       for f in os.listdir(path))
+        log(f"[train] checkpoint at step {TRAIN_RESUME_AT} ({ck_bytes / 1e9:.2f}"
+            f" GB, JAX's layout: save {save_s:.1f} s, restore {load_s:.1f} s)"
+            f" resumed to step {TRAIN_STEPS}: losses and every param and "
+            f"moment {'bit-identical' if same else 'DIFFERENT'} to the "
+            f"uninterrupted run")
+        if not same:
+            raise AssertionError("train: a resumed run differs from the "
+                                 "uninterrupted one")
+        del p2, o2
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    # remat == no remat and two backward passes == each other, bit for bit
+    toks, ds = make_batch(ds, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
+                          device="cuda")
+    l0, g0 = value_and_grad(params, cfg, toks, remat=False)
+    l1, g1 = value_and_grad(params, cfg, toks, remat=True)
+    remat_same = torch.equal(l0, l1) and _leaves_equal(torch, g0, g1)
+    del g1
+    l2, g2 = value_and_grad(params, cfg, toks, remat=False)
+    twice_same = torch.equal(l0, l2) and _leaves_equal(torch, g0, g2)
+    del g0, g2
+    # 2 microbatches against 1 from the same state
+    p_1, _, m1 = make_train_step(cfg, 1, TRAIN_LR, remat=False)(params, opt,
+                                                                toks)
+    p_2, _, m2 = make_train_step(cfg, 2, TRAIN_LR, remat=False)(params, opt,
+                                                                toks)
+    mb_loss = abs(float(m1) - float(m2))
+    mb_param = max((a - b).abs().max().item() for a, b in zip(
+        tree_leaves(p_1), tree_leaves(p_2)))
+    del p_1, p_2
+    log(f"[train] remat vs no remat: "
+        f"{'bit-identical' if remat_same else 'DIFFERENT'}; two backward "
+        f"passes (the embedding's sorted scatter-add, the attention "
+        f"kernels): {'bit-identical' if twice_same else 'DIFFERENT'}; 2 "
+        f"microbatches vs 1: |dloss| {mb_loss:.2e}, max|dparam| "
+        f"{mb_param:.2e} (tol {TRAIN_MB_TOL})")
+    if not (remat_same and twice_same):
+        raise AssertionError("train: remat or a second backward pass gives "
+                             "other bits")
+    if mb_loss >= TRAIN_MB_TOL or mb_param >= TRAIN_MB_TOL:
+        raise AssertionError("train: 2 microbatches leave 1's bound")
+
+    # where a step's device time goes
+    toks, ds = make_batch(ds, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
+                          device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        params, opt, loss = step_fn(params, opt, toks)
+        torch.cuda.synchronize()
+        prof_wall = time.monotonic() - t
+    rows = _kernel_rows(prof)
+    dev_ms = sum(r[0] for r in rows) / 1e3
+    log(f"[train] one step under torch.profiler: {dev_ms:.3f} device ms in "
+        f"{sum(r[2] for r in rows)} launches (wall {1e3 * prof_wall:.2f} ms "
+        f"profiled): " + _by_part(rows, TRAIN_PARTS))
+    log("[train] top kernels: " + "; ".join(
+        f"{name[:60]} {us / 1e3:.3f} ms x{cnt}" for us, name, cnt in rows[:8]))
+    _head_profile(torch, params, cfg)
+    del params, opt
+    __import__("gc").collect()
+    torch.cuda.empty_cache()
+    _train_cpu_gate(torch, cfg)
+    return counts
+
+
 def _serve_full(torch, arch: str, tag: str, smi: str, quant: str = "w8a8",
                 n_req: int = 8, max_new: int = 32, required: tuple = (),
                 chunk_prefill: int = 0, kv_dtype: str = "bf16",
@@ -3316,10 +3786,72 @@ def phase_serve_w4a16(torch) -> dict:
         raise AssertionError(f"the W4A16 serving path never launched "
                              f"{missing}")
     _no_off_path(counts, "serve_w4a16")
+    _w4a16_wide(torch, cfg, core.params, prompts,
+                [h.request.out_tokens for h in handles])
     del client, core
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# slots of the W4A16 engine above B4's GEMV_MAX_M (8): its decode head runs
+# more than 8 rows
+W4_WIDE_SLOTS = 12
+
+
+def _w4a16_wide(torch, cfg, params, prompts, streams) -> None:
+    """The W4A16 head above 8 live rows (ROADMAP C11): a row's logits
+    alone, among 4 rows and among W4_WIDE_SLOTS must be the same bits (a
+    request's logits may not depend on the batch around it), and an engine
+    of W4_WIDE_SLOTS slots serving the same 4 requests beside 8 more must
+    give their streams at 4 slots."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.models import model as M
+    from repro_torch.serving.client import ServingClient
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    x = torch.randn((W4_WIDE_SLOTS, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    kernels.reset_launch_counts()
+    wide = M.lm_head(params, cfg, x)
+    head_counts = {k: kernels.launch_counts()[k]
+                   for k in ("w4a16_gemv", "w4a16_gemm")}
+    four = M.lm_head(params, cfg, x[:4])
+    one = M.lm_head(params, cfg, x[:1])
+    rows_same = torch.equal(wide[:4], four) and torch.equal(one[0], four[0])
+    row_diff = (wide[:4] - four).abs().max().item()
+    client = ServingClient(cfg, params, max_batch=W4_WIDE_SLOTS, max_seq=512,
+                           page_size=16, device="cuda")
+    rng = np.random.RandomState(2)
+    more = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+            for n in rng.randint(32, 257, size=W4_WIDE_SLOTS - len(prompts))]
+    handles = [client.submit(p, max_new_tokens=16) for p in prompts + more]
+    kernels.reset_launch_counts()
+    client.run()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    got = [h.request.out_tokens for h in handles[:len(prompts)]]
+    same = got == streams
+    log(f"[serve_w4a16] W4A16 head over {W4_WIDE_SLOTS} rows (launches "
+        f"{head_counts}) against 4 rows and 1: "
+        f"{'bit-identical' if rows_same else 'DIFFERENT'} (max|dlogit| "
+        f"{row_diff:.3e}); {W4_WIDE_SLOTS} slots serving the 4 requests "
+        f"beside {len(more)} more: streams "
+        f"{'equal' if same else 'DIFFERENT'} to 4 slots' (launches "
+        f"w4a16_gemv {counts['w4a16_gemv']}, w4a16_gemm "
+        f"{counts['w4a16_gemm']})")
+    if not same:
+        for i, (a, b) in enumerate(zip(got, streams)):
+            if a != b:
+                log(f"[serve_w4a16]   request {i}: {W4_WIDE_SLOTS} slots "
+                    f"{a} / 4 slots {b}")
+    if not (rows_same and same):
+        raise AssertionError("serve_w4a16: a request's W4A16 logits depend "
+                             "on the rows batched with it (ROADMAP C11)")
+    del client
 
 
 # host-side CUDA calls that start work on the card, as torch.profiler names
@@ -5607,9 +6139,11 @@ DENSE_CPU_LAYERS = 2   # the CPU gate's depth (full width)
 # card holds in any quantization the reference offers; its first
 # COMMAND_R_LAYERS layers leave room for the build's one bf16 layer and
 # its quantizing temporaries, the engines' pools and graphs and a prefill
-# group's float32 FFN temporaries (at 44 the build peaked at 79.7 GB and
-# the phase at 79.9 of the card's 85.0; each layer more adds 1.59)
-COMMAND_R_LAYERS = 44
+# group's float32 FFN temporaries (at 44, the deepest cut that held, the
+# build peaked at 79.7 GB and the phase at 79.9 of the card's 85.0; each
+# layer more adds 1.59).  24 keeps every gate and the script's time inside
+# its limit beside the train phase
+COMMAND_R_LAYERS = 24
 
 
 def _int8_elems(tree) -> int:
@@ -5779,8 +6313,7 @@ def phase_serve_dense(torch, smi: str) -> None:
     internlm2-20b's gates;
     then the parallel-block command-r-plus-104b (d_model 12,288, 96 heads
     over 8, a group of 12, d_ff 33,792, a tied 256,000-row embedding; its
-    first COMMAND_R_LAYERS of 64 layers, the deepest cut the card holds)
-    with every gate; each freed before the next is built."""
+    first COMMAND_R_LAYERS of 64 layers) with every gate; each freed before the next is built."""
     _serve_dense(torch, DENSE_ARCHS[0], smi, every_gate=True,
                  layers=CUT_LAYERS)
     _serve_dense(torch, DENSE_ARCHS[1], smi, every_gate=False,
@@ -6262,7 +6795,8 @@ def _mark(name: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="card,build,kernels,model,serve,profile,hybrid,"
+                    default="card,build,kernels,model,train,serve,profile,"
+                            "hybrid,"
                             "serve_w4a16,serve_hybrid,serve_hybrid_w4a16,"
                             "serve_overlap,serve_chunked,serve_int8kv,"
                             "serve_tiered,serve_prefix,serve_migrate,"
@@ -6297,6 +6831,9 @@ def main(argv=None) -> int:
         phase_model(torch)
     # launch counts are read only around each owning phase's run
     counts: dict[str, dict] = {}
+    _mark("train")
+    if "train" in phases:
+        counts["train"] = phase_train(torch, smi_line)
     _mark("serve")
     if "serve" in phases:
         counts["serve"], client = phase_serve(torch, smi_line)

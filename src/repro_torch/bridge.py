@@ -13,6 +13,12 @@ uses); int8 / uint8 / float32 leaves (W8A8 ``w_q``/``scale``, W4A16
 ``w_p4``/``scale4``) are copied as they are, so nothing is re-initialised
 or re-rounded.
 
+``params_to_numpy(params)`` is the inverse: the port's params (or any tree
+in their layout, such as their gradients or AdamW moments) with the layer
+lists stacked back on leading axes, JAX's layout, leaves as numpy arrays;
+numpy has no bfloat16, so a bf16 leaf stays a CPU ``torch.bfloat16``
+tensor (``distributed/checkpoint.py`` writes it as JAX does).
+
 ``ecc_from_numpy`` and ``hybrid_from_numpy`` carry a JAX ``PageECC`` and
 ``HybridWeights`` over the same way; the 14-bit uint16 addresses become
 int32, the port's address type.  numpy is the only interface: this module
@@ -69,6 +75,37 @@ def params_from_numpy(tree: dict, device: str | torch.device = "cpu") -> dict:
             out[key] = _unstack(out[key], depth)
     return _to(out, torch.device(device))
 
+
+
+def params_to_numpy(params: dict) -> dict:
+    """Port params (layers in lists) -> JAX's layout (layers stacked),
+    numpy leaves (bf16 leaves as CPU bf16 tensors)."""
+    from repro_torch.models.model import STACKED
+
+    out = dict(params)
+    for key, depth in STACKED.items():
+        if out.get(key) is not None:
+            out[key] = _stack(out[key], depth)
+    return _to_numpy(out)
+
+
+def _stack(items: list, depth: int):
+    """Stacked on the host: a card holds no second copy of the layers."""
+    if depth > 1:
+        items = [_stack(t, depth - 1) for t in items]
+    first = items[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in items], 1) for k in first}
+    return torch.stack([t.detach().cpu() for t in items])
+
+
+def _to_numpy(tree):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
 def _unstack(tree, depth: int) -> list:

@@ -6,9 +6,10 @@ Layout:  <dir>/step_<n>/shard_<i>.npz + manifest.json, written atomically
 manifest (leaf count, structure, shapes, dtypes).
 
 A tree is nested dicts (keys sorted, as ``jax.tree.flatten`` sorts them),
-lists, tuples and ``None`` (a node without leaves); anything else is a
-leaf: a numpy array, a torch tensor or a scalar.  The manifest's
-``treedef`` is the text ``str(jax.tree.flatten(tree)[1])`` gives for the
+lists, tuples, ``NamedTuple``s (a training checkpoint's ``AdamWState``:
+JAX's ``CustomNode(namedtuple[<name>], [...])``) and ``None`` (a node
+without leaves); anything else is a leaf: a numpy array, a torch tensor
+or a scalar.  The manifest's ``treedef`` is the text ``str(jax.tree.flatten(tree)[1])`` gives for the
 same tree, and the files are the JAX package's, so each package restores
 the other's checkpoints.  A bfloat16 leaf is written as its uint16 view
 under the dtype name ``"bfloat16"`` and restored as a ``torch.bfloat16``
@@ -27,6 +28,10 @@ import numpy as np
 import torch
 
 
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(type(node), "_fields")
+
+
 def _flatten(tree) -> tuple[list, str]:
     """(leaves, treedef text): the leaves in ``jax.tree.flatten``'s order
     and the text of its ``PyTreeDef``."""
@@ -41,6 +46,9 @@ def _flatten(tree) -> tuple[list, str]:
                                    for k in keys) + "}"
         if isinstance(node, list):
             return "[" + ", ".join(walk(x) for x in node) + "]"
+        if _is_namedtuple(node):
+            return (f"CustomNode(namedtuple[{type(node).__name__}], ["
+                    + ", ".join(walk(x) for x in node) + "])")
         if isinstance(node, tuple):
             inner = ", ".join(walk(x) for x in node)
             return "(" + inner + ("," if len(node) == 1 else "") + ")"
@@ -51,7 +59,14 @@ def _flatten(tree) -> tuple[list, str]:
     return leaves, f"PyTreeDef({text})"
 
 
-def _unflatten(like, leaves: list):
+def tree_leaves(tree) -> list:
+    """The leaves of a tree in ``jax.tree.leaves``' order."""
+    return _flatten(tree)[0]
+
+
+def tree_unflatten(like, leaves: list):
+    """A tree shaped as ``like`` holding ``leaves`` (``tree_leaves``'
+    order)."""
     it = iter(leaves)
 
     def build(node):
@@ -61,6 +76,8 @@ def _unflatten(like, leaves: list):
             return {k: build(node[k]) for k in sorted(node)}
         if isinstance(node, list):
             return [build(x) for x in node]
+        if _is_namedtuple(node):
+            return type(node)(*(build(x) for x in node))
         if isinstance(node, tuple):
             return tuple(build(x) for x in node)
         return next(it)
@@ -174,4 +191,4 @@ def restore_checkpoint(ckpt_dir: str, like_tree, step: int | None = None
             leaves.append(torch.from_numpy(np.ascontiguousarray(arr)))
         else:
             leaves.append(arr)
-    return _unflatten(like_tree, leaves), manifest["extra"]
+    return tree_unflatten(like_tree, leaves), manifest["extra"]

@@ -131,16 +131,22 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, use_bias: bool,
 FIXED_ROWS = 8
 
 
-def fixed_row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [..., K] @ w [K, V] as products of FIXED_ROWS rows each."""
+def fixed_row_apply(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` (a row-wise product [M, K] -> [M, N]) over x [..., K] in
+    blocks of FIXED_ROWS rows, the last zero-padded -> [..., N]."""
     xf = x.reshape(-1, x.shape[-1])
     m = xf.shape[0]
     if m == 0:
-        return x @ w
+        return fn(xf).reshape(*x.shape[:-1], -1)
     xf = torch.cat([xf, xf.new_zeros(((-m) % FIXED_ROWS, xf.shape[1]))])
-    out = torch.cat([xf[i:i + FIXED_ROWS] @ w
+    out = torch.cat([fn(xf[i:i + FIXED_ROWS])
                      for i in range(0, len(xf), FIXED_ROWS)])
-    return out[:m].reshape(*x.shape[:-1], w.shape[1])
+    return out[:m].reshape(*x.shape[:-1], out.shape[-1])
+
+
+def fixed_row_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, V] as products of FIXED_ROWS rows each."""
+    return fixed_row_apply(lambda rows: rows @ w, x)
 
 
 def fixed_row_bmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -90,8 +90,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import quantize_rows
 from repro_torch.models.layers import (_w4a16_matmul, ffn,
-                                       fixed_row_matmul, init_ffn,
-                                       init_linear, linear, mrope_positions)
+                                       fixed_row_apply, fixed_row_matmul,
+                                       init_ffn, init_linear, linear,
+                                       mrope_positions)
 
 # ---------------------------------------------------------------------------
 # init
@@ -245,14 +246,17 @@ def _head_block(params: dict, cfg: ModelConfig, v0: int,
 def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """float32 logits.  A W4A16 head goes through the B4 kernel on CUDA
     (the product of x, read in its own dtype, with the dequantized weights,
-    which the JAX package materializes first); a float or W8A8 head is
-    dequantized to float32, as the JAX package does, and multiplied outside
-    any kernel, LM_HEAD_BLOCK vocabulary rows at a time, each block in
+    which the JAX package materializes first) in 8-row blocks: B4's GeMV
+    gives a row the same bits at 1-8 rows, its tiled GEMM above 8 rows
+    other ones (ROADMAP C11).  A float or W8A8 head is dequantized to
+    float32, as the JAX package does, and multiplied outside any kernel,
+    LM_HEAD_BLOCK vocabulary rows at a time, each block in
     ``fixed_row_matmul``'s 8-row products (a row's bits do not depend on
     the batch)."""
     head = params.get("lm_head")
     if head is not None and "w_p4" in head:
-        return _w4a16_matmul(head["w_p4"], head["scale4"], x, torch.float32)
+        return fixed_row_apply(lambda rows: _w4a16_matmul(
+            head["w_p4"], head["scale4"], rows, torch.float32), x)
     xf = x.float()
     return torch.cat(
         [fixed_row_matmul(xf, _head_block(params, cfg, v0, min(
@@ -324,11 +328,38 @@ def _audio_dec_layer_full(lp, x, cfg: ModelConfig, positions, enc_out):
     return x, (k, v, xk, xv)
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """``embed[tokens]`` whose gradient is JAX's ``_embed_lookup`` VJP: the
+    cotangent scatter-added in float32 into zeros, then cast to the
+    embedding's dtype (torch's own backward of an index accumulates in the
+    parameter's dtype).  ``index_put_`` with ``accumulate=True`` sums a
+    row's repeats in a fixed order (on CUDA it sorts the indices and adds
+    each row's run in order, no atomics), so two backward passes give the
+    same bits."""
+
+    @staticmethod
+    def forward(ctx, embed, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.embed_shape, ctx.embed_dtype = embed.shape, embed.dtype
+        return embed[tokens]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (tokens,) = ctx.saved_tensors
+        g = torch.zeros(ctx.embed_shape, dtype=torch.float32,
+                        device=ct.device)
+        g.index_put_((tokens.reshape(-1),),
+                     ct.float().reshape(-1, ct.shape[-1]), accumulate=True)
+        return g.to(ctx.embed_dtype), None
+
+
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
            extras: dict | None = None) -> torch.Tensor:
     """Token embeddings [B, S, D]; the vlm family's ``vision_embeds``
-    [B, n_vision, D] prepended (JAX ``_embed``)."""
-    x = params["embed"][tokens.long()]
+    [B, n_vision, D] prepended (JAX ``_embed``).  Under autograd the
+    lookup's gradient is JAX's (``_EmbedLookup``); a tied head adds its own
+    gradient to the same leaf."""
+    x = _EmbedLookup.apply(params["embed"], tokens.long())
     if cfg.family == "vlm":
         vis = extras["vision_embeds"].to(device=x.device, dtype=x.dtype)
         x = torch.cat([vis, x], dim=1)

@@ -24,7 +24,12 @@ float32 and round once to bf16: two bf16 steps of |ref| plus
 1e-5 (|x| @ |W|) for float32 summation noise.  The MLA decode kernel and
 its plain version are float32 throughout (a float32 context, no bf16
 rounding), summed in other orders: |got - ref| <= 1e-5 max|ckv|, the
-context's own scale.
+context's own scale.  The float32 causal attention pair (training) against
+its plain version run in float64: each of O, lse, dq, dk, dv within 1e-5
+of its max |ref| (float32 sums in another order); a training step on the
+card against the same step on the CPU: the loss within 1e-5, relative,
+and each gradient leaf within 1e-4 of its max |g|, the bounds the CPU
+tests hold the port to against JAX.
 """
 
 import pytest
@@ -332,8 +337,9 @@ def test_engine_on_card_launches_every_kernel(cuda_device):
 @pytest.mark.parametrize("head", ["w8a8", "tied", "w4a16"])
 def test_lm_head_row_bits_do_not_depend_on_the_batch(cuda_device, head):
     """llama2-7b's lm_head (the float32 product of the W8A8 head and of a
-    tied embedding, and B4's GeMV for a W4A16 head) gives each row the same
-    bits at M = 1, 2, 3, 4 and 8 rows as alone."""
+    tied embedding, and B4's GeMV for a W4A16 head, in 8-row blocks since
+    ROADMAP C11) gives each row the same bits at M = 1, 2, 3, 4, 8, 12 and
+    20 rows as alone."""
     import dataclasses
 
     from repro_torch.configs.registry import get_arch
@@ -353,10 +359,10 @@ def test_lm_head_row_bits_do_not_depend_on_the_batch(cuda_device, head):
             gen, cfg.d_model, cfg.vocab_size, False, torch.bfloat16,
             cuda_device)}, mode=head)
         assert {"w8a8": "w_q", "w4a16": "w_p4"}[head] in params["lm_head"]
-    x = torch.randn((8, cfg.d_model), generator=gen, device=cuda_device
+    x = torch.randn((20, cfg.d_model), generator=gen, device=cuda_device
                     ).to(torch.bfloat16)
-    alone = torch.cat([lm_head(params, cfg, x[r:r + 1]) for r in range(8)])
-    for m in (1, 2, 3, 4, 8):
+    alone = torch.cat([lm_head(params, cfg, x[r:r + 1]) for r in range(20)])
+    for m in (1, 2, 3, 4, 8, 12, 20):
         got = lm_head(params, cfg, x[:m])
         diff = (got != alone[:m]).any(dim=1)
         assert not bool(diff.any()), (
@@ -1865,3 +1871,118 @@ def test_mla_engine_on_card(cuda_device, kv):
     with graphs.disabled():
         assert _serve(e, stochastic=True) == want
     assert _serve(o, stochastic=True) == want
+
+
+# ---------------------------------------------------------------- training
+
+F32_ATTN_REL = 1e-5
+
+
+def _f32_attn_inputs(dev, b, s, h, hkv, d, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev) for shape in
+            ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, h, d))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,hkv,d", [
+    (2, 200, 6, 2, 64), (1, 130, 8, 1, 128), (8, 256, 15, 5, 64),
+    (1, 65, 4, 4, 128)])
+def test_attention_f32_pair_against_float64(cuda_device, b, s, h, hkv, d):
+    """The forward, dK/dV and dQ kernels against the tiled plain version in
+    float64; two runs give the same bits."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_f32_bwd_ref, attention_f32_fwd_ref)
+
+    q, k, v, do = _f32_attn_inputs(cuda_device, b, s, h, hkv, d)
+    o, lse = ops.attention_f32_fwd(q, k, v)
+    dk, dv, delta = ops.attention_f32_dkdv(q, k, v, o, lse, do)
+    dq = ops.attention_f32_dq(q, k, v, lse, do, delta)
+    o64, lse64 = attention_f32_fwd_ref(q.double(), k.double(), v.double())
+    want = (o64, lse64, *attention_f32_bwd_ref(
+        q.double(), k.double(), v.double(), o64, lse64, do.double()))
+    for name, g, w in zip(("O", "lse", "dq", "dk", "dv"),
+                          (o, lse, dq, dk, dv), want):
+        err = float((g.double() - w).abs().max())
+        assert err <= F32_ATTN_REL * float(w.abs().max()), (name, err)
+    o2, lse2 = ops.attention_f32_fwd(q, k, v)
+    dk2, dv2, delta2 = ops.attention_f32_dkdv(q, k, v, o2, lse2, do)
+    dq2 = ops.attention_f32_dq(q, k, v, lse2, do, delta2)
+    for a, c in ((o, o2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_attention_refuses_what_has_no_backward(cuda_device):
+    q, k, v, _ = _f32_attn_inputs(cuda_device, 1, 64, 4, 2, 64)
+    with pytest.raises(ValueError):      # float32 bidirectional
+        flash_attention(q, k, v, causal=False)
+    with pytest.raises(ValueError):      # float32 at a head dim of 32
+        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                        v[..., :32].contiguous())
+    qb, kb, vb = (t.bfloat16().requires_grad_(True) for t in (q, k, v))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_attention(qb, kb, vb)
+    with torch.no_grad():
+        flash_attention(qb, kb, vb)
+
+
+def _mini_cfg():
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+
+    return dataclasses.replace(
+        get_arch("smollm-360m"), n_layers=2, d_model=256, n_heads=4,
+        n_kv_heads=2, d_head=64, d_ff=768, vocab_size=2048,
+        name="smollm-mini")
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """A width-reduced smollm (head dim 64): loss and every gradient leaf
+    on the card (the float32 attention pair, the embedding's scatter-add)
+    against the CPU; the card's gradients the same bits twice; the
+    kernels launched once a layer each."""
+    from repro_torch.models import model as M
+    from repro_torch.distributed.checkpoint import tree_leaves
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.train_loop import value_and_grad
+
+    cfg = _mini_cfg()
+    params = M.init_params(cfg, 0, max_seq=96, device="cpu",
+                           dtype=torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 96),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    l_cpu, g_cpu = value_and_grad(params, cfg, toks)
+    card = tree_map(lambda t: t.to(cuda_device), params)
+    kernels.reset_launch_counts()
+    l_card, g_card = value_and_grad(card, cfg, toks.to(cuda_device))
+    counts = kernels.launch_counts()
+    for name in ("flash_attention_f32", "flash_attention_f32_dkdv",
+                 "flash_attention_f32_dq"):
+        assert counts[name] == cfg.n_layers, (name, counts[name])
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-5 * abs(float(l_cpu))
+    for a, c in zip(tree_leaves(g_card), tree_leaves(g_cpu)):
+        err = float((a.cpu() - c).abs().max())
+        assert err <= 1e-4 * float(c.abs().max()) + 1e-30
+    _, again = value_and_grad(card, cfg, toks.to(cuda_device))
+    for a, c in zip(tree_leaves(g_card), tree_leaves(again)):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_families_without_a_backward_refuse_to_train_on_card(cuda_device):
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import init_adamw
+    from repro_torch.training.train_loop import make_train_step
+
+    cfg = get_arch("qwen2-moe-a2.7b").reduced()
+    params = M.init_params(cfg, 0, max_seq=32, device=cuda_device,
+                           dtype=torch.float32)
+    toks = torch.zeros((2, 16), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="grouped GEMM"):
+        make_train_step(cfg)(params, init_adamw(params), toks)

@@ -52,7 +52,9 @@ def test_port_imports_neither_jax_nor_repro(sanitize):
               "configs.command_r_plus_104b", "serving.engine",
               "examples.serve_hybrid", "core.schedule", "core.planner",
               "sim", "sim.engine", "sim.llm_perf", "sim.energy",
-              "sim.baselines"):
+              "sim.baselines", "training", "training.data",
+              "training.optimizer", "training.train_loop", "launch.train",
+              "examples.train_smollm"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

@@ -164,3 +164,29 @@ def test_lm_head_row_bits_do_not_depend_on_the_batch(tied):
                        for r in range(11)])
     for m in (1, 2, 3, 4, 8, 11):
         assert torch.equal(TM.lm_head(params, cfg, x[:m]), alone[:m]), m
+
+
+def test_w4a16_lm_head_row_bits_do_not_depend_on_the_batch():
+    """A W4A16 head runs in 8-row blocks (ROADMAP C11: B4's tiled GEMM
+    above 8 rows gave a row other bits on the card than its GeMV): each
+    row's logits at M = 1, 4, 8, 9, 12 and 20 rows equal the row's alone,
+    and the blocked product equals the plain one to float32 rounding."""
+    from repro_torch.kernels.w4a16_gemv.ref import w4a16_gemm_ref
+    from repro_torch.models.layers import init_linear
+    from repro_torch.quant.convert import quantize_params
+
+    cfg = get_arch("llama2-7b").reduced()
+    gen = torch.Generator().manual_seed(12)
+    params = quantize_params({"lm_head": init_linear(
+        gen, cfg.d_model, cfg.vocab_size, False, torch.float32,
+        torch.device("cpu"))}, mode="w4a16")
+    head = params["lm_head"]
+    assert "w_p4" in head
+    x = torch.randn((20, cfg.d_model), generator=gen)
+    alone = torch.cat([TM.lm_head(params, cfg, x[r:r + 1])
+                       for r in range(20)])
+    for m in (1, 4, 8, 9, 12, 20):
+        assert torch.equal(TM.lm_head(params, cfg, x[:m]), alone[:m]), m
+    plain = w4a16_gemm_ref(x, head["w_p4"], head["scale4"]).float()
+    np.testing.assert_allclose(alone.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-5)
