@@ -385,9 +385,13 @@ shape (B 8, S 256, H 15 over 5, D 64), llama2-7b's (B 1, S 2,048, H 32, D
 128) and S 200 / 65, against float64 autograd of the plain forward within
 F32_ATTN_TOL, two runs bit-identical, a planted fault (the last query
 tile's lse raised by 1e-3) that must fail every gradient; timed beside
-the float32 CUDA-core bound, the plain (tiled) versions and SDPA in
-float32 (enable_gqa; forward, and one backward pass for all three
-gradients).
+their bounds (the forward's on the float32 CUDA cores; the backward's in
+3xTF32 on the tensor cores, its CUDA-core bound printed beside it), the
+plain (tiled) versions, SDPA in float32 (enable_gqa; forward, and one
+backward pass for all three gradients) and, in turns in the same call,
+the CUDA-core dK/dV and dQ kernels the tensor-core ones replaced
+(``csrc/diag/flash_attention_f32_pr31.cu``, built beside the library by
+the build phase; ``kernels/diag_attention_f32.py``).
 
 The last three lines are the kernels JSON, nvidia-smi's line and
 ``{"ok": true, "device": {...}}``; each kernel's ``launches`` is read
@@ -425,7 +429,7 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 # dense tensor-core peaks, and float32 outside the tensor cores
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12}
 
 # kernel -> (source in the repository, Pallas kernel it replaces)
 SOURCES = {
@@ -506,7 +510,8 @@ COUNTED_IN = {"int8_gemv": "serve", "int8_gemv_dp4a": "serve",
 # a serving path must not launch them
 OFF_PATH = ("int8_gemm", "int8_gemv_dp4a")
 # the device kernels (by name, as torch.profiler reports them) behind each
-# wrapper; B1's wrapper launches a split and a combine kernel
+# wrapper; B1's wrapper launches a split and a combine kernel, the float32
+# dK/dV entry the delta kernel and the dK/dV kernel
 KERNEL_NAMES = {"int8_gemv": "int8_gemv_mma_kernel",
                 "int8_gemv_dp4a": "int8_gemv_dp4a_kernel",
                 "int8_gemm": "int8_gemm_kernel",
@@ -521,7 +526,7 @@ KERNEL_NAMES = {"int8_gemv": "int8_gemv_mma_kernel",
                 "mla_decode_attention": "mla_decode_",
                 "mla_decode_attention_int8": "mla_decode_",
                 "flash_attention_f32": "attention_f32_fwd_kernel",
-                "flash_attention_f32_dkdv": "attention_f32_dkdv_kernel",
+                "flash_attention_f32_dkdv": "attention_f32_dkdv_",
                 "flash_attention_f32_dq": "attention_f32_dq_kernel"}
 # the kernels every W8A8 serving phase must go through; the mla_moe
 # family's decode attention is the MLA kernel instead of B1
@@ -628,6 +633,9 @@ def profiled_ms(torch, fn, names=None, n_bufs: int = 1,
         launches = sum(r[2] for r in rows)
         if launches and launches % iters == 0:
             return sum(r[0] for r in rows) / 1e3 / iters
+    log(f"[profile] {names}: {launches} kernel records over {iters} calls "
+        f"in the last of {tries} windows ({[r[1][:60] for r in rows]}): "
+        f"device time not measured")
     return float("nan")
 
 
@@ -665,21 +673,27 @@ def _demangle(names: list[str]) -> list[str]:
 
 
 def phase_build() -> None:
-    from repro_torch.kernels import build, diag_b1_bits, diag_mla
+    from repro_torch.kernels import (build, diag_attention_f32, diag_b1_bits,
+                                     diag_mla)
 
     t0 = time.monotonic()
     # B1 as it was while it took groups of up to 8, for the kernels phase's
-    # bit comparison, and the MLA kernel as it was before its tensor-core
-    # redesign, for its timing, built beside the library
+    # bit comparison, and the MLA kernel and the float32 attention backward
+    # as they were before their tensor-core redesigns, for their timing,
+    # built beside the library
     proc = diag_b1_bits.start_build()
     proc_mla = diag_mla.start_build()
+    proc_f32 = diag_attention_f32.start_build()
     b = build.build()
     build.library()
     _B1_GROUPS8.append(diag_b1_bits.load(proc))
     _MLA_PR27.append(diag_mla.load(proc_mla))
+    _F32_CUDA_CORES.append(diag_attention_f32.load(proc_f32))
     log(f"[build] {b.path.name} {'built' if b.built else 'reused'}, and "
         f"B1's groups-of-8 build for the bit comparison and the PR 27 MLA "
-        f"kernel for its timing, in {time.monotonic() - t0:.1f} s")
+        f"kernel and the CUDA-core float32 attention backward for their "
+        f"timing, "
+        f"in {time.monotonic() - t0:.1f} s")
     entries, name, spill = [], None, ""
     for line in b.log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -700,6 +714,8 @@ def phase_build() -> None:
 _B1_GROUPS8: list = []
 # the library of csrc/diag/mla_decode_attention_pr27.cu, once built
 _MLA_PR27: list = []
+# the library of csrc/diag/flash_attention_f32_pr31.cu, once built
+_F32_CUDA_CORES: list = []
 
 
 def _bf16_step(torch, ref):
@@ -1066,17 +1082,25 @@ def _f32_attn_check(torch, tag, got, want) -> dict:
 
 
 def _f32_attn_bounds(b, s, h, hkv, d) -> dict:
-    """(ms, by) of the forward, the dK/dV entry (delta included) and dQ:
-    each function's float32 operations on the CUDA cores (the causal
-    pairs only) against its bytes read and written once."""
+    """((ms, by) of the arithmetic each kernel runs, (ms, by) on the
+    float32 CUDA cores) of the forward, the dK/dV entry (delta included)
+    and dQ: each function's operations (the causal pairs only) against its
+    bytes read and written once.  The forward runs on the CUDA cores; the
+    backward's products in 3xTF32 on the tensor cores, three TF32
+    operations for each float32 one (delta's 2 operations an element of
+    dO, on the CUDA cores, 0.06 / 0.25 us at the two timed shapes, are left
+    out of the tensor-core bound)."""
     pairs = b * h * s * (s + 1) / 2
     q_el, kv_el, row = b * s * h * d, b * s * hkv * d, b * h * s
-    return {
-        "fwd": bound(4 * (2 * q_el + 2 * kv_el + row), 4 * d * pairs, "f32"),
-        "dkdv": bound(4 * (3 * q_el + 4 * kv_el + 2 * row),
-                      8 * d * pairs + 2 * q_el, "f32"),
-        "dq": bound(4 * (3 * q_el + 2 * kv_el + 2 * row), 6 * d * pairs,
-                    "f32")}
+    fwd = bound(4 * (2 * q_el + 2 * kv_el + row), 4 * d * pairs, "f32")
+    out = {"fwd": (fwd, fwd)}
+    for part, nbytes, ops in (
+            ("dkdv", 4 * (3 * q_el + 4 * kv_el + 2 * row), 8 * d * pairs),
+            ("dq", 4 * (3 * q_el + 2 * kv_el + 2 * row), 6 * d * pairs)):
+        f32_ops = ops + (2 * q_el if part == "dkdv" else 0)
+        out[part] = (bound(nbytes, 3 * ops, "tf32"),
+                     bound(nbytes, f32_ops, "f32"))
+    return out
 
 
 def _kernels_attention_f32(torch, results: dict) -> None:
@@ -1085,10 +1109,12 @@ def _kernels_attention_f32(torch, results: dict) -> None:
     fault (the last query tile's lse raised by 1e-3, as a kernel that
     mis-summed a row's softmax would hand the backward) must fail every
     gradient; the two model shapes timed beside their bounds, the plain
-    versions and SDPA in float32 (forward; backward: one autograd pass,
-    all three gradients)."""
+    versions, SDPA in float32 (forward; backward: one autograd pass, all
+    three gradients) and, in turns (new, old, old, new), the CUDA-core
+    dK/dV and dQ kernels that the tensor-core ones replaced."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import diag_attention_f32
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (
         attention_f32_dkdv_ref, attention_f32_dq_ref, attention_f32_fwd_ref)
@@ -1144,14 +1170,22 @@ def _kernels_attention_f32(torch, results: dict) -> None:
             continue
         bounds = _f32_attn_bounds(b, s, h, hkv, d)
         fns = {"fwd": (lambda i: ops.attention_f32_fwd(q, k, v),
-                       ("attention_f32_fwd",),
+                       (KERNEL_NAMES["flash_attention_f32"],),
                        lambda i: attention_f32_fwd_ref(q, k, v)),
                "dkdv": (lambda i: ops.attention_f32_dkdv(q, k, v, o, lse, do),
-                        ("attention_f32_delta", "attention_f32_dkdv"),
+                        (KERNEL_NAMES["flash_attention_f32_dkdv"],),
                         lambda i: attention_f32_dkdv_ref(q, k, v, o, lse, do)),
                "dq": (lambda i: ops.attention_f32_dq(q, k, v, lse, do, delta),
-                      ("attention_f32_dq",),
+                      (KERNEL_NAMES["flash_attention_f32_dq"],),
                       lambda i: attention_f32_dq_ref(q, k, v, lse, do, delta))}
+        old = _F32_CUDA_CORES[0] if _F32_CUDA_CORES else diag_attention_f32.load()
+        cuda_cores = {
+            "dkdv": (lambda i: diag_attention_f32.cuda_core_dkdv(
+                         old, q, k, v, o, lse, do),
+                     diag_attention_f32.OLD_DKDV_KERNELS),
+            "dq": (lambda i: diag_attention_f32.cuda_core_dq(
+                       old, q, k, v, lse, do, delta),
+                   diag_attention_f32.OLD_DQ_KERNELS)}
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                       for t in (q, k, v))
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -1165,28 +1199,55 @@ def _kernels_attention_f32(torch, results: dict) -> None:
             out, (qt, kt, vt), dot, retain_graph=True)
         lib_bwd = time_ms(torch, lib_bwd_fn)
         lib_bwd_dev = profiled_ms(torch, lib_bwd_fn)
+        bwd_dev = {}
         for part, name in (("fwd", "flash_attention_f32"),
                            ("dkdv", "flash_attention_f32_dkdv"),
                            ("dq", "flash_attention_f32_dq")):
             fn, kernel_names, plain_fn = fns[part]
-            ms = time_ms(torch, fn)
-            dev_ms = profiled_ms(torch, fn, kernel_names)
+            if part == "fwd":
+                ms = time_ms(torch, fn)
+                dev_ms = profiled_ms(torch, fn, kernel_names)
+                old_line = ""
+            else:
+                old_fn, old_names = cuda_cores[part]
+                turns = {"new": [], "old": []}
+                for turn in ("new", "old", "old", "new"):
+                    turns[turn].append(time_ms(torch, fn if turn == "new"
+                                               else old_fn))
+                ms = statistics.mean(turns["new"])
+                dev_ms = profiled_ms(torch, fn, kernel_names)
+                old_dev = profiled_ms(torch, old_fn, old_names)
+                bwd_dev[part] = (dev_ms, old_dev)
+                old_line = (f"; in turns {turns['new'][0]:.4f} / "
+                            f"{turns['new'][1]:.4f} ms beside the "
+                            f"CUDA-core kernels' "
+                            f"{statistics.mean(turns['old']):.4f} ms "
+                            f"(device {old_dev:.4f} ms)")
             plain = time_ms(torch, plain_fn, iters=5, warmup=1)
-            b_ms, b_by = bounds[part]
+            (b_ms, b_by), (f32_ms, f32_by) = bounds[part]
             lib, lib_dev = ((lib_fwd, lib_fwd_dev) if part == "fwd"
                             else (lib_bwd, lib_bwd_dev))
+            arith = ("float32 on the CUDA cores" if part == "fwd" else
+                     f"3xTF32 on the tensor cores; float32 on the CUDA "
+                     f"cores {f32_ms:.4f} ms ({f32_by})")
             log(f"[kernels] {name} {tag} B={b} S={s} H={h} Hkv={hkv} D={d}: "
                 f"{ms:.4f} ms (device time {dev_ms:.4f} ms, "
                 f"{100 * b_ms / dev_ms:.1f}% of the bound), plain "
                 f"{plain:.4f} ms, SDPA float32 "
                 f"{'forward' if part == 'fwd' else 'backward (all three)'} "
                 f"{lib:.4f} ms (device {lib_dev:.4f} ms), bound {b_ms:.4f} "
-                f"ms ({b_by}, float32 on the CUDA cores)")
+                f"ms ({b_by}, {arith}){old_line}")
             if tag == "smollm-360m":
                 results[name].update(
                     ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
                     library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
                     shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}")
+        new_sum = bwd_dev["dkdv"][0] + bwd_dev["dq"][0]
+        log(f"[kernels] flash_attention_f32 backward {tag}: dK/dV + dQ "
+            f"{new_sum:.4f} device ms (the CUDA-core kernels' "
+            f"{bwd_dev['dkdv'][1] + bwd_dev['dq'][1]:.4f}), SDPA float32 "
+            f"backward {lib_bwd_dev:.4f}: the aim (at or below SDPA) "
+            f"{'met' if new_sum <= lib_bwd_dev else 'missed'}")
         del qt, kt, vt, out, dot
 
 
@@ -3018,10 +3079,9 @@ TRAIN_CPU_LAYERS = 2
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_REL = 1e-4
 TRAIN_MB_TOL = 1e-4
-TRAIN_PARTS = (("attention fwd", ("attention_f32_fwd",)),
-               ("attention dK/dV", ("attention_f32_delta",
-                                    "attention_f32_dkdv")),
-               ("attention dQ", ("attention_f32_dq",)),
+TRAIN_PARTS = (("attention fwd", (KERNEL_NAMES["flash_attention_f32"],)),
+               ("attention dK/dV", (KERNEL_NAMES["flash_attention_f32_dkdv"],)),
+               ("attention dQ", (KERNEL_NAMES["flash_attention_f32_dq"],)),
                ("sgemm", ("gemm", "Gemm")))
 
 

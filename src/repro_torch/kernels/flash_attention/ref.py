@@ -24,6 +24,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # queries and keys of a tile, at absolute multiples of TILE
 TILE = 64
 NEG_INF = -1e30
+# the portable thread-block cluster size: the most CTAs that share a key
+# tile's dK/dV
+MAX_CTAS = 8
 
 
 def attention_f32_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,19 +74,30 @@ def _probs(qb, kb, lse_b, q0: int, k0: int, scale: float) -> torch.Tensor:
     return torch.where(j <= i, torch.exp(sc - lse_b[..., None]), 0.0)
 
 
+def group_ctas(group: int) -> int:
+    """CTAs that share a key tile's dK/dV in the kernel (one thread-block
+    cluster): the largest divisor of the query group up to MAX_CTAS."""
+    return next(c for c in range(min(group, MAX_CTAS), 0, -1)
+                if group % c == 0)
+
+
 def attention_f32_dkdv_ref(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, o: torch.Tensor,
                            lse: torch.Tensor, do: torch.Tensor,
-                           tile: int = TILE
+                           tile: int = TILE, ctas: int | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The dK/dV kernel's schedule: delta = rowsum(dO * O) [B, H, S]; per
-    key tile, over the group's heads in order, then the query tiles from
-    the key tile's on, P recomputed from lse, dV += P^T dO, dS = P (dP -
-    delta), dK += dS^T Q; dK scaled once at the end.  Returns (dk, dv
-    [B, S, Hkv, D], delta)."""
+    key tile, the group's heads dealt to ``ctas`` ranks (``group_ctas`` of
+    the group unless given; rank r takes heads r, r + ctas, ...), each rank
+    over its heads in order, then the query tiles from the key tile's on
+    (the kernel walks them in steps of 32 queries at D 64, 16 at D 128), P
+    recomputed from lse, dV += P^T dO, dS = P (dP - delta), dK += dS^T Q;
+    then the ranks' partials summed in rank order and dK scaled once.
+    Returns (dk, dv [B, S, Hkv, D], delta)."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     g = h // hkv
+    ctas = group_ctas(g) if ctas is None else ctas
     scale = d ** -0.5
     delta = (do * o).sum(-1).transpose(1, 2).contiguous()
     qf, dof = q.transpose(1, 2), do.transpose(1, 2)    # [B, H, S, D]
@@ -91,17 +105,21 @@ def attention_f32_dkdv_ref(q: torch.Tensor, k: torch.Tensor,
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     for k0 in range(0, s, tile):
         kb, vb = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
-        dk_t, dv_t = torch.zeros_like(kb), torch.zeros_like(vb)
-        for gi in range(g):
-            heads = torch.arange(hkv, device=q.device) * g + gi
-            for q0 in range(k0, s, tile):
-                sl = slice(q0, q0 + tile)
-                qb, dob = qf[:, heads, sl], dof[:, heads, sl]
-                p = _probs(qb, kb, lse[:, heads, sl], q0, k0, scale)
-                dv_t = dv_t + p.transpose(-1, -2) @ dob
-                ds = p * (dob @ vb.transpose(-1, -2)
-                          - delta[:, heads, sl, None])
-                dk_t = dk_t + ds.transpose(-1, -2) @ qb
+        dk_t = dv_t = None
+        for rank in range(ctas):
+            dk_r, dv_r = torch.zeros_like(kb), torch.zeros_like(vb)
+            for gi in range(rank, g, ctas):
+                heads = torch.arange(hkv, device=q.device) * g + gi
+                for q0 in range(k0, s, tile):
+                    sl = slice(q0, q0 + tile)
+                    qb, dob = qf[:, heads, sl], dof[:, heads, sl]
+                    p = _probs(qb, kb, lse[:, heads, sl], q0, k0, scale)
+                    dv_r = dv_r + p.transpose(-1, -2) @ dob
+                    ds = p * (dob @ vb.transpose(-1, -2)
+                              - delta[:, heads, sl, None])
+                    dk_r = dk_r + ds.transpose(-1, -2) @ qb
+            dk_t = dk_r if dk_t is None else dk_t + dk_r
+            dv_t = dv_r if dv_t is None else dv_t + dv_r
         dk[:, :, k0:k0 + tile] = dk_t * scale
         dv[:, :, k0:k0 + tile] = dv_t
     return (dk.transpose(1, 2).contiguous(), dv.transpose(1, 2).contiguous(),

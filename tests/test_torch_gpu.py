@@ -1887,10 +1887,13 @@ def _f32_attn_inputs(dev, b, s, h, hkv, d, seed=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,s,h,hkv,d", [
     (2, 200, 6, 2, 64), (1, 130, 8, 1, 128), (8, 256, 15, 5, 64),
-    (1, 65, 4, 4, 128)])
+    (1, 65, 4, 4, 128), (2, 77, 9, 3, 64), (1, 100, 24, 3, 128),
+    (1, 300, 16, 2, 64), (2, 150, 6, 2, 128)])
 def test_attention_f32_pair_against_float64(cuda_device, b, s, h, hkv, d):
     """The forward, dK/dV and dQ kernels against the tiled plain version in
-    float64; two runs give the same bits."""
+    float64, at query groups 1, 3 and 8 (the dK/dV kernel's cluster of 1, 3
+    or 8 CTAs a key tile) and S off the 64-row grid; two runs give the same
+    bits."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (
         attention_f32_bwd_ref, attention_f32_fwd_ref)
@@ -1911,6 +1914,34 @@ def test_attention_f32_pair_against_float64(cuda_device, b, s, h, hkv, d):
     dq2 = ops.attention_f32_dq(q, k, v, lse2, do, delta2)
     for a, c in ((o, o2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)):
         assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,hkv,d", [(2, 320, 24, 3, 64),
+                                         (1, 200, 16, 2, 128)])
+def test_attention_f32_group_sum_bits_do_not_depend_on_the_schedule(
+        cuda_device, b, s, h, hkv, d):
+    """Query group 8: each key tile's dK/dV is summed over a cluster of 8
+    CTAs (one rank a head) in rank order.  Eight runs, whose CTAs start and
+    finish in whatever order the card schedules them, give the same bits;
+    the sum stays within the float64 bound."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_f32_dkdv_ref, group_ctas)
+
+    assert group_ctas(h // hkv) == 8
+    q, k, v, do = _f32_attn_inputs(cuda_device, b, s, h, hkv, d, seed=5)
+    o, lse = ops.attention_f32_fwd(q, k, v)
+    first = ops.attention_f32_dkdv(q, k, v, o, lse, do)
+    for _ in range(7):
+        again = ops.attention_f32_dkdv(q, k, v, o, lse, do)
+        for a, c in zip(first, again):
+            assert torch.equal(a, c)
+    want = attention_f32_dkdv_ref(q.double(), k.double(), v.double(),
+                                  o.double(), lse.double(), do.double())
+    for name, g, w in zip(("dk", "dv"), first[:2], want[:2]):
+        err = float((g.double() - w).abs().max())
+        assert err <= F32_ATTN_REL * float(w.abs().max()), (name, err)
 
 
 @pytest.mark.gpu

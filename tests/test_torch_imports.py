@@ -54,7 +54,8 @@ def test_port_imports_neither_jax_nor_repro(sanitize):
               "sim", "sim.engine", "sim.llm_perf", "sim.energy",
               "sim.baselines", "training", "training.data",
               "training.optimizer", "training.train_loop", "launch.train",
-              "examples.train_smollm"):
+              "examples.train_smollm", "kernels.diag_attention_f32",
+              "kernels.diag_attention_f32_parts"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
