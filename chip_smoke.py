@@ -385,11 +385,11 @@ shape (B 8, S 256, H 15 over 5, D 64), llama2-7b's (B 1, S 2,048, H 32, D
 128) and S 200 / 65, against float64 autograd of the plain forward within
 F32_ATTN_TOL, two runs bit-identical, a planted fault (the last query
 tile's lse raised by 1e-3) that must fail every gradient; timed beside
-their bounds (the forward's on the float32 CUDA cores; the backward's in
-3xTF32 on the tensor cores, its CUDA-core bound printed beside it), the
-plain (tiled) versions, SDPA in float32 (enable_gqa; forward, and one
-backward pass for all three gradients) and, in turns in the same call,
-the CUDA-core dK/dV and dQ kernels the tensor-core ones replaced
+their bounds (3xTF32 on the tensor cores, the CUDA-core bound printed
+beside it), the plain (tiled) versions, SDPA in float32 (enable_gqa;
+forward, and one backward pass for all three gradients; a line says
+whether the forward is at or below SDPA's) and, in turns in the same call,
+the CUDA-core forward, dK/dV and dQ kernels the tensor-core ones replaced
 (``csrc/diag/flash_attention_f32_pr31.cu``, built beside the library by
 the build phase; ``kernels/diag_attention_f32.py``).
 
@@ -614,29 +614,13 @@ def profiled_ms(torch, fn, names=None, n_bufs: int = 1,
     """Device time per call (ms) of the kernels named ``names`` (None:
     every device kernel in the window) under torch.profiler, which, unlike
     ``time_ms``'s events, leaves out the host's launch overhead around a
-    short kernel.  A window whose kernel records are not a whole number per
-    call (the profiler dropped some: the sum would read low) is taken
-    again, up to ``tries`` windows; then the time is not measured (nan)."""
-    from torch.profiler import ProfilerActivity, profile
+    short kernel; nan (logged) where the profiler drops kernel records in
+    every window (``kernels/profiling.py``)."""
+    from repro_torch.kernels import profiling
 
-    for i in range(3):
-        fn(i % n_bufs)
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(i % n_bufs)
-            torch.cuda.synchronize()
-        rows = [r for r in _kernel_rows(prof)
-                if names is None or any(n in r[1] for n in names)]
-        launches = sum(r[2] for r in rows)
-        if launches and launches % iters == 0:
-            return sum(r[0] for r in rows) / 1e3 / iters
-    log(f"[profile] {names}: {launches} kernel records over {iters} calls "
-        f"in the last of {tries} windows ({[r[1][:60] for r in rows]}): "
-        f"device time not measured")
-    return float("nan")
+    return profiling.device_ms(torch, lambda i: fn(i % n_bufs),
+                               {"kernels": names}, iters=iters,
+                               tries=tries, warm=3, log=log)["kernels"]
 
 
 def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
@@ -674,12 +658,12 @@ def _demangle(names: list[str]) -> list[str]:
 
 def phase_build() -> None:
     from repro_torch.kernels import (build, diag_attention_f32, diag_b1_bits,
-                                     diag_mla)
+                                     diag_mla, profiling)
 
     t0 = time.monotonic()
     # B1 as it was while it took groups of up to 8, for the kernels phase's
-    # bit comparison, and the MLA kernel and the float32 attention backward
-    # as they were before their tensor-core redesigns, for their timing,
+    # bit comparison, and the MLA kernel and the float32 attention pair as
+    # they were before their tensor-core redesigns, for their timing,
     # built beside the library
     proc = diag_b1_bits.start_build()
     proc_mla = diag_mla.start_build()
@@ -691,19 +675,10 @@ def phase_build() -> None:
     _F32_CUDA_CORES.append(diag_attention_f32.load(proc_f32))
     log(f"[build] {b.path.name} {'built' if b.built else 'reused'}, and "
         f"B1's groups-of-8 build for the bit comparison and the PR 27 MLA "
-        f"kernel and the CUDA-core float32 attention backward for their "
+        f"kernel and the CUDA-core float32 attention pair for their "
         f"timing, "
         f"in {time.monotonic() - t0:.1f} s")
-    entries, name, spill = [], None, ""
-    for line in b.log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            name = m.group(1)
-        elif "spill stores" in line:
-            spill = line.strip()
-        elif "Used" in line and "registers" in line and name is not None:
-            entries.append((name, line.split(":", 1)[-1].strip(), spill))
-            name, spill = None, ""
+    entries = profiling.ptxas_entries(b.log)
     for pretty, (_n, used, sp) in zip(_demangle([e[0] for e in entries]),
                                       entries):
         short = re.sub(r"\(.*\)$", "", pretty.replace("(anonymous namespace)::", ""))
@@ -1085,16 +1060,15 @@ def _f32_attn_bounds(b, s, h, hkv, d) -> dict:
     """((ms, by) of the arithmetic each kernel runs, (ms, by) on the
     float32 CUDA cores) of the forward, the dK/dV entry (delta included)
     and dQ: each function's operations (the causal pairs only) against its
-    bytes read and written once.  The forward runs on the CUDA cores; the
-    backward's products in 3xTF32 on the tensor cores, three TF32
-    operations for each float32 one (delta's 2 operations an element of
-    dO, on the CUDA cores, 0.06 / 0.25 us at the two timed shapes, are left
-    out of the tensor-core bound)."""
+    bytes read and written once.  Each runs its products in 3xTF32 on the
+    tensor cores, three TF32 operations for each float32 one (delta's 2
+    operations an element of dO, on the CUDA cores, 0.06 / 0.25 us at the
+    two timed shapes, are left out of the tensor-core bound)."""
     pairs = b * h * s * (s + 1) / 2
     q_el, kv_el, row = b * s * h * d, b * s * hkv * d, b * h * s
-    fwd = bound(4 * (2 * q_el + 2 * kv_el + row), 4 * d * pairs, "f32")
-    out = {"fwd": (fwd, fwd)}
+    out = {}
     for part, nbytes, ops in (
+            ("fwd", 4 * (2 * q_el + 2 * kv_el + row), 4 * d * pairs),
             ("dkdv", 4 * (3 * q_el + 4 * kv_el + 2 * row), 8 * d * pairs),
             ("dq", 4 * (3 * q_el + 2 * kv_el + 2 * row), 6 * d * pairs)):
         f32_ops = ops + (2 * q_el if part == "dkdv" else 0)
@@ -1111,7 +1085,7 @@ def _kernels_attention_f32(torch, results: dict) -> None:
     gradient; the two model shapes timed beside their bounds, the plain
     versions, SDPA in float32 (forward; backward: one autograd pass, all
     three gradients) and, in turns (new, old, old, new), the CUDA-core
-    dK/dV and dQ kernels that the tensor-core ones replaced."""
+    forward, dK/dV and dQ kernels that the tensor-core ones replaced."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import diag_attention_f32
@@ -1180,6 +1154,8 @@ def _kernels_attention_f32(torch, results: dict) -> None:
                       lambda i: attention_f32_dq_ref(q, k, v, lse, do, delta))}
         old = _F32_CUDA_CORES[0] if _F32_CUDA_CORES else diag_attention_f32.load()
         cuda_cores = {
+            "fwd": (lambda i: diag_attention_f32.cuda_core_fwd(old, q, k, v),
+                    diag_attention_f32.OLD_FWD_KERNELS),
             "dkdv": (lambda i: diag_attention_f32.cuda_core_dkdv(
                          old, q, k, v, o, lse, do),
                      diag_attention_f32.OLD_DKDV_KERNELS),
@@ -1199,36 +1175,30 @@ def _kernels_attention_f32(torch, results: dict) -> None:
             out, (qt, kt, vt), dot, retain_graph=True)
         lib_bwd = time_ms(torch, lib_bwd_fn)
         lib_bwd_dev = profiled_ms(torch, lib_bwd_fn)
-        bwd_dev = {}
+        dev = {}
         for part, name in (("fwd", "flash_attention_f32"),
                            ("dkdv", "flash_attention_f32_dkdv"),
                            ("dq", "flash_attention_f32_dq")):
             fn, kernel_names, plain_fn = fns[part]
-            if part == "fwd":
-                ms = time_ms(torch, fn)
-                dev_ms = profiled_ms(torch, fn, kernel_names)
-                old_line = ""
-            else:
-                old_fn, old_names = cuda_cores[part]
-                turns = {"new": [], "old": []}
-                for turn in ("new", "old", "old", "new"):
-                    turns[turn].append(time_ms(torch, fn if turn == "new"
-                                               else old_fn))
-                ms = statistics.mean(turns["new"])
-                dev_ms = profiled_ms(torch, fn, kernel_names)
-                old_dev = profiled_ms(torch, old_fn, old_names)
-                bwd_dev[part] = (dev_ms, old_dev)
-                old_line = (f"; in turns {turns['new'][0]:.4f} / "
-                            f"{turns['new'][1]:.4f} ms beside the "
-                            f"CUDA-core kernels' "
-                            f"{statistics.mean(turns['old']):.4f} ms "
-                            f"(device {old_dev:.4f} ms)")
+            old_fn, old_names = cuda_cores[part]
+            turns = {"new": [], "old": []}
+            for turn in ("new", "old", "old", "new"):
+                turns[turn].append(time_ms(torch, fn if turn == "new"
+                                           else old_fn))
+            ms = statistics.mean(turns["new"])
+            dev_ms = profiled_ms(torch, fn, kernel_names)
+            old_dev = profiled_ms(torch, old_fn, old_names)
+            dev[part] = (dev_ms, old_dev)
+            whose = "kernel's" if part == "fwd" else "kernels'"
+            old_line = (f"; in turns {turns['new'][0]:.4f} / "
+                        f"{turns['new'][1]:.4f} ms beside the CUDA-core "
+                        f"{whose} {statistics.mean(turns['old']):.4f} ms "
+                        f"(device {old_dev:.4f} ms)")
             plain = time_ms(torch, plain_fn, iters=5, warmup=1)
             (b_ms, b_by), (f32_ms, f32_by) = bounds[part]
             lib, lib_dev = ((lib_fwd, lib_fwd_dev) if part == "fwd"
                             else (lib_bwd, lib_bwd_dev))
-            arith = ("float32 on the CUDA cores" if part == "fwd" else
-                     f"3xTF32 on the tensor cores; float32 on the CUDA "
+            arith = (f"3xTF32 on the tensor cores; float32 on the CUDA "
                      f"cores {f32_ms:.4f} ms ({f32_by})")
             log(f"[kernels] {name} {tag} B={b} S={s} H={h} Hkv={hkv} D={d}: "
                 f"{ms:.4f} ms (device time {dev_ms:.4f} ms, "
@@ -1242,10 +1212,15 @@ def _kernels_attention_f32(torch, results: dict) -> None:
                     ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
                     library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
                     shape=f"B={b} S={s} H={h} Hkv={hkv} D={d}")
-        new_sum = bwd_dev["dkdv"][0] + bwd_dev["dq"][0]
+        log(f"[kernels] flash_attention_f32 forward {tag}: "
+            f"{dev['fwd'][0]:.4f} device ms (the CUDA-core kernel's "
+            f"{dev['fwd'][1]:.4f}), SDPA float32 forward {lib_fwd_dev:.4f}: "
+            f"forward at or below SDPA: "
+            f"{'met' if dev['fwd'][0] <= lib_fwd_dev else 'missed'}")
+        new_sum = dev["dkdv"][0] + dev["dq"][0]
         log(f"[kernels] flash_attention_f32 backward {tag}: dK/dV + dQ "
             f"{new_sum:.4f} device ms (the CUDA-core kernels' "
-            f"{bwd_dev['dkdv'][1] + bwd_dev['dq'][1]:.4f}), SDPA float32 "
+            f"{dev['dkdv'][1] + dev['dq'][1]:.4f}), SDPA float32 "
             f"backward {lib_bwd_dev:.4f}: the aim (at or below SDPA) "
             f"{'met' if new_sum <= lib_bwd_dev else 'missed'}")
         del qt, kt, vt, out, dot
@@ -3522,14 +3497,10 @@ def _by_part(rows, parts, per: float = 1.0) -> str:
 
 def _kernel_rows(prof) -> list[tuple[float, str, int]]:
     """(device us, name, calls) of each device kernel in a profiler run,
-    largest first; a CPU op's "self device time" would repeat them."""
-    rows = []
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            dev_us = getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0))
-            rows.append((dev_us, ev.key, ev.count))
-    return sorted(rows, reverse=True)
+    largest first (``kernels/profiling.py``)."""
+    from repro_torch.kernels import profiling
+
+    return profiling.kernel_rows(prof)
 
 
 def _prefill_profile(torch, client, smi: str, tag: str) -> None:

@@ -1,9 +1,11 @@
-// Diagnostic copy of the float32 causal attention backward as it stood
-// before its tensor-core redesign: the delta, dK/dV and dQ kernels of
-// csrc/flash_attention_f32.cu, every product in float32 on the CUDA cores,
-// a CTA per (64-key tile, kv head, batch row) walking the group's heads and
-// the query tiles after it.  Its source is unchanged but for the names of
-// its three kernels and its two C entries (same arguments as the library's
+// Diagnostic copy of the float32 causal attention pair as it stood before
+// its tensor-core redesigns: the forward, delta, dK/dV and dQ kernels of
+// csrc/flash_attention_f32.cu, every product in float32 on the CUDA cores;
+// the forward a CTA per (64-query tile, head, batch row) over the key tiles
+// up to it, P through shared memory; dK/dV a CTA per (64-key tile, kv head,
+// batch row) walking the group's heads and the query tiles after it.  Its
+// source is unchanged but for the names of its four kernels and its three
+// C entries (same arguments as the library's repro_attention_f32_fwd /
 // repro_attention_f32_dkdv / repro_attention_f32_dq), so that
 // chip_smoke.py's kernels phase and kernels/diag_attention_f32.py can time
 // it beside the library's kernels in one call.  Not part of the kernel
@@ -108,6 +110,77 @@ __device__ __forceinline__ void accumulate_pt(float (&acc)[4][D / 16], const flo
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int j = 0; j < D / 16; ++j) acc[a][j] = fmaf(p[a], t[j], acc[a][j]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+cuda_core_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int S, int H, int Hkv, Strides st,
+                         float scale) {
+  constexpr int NJ = D / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + tile_floats<D>();
+  float* sV = sK + tile_floats<D>();
+  float* sP = sV + tile_floats<D>();  // 64 x 65
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv), q0 = qt * kRows;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+
+  load_tile<D>(sQ, q + b * st.qb + h * st.qh, st.qs, q0, S);
+  float m[4], l[4], acc[4][NJ];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    m[a] = kNegInf;
+    l[a] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[a][j] = 0.f;
+  }
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * kKeys;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<D>(sK, k + b * st.kb + hk * st.kh, st.ks, k0, S);
+    load_tile<D>(sV, v + b * st.vb + hk * st.vh, st.vs, k0, S);
+    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int r = ty + 16 * a;
+      float s[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int n = tx + 16 * c;
+        s[c] = dot_rows<D>(sQ + r * (D + 1), sK + n * (D + 1)) * scale;
+        if (k0 + n > q0 + r) s[c] = kNegInf;
+      }
+      const float mt = max16(fmaxf(fmaxf(s[0], s[1]), fmaxf(s[2], s[3])));
+      const float m_new = fmaxf(m[a], mt);
+      float ps = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = expf(s[c] - m_new);
+        sP[r * (kKeys + 1) + tx + 16 * c] = p;
+        ps += p;
+      }
+      const float corr = expf(m[a] - m_new);
+      l[a] = l[a] * corr + sum16(ps);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[a][j] *= corr;
+      m[a] = m_new;
+    }
+    __syncthreads();
+    accumulate_pt<D>(acc, sP, sV, ty, tx);
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = q0 + ty + 16 * a;
+    if (i >= S) continue;
+    const float den = fmaxf(l[a], 1e-20f);
+    float* orow = o + ((static_cast<long long>(b) * S + i) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = acc[a][j] / den;
+    if (tx == 0) lse[(static_cast<long long>(b) * H + h) * S + i] = m[a] + logf(l[a]);
   }
 }
 
@@ -287,6 +360,11 @@ cuda_core_f32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
 }
 
 template <int D>
+constexpr int fwd_smem() {
+  return (3 * tile_floats<D>() + kRows * (kKeys + 1)) * 4;
+}
+
+template <int D>
 constexpr int bwd_smem() {
   return (4 * tile_floats<D>() + kRows * (kKeys + 1) + 2 * kRows) * 4;
 }
@@ -297,6 +375,16 @@ Strides strides_of(const long long* s) {
 
 bool shape_ok(int B, int S, int H, int Hkv, int D) {
   return B > 0 && S > 0 && Hkv > 0 && H % Hkv == 0 && (D == 64 || D == 128);
+}
+
+template <int D>
+int launch_fwd(const float* q, const float* k, const float* v, float* o, float* lse, int B,
+               int S, int H, int Hkv, Strides st, float scale, cudaStream_t s) {
+  auto kernel = cuda_core_f32_fwd_kernel<D>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem<D>());
+  const dim3 grid((S + kRows - 1) / kRows, H, B);
+  kernel<<<grid, kThreads, fwd_smem<D>(), s>>>(q, k, v, o, lse, S, H, Hkv, st, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -330,6 +418,21 @@ int launch_dq(const float* q, const float* k, const float* v, const float* lse,
 }
 
 }  // namespace
+
+// strides: q, k, v (batch, sequence, head), in elements
+extern "C" int diag_attention_f32_fwd_cuda_cores(const void* q, const void* k, const void* v,
+                                                 void* o, void* lse, int B, int S, int H,
+                                                 int Hkv, int D, const long long* strides,
+                                                 float scale, void* stream) {
+  if (!shape_ok(B, S, H, Hkv, D)) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const Strides st = strides_of(strides);
+  auto qp = static_cast<const float*>(q), kp = static_cast<const float*>(k),
+       vp = static_cast<const float*>(v);
+  auto op = static_cast<float*>(o), lp = static_cast<float*>(lse);
+  return D == 64 ? launch_fwd<64>(qp, kp, vp, op, lp, B, S, H, Hkv, st, scale, s)
+                 : launch_fwd<128>(qp, kp, vp, op, lp, B, S, H, Hkv, st, scale, s);
+}
 
 // delta (written here, read by diag_attention_f32_dq_cuda_cores), then dK and dV
 extern "C" int diag_attention_f32_dkdv_cuda_cores(const void* q, const void* k, const void* v,

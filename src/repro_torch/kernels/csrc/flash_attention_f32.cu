@@ -20,14 +20,15 @@
 // What bounds it on the H100.  The forward does 4*D operations a (query,
 // key) pair that the causal mask keeps, S(S+1)/2 pairs a head, on 4*B*S*(H
 // + Hkv)*D + 4*B*H*S bytes: at S = 256, D = 64, ~S/4 operations a byte of
-// float32, so it is bound by the operations.  The gradient needs S = Q K^T
-// again (P is not kept), dP = dO V^T, dV = P^T dO, dK = dS^T Q and dQ = dS
-// K: 10*D operations a pair, 2.5x the forward.  The forward runs on the
-// CUDA cores in float32 (67 TFLOP/s).  The backward runs on the tensor
-// cores in 3xTF32 (below): three TF32 products for each float32 one, so
-// its bound is 3x its operations at 495 TFLOP/s, 0.41x the CUDA-core bound.
+// float32.  The gradient needs S = Q K^T again (P is not kept), dP = dO
+// V^T, dV = P^T dO, dK = dS^T Q and dQ = dS K: 10*D operations a pair,
+// 2.5x the forward.  All three kernels run on the tensor cores in 3xTF32
+// (below): three TF32 products for each float32 one, so a bound is 3x the
+// operations at 495 TFLOP/s, 0.41x the float32 CUDA-core bound (67
+// TFLOP/s), or the bytes at 3.35 TB/s where they take longer (the forward
+// at smollm-360m's training shape: 0.0063 ms).
 //
-// The backward's arithmetic: 3xTF32, mma.sync.m16n8k8 with float32
+// The arithmetic: 3xTF32, mma.sync.m16n8k8 with float32
 // accumulators.  Each operand x is split as big = TF32(x), rounded to
 // nearest (11 significant bits; cvt.rna.tf32's bits, made on the integer
 // pipe: cvt made the backward 1.2-1.3x slower), and small = x - big
@@ -38,8 +39,8 @@
 // b before the float32 sum: each term of a sum within a factor of 16 of
 // float32's own rounding (2^-24), well inside the 1e-5 gate against
 // float64.  One-term TF32 is within 2^-11 |x| an operand (~1e-3 a
-// product): it misses the gate
-// (tests/test_torch_train_attention_tc.py shows both).  Why not the repo's
+// product): it misses the gate (tests/test_torch_train_attention_tc.py
+// and tests/test_torch_train_attention_fwd_tc.py show both).  Why not the repo's
 // bf16 three-term split (mma_bf16.cuh, B6 and the MLA kernel): it holds x
 // exactly in three 8-bit terms, but keeping float32 accuracy takes the six
 // term products down to ~2^-24 (t0 t0, t0 t1, t1 t0, t0 t2, t1 t1, t2 t0),
@@ -48,21 +49,34 @@
 // instead of two.  3xTF32 is also the arithmetic of SDPA's float32 backward
 // (CUTLASS's OpMultiplyAddFastF32), the yardstick.
 //
-// Design of the forward (simple first): tiles of 64 queries by 64 keys at
-// absolute multiples of 64; 256 threads a CTA, a thread owning rows ty,
-// ty+16, ty+32, ty+48 and columns tx, tx+16, tx+32, tx+48 of a 64 x 64
-// score tile (ty = tid/16, tx = tid%16), and the same rows by columns tx +
-// 16 j of a 64 x D accumulator; tiles live in shared memory with rows
-// padded to D + 1 floats.  One CTA per (64-query tile, head, batch row),
-// the longest tiles first: Q once, then the K/V tiles 0..qt; S scaled and
-// masked as the plain version (-1e30 above the diagonal), the online
-// softmax in float32 with row max and sum across the 16 lanes of a row by
-// shuffles, P through shared memory into O += P V.  Writes O = acc /
-// max(l, 1e-20) and lse = m + log(l).
+// Every kernel has 4 warps a CTA, each owning 16 rows of the CTA's 64;
+// tiles in shared memory with rows padded to D + 4 floats, so the fragment
+// loads below fall in 32 distinct banks.
 //
-// Design of the backward (4 warps a CTA, each owning 16 rows of the CTA's
-// 64; tiles in shared memory with rows padded to D + 4 floats, so the
-// fragment loads below fall in 32 distinct banks):
+// Design of the forward: a CTA per (64-query tile, head, batch row), the
+// longest first.  Q once by cp.async, then the keys 0 .. the tile's end in
+// steps of kFwdStep (32) keys, each step's K and V by cp.async into a
+// second buffer while the step before it computes.  S = Q K^T as C
+// fragments (a warp's 16 queries by 32 keys; big . big and the cross
+// terms in two accumulators, added at the end of the head dim); scaled,
+// -1e30 for a key after the query (and so past S); the online softmax in
+// registers, in float32 with expf: a thread holds rows g and g + 8, whose
+// max and sum it takes over its quad's 4 lanes by shuffles, and rescales O
+// by exp(m_old - m_new); then O += P V with P straight from the S fragment
+// as the A operand and V's B fragment loaded from rows 2q, 2q + 1, two k
+// steps at a time into zeroed registers added with a rounded float32 add
+// (below).  A step whose first key is after a warp's last query is skipped
+// by that warp (it adds exactly nothing).  Writes O = acc / max(l, 1e-20)
+// and lse = m + log(l); rows past S write nothing.  Steps of 32 keys at
+// D 128 take 255 registers and two CTAs an SM (shared memory, 101 KB):
+// 0.87 device ms at llama2-7b's shape on an H100, where steps of 16 held
+// to 168 registers for three CTAs an SM took 0.93-1.02
+// (kernels/diag_attention_f32_parts.py builds the other choices: steps of
+// 16 or 64, Q or K/V split once in shared memory rather than by each warp
+// at every fragment load (both slower), one accumulator for O, the score
+// loop unrolled by 2, two or four CTAs an SM at D 64).
+//
+// Design of the backward:
 //  * delta = rowsum(dO * O), [B, H, S]: one warp a row, launched by the
 //    dK/dV entry before the dK/dV kernel;
 //  * dK/dV: a CTA per (64-key tile, rank, kv head, batch row), where the
@@ -91,7 +105,7 @@
 //    cp.async into a second buffer while the step before it computes: S = Q
 //    K^T and dP = dO V^T as C fragments, dS in registers, dQ += dS K with
 //    dS as the A operand as above; dQ scaled once at the end.
-//  The walks' sums (dK, dV, dQ) take two k steps' products at a time in
+//  The walks' sums (O, dK, dV, dQ) take two k steps' products at a time in
 //  zeroed registers and add them with a rounded float32 add: the mma's own
 //  accumulator truncates, and over a walk of thousands of mma.sync it
 //  drifted to 2.9e-5 of dK's max at llama2-7b's shape on an H100
@@ -100,11 +114,13 @@
 //  CTAs and the longest walk, at smollm-360m's training shape (B 8, S 256, H
 //  15 over 5, D 64): dK/dV 4 key tiles x 3 ranks x 5 x 8 = 480 CTAs, 8 steps
 //  of 32 queries (4 tiles) at the most (one CTA a key tile walking the
-//  group had 160 CTAs and 12 steps of 64); dQ 480 CTAs, 8 steps of 32 keys.
-//  At llama2-7b's (B 1, S 2048, H 32 over 32, D 128): dK/dV 32 x 1 x 32 =
-//  1,024 CTAs, 128 steps of 16 queries at the most; dQ
-//  1,024 CTAs, 128 steps of 16 keys.  Two CTAs an SM (at most 255
-//  registers a thread; ~70 KB of shared memory at D 64, ~101 KB at D 128).
+//  group had 160 CTAs and 12 steps of 64); dQ and the forward 480 CTAs, 8
+//  steps of 32 keys.  At llama2-7b's (B 1, S 2048, H 32 over 32, D 128):
+//  dK/dV 32 x 1 x 32 = 1,024 CTAs, 128 steps of 16 queries at the most; dQ
+//  1,024 CTAs, 128 steps of 16 keys; the forward 1,024 CTAs, 64 steps of
+//  32 keys.  The backward two CTAs an SM (at most 255 registers a thread;
+//  ~70 KB of shared memory at D 64, ~101 KB at D 128); the forward three at
+//  D 64 (168 registers, 52 KB), two at D 128.
 //  No atomics: each output element is one fixed sum (for dK/dV: per rank,
 //  its heads in order, then the query steps, then the mma's own order
 //  within a step; then the ranks in order), so two runs on the same inputs
@@ -129,146 +145,6 @@ constexpr float kNegInf = -1e30f;
 struct Strides {  // elements
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh;
 };
-
-template <int D>
-__host__ __device__ constexpr int tile_floats() {
-  return kRows * (D + 1);
-}
-
-// rows row0 .. row0+63 of a [.., S, .., D] tensor (base already at the
-// batch row and head; row stride rs) into shared memory rows of D + 1
-// floats; rows past S are zeros.  float4 loads: the wrapper checks 16-byte
-// alignment of the base and of every stride
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          long long rs, int row0, int S) {
-  constexpr int kVec = D / 4;
-#pragma unroll
-  for (int it = 0; it < kRows * kVec / kThreads; ++it) {
-    const int idx = threadIdx.x + it * kThreads;
-    const int r = idx / kVec, c = (idx % kVec) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S) {
-      x = __ldg(reinterpret_cast<const float4*>(src + (row0 + r) * rs + c));
-    }
-    float* d = dst + r * (D + 1) + c;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
-  }
-}
-
-// dot product of two shared-memory rows of D floats, in order of d
-template <int D>
-__device__ __forceinline__ float dot_rows(const float* a, const float* b) {
-  float s = 0.f;
-#pragma unroll 16
-  for (int d = 0; d < D; ++d) s = fmaf(a[d], b[d], s);
-  return s;
-}
-
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// acc[a][j] += sum_n P[rows a][n] * T[n][tx + 16 j]: P in shared memory,
-// 64 x (64 + 1), T a tile of 64 x (D + 1)
-template <int D>
-__device__ __forceinline__ void accumulate_pt(float (&acc)[4][D / 16], const float* sP,
-                                              const float* sT, int ty, int tx) {
-#pragma unroll 4
-  for (int n = 0; n < 64; ++n) {
-    float p[4], t[D / 16];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) p[a] = sP[(ty + 16 * a) * (kKeys + 1) + n];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) t[j] = sT[n * (D + 1) + tx + 16 * j];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[a][j] = fmaf(p[a], t[j], acc[a][j]);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-attention_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int S, int H, int Hkv, Strides st,
-                         float scale) {
-  constexpr int NJ = D / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + tile_floats<D>();
-  float* sV = sK + tile_floats<D>();
-  float* sP = sV + tile_floats<D>();  // 64 x 65
-  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / Hkv), q0 = qt * kRows;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  load_tile<D>(sQ, q + b * st.qb + h * st.qh, st.qs, q0, S);
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = kNegInf;
-    l[a] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[a][j] = 0.f;
-  }
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kKeys;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(sK, k + b * st.kb + hk * st.kh, st.ks, k0, S);
-    load_tile<D>(sV, v + b * st.vb + hk * st.vh, st.vs, k0, S);
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = ty + 16 * a;
-      float s[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int n = tx + 16 * c;
-        s[c] = dot_rows<D>(sQ + r * (D + 1), sK + n * (D + 1)) * scale;
-        if (k0 + n > q0 + r) s[c] = kNegInf;
-      }
-      const float mt = max16(fmaxf(fmaxf(s[0], s[1]), fmaxf(s[2], s[3])));
-      const float m_new = fmaxf(m[a], mt);
-      float ps = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[c] - m_new);
-        sP[r * (kKeys + 1) + tx + 16 * c] = p;
-        ps += p;
-      }
-      const float corr = expf(m[a] - m_new);
-      l[a] = l[a] * corr + sum16(ps);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[a][j] *= corr;
-      m[a] = m_new;
-    }
-    __syncthreads();
-    accumulate_pt<D>(acc, sP, sV, ty, tx);
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty + 16 * a;
-    if (i >= S) continue;
-    const float den = fmaxf(l[a], 1e-20f);
-    float* orow = o + ((static_cast<long long>(b) * S + i) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = acc[a][j] / den;
-    if (tx == 0) lse[(static_cast<long long>(b) * H + h) * S + i] = m[a] + logf(l[a]);
-  }
-}
 
 // delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]: a warp a row
 template <int D>
@@ -453,6 +329,176 @@ __device__ __forceinline__ void load_stat_async(float* dst, const float* __restr
   if (threadIdx.x < ROWS) {
     const int i = row0 + threadIdx.x;
     cp_async4(dst + threadIdx.x, i < S ? src + i : src, i < S ? 4 : 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the forward on the tensor cores: the same 3xTF32 fragments
+// ---------------------------------------------------------------------------
+
+// keys a forward step, at either D (the plain version's FWD_STEP,
+// kernels/flash_attention/ref.py)
+constexpr int kFwdStep = 32;
+// the most forward CTAs an SM: the launch bounds hold a thread's registers
+// to what that many leave (168 at 3)
+constexpr int kFwdMaxCtas = 3;
+
+template <int D>
+__host__ __device__ constexpr int fwd_smem() {
+  // Q: 64 rows; K, V: two buffers of kFwdStep rows
+  return (kRows + 4 * kFwdStep) * bwd_ld<D>() * 4;
+}
+
+// forward CTAs an SM: as many as its 228 KB of shared memory holds (1 KB
+// of it reserved a CTA), at most kFwdMaxCtas
+template <int D>
+__host__ __device__ constexpr int fwd_ctas() {
+  return 228 * 1024 / (fwd_smem<D>() + 1024) < kFwdMaxCtas ? 228 * 1024 / (fwd_smem<D>() + 1024)
+                                                             : kFwdMaxCtas;
+}
+static_assert(fwd_smem<128>() <= 227 * 1024 && fwd_ctas<128>() >= 2,
+              "the forward leaves two CTAs an SM at D 128");
+static_assert(fwd_smem<64>() <= 227 * 1024 && fwd_ctas<64>() >= 2,
+              "the forward leaves two CTAs an SM at D 64");
+
+// O = softmax(Q K^T scale, causal) V and lse = m + log(l): a CTA per
+// (64-query tile, head, batch row), the longest first; each warp 16 of the
+// tile's rows, a thread its rows g and g + 8
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, fwd_ctas<D>())
+attention_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int S, int H, int Hkv, Strides st,
+                         float scale) {
+  constexpr int LD = bwd_ld<D>(), KS = kFwdStep, NT = KS / 8, NU = D / 8;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + kRows * LD;                         // [2][KS][LD]
+  float* sV = sK + 2 * KS * LD;                        // [2][KS][LD]
+  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv), q0 = qt * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
+  const int i0 = warp * 16;  // the warp's queries in the tile
+  const int n_steps = (min(q0 + kRows, S) + KS - 1) / KS;  // keys 0 .. the tile's last
+
+  auto load_step = [&](int n) {
+    const int buf = n & 1;
+    load_rows_async<D, KS>(sK + buf * KS * LD, k + b * st.kb + hk * st.kh, st.ks, n * KS, S);
+    load_rows_async<D, KS>(sV + buf * KS * LD, v + b * st.vb + hk * st.vh, st.vs, n * KS, S);
+  };
+  load_rows_async<D, kRows>(sQ, q + b * st.qb + h * st.qh, st.qs, q0, S);
+  load_step(0);
+  tc_bf16::cp_async_commit();
+
+  // the running max, sum and O of the thread's two rows
+  const int row_i[2] = {q0 + i0 + g, q0 + i0 + g + 8};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o_acc[NU][4];
+#pragma unroll
+  for (int u = 0; u < NU; ++u)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[u][e] = 0.f;
+
+  for (int n = 0; n < n_steps; ++n) {
+    if (n + 1 < n_steps) {
+      load_step(n + 1);  // into the buffer step n - 1 read
+      tc_bf16::cp_async_commit();
+      tc_bf16::cp_async_wait<1>();
+    } else {
+      tc_bf16::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int buf = n & 1, kb0 = n * KS;
+    float* tK = sK + buf * KS * LD;
+    float* tV = sV + buf * KS * LD;
+    // a step whose first key is after the warp's last query adds nothing
+    if (kb0 <= q0 + i0 + 15) {
+      // S = Q K^T: the warp's 16 queries by KS keys
+      float s[NT][4], s_lo[NT][4];
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = s_lo[t][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D; kk += 8) {
+        SplitA aq;
+        load_a<LD>(sQ, i0, kk, g, qd, aq);
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          SplitB bk;
+          load_b_t<LD>(tK, 8 * t, kk, g, qd, bk);
+          mma_3xtf32_hl(s[t], s_lo[t], aq, bk);
+        }
+      }
+      // the online softmax: S scaled, -1e30 for a key after the query (and
+      // so past S), each row's max and sum over its quad's 4 lanes
+      float mt[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = kb0 + 8 * t + 2 * qd + (e & 1);
+          float x = (s[t][e] + s_lo[t][e]) * scale;
+          if (j > row_i[e >> 1]) x = kNegInf;
+          s[t][e] = x;
+          mt[e >> 1] = fmaxf(mt[e >> 1], x);
+        }
+      float corr[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float x = fmaxf(mt[half], __shfl_xor_sync(0xffffffffu, mt[half], 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        const float m_new = fmaxf(m[half], x);
+        corr[half] = expf(m[half] - m_new);
+        m[half] = m_new;
+      }
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[t][e] = expf(s[t][e] - m[e >> 1]);
+          ps[e >> 1] += s[t][e];
+        }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float x = ps[half] + __shfl_xor_sync(0xffffffffu, ps[half], 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        l[half] = l[half] * corr[half] + x;
+      }
+#pragma unroll
+      for (int u = 0; u < NU; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o_acc[u][e] *= corr[e >> 1];
+      // O += P V, two k steps of 8 keys at a time
+#pragma unroll
+      for (int t = 0; t < NT; t += 2) {
+        SplitA a0, a1;
+        c_as_a(s[t], a0);
+        c_as_a(s[t + 1], a1);
+#pragma unroll
+        for (int u = 0; u < NU; ++u) {
+          SplitB b0, b1;
+          load_b_rows<LD>(tV, 8 * t, 8 * u, g, qd, b0);
+          load_b_rows<LD>(tV, 8 * t + 8, 8 * u, g, qd, b1);
+          mma_3xtf32_add2(o_acc[u], a0, b0, a1, b1);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this step's buffers
+  }
+  const long long stat = (static_cast<long long>(b) * H + h) * S;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = row_i[half];
+    if (i >= S) continue;
+    const float den = fmaxf(l[half], 1e-20f);
+    float* row = o + ((static_cast<long long>(b) * S + i) * H + h) * D;
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      *reinterpret_cast<float2*>(row + 8 * u + 2 * qd) =
+          make_float2(o_acc[u][2 * half] / den, o_acc[u][2 * half + 1] / den);
+    }
+    if (qd == 0) lse[stat + i] = m[half] + logf(l[half]);
   }
 }
 
@@ -771,11 +817,6 @@ attention_f32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
-template <int D>
-constexpr int fwd_smem() {
-  return (3 * tile_floats<D>() + kRows * (kKeys + 1)) * 4;
-}
-
 Strides strides_of(const long long* s) {
   return Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8]};
 }
@@ -799,7 +840,7 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o, float* 
   auto kernel = attention_f32_fwd_kernel<D>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem<D>());
   const dim3 grid((S + kRows - 1) / kRows, H, B);
-  kernel<<<grid, kThreads, fwd_smem<D>(), s>>>(q, k, v, o, lse, S, H, Hkv, st, scale);
+  kernel<<<grid, kBwdThreads, fwd_smem<D>(), s>>>(q, k, v, o, lse, S, H, Hkv, st, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,20 +1,21 @@
-"""The float32 attention backward beside the kernels it replaced, on the card.
+"""The float32 attention pair beside the kernels it replaced, on the card.
 
     python3 src/repro_torch/kernels/diag_attention_f32.py
 
 Builds, with nvcc into ``build/diag/``, ``csrc/diag/flash_attention_f32_
-pr31.cu`` (the delta, dK/dV and dQ kernels on the CUDA cores, as they
-stood before the tensor-core redesign; only their names changed).  At
-smollm-360m's training shape (B 8, S 256, H 15 over 5, D 64) and llama2-7b's
-(B 1, S 2,048, H 32, D 128), the library's dK/dV and dQ kernels and the
-CUDA-core ones are held against autograd of the plain forward in float64
-within 1e-5 x max|ref| a tensor and timed in turns (CUDA events, median,
-and torch.profiler's device time), beside SDPA's float32 backward (all
-three gradients).  Prints ``[diag_attention_f32]`` lines with nvidia-smi's
-name and power limit; exits 1 if a kernel misses the tolerance.
-``chip_smoke.py``'s kernels phase times the CUDA-core kernels the same
-way (``start_build`` / ``load`` / ``cuda_core_dkdv`` / ``cuda_core_dq``).
-Needs a card and nvcc.
+pr31.cu`` (the forward, delta, dK/dV and dQ kernels on the CUDA cores, as
+they stood before the tensor-core redesigns; only their names changed).
+At smollm-360m's training shape (B 8, S 256, H 15 over 5, D 64) and
+llama2-7b's (B 1, S 2,048, H 32, D 128), the library's forward, dK/dV and
+dQ kernels and the CUDA-core ones are held against the plain forward in
+float64 and its autograd within 1e-5 x max|ref| a tensor and timed in
+turns (CUDA events, median, and torch.profiler's device time), beside
+SDPA's float32 forward and backward (all three gradients).  Prints
+``[diag_attention_f32]`` lines with nvidia-smi's name and power limit;
+exits 1 if a kernel misses the tolerance.  ``chip_smoke.py``'s kernels
+phase times the CUDA-core kernels the same way (``start_build`` / ``load``
+/ ``cuda_core_fwd`` / ``cuda_core_dkdv`` / ``cuda_core_dq``).  Needs a card
+and nvcc.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ OUT = os.path.join(ROOT, "build", "diag")
 OLD_SRC = os.path.join(CSRC, "diag", "flash_attention_f32_pr31.cu")
 OLD_LIB = os.path.join(OUT, "libdiagattentionf32cudacores.so")
 # device kernels of each CUDA-core entry, as the profiler names them
+OLD_FWD_KERNELS = ("cuda_core_f32_fwd_kernel",)
 OLD_DKDV_KERNELS = ("cuda_core_f32_delta", "cuda_core_f32_dkdv")
 OLD_DQ_KERNELS = ("cuda_core_f32_dq",)
 SHAPES = (("smollm-360m", 8, 256, 15, 5, 64), ("llama2-7b", 1, 2048, 32, 32,
@@ -61,7 +63,9 @@ def load(proc: subprocess.Popen | None = None) -> ctypes.CDLL:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {OLD_SRC}:\n{out}")
     dll = ctypes.CDLL(OLD_LIB)
-    for name, lib_name in (("diag_attention_f32_dkdv_cuda_cores",
+    for name, lib_name in (("diag_attention_f32_fwd_cuda_cores",
+                            "repro_attention_f32_fwd"),
+                           ("diag_attention_f32_dkdv_cuda_cores",
                             "repro_attention_f32_dkdv"),
                            ("diag_attention_f32_dq_cuda_cores",
                             "repro_attention_f32_dq")):
@@ -74,6 +78,24 @@ def _check(status: int, name: str) -> None:
     if status != 0:
         raise RuntimeError(f"the CUDA-core {name} kernel failed to launch "
                            f"({status})")
+
+
+def cuda_core_fwd(dll: ctypes.CDLL, q, k, v):
+    """The CUDA-core forward with ``attention_f32_fwd``'s arguments: (o,
+    lse)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.ops import _qkv_strides
+
+    b, s, h, d = q.shape
+    o = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _check(dll.diag_attention_f32_fwd_cuda_cores(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, s, h, k.shape[2], d, _qkv_strides(q, k, v),
+        float(d ** -0.5), build.stream_handle(q.device)), "forward")
+    return o, lse
 
 
 def cuda_core_dkdv(dll: ctypes.CDLL, q, k, v, o, lse, do):
@@ -130,23 +152,12 @@ def _time(torch, fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def _device_ms(torch, fn, names, iters: int = 10) -> float:
-    from torch.profiler import ProfilerActivity, profile
+def _device_ms(torch, fn, names) -> float:
+    """Device ms per call of the kernels named ``names`` (None: every
+    device kernel) under torch.profiler (nan if it drops records)."""
+    from repro_torch.kernels import profiling
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA") \
-                and (names is None or any(n in ev.key for n in names)):
-            total += getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0))
-    return total / 1e3 / iters if total > 0 else float("nan")
+    return profiling.device_ms(torch, lambda i: fn(), {"k": names})["k"]
 
 
 def main() -> int:
@@ -173,35 +184,50 @@ def main() -> int:
                                      (b, s, hkv, d), (b, s, h, d)))
         o, lse = ops.attention_f32_fwd(q, k, v)
         leaves = [t.double().requires_grad_(True) for t in (q, k, v)]
-        o64, _ = attention_f32_fwd_ref(*leaves)
-        want = torch.autograd.grad(o64, leaves, do.double())
-        del leaves, o64
+        o64, lse64 = attention_f32_fwd_ref(*leaves)
+        want = (o64.detach(), lse64.detach(),
+                *torch.autograd.grad(o64, leaves, do.double()))
+        del leaves, o64, lse64
         runs = {
-            "library": (lambda: ops.attention_f32_dkdv(q, k, v, o, lse, do),
+            "library": (lambda: ops.attention_f32_fwd(q, k, v),
+                        lambda: ops.attention_f32_dkdv(q, k, v, o, lse, do),
                         lambda dl: ops.attention_f32_dq(q, k, v, lse, do, dl),
-                        ("attention_f32_dkdv",), ("attention_f32_dq",)),
-            "CUDA cores": (lambda: cuda_core_dkdv(old, q, k, v, o, lse, do),
+                        (("attention_f32_fwd",), ("attention_f32_dkdv",),
+                         ("attention_f32_dq",))),
+            "CUDA cores": (lambda: cuda_core_fwd(old, q, k, v),
+                           lambda: cuda_core_dkdv(old, q, k, v, o, lse, do),
                            lambda dl: cuda_core_dq(old, q, k, v, lse, do, dl),
-                           OLD_DKDV_KERNELS, OLD_DQ_KERNELS)}
-        for name, (dkdv, dq, _kd, _kq) in runs.items():
+                           (OLD_FWD_KERNELS, OLD_DKDV_KERNELS,
+                            OLD_DQ_KERNELS))}
+        for name, (fwd, dkdv, dq, _names) in runs.items():
             dk, dv, delta = dkdv()
-            got = (dq(delta), dk, dv)
+            got = (*fwd(), dq(delta), dk, dv)
             errs = [((g.double() - w).abs().max() / w.abs().max()).item()
                     for g, w in zip(got, want)]
             bad += any(not e <= REL for e in errs)
-            print(f"[diag_attention_f32] {tag} {name}: max|err|/max|ref| dq "
-                  f"{errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} (tol "
-                  f"{REL})", flush=True)
-        delta = runs["library"][0]()[2]
-        ms = {(n, p): [] for n in runs for p in ("dkdv", "dq")}
+            print(f"[diag_attention_f32] {tag} {name}: max|err|/max|ref| "
+                  + ", ".join(f"{n} {e:.2e}" for n, e in zip(
+                      ("O", "lse", "dq", "dk", "dv"), errs))
+                  + f" (tol {REL})", flush=True)
+        delta = runs["library"][1]()[2]
+        parts = ("fwd", "dkdv", "dq")
+        fns = {n: (r[0], r[1], lambda dq=r[2]: dq(delta))
+               for n, r in runs.items()}
+        ms = {(n, p): [] for n in runs for p in parts}
         for name in list(runs) + list(runs)[::-1]:
-            dkdv, dq = runs[name][:2]
-            ms[name, "dkdv"].append(_time(torch, dkdv))
-            ms[name, "dq"].append(_time(torch, lambda: dq(delta)))
+            for part, fn in zip(parts, fns[name]):
+                ms[name, part].append(_time(torch, fn))
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                       for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=h != hkv)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=h != hkv)
+
+        with torch.no_grad():
+            sdpa_f = (_time(torch, sdpa_fwd), _device_ms(torch, sdpa_fwd,
+                                                         None))
+        out = sdpa_fwd()
         dot = do.transpose(1, 2).contiguous()
 
         def sdpa_bwd():
@@ -209,17 +235,18 @@ def main() -> int:
                                        retain_graph=True)
 
         sdpa = (_time(torch, sdpa_bwd), _device_ms(torch, sdpa_bwd, None))
-        for name, (dkdv, dq, kd, kq) in runs.items():
-            dev = (_device_ms(torch, dkdv, kd),
-                   _device_ms(torch, lambda: dq(delta), kq))
-            kv_t, q_t = ms[name, "dkdv"], ms[name, "dq"]
+        for name in runs:
+            dev = [_device_ms(torch, fn, kn)
+                   for fn, kn in zip(fns[name], runs[name][3])]
+            t = {p: ms[name, p] for p in parts}
             print(f"[diag_attention_f32] {tag} B={b} S={s} H={h} Hkv={hkv} "
-                  f"D={d} {name}: dK/dV {statistics.mean(kv_t):.4f} ms "
-                  f"(turns {kv_t[0]:.4f} / {kv_t[1]:.4f}), device "
-                  f"{dev[0]:.4f} ms; dQ {statistics.mean(q_t):.4f} ms (turns "
-                  f"{q_t[0]:.4f} / {q_t[1]:.4f}), "
-                  f"device {dev[1]:.4f} ms; sum device {sum(dev):.4f} ms; "
-                  f"SDPA float32 backward {sdpa[0]:.4f} ms, device "
+                  f"D={d} {name}: "
+                  + "; ".join(f"{p} {statistics.mean(t[p]):.4f} ms (turns "
+                              f"{t[p][0]:.4f} / {t[p][1]:.4f}), device "
+                              f"{x:.4f} ms" for p, x in zip(parts, dev))
+                  + f"; dK/dV + dQ device {dev[1] + dev[2]:.4f} ms; SDPA "
+                  f"float32 forward {sdpa_f[0]:.4f} ms, device "
+                  f"{sdpa_f[1]:.4f} ms; backward {sdpa[0]:.4f} ms, device "
                   f"{sdpa[1]:.4f} ms; {smi}", flush=True)
         del qt, kt, vt, out, dot
     return 1 if bad else 0

@@ -24,18 +24,22 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # queries and keys of a tile, at absolute multiples of TILE
 TILE = 64
 NEG_INF = -1e30
+# keys a step of the forward kernel's walk (kFwdStep in
+# csrc/flash_attention_f32.cu)
+FWD_STEP = 32
 # the portable thread-block cluster size: the most CTAs that share a key
 # tile's dK/dV
 MAX_CTAS = 8
 
 
 def attention_f32_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          tile: int = TILE
+                          tile: int = TILE, step: int = FWD_STEP
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's schedule in torch (any float dtype; float32 on
     the card is its plain version): causal, q [B, S, H, D], k/v [B, S, Hkv,
-    D].  Per query tile the key tiles 0..qt, an online softmax; returns
-    (O [B, S, H, D], lse [B, H, S]) with lse = m + log(l)."""
+    D].  Per query tile the keys 0 .. the tile's last in steps of ``step``
+    keys (the kernel's ``FWD_STEP`` by default), an online softmax;
+    returns (O [B, S, H, D], lse [B, H, S]) with lse = m + log(l)."""
     b, s, h, d = q.shape
     g = h // k.shape[2]
     scale = d ** -0.5
@@ -50,15 +54,15 @@ def attention_f32_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = q.new_full(qb.shape[:-1], NEG_INF)
         l = q.new_zeros(qb.shape[:-1])
         acc = torch.zeros_like(qb)
-        for k0 in range(0, q0 + 1, tile):
-            sc = (qb @ kf[:, :, k0:k0 + tile].transpose(-1, -2)) * scale
-            keep = pos[q0:q0 + tile, None] >= pos[None, k0:k0 + tile]
+        for k0 in range(0, min(q0 + tile, s), step):
+            sc = (qb @ kf[:, :, k0:k0 + step].transpose(-1, -2)) * scale
+            keep = pos[q0:q0 + tile, None] >= pos[None, k0:k0 + step]
             sc = torch.where(keep, sc, NEG_INF)
             m_new = torch.maximum(m, sc.amax(-1))
             p = torch.exp(sc - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + p @ vf[:, :, k0:k0 + tile]
+            acc = acc * corr[..., None] + p @ vf[:, :, k0:k0 + step]
             m = m_new
         o[:, :, q0:q0 + tile] = acc / torch.clamp_min(l, 1e-20)[..., None]
         lse[:, :, q0:q0 + tile] = m + torch.log(l)
