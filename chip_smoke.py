@@ -256,7 +256,26 @@ Phases, each printing its own lines:
             between the runs.  Prints decode ms a step and tok/s (sync,
             overlapped), prefill ms a group, the profiles (the grouped
             GEMM's device ms a step and a group), peak memory.
-20. serve_dense  chatglm3-6b at full width (its first 8 of 28 layers,
+20. distributed  2 SPMD ranks on the one card (mesh (1, 2), gloo, CUDA
+            tensors staged through the host) through
+            ``distributed.mesh.run_spmd``: (a) qwen2-moe-a2.7b at full
+            width, all 24 layers, W8A8, 32 of the 64 padded experts a
+            rank, a wave of 4 x 128 tokens and 16 greedy decode steps
+            under ``lowering_ctx(mesh=...)``, twice (the same bits): the
+            one-process local path's logits and streams bit for bit; (b)
+            split-K decode of smollm-360m at full width (5 kv heads over
+            2), 512 of 1,024 cache rows a rank, 32 steps, held to the
+            one-process decode_step: the ranks' float32 split-K run
+            within SPLITK_F32_REL of its float32 run on the host, the
+            bf16 one by the model phase's MODEL_RATIO rule against that
+            run, the cache rows bit for bit where both wrote the same
+            inputs; (c) ``psum_compressed`` over
+            smollm-360m's float32 gradients, weight streaming and the
+            alpha split over llama2-7b's MLP weights, a 2-stage pipeline
+            of smollm-360m (the sequential bits).  Prints walls, bytes a
+            collective, peak memory a rank, the grouped GEMM's launches
+            and device ms at the expert-parallel buffers.
+21. serve_dense  chatglm3-6b at full width (its first 8 of 28 layers,
             d_model 4096, 32 query heads over 2 kv heads: B1's group of
             16 in the decode
             graph; rotary on half of each head; q/k/v and FFN biases), then
@@ -281,7 +300,7 @@ Phases, each printing its own lines:
             decode ms a step and tok/s (sync, overlapped), prefill ms a
             group, the profiles (B1's device ms a step), the resident
             weights and pools, the build's and the phase's peak memory.
-21. serve_mla  deepseek-v2-lite-16b at full width (its first 8 of 27
+22. serve_mla  deepseek-v2-lite-16b at full width (its first 8 of 27
             layers, the first dense, d_model 2048, 16 heads of multi-head
             latent attention:
             R 512, qk head 128 + 64, v 128; 64 routed experts top-6, 2
@@ -302,7 +321,7 @@ Phases, each printing its own lines:
             group, the profiles (the MLA kernel's device ms a step), peak
             memory; the decode profile must hold one MLA device kernel a
             layer-step (the merge of the splits fused into it).
-22. serve_vlm  qwen2-vl-72b at full width (its first 12 of 80 layers,
+23. serve_vlm  qwen2-vl-72b at full width (its first 12 of 80 layers,
             d_model 8192, 64
             query heads over 8 kv heads, q/k/v and FFN biases, d_ff
             29,568, vocab 152,064, M-RoPE over 256 prepended vision
@@ -324,6 +343,10 @@ Phases, each printing its own lines:
             against the resident bytes and memory.total, decode ms a step
             and tok/s (sync, overlapped), prefill ms a group, the
             profiles (B1's and the GeMV's device ms a step).
+
+Not in the default list: ``nccl_probe`` asks NCCL for a psum over 2
+spawned ranks on the one card and prints its answer (refused, with the
+error text, on one H100).
 
 Every serving phase's engine replays one CUDA graph a decode step
 (``serving/graphs.py``); the launch counters count each replay's kernels.
@@ -401,7 +424,7 @@ serve_chunked for the chunk kernel, serve_int8kv for B1-int8 and its
 chunked engine for the chunk kernel's int8 variant, serve_moe for the
 grouped GEMM, serve_mla for the MLA kernel, bf16 and int8, train for the float32
 attention pair; serve_vlm
-prints its own counts of B1-B3).  B2's __dp4a GeMV and
+prints its own counts of B1-B3, distributed its ranks' counts).  B2's __dp4a GeMV and
 tiled GEMM (``int8_gemv_dp4a``, ``int8_gemm``) are on no model's path
 (every model K is a multiple of 16 and every base aligned): a serving
 phase that launches either fails.  Any failure
@@ -6162,6 +6185,695 @@ def phase_serve_moe(torch, smi: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# distributed: SPMD ranks on the one card (torch.distributed, gloo)
+# ---------------------------------------------------------------------------
+
+DIST_MESH = (1, 2)          # ("data", "model"): 2 ranks on the one card
+DIST_WAVE, DIST_PROMPT, DIST_STEPS = 4, 128, 16
+# the split-K logits are held to the unsharded decode_step on the card by
+# the model phase's gate (MODEL_RATIO x the unsharded bf16 run's own
+# distance from the unsharded float32 run): the split-K partials are
+# float32 einsums and B1 sums in another order, so a layer's bf16 output
+# can round a step apart, and 32 random bf16 layers carry that to the
+# logits.  The
+# expert-parallel MoE is held to its local path bit for bit (models/moe.py
+# sums a token's expert outputs in slot order on any number of ranks)
+SPLITK_ARCH, SPLITK_SEQ, SPLITK_STEPS = "smollm-360m", 1024, 32
+SPLITK_LENS = (64, 200, 350, 512)
+# the ranks' float32 split-K run against the one-process float32
+# decode_step (the same weights and tokens), of max |logit| and of max
+# |row| of the cache: the two sum in other orders, so float32 roundings
+# (~1e-7) carried through 32 layers; a combine that drops or misweighs a
+# rank's partial is off by the whole attention output
+SPLITK_F32_REL = 1e-4
+# streamed / alpha-split products against the one-rank product (TF32 off):
+# tests/test_distributed.py's 1e-4, of max |ref|
+STREAM_TOL = 1e-4
+STREAM_SHAPES = ((4096, 11008), (11008, 4096))   # llama2-7b's up, down
+STREAM_ALPHAS = (0.0, 0.25, 0.5, 1.0)
+PIPE_MICRO, PIPE_MB, PIPE_SEQ = 4, 2, 256
+GRAD_REL = 0.05              # tests/test_distributed.py:135
+DIST_KERNELS = ("grouped_gemm", "int8_gemv", "int8_gemm_tc",
+                "flash_attention", "paged_decode_attention")
+
+
+def _dist_rank_stats(torch, mesh, t0) -> dict:
+    torch.cuda.synchronize()
+    return {"wall_s": time.monotonic() - t0, "moved": dict(mesh.moved),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _dist_replicated_agree(torch, params, mesh) -> tuple[int, int]:
+    """Every leaf that is not a rank's slice of the routed experts, this
+    rank's against rank 0's (a broadcast and a compare): (leaves, bytes)."""
+    from repro_torch.distributed.checkpoint import tree_leaves
+
+    leaves = []
+    for lp in [params] + params["layers"]:
+        for key, leaf in lp.items():
+            if key == "moe":
+                leaf = {k: leaf[k] for k in ("router", "shared")}
+            if key != "layers":
+                leaves += tree_leaves(leaf)
+    for t in leaves:
+        if not torch.equal(mesh.broadcast(t, "model", 0), t):
+            raise AssertionError(f"rank {mesh.coords}: a replicated leaf "
+                                 f"{tuple(t.shape)} differs from rank 0's")
+    return len(leaves), sum(t.numel() * t.element_size() for t in leaves)
+
+
+def _dist_prompts(vocab: int):
+    import numpy as np
+
+    return np.random.RandomState(11).randint(
+        0, vocab, (DIST_WAVE, DIST_PROMPT)).astype("int32")
+
+
+def _dist_wave(torch, params, cfg, toks, steps: int, max_seq: int, mesh=None,
+               forced=None):
+    """A wave prefill of ``toks`` then ``steps`` decode steps (greedy, or
+    fed ``forced`` [steps, B]) under ``lowering_ctx(mesh=mesh)``: (logits
+    [steps + 1, B, V] float32 on the host, the tokens fed [steps, B],
+    the cache)."""
+    from repro_torch.distributed import ctx
+    from repro_torch.models import model as M
+
+    cache = M.init_cache(cfg, toks.shape[0], max_seq, device=toks.device)
+    out, fed = [], []
+    with ctx.lowering_ctx(mesh=mesh):
+        lg, cache = M.prefill(params, cfg, toks, cache)
+        for i in range(steps + 1):
+            out.append(lg.float().cpu())
+            if i == steps:
+                break
+            tok = (forced[i].to(toks.device) if forced is not None
+                   else torch.argmax(lg, -1).to(torch.int32))
+            fed.append(tok.cpu())
+            lg, cache = M.decode_step(params, cfg, tok, cache)
+    return torch.stack(out), torch.stack(fed), cache
+
+
+def _dist_ep(torch, dev, mesh) -> dict:
+    """(a) qwen2-moe-a2.7b at full width, all 24 layers, W8A8 (the routed
+    experts bf16) as serve_moe quantizes it, each rank drawing every layer
+    from seed 0 and keeping ITS 32 of the 64 padded experts' stacks."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.sharding import P, local_shard
+    from repro_torch.kernels import profiling
+    from repro_torch.models import model as M
+    from repro_torch.quant.convert import quantize_params
+
+    cfg = get_arch(MOE_ARCH)
+
+    def finish(tree, stacked):
+        tree = quantize_params(tree, consume=True, mode="w8a8",
+                               _stacked=stacked)
+        if stacked:
+            moe = tree["moe"]
+            for k in ("up", "gate", "down"):
+                moe[k] = local_shard(moe[k], P("model", None, None),
+                                     mesh).clone()
+        return tree
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = M.init_params(cfg, seed=0, max_seq=1024, device=dev,
+                           finish=finish)
+    torch.cuda.synchronize()
+    out = {"build_s": time.monotonic() - t0,
+           "build_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "experts": params["layers"][0]["moe"]["up"].shape[0]}
+    out["agree"] = _dist_replicated_agree(torch, params, mesh)
+    toks = torch.from_numpy(_dist_prompts(cfg.vocab_size)).to(dev)
+    # the grouped GEMM's first prefill and first decode buffers (rows,
+    # group sizes), timed in the parent alone on the card
+    from repro_torch.models import moe as MOE
+
+    shapes, orig = [], MOE._expert_gemm
+
+    def record(p, xs, sizes, c):
+        if len(shapes) < 2 and all(xs.shape[0] != r for r, _ in shapes):
+            shapes.append((xs.shape[0], sizes.cpu()))
+        return orig(p, xs, sizes, c)
+
+    def run():
+        kernels.reset_launch_counts()
+        mesh.moved.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        logits, fed, _ = _dist_wave(torch, params, cfg, toks, DIST_STEPS,
+                                    DIST_PROMPT + DIST_STEPS + 16, mesh)
+        return (logits, fed, kernels.launch_counts(),
+                _dist_rank_stats(torch, mesh, t0))
+
+    MOE._expert_gemm = record
+    try:
+        runs = [run()]
+    finally:
+        MOE._expert_gemm = orig
+    runs.append(run())
+    out["shapes"] = shapes
+    out["logits"], out["tokens"], out["counts"], out["run"] = runs[0]
+    out["same_bits"] = torch.equal(runs[0][0], runs[1][0])
+    out["run2_wall_s"] = runs[1][3]["wall_s"]
+    # the grouped GEMM's device ms at the expert-parallel shapes: the
+    # prefill and one decode step, every rank the same calls (collectives)
+    from repro_torch.distributed import ctx
+
+    cache = M.init_cache(cfg, DIST_WAVE, DIST_PROMPT + 32, device=dev)
+    prof_ms = {}
+    with ctx.lowering_ctx(mesh=mesh):
+        for what, fn in (
+                ("prefill", lambda: M.prefill(params, cfg, toks, cache)),
+                ("decode step", lambda: M.decode_step(
+                    params, cfg, toks[:, -1], cache))):
+            fn()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            gg = [r for r in profiling.kernel_rows(prof)
+                  if KERNEL_NAMES["grouped_gemm"] in r[1]]
+            prof_ms[what] = (sum(r[0] for r in gg) / 1e3,
+                             sum(r[2] for r in gg))
+    out["grouped_profile"] = prof_ms
+    del params, cache
+    return out
+
+
+def _splitk_run(torch, params, cfg, toks, mesh, forced=None):
+    """A wave prefill of ``toks`` on the whole cache, this rank's
+    SPLITK_SEQ / 2 rows kept (``reshard_cache``), then SPLITK_STEPS
+    split-K decode steps, greedy or fed ``forced``: (logits [steps, B, V]
+    float32 on the host, the tokens fed, the local cache, its spec)."""
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed.elastic import reshard_cache
+    from repro_torch.models import model as M
+
+    dtype = params["embed"].dtype
+    cache = M.init_cache(cfg, toks.shape[0], SPLITK_SEQ, dtype=dtype,
+                         device=toks.device)
+    lg, cache = M.prefill(params, cfg, toks, cache)
+    mine = reshard_cache(cache, mesh, toks.shape[0])
+    local = {k: v.local.clone() for k, v in mine.items()}
+    del cache
+    logits, fed = [], []
+    with ctx.lowering_ctx(mesh=mesh):
+        for i in range(SPLITK_STEPS):
+            tok = (forced[i].to(toks.device) if forced is not None
+                   else torch.argmax(lg, -1).to(torch.int32))
+            fed.append(tok.cpu())
+            lg, local = M.decode_step(params, cfg, tok, local)
+            logits.append(lg.float().cpu())
+    return torch.stack(logits), torch.stack(fed), local, mine["k"].spec
+
+
+def _dist_splitk(torch, dev, mesh) -> dict:
+    """(b) smollm-360m at full width (15 heads over 5 kv heads: 5 % 2 != 0
+    takes the split-K branch), bf16, 32 layers: a wave of 4 prompts of
+    SPLITK_LENS tokens, left-padded to 512, into a 1,024-row cache, each
+    rank keeping its 512 rows, then SPLITK_STEPS greedy steps; then the
+    same weights in float32 through the same split-K path fed the same
+    tokens (the parent holds both to the one-process decode_step)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import tree_map
+
+    cfg = get_arch(SPLITK_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    mesh.moved.clear()
+    t0 = time.monotonic()
+    params = M.init_params(cfg, seed=0, max_seq=SPLITK_SEQ, device=dev)
+    toks = _splitk_prompts(torch, cfg).to(dev)
+    logits, fed, local, spec = _splitk_run(torch, params, cfg, toks, mesh)
+    out = {"logits": logits, "tokens": fed, "k": local["k"].cpu(),
+           "v": local["v"].cpu(), "spec": tuple(spec),
+           "len": int(local["len"]), **_dist_rank_stats(torch, mesh, t0)}
+    f32 = tree_map(lambda t: t.float(), params)
+    del params, local
+    out["f32_logits"], _, local, _ = _splitk_run(torch, f32, cfg, toks, mesh,
+                                                 forced=fed)
+    out["f32_k"], out["f32_v"] = local["k"].cpu(), local["v"].cpu()
+    return out
+
+
+def _unsharded_run(torch, params, cfg, toks, fed):
+    """The one-process ``decode_step`` beside the split-K ranks, on
+    ``toks``' device: a wave prefill of ``toks`` into a SPLITK_SEQ-row
+    cache in the params' dtype, then the ``fed`` tokens [steps, B]:
+    (logits [steps, B, V] float32, the cache's k / v, the k / v after the
+    prefill), on the host."""
+    from repro_torch.models import model as M
+
+    cache = M.init_cache(cfg, toks.shape[0], SPLITK_SEQ,
+                         dtype=params["embed"].dtype, device=toks.device)
+    _, cache = M.prefill(params, cfg, toks, cache)
+    pre = {k: cache[k].cpu() for k in ("k", "v")}
+    out = []
+    for tok in fed:
+        lg, cache = M.decode_step(params, cfg, tok.to(toks.device), cache)
+        out.append(lg.float().cpu())
+    return torch.stack(out), {k: cache[k].cpu() for k in ("k", "v")}, pre
+
+
+def _splitk_prompts(torch, cfg):
+    """SPLITK_LENS prompts left-padded with token 0 to the longest, as the
+    wave engine pads them."""
+    import numpy as np
+
+    rng = np.random.RandomState(12)
+    s = max(SPLITK_LENS)
+    rows = [[0] * (s - n) + [int(t) for t in rng.randint(1, cfg.vocab_size,
+                                                          n)]
+            for n in SPLITK_LENS]
+    return torch.tensor(rows, dtype=torch.int32)
+
+
+def _dist_prims(torch, dev, mesh, pod) -> dict:
+    """(c) the primitives at published widths: ``psum_compressed`` over
+    smollm-360m's float32 gradient tree (each rank its own batch);
+    ``streamed_matmul_chain`` / ``alpha_split_matmul`` over llama2-7b's
+    up and down weights (float32); ``pipelined_forward`` of smollm-360m
+    float32 in 2 stages of 16 layers."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.checkpoint import tree_leaves
+    from repro_torch.distributed.grad_compress import psum_compressed
+    from repro_torch.distributed.hybrid_stream import (alpha_split_matmul,
+                                                       streamed_matmul_chain)
+    from repro_torch.distributed.pipeline import pipelined_forward
+    from repro_torch.distributed.sharding import P, local_shard
+    from repro_torch.models import model as M
+    from repro_torch.training.train_loop import value_and_grad
+    import numpy as np
+
+    out = {}
+    cfg = get_arch(SPLITK_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, max_seq=PIPE_SEQ, device=dev,
+                           dtype=torch.float32)
+    toks = torch.from_numpy(np.random.RandomState(
+        20 + mesh.axis_index("data")).randint(
+            0, cfg.vocab_size, (2, 128)).astype("int32")).to(dev)
+    _, grads = value_and_grad(params, cfg, toks)
+    leaves = tree_leaves(grads)
+    del grads
+    mesh.moved.clear()
+    t0 = time.monotonic()
+    comp = [psum_compressed(g, "data", mesh) for g in leaves]
+    out["grad"] = _dist_rank_stats(torch, mesh, t0)
+    mesh.moved.clear()
+    t0 = time.monotonic()
+    mean = [mesh.psum(g, "data") * 0.5 for g in leaves]
+    out["grad_f32"] = _dist_rank_stats(torch, mesh, t0)
+    num = sum(float((c - m).double().pow(2).sum()) for c, m in zip(comp, mean))
+    den = sum(float(m.double().pow(2).sum()) for m in mean)
+    worst = max(float((c - m).norm() / m.norm().clamp_min(1e-30))
+                for c, m in zip(comp, mean))
+    out["grad_rel"], out["grad_worst_leaf"] = (num / den) ** 0.5, worst
+    out["grad_elems"] = sum(g.numel() for g in leaves)
+    del comp, mean, leaves
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    (d0, d1), (_, d2) = STREAM_SHAPES
+    w1 = torch.randn((d0, d1), generator=gen, device=dev) * d0 ** -0.5
+    w2 = torch.randn((d1, d2), generator=gen, device=dev) * d1 ** -0.5
+    x = torch.randn((4, d0), generator=gen, device=dev)
+    ref = (x @ w1) @ w2
+    shards = [local_shard(w, P("data", None), mesh).clone()
+              for w in (w1, w2)]
+    mesh.moved.clear()
+    t0 = time.monotonic()
+    y = streamed_matmul_chain(x, shards, mesh, "data")
+    out["chain"] = _dist_rank_stats(torch, mesh, t0)
+    out["chain_err"] = float((y - ref).abs().max() / ref.abs().max())
+    ref1 = x @ w1
+    out["alpha"] = {}
+    for a in STREAM_ALPHAS:
+        mesh.moved.clear()
+        t0 = time.monotonic()
+        y = alpha_split_matmul(x, shards[0], mesh, a)
+        out["alpha"][a] = (float((y - ref1).abs().max() / ref1.abs().max()),
+                           _dist_rank_stats(torch, mesh, t0))
+    del w1, w2, shards
+
+    n_stage = len(params["layers"]) // pod.axis_size("pod")
+    stage = pod.axis_index("pod")
+    mine = params["layers"][stage * n_stage:(stage + 1) * n_stage]
+    ptoks = torch.from_numpy(np.random.RandomState(21).randint(
+        0, cfg.vocab_size, (PIPE_MICRO * PIPE_MB, PIPE_SEQ)).astype(
+            "int32")).to(dev)
+    with torch.no_grad():
+        xs = M._embed(params, cfg, ptoks).reshape(
+            PIPE_MICRO, PIPE_MB, PIPE_SEQ, cfg.d_model)
+
+        def layer_fn(layers, h):
+            positions = M._positions(cfg, h)
+            for lp in layers:
+                h = M._dense_layer_full(lp, h, cfg, positions)[0]
+            return h
+
+        pod.moved.clear()
+        t0 = time.monotonic()
+        got = pipelined_forward(layer_fn, mine, xs, pod, "pod")
+        out["pipe"] = _dist_rank_stats(torch, pod, t0)
+        seq = torch.stack([layer_fn(params["layers"], x) for x in xs])
+        out["pipe_same_bits"] = torch.equal(got, seq)
+        whole = layer_fn(params["layers"], xs.reshape(-1, PIPE_SEQ,
+                                                      cfg.d_model))
+        out["pipe_whole_batch_err"] = float(
+            (got.reshape(whole.shape) - whole).abs().max())
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _dist_grouped_timing(torch, ranks, smi: str, tag: str) -> None:
+    """The grouped GEMM at the expert-parallel buffers rank 0 ran (its
+    first prefill buffer: 2,048 rows, the hits on its 32 experts first,
+    the dump rows past the groups' sum; its first decode buffer: 16
+    rows), at qwen2-moe-a2.7b's up (K 2048, N 1408) and down (K 1408,
+    N 2048) shapes, alone on the card (the ranks' profiles share it with
+    the other rank's kernels): checked against its plain version within
+    GG_TOL, the rows past the groups' sum 0; ms, device ms, the plain
+    version's ms and the library call's (``_grouped_library``) beside the
+    bound: the hit rows of x, the used experts' weights, the group sizes
+    and the whole output once; 2 hits K N operations."""
+    from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
+    from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    for rows, sizes in ranks[0]["ep"]["shapes"]:
+        sizes = sizes.to(torch.int32).cuda()
+        hits = int(sizes.sum())
+        used = int((sizes > 0).sum())
+        parts = []
+        for k, n in ((2048, 1408), (1408, 2048)):
+            x = torch.randn((rows, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            w = (torch.randn((len(sizes), k, n), generator=gen,
+                             device="cuda") * k ** -0.5).to(torch.bfloat16)
+            got = grouped_gemm(x, w, sizes)
+            ref = grouped_gemm_ref(x, w, sizes)
+            limit, covered = _grouped_limit(torch, x, w, sizes, ref)
+            err, _ = _check_grouped(torch, "grouped_gemm (expert-parallel)",
+                                    got, ref, limit, covered)
+            ms = time_ms(torch, lambda i: grouped_gemm(x, w, sizes))
+            dev_ms = profiled_ms(torch, lambda i: grouped_gemm(x, w, sizes),
+                                 [KERNEL_NAMES["grouped_gemm"]])
+            plain = time_ms(torch, lambda i: grouped_gemm_ref(x, w, sizes),
+                            iters=5)
+            lib_fn, lib_what = _grouped_library(torch, x, w, sizes, ref,
+                                                limit, covered)
+            lib = time_ms(torch, lambda i: lib_fn())
+            lib_dev = profiled_ms(torch, lambda i: lib_fn(), None)
+            b_ms, by = bound(2 * (hits * k + used * k * n + rows * n)
+                             + 4 * len(sizes), 2 * hits * k * n, "bf16")
+            parts.append(f"K {k} N {n}: max|err| {err:.3e}, {ms:.4f} ms, "
+                         f"device {dev_ms:.4f} (bound {b_ms:.4f}, {by}; "
+                         f"{100 * b_ms / dev_ms:.1f}%), plain {plain:.4f} "
+                         f"ms, library {lib:.4f} ms (device {lib_dev:.4f}; "
+                         f"{lib_what})")
+        log(f"[{tag}] grouped GEMM at the expert-parallel buffer of {rows} "
+            f"rows ({hits} hits on {used} of {len(sizes)} experts, "
+            f"{rows - hits} past the groups' sum, 0), alone on the card: "
+            + "; ".join(parts) + f" on {smi}")
+
+
+def _dist_rank(rank, dev):
+    """One rank of the distributed phase: (a), (b), (c) in turn."""
+    import torch
+
+    from repro_torch.distributed.mesh import Mesh
+
+    mesh = Mesh(DIST_MESH, ("data", "model"))
+    flat = Mesh((2,), ("data",))
+    pod = Mesh((2,), ("pod",))
+    res = {"ep": _dist_ep(torch, dev, mesh)}
+    torch.cuda.empty_cache()
+    res["splitk"] = _dist_splitk(torch, dev, mesh)
+    torch.cuda.empty_cache()
+    res["prims"] = _dist_prims(torch, dev, flat, pod)
+    return res
+
+
+def _dist_nccl_rank(rank, dev):
+    import torch
+
+    from repro_torch.distributed.mesh import Mesh
+
+    mesh = Mesh((2,), ("data",))
+    return mesh.psum(torch.full((4,), float(rank + 1), device=dev),
+                     "data").cpu()
+
+
+def phase_nccl_probe(torch) -> None:
+    """NCCL with two ranks on the one card (not in the default phases:
+    its answer is recorded in PERF.md): a psum over 2 spawned NCCL ranks,
+    accepted or refused, and the error text it was refused with."""
+    from repro_torch.distributed.mesh import run_spmd
+
+    tag = "nccl_probe"
+    try:
+        got = run_spmd(_dist_nccl_rank, 2, "nccl", "cuda", timeout=120,
+                       log=lambda m: log(f"[{tag}] {m}"))
+    except (torch.multiprocessing.ProcessRaisedException,
+            torch.multiprocessing.ProcessExitedException) as e:   # its answer
+        text = str(e)
+        lines = [ln for ln in text.splitlines()
+                 if "Duplicate" in ln or "NCCL" in ln or "Error" in ln]
+        msg = (lines[-1] if lines else text.splitlines()[-1]).strip()
+        log(f"[{tag}] nccl, 2 ranks on one card: refused: {msg[:400]}")
+        return
+    log(f"[{tag}] nccl, 2 ranks on one card: accepted (psum "
+        f"{got[0].tolist()})")
+
+
+def _max_rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_distributed(torch, smi: str) -> None:
+    """2 SPMD ranks on the one card (mesh (1, 2): ``data`` 1, ``model`` 2)
+    over gloo, through ``distributed.mesh.run_spmd`` (CUDA tensors staged
+    through the host for all_gather / ppermute).  (a) expert-parallel qwen2-moe-a2.7b at full
+    width, all 24 layers, W8A8 as serve_moe quantizes it, each rank
+    building every layer from seed 0 and keeping its 32 of the 64 padded
+    experts; replicated leaves equal across ranks (a broadcast and a
+    compare); a wave prefill of 4 prompts of 128 tokens and 16 greedy
+    decode steps under ``lowering_ctx(mesh=...)``, twice (the same bits);
+    gates: the grouped GEMM (3 a layer a step), B1, B2 and B3 launched on
+    every rank, the logits and greedy streams of the one-process local
+    path on the card (run after the ranks exit, fed the same tokens) bit
+    for bit.
+    (b) split-K decode of smollm-360m at full width (5 kv heads over 2),
+    each rank 512 of the cache's 1,024 rows, 4 prompts of 64-512 tokens,
+    32 greedy steps; gates, against the one-process unsharded
+    ``decode_step`` fed the same tokens, in bf16 on the card and in
+    float32 on the host (the same weights): the ranks' float32 split-K
+    logits and cache rows within SPLITK_F32_REL of the unsharded float32
+    run's; the bf16 split-K logits no farther from the unsharded float32 run than
+    MODEL_RATIO x the unsharded bf16 run (the model phase's rule); the
+    bf16 cache shards equal the unsharded cache's rows bit for bit where
+    both wrote the same inputs (every prefill row, layer 0's decode rows),
+    later layers' decode rows by the same MODEL_RATIO rule.
+    (c) ``psum_compressed`` over smollm-360m's float32 gradients
+    (< GRAD_REL of the float32 mean);
+    ``streamed_matmul_chain`` / ``alpha_split_matmul`` over llama2-7b's
+    4,096 x 11,008 and 11,008 x 4,096 (within STREAM_TOL of the one-rank
+    product); ``pipelined_forward`` of smollm-360m float32 in 2 stages of
+    16 layers (the sequential layers' bits).  Prints the walls, the bytes
+    each collective sent, each rank's peak memory, the grouped GEMM's
+    launches and device ms at the expert-parallel shapes."""
+    import gc
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.mesh import run_spmd
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import padded_experts
+    from repro_torch.serving.fleet.worker import build_params
+    from repro_torch.training.optimizer import tree_map
+
+    tag = "distributed"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    ranks = run_spmd(_dist_rank, 2, "gloo", "cuda", timeout=900,
+                     log=lambda m: log(f"[{tag}] {m}"))
+    t0 = _lap(tag, "2 ranks, (a) (b) (c)", t0)
+
+    # (a) expert-parallel qwen2-moe-a2.7b
+    ep = [r["ep"] for r in ranks]
+    mcfg = get_arch(MOE_ARCH)
+    per_run = 3 * mcfg.n_layers * (DIST_STEPS + 1)
+    e_loc = padded_experts(mcfg) // DIST_MESH[1]
+    for r, e in enumerate(ep):
+        missing = [k for k in DIST_KERNELS if e["counts"].get(k, 0) <= 0]
+        if missing or e["experts"] != e_loc or not e["same_bits"] \
+                or e["counts"]["grouped_gemm"] != per_run:
+            raise AssertionError(f"[{tag}] (a) rank {r}: launches "
+                                 f"{e['counts']}, {e['experts']} experts, "
+                                 f"two runs the same bits: {e['same_bits']}")
+        if not torch.equal(e["logits"], ep[0]["logits"]):
+            raise AssertionError(f"[{tag}] (a) rank {r}'s logits differ from "
+                                 f"rank 0's")
+        log(f"[{tag}] (a) rank {r}: built {mcfg.n_layers} layers with its "
+            f"{e_loc} of {padded_experts(mcfg)} experts in {e['build_s']:.1f} s (peak {e['build_peak_gb']:.2f} GB); "
+            f"{e['agree'][0]} replicated leaves ({e['agree'][1] / 1e9:.2f} "
+            f"GB) == rank 0's; run walls {e['run']['wall_s']:.2f} / "
+            f"{e['run2_wall_s']:.2f} s (prefill of 4 x 128 + 16 steps), peak "
+            f"{e['run']['peak_gb']:.2f} GB; sent {e['run']['moved']} bytes; "
+            f"launches " + ", ".join(f"{k} {e['counts'][k]}"
+                                     for k in DIST_KERNELS)
+            + f"; grouped GEMM in the ranks' profile (the other rank's "
+              f"kernels share the card): " + ", ".join(
+                  f"{w} {v[0]:.4f} device ms in {v[1]} launches"
+                  for w, v in e["grouped_profile"].items()) + f" on {smi}")
+    t1 = time.monotonic()
+    cfg, params = build_params(MOE_ARCH, reduced=False, quant="w8a8",
+                               max_seq=1024)
+    toks = torch.from_numpy(_dist_prompts(cfg.vocab_size)).cuda()
+    local, _, _ = _dist_wave(torch, params, cfg, toks, DIST_STEPS,
+                             DIST_PROMPT + DIST_STEPS + 16,
+                             forced=ep[0]["tokens"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = _max_rel(ep[0]["logits"], local)
+    same = torch.equal(ep[0]["logits"], local)
+    greedy = torch.equal(ep[0]["tokens"],
+                         torch.argmax(local[:-1], -1).to(torch.int32))
+    log(f"[{tag}] (a) vs the one-process local path on the card (built and "
+        f"run in {time.monotonic() - t1:.1f} s, fed the ranks' tokens): "
+        f"logits bit for bit {same} (max |dlogit| / max |logit| {rel:.3e}); "
+        f"the 4 greedy streams equal {greedy}")
+    if not same or not greedy:
+        raise AssertionError(f"[{tag}] (a) expert-parallel vs local: rel "
+                             f"{rel:.3e}, streams equal {greedy}")
+    t0 = _lap(tag, "(a) local path", t0)
+
+    # (b) split-K decode of smollm-360m
+    sk = [r["splitk"] for r in ranks]
+    scfg = get_arch(SPLITK_ARCH)
+    sparams = M.init_params(scfg, seed=0, max_seq=SPLITK_SEQ)
+    stoks = _splitk_prompts(torch, scfg).cuda()
+    plain, whole, pre = _unsharded_run(torch, sparams, scfg, stoks,
+                                       sk[0]["tokens"])
+    # the float32 yardstick on the host, as the model phase's (B1 takes
+    # bf16 on the card): the same weights, the plain versions
+    sparams = tree_map(lambda t: t.float().cpu(), sparams)
+    t1 = time.monotonic()
+    ref, whole32, _ = _unsharded_run(torch, sparams, scfg, stoks.cpu(),
+                                     sk[0]["tokens"])
+    t_host = time.monotonic() - t1
+    del sparams
+    # the split-K combine in float32, against the unsharded float32 path
+    rel32 = _max_rel(sk[0]["f32_logits"], ref)
+    # the model phase's rule: the split-K bf16 logits no farther from the
+    # unsharded float32 run than MODEL_RATIO x the unsharded bf16 run's
+    # own distance, over the steps
+    d_split = (sk[0]["logits"] - ref).abs().amax(dim=(1, 2))
+    d_plain = (plain - ref).abs().amax(dim=(1, 2))
+    ratio = float(d_split.max() / d_plain.max().clamp_min(1e-30))
+    rel = _max_rel(sk[0]["logits"], plain)
+    s_loc = SPLITK_SEQ // 2
+    pos = max(SPLITK_LENS)
+    for r, s in enumerate(sk):
+        if s["spec"] != (None, "data", "model", None, None) or \
+                s["len"] != pos + SPLITK_STEPS or \
+                not torch.equal(s["logits"], sk[0]["logits"]) or \
+                not torch.equal(s["f32_logits"], sk[0]["f32_logits"]):
+            raise AssertionError(f"[{tag}] (b) rank {r}: spec {s['spec']}, "
+                                 f"len {s['len']}, logits as rank 0's")
+        rows = slice(r * s_loc, (r + 1) * s_loc)
+        n_pre = max(0, min(s_loc, pos - r * s_loc))
+        n_dec = min(s_loc - n_pre, SPLITK_STEPS)
+        dec = slice(n_pre, n_pre + n_dec)
+        worst, worst32 = 0.0, 0.0
+        for key in ("k", "v"):
+            shard, own16 = s[key], whole[key][:, :, rows]
+            own32 = whole32[key][:, :, rows]
+            exact = torch.equal(shard[:, :, :n_pre],
+                                pre[key][:, :, rows][:, :, :n_pre]) and \
+                torch.equal(shard[0], own16[0]) and \
+                torch.equal(shard[:, :, n_pre + n_dec:],
+                            own16[:, :, n_pre + n_dec:])
+            r32 = _max_rel(s[f"f32_{key}"], own32)
+            worst32 = max(worst32, r32)
+            # the decode rows of later layers: MODEL_RATIO, as the logits
+            far = float((shard[:, :, dec].float() - own32[:, :, dec])
+                        .abs().max()) if n_dec else 0.0
+            near = float((own16[:, :, dec].float() - own32[:, :, dec])
+                         .abs().max()) if n_dec else 0.0
+            worst = max(worst, far / max(near, 1e-30) if n_dec else 0.0)
+            if not exact or far > MODEL_RATIO * near or \
+                    r32 > SPLITK_F32_REL:
+                raise AssertionError(
+                    f"[{tag}] (b) rank {r} {key} rows: exact {exact}, "
+                    f"split-K {far:.3e} / unsharded {near:.3e} from the "
+                    f"unsharded float32 rows; float32 split-K rows "
+                    f"{r32:.3e} of max |row| from them")
+        written = (f"layer 0's {n_dec} decode rows bit for bit, later "
+                   f"layers' within {worst:.3f} x the unsharded rows' "
+                   f"distance from the unsharded float32 rows"
+                   if n_dec else "no decode rows")
+        log(f"[{tag}] (b) rank {r}: cache rows {rows.start}-{rows.stop - 1} "
+            f"of {SPLITK_SEQ}: {n_pre} prefill rows bit for bit, {written}; "
+            f"float32 split-K rows within {worst32:.3e} of max |row| of the "
+            f"unsharded float32 rows (limit {SPLITK_F32_REL}); prefill + "
+            f"{SPLITK_STEPS} steps {s['wall_s']:.2f} s, peak "
+            f"{s['peak_gb']:.2f} GB, sent {s['moved']} bytes on {smi}")
+    greedy = torch.equal(torch.argmax(plain, -1).to(torch.int32)[:-1],
+                         sk[0]["tokens"][1:])
+    log(f"[{tag}] (b) split-K vs the unsharded decode_step on the card over "
+        f"{SPLITK_STEPS} steps: float32 split-K logits within {rel32:.3e} "
+        f"of max |logit| of the unsharded float32 run (limit "
+        f"{SPLITK_F32_REL}); from the unsharded float32 run: split-K bf16 "
+        f"{float(d_split.max()):.3e}, unsharded bf16 "
+        f"{float(d_plain.max()):.3e}, ratio {ratio:.3f} (limit "
+        f"{MODEL_RATIO}; at step 0 {float(d_split[0]):.3e} / "
+        f"{float(d_plain[0]):.3e}); bf16 split-K vs unsharded bf16 max "
+        f"|dlogit| / max |logit| {rel:.3e} and greedy tokens equal {greedy} "
+        f"(not gated); the host's float32 run {t_host:.1f} s")
+    if ratio > MODEL_RATIO or rel32 > SPLITK_F32_REL:
+        raise AssertionError(f"[{tag}] (b) split-K logits {ratio:.3f} x the "
+                             f"unsharded bf16 run's distance from the "
+                             f"unsharded float32 run; float32 split-K "
+                             f"{rel32:.3e} of max |logit| from it")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _dist_grouped_timing(torch, ranks, smi, tag)
+
+    # (c) primitives
+    for r, p in enumerate(r["prims"] for r in ranks):
+        bad = [a for a, (err, _) in p["alpha"].items() if err > STREAM_TOL]
+        if p["grad_rel"] >= GRAD_REL or p["chain_err"] > STREAM_TOL or bad \
+                or not p["pipe_same_bits"]:
+            raise AssertionError(f"[{tag}] (c) rank {r}: grad rel "
+                                 f"{p['grad_rel']:.3e}, chain "
+                                 f"{p['chain_err']:.3e}, alphas over "
+                                 f"{bad}, pipeline bits "
+                                 f"{p['pipe_same_bits']}")
+        log(f"[{tag}] (c) rank {r}: psum_compressed over {p['grad_elems']:,} "
+            f"gradient elements rel {p['grad_rel']:.4e} (worst leaf "
+            f"{p['grad_worst_leaf']:.4e}; limit {GRAD_REL}) in "
+            f"{p['grad']['wall_s']:.3f} s, sent {p['grad']['moved']} bytes "
+            f"(float32 psum: {p['grad_f32']['wall_s']:.3f} s, "
+            f"{p['grad_f32']['moved']}); streamed chain 4096 x 11008 x 4096 "
+            f"rel {p['chain_err']:.2e} in {p['chain']['wall_s'] * 1e3:.2f} "
+            f"ms, sent {p['chain']['moved']}; alpha split "
+            + ", ".join(f"{a}: rel {err:.2e} {st['wall_s'] * 1e3:.2f} ms "
+                        f"{st['moved']}" for a, (err, st) in p["alpha"].items())
+            + f"; pipeline 2 x 16 layers, {PIPE_MICRO} microbatches of "
+              f"{PIPE_MB} x {PIPE_SEQ}: the sequential bits "
+              f"{p['pipe_same_bits']} (whole-batch forward differs by "
+              f"{p['pipe_whole_batch_err']:.2e}) in "
+              f"{p['pipe']['wall_s']:.2f} s, sent {p['pipe']['moved']}; peak "
+              f"{p['peak_gb']:.2f} GB on {smi}")
+    _lap(tag, "(b), (c) gates", t0)
+
+
 DENSE_ARCHS = ("chatglm3-6b", "internlm2-20b", "llama2-70b",
                "command-r-plus-104b")
 DENSE_CPU_LAYERS = 2   # the CPU gate's depth (full width)
@@ -6832,7 +7544,7 @@ def main(argv=None) -> int:
                             "serve_overlap,serve_chunked,serve_int8kv,"
                             "serve_tiered,serve_prefix,serve_migrate,"
                             "serve_fleet,serve_wave,serve_moe,"
-                            "serve_dense,serve_mla,serve_vlm")
+                            "distributed,serve_dense,serve_mla,serve_vlm")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -6914,6 +7626,11 @@ def main(argv=None) -> int:
     _mark("serve_moe")
     if "serve_moe" in phases:
         counts["serve_moe"] = phase_serve_moe(torch, smi_line)
+    _mark("distributed")
+    if "distributed" in phases:
+        phase_distributed(torch, smi_line)
+    if "nccl_probe" in phases:
+        phase_nccl_probe(torch)
     _mark("serve_dense")
     if "serve_dense" in phases:
         # command-r-plus-104b's build leaves ~6 GB of the card beside its

@@ -3,7 +3,9 @@
 Entry points default to ``device="cuda"`` and raise when no card is
 present: nothing falls back to the CPU quietly.  The CPU is used only when
 a caller asks for it (``device="cpu"``), and there every kernel wrapper
-takes its plain PyTorch version.
+takes its plain PyTorch version.  ``device="meta"`` builds shapes only
+(``init_params`` / ``init_cache`` for the sharding rules); nothing runs
+there.
 """
 
 from __future__ import annotations
@@ -21,6 +23,6 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         # float32 products outside the kernels (the lm_head) run in full
         # float32, as the JAX reference computes them
         torch.backends.cuda.matmul.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     return dev

@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import ctx
+from repro_torch.distributed.sharding import P, gather_shard, local_shard
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       paged_chunk_attention,
                                                       paged_decode_attention)
@@ -106,7 +108,11 @@ def attn_full(params: dict, x: torch.Tensor, cfg: ModelConfig,
                                          cfg.d_head)
     if kv_override is None:
         q, k = _rope_qk(cfg, q, k, positions)
+    q = ctx.constrain(q, kind="heads")
+    k = ctx.constrain(k, kind="heads")
+    v = ctx.constrain(v, kind="heads")
     out = flash_attention(q, k, v, causal=causal and kv_override is None)
+    out = ctx.constrain(out, kind="heads")
     out = linear(params["o"], out.reshape(b, s, -1))
     return out, k, v
 
@@ -132,6 +138,72 @@ def attn_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     lengths = (pos + 1).to(torch.int32).reshape(1).expand(b).contiguous()
     out = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, lengths)
     return linear(params["o"], out.reshape(b, -1))
+
+
+# ---------------------------------------------------------------------------
+# split-K decode attention over the model axis (flash-decoding)
+# ---------------------------------------------------------------------------
+#
+# Each model rank owns S / n of the sequence of every wave-cache row,
+# performs the new token's K/V write only if the position lands in its
+# slice, computes its partial online softmax, and the ranks combine with
+# small (m, l, o) reductions (JAX ``attn_decode_sharded``).
+
+NEG_INF = -1e30
+
+
+def attn_decode_sharded(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                        k_cache: torch.Tensor, v_cache: torch.Tensor,
+                        pos: torch.Tensor, mesh, batch_axes) -> torch.Tensor:
+    """Split-K decode attention on one rank.  x: [B, D], the same on every
+    rank; k/v_cache: this rank's slice of the layer's wave cache [B, Smax,
+    Hkv, Dh] under ``P(batch_axes, "model", None, None)`` (the rows of
+    its batch slice, the sequence rows ``[i S/n, (i+1) S/n)`` of model
+    index i), written IN PLACE; pos: int32 [] on the device.
+
+    The rank that owns ``pos`` writes the new K/V there (a clamped index
+    and ``torch.where``, no host read); every rank computes its float32
+    partial (m, l, o) over its rows (plain torch: JAX computes this part in
+    jnp, outside any Pallas kernel), combined by ``pmax`` and two
+    ``psum``s over ``model``; the batch slices are gathered back over
+    ``batch_axes``.  Returns out [B, D]."""
+    b = x.shape[0]
+    q = linear(params["q"], x).reshape(b, 1, cfg.n_heads, cfg.d_head)
+    k = linear(params["k"], x).reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
+    v = linear(params["v"], x).reshape(b, 1, cfg.n_kv_heads, cfg.d_head)
+    q, k = _rope_qk(cfg, q, k,
+                    _decode_positions(cfg, pos.reshape(1, 1).expand(b, 1)))
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    bspec = P(batch_axes, None, None, None)
+    qb, kb, vb = (local_shard(t, bspec, mesh) for t in (q, k, v))
+    s_loc = k_cache.shape[1]
+    s0 = mesh.axis_index("model") * s_loc
+    p = pos.reshape(1).long()
+    idx = torch.clamp(p - s0, 0, s_loc - 1)
+    in_range = (p >= s0) & (p < s0 + s_loc)
+    for cache, new in ((k_cache, kb), (v_cache, vb)):
+        cur = cache.index_select(1, idx)
+        cache.index_copy_(1, idx, torch.where(in_range, new.to(cache.dtype),
+                                              cur))
+    # local online softmax over this rank's sequence slice; GQA by a
+    # grouped einsum (no repeated cache)
+    bq = qb[:, 0].reshape(qb.shape[0], cfg.n_kv_heads, n_rep, cfg.d_head)
+    s = torch.einsum("bgrd,bsgd->bgrs", bq.float(),
+                     k_cache.float()) * (cfg.d_head ** -0.5)
+    valid = (s0 + torch.arange(s_loc, device=x.device)) < (p + 1)
+    s = torch.where(valid, s, NEG_INF)
+    m_loc = s.amax(-1)                                 # [B, G, R]
+    p_exp = torch.exp(s - m_loc[..., None])
+    l_loc = p_exp.sum(-1)
+    o_loc = torch.einsum("bgrs,bsgd->bgrd", p_exp, v_cache.float())
+    m = mesh.pmax(m_loc, "model")
+    scale = torch.exp(m_loc - m)
+    l = mesh.psum(l_loc * scale, "model")
+    o = mesh.psum(o_loc * scale[..., None], "model")
+    o = o / torch.clamp_min(l, 1e-20)[..., None]
+    o = o.reshape(o.shape[0], cfg.n_heads * cfg.d_head).to(x.dtype)
+    out = gather_shard(o, P(batch_axes, None), mesh)
+    return linear(params["o"], out)
 
 
 def cross_attn_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -85,6 +85,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import ctx as dist_ctx
+from repro_torch.distributed.sharding import batch_pspec
 from repro_torch.models import blocks
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -175,7 +177,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, max_seq: int = 4096,
     order do not depend on it."""
     _check_family(cfg, MODEL_FAMILIES)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    # the meta device has no generator; its draws are shapes only
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
     fin = finish or (lambda tree, stacked: tree)
 
@@ -255,13 +258,15 @@ def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     the batch)."""
     head = params.get("lm_head")
     if head is not None and "w_p4" in head:
-        return fixed_row_apply(lambda rows: _w4a16_matmul(
+        logits = fixed_row_apply(lambda rows: _w4a16_matmul(
             head["w_p4"], head["scale4"], rows, torch.float32), x)
-    xf = x.float()
-    return torch.cat(
-        [fixed_row_matmul(xf, _head_block(params, cfg, v0, min(
-            v0 + LM_HEAD_BLOCK, cfg.vocab_size)))
-         for v0 in range(0, cfg.vocab_size, LM_HEAD_BLOCK)], dim=-1)
+    else:
+        xf = x.float()
+        logits = torch.cat(
+            [fixed_row_matmul(xf, _head_block(params, cfg, v0, min(
+                v0 + LM_HEAD_BLOCK, cfg.vocab_size)))
+             for v0 in range(0, cfg.vocab_size, LM_HEAD_BLOCK)], dim=-1)
+    return dist_ctx.constrain(logits, kind="logits")
 
 
 # ---------------------------------------------------------------------------
@@ -346,11 +351,12 @@ class _EmbedLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (tokens,) = ctx.saved_tensors
+        ct = dist_ctx.constrain(ct.float())
         g = torch.zeros(ctx.embed_shape, dtype=torch.float32,
                         device=ct.device)
-        g.index_put_((tokens.reshape(-1),),
-                     ct.float().reshape(-1, ct.shape[-1]), accumulate=True)
-        return g.to(ctx.embed_dtype), None
+        g.index_put_((tokens.reshape(-1),), ct.reshape(-1, ct.shape[-1]),
+                     accumulate=True)
+        return dist_ctx.constrain(g, kind="embed").to(ctx.embed_dtype), None
 
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -384,8 +390,10 @@ def _encode_audio(params, cfg: ModelConfig,
     x = frames + params["enc_pos"][None, :frames.shape[1]]
     pos = _positions(cfg, x)
     enc_cfg = dataclasses.replace(cfg, rope_mode="none")
+    step = dist_ctx.maybe_remat(
+        lambda h, lp: _dense_layer_full(lp, h, enc_cfg, pos, causal=False)[0])
     for lp in params["enc_layers"]:
-        x, _ = _dense_layer_full(lp, x, enc_cfg, pos, causal=False)
+        x = dist_ctx.constrain(step(x, lp))
     return blocks.norm(cfg, params["enc_final_norm"], x)
 
 
@@ -405,28 +413,40 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     ``extras["vision_embeds"]``: the vlm family's, whose rows lead the
     returned logits."""
     _check_family(cfg, MODEL_FAMILIES)
-    x = _embed(params, cfg, tokens, extras)
+    x = dist_ctx.constrain(_embed(params, cfg, tokens, extras))
     positions = _positions(cfg, x)
+
+    def layers(apply, stack):
+        """Each layer of ``stack`` through ``apply(lp, h) -> (h, _)``,
+        under ``maybe_remat``, the residual constrained after it (the JAX
+        scans' bodies)."""
+        h = x
+        step = dist_ctx.maybe_remat(lambda h, lp: apply(lp, h)[0])
+        for lp in stack:
+            h = dist_ctx.constrain(step(h, lp))
+        return h
+
     if cfg.family in ("dense", "vlm", "moe"):
-        for lp in params["layers"]:
-            x, _ = _dense_layer_full(lp, x, cfg, positions)
+        x = layers(lambda lp, h: _dense_layer_full(lp, h, cfg, positions),
+                   params["layers"])
     elif cfg.family == "mla_moe":
-        for lp in _mla_stack(params):
-            x, _ = _mla_layer_full(lp, x, cfg, positions)
+        x = layers(lambda lp, h: _mla_layer_full(lp, h, cfg, positions),
+                   _mla_stack(params))
     elif cfg.family == "audio":
         enc_out = _encode_audio(params, cfg, extras["frames"])
-        for lp in params["layers"]:
-            x, _ = _audio_dec_layer_full(lp, x, cfg, positions, enc_out)
+        x = layers(lambda lp, h: _audio_dec_layer_full(lp, h, cfg, positions,
+                                                       enc_out),
+                   params["layers"])
     elif cfg.family == "hybrid":
         for gp in params["groups"]:
             for lp in gp:
                 x, _ = _mamba_full(lp, x, cfg)
             x, _ = _dense_layer_full(params["shared"], x, cfg, positions)
+            x = dist_ctx.constrain(x)
         for lp in params.get("tail") or ():
             x, _ = _mamba_full(lp, x, cfg)
     else:  # ssm
-        for lp in params["layers"]:
-            x, _ = _mamba_full(lp, x, cfg)
+        x = layers(lambda lp, h: _mamba_full(lp, h, cfg), params["layers"])
     x = blocks.norm(cfg, params["final_norm"], x)
     return lm_head(params, cfg, x)
 
@@ -624,7 +644,15 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     mla_moe's compressed rows; audio's cross-attention over all
     encoder_seq rows).  Nothing here reads a device value on the
     host, so the step can be captured as a CUDA graph.  Returns (logits
-    [B, V], a shallow copy of the cache with ``len`` + 1)."""
+    [B, V], a shallow copy of the cache with ``len`` + 1).
+
+    Under ``distributed.ctx.lowering_ctx(mesh=...)`` with a ``model``
+    axis whose size does not divide the kv heads (dense, vlm, moe), the
+    attention is split-K (``blocks.attn_decode_sharded``, JAX's branch):
+    ``cache["k"]`` / ``["v"]`` are then this rank's slices under
+    ``P(None, batch_axes, "model", None, None)`` (what ``cache_pspec`` /
+    ``elastic.reshard_cache`` give where the batch takes the data axes);
+    a moe layer runs expert-parallel under any mesh with ``model``."""
     _check_family(cfg, MODEL_FAMILIES)
     x = params["embed"][token.long()]
     pos = cache["len"]
@@ -632,9 +660,20 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         x = x + params["pos_embed"].index_select(0, pos.reshape(1).long())
     f = cfg.family
     if f in ("dense", "vlm", "moe"):
-        for li, lp in enumerate(params["layers"]):
-            x = _dense_layer_wave(lp, x, cfg, cache["k"][li], cache["v"][li],
-                                  pos)
+        mesh = dist_ctx.mesh()
+        if mesh is not None and "model" in mesh.shape \
+                and cfg.n_kv_heads % mesh.shape["model"] != 0:
+            # split-K: this rank's cache slices, combined over ``model``
+            batch_axes = batch_pspec(mesh, x.shape[0], 1)[0]
+            for li, lp in enumerate(params["layers"]):
+                hn = blocks.norm(cfg, lp["attn_norm"], x)
+                x = _residual(lp, x, hn, blocks.attn_decode_sharded(
+                    lp["attn"], hn, cfg, cache["k"][li], cache["v"][li], pos,
+                    mesh, batch_axes), cfg)
+        else:
+            for li, lp in enumerate(params["layers"]):
+                x = _dense_layer_wave(lp, x, cfg, cache["k"][li],
+                                      cache["v"][li], pos)
     elif f == "mla_moe":
         for li, lp in enumerate(_mla_stack(params)):
             hn = blocks.norm(cfg, lp["attn_norm"], x)

@@ -1,11 +1,39 @@
 """Mixture-of-Experts layer: top-k routing and the grouped GEMM over the
 routed experts, plus the shared experts.
 
-Counterpart of ``repro.models.moe``'s local path (no mesh): the (token,
-slot) pairs are sorted by expert and go through one grouped GEMM per
-stacked weight (``jax.lax.ragged_dot`` in JAX; the hand-written
-``kernels/grouped_gemm`` kernel on CUDA), formula for formula.  The
-expert-parallel ``shard_map`` path is not ported (the port has no mesh).
+Counterpart of ``repro.models.moe``, formula for formula, with its two
+execution paths:
+
+* **Local** (no mesh): the (token, slot) pairs are sorted by expert and go
+  through one grouped GEMM per stacked weight (``jax.lax.ragged_dot`` in
+  JAX; the hand-written ``kernels/grouped_gemm`` kernel on CUDA).
+
+* **Expert-parallel** (a mesh with a ``model`` axis in
+  ``distributed.ctx``): each model rank holds ITS ``e / n`` experts'
+  stacks only (the slice ``P("model", None, None)`` of ``up`` / ``gate``
+  / ``down``; the router and the shared experts whole), takes its tokens'
+  slice over the data axes (``batch_pspec``), sorts the (token, slot)
+  pairs that hit its experts into a fixed ``capacity``-bounded buffer
+  (hits first, the dump bucket last: 2x balanced load, floored at 64,
+  capped at n k), runs the grouped GEMM over its local experts (rows past
+  the groups' sum come back 0), and combines the weighted rows of every
+  model rank; the data slices are gathered back, so every rank returns
+  the whole [B, S, D] (JAX's ``shard_map`` body, run by every rank on its
+  slice).
+
+  Two choices differ from JAX's body and make the expert-parallel output
+  the local path's bits on any number of ranks (JAX's differ from its
+  local path by rounding): each rank's ``[capacity, D]`` buffer rows are
+  all-gathered over ``model`` with their (token, slot) pair index and
+  router weight and put in place in a float32 ``[n k, D]`` (one rank
+  holds each pair: no sum), and a token's k outputs are then summed in
+  slot order, as ``_moe_local`` sums them (JAX scatter-adds into
+  ``[n, D]`` and psums partial sums in x's dtype: another order); and the
+  routed sum stays float32 until the shared experts are added (JAX's body
+  returns x's dtype, a second bf16 rounding).  A rank receives
+  ``n_ranks x capacity`` rows of the buffer's dtype (about 2 n k at the
+  2x capacity; n k on 2 ranks) where JAX's all-reduce moves about 2 n
+  rows.  No sum depends on the backend or on atomics.
 
 Nothing here reads a device value on the host: the group sizes are counted
 with ``scatter_add_`` into a fixed ``[E]`` tensor and read by the kernel on
@@ -28,9 +56,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import ctx
+from repro_torch.distributed.sharding import (batch_pspec, gather_shard,
+                                              local_shard)
 from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
 from repro_torch.models.layers import (ffn, fixed_row_matmul, init_ffn,
                                        init_linear)
+
+
+CAPACITY_FACTOR = 2.0
 
 
 def padded_experts(cfg: ModelConfig, divisor: int = 16) -> int:
@@ -120,12 +154,69 @@ def _moe_local(params: dict, xt: torch.Tensor, cfg: ModelConfig,
     return y
 
 
+def _moe_expert_parallel(params: dict, xt: torch.Tensor, cfg: ModelConfig,
+                         e: int, mesh) -> torch.Tensor:
+    """float32 [n, D] on one (data, model) rank: xt this rank's tokens
+    [n, D]; the expert stacks this rank's slices [e_loc, ...]."""
+    n, d = xt.shape
+    k = cfg.top_k
+    e_loc = params["up"].shape[0]
+    n_shards = e // e_loc
+    e0 = mesh.axis_index("model") * e_loc
+    topi, probs = _route(params, xt, cfg, e)   # the router is replicated
+    flat = topi.reshape(-1)                    # [n k] global expert ids
+    local_e = flat - e0
+    mine = (local_e >= 0) & (local_e < e_loc)
+    sort_key = torch.where(mine, local_e, e_loc)   # dump bucket sorts last
+    # 2x balanced load, floored at 64 so small/imbalanced batches (decode,
+    # randomly-initialized routers) never drop; capped at n k (zero drops)
+    capacity = max(int(-(-n * k * CAPACITY_FACTOR // n_shards)), 64)
+    capacity = min(capacity, n * k)
+    order = torch.sort(sort_key, stable=True).indices[:capacity]
+    key_sel = sort_key.index_select(0, order)
+    token_idx = torch.div(order, k, rounding_mode="floor")
+    xs = xt.index_select(0, token_idx)
+    group_sizes = torch.zeros((e_loc + 1,), dtype=torch.int32,
+                              device=xt.device)
+    group_sizes.scatter_add_(0, key_sel, torch.ones_like(key_sel,
+                                                         dtype=torch.int32))
+    ye = _expert_gemm(params, xs.contiguous(), group_sizes[:e_loc], cfg)
+    # each (token, slot) pair's row is held by one rank: every rank's
+    # buffer rows are gathered with their pair index and weight and put
+    # in place, the dump rows (past the groups' sum) sent to a spare row
+    # past the pairs, as JAX's mask drops them; then the slots in order,
+    # as ``_moe_local`` sums them: the local path's bits on any number of
+    # ranks
+    dest = torch.where(key_sel < e_loc, order, n * k)
+    w = probs.reshape(-1).index_select(0, order)
+    meta = mesh.all_gather(torch.stack([dest.double(), w.double()], 1),
+                           "model").reshape(-1, 2)
+    rows = mesh.all_gather(ye, "model").reshape(-1, d)
+    pairs = torch.zeros((n * k + 1, d), dtype=torch.float32,
+                        device=xt.device)
+    pairs.index_copy_(0, meta[:, 0].long(),
+                      rows.float() * meta[:, 1:].float())
+    pairs = pairs[:n * k].reshape(n, k, d)
+    y = pairs[:, 0]
+    for j in range(1, k):
+        y = y + pairs[:, j]
+    return y
+
+
 def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: [B, S, D] -> [B, S, D] in x's dtype."""
+    """x: [B, S, D] -> [B, S, D] in x's dtype (expert-parallel under a
+    mesh: the expert stacks are this rank's slices)."""
     b, s, d = x.shape
-    e = params["up"].shape[0]
+    mesh = ctx.mesh()
     xt = x.reshape(-1, d)
-    y = _moe_local(params, xt, cfg, e)
+    if mesh is not None and "model" in mesh.shape:
+        e = params["up"].shape[0] * mesh.shape["model"]
+        spec = batch_pspec(mesh, b, 3)
+        xloc = local_shard(x, spec, mesh)
+        y = _moe_expert_parallel(params, xloc.reshape(-1, d), cfg, e, mesh)
+        y = gather_shard(y.reshape(xloc.shape), spec, mesh).reshape(-1, d)
+    else:
+        y = _moe_local(params, xt, cfg, params["up"].shape[0])
     if "shared" in params:
         y = y + _shared_ffn(params, xt, cfg).float()
     return y.to(x.dtype).reshape(b, s, d)

@@ -2017,3 +2017,80 @@ def test_families_without_a_backward_refuse_to_train_on_card(cuda_device):
     toks = torch.zeros((2, 16), dtype=torch.int32, device=cuda_device)
     with pytest.raises(NotImplementedError, match="grouped GEMM"):
         make_train_step(cfg)(params, init_adamw(params), toks)
+
+
+# ------------------------------------------ expert-parallel MoE on two ranks
+@pytest.mark.gpu
+def test_grouped_gemm_rows_past_the_groups_are_zero_on_card(cuda_device):
+    """An expert-parallel capacity buffer at qwen2-moe-a2.7b's up shape:
+    2,048 rows, 1,000 of them in 32 groups, the rest the dump bucket past
+    the groups' sum; the output's memory filled with NaN first (freed, so
+    the wrapper's ``torch.empty`` takes it back): the dump rows come back
+    0 (``ragged_dot``'s), so a masked row is ``0 * w * 0``, never NaN."""
+    from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
+
+    r, k, n = 2048, 2048, 1408
+    gen = torch.Generator().manual_seed(5)
+    cuts = torch.sort(torch.randint(0, 1001, (31,), generator=gen)).values
+    sizes = torch.diff(torch.cat([torch.tensor([0]), cuts,
+                                  torch.tensor([1000])])).to(torch.int32)
+    x = torch.randn((r, k), device=cuda_device).to(torch.bfloat16)
+    w = (torch.randn((32, k, n), device=cuda_device) * k ** -0.5).to(
+        torch.bfloat16)
+    for _ in range(3):
+        junk = torch.full((r, n), float("nan"), dtype=torch.bfloat16,
+                          device=cuda_device)
+        del junk
+        got = grouped_gemm(x, w, sizes.to(cuda_device))
+        torch.cuda.synchronize()
+        assert not bool(got[1000:].any())
+        assert bool(torch.isfinite(got).all())
+
+
+def _ep_rank(rank, dev):
+    """qwen2-moe-a2.7b.reduced() at the full config's top-4, bf16, on a
+    (1, 2) mesh: this rank's experts against the local path over all of
+    them, twice."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.sharding import P, local_shard
+    from repro_torch.models import moe as MOE
+    from repro_torch.training.optimizer import tree_map
+
+    mesh = Mesh((1, 2), ("data", "model"))
+    cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b").reduced(),
+                              top_k=get_arch("qwen2-moe-a2.7b").top_k)
+    gen = torch.Generator().manual_seed(4)
+    p = MOE.init_moe(gen, cfg, torch.bfloat16, torch.device("cpu"))
+    x = torch.randn((4, 64, cfg.d_model), generator=gen).to(torch.bfloat16)
+    p = tree_map(lambda t: t.to(dev), p)
+    mine = dict(p)
+    for k in ("up", "gate", "down"):
+        mine[k] = local_shard(p[k], P("model", None, None), mesh).clone()
+    x = x.to(dev)
+    from repro_torch.kernels.grouped_gemm import ops
+
+    before = ops.LAUNCHES["grouped_gemm"]
+    with ctx.lowering_ctx(mesh=mesh):
+        ys = [MOE.moe_ffn(mine, x, cfg).cpu() for _ in range(2)]
+    launches = ops.LAUNCHES["grouped_gemm"] - before
+    return ys, MOE.moe_ffn(p, x, cfg).cpu(), launches
+
+
+@pytest.mark.gpu
+def test_expert_parallel_moe_on_two_ranks_on_card(cuda_device):
+    """Two gloo ranks on the card, each holding its 8 of 16 experts: the
+    local path's bits on both ranks, two runs the same bits, the grouped
+    GEMM launched 3 times a run on each."""
+    from repro_torch.distributed.mesh import run_spmd
+
+    out = run_spmd(_ep_rank, 2, "gloo", "cuda", timeout=300,
+                   log=lambda msg: None)
+    for ys, local, launches in out:
+        assert torch.equal(ys[0], ys[1])
+        assert torch.equal(ys[0], local)
+        assert torch.equal(ys[0], out[0][0][0])
+        assert launches == 6

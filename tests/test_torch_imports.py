@@ -55,7 +55,10 @@ def test_port_imports_neither_jax_nor_repro(sanitize):
               "sim.baselines", "training", "training.data",
               "training.optimizer", "training.train_loop", "launch.train",
               "examples.train_smollm", "kernels.diag_attention_f32",
-              "kernels.diag_attention_f32_parts"):
+              "kernels.diag_attention_f32_parts", "distributed.mesh",
+              "distributed.ctx", "distributed.sharding",
+              "distributed.elastic", "distributed.grad_compress",
+              "distributed.hybrid_stream", "distributed.pipeline"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
