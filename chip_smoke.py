@@ -79,11 +79,11 @@ Phases, each printing its own lines:
             over 5, head dim 64, a tied 49,152-row embedding; 362M
             params) in float32 from the port's init_params seed 0:
             make_batch -> make_train_step (no remat, one microbatch, lr
-            3e-4) for 20 steps of 8 x 256 tokens, counted: the float32
+            3e-4) for 10 steps of 8 x 256 tokens, counted: the float32
             attention forward, dK/dV and dQ kernels 32 times a step each
             and nothing else; the mean loss of the last five steps below
-            the first five's; a checkpoint after step 10 (JAX's layout)
-            restored and resumed to step 20 equal to the uninterrupted run
+            the first five's; a checkpoint after step 5 (JAX's layout)
+            restored and resumed to step 10 equal to the uninterrupted run
             bit for bit (losses, params, moments); on a fresh batch remat
             == no remat and a second backward pass == the first, bit for
             bit; 2 microbatches against 1 within 1e-4; the card against
@@ -92,6 +92,22 @@ Phases, each printing its own lines:
             wall ms, tok/s, peak memory, a profiled step's device ms by
             part (the attention pair, sgemm, the rest) and the tied head's
             8-row products alone, forward and backward.
+4b. train_moe  qwen2-moe-a2.7b at full width (d_model 2048, 16 heads
+            over 16, head dim 128, 60 routed experts padded to 64, top-4,
+            moe_d_ff 1408, 4 shared, vocab 151,936, an untied head), its
+            first 2 of 24 layers (1.83G params), in float32 from seed 0,
+            through the same gates as train: 10 steps of 8 x 256 (lr 3e-4,
+            no remat), counted: the float32 grouped GEMM's forward, dX and
+            dW kernels 3 times a layer a step each, the attention pair once,
+            nothing else (no bf16 grouped GEMM); the loss falls; a
+            checkpoint after step 5 resumed to step 10 bit for bit; remat,
+            a second backward pass bit for bit; 2 microbatches within 1e-4;
+            the card against the CPU at 1 layer, 2 x 64 tokens (the host's
+            free memory logged first; beside it the router's smallest top-4
+            margin and the rows whose experts differ).  Prints the losses,
+            step wall ms, tok/s, peak memory, a profiled step's device ms by
+            part (grouped forward, dX, dW, the attention pair, sgemm, the
+            rest), the untied head and one layer's router alone.
 5. serve    llama2-7b at full width, W8A8, through the port's serving
             driver (launch/serve.py build_client -> ServingClient ->
             Router -> EngineCore): 8 greedy requests with 64-512-token
@@ -124,14 +140,16 @@ Phases, each printing its own lines:
             among 4 rows and among 12 the same bits, and an engine of 12
             slots serving the same 4 requests beside 8 more gives their
             streams at 4 slots.
-9. serve_hybrid  zamba2-7b at full width (81 Mamba-2 layers, the shared
-            attention block after every 6), W8A8, through build_client:
+9. serve_hybrid  zamba2-7b at full width (its first 8 of 81 Mamba-2
+            layers: one group of 6 before the shared attention block, a
+            tail of 2), W8A8, through build_client:
             4 slots, max_seq 1024, page 16, 8 greedy requests with
             64-512-token prompts, 32 new tokens each.  All complete, the
             first token equals a direct prefill's, and B6, B1, B2 and B3
             launched; then torch.profiler over one prefill group and 6
             decode steps, as the profile phase does for llama2-7b.
-10. serve_hybrid_w4a16  zamba2-7b at full width through build_client(
+10. serve_hybrid_w4a16  zamba2-7b at full width (its first 8 layers)
+            through build_client(
             quant="w4a16") (the shared block's seven linears and the
             lm_head W4A16, the Mamba layers W8A8, as the JAX convert makes
             them): 4 slots, page 16, 4 greedy requests of 64-512 tokens, 16
@@ -139,8 +157,9 @@ Phases, each printing its own lines:
             prefill's, both B4 variants (the GeMV at decode, the tiled GEMM
             at prefill) and B6 launched, no off-path kernel; then the
             prefill and decode profiles, B4's device ms by variant.
-11. serve_overlap  the one-dispatch decode: llama2-7b W8A8 at full width,
-            4 slots, through build_client (synchronous loop) and a
+11. serve_overlap  the one-dispatch decode: llama2-7b W8A8 at full width
+            (its first 8 of 32 layers), 4 slots, through build_client
+            (synchronous loop) and a
             ServingClient with overlap=True on the same weights.  8 greedy
             requests of 64-512 tokens, 32 new each, give identical streams
             run eagerly (graphs.disabled()), synchronous over replayed CUDA
@@ -154,7 +173,8 @@ Phases, each printing its own lines:
             device's busy share: torch.profiler's device kernel ms a step
             (6 steps) over that wall ms, and over the profiled window's own
             wall, which the profiler stretches; and the overlapped wall
-            with every row sampled.  Then zamba2-7b W8A8: 4 greedy
+            with every row sampled.  Then zamba2-7b W8A8 (its first 8
+            layers: one group of 6, the shared block, a tail of 2): 4 greedy
             requests of 16 tokens, synchronous and overlapped identical,
             and its decode wall ms a step synchronous and overlapped.
 12. serve_chunked  llama2-7b W8A8 at full width, cut to its first 8
@@ -227,7 +247,8 @@ Phases, each printing its own lines:
             build_client: whisper-small (mode "auto" picks wave; max_seq
             448, its decoder context; the serve trace's prompts cut to
             128 tokens; frames of zeros) and mamba2-130m (max_seq 1024),
-            then llama2-7b and zamba2-7b asked for mode="wave": 8 greedy
+            then llama2-7b and zamba2-7b (their first 8 layers) asked
+            for mode="wave": 8 greedy
             requests, 32 new tokens each.  Each model's first run,
             synchronous over graphs, is counted (whisper-small must launch
             B3's bidirectional mode, B3, B1 and B2; mamba2-130m B6 and B2)
@@ -283,9 +304,9 @@ Phases, each printing its own lines:
             heads over 8),
             the paper's llama2-70b (its first 8 of 80 layers, d_model 8192,
             64 heads over 8) and the parallel-block command-r-plus-104b
-            (its first 24 of 64 layers, d_model 12,288, 96 heads over 8:
+            (its first 8 of 64 layers, d_model 12,288, 96 heads over 8:
             B1's group of 12; d_ff 33,792; a tied 256,000 x 12,288
-            embedding; 37.7 GB of layers built layer by layer; the whole
+            embedding; 12.6 GB of layers built layer by layer; the whole
             model's 100.7 GB of W8A8 layers do not fit the card, 44 was the
             deepest cut it held), W8A8,
             4 slots, max_seq 1024, page 16, through build_client: the serve
@@ -321,12 +342,12 @@ Phases, each printing its own lines:
             group, the profiles (the MLA kernel's device ms a step), peak
             memory; the decode profile must hold one MLA device kernel a
             layer-step (the merge of the splits fused into it).
-23. serve_vlm  qwen2-vl-72b at full width (its first 12 of 80 layers,
+23. serve_vlm  qwen2-vl-72b at full width (its first 4 of 80 layers,
             d_model 8192, 64
             query heads over 8 kv heads, q/k/v and FFN biases, d_ff
             29,568, vocab 152,064, M-RoPE over 256 prepended vision
             embeddings, zeros as the engine feeds them), W8A8 built on
-            the card layer by layer from seed 0 (~13 GB of weights), 4
+            the card layer by layer from seed 0 (~4.4 GB of weights), 4
             slots, max_seq 1024, page 16, through build_client: the serve
             trace (counted: B1 once a layer inside the decode graph, B2,
             B3 over 320-768 rows); graph == overlapped, == eager on the
@@ -401,6 +422,17 @@ CUDA-core split and combine kernels of PR 27,
 ``csrc/diag/mla_decode_attention_pr27.cu``, built beside the library by
 the build phase; ``kernels/diag_mla.py``).
 
+The float32 grouped GEMM's forward, dX and dW kernels (training; no
+Pallas counterpart: jax.lax.ragged_dot under jax.value_and_grad) at
+qwen2-moe-a2.7b's up and down shapes over 64 experts: a real routing
+(8,192 rows over 60 experts), a skew (8,192 rows on one expert), empty
+experts with 37 rows past the groups' sum; within GF_TOL of their plain
+versions, rows past the sum 0, dW of an empty expert exactly 0, two
+launches the same bits, a planted fault (a group size off by one) that
+must fail each; the first two timed beside their bound on the float32
+CUDA cores, the plain versions and torch._grouped_mm where it takes
+float32 (n/a with its error where it refuses).
+
 The float32 causal attention pair (training; no Pallas counterpart: the
 JAX package differentiates the jnp chunked_attention): the forward, dK/dV
 (after delta = rowsum(dO * O)) and dQ kernels at smollm-360m's training
@@ -423,7 +455,7 @@ for B3's bidirectional mode, hybrid for B5, serve_hybrid_w4a16 for B4's two vari
 serve_chunked for the chunk kernel, serve_int8kv for B1-int8 and its
 chunked engine for the chunk kernel's int8 variant, serve_moe for the
 grouped GEMM, serve_mla for the MLA kernel, bf16 and int8, train for the float32
-attention pair; serve_vlm
+attention pair, train_moe for the float32 grouped GEMM's three; serve_vlm
 prints its own counts of B1-B3, distributed its ranks' counts).  B2's __dp4a GeMV and
 tiled GEMM (``int8_gemv_dp4a``, ``int8_gemm``) are on no model's path
 (every model K is a multiple of 16 and every base aligned): a serving
@@ -511,6 +543,16 @@ SOURCES = {
     "flash_attention_f32_dq": (
         "src/repro_torch/kernels/csrc/flash_attention_f32.cu",
         "src/repro/models/attention.py:31"),
+    # no Pallas counterpart: jax.lax.ragged_dot under jax.value_and_grad in
+    # the MoE layer
+    "grouped_gemm_f32": ("src/repro_torch/kernels/csrc/grouped_gemm_f32.cu",
+                         "src/repro/models/moe.py:80"),
+    "grouped_gemm_f32_dx": (
+        "src/repro_torch/kernels/csrc/grouped_gemm_f32.cu",
+        "src/repro/models/moe.py:80"),
+    "grouped_gemm_f32_dw": (
+        "src/repro_torch/kernels/csrc/grouped_gemm_f32.cu",
+        "src/repro/models/moe.py:80"),
 }
 # the phase whose run each kernel's launch count is read around
 COUNTED_IN = {"int8_gemv": "serve", "int8_gemv_dp4a": "serve",
@@ -528,7 +570,10 @@ COUNTED_IN = {"int8_gemv": "serve", "int8_gemv_dp4a": "serve",
               "mla_decode_attention_int8": "serve_mla_int8",
               "flash_attention_f32": "train",
               "flash_attention_f32_dkdv": "train",
-              "flash_attention_f32_dq": "train"}
+              "flash_attention_f32_dq": "train",
+              "grouped_gemm_f32": "train_moe",
+              "grouped_gemm_f32_dx": "train_moe",
+              "grouped_gemm_f32_dw": "train_moe"}
 # kept for shapes no model has (K not a multiple of 16, a misaligned base):
 # a serving path must not launch them
 OFF_PATH = ("int8_gemm", "int8_gemv_dp4a")
@@ -550,7 +595,10 @@ KERNEL_NAMES = {"int8_gemv": "int8_gemv_mma_kernel",
                 "mla_decode_attention_int8": "mla_decode_",
                 "flash_attention_f32": "attention_f32_fwd_kernel",
                 "flash_attention_f32_dkdv": "attention_f32_dkdv_",
-                "flash_attention_f32_dq": "attention_f32_dq_kernel"}
+                "flash_attention_f32_dq": "attention_f32_dq_kernel",
+                "grouped_gemm_f32": "grouped_f32_fwd_kernel",
+                "grouped_gemm_f32_dx": "grouped_f32_dx_kernel",
+                "grouped_gemm_f32_dw": "grouped_f32_dw_kernel"}
 # the kernels every W8A8 serving phase must go through; the mla_moe
 # family's decode attention is the MLA kernel instead of B1
 SERVING_KERNELS = ("int8_gemv", "int8_gemm_tc", "paged_decode_attention",
@@ -577,15 +625,18 @@ ATTN_TOL = f"{ATTN_ULPS} bf16 steps of |ref| + {ATTN_ATOL}"
 MODEL_RATIO = 1.25
 # the depth of the earlier paths whose gates hold at any depth (the
 # bit-equalities of engines and paths, the launch counts a layer):
-# serve_chunked, serve_int8kv, serve_prefix, serve_fleet's loopback fleets,
-# serve_moe, serve_mla and serve_dense's chatglm3-6b, internlm2-20b and
-# llama2-70b run their model's first CUT_LAYERS layers at full width, and
+# serve_hybrid, serve_hybrid_w4a16, serve_overlap, serve_chunked,
+# serve_int8kv, serve_prefix, serve_fleet's loopback fleets, serve_wave's
+# llama2-7b and zamba2-7b, serve_moe, serve_mla and serve_dense's
+# chatglm3-6b, internlm2-20b and llama2-70b run their model's first
+# CUT_LAYERS layers at full width (serve_hybrid, serve_hybrid_w4a16,
+# serve_overlap and serve_wave whole until train_moe came), and
 # serve_vlm qwen2-vl-72b's first VLM_LAYERS, so the whole script stays well
 # inside its time limit on a slow host beside command-r-plus-104b's
-# COMMAND_R_LAYERS and the train phase (VLM_LAYERS 20 and COMMAND_R_LAYERS
-# 44 until the train phase came)
+# COMMAND_R_LAYERS and the train phases (VLM_LAYERS 20 and COMMAND_R_LAYERS
+# 44 until the train phase came, 12 and 24 until train_moe came)
 CUT_LAYERS = 8
-VLM_LAYERS = 12
+VLM_LAYERS = 4
 # B4 against its plain version: both dequantize to the same float32 weights
 # and sum float32 products in another order, so each output may differ by
 # a few float32 roundings of the sum of |products|
@@ -1617,6 +1668,7 @@ def phase_kernels(torch, results: dict) -> None:
     _kernels_b1_int8(torch, results)
     _kernels_chunk(torch, results)
     _kernels_grouped(torch, results)
+    _kernels_grouped_f32(torch, results)
     _kernels_mla(torch, results)
     _kernels_attention_f32(torch, results)
 
@@ -2614,6 +2666,197 @@ def _kernels_grouped(torch, results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the float32 grouped GEMM and its gradient (the moe family's training)
+# ---------------------------------------------------------------------------
+
+# each kernel against its plain version: both sum the same float32
+# products, in other orders (the plain versions' cuBLAS), so every output
+# is held within GF_REL of the sum of its products' magnitudes, |a| @ |b|
+GF_REL = 1e-5
+GF_TOL = f"{GF_REL} (|a| @ |b|)"
+GF_KERNELS = ("grouped_gemm_f32", "grouped_gemm_f32_dx",
+              "grouped_gemm_f32_dw")
+
+
+def _grouped_f32_runs(torch, x, dy, w, sizes):
+    """kernel -> (launch(), plain(), |operands| plain version, the
+    library's call or None, what the library is)."""
+    from repro_torch.kernels.grouped_gemm import ops
+    from repro_torch.kernels.grouped_gemm.ref import (
+        grouped_gemm_dw_ref, grouped_gemm_dx_ref, grouped_gemm_ref)
+
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    wt = w.transpose(-2, -1)
+    return {
+        "grouped_gemm_f32": (
+            lambda: ops.grouped_gemm_f32_fwd(x, w, sizes),
+            lambda: grouped_gemm_ref(x, w, sizes),
+            lambda: grouped_gemm_ref(x.abs(), w.abs(), sizes),
+            lambda: torch._grouped_mm(x, w, offs=offs)),
+        "grouped_gemm_f32_dx": (
+            lambda: ops.grouped_gemm_f32_dx(dy, w, sizes),
+            lambda: grouped_gemm_dx_ref(dy, w, sizes),
+            lambda: grouped_gemm_dx_ref(dy.abs(), w.abs(), sizes),
+            lambda: torch._grouped_mm(dy, wt, offs=offs)),
+        "grouped_gemm_f32_dw": (
+            lambda: ops.grouped_gemm_f32_dw(x, dy, sizes),
+            lambda: grouped_gemm_dw_ref(x, dy, sizes),
+            lambda: grouped_gemm_dw_ref(x.abs(), dy.abs(), sizes),
+            lambda: torch._grouped_mm(x.T, dy, offs=offs)),
+    }
+
+
+def _grouped_f32_library(torch, fn, ref, mag):
+    """(fn, what) where one torch._grouped_mm call computes the same
+    float32 function within GF_TOL, else (None, why not)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "n/a: this torch has no torch._grouped_mm"
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as e:
+        return None, (f"n/a: torch._grouped_mm refuses float32: "
+                      f"{str(e).splitlines()[0][:160]}")
+    if out.shape != ref.shape or not bool(
+            ((out.float() - ref).abs() <= GF_REL * mag).all()):
+        return None, "n/a: torch._grouped_mm disagrees with the plain version"
+    return fn, "torch._grouped_mm"
+
+
+def _grouped_f32_bound(name, sizes, r, k, n) -> tuple[float, str, float]:
+    """(ms, by, operations): x / dy's covered rows and the non-empty
+    experts' weights read once, the output written once (every row of out
+    and dx, every expert of dw), 2 rows K N operations on the float32 CUDA
+    cores."""
+    rows = int(sizes.sum())
+    nonempty = int((sizes > 0).sum())
+    e = int(sizes.numel())
+    if name == "grouped_gemm_f32":
+        nbytes = 4 * (rows * k + nonempty * k * n + r * n) + 4 * e
+    elif name == "grouped_gemm_f32_dx":
+        nbytes = 4 * (rows * n + nonempty * k * n + r * k) + 4 * e
+    else:
+        nbytes = 4 * (rows * k + rows * n + e * k * n) + 4 * e
+    ops = 2 * rows * k * n
+    return (*bound(nbytes, ops, "f32"), ops)
+
+
+def _kernels_grouped_f32(torch, results: dict) -> None:
+    """The float32 forward, dX and dW kernels at qwen2-moe-a2.7b's up
+    (K 2048, N 1408) and down (1408 -> 2048) shapes over 64 experts: a real
+    routing (8,192 rows over 60 experts), a skew (8,192 rows on one) and a
+    layout with empty experts and 37 rows past the groups' sum, each against
+    its plain version within GF_TOL; rows past the sum 0 (forward, dX), dW
+    of an empty expert exactly 0; a second launch the same bits; a planted
+    fault (one expert's group size off by one) fails each kernel's check;
+    the real routing and the skew timed beside their bound, the plain
+    version and torch._grouped_mm (or why there is none).  The JSON row is
+    the real routing at the up shape."""
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    skew = torch.zeros(MOE_E, dtype=torch.int32, device="cuda")
+    skew[42] = 8192
+    edges = torch.zeros(MOE_E, dtype=torch.int32, device="cuda")
+    edges[4:4 + len(GG_EDGES)] = torch.tensor(GG_EDGES, dtype=torch.int32)
+    edges[20], edges[21], edges[22] = 128, 0, 128
+    cases = [("real routing, 8,192 rows", _routing_sizes(torch, 2048, 5), 0),
+             ("skew, 8,192 rows on one expert", skew, 0),
+             ("empty experts, 37 rows past the sum", edges, 37)]
+    for name in GF_KERNELS:
+        results[name]["max_abs_err"] = 0.0
+    for k, n in ((MOE_D, MOE_F), (MOE_F, MOE_D)):
+        w = torch.randn((MOE_E, k, n), generator=gen, device="cuda") \
+            * k ** -0.5
+        for tag, sizes, tail in cases:
+            covered = int(sizes.sum())
+            r = covered + tail
+            x = torch.randn((r, k), generator=gen, device="cuda")
+            dy = torch.randn((r, n), generator=gen, device="cuda")
+            runs = _grouped_f32_runs(torch, x, dy, w, sizes)
+            nonempty = int((sizes > 0).sum())
+            for name, (run, plain_fn, mag_fn, lib_call) in runs.items():
+                got = run()
+                ref, mag = plain_fn(), mag_fn()
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{name} {tag}: non-finite output")
+                err = (got - ref).abs()
+                bad = int((err > GF_REL * mag).sum())
+                if bad:
+                    raise AssertionError(f"{name} {tag} K={k} N={n}: {bad} "
+                                         f"outputs beyond {GF_TOL}, max|err| "
+                                         f"{err.max().item():.3e}")
+                used = (err / mag.clamp_min(1e-30)).max().item() / GF_REL
+                if name == "grouped_gemm_f32_dw":
+                    empty = (sizes == 0).nonzero()[:, 0]
+                    if bool(got[empty].any()):
+                        raise AssertionError(f"{name} {tag}: an empty "
+                                             f"expert's dw is not 0")
+                elif bool(got[covered:].any()):
+                    raise AssertionError(f"{name} {tag}: rows past the "
+                                         f"groups' sum not 0")
+                if not torch.equal(run(), got):
+                    raise AssertionError(f"{name} {tag}: a second launch "
+                                         f"gives other bits")
+                res = results[name]
+                res["max_abs_err"] = max(res["max_abs_err"],
+                                         err.max().item())
+                line = (f"[kernels] {name} {tag} K={k} N={n} ({nonempty} of "
+                        f"{MOE_E} experts non-empty): max|err| "
+                        f"{err.max().item():.3e} (worst |err|/limit "
+                        f"{used:.3f}; tol {GF_TOL}); two launches "
+                        f"bit-identical")
+                if tag.startswith("real") and k == MOE_D:
+                    # planted fault: expert e0's last row handed to e0 + 1
+                    bad_sizes = sizes.clone()
+                    e0 = int(torch.nonzero(sizes)[0])
+                    bad_sizes[e0] -= 1
+                    bad_sizes[e0 + 1] += 1
+                    wrong = _grouped_f32_runs(torch, x, dy, w,
+                                              bad_sizes)[name][0]()
+                    caught = int(((wrong - ref).abs() > GF_REL * mag).sum())
+                    log(f"[kernels] planted fault, {name} with expert {e0}'s "
+                        f"group size off by one: {caught} outputs beyond "
+                        f"{GF_TOL}")
+                    if caught == 0:
+                        raise AssertionError(f"planted fault (a group size "
+                                             f"off by one) passes the {name} "
+                                             f"check")
+                del got, ref, mag, err
+                if tail:
+                    log(line)
+                    continue
+                ms = time_ms(torch, lambda i: run())
+                dev_ms = profiled_ms(torch, lambda i: run(),
+                                     (KERNEL_NAMES[name],))
+                plain = time_ms(torch, lambda i: plain_fn(), iters=3,
+                                warmup=1)
+                lib_fn, lib_what = _grouped_f32_library(
+                    torch, lib_call, plain_fn(), mag_fn())
+                lib = lib_dev = None
+                if lib_fn is not None:
+                    lib = time_ms(torch, lambda i: lib_fn())
+                    lib_dev = profiled_ms(torch, lambda i: lib_fn(), None)
+                b_ms, b_by, ops = _grouped_f32_bound(name, sizes, r, k, n)
+                if tag.startswith("real") and k == MOE_D:
+                    res.update(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                               library_ms=lib, library_device_ms=lib_dev,
+                               bound_ms=b_ms, bound_by=b_by,
+                               shape=f"R={r} K={k} N={n} E={MOE_E} "
+                                     f"({nonempty} non-empty)")
+                lib_txt = (f"library {lib:.4f} ms (device {lib_dev:.4f} ms; "
+                           f"{lib_what})" if lib is not None else
+                           f"library {lib_what}")
+                log(line + f" | {ms:.4f} ms (device time {dev_ms:.4f} ms, "
+                    f"{100 * b_ms / dev_ms:.1f}% of the bound, "
+                    f"{ops / dev_ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} "
+                    f"ms, {lib_txt}, bound {b_ms:.4f} ms ({b_by}: "
+                    f"{ops / 1e9:.2f} GFLOP at 67 TFLOP/s)")
+            del runs, x, dy
+        del w
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # the paged MLA decode kernel (the mla_moe family's decode attention)
 # ---------------------------------------------------------------------------
 
@@ -3064,8 +3307,8 @@ def phase_model(torch) -> None:
 # checkpoint after TRAIN_RESUME_AT of them resumed to the end
 TRAIN_ARCH = "smollm-360m"
 TRAIN_BATCH, TRAIN_SEQ = 8, 256
-TRAIN_STEPS = 20
-TRAIN_RESUME_AT = 10
+TRAIN_STEPS = 10
+TRAIN_RESUME_AT = 5
 TRAIN_LR = 3e-4
 TRAIN_KERNELS = ("flash_attention_f32", "flash_attention_f32_dkdv",
                  "flash_attention_f32_dq")
@@ -3081,18 +3324,38 @@ TRAIN_PARTS = (("attention fwd", (KERNEL_NAMES["flash_attention_f32"],)),
                ("attention dK/dV", (KERNEL_NAMES["flash_attention_f32_dkdv"],)),
                ("attention dQ", (KERNEL_NAMES["flash_attention_f32_dq"],)),
                ("sgemm", ("gemm", "Gemm")))
+# the train_moe phase: qwen2-moe-a2.7b at full width, its first
+# MOE_TRAIN_LAYERS layers (1.83G params at 2: the functional AdamW holds old
+# and new params and moments at once, ~28 bytes a parameter, ~51 GB; 3
+# layers would come near the card's 80 GB), the same batch and lr,
+# MOE_TRAIN_STEPS steps counted, a checkpoint after MOE_TRAIN_RESUME_AT;
+# the CPU gate at MOE_TRAIN_CPU_LAYERS layer (~10 GB of host memory)
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 10
+MOE_TRAIN_RESUME_AT = 5
+MOE_TRAIN_CPU_LAYERS = 1
+MOE_TRAIN_PARTS = ((("grouped fwd", (KERNEL_NAMES["grouped_gemm_f32"],)),
+                    ("grouped dX", (KERNEL_NAMES["grouped_gemm_f32_dx"],)),
+                    ("grouped dW", (KERNEL_NAMES["grouped_gemm_f32_dw"],)))
+                   + TRAIN_PARTS)
 
 
 def _leaves_equal(torch, a, b) -> bool:
+    """Every leaf of ``a`` equal to ``b``'s, bit for bit (a leaf on another
+    device than its partner's compared there, one at a time)."""
     from repro_torch.distributed.checkpoint import tree_leaves
 
-    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
-                                                  tree_leaves(b)))
+    return all(torch.equal(x.to(y.device), y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
-def _train_cpu_gate(torch, cfg) -> None:
-    """A step's loss and gradients at TRAIN_CPU_LAYERS layers, full width,
-    on the card against the CPU's plain versions."""
+def _train_cpu_gate(torch, cfg, layers: int = TRAIN_CPU_LAYERS,
+                    tag: str = "train", routes: bool = False) -> None:
+    """A step's loss and gradients at ``layers`` layers, full width, on
+    the card against the CPU's plain versions.  ``routes``: the host's free
+    memory first, and beside the gate the router's smallest top-k margin
+    (k-th / (k+1)-th logit gap, CPU run) and the rows whose experts differ
+    between the card and the CPU at each layer (a flip is reported)."""
     import dataclasses
 
     from repro_torch.distributed.checkpoint import tree_leaves
@@ -3101,43 +3364,63 @@ def _train_cpu_gate(torch, cfg) -> None:
     from repro_torch.training.optimizer import tree_map
     from repro_torch.training.train_loop import value_and_grad
 
-    cut = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS)
-    params = M.init_params(cut, 1, max_seq=64, device="cpu",
-                           dtype=torch.float32)
+    if routes:
+        log(f"[{tag}] host memory before the CPU gate: MemAvailable "
+            f"{_host_gb_available():.1f} GB")
+    cut = dataclasses.replace(cfg, n_layers=layers)
+    # drawn on the card (the host's generator is slow at 1.2G draws) and
+    # copied: both runs take the same weights
+    card = M.init_params(cut, 1, max_seq=64, device="cuda",
+                         dtype=torch.float32)
+    params = tree_map(lambda t: t.cpu(), card)
     toks, _ = make_batch(DataState(1, 0), 2, 64, cut.vocab_size, device="cpu")
     t0 = time.monotonic()
-    l_cpu, g_cpu = value_and_grad(params, cut, toks)
-    l_card, g_card = value_and_grad(tree_map(lambda t: t.cuda(), params), cut,
-                                    toks.cuda())
+    with _routes() if routes else contextlib.nullcontext() as seen_cpu:
+        l_cpu, g_cpu = value_and_grad(params, cut, toks)
+    with _routes() if routes else contextlib.nullcontext() as seen_card:
+        l_card, g_card = value_and_grad(card, cut, toks.cuda())
     rel_loss = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
     worst = max((a.cpu() - c).abs().max().item()
                 / max(c.abs().max().item(), 1e-30)
                 for a, c in zip(tree_leaves(g_card), tree_leaves(g_cpu)))
-    log(f"[train] card vs CPU, {TRAIN_CPU_LAYERS} layers at full width, 2 x "
+    log(f"[{tag}] card vs CPU, {layers} layers at full width, 2 x "
         f"64 tokens: loss {float(l_card):.6f} / {float(l_cpu):.6f} (rel. "
         f"{rel_loss:.2e}, tol {TRAIN_LOSS_RTOL}); worst gradient leaf "
         f"max|err|/max|g| {worst:.2e} (tol {TRAIN_GRAD_REL}); "
         f"{time.monotonic() - t0:.1f} s")
+    if routes:
+        for li, ((e_cpu, gap), (e_card, _)) in enumerate(zip(seen_cpu,
+                                                             seen_card)):
+            flips = int((e_cpu.sort(-1).values != e_card.sort(-1).values)
+                        .any(-1).sum())
+            log(f"[{tag}] CPU gate, layer {li}: smallest router k-th / "
+                f"(k+1)-th logit gap {float(gap.min()):.3e} (CPU run) over "
+                f"{len(gap)} rows; rows whose experts differ, card vs CPU: "
+                f"{flips}")
     if rel_loss > TRAIN_LOSS_RTOL or worst > TRAIN_GRAD_REL:
-        raise AssertionError("train: the card's loss or gradients leave the "
-                             "CPU's bounds")
+        raise AssertionError(f"{tag}: the card's loss or gradients leave "
+                             f"the CPU's bounds")
 
 
-def _head_profile(torch, params, cfg) -> None:
-    """The tied head's 8-row products alone, forward and backward, at the
-    step's rows: device ms and launches."""
+def _head_profile(torch, params, cfg, tag: str = "train") -> None:
+    """The head's 8-row products alone (the tied embedding, or an untied
+    lm_head), forward and backward, at the step's rows: device ms and
+    launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import model as M
 
+    tied = cfg.tie_embeddings
     x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), device="cuda",
                     requires_grad=True)
-    emb = params["embed"].detach().requires_grad_(True)
+    leaf = (params["embed"] if tied else params["lm_head"]["w"]) \
+        .detach().requires_grad_(True)
+    head = {"embed": leaf} if tied else {"lm_head": {"w": leaf}}
     g = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size), device="cuda")
 
     def run():
-        logits = M.lm_head({"embed": emb}, cfg, x)
-        torch.autograd.grad(logits, (x, emb), g)
+        logits = M.lm_head(head, cfg, x)
+        torch.autograd.grad(logits, (x, leaf), g)
 
     run()
     torch.cuda.synchronize()
@@ -3146,15 +3429,55 @@ def _head_profile(torch, params, cfg) -> None:
         run()
         torch.cuda.synchronize()
     rows = _kernel_rows(prof)
-    log(f"[train] the tied head alone ({TRAIN_BATCH * TRAIN_SEQ} rows in "
+    log(f"[{tag}] the {'tied' if tied else 'untied'} head alone "
+        f"({TRAIN_BATCH * TRAIN_SEQ} rows in "
         f"8-row products, forward + backward): "
         f"{sum(r[0] for r in rows) / 1e3:.3f} device ms: "
         + _by_part(rows, (("sgemm", ("gemm", "Gemm")),)))
 
 
-def phase_train(torch, smi: str) -> dict:
-    """smollm-360m at full width in float32 on the card; returns the
-    launch counts of the TRAIN_STEPS counted steps."""
+def _router_profile(torch, params, cfg, tag: str) -> None:
+    """One layer's router alone (the float32 logits in 8-row products, the
+    stable sort, the top-k softmax), forward and backward, at the step's
+    rows: device ms and launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import moe
+
+    n = TRAIN_BATCH * TRAIN_SEQ
+    e = moe.padded_experts(cfg)
+    x = torch.randn((n, cfg.d_model), device="cuda", requires_grad=True)
+    w = params["layers"][0]["moe"]["router"]["w"].detach() \
+        .requires_grad_(True)
+    g = torch.randn((n, cfg.top_k), device="cuda")
+
+    def run():
+        _, probs = moe._route({"router": {"w": w}}, x, cfg, e)
+        torch.autograd.grad(probs, (x, w), g)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof)
+    log(f"[{tag}] one layer's router alone ({n} rows in 8-row products, "
+        f"forward + backward): {sum(r[0] for r in rows) / 1e3:.3f} device "
+        f"ms: " + _by_part(rows, (("sgemm", ("gemm", "Gemm")),)))
+
+
+def _train_run(torch, smi: str, cfg, tag: str, want: dict, steps: int,
+               resume_at: int, parts) -> tuple[dict, object, object]:
+    """The train phases' common run of ``cfg`` in float32 on the card from
+    the port's init_params seed 0: ``steps`` steps of TRAIN_BATCH x
+    TRAIN_SEQ (no remat, one microbatch), each kernel of ``want`` launched
+    exactly that often and no other; the loss falls; a checkpoint after
+    ``resume_at`` steps resumed to the end == the uninterrupted run, bit
+    for bit; on a fresh batch remat == no remat and a second backward pass
+    == the first, bit for bit, and 2 microbatches within TRAIN_MB_TOL of 1;
+    one profiled step's device ms by ``parts``.  Returns (the launch counts
+    of the counted steps, params, opt)."""
     import shutil
     import statistics
     import tempfile
@@ -3162,43 +3485,46 @@ def phase_train(torch, smi: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
-    from repro_torch.configs.registry import get_arch
     from repro_torch.distributed.checkpoint import tree_leaves
     from repro_torch.launch.train import (restore_train_state,
                                           save_train_state)
     from repro_torch.models import model as M
     from repro_torch.training.data import DataState, make_batch
-    from repro_torch.training.optimizer import init_adamw
+    from repro_torch.training.optimizer import (AdamWState, init_adamw,
+                                                tree_map)
     from repro_torch.training.train_loop import (make_train_step,
                                                  value_and_grad)
 
-    cfg = get_arch(TRAIN_ARCH)
     t0 = time.monotonic()
     params = M.init_params(cfg, 0, max_seq=TRAIN_SEQ, device="cuda",
                            dtype=torch.float32)
     opt = init_adamw(params)
     n = sum(p.numel() for p in tree_leaves(params))
     torch.cuda.synchronize()
-    log(f"[train] {cfg.name} full width ({cfg.n_layers} layers, d_model "
+    log(f"[{tag}] {cfg.name} full width ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, vocab "
-        f"{cfg.vocab_size}, tied), float32, {n / 1e6:.1f}M params, built in "
+        f"{cfg.vocab_size}, {'tied' if cfg.tie_embeddings else 'untied'}"
+        + (f"; {cfg.n_experts} routed experts top-{cfg.top_k}, "
+           f"{cfg.n_shared_experts} shared, moe_d_ff {cfg.moe_d_ff}"
+           if cfg.n_experts else "")
+        + f"), float32, {n / 1e6:.1f}M params, built in "
         f"{time.monotonic() - t0:.1f} s")
     step_fn = make_train_step(cfg, lr=TRAIN_LR, remat=False)
     ds = DataState(0, 0)
-    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    ckpt = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         losses, walls = [], []
-        for i in range(TRAIN_STEPS):
+        for i in range(steps):
             toks, ds = make_batch(ds, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
                                   device="cuda")
             t = time.monotonic()
             params, opt, loss = step_fn(params, opt, toks)
             losses.append(float(loss))
             walls.append(time.monotonic() - t)
-            if i + 1 == TRAIN_RESUME_AT:
+            if i + 1 == resume_at:
                 t = time.monotonic()
                 path = save_train_state(ckpt, i + 1, params, opt, extra={
                     "train_step": i + 1, "data_step": ds.step})
@@ -3208,57 +3534,73 @@ def phase_train(torch, smi: str) -> dict:
         peak = torch.cuda.max_memory_allocated()
         timed = walls[2:]
         tok_s = TRAIN_BATCH * TRAIN_SEQ * len(timed) / sum(timed)
-        log(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        log(f"[{tag}] {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
             f"(lr {TRAIN_LR}, no remat, 1 microbatch): losses "
             + " ".join(f"{x:.4f}" for x in losses))
-        log(f"[train] step wall ms median {1e3 * statistics.median(timed):.2f}"
+        log(f"[{tag}] step wall ms median {1e3 * statistics.median(timed):.2f}"
             f" (min {1e3 * min(timed):.2f}, first {1e3 * walls[0]:.2f}), "
-            f"{tok_s:,.0f} tok/s over steps 3-{TRAIN_STEPS}; peak memory "
+            f"{tok_s:,.0f} tok/s over steps 3-{steps}; peak memory "
             f"{peak / 1e9:.2f} GB of "
             f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}; "
-            f"launches {{{', '.join(f'{k}: {counts[k]}' for k in TRAIN_KERNELS)}}}"
+            f"launches {{{', '.join(f'{k}: {counts[k]}' for k in want)}}}"
             f"; {smi}")
-        want = cfg.n_layers * TRAIN_STEPS
-        wrong = {k: counts[k] for k in TRAIN_KERNELS if counts[k] != want}
+        wrong = {k: counts[k] for k, c in want.items() if counts[k] != c}
         if wrong:
-            raise AssertionError(f"train: the float32 attention kernels "
-                                 f"launched {wrong}, not {cfg.n_layers} a "
-                                 f"step each")
-        others = {k: c for k, c in counts.items()
-                  if c and k not in TRAIN_KERNELS}
+            raise AssertionError(f"{tag}: kernels launched {wrong}, not "
+                                 f"{want}")
+        others = {k: c for k, c in counts.items() if c and k not in want}
         if others:
-            raise AssertionError(f"train: kernels off the training path "
+            raise AssertionError(f"{tag}: kernels off the training path "
                                  f"launched: {others}")
         head, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
         if not tail < head:
-            raise AssertionError(f"train: the loss did not fall (first five "
+            raise AssertionError(f"{tag}: the loss did not fall (first five "
                                  f"{head:.4f}, last five {tail:.4f})")
 
-        # save, restore and resume == the uninterrupted run, bit for bit
+        # save, restore and resume == the uninterrupted run, bit for bit;
+        # the uninterrupted state waits on the host while the resumed run
+        # steps (two states and a step do not fit the card beside
+        # qwen2-moe's 56 GB), copied there after the restore, which needs
+        # the host's memory more; the restore's layout tree is shapes only
+        # (host memory that is never written)
+        def shapes(tree):
+            return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
+                            tree)
+
         t = time.monotonic()
-        p2, o2, extra = restore_train_state(ckpt, params, opt, "cuda")
+        p2, o2, extra = restore_train_state(
+            ckpt, shapes(params), AdamWState(step=opt.step,
+                                             mu=shapes(opt.mu),
+                                             nu=shapes(opt.nu)), "cuda")
         load_s = time.monotonic() - t
+        ref_p = tree_map(lambda t: t.cpu(), params)
+        ref_o = AdamWState(step=opt.step.cpu(),
+                           mu=tree_map(lambda t: t.cpu(), opt.mu),
+                           nu=tree_map(lambda t: t.cpu(), opt.nu))
+        del params, opt
+        torch.cuda.empty_cache()
         ds2, resumed = DataState(0, extra["data_step"]), []
-        for _ in range(extra["train_step"], TRAIN_STEPS):
+        for _ in range(extra["train_step"], steps):
             toks, ds2 = make_batch(ds2, TRAIN_BATCH, TRAIN_SEQ,
                                    cfg.vocab_size, device="cuda")
             p2, o2, loss = step_fn(p2, o2, toks)
             resumed.append(float(loss))
-        same = (resumed == losses[TRAIN_RESUME_AT:]
-                and _leaves_equal(torch, p2, params)
-                and _leaves_equal(torch, (o2.mu, o2.nu), (opt.mu, opt.nu))
-                and int(o2.step) == int(opt.step))
+        same = (resumed == losses[resume_at:]
+                and _leaves_equal(torch, p2, ref_p)
+                and _leaves_equal(torch, (o2.mu, o2.nu), (ref_o.mu, ref_o.nu))
+                and int(o2.step) == int(ref_o.step))
         ck_bytes = sum(os.path.getsize(os.path.join(path, f))
                        for f in os.listdir(path))
-        log(f"[train] checkpoint at step {TRAIN_RESUME_AT} ({ck_bytes / 1e9:.2f}"
+        log(f"[{tag}] checkpoint at step {resume_at} ({ck_bytes / 1e9:.2f}"
             f" GB, JAX's layout: save {save_s:.1f} s, restore {load_s:.1f} s)"
-            f" resumed to step {TRAIN_STEPS}: losses and every param and "
+            f" resumed to step {steps}: losses and every param and "
             f"moment {'bit-identical' if same else 'DIFFERENT'} to the "
             f"uninterrupted run")
         if not same:
-            raise AssertionError("train: a resumed run differs from the "
-                                 "uninterrupted one")
-        del p2, o2
+            raise AssertionError(f"{tag}: a resumed run differs from the "
+                                 f"uninterrupted one")
+        params, opt = p2, o2   # the uninterrupted run's bits
+        del p2, o2, ref_p, ref_o
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
 
@@ -3272,26 +3614,31 @@ def phase_train(torch, smi: str) -> dict:
     l2, g2 = value_and_grad(params, cfg, toks, remat=False)
     twice_same = torch.equal(l0, l2) and _leaves_equal(torch, g0, g2)
     del g0, g2
-    # 2 microbatches against 1 from the same state
-    p_1, _, m1 = make_train_step(cfg, 1, TRAIN_LR, remat=False)(params, opt,
-                                                                toks)
-    p_2, _, m2 = make_train_step(cfg, 2, TRAIN_LR, remat=False)(params, opt,
-                                                                toks)
+    # 2 microbatches against 1 from the same state (each step's new
+    # moments dropped at once: qwen2-moe's are 14.7 GB)
+    def params_after(microbatches):
+        p, _, loss = make_train_step(cfg, microbatches, TRAIN_LR,
+                                     remat=False)(params, opt, toks)
+        return p, loss
+
+    p_1, m1 = params_after(1)
+    p_2, m2 = params_after(2)
     mb_loss = abs(float(m1) - float(m2))
     mb_param = max((a - b).abs().max().item() for a, b in zip(
         tree_leaves(p_1), tree_leaves(p_2)))
     del p_1, p_2
-    log(f"[train] remat vs no remat: "
+    log(f"[{tag}] remat vs no remat: "
         f"{'bit-identical' if remat_same else 'DIFFERENT'}; two backward "
-        f"passes (the embedding's sorted scatter-add, the attention "
+        f"passes (the embedding's sorted scatter-add, the "
+        f"{'grouped GEMM and ' if cfg.n_experts else ''}attention "
         f"kernels): {'bit-identical' if twice_same else 'DIFFERENT'}; 2 "
         f"microbatches vs 1: |dloss| {mb_loss:.2e}, max|dparam| "
         f"{mb_param:.2e} (tol {TRAIN_MB_TOL})")
     if not (remat_same and twice_same):
-        raise AssertionError("train: remat or a second backward pass gives "
-                             "other bits")
+        raise AssertionError(f"{tag}: remat or a second backward pass gives "
+                             f"other bits")
     if mb_loss >= TRAIN_MB_TOL or mb_param >= TRAIN_MB_TOL:
-        raise AssertionError("train: 2 microbatches leave 1's bound")
+        raise AssertionError(f"{tag}: 2 microbatches leave 1's bound")
 
     # where a step's device time goes
     toks, ds = make_batch(ds, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
@@ -3305,16 +3652,52 @@ def phase_train(torch, smi: str) -> dict:
         prof_wall = time.monotonic() - t
     rows = _kernel_rows(prof)
     dev_ms = sum(r[0] for r in rows) / 1e3
-    log(f"[train] one step under torch.profiler: {dev_ms:.3f} device ms in "
+    log(f"[{tag}] one step under torch.profiler: {dev_ms:.3f} device ms in "
         f"{sum(r[2] for r in rows)} launches (wall {1e3 * prof_wall:.2f} ms "
-        f"profiled): " + _by_part(rows, TRAIN_PARTS))
-    log("[train] top kernels: " + "; ".join(
+        f"profiled): " + _by_part(rows, parts))
+    log(f"[{tag}] top kernels: " + "; ".join(
         f"{name[:60]} {us / 1e3:.3f} ms x{cnt}" for us, name, cnt in rows[:8]))
+    return counts, params, opt
+
+
+def phase_train(torch, smi: str) -> dict:
+    """smollm-360m at full width in float32 on the card; returns the
+    launch counts of the TRAIN_STEPS counted steps."""
+    from repro_torch.configs.registry import get_arch
+
+    cfg = get_arch(TRAIN_ARCH)
+    counts, params, opt = _train_run(
+        torch, smi, cfg, "train",
+        {k: cfg.n_layers * TRAIN_STEPS for k in TRAIN_KERNELS}, TRAIN_STEPS,
+        TRAIN_RESUME_AT, TRAIN_PARTS)
     _head_profile(torch, params, cfg)
     del params, opt
     __import__("gc").collect()
     torch.cuda.empty_cache()
     _train_cpu_gate(torch, cfg)
+    return counts
+
+
+def phase_train_moe(torch, smi: str) -> dict:
+    """qwen2-moe-a2.7b at full width, its first MOE_TRAIN_LAYERS layers,
+    in float32 on the card: the float32 grouped GEMM's forward, dX and dW
+    3 times a layer a step each, the attention pair once; returns the
+    launch counts of the MOE_TRAIN_STEPS counted steps."""
+    from repro_torch.configs.registry import get_arch
+
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    want = {k: cfg.n_layers * MOE_TRAIN_STEPS for k in TRAIN_KERNELS}
+    want.update({k: 3 * cfg.n_layers * MOE_TRAIN_STEPS for k in GF_KERNELS})
+    counts, params, opt = _train_run(
+        torch, smi, cfg, "train_moe", want, MOE_TRAIN_STEPS,
+        MOE_TRAIN_RESUME_AT, MOE_TRAIN_PARTS)
+    _head_profile(torch, params, cfg, "train_moe")
+    _router_profile(torch, params, cfg, "train_moe")
+    del params, opt
+    __import__("gc").collect()
+    torch.cuda.empty_cache()
+    _train_cpu_gate(torch, cfg, MOE_TRAIN_CPU_LAYERS, "train_moe",
+                    routes=True)
     return counts
 
 
@@ -3458,7 +3841,8 @@ def phase_serve_hybrid(torch, smi: str) -> dict:
     decode step's time goes."""
     import gc
 
-    counts, client = _serve_full(torch, "zamba2-7b", "serve_hybrid", smi)
+    counts, client = _serve_full(torch, "zamba2-7b", "serve_hybrid", smi,
+                                 layers=CUT_LAYERS)
     phase_profile(torch, client, smi, "serve_hybrid")
     del client
     gc.collect()
@@ -3475,7 +3859,8 @@ def phase_serve_hybrid_w4a16(torch, smi: str) -> dict:
 
     counts, client = _serve_full(torch, "zamba2-7b", "serve_hybrid_w4a16",
                                  smi, quant="w4a16", n_req=4, max_new=16,
-                                 required=("ssd_intra_chunk",))
+                                 required=("ssd_intra_chunk",),
+                                 layers=CUT_LAYERS)
     core = client.router.cores[0]
     if set(core.params["shared"]["ffn"]["up"]) != {"w_p4", "scale4"} \
             or set(core.params["lm_head"]) != {"w_p4", "scale4"}:
@@ -4081,8 +4466,8 @@ def phase_serve_overlap(torch, smi: str) -> None:
 
     tag = "serve_overlap"
     kw = dict(max_batch=4, max_seq=1024, page_size=16, eos_id=-1)
-    cfg, sync = build_client("llama2-7b", reduced=False, seed=0,
-                             device="cuda", **kw)
+    cfg, sync = build_client(_cut_config("llama2-7b"), reduced=False,
+                             seed=0, device="cuda", **kw)
     core = sync.router.cores[0]
     olap = ServingClient(cfg, core.params, overlap=True, device="cuda", **kw)
     ocore = olap.router.cores[0]
@@ -4165,8 +4550,8 @@ def phase_serve_overlap(torch, smi: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg, sync = build_client("zamba2-7b", reduced=False, seed=0,
-                             device="cuda", **kw)
+    cfg, sync = build_client(_cut_config("zamba2-7b"), reduced=False,
+                             seed=0, device="cuda", **kw)
     core = sync.router.cores[0]
     olap = ServingClient(cfg, core.params, overlap=True, device="cuda", **kw)
     zp = prompts[:4]
@@ -5811,7 +6196,8 @@ def phase_serve_wave(torch, smi: str) -> dict:
     for arch, max_seq, cap, mode, full in WAVE_ARCHS:
         tag = f"serve_wave {arch}"
         t0 = time.monotonic()
-        cfg, client = build_client(arch, reduced=False, quant="w8a8",
+        cfg, client = build_client(arch if full else _cut_config(arch),
+                                   reduced=False, quant="w8a8",
                                    max_batch=4, max_seq=max_seq, seed=0,
                                    mode=mode, device="cuda")
         core = client.router.cores[0]
@@ -5819,7 +6205,9 @@ def phase_serve_wave(torch, smi: str) -> dict:
             raise AssertionError(f"[{tag}] the engine is in {core.mode} mode")
         params = core.params
         torch.cuda.synchronize()
-        log(f"[{tag}] full width W8A8 built in {time.monotonic() - t0:.1f} "
+        log(f"[{tag}] full width W8A8"
+            f"{'' if full else f', its first {cfg.n_layers} layers,'} built "
+            f"in {time.monotonic() - t0:.1f} "
             f"s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
             f"on {smi}")
         prompts = [p[:cap] if cap else p for p in _serve_trace(cfg)]
@@ -5892,7 +6280,8 @@ def _routes():
 
     def route(params, xt, cfg, e):
         topi, probs = orig(params, xt, cfg, e)
-        logits = (xt.float() @ params["router"]["w"].float())[
+        logits = (xt.detach().float()
+                  @ params["router"]["w"].detach().float())[
             :, :cfg.n_experts]
         top = logits.sort(-1, descending=True).values
         seen.append((topi.cpu(), (top[:, cfg.top_k - 1]
@@ -5915,6 +6304,15 @@ def _int8_as_f64(torch, tree):
     if isinstance(tree, torch.Tensor) and tree.dtype == torch.int8:
         return tree.to(torch.float64)
     return tree
+
+
+def _cut_config(arch: str, n: int = CUT_LAYERS):
+    """``arch``'s configuration at full width cut to its first ``n``
+    layers (a hybrid keeps its group layout: 8 is one group of 6, the
+    shared block and a tail of 2)."""
+    from repro_torch.configs.registry import get_arch
+
+    return dataclasses.replace(get_arch(arch), n_layers=n)
 
 
 def _cut_depth(cfg, params, n: int):
@@ -6884,9 +7282,9 @@ DENSE_CPU_LAYERS = 2   # the CPU gate's depth (full width)
 # its quantizing temporaries, the engines' pools and graphs and a prefill
 # group's float32 FFN temporaries (at 44, the deepest cut that held, the
 # build peaked at 79.7 GB and the phase at 79.9 of the card's 85.0; each
-# layer more adds 1.59).  24 keeps every gate and the script's time inside
-# its limit beside the train phase
-COMMAND_R_LAYERS = 24
+# layer more adds 1.59).  8 keeps every gate and the script's time inside
+# its limit beside the train phases
+COMMAND_R_LAYERS = 8
 
 
 def _int8_elems(tree) -> int:
@@ -7538,7 +7936,8 @@ def _mark(name: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="card,build,kernels,model,train,serve,profile,"
+                    default="card,build,kernels,model,train,train_moe,"
+                            "serve,profile,"
                             "hybrid,"
                             "serve_w4a16,serve_hybrid,serve_hybrid_w4a16,"
                             "serve_overlap,serve_chunked,serve_int8kv,"
@@ -7577,6 +7976,9 @@ def main(argv=None) -> int:
     _mark("train")
     if "train" in phases:
         counts["train"] = phase_train(torch, smi_line)
+    _mark("train_moe")
+    if "train_moe" in phases:
+        counts["train_moe"] = phase_train_moe(torch, smi_line)
     _mark("serve")
     if "serve" in phases:
         counts["serve"], client = phase_serve(torch, smi_line)

@@ -1,12 +1,18 @@
 """Hand-written Hopper kernels of the port, one folder per Pallas kernel
 they replace (``ops.py`` wrapper, ``ref.py`` plain version; two replace
-jnp code that has no Pallas kernel: ``grouped_gemm`` ``jax.lax.ragged_dot``,
+jnp code that has no Pallas kernel: ``grouped_gemm`` ``jax.lax.ragged_dot``
+and its gradient,
 ``mla_decode_attention`` the attention of ``_mla_absorbed_attend``), with
 the CUDA sources under ``csrc/`` and the build in ``build.py``.
 
 Each wrapper counts its launches in its module's ``LAUNCHES`` dict;
 :func:`launch_counts` gathers them and :func:`reset_launch_counts` zeroes
-them, so a run can show which kernels its main path went through.  A
+them, so a run can show which kernels its main path went through.  The
+grouped GEMM's module counts four: ``grouped_gemm`` (bf16, serving) and
+the float32 training kernels ``grouped_gemm_f32``, ``grouped_gemm_f32_dx``
+and ``grouped_gemm_f32_dw`` (``csrc/grouped_gemm_f32.cu``); the float32
+attention pair's are ``flash_attention_f32``, ``flash_attention_f32_dkdv``
+and ``flash_attention_f32_dq``.  A
 replayed CUDA graph (``serving/graphs.py``) runs no wrapper code: it adds
 the launches its capture recorded with :func:`add_launch_counts` on every
 replay.

@@ -34,7 +34,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("common.cu", "int8_gemm.cu", "decode_attention.cu",
            "flash_attention.cu", "paged_chunk_attention.cu", "ecc_decode.cu",
            "w4a16_gemv.cu", "ssd_scan.cu", "grouped_gemm.cu",
-           "mla_decode_attention.cu", "flash_attention_f32.cu")
+           "mla_decode_attention.cu", "flash_attention_f32.cu",
+           "grouped_gemm_f32.cu")
 # included by the tensor-core sources; attention_tile.cuh holds the
 # per-block arithmetic B3 and the paged chunk kernel share, mma_bf16.cuh
 # the mma.sync device functions of B6 and the MLA decode kernel
@@ -67,6 +68,9 @@ SIGNATURES = {
                               _I, _I, _I, ctypes.POINTER(ctypes.c_longlong),
                               _P],
     "repro_grouped_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_grouped_f32_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_grouped_f32_dx": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_grouped_f32_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_attention_f32_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 ctypes.POINTER(ctypes.c_longlong), _F, _P],
     "repro_attention_f32_dkdv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

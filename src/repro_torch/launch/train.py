@@ -4,8 +4,9 @@ Counterpart of ``repro.launch.train``: float32 weights from the port's
 ``init_params`` seed 0, the numpy data pipeline (the JAX package's batches,
 bit for bit), ``make_train_step`` without remat, AdamW.  ``--device``
 defaults to ``cuda``, where attention and its gradient run the float32
-kernels (``csrc/flash_attention_f32.cu``); ``--device cpu`` runs the plain
-versions.
+kernels (``csrc/flash_attention_f32.cu``) and, for the moe family, the
+routed experts' product and its gradient the float32 grouped GEMM
+(``csrc/grouped_gemm_f32.cu``); ``--device cpu`` runs the plain versions.
 
 Checkpoints (``--ckpt-dir``, every ``--ckpt-every`` steps) are the JAX
 package's: ``(params, AdamWState)`` in JAX's layout (layers stacked,

@@ -6,7 +6,11 @@ execution paths:
 
 * **Local** (no mesh): the (token, slot) pairs are sorted by expert and go
   through one grouped GEMM per stacked weight (``jax.lax.ragged_dot`` in
-  JAX; the hand-written ``kernels/grouped_gemm`` kernel on CUDA).
+  JAX; the hand-written ``kernels/grouped_gemm`` kernels on CUDA: bf16
+  for serving, and float32 for training, whose gradient is the dX and dW
+  kernels of ``GroupedGemmF32``, ``jax.value_and_grad`` of
+  ``ragged_dot``).  ``params["up"].to(xs.dtype)`` is the leaf itself in
+  float32, so the stacks' gradients reach it.
 
 * **Expert-parallel** (a mesh with a ``model`` axis in
   ``distributed.ctx``): each model rank holds ITS ``e / n`` experts'
@@ -130,6 +134,31 @@ def _shared_ffn(params: dict, xt: torch.Tensor,
     return ffn(params["shared"], xt, cfg.gated_ffn)
 
 
+class _PairRows(torch.autograd.Function):
+    """``xt[order // k]``: the token row of each (token, slot) pair, in
+    expert order.  Its gradient sums a token's k pair rows in slot order
+    (through ``inv``, the pairs' places in that order).  The backward of
+    ``index_select`` would add the duplicates with atomics on CUDA, in no
+    fixed order; this one gives the same bits on a second backward pass
+    and under remat."""
+
+    @staticmethod
+    def forward(ctx, xt, order, inv, k):
+        ctx.save_for_backward(inv)
+        ctx.k = k
+        return xt.index_select(0, torch.div(order, k, rounding_mode="floor"))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (inv,) = ctx.saved_tensors
+        rows = g.index_select(0, inv).reshape(-1, ctx.k, g.shape[-1])
+        dx = rows[:, 0]
+        for j in range(1, ctx.k):
+            dx = dx + rows[:, j]
+        return dx, None, None, None
+
+
 def _moe_local(params: dict, xt: torch.Tensor, cfg: ModelConfig,
                e: int) -> torch.Tensor:
     """float32 [n, D]: each token's k expert outputs weighted by their
@@ -142,7 +171,7 @@ def _moe_local(params: dict, xt: torch.Tensor, cfg: ModelConfig,
     inv = torch.empty_like(order).scatter_(
         0, order, torch.arange(n * k, device=xt.device))
     # jnp.repeat(xt, k, axis=0)[order] without the copy: pair p is token p // k
-    xs = xt.index_select(0, torch.div(order, k, rounding_mode="floor"))
+    xs = _PairRows.apply(xt, order, inv, k)
     group_sizes = torch.zeros((e,), dtype=torch.int32, device=xt.device)
     group_sizes.scatter_add_(0, flat, torch.ones_like(flat,
                                                       dtype=torch.int32))

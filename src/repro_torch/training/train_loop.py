@@ -5,11 +5,13 @@ checkpointing (remat), train step.  The port's copy of
 Gradients come from torch autograd through the port's ``forward``: on the
 CPU the plain versions of every kernel; on the card the float32 causal
 attention pair (``kernels/flash_attention/ops.py`` ``AttentionF32``: a
-forward, a dK/dV and a dQ kernel), the embedding's JAX gradient
-(``models/model.py`` ``_EmbedLookup``) and library products for the
-linears.  A family whose forward on the card runs a kernel that has no
-backward raises ``NotImplementedError`` there (``NO_BACKWARD``); each of
-them trains on the CPU.
+forward, a dK/dV and a dQ kernel), the moe family's float32 grouped GEMM
+(``kernels/grouped_gemm/ops.py`` ``GroupedGemmF32``: a forward, a dX and a
+dW kernel), the embedding's JAX gradient (``models/model.py``
+``_EmbedLookup``) and library products for the linears.  So the dense,
+vlm and moe families train on the card.  A family whose forward on the
+card runs a kernel that has no backward raises ``NotImplementedError``
+there (``NO_BACKWARD``); each of them trains on the CPU.
 """
 
 from __future__ import annotations
@@ -24,9 +26,8 @@ from repro_torch.training.optimizer import AdamWState, adamw_update
 
 # family -> the kernel on its CUDA forward path that has no backward
 NO_BACKWARD = {
-    "moe": "the grouped GEMM (csrc/grouped_gemm.cu)",
-    "mla_moe": "the grouped GEMM (csrc/grouped_gemm.cu) and B3 at head "
-               "dim 192 (csrc/flash_attention.cu)",
+    "mla_moe": "B3 at head dim 192 (csrc/flash_attention.cu; the float32 "
+               "pair takes head dims 64 and 128)",
     "hybrid": "the SSD intra-chunk kernel B6 (csrc/ssd_scan.cu)",
     "ssm": "the SSD intra-chunk kernel B6 (csrc/ssd_scan.cu)",
     "audio": "B3's bidirectional mode (csrc/flash_attention.cu)",

@@ -21,7 +21,9 @@ and so move L = exp(cs_i - cs_j) by as much as the tolerance; the kernel
 sums in double, so it is held to the exact function.  The grouped GEMM
 (the moe family's ragged_dot) and its plain version both accumulate in
 float32 and round once to bf16: two bf16 steps of |ref| plus
-1e-5 (|x| @ |W|) for float32 summation noise.  The MLA decode kernel and
+1e-5 (|x| @ |W|) for float32 summation noise; its float32 forward, dX
+and dW kernels sum the same float32 products as their plain versions in
+another order: 1e-5 (|a| @ |b|) elementwise.  The MLA decode kernel and
 its plain version are float32 throughout (a float32 context, no bf16
 rounding), summed in other orders: |got - ref| <= 1e-5 max|ckv|, the
 context's own scale.  The float32 causal attention pair (training) against
@@ -1660,18 +1662,29 @@ def test_grouped_gemm_row_bits_do_not_depend_on_the_group_on_card(
 
 @pytest.mark.gpu
 def test_grouped_gemm_refuses_what_it_does_not_take(cuda_device):
-    """float32 operands raise on the card (no fallback to the plain
-    version), as do int64 group sizes and a K that is not a multiple of
-    8."""
+    """float16 operands raise on the card (no fallback to the plain
+    version), as do int64 group sizes, a bf16 K that is not a multiple of
+    8, a float32 K that is not a multiple of 4, and bf16 operands under
+    autograd (the bf16 kernel has no backward); float32 ones go through
+    the float32 kernels."""
     from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
 
     x, w, gs = _grouped_inputs(cuda_device, [2, 3], 64, 32, 1)
     with pytest.raises(TypeError):
-        grouped_gemm(x.float(), w.float(), gs)
+        grouped_gemm(x.half(), w.half(), gs)
     with pytest.raises(TypeError):
         grouped_gemm(x, w, gs.long())
     with pytest.raises(ValueError):
         grouped_gemm(x[:, :60].contiguous(), w[:, :60].contiguous(), gs)
+    with pytest.raises(ValueError):
+        grouped_gemm(x[:, :62].float().contiguous(),
+                     w[:, :62].float().contiguous(), gs)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        grouped_gemm(x, w.requires_grad_(True), gs)
+    with torch.no_grad():
+        grouped_gemm(x, w, gs)
+    assert grouped_gemm(x.float(), w.detach().float(), gs).dtype \
+        == torch.float32
 
 
 @pytest.mark.gpu
@@ -2011,12 +2024,159 @@ def test_families_without_a_backward_refuse_to_train_on_card(cuda_device):
     from repro_torch.training.optimizer import init_adamw
     from repro_torch.training.train_loop import make_train_step
 
-    cfg = get_arch("qwen2-moe-a2.7b").reduced()
+    cfg = get_arch("deepseek-v2-lite-16b").reduced()
     params = M.init_params(cfg, 0, max_seq=32, device=cuda_device,
                            dtype=torch.float32)
     toks = torch.zeros((2, 16), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="grouped GEMM"):
+    with pytest.raises(NotImplementedError, match="head dim 192"):
         make_train_step(cfg)(params, init_adamw(params), toks)
+
+
+# ----------------------------- the float32 grouped GEMM and its gradient
+def _grouped_f32_inputs(dev, sizes, k, n, tail, seed):
+    """float32 x [R, K], dy [R, N] (R = sum(sizes) + tail), W [E, K, N]
+    (normal / sqrt(K)) and int32 group sizes on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = int(sum(sizes)) + tail
+    x = torch.randn((r, k), generator=gen, device=dev)
+    dy = torch.randn((r, n), generator=gen, device=dev)
+    w = torch.randn((len(sizes), k, n), generator=gen, device=dev) \
+        * k ** -0.5
+    return x, dy, w, torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+def assert_f32_close(got, ref, mag):
+    """|got - ref| <= 1e-5 (|a| @ |b|) elementwise: float32 sums of the
+    same products in another order (the plain versions' cuBLAS)."""
+    err = (got - ref).abs()
+    bad = err > 1e-5 * mag
+    assert not bool(bad.any()), (int(bad.sum()), float(err.max()))
+
+
+GROUPED_F32_CASES = {
+    # sizes, K, N, rows past the groups' sum
+    "reduced, empty experts, rows past the sum":
+        ([3, 0, 0, 5, 1, 0, 7, 2] + [0] * 8, 64, 32, 5),
+    "ragged, tile edges": ([0, 61, 1, 0, 64, 65, 0, 129], 256, 72, 3),
+    "qwen2-moe up, decode": ([1] * 16 + [0] * 48, 2048, 1408, 0),
+    "qwen2-moe up, skew of 2,048 rows on one expert":
+        ([0] * 42 + [2048] + [0] * 21, 2048, 1408, 0),
+    "qwen2-moe down, 1,200 rows over 60 experts":
+        ([20] * 60 + [0] * 4, 1408, 2048, 37),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GROUPED_F32_CASES))
+def test_grouped_gemm_f32_kernels_on_card(cuda_device, case):
+    """The forward, dX and dW kernels against their plain versions, one
+    counted launch each; rows past the groups' sum 0, dW of an empty
+    expert exactly 0; a second launch the same bits."""
+    from repro_torch.kernels.grouped_gemm import ops
+    from repro_torch.kernels.grouped_gemm.ref import (
+        grouped_gemm_dw_ref, grouped_gemm_dx_ref, grouped_gemm_ref)
+
+    sizes, k, n, tail = GROUPED_F32_CASES[case]
+    x, dy, w, gs = _grouped_f32_inputs(cuda_device, sizes, k, n, tail,
+                                       len(case))
+    covered = int(sum(sizes))
+    before = dict(ops.LAUNCHES)
+    out = ops.grouped_gemm_f32_fwd(x, w, gs)
+    dx = ops.grouped_gemm_f32_dx(dy, w, gs)
+    dw = ops.grouped_gemm_f32_dw(x, dy, gs)
+    torch.cuda.synchronize()
+    for name in ("grouped_gemm_f32", "grouped_gemm_f32_dx",
+                 "grouped_gemm_f32_dw"):
+        assert ops.LAUNCHES[name] == before[name] + 1, name
+    assert_f32_close(out, grouped_gemm_ref(x, w, gs),
+                     grouped_gemm_ref(x.abs(), w.abs(), gs))
+    assert_f32_close(dx, grouped_gemm_dx_ref(dy, w, gs),
+                     grouped_gemm_dx_ref(dy.abs(), w.abs(), gs))
+    assert_f32_close(dw, grouped_gemm_dw_ref(x, dy, gs),
+                     grouped_gemm_dw_ref(x.abs(), dy.abs(), gs))
+    assert not bool(out[covered:].any()) and not bool(dx[covered:].any())
+    for e, g in enumerate(sizes):
+        if g == 0:
+            assert not bool(dw[e].any()), e
+    assert torch.equal(out, ops.grouped_gemm_f32_fwd(x, w, gs))
+    assert torch.equal(dx, ops.grouped_gemm_f32_dx(dy, w, gs))
+    assert torch.equal(dw, ops.grouped_gemm_f32_dw(x, dy, gs))
+
+
+@pytest.mark.gpu
+def test_grouped_gemm_f32_autograd_on_card(cuda_device):
+    """``grouped_gemm`` on float32 CUDA tensors: GroupedGemmF32, whose
+    gradients are the dX and dW kernels' (dX only where x needs one)."""
+    from repro_torch.kernels.grouped_gemm import ops
+    from repro_torch.kernels.grouped_gemm.ref import grouped_gemm_ref
+
+    x, dy, w, gs = _grouped_f32_inputs(cuda_device, [5, 0, 70, 3], 64, 96,
+                                       2, 9)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    want = torch.autograd.grad(grouped_gemm_ref(xr, wr, gs), (xr, wr), dy)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    before = dict(ops.LAUNCHES)
+    got = torch.autograd.grad(ops.grouped_gemm(x, w, gs), (x, w), dy)
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        "grouped_gemm": 0, "grouped_gemm_f32": 1, "grouped_gemm_f32_dx": 1,
+        "grouped_gemm_f32_dw": 1}
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    before = dict(ops.LAUNCHES)
+    (dw,) = torch.autograd.grad(ops.grouped_gemm(x.detach(), w, gs), (w,),
+                                dy)
+    assert ops.LAUNCHES["grouped_gemm_f32_dx"] == \
+        before["grouped_gemm_f32_dx"]
+    assert torch.equal(dw, got[1])
+
+
+def _moe_mini_cfg():
+    """qwen2-moe-a2.7b.reduced() at head dim 64 (the float32 attention
+    pair's), 8 experts (padded to 16) of width 64, top-2."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+
+    return dataclasses.replace(
+        get_arch("qwen2-moe-a2.7b").reduced(), d_model=256, n_heads=4,
+        n_kv_heads=2, d_head=64, moe_d_ff=64, vocab_size=2048,
+        name="qwen2-moe-mini")
+
+
+@pytest.mark.gpu
+def test_moe_train_step_on_card_matches_cpu(cuda_device):
+    """A width-reduced qwen2-moe: loss and every gradient leaf on the card
+    (the float32 grouped GEMM and its gradient, the attention pair)
+    against the CPU; each grouped kernel 3 times a layer; no bf16 grouped
+    GEMM; the card's gradients the same bits twice."""
+    from repro_torch.distributed.checkpoint import tree_leaves
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.train_loop import value_and_grad
+
+    cfg = _moe_mini_cfg()
+    params = M.init_params(cfg, 0, max_seq=96, device="cpu",
+                           dtype=torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 96),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    l_cpu, g_cpu = value_and_grad(params, cfg, toks)
+    card = tree_map(lambda t: t.to(cuda_device), params)
+    kernels.reset_launch_counts()
+    l_card, g_card = value_and_grad(card, cfg, toks.to(cuda_device))
+    counts = kernels.launch_counts()
+    for name in ("grouped_gemm_f32", "grouped_gemm_f32_dx",
+                 "grouped_gemm_f32_dw"):
+        assert counts[name] == 3 * cfg.n_layers, (name, counts[name])
+    assert counts["grouped_gemm"] == 0
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-5 * abs(float(l_cpu))
+    for a, c in zip(tree_leaves(g_card), tree_leaves(g_cpu)):
+        err = float((a.cpu() - c).abs().max())
+        assert err <= 1e-4 * float(c.abs().max()) + 1e-30
+    _, again = value_and_grad(card, cfg, toks.to(cuda_device))
+    for a, c in zip(tree_leaves(g_card), tree_leaves(again)):
+        assert torch.equal(a, c)
 
 
 # ------------------------------------------ expert-parallel MoE on two ranks
